@@ -1,0 +1,157 @@
+"""Block attack loop of the port (port of
+``pointsecguard_tpu/cli/_attack_blocks.py:18-511`` for PointNet++ SSG).
+
+Per batch of blocks: build the xyz-only geometry once (FPS and bottom-k
+kernels), clean forward, PGD attack, per-block TSV rows in the JAX
+CLI's format; per room and per dataset, clean-vs-adversarial IoU from
+pooled votes (`NB_nontarget_test_semseg.py:64-294` protocol).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+
+def run_blocks(args, log):
+    import numpy as np
+    import torch
+
+    from pointsecguard_tpu_torch.attacks import (
+        attack_preset,
+        make_target_labels,
+        pgd_color_attack,
+    )
+    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
+    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG, build_geometry
+    from pointsecguard_tpu_torch.train.evaluator import add_votes
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
+    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+
+    device = resolve_device(args.device)
+    model = PointNet2SemSegSSG()
+    model.load_state_dict(load_checkpoint(args.log_dir))
+    # inference only: the attack needs input gradients, never parameter ones
+    model.to(device).eval().requires_grad_(False)
+
+    rooms = RoomSet.load(args.data_root, "test", args.test_area)
+    B = args.batch_size
+    targeted = args.attack.startswith("tar_")
+    overrides = {"targeted": True, "target": args.target} if targeted else {}
+    attack_cfg = attack_preset("pointnet2", args.attack, **overrides)
+
+    os.makedirs(args.log_dir, exist_ok=True)
+    tsv_path = os.path.join(
+        args.log_dir, f"{args.model}_{args.attack}_area{args.test_area}.tsv"
+    )
+    with open(tsv_path, "w") as tsv:
+        header = "room\tblock\tclean_acc\tadv_acc\tl2\tsr\tother_acc\tsteps\ttime_s"
+        tsv.write(header + "\n")
+
+        ws = WholeSceneBlocks(rooms, block_points=args.num_point)
+        rng = np.random.default_rng(args.seed)
+        clean_cm = np.zeros((13, 13))
+        adv_cm = np.zeros((13, 13))
+        n_blocks_done = 0
+        for room_idx, room_name in enumerate(rooms.names):
+            data, labels, weights, pidx = ws.room_blocks(room_idx, rng)
+            labels_room = rooms.labels[room_idx]
+            clean_pool = np.zeros((len(labels_room), 13))
+            adv_pool = np.zeros((len(labels_room), 13))
+            nb = data.shape[0]
+            for start in range(0, nb, B):
+                valid = min(B, nb - start)  # keep the room tail; pad the batch
+                t0 = time.time()  # to B rows and drop the padded outputs
+                pts_np = data[start : start + valid]
+                labs_np = labels[start : start + valid].astype(np.int32)
+                if valid < B:
+                    reps = [1] * (valid - 1) + [B - valid + 1]
+                    pts_np = np.repeat(pts_np, reps, axis=0)
+                    labs_np = np.repeat(labs_np, reps, axis=0)
+                pts = torch.from_numpy(pts_np).to(device)
+                labs = torch.from_numpy(labs_np).to(device).long()
+                if targeted:
+                    _, mask = make_target_labels(labs, args.origin, args.target)
+                    mask_np = mask.cpu().numpy()[:valid]
+                    if not mask_np.any():
+                        continue  # skip blocks without origin points (`:174`)
+                    # per-row gate: origin-free blocks of a mixed batch are
+                    # dropped from the TSV and both vote pools
+                    keep = mask_np.any(axis=1)
+                else:
+                    mask = None
+                    keep = np.ones(valid, bool)
+                # xyz-only geometry, once per batch: colour attacks never move xyz
+                geo = build_geometry(pts[..., :3])
+
+                def outputs_fn(p, geo=geo):
+                    return model(p, geometry=geo)[0]
+
+                with torch.no_grad():
+                    clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
+                res = pgd_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
+                clean_pred = clean_pred_d.cpu().numpy()[:valid]
+                adv_pred = res.adv_pred.cpu().numpy()[:valid]
+                steps_row = res.steps_b.cpu().numpy()[:valid]
+                l2_b = res.l2_dist.cpu().numpy()[:valid]
+                if targeted:
+                    sr_b = np.array([
+                        float((adv_pred[b][mask_np[b]] == args.target).mean())
+                        if mask_np[b].any() else 0.0
+                        for b in range(valid)
+                    ])
+                else:
+                    sr_b = np.zeros(valid)
+                dt = time.time() - t0
+
+                lab_np = labs_np[:valid]
+                w = weights[start : start + valid]
+                pi = pidx[start : start + valid]
+                add_votes(clean_pool, pi[keep], clean_pred[keep], w[keep])
+                add_votes(adv_pool, pi[keep], adv_pred[keep], w[keep])
+                # one protocol row per block (`NB_nontarget_test_semseg.py:213-215`)
+                for b in range(valid):
+                    if not keep[b]:
+                        continue
+                    clean_acc = float((clean_pred[b] == lab_np[b]).mean())
+                    adv_acc = float((adv_pred[b] == lab_np[b]).mean())
+                    if targeted:
+                        # accuracy on the untouched points (`target.py:110`)
+                        inv = ~mask_np[b]
+                        other_acc = (
+                            float((adv_pred[b][inv] == lab_np[b][inv]).mean())
+                            if inv.any() else 1.0
+                        )
+                    else:
+                        other_acc = adv_acc
+                    tsv.write(
+                        f"{room_name}\t{start + b}\t{clean_acc:.4f}"
+                        f"\t{adv_acc:.4f}\t{l2_b[b]:.4f}\t{sr_b[b]:.4f}"
+                        f"\t{other_acc:.4f}\t{int(steps_row[b])}"
+                        f"\t{dt / valid:.4f}\n"
+                    )
+                tsv.flush()
+                n_blocks_done += int(keep.sum())
+                if args.max_blocks and n_blocks_done >= args.max_blocks:
+                    break
+            clean_room = np.argmax(clean_pool, 1)
+            adv_room = np.argmax(adv_pool, 1)
+            seen = clean_pool.sum(1) > 0
+            np.add.at(clean_cm, (labels_room[seen], clean_room[seen]), 1)
+            np.add.at(adv_cm, (labels_room[seen], adv_room[seen]), 1)
+            log.info(
+                "%s done: clean mIoU %.4f adv mIoU %.4f", room_name,
+                metrics_from_confusion(clean_cm).miou,
+                metrics_from_confusion(adv_cm).miou,
+            )
+            if args.max_blocks and n_blocks_done >= args.max_blocks:
+                break
+    clean_m = metrics_from_confusion(clean_cm)
+    adv_m = metrics_from_confusion(adv_cm)
+    log.info(
+        "DATASET clean: mIoU %.4f acc %.4f | adv: mIoU %.4f acc %.4f",
+        clean_m.miou, clean_m.accuracy, adv_m.miou, adv_m.accuracy,
+    )
+    log.info("per-block TSV: %s", tsv_path)
+    return clean_m, adv_m

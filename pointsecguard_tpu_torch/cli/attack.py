@@ -1,0 +1,100 @@
+"""Attack evaluation CLI of the port (port of
+``pointsecguard_tpu/cli/attack.py:27-230``):
+
+  python -m pointsecguard_tpu_torch.cli.attack --model pointnet2 --attack nb \
+      --data_root data/stanford_indoor3d --log_dir log/pointnet2
+
+Ported: ``--model pointnet2`` with ``--attack nb|tar_nb`` over whole-scene
+blocks (``cli/_attack_blocks.py``). The checkpoint is the port's own
+(``<log_dir>/checkpoints/best.pt``, see ``utils/checkpoint.py``). It runs
+on the GPU; ``--device cpu`` runs the plain PyTorch path by request.
+Every other flag of the JAX CLI is accepted by name and stops the run
+with "not ported yet" instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+_MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
+_ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
+PORTED_MODELS = ("pointnet2",)
+PORTED_ATTACKS = ("nb", "tar_nb")
+# JAX CLI flags this port does not implement yet
+_UNPORTED_SWITCHES = (
+    "--control", "--log_steps", "--save_adv", "--visual", "--fused_ap",
+    "--resgcn_fast", "--resgcn_fixed_graphs",
+)
+_UNPORTED_VALUES = (
+    "--randla_dir", "--randla_dataset", "--num_clouds", "--randla_points",
+    "--resgcn_blocks", "--resgcn_k", "--resgcn_filters",
+    "--resgcn_block_type", "--resgcn_conv", "--resgcn_epsilon",
+    "--ensemble_mode", "--defense_bits", "--defense_sigma",
+    "--defense_quality", "--defense_knn", "--eot", "--noise_norm",
+)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser("attack")
+    ap.add_argument("--model", default="pointnet2", choices=_MODELS)
+    ap.add_argument("--attack", default="nb", choices=_ATTACKS)
+    ap.add_argument("--data_root", default="data/stanford_indoor3d")
+    ap.add_argument("--log_dir", default="log/run")
+    ap.add_argument("--test_area", type=int, default=5)
+    ap.add_argument("--num_point", type=int, default=4096)
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="0 = auto: 8 untargeted, 1 targeted (per-block "
+                         "outcomes do not depend on the batch size)")
+    # targeted defaults origin=11 (board) → target=7 (table)
+    # (`NB_target_test_semseg.py:48-49`)
+    ap.add_argument("--origin", type=int, default=11)
+    ap.add_argument("--target", type=int, default=7)
+    ap.add_argument("--max_blocks", type=int, default=0, help="0 = all")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default) needs a card and raises without "
+                         "one; cpu runs the plain PyTorch path")
+    # flags whose only ported value is the default
+    ap.add_argument("--defense", default="none")
+    ap.add_argument("--devices", "-d", type=int, default=1)
+    ap.add_argument("--shard_points", type=int, default=1)
+    ap.add_argument("--precision", default="float32")
+    ap.add_argument("--ensemble", action="append", default=[])
+    for flag in _UNPORTED_SWITCHES:
+        ap.add_argument(flag, action="store_true")
+    for flag in _UNPORTED_VALUES:
+        ap.add_argument(flag, default=None)
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
+    if args.attack not in PORTED_ATTACKS:
+        refused.append(f"--attack {args.attack}")
+    for flag, ported in (("defense", "none"), ("devices", 1),
+                         ("shard_points", 1), ("precision", "float32")):
+        if getattr(args, flag) != ported:
+            refused.append(f"--{flag} {getattr(args, flag)}")
+    if args.ensemble:
+        refused.append("--ensemble")
+    refused += [f for f in _UNPORTED_SWITCHES if getattr(args, f[2:])]
+    refused += [f for f in _UNPORTED_VALUES if getattr(args, f[2:]) is not None]
+    if refused:
+        raise SystemExit("not ported yet: " + ", ".join(refused))
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
+    log = logging.getLogger("attack")
+    if args.batch_size == 0:
+        args.batch_size = 1 if args.attack.startswith("tar_") else 8
+    from pointsecguard_tpu_torch.cli._attack_blocks import run_blocks
+
+    return run_blocks(args, log)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,21 @@
+"""Host data pipeline of the port (numpy): S3DIS rooms, whole-scene
+blocks and the synthetic room fixture."""
+
+from pointsecguard_tpu_torch.data.s3dis import (
+    NUM_CLASSES,
+    S3DIS_CLASSES,
+    RoomSet,
+    WholeSceneBlocks,
+    inverse_cube_root_weights,
+)
+from pointsecguard_tpu_torch.data.synthetic import make_room, make_synthetic_rooms
+
+__all__ = [
+    "NUM_CLASSES",
+    "RoomSet",
+    "S3DIS_CLASSES",
+    "WholeSceneBlocks",
+    "inverse_cube_root_weights",
+    "make_room",
+    "make_synthetic_rooms",
+]

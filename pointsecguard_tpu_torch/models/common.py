@@ -1,0 +1,75 @@
+"""Shared building blocks (port of ``pointsecguard_tpu/models/common.py``).
+
+A 1×1 convolution over points is a Linear over the trailing feature axis
+(channels-last [B, ..., C] everywhere, as in the JAX package).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over all non-feature axes, torch-style stats.
+
+    ``momentum`` is a call argument and is the *keep* fraction
+    (``1 - m_torch``; torch's default 0.1 ⇒ 0.9), so the reference's
+    per-epoch momentum annealing needs no module rebuild. Buffers
+    ``mean``/``var`` and parameters ``scale``/``bias`` carry the JAX
+    package's leaf names.
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=axes)
+            var = torch.var(x, dim=axes, unbiased=False)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():  # torch stores the unbiased variance
+                unbiased = var * (n / max(n - 1, 1))
+                self.mean.mul_(momentum).add_((1.0 - momentum) * mean)
+                self.var.mul_(momentum).add_((1.0 - momentum) * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        # written as the JAX package writes it: reciprocal of the sqrt
+        inv = torch.reciprocal(torch.sqrt(var + self.epsilon))
+        return (x - mean) * inv * self.scale + self.bias
+
+
+class PointConv(nn.Module):
+    """Per-point Linear + BatchNorm + ReLU (a 1×1 conv)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.dense = nn.Linear(in_features, features)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+        return torch.relu(self.bn(self.dense(x), momentum))
+
+
+class PointMLP(nn.Module):
+    """Stack of PointConv layers (a shared per-point MLP)."""
+
+    def __init__(self, in_features: int, features: Sequence[int]):
+        super().__init__()
+        widths = (in_features, *features)
+        self.convs = nn.ModuleList(
+            PointConv(a, b) for a, b in zip(widths[:-1], widths[1:])
+        )
+
+    def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+        for conv in self.convs:
+            x = conv(x, momentum)
+        return x

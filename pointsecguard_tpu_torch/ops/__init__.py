@@ -1,0 +1,22 @@
+"""Point-cloud ops of the port (the JAX package's ``ops`` slice that the
+PointNet++ SSG path runs)."""
+
+from pointsecguard_tpu_torch.ops.distance import square_distance
+from pointsecguard_tpu_torch.ops.gather import gather_points
+from pointsecguard_tpu_torch.ops.grouping import group_relative, sample_and_group
+from pointsecguard_tpu_torch.ops.interpolate import apply_three_nn, three_nn_plan
+from pointsecguard_tpu_torch.ops.neighbors import ball_query
+from pointsecguard_tpu_torch.ops.sampling import farthest_point_sample
+from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
+
+__all__ = [
+    "apply_three_nn",
+    "ball_query",
+    "bottom_k_indices",
+    "farthest_point_sample",
+    "gather_points",
+    "group_relative",
+    "sample_and_group",
+    "square_distance",
+    "three_nn_plan",
+]

@@ -1,0 +1,60 @@
+"""Exact bottom-k: CUDA kernel B and its plain PyTorch version.
+
+Replaces ``pointsecguard_tpu/ops/pallas/bottomk.py:_bottomk_kernel``
+(entry point ``bottom_k_pallas``). The kernel (``csrc/bottomk.cu``) gives
+each row one warp, stages the row in shared memory once and runs k
+lexicographic-argmin passes over it; it is bounded by those k passes
+over shared memory (k·N reads per row), with device memory read once.
+Bounds: float32 rows, 1 ≤ k ≤ N ≤ 8192.
+
+Contract (both versions): the k smallest values ascending and their
+int32 indices, ties to the first occurrence — a stable sort cut to k,
+which is ``lax.top_k`` of the negated row. ``bottom_k`` launches the
+kernel for a CUDA tensor and raises when the kernel cannot take it; only
+a CPU tensor goes to ``bottom_k_plain``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_N = 8192
+launches = 0  # kernel launches by ``bottom_k``; never counts the plain version
+
+
+def bottom_k_plain(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable ascending sort cut to k (``torch.topk`` does not order ties)."""
+    v, i = torch.sort(vals, dim=-1, stable=True)
+    return v[..., :k], i[..., :k].to(torch.int32)
+
+
+def bottom_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest along the last axis of [..., N] float32 (see module doc)."""
+    if vals.device.type == "cpu":
+        return bottom_k_plain(vals, k)
+    if vals.device.type != "cuda":
+        raise ValueError(f"bottom_k: unsupported device {vals.device}")
+    if vals.dtype != torch.float32 or vals.dim() < 1:
+        raise ValueError(f"bottom_k: want float32 [..., N], got {vals.dtype}")
+    N = vals.shape[-1]
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"bottom_k: N={N} outside the kernel's 1..{MAX_N} "
+                         "(wider rows need the chunked kernel, not ported)")
+    if not 1 <= k <= N:
+        raise ValueError(f"bottom_k: k={k} outside 1..N={N}")
+    from pointsecguard_tpu_torch.ops.cuda import build
+
+    lib = build.load_library()
+    build.require_sm90(vals.device)
+    vals = vals.contiguous()
+    lead = vals.shape[:-1]
+    rows = vals.numel() // N
+    out_v = torch.empty((*lead, k), dtype=torch.float32, device=vals.device)
+    out_i = torch.empty((*lead, k), dtype=torch.int32, device=vals.device)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    code = lib.psg_bottom_k(vals.data_ptr(), out_v.data_ptr(),
+                            out_i.data_ptr(), rows, N, k, stream)
+    build.check(code, "psg_bottom_k")
+    global launches
+    launches += 1
+    return out_v, out_i

@@ -1,0 +1,43 @@
+"""Farthest point sampling (port of ``pointsecguard_tpu/ops/sampling.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from pointsecguard_tpu_torch.ops.cuda.fps import fps
+
+
+def farthest_point_sample(
+    xyz: torch.Tensor,
+    npoint: int,
+    *,
+    start_idx: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Iterative farthest point sampling (`pointnet_util.py:63-84`).
+
+    Keeps the min squared distance of every point to the chosen set and
+    repeatedly takes the argmax (first occurrence on ties). A CUDA tensor
+    runs kernel A (``ops/cuda/fps.py``); a CPU tensor its plain loop.
+
+    Args:
+      xyz: [B, N, 3] point coordinates.
+      npoint: number of points to select; npoint > N wraps onto index 0.
+      start_idx: optional [B] initial indices. Default 0.
+      generator: if given (and no ``start_idx``), the start index is drawn
+        uniformly from it — the reference's ``torch.randint`` seeding.
+
+    Returns:
+      [B, npoint] int32 indices of the selected points.
+    """
+    B, N, _ = xyz.shape
+    if start_idx is not None:
+        start = start_idx.to(device=xyz.device, dtype=torch.int32)
+    elif generator is not None:
+        start = torch.randint(
+            0, N, (B,), generator=generator, device=generator.device,
+            dtype=torch.int32,
+        ).to(xyz.device)
+    else:
+        start = torch.zeros((B,), dtype=torch.int32, device=xyz.device)
+    return fps(xyz.float(), npoint, start)
