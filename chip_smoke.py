@@ -7,20 +7,38 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. ``require_cuda()``; print the card's name and power limit.
 2. Build the port's CUDA kernels from ``pointsecguard_tpu_torch/csrc``.
-3. Each kernel against its plain PyTorch version on the card, at the
-   shapes one ``build_geometry`` of a batch of 8 × 4096-point blocks gives
-   it: FPS indices equal at all four levels; bottom-k values and indices
-   equal on the ball-query and 3-NN inputs and on tie-heavy rounded
-   values; the contracts' edges (N at the limit, npoint > N, k == N) and
-   refusal past the limit. Median times of kernel and plain (CUDA
-   events, after warm-up).
-4. The slice: synthetic rooms at 25k points/m², a full-width PointNet++
-   SSG checkpoint with seeded random weights (BatchNorm statistics from
-   one forward over synthetic blocks), and the NB attack through
-   ``pointsecguard_tpu_torch.cli.attack.main`` on 32 blocks of 4096
-   points at batch 8. Both kernels must have launched on that run.
-5. Reference check on a small input: the model on the card (kernels)
-   against the same model on the CPU (plain versions).
+3. FPS and bottom-k against their plain PyTorch versions on the card, at
+   the shapes one ``build_geometry`` of a batch of 8 × 4096-point blocks
+   gives them: FPS indices equal at all four levels; bottom-k values and
+   indices equal on the ball-query and 3-NN inputs and on tie-heavy
+   rounded values; the contracts' edges (N at the limit, npoint > N,
+   k == N) and refusal past the limit. Median times of kernel and plain
+   (CUDA events, after warm-up).
+4. kNN and wide-row bottom-k against their plain versions on the card:
+   kNN at every ``build_pyramid`` shape of a batch of 4 × 40960-point
+   RandLA clouds (k=16 and k=1) and at [1, 4096, 64] k=16; wide-row
+   bottom-k on [4, 4096, 40960] k=16 pyramid distances, on tie-heavy
+   rounded values and at its edges (N = 8193, k = 48, N = 2^20); refusal
+   past the bounds. Values and indices equal; median times of kernel and
+   plain, per shape and per ``build_pyramid``.
+5. The two kNN routes at full size: the 40960² level through the fused
+   kernel and through the tiled route (``square_distance`` + wide-row
+   bottom-k, tile 4096) give identical indices.
+6. The PointNet++ slice: synthetic rooms at 25k points/m², a full-width
+   PointNet++ SSG checkpoint with seeded random weights (BatchNorm
+   statistics from one forward over synthetic blocks), and the NB attack
+   through ``pointsecguard_tpu_torch.cli.attack.main`` on 32 blocks of
+   4096 points at batch 8. FPS and bottom-k must have launched on that
+   run; then the model on the card (kernels) against the same model on
+   the CPU (plain versions) on two blocks.
+7. The RandLA slice: the same rooms prepared at 0.04 m (the Area-5 cloud
+   keeps ≥ 40960 points, so nothing is up-sampled), a full-width RandLA
+   checkpoint with seeded random weights (BatchNorm statistics from one
+   train-mode forward), and the NB attack through the same CLI on 8
+   clouds of 40960 points at batch 4: exactly 10 kNN launches per batch,
+   finite output, mean adversarial accuracy below mean clean accuracy.
+   Then card vs CPU on one 8192-point cloud: pyramid indices equal at
+   every level, logits within 1e-4 of the largest magnitude.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
@@ -45,6 +63,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 BATCH, NUM_POINT, MAX_BLOCKS = 8, 4096, 32
 STATE_FLOATS = 975_949  # full-width SSG: parameters + BN running stats
+RANDLA_BATCH, RANDLA_POINTS, RANDLA_CLOUDS = 4, 40960, 8
+RANDLA_STATE_FLOATS = 5_010_981  # full-width S3DIS RandLA-Net
+ROOM_POINTS = 400_000  # synthetic 4 × 4 m rooms at 25k points/m²
 
 
 def card_line() -> str:
@@ -224,14 +245,12 @@ def calibrated_state_dict(seed: int, dev) -> dict:
     return model.state_dict()
 
 
-def phase_slice(dev, records) -> dict:
+def phase_slice(dev, records, data: str) -> dict:
     from pointsecguard_tpu_torch.cli import attack
-    from pointsecguard_tpu_torch.data import make_synthetic_rooms
     from pointsecguard_tpu_torch.ops import cuda as kernels
     from pointsecguard_tpu_torch.utils.checkpoint import save_checkpoint
 
-    data, log = os.path.join(WORK, "data"), os.path.join(WORK, "log")
-    make_synthetic_rooms(data, points_per_room=400_000, seed=0)
+    log = os.path.join(WORK, "log")
     save_checkpoint(log, calibrated_state_dict(0, dev))
     argv = ["--model", "pointnet2", "--attack", "nb", "--data_root", data,
             "--log_dir", log, "--num_point", str(NUM_POINT),
@@ -275,10 +294,10 @@ def phase_slice(dev, records) -> dict:
     values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError("non-finite value in the slice's output")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("fps", "bottom_k"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-        records[name]["launches"] = n
+        records[name]["launches"] = counts[name]
     return stats
 
 
@@ -322,6 +341,239 @@ def phase_reference(dev) -> None:
         raise AssertionError("card log-probs disagree with the CPU reference")
 
 
+def prepare_randla(data: str) -> str:
+    """The synthetic rooms prepared as RandLA clouds (0.04 m grid, KD-tree,
+    projection); the Area-5 cloud must keep ≥ 40960 points."""
+    from pointsecguard_tpu_torch.data.randla import SpatiallyRegularSampler, prepare_room
+
+    prep = os.path.join(WORK, "randla_input_0.040")
+    for name in sorted(os.listdir(data)):
+        prepare_room(os.path.join(data, name), prep, 0.04)
+    sizes = {c.name: len(c.labels) for c in
+             SpatiallyRegularSampler.load(prep, split="test").clouds}
+    print(f"randla clouds (test split, 0.04 m grid): {sizes}")
+    if min(sizes.values()) < RANDLA_POINTS:
+        raise AssertionError(f"a test cloud holds fewer than {RANDLA_POINTS} points")
+    return prep
+
+
+def randla_batch(prep: str, dev, num_points: int = RANDLA_POINTS, batch: int = RANDLA_BATCH):
+    """One sampler batch of features [B, P, 6] on the card."""
+    from pointsecguard_tpu_torch.data.randla import SpatiallyRegularSampler
+
+    sampler = SpatiallyRegularSampler.load(prep, split="test", num_points=num_points,
+                                           rng=np.random.default_rng(7))
+    _, feats, _, _, _ = next(sampler.batches(batch, 1))
+    return torch.from_numpy(feats).to(dev)
+
+
+def pyramid_knn_inputs(xyz: torch.Tensor):
+    """The (query, points, k) of every kNN call of one build_pyramid."""
+    calls, cur = [], xyz
+    for ratio in (4, 4, 4, 4, 2):
+        sub = cur[:, : cur.shape[1] // ratio]
+        calls += [(cur, cur, 16), (cur, sub, 1)]
+        cur = sub
+    return calls
+
+
+def _equal(name, got, want) -> float:
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{name}: kernel != plain")
+    return (got[0] - want[0]).abs().max().item()
+
+
+def phase_randla_kernels(dev, records, xyz):
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, knn
+    from pointsecguard_tpu_torch.ops.distance import square_distance
+
+    calls = pyramid_knn_inputs(xyz)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    feat64 = torch.randn((1, 4096, 64), generator=gen, device=dev)
+    knn_err = 0.0
+    for q, p, k in calls + [(feat64, feat64, 16)]:
+        knn_err = max(knn_err, _equal(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}",
+                                      knn.knn(q, p, k), knn.knn_plain(q, p, k)))
+        print(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: values and indices equal")
+
+    dists = square_distance(xyz[:, :4096], xyz)  # a tile of the tiled route
+    rounded = torch.round(dists * 4) / 4
+    bk_err = 0.0
+    for vals, k in ((dists, 16), (rounded, 16),
+                    (torch.rand((2, 64, 8193), generator=gen, device=dev), 48),
+                    (torch.rand((1, 4, 1 << 20), generator=gen, device=dev), 16)):
+        bk_err = max(bk_err, _equal(f"bottom_k_chunked {tuple(vals.shape)} k={k}",
+                                    bottomk_chunked.bottom_k_chunked(vals, k),
+                                    bottomk.bottom_k_plain(vals, k)))
+        print(f"bottom_k_chunked {tuple(vals.shape)} k={k}: values and indices equal")
+    refused = (
+        lambda: knn.knn(xyz[:, :64], xyz[:, :64], 49),
+        lambda: knn.knn(xyz[:, :8], xyz[:, :8], 9),
+        lambda: bottomk_chunked.bottom_k_chunked(dists[:1, :1], 49),
+        lambda: bottomk_chunked.bottom_k_chunked(
+            torch.zeros((1, bottomk_chunked.MAX_N + 1), device=dev), 4),
+    )
+    for call in refused:
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("a kernel took a shape past its bounds")
+    print("contract edges: N = 8193, k = 48, N = 2^20 equal to plain; "
+          "k = 49, k > N, N > 2^22 refused")
+
+    def run_knn(f):
+        return lambda: [f(q, p, k) for q, p, k in calls]
+
+    for name, kern, plain, fn, arg, what in (
+        ("knn", knn.knn, knn.knn_plain, run_knn, None,
+         f"build_pyramid of [{RANDLA_BATCH}, {RANDLA_POINTS}] (10 calls)"),
+        ("bottom_k_chunked", bottomk_chunked.bottom_k_chunked, bottomk.bottom_k_plain,
+         None, dists, f"[{RANDLA_BATCH}, 4096, {RANDLA_POINTS}] k=16"),
+    ):
+        if fn is not None:
+            ms, plain_ms = cuda_ms(fn(kern), reps=10), cuda_ms(fn(plain), reps=3)
+        else:
+            ms = cuda_ms(lambda: kern(arg, 16), reps=20)
+            plain_ms = cuda_ms(lambda: plain(arg, 16), reps=5)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per {what} (median)")
+        records[name].update(ms=ms, plain_ms=plain_ms)
+    records["knn"]["max_abs_err"] = knn_err
+    records["bottom_k_chunked"]["max_abs_err"] = bk_err
+    for q, p, k in calls:
+        ms = cuda_ms(lambda: knn.knn(q, p, k), reps=10)
+        print(f"  knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: {ms:.4f} ms")
+
+
+def phase_routes(records, xyz) -> None:
+    """The 40960² level through the fused kernel and through the tiled
+    route (square_distance + wide-row bottom-k on tiles of 4096)."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    fused = ops.knn(xyz, xyz, 16, strategy="fused")
+    kernels.reset_launch_counts()
+    tiled = ops.knn(xyz, xyz, 16, tile=4096, strategy="pallas")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if not torch.equal(fused[1], tiled[1]):
+        raise AssertionError("fused and tiled kNN routes give different indices")
+    if counts["bottom_k_chunked"] != RANDLA_POINTS // 4096:
+        raise AssertionError(f"tiled route launches: {counts}")
+    records["bottom_k_chunked"]["launches"] = counts["bottom_k_chunked"]
+    print(f"routes: fused and tiled kNN indices identical at {tuple(xyz.shape)} k=16; "
+          f"launches on the tiled route {counts}")
+
+
+def randla_state_dict(seed: int, dev, feats) -> dict:
+    """Full-width RandLA weights from a seeded generator (Linear weights
+    and biases uniform in ±1/sqrt(fan_in), BatchNorm at scale 1, bias 0)
+    with BatchNorm statistics from one train-mode forward over ``feats``
+    (keep fraction 0)."""
+    from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
+
+    gen = torch.Generator().manual_seed(seed)
+    model = RandLANet()
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Linear):
+                bound = 1.0 / math.sqrt(mod.in_features)
+                for t in (mod.weight, mod.bias):
+                    if t is not None:
+                        t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
+    n = sum(t.numel() for t in model.state_dict().values())
+    if n != RANDLA_STATE_FLOATS:
+        raise AssertionError(f"RandLA state holds {n} floats, want {RANDLA_STATE_FLOATS}")
+    model.to(dev).train()
+    with torch.no_grad():
+        model(feats, build_pyramid(feats[..., :3]), momentum=0.0)
+    return model.state_dict()
+
+
+def phase_randla(dev, records, prep: str) -> dict:
+    from pointsecguard_tpu_torch.cli import attack
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.utils.checkpoint import save_checkpoint
+
+    log = os.path.join(WORK, "randla_log")
+    save_checkpoint(log, randla_state_dict(0, dev, randla_batch(prep, dev)))
+    argv = ["--model", "randla", "--attack", "nb", "--randla_dir", prep,
+            "--log_dir", log, "--num_clouds", str(RANDLA_CLOUDS),
+            "--batch_size", str(RANDLA_BATCH)]
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clean_m, adv_m = attack.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    with open(os.path.join(log, "randla_nb_area5.tsv")) as f:
+        header = f.readline().rstrip("\n").split("\t")
+        rows = [dict(zip(header, line.rstrip("\n").split("\t"))) for line in f]
+    if len(rows) != RANDLA_CLOUDS:
+        raise AssertionError(f"{len(rows)} TSV rows, want {RANDLA_CLOUDS}")
+    col = {c: np.array([float(r[c]) for r in rows]) for c in
+           ("clean_acc", "adv_acc", "l2", "time_s")}
+    iters = int(rows[0]["steps"])
+    ms_cloud = 1e3 * col["time_s"]  # each row: its batch's wall / batch size
+    stats = {
+        "clouds": len(rows),
+        "points": RANDLA_POINTS,
+        "nb_iters": iters,
+        "ms_per_cloud_mean": float(ms_cloud.mean()),
+        "ms_per_cloud_warm_median": float(np.median(ms_cloud[RANDLA_BATCH:])),
+        "wall_nb_iters_per_s": len(rows) * iters / float(col["time_s"].sum()),
+        "main_wall_s": wall,
+        "clean_acc": float(col["clean_acc"].mean()),
+        "adv_acc": float(col["adv_acc"].mean()),
+        "l2_mean": float(col["l2"].mean()),
+        "clean_miou": clean_m.miou,
+        "adv_miou": adv_m.miou,
+        "launches": counts,
+    }
+    print("randla slice: " + json.dumps(stats))
+    values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("non-finite value in the RandLA slice's output")
+    if counts["knn"] != 10 * RANDLA_CLOUDS // RANDLA_BATCH:
+        raise AssertionError(f"kNN launches {counts['knn']}, want 10 per batch")
+    if not stats["adv_acc"] < stats["clean_acc"]:
+        raise AssertionError("the NB attack did not lower the mean accuracy")
+    records["knn"]["launches"] = counts["knn"]
+    return stats
+
+
+def phase_randla_reference(dev, prep: str) -> None:
+    """RandLA on the card (kernels) vs on the CPU (plain versions) on one
+    8192-point cloud: pyramid indices equal at every level; logits on the
+    same pyramid within 1e-4 of the largest magnitude."""
+    from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
+
+    feats = randla_batch(prep, dev, num_points=8192, batch=1)
+    model = RandLANet()
+    model.load_state_dict(randla_state_dict(1, dev, feats))
+    model.eval()
+    pyr_gpu = build_pyramid(feats[..., :3])
+    pyr_cpu = build_pyramid(feats[..., :3].cpu())
+    for key in ("neigh_idx", "sub_idx", "interp_idx"):
+        for level, (g, c) in enumerate(zip(pyr_gpu[key], pyr_cpu[key])):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"card/CPU pyramid {key}[{level}] differ")
+    with torch.no_grad():
+        lg = model.to(dev)(feats, pyr_gpu).cpu()
+        lc = model.cpu()(feats.cpu(), pyr_cpu)
+    # float32 sums run in another order on the card than on the CPU; the
+    # bound is relative to the largest logit
+    err = (lg - lc).abs().max().item()
+    tol = 1e-4 * max(1.0, lc.abs().max().item())
+    print(f"randla reference: pyramid indices equal card vs CPU at all 5 levels; "
+          f"logits max |diff| {err:.3e} (tolerance {tol:.3e})")
+    if not (lg.shape == (1, 8192, 13) and torch.isfinite(lg).all() and err <= tol):
+        raise AssertionError("card RandLA logits disagree with the CPU reference")
+
+
 def main() -> int:
     import pointsecguard_tpu_torch
     from pointsecguard_tpu_torch.ops.cuda import build
@@ -357,10 +609,27 @@ def main() -> int:
         "bottom_k": {"name": "bottom_k", "route": "cuda",
                      "source": "pointsecguard_tpu_torch/csrc/bottomk.cu",
                      "replaces": "pointsecguard_tpu/ops/pallas/bottomk.py:66"},
+        "knn": {"name": "knn", "route": "cuda",
+                "source": "pointsecguard_tpu_torch/csrc/knn.cu",
+                "replaces": "pointsecguard_tpu/ops/pallas/knn.py:52"},
+        "bottom_k_chunked": {"name": "bottom_k_chunked", "route": "cuda",
+                             "source": "pointsecguard_tpu_torch/csrc/bottomk_chunked.cu",
+                             "replaces": "pointsecguard_tpu/ops/pallas/bottomk.py:206"},
     }
+    from pointsecguard_tpu_torch.data import make_synthetic_rooms
+
+    data = os.path.join(WORK, "data")
+    make_synthetic_rooms(data, points_per_room=ROOM_POINTS, seed=0)
+    prep = prepare_randla(data)
     phase_kernels(dev, records)
-    phase_slice(dev, records)
+    xyz = randla_batch(prep, dev)[..., :3].contiguous()
+    phase_randla_kernels(dev, records, xyz)
+    phase_routes(records, xyz)
+    del xyz
+    phase_slice(dev, records, data)
     phase_reference(dev)
+    phase_randla(dev, records, prep)
+    phase_randla_reference(dev, prep)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")

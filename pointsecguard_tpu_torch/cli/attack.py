@@ -4,10 +4,13 @@
   python -m pointsecguard_tpu_torch.cli.attack --model pointnet2 --attack nb \
       --data_root data/stanford_indoor3d --log_dir log/pointnet2
 
-Ported: ``--model pointnet2`` with ``--attack nb|tar_nb`` over whole-scene
-blocks (``cli/_attack_blocks.py``). The checkpoint is the port's own
-(``<log_dir>/checkpoints/best.pt``, see ``utils/checkpoint.py``). It runs
-on the GPU; ``--device cpu`` runs the plain PyTorch path by request.
+Ported: ``--attack nb|tar_nb`` for ``--model pointnet2`` over whole-scene
+blocks (``cli/_attack_blocks.py``) and for ``--model randla`` over
+spatially-regular S3DIS clouds (``cli/_attack_randla.py``, prepared with
+``data.randla.prepare_room`` under ``--randla_dir``). The checkpoint is
+the port's own (``<log_dir>/checkpoints/best.pt``, see
+``utils/checkpoint.py``). It runs on the GPU; ``--device cpu`` runs the
+plain PyTorch path by request.
 Every other flag of the JAX CLI is accepted by name and stops the run
 with "not ported yet" instead of being ignored.
 """
@@ -19,7 +22,7 @@ import logging
 
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
-PORTED_MODELS = ("pointnet2",)
+PORTED_MODELS = ("pointnet2", "randla")
 PORTED_ATTACKS = ("nb", "tar_nb")
 # JAX CLI flags this port does not implement yet
 _UNPORTED_SWITCHES = (
@@ -27,7 +30,6 @@ _UNPORTED_SWITCHES = (
     "--resgcn_fast", "--resgcn_fixed_graphs",
 )
 _UNPORTED_VALUES = (
-    "--randla_dir", "--randla_dataset", "--num_clouds", "--randla_points",
     "--resgcn_blocks", "--resgcn_k", "--resgcn_filters",
     "--resgcn_block_type", "--resgcn_conv", "--resgcn_epsilon",
     "--ensemble_mode", "--defense_bits", "--defense_sigma",
@@ -38,6 +40,14 @@ _UNPORTED_VALUES = (
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("attack")
     ap.add_argument("--model", default="pointnet2", choices=_MODELS)
+    ap.add_argument("--randla_dir", default="data/randla_input_0.040")
+    ap.add_argument("--randla_dataset", default="s3dis",
+                    choices=["s3dis", "semantickitti", "semantic3d"],
+                    help="randla: dataset preset; only s3dis is ported")
+    ap.add_argument("--num_clouds", type=int, default=100,
+                    help="randla: number of sampled clouds (`tester_S3DIS.py:166`)")
+    ap.add_argument("--randla_points", type=int, default=0,
+                    help="randla: points per cloud (0 = the config's 40960)")
     ap.add_argument("--attack", default="nb", choices=_ATTACKS)
     ap.add_argument("--data_root", default="data/stanford_indoor3d")
     ap.add_argument("--log_dir", default="log/run")
@@ -45,7 +55,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--num_point", type=int, default=4096)
     ap.add_argument("--batch_size", type=int, default=0,
                     help="0 = auto: 8 untargeted, 1 targeted (per-block "
-                         "outcomes do not depend on the batch size)")
+                         "outcomes do not depend on the batch size); randla "
+                         "takes its config's val_batch_size 1")
     # targeted defaults origin=11 (board) → target=7 (table)
     # (`NB_target_test_semseg.py:48-49`)
     ap.add_argument("--origin", type=int, default=11)
@@ -89,6 +100,10 @@ def main(argv=None):
     _refuse_unported(args)
     logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
     log = logging.getLogger("attack")
+    if args.model == "randla":
+        from pointsecguard_tpu_torch.cli._attack_randla import run_randla
+
+        return run_randla(args, log)
     if args.batch_size == 0:
         args.batch_size = 1 if args.attack.startswith("tar_") else 8
     from pointsecguard_tpu_torch.cli._attack_blocks import run_blocks

@@ -16,8 +16,8 @@
 // data (the TPU kernel overwrote picks with 3e38). Pure selection: no
 // arithmetic, so the output is bit-equal to the plain version.
 // The limit N <= 8192 (128 KB of shared memory per block) mirrors the
-// TPU kernel's N < 8192; wider rows belong to the chunked kernel
-// (bottom_k_pallas_chunked), which is not ported yet.
+// TPU kernel's N < 8192; wider rows go to bottomk_chunked.cu, the port of
+// the chunked kernel (bottom_k_pallas_chunked).
 
 #include <cuda_runtime.h>
 

@@ -1,5 +1,6 @@
 """Host data pipeline of the port (numpy): S3DIS rooms, whole-scene
-blocks and the synthetic room fixture."""
+blocks and the synthetic room fixture; RandLA's room preparation and
+sampler are in ``data.randla``."""
 
 from pointsecguard_tpu_torch.data.s3dis import (
     NUM_CLASSES,

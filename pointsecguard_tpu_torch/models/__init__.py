@@ -1,8 +1,9 @@
-"""Models of the port (PointNet++ SSG so far)."""
+"""Models of the port (PointNet++ SSG and RandLA-Net so far)."""
 
 from pointsecguard_tpu_torch.models.pointnet2 import (
     PointNet2SemSegSSG,
     build_geometry,
 )
+from pointsecguard_tpu_torch.models.randlanet import RandLANet, build_pyramid
 
-__all__ = ["PointNet2SemSegSSG", "build_geometry"]
+__all__ = ["PointNet2SemSegSSG", "RandLANet", "build_geometry", "build_pyramid"]

@@ -47,16 +47,28 @@ class BatchNorm(nn.Module):
         return (x - mean) * inv * self.scale + self.bias
 
 
-class PointConv(nn.Module):
-    """Per-point Linear + BatchNorm + ReLU (a 1×1 conv)."""
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return nn.functional.leaky_relu(x, negative_slope=0.2)
 
-    def __init__(self, in_features: int, features: int):
+
+_ACTS = {"relu": torch.relu, "leaky_relu": leaky_relu, "none": lambda x: x}
+
+
+class PointConv(nn.Module):
+    """Per-point Linear + BatchNorm + activation (a 1×1 conv).
+
+    ``act`` is "relu" (PointNet++), "leaky_relu" (slope 0.2, RandLA-Net)
+    or "none"; the defaults keep PointNet++'s module and numbers."""
+
+    def __init__(self, in_features: int, features: int, *, act: str = "relu",
+                 bn_epsilon: float = 1e-5, use_bias: bool = True):
         super().__init__()
-        self.dense = nn.Linear(in_features, features)
-        self.bn = BatchNorm(features)
+        self.act = _ACTS[act]
+        self.dense = nn.Linear(in_features, features, bias=use_bias)
+        self.bn = BatchNorm(features, epsilon=bn_epsilon)
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
-        return torch.relu(self.bn(self.dense(x), momentum))
+        return self.act(self.bn(self.dense(x), momentum))
 
 
 class PointMLP(nn.Module):

@@ -1,0 +1,224 @@
+"""RandLA-Net for large-scale segmentation (port of
+``pointsecguard_tpu/models/randlanet.py:27-379``).
+
+The model contract is the reference's (`RandLANet.py:150-190`): a
+5-level pyramid of (xyz, neighbour idx, pool idx, upsample idx) plus
+[B, N, 6] features in, per-point logits out. ``build_pyramid`` builds the
+pyramid on the device with the fused kNN kernel (``ops/cuda/knn.py``):
+10 kNN calls per batch, a k=16 self-kNN and a 1-NN upsample index at each
+level. Colour attacks never move xyz, so the attack CLI builds the
+pyramid once per batch, and the position encodings of every
+``LocalFeatureAggregation`` (xyz and parameters only) once more
+(``collect_pos`` / ``pos_plan``); each attack iteration then skips the
+neighbour-xyz gathers and both position convs.
+
+Only the reference attentive-pooling composition is ported; the fused
+Pallas kernel (``ap_impl="fused"``, ``--fused_ap``) is not.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from pointsecguard_tpu_torch import ops
+from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, leaky_relu
+
+# TF batch_normalization defaults in the reference (`RandLANet.py:160`,
+# `helper_tf_util.py:457`): keep fraction 0.99, epsilon 1e-6.
+BN_EPS = 1e-6
+BN_MOM = 0.99
+
+
+def _conv(in_features: int, features: int, act: str = "leaky_relu") -> PointConv:
+    # every conv of the RandLA graph ends in leaky_relu(0.2) except the
+    # act-free mlp2 / shortcut (`helper_tf_util.py:169,249`)
+    return PointConv(in_features, features, act=act, bn_epsilon=BN_EPS)
+
+
+@torch.no_grad()
+def build_pyramid(
+    xyz: torch.Tensor,
+    *,
+    num_layers: int = 5,
+    k: int = 16,
+    sub_ratios: Sequence[int] = (4, 4, 4, 4, 2),
+) -> dict:
+    """The RandLA input pyramid (`main_S3DIS.py:188-214`): at each level
+    the k-NN self-neighbours; the first N/r points (of an already shuffled
+    cloud) become the next level; pool indices are the kNN rows of the
+    kept points; upsample indices are the 1-NN of the level among the kept
+    points. Exact at every level. The fused kNN kernel never writes the
+    [S, N] distance matrix, so no level needs the query tiling of the
+    JAX package's XLA route (``knn_tile``).
+
+    Returns:
+      dict with tuple-of-levels fields: xyz, neigh_idx, sub_idx, interp_idx.
+    """
+    xyzs, neighs, subs, interps = [], [], [], []
+    cur = xyz
+    for i in range(num_layers):
+        n = cur.shape[1]
+        # tiny clouds (tests, deep levels): repeat the neighbour list
+        _, neigh = ops.knn(cur, cur, min(k, n))
+        neigh = ops.repeat_pad_k(neigh, k)
+        sub_n = n // sub_ratios[i]
+        sub_xyz = cur[:, :sub_n, :]
+        _, interp = ops.knn(cur, sub_xyz, 1)
+        xyzs.append(cur)
+        neighs.append(neigh)
+        subs.append(neigh[:, :sub_n, :])  # kNN rows of the kept points
+        interps.append(interp)
+        cur = sub_xyz
+    return {
+        "xyz": tuple(xyzs),
+        "neigh_idx": tuple(neighs),
+        "sub_idx": tuple(subs),
+        "interp_idx": tuple(interps),
+    }
+
+
+class AttentivePooling(nn.Module):
+    """Attention-weighted neighbour aggregation (`RandLANet.py:397-410`),
+    the reference composition: scores = Dense(feature_set) (no bias),
+    softmax over the K axis in float32, weighted sum, then a conv."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.fc = nn.Linear(d_in, d_in, bias=False)
+        self.mlp = _conv(d_in, d_out)
+
+    def forward(self, feature_set: torch.Tensor, momentum: float = BN_MOM):
+        # feature_set: [B, N, K, d]
+        scores = torch.softmax(self.fc(feature_set).float(), dim=2)
+        agg = torch.sum(feature_set * scores, dim=2)  # [B, N, d]
+        return self.mlp(agg, momentum)
+
+
+class LocalFeatureAggregation(nn.Module):
+    """The `building_block` of `RandLANet.py:332-344`: relative position
+    encoding plus two rounds of attentive pooling over the kNN
+    neighbourhood.
+
+    ``pos``: the precomputed (f_xyz1, f_xyz2) position encodings from a
+    ``collect_pos=True`` call (eval mode only: batch statistics would
+    differ in train mode); the result is bit-identical either way.
+    """
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.mlp1 = _conv(10, d_in)
+        self.att_pooling_1 = AttentivePooling(2 * d_in, d_out // 2)
+        self.mlp2 = _conv(d_in, d_out // 2)
+        self.att_pooling_2 = AttentivePooling(d_out, d_out)
+
+    def position_encoding(self, xyz, neigh_idx, momentum: float = BN_MOM):
+        """(f_xyz1, f_xyz2) from xyz alone (`RandLANet.py:346-352`)."""
+        neighbor_xyz = ops.gather_points(xyz, neigh_idx)  # [B, N, K, 3]
+        center = xyz[:, :, None, :].expand_as(neighbor_xyz)
+        rel = center - neighbor_xyz
+        dist = torch.sqrt(torch.sum(rel**2, dim=-1, keepdim=True))
+        f_xyz = torch.cat([dist, rel, center, neighbor_xyz], dim=-1)
+        f_xyz1 = self.mlp1(f_xyz, momentum)
+        return f_xyz1, self.mlp2(f_xyz1, momentum)
+
+    def forward(self, xyz, feature, neigh_idx, *, pos=None, collect_pos=False,
+                momentum: float = BN_MOM):
+        f_xyz1, f_xyz2 = (self.position_encoding(xyz, neigh_idx, momentum)
+                          if pos is None else pos)
+        f_neigh = ops.gather_points(feature, neigh_idx)  # [B, N, K, d_in]
+        f_agg = self.att_pooling_1(torch.cat([f_neigh, f_xyz1], dim=-1), momentum)
+        f_neigh2 = ops.gather_points(f_agg, neigh_idx)
+        out = self.att_pooling_2(torch.cat([f_neigh2, f_xyz2], dim=-1), momentum)
+        if collect_pos:
+            return out, (f_xyz1, f_xyz2)
+        return out
+
+
+class DilatedResBlock(nn.Module):
+    """Dilated residual block (`RandLANet.py:323-330`)."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.mlp1 = _conv(d_in, d_out // 2)
+        self.lfa = LocalFeatureAggregation(d_out // 2, d_out)
+        self.mlp2 = _conv(d_out, 2 * d_out, act="none")
+        self.shortcut = _conv(d_in, 2 * d_out, act="none")
+
+    def forward(self, feature, xyz, neigh_idx, *, pos=None, collect_pos=False,
+                momentum: float = BN_MOM):
+        f = self.mlp1(feature, momentum)
+        f = self.lfa(xyz, f, neigh_idx, pos=pos, collect_pos=collect_pos,
+                     momentum=momentum)
+        if collect_pos:
+            f, pos = f
+        f = self.mlp2(f, momentum)
+        out = leaky_relu(f + self.shortcut(feature, momentum))
+        if collect_pos:
+            return out, pos
+        return out
+
+
+class RandLANet(nn.Module):
+    """RandLA-Net encoder/decoder (`RandLANet.py:150-190`).
+
+    Call with features [B, N, d_in] and a pyramid from ``build_pyramid``;
+    returns logits [B, N, num_classes] in float32 (no softmax, as the
+    reference). ``collect_pos=True`` also returns the per-layer position
+    encodings, which a later call takes as ``pos_plan``. ``momentum`` is
+    BatchNorm's keep fraction in train mode (the reference's 0.99).
+    """
+
+    def __init__(self, num_classes: int = 13, d_out: Sequence[int] = (16, 64, 128, 256, 512),
+                 d_in: int = 6, ap_impl: str = "reference"):
+        super().__init__()
+        if ap_impl != "reference":
+            raise ValueError(f"not ported yet: ap_impl={ap_impl!r} "
+                             "(the fused attentive-pooling kernel)")
+        self.fc0 = nn.Linear(d_in, 8)
+        self.bn0 = BatchNorm(8, epsilon=BN_EPS)
+        widths = [8] + [2 * d for d in d_out]  # block inputs / outputs
+        self.blocks = nn.ModuleList(
+            DilatedResBlock(widths[i], d_out[i]) for i in range(len(d_out))
+        )
+        self.decoder_0 = _conv(widths[-1], widths[-1])
+        # decoder j joins encoder output -j-2 with the upsampled features
+        enc = [widths[1]] + widths[1:]  # channels of enc[0..num_layers]
+        dec, up = [], widths[-1]
+        for j in range(len(d_out)):
+            skip = enc[-j - 2]
+            dec.append(_conv(skip + up, skip))
+            up = skip
+        self.decoders = nn.ModuleList(dec)
+        self.fc1 = _conv(up, 64)
+        self.fc2 = _conv(64, 32)
+        self.dropout = nn.Dropout(0.5)
+        self.fc = nn.Linear(32, num_classes)
+
+    def forward(self, features: torch.Tensor, pyramid: dict, *, pos_plan=None,
+                collect_pos: bool = False, momentum: float = BN_MOM):
+        xyz, neigh_idx = pyramid["xyz"], pyramid["neigh_idx"]
+        f = leaky_relu(self.bn0(self.fc0(features), momentum))
+        enc, pos_out = [], []
+        for i, block in enumerate(self.blocks):
+            f_enc = block(f, xyz[i], neigh_idx[i],
+                          pos=None if pos_plan is None else pos_plan[i],
+                          collect_pos=collect_pos, momentum=momentum)
+            if collect_pos:
+                f_enc, p = f_enc
+                pos_out.append(p)
+            f = ops.random_sample_pool(f_enc, pyramid["sub_idx"][i])
+            if i == 0:
+                enc.append(f_enc)
+            enc.append(f)
+        f = self.decoder_0(f, momentum)
+        for j, dec in enumerate(self.decoders):
+            f_interp = ops.nearest_upsample(f, pyramid["interp_idx"][-j - 1])
+            f = dec(torch.cat([enc[-j - 2], f_interp], dim=-1), momentum)
+        f = self.fc2(self.fc1(f, momentum), momentum)
+        logits = self.fc(self.dropout(f)).float()
+        if collect_pos:
+            return logits, tuple(pos_out)
+        return logits

@@ -1,12 +1,19 @@
 """Point-cloud ops of the port (the JAX package's ``ops`` slice that the
-PointNet++ SSG path runs)."""
+PointNet++ SSG and RandLA-Net paths run)."""
 
 from pointsecguard_tpu_torch.ops.distance import square_distance
 from pointsecguard_tpu_torch.ops.gather import gather_points
 from pointsecguard_tpu_torch.ops.grouping import group_relative, sample_and_group
-from pointsecguard_tpu_torch.ops.interpolate import apply_three_nn, three_nn_plan
-from pointsecguard_tpu_torch.ops.neighbors import ball_query
-from pointsecguard_tpu_torch.ops.sampling import farthest_point_sample
+from pointsecguard_tpu_torch.ops.interpolate import (
+    apply_three_nn,
+    nearest_upsample,
+    three_nn_plan,
+)
+from pointsecguard_tpu_torch.ops.neighbors import ball_query, knn, repeat_pad_k
+from pointsecguard_tpu_torch.ops.sampling import (
+    farthest_point_sample,
+    random_sample_pool,
+)
 from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
 
 __all__ = [
@@ -16,6 +23,10 @@ __all__ = [
     "farthest_point_sample",
     "gather_points",
     "group_relative",
+    "knn",
+    "nearest_upsample",
+    "random_sample_pool",
+    "repeat_pad_k",
     "sample_and_group",
     "square_distance",
     "three_nn_plan",

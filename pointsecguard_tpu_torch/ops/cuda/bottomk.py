@@ -39,7 +39,7 @@ def bottom_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     N = vals.shape[-1]
     if not 1 <= N <= MAX_N:
         raise ValueError(f"bottom_k: N={N} outside the kernel's 1..{MAX_N} "
-                         "(wider rows need the chunked kernel, not ported)")
+                         "(wider rows: bottomk_chunked.bottom_k_chunked)")
     if not 1 <= k <= N:
         raise ValueError(f"bottom_k: k={k} outside 1..N={N}")
     from pointsecguard_tpu_torch.ops.cuda import build

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "psg_fps": (_P, _P, _P, _I, _I, _I, _P),
     # vals, out_v, out_i, rows, N, k, stream
     "psg_bottom_k": (_P, _P, _P, _I, _I, _I, _P),
+    "psg_bottom_k_chunked": (_P, _P, _P, _I, _I, _I, _P),
+    # query, points, s2, d2, out_v, out_i, B, S, N, D, k, stream
+    "psg_knn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""3-NN inverse-distance interpolation (port of
-``pointsecguard_tpu/ops/interpolate.py:18-50``)."""
+"""3-NN inverse-distance interpolation and RandLA's nearest upsampling
+(port of ``pointsecguard_tpu/ops/interpolate.py:18-50,66-78``)."""
 
 from __future__ import annotations
 
@@ -36,3 +36,18 @@ def apply_three_nn(
     """Gather + weighted-sum half of the 3-NN interpolation → [B, N, D]."""
     gathered = gather_points(feats_src, idx)  # [B, N, 3, D]
     return torch.sum(gathered * weight[..., None], dim=2)
+
+
+def nearest_upsample(feats: torch.Tensor, interp_idx: torch.Tensor) -> torch.Tensor:
+    """1-NN feature copy to a denser set (RandLA `nearest_interpolation`).
+
+    Args:
+      feats: [B, S, D] source features.
+      interp_idx: [B, N, 1] (or [B, N]) nearest source index per dense point.
+
+    Returns:
+      [B, N, D].
+    """
+    if interp_idx.dim() == 3:
+        interp_idx = interp_idx[..., 0]
+    return gather_points(feats, interp_idx)

@@ -1,10 +1,12 @@
-"""Farthest point sampling (port of ``pointsecguard_tpu/ops/sampling.py``)."""
+"""Farthest point sampling and RandLA's random-sample pooling (port of
+``pointsecguard_tpu/ops/sampling.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from pointsecguard_tpu_torch.ops.cuda.fps import fps
+from pointsecguard_tpu_torch.ops.gather import gather_points
 
 
 def farthest_point_sample(
@@ -41,3 +43,19 @@ def farthest_point_sample(
     else:
         start = torch.zeros((B,), dtype=torch.int32, device=xyz.device)
     return fps(xyz.float(), npoint, start)
+
+
+def random_sample_pool(feature: torch.Tensor, pool_idx: torch.Tensor) -> torch.Tensor:
+    """Max-pool features over precomputed pooling neighbourhoods
+    (RandLA-Net's `random_sample`, `RandLANet.py:354-369`).
+
+    Args:
+      feature: [B, N, D].
+      pool_idx: [B, N', K] indices into the N axis.
+
+    Returns:
+      [B, N', D] pooled features. ``amax``, not ``max(dim)``: pooling rows
+      repeat neighbours (exact ties), and amax splits the gradient evenly
+      over tied maxima, as ``jnp.max`` does.
+    """
+    return torch.amax(gather_points(feature, pool_idx), dim=2)

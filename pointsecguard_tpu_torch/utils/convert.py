@@ -2,14 +2,20 @@
 
 Weights cross as numpy arrays keyed by flax paths, flattened with "/":
 ``params/SetAbstraction_0/PointMLP_0/PointConv_0/Dense_0/kernel``,
-``batch_stats/.../BatchNorm_0/mean`` … (134 leaves for PointNet++ SSG).
-The module names follow the flax auto-names the JAX importer writes
+``batch_stats/.../BatchNorm_0/mean`` … (134 leaves for PointNet++ SSG,
+276 for RandLA-Net). PointNet++ SSG (``from_jax_variables``) follows the
+flax auto-names the JAX importer writes
 (`pointsecguard_tpu/utils/importers.py:83-118`):
 
   SetAbstraction_i → sa.i        FeaturePropagation_i → fp.i
   PointMLP_0 (top) → head        PointMLP_0 (nested)  → mlp
   PointConv_j      → convs.j     BatchNorm_0          → bn
   Dense_0 (top)    → cls         Dense_0 (nested)     → dense
+
+RandLA-Net (``randla_from_jax_variables``) maps module paths one to one
+(``randla_module_map``), in the flax declaration order of
+`pointsecguard_tpu/models/randlanet.py:252-254` and the schema of
+`utils/importers.py:461-579 map_randla_vars`.
 
 Dense kernels are [in, out] in flax and [out, in] in ``nn.Linear``.
 """
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from pointsecguard_tpu_torch.models.pointnet2 import PointNet2SemSegSSG
+from pointsecguard_tpu_torch.models.randlanet import RandLANet
 
 _INDEXED = {"SetAbstraction": "sa", "FeaturePropagation": "fp",
             "PointConv": "convs"}
@@ -97,4 +104,89 @@ def to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarra
     for key, t in state_dict.items():
         arr = t.detach().cpu().numpy()
         flat[_flax_path(key)] = arr.T.copy() if key.endswith(".weight") else arr.copy()
+    return flat
+
+
+def randla_module_map(num_layers: int = 5) -> dict[str, str]:
+    """flax module path → ``RandLANet`` module path. A flax ``PointConv``
+    is two entries (its ``Dense_0`` and ``BatchNorm_0``)."""
+    m = {"Dense_0": "fc0", "BatchNorm_0": "bn0", "Dense_1": "fc"}
+
+    def conv(flax: str, port: str) -> None:
+        m[f"{flax}/Dense_0"] = f"{port}.dense"
+        m[f"{flax}/BatchNorm_0"] = f"{port}.bn"
+
+    for i in range(num_layers):
+        blk, pblk = f"DilatedResBlock_{i}", f"blocks.{i}"
+        lfa, plfa = f"{blk}/LocalFeatureAggregation_0", f"{pblk}.lfa"
+        conv(f"{blk}/PointConv_0", f"{pblk}.mlp1")
+        conv(f"{lfa}/PointConv_0", f"{plfa}.mlp1")
+        conv(f"{lfa}/PointConv_1", f"{plfa}.mlp2")
+        for a in (0, 1):
+            ap, pap = f"{lfa}/AttentivePooling_{a}", f"{plfa}.att_pooling_{a + 1}"
+            m[f"{ap}/Dense_0"] = f"{pap}.fc"
+            conv(f"{ap}/PointConv_0", f"{pap}.mlp")
+        conv(f"{blk}/PointConv_1", f"{pblk}.mlp2")
+        conv(f"{blk}/PointConv_2", f"{pblk}.shortcut")
+    conv("PointConv_0", "decoder_0")
+    for j in range(num_layers):
+        conv(f"PointConv_{1 + j}", f"decoders.{j}")
+    conv(f"PointConv_{1 + num_layers}", "fc1")
+    conv(f"PointConv_{2 + num_layers}", "fc2")
+    return m
+
+
+def _randla_shape(flat: dict) -> dict:
+    """RandLANet constructor arguments read off the flax leaves."""
+    d_out, i = [], 0
+    while f"params/DilatedResBlock_{i}/PointConv_1/Dense_0/kernel" in flat:
+        d_out.append(flat[f"params/DilatedResBlock_{i}/PointConv_1/Dense_0/kernel"].shape[0])
+        i += 1
+    return {"num_classes": flat["params/Dense_1/kernel"].shape[1],
+            "d_out": tuple(d_out), "d_in": flat["params/Dense_0/kernel"].shape[0]}
+
+
+def randla_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax variables of ``RandLANet`` → the port's state dict.
+
+    Raises ValueError unless every leaf is consumed and every tensor of
+    the port model is filled with the right shape."""
+    shape = _randla_shape(flat)
+    modules = randla_module_map(len(shape["d_out"]))
+    sd: dict[str, torch.Tensor] = {}
+    unmapped = []
+    for path, value in flat.items():
+        collection, _, rest = path.partition("/")
+        mod, _, leaf = rest.rpartition("/")
+        if mod not in modules or _LEAF_COLLECTION.get(leaf) != collection:
+            unmapped.append(path)
+            continue
+        arr = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            arr = arr.T
+        key = f"{modules[mod]}.{'weight' if leaf == 'kernel' else leaf}"
+        sd[key] = torch.from_numpy(np.array(arr, order="C"))
+    template = RandLANet(**shape).state_dict()
+    missing = sorted(set(template) - set(sd))
+    if unmapped or missing:
+        raise ValueError(f"flax leaves do not fill the port model: "
+                         f"missing {missing}, unconsumed {sorted(unmapped)}")
+    bad = [k for k in template if template[k].shape != sd[k].shape]
+    if bad:
+        raise ValueError(f"shape mismatch for {bad}")
+    return sd
+
+
+def randla_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``randla_from_jax_variables``: state dict → flat flax
+    leaves."""
+    num_layers = len({k.split(".")[1] for k in state_dict if k.startswith("blocks.")})
+    inverse = {v: k for k, v in randla_module_map(num_layers).items()}
+    flat = {}
+    for key, t in state_dict.items():
+        mod, _, leaf = key.rpartition(".")
+        flax_leaf = "kernel" if leaf == "weight" else leaf
+        arr = t.detach().cpu().numpy()
+        flat[f"{_LEAF_COLLECTION[flax_leaf]}/{inverse[mod]}/{flax_leaf}"] = (
+            arr.T.copy() if leaf == "weight" else arr.copy())
     return flat
