@@ -16,7 +16,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (CUDA events, after warm-up).
 4. kNN and wide-row bottom-k against their plain versions on the card:
    kNN at every ``build_pyramid`` shape of a batch of 4 × 40960-point
-   RandLA clouds (k=16 and k=1) and at [1, 4096, 64] k=16; wide-row
+   RandLA clouds (k=16 and k=1), at [1, 4096, 64] k=16 and k=48 and on
+   tie-heavy [2, 2048, 4] k=8; wide-row
    bottom-k on [4, 4096, 40960] k=16 pyramid distances, on tie-heavy
    rounded values and at its edges (N = 8193, k = 48, N = 2^20); refusal
    past the bounds. Values and indices equal; median times of kernel and
@@ -391,8 +392,12 @@ def phase_randla_kernels(dev, records, xyz):
     calls = pyramid_knn_inputs(xyz)
     gen = torch.Generator(device=dev).manual_seed(2)
     feat64 = torch.randn((1, 4096, 64), generator=gen, device=dev)
+    feat4 = torch.round(torch.randn((2, 2048, 4), generator=gen, device=dev) * 4) / 4
     knn_err = 0.0
-    for q, p, k in calls + [(feat64, feat64, 16)]:
+    # the pyramid's calls (D = 3 kernel, k = 1 and 16), then the any-D
+    # kernel, with k below its list size (8 of 16) and at the bound (48)
+    for q, p, k in calls + [(feat64, feat64, 16), (feat4, feat4, 8),
+                            (feat64[:, :1024], feat64, 48)]:
         knn_err = max(knn_err, _equal(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}",
                                       knn.knn(q, p, k), knn.knn_plain(q, p, k)))
         print(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: values and indices equal")

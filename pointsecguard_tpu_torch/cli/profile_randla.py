@@ -1,0 +1,146 @@
+"""Breakdown of one RandLA NB batch (4 × 40960 points) on the card.
+
+    python -m pointsecguard_tpu_torch.cli.profile_randla [--out FILE]
+
+Run from the root of a checkout: the set-up is ``chip_smoke.py``'s own
+(its synthetic rooms prepared at 0.04 m, one sampler batch, its
+calibrated full-width checkpoint), so the numbers describe the batch the
+smoke run attacks. Prints, as JSON, the median CUDA-event time of each
+part of a batch, the host-clock wall of 10 whole batches, the peak
+device memory, and from 3 batches under ``torch.profiler`` the device
+busy time, the kernels launched per batch and the device idle share
+(1 − busy / host wall median); then the profiler's operator table by
+self CUDA time. ``--out`` also writes the JSON and the table to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+
+def _busy_ms(prof, batches: int) -> tuple[float, float]:
+    """(device busy ms, kernels) per batch: the union of the intervals of
+    the profiled device events, so overlapping kernels count once."""
+    import torch
+
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.time_range.elapsed_us() > 0]
+    busy, cur_s, cur_e = 0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in ev):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / batches / 1e3, len(ev) / batches
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the results here")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+
+    from pointsecguard_tpu_torch.attacks import attack_preset, pgd_color_attack
+    from pointsecguard_tpu_torch.data import make_synthetic_rooms
+    from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
+    from pointsecguard_tpu_torch.utils.runtime import require_cuda
+
+    dev = require_cuda()
+    card = cs.card_line()
+    print(card, flush=True)
+    cs.WORK = os.path.join("build", "profile_randla")
+    os.makedirs(cs.WORK, exist_ok=True)
+    data = os.path.join(cs.WORK, "data")
+    make_synthetic_rooms(data, points_per_room=cs.ROOM_POINTS, seed=0)
+    feats = cs.randla_batch(cs.prepare_randla(data), dev)
+    labels = torch.randint(0, 13, feats.shape[:2], device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    model = RandLANet()
+    model.load_state_dict(cs.randla_state_dict(0, dev, feats))
+    model.to(dev).eval().requires_grad_(False)
+    cfg = attack_preset("randla", "nb")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pyr = build_pyramid(feats[..., :3])
+    with torch.no_grad():
+        _, pos = model(feats, pyr, collect_pos=True)
+
+    def collect():
+        with torch.no_grad():
+            return model(feats, pyr, collect_pos=True)
+
+    def fwd_bwd():
+        c = feats[..., 3:6].detach().requires_grad_(True)
+        out = model(torch.cat([feats[..., :3], c], -1), pyr, pos_plan=pos)
+        return torch.autograd.grad(out.sum(), c)
+
+    def attack():
+        return pgd_color_attack(lambda f: model(f, pyr, pos_plan=pos), feats,
+                                labels, cfg, generator=gen)
+
+    def batch():  # what the driver does per batch, transfers included
+        with torch.no_grad():
+            p = build_pyramid(feats[..., :3])
+            logits, ps = model(feats, p, collect_pos=True)
+        r = pgd_color_attack(lambda f: model(f, p, pos_plan=ps), feats, labels,
+                             cfg, generator=gen)
+        return r.adv_pred.cpu(), logits.argmax(-1).cpu()
+
+    res = {"card": card}
+    for name, fn, reps in (
+        ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
+        ("collect forward (clean pred + pos plan)", collect, 10),
+        ("one forward + input backward", fwd_bwd, 10),
+        ("attack: 10 iterations + final forward", attack, 5),
+        ("whole batch, CUDA events", batch, 5),
+    ):
+        res[name + " ms"] = cs.cuda_ms(fn, reps=reps)
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    res["whole batch, host clock median of 10 ms"] = statistics.median(walls)
+    res["host clock min, max ms"] = [min(walls), max(walls)]
+    torch.cuda.reset_peak_memory_stats()
+    batch()
+    torch.cuda.synchronize()
+    res["peak device memory GB"] = torch.cuda.max_memory_allocated() / 1e9
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            batch()
+        torch.cuda.synchronize()
+    busy, kernels = _busy_ms(prof, 3)
+    res["profiled: device busy per batch ms"] = busy
+    res["profiled: kernels per batch"] = kernels
+    res["device idle share vs unprofiled host median"] = (
+        1 - busy / res["whole batch, host clock median of 10 ms"])
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
+    print(json.dumps(res, indent=1))
+    print(table)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(json.dumps(res, indent=1) + "\n" + table + "\n")
+    return res
+
+
+if __name__ == "__main__":
+    main()

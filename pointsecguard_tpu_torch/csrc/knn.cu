@@ -24,8 +24,8 @@
 // are scanned in index order and a
 // candidate enters only when strictly smaller than the current k-th value,
 // after any equal values: that is first-occurrence order among ties. For
-// D <= 4 (RandLA's xyz) a query lives in registers and a point is one
-// 16-byte shared load (x, y, z, |p|^2); wider features read the query from
+// D = 3 (RandLA's xyz) a query lives in registers and a point is one
+// 16-byte shared load (x, y, z, |p|^2); any other D reads the query from
 // the L1-cached row.
 //
 // What bounds it: the S*N distance evaluations (about ten instructions
@@ -95,53 +95,42 @@ __device__ __forceinline__ float combine(float s2, float cross, float d2) {
   return __fadd_rn(__fsub_rn(s2, __fmul_rn(2.0f, cross)), d2);
 }
 
-// D <= 4 (DS = D): the query in registers, each point one float4
-// (x, y, z, |p|^2), with the 4th coordinate of D = 4 in a second row.
-template <int KMAX, int DS>
+// D = 3 (RandLA's xyz): the query in registers, each point one float4
+// (x, y, z, |p|^2) in shared memory.
+template <int KMAX>
 __global__ void __launch_bounds__(kThreads)
-knn_small_d_kernel(const float* __restrict__ query, const float* __restrict__ points,
-                   const float* __restrict__ s2, const float* __restrict__ d2,
-                   float* __restrict__ out_v, int* __restrict__ out_i,
-                   int S, int N, int k, int tile) {
+knn_xyz_kernel(const float* __restrict__ query, const float* __restrict__ points,
+               const float* __restrict__ s2, const float* __restrict__ d2,
+               float* __restrict__ out_v, int* __restrict__ out_i,
+               int S, int N, int k, int tile) {
   extern __shared__ float4 sp4[];
   const int b = blockIdx.y;
   const int row = blockIdx.x * kThreads + threadIdx.x;
   const bool valid = row < S;
-  float q[DS];
-  float qs2 = 0.f;
-#pragma unroll
-  for (int c = 0; c < DS; ++c) q[c] = 0.f;
+  float q0 = 0.f, q1 = 0.f, q2 = 0.f, qs2 = 0.f;
   if (valid) {
-    const float* qr = query + ((size_t)b * S + row) * DS;
-#pragma unroll
-    for (int c = 0; c < DS; ++c) q[c] = qr[c];
+    const float* qr = query + ((size_t)b * S + row) * 3;
+    q0 = qr[0];
+    q1 = qr[1];
+    q2 = qr[2];
     qs2 = s2[(size_t)b * S + row];
   }
   TopK<KMAX> best;
   best.init(k);
-  const float* pb = points + (size_t)b * N * DS;
+  const float* pb = points + (size_t)b * N * 3;
   const float* db = d2 + (size_t)b * N;
   for (int base = 0; base < N; base += tile) {
     const int nt = min(tile, N - base);
     __syncthreads();
     for (int j = threadIdx.x; j < nt; j += kThreads) {
-      const float* p = pb + (size_t)(base + j) * DS;
-      float4 e;
-      e.x = p[0];
-      e.y = DS > 1 ? p[1] : 0.f;
-      e.z = DS > 2 ? p[2] : 0.f;
-      e.w = db[base + j];
-      sp4[j] = e;
-      if (DS > 3) sp4[tile + j] = make_float4(p[DS > 3 ? 3 : 0], 0.f, 0.f, 0.f);
+      const float* p = pb + (size_t)(base + j) * 3;
+      sp4[j] = make_float4(p[0], p[1], p[2], db[base + j]);
     }
     __syncthreads();
     if (!valid) continue;
     for (int j = 0; j < nt; ++j) {
       const float4 e = sp4[j];
-      float cross = __fmul_rn(q[0], e.x);
-      if (DS > 1) cross = __fmaf_rn(q[DS > 1 ? 1 : 0], e.y, cross);
-      if (DS > 2) cross = __fmaf_rn(q[DS > 2 ? 2 : 0], e.z, cross);
-      if (DS > 3) cross = __fmaf_rn(q[DS > 3 ? 3 : 0], sp4[tile + j].x, cross);
+      const float cross = __fmaf_rn(q2, e.z, __fmaf_rn(q1, e.y, __fmul_rn(q0, e.x)));
       const float d = combine(qs2, cross, e.w);
       if (d < best.kth()) best.insert(d, base + j);
     }
@@ -212,33 +201,14 @@ cudaError_t launch(const float* q, const float* p, const float* s2,
                    const float* d2, float* ov, int* oi, int B, int S, int N,
                    int D, int k, cudaStream_t stream) {
   const dim3 grid((S + kThreads - 1) / kThreads, B);
-  if (D <= 4) {
-    // float4 per point, plus a second float4 row for the 4th coordinate
-    const int per_point = (D > 3 ? 2 : 1) * (int)sizeof(float4);
-    const int tile = std::min(N, kSmemBytes / per_point);
-    const size_t smem = (size_t)tile * per_point;
-    switch (D) {
-      case 1:
-        knn_small_d_kernel<KMAX, 1><<<grid, kThreads, smem, stream>>>(
-            q, p, s2, d2, ov, oi, S, N, k, tile);
-        break;
-      case 2:
-        knn_small_d_kernel<KMAX, 2><<<grid, kThreads, smem, stream>>>(
-            q, p, s2, d2, ov, oi, S, N, k, tile);
-        break;
-      case 3:
-        knn_small_d_kernel<KMAX, 3><<<grid, kThreads, smem, stream>>>(
-            q, p, s2, d2, ov, oi, S, N, k, tile);
-        break;
-      default:
-        knn_small_d_kernel<KMAX, 4><<<grid, kThreads, smem, stream>>>(
-            q, p, s2, d2, ov, oi, S, N, k, tile);
-    }
+  if (D == 3) {
+    const int tile = std::min(N, kSmemBytes / (int)sizeof(float4));
+    knn_xyz_kernel<KMAX><<<grid, kThreads, (size_t)tile * sizeof(float4), stream>>>(
+        q, p, s2, d2, ov, oi, S, N, k, tile);
   } else {
     // whole register blocks (the tail of a tile is read but masked)
     const int per_point = (D + 1) * (int)sizeof(float);
-    int tile = (kSmemBytes / per_point) / kRegBlock * kRegBlock;
-    if (tile < kRegBlock) return cudaErrorInvalidValue;
+    const int tile = (kSmemBytes / per_point) / kRegBlock * kRegBlock;
     knn_wide_d_kernel<KMAX><<<grid, kThreads, (size_t)tile * per_point, stream>>>(
         q, p, s2, d2, ov, oi, S, N, D, k, tile);
   }
@@ -261,10 +231,8 @@ extern "C" int psg_knn(const void* query, const void* points, const void* s2,
   auto* ov = static_cast<float*>(out_v);
   auto* oi = static_cast<int*>(out_i);
   auto st = static_cast<cudaStream_t>(stream);
+  // the list sizes the pyramid uses (k = 1 and 16), and the bound
   if (k <= 1) return (int)launch<1>(q, p, a, c, ov, oi, B, S, N, D, k, st);
-  if (k <= 4) return (int)launch<4>(q, p, a, c, ov, oi, B, S, N, D, k, st);
-  if (k <= 8) return (int)launch<8>(q, p, a, c, ov, oi, B, S, N, D, k, st);
   if (k <= 16) return (int)launch<16>(q, p, a, c, ov, oi, B, S, N, D, k, st);
-  if (k <= 32) return (int)launch<32>(q, p, a, c, ov, oi, B, S, N, D, k, st);
   return (int)launch<48>(q, p, a, c, ov, oi, B, S, N, D, k, st);
 }

@@ -4,10 +4,8 @@
 Fresh implementation of the functionality of the reference's
 `RandLA-Net/helper_ply.py` (`read_ply:116`, `write_ply:217`): PLY vertex
 clouds with arbitrary named scalar properties, returned as a numpy
-structured array. Reads binary little/big-endian AND ascii (the reference
-raises ``ValueError('The file is not binary')`` on ascii,
-`helper_ply.py:162-163`; we accept it — documented superset for foreign
-PLY files); writes binary little-endian like the reference.
+structured array. Reads and writes binary PLY, as the reference does
+(ascii raises, as `helper_ply.py:162-163` does).
 """
 
 from __future__ import annotations
@@ -29,12 +27,11 @@ _INV_DTYPES = {
 _FORMAT_ENDIAN = {
     "binary_little_endian": "<",
     "binary_big_endian": ">",
-    "ascii": "=",
 }
 
 
 def read_ply(path: str) -> np.ndarray:
-    """Read a PLY file (binary LE/BE or ascii) → structured array of the
+    """Read a binary (LE/BE) PLY file → structured array of the
     vertex element's properties."""
     with open(path, "rb") as f:
         if f.readline().strip() != b"ply":
@@ -77,13 +74,6 @@ def read_ply(path: str) -> np.ndarray:
         dtype = np.dtype(
             [(name, _FORMAT_ENDIAN[fmt] + t) for name, t in props]
         )
-        if fmt == "ascii":
-            rows = [f.readline().split() for _ in range(count)]
-            rec = np.empty(count, dtype=dtype)
-            for j, (name, _) in enumerate(props):
-                col = np.array([r[j] for r in rows])
-                rec[name] = col.astype(dtype[name])
-            return rec
         return np.frombuffer(f.read(count * dtype.itemsize), dtype=dtype)
 
 

@@ -1,5 +1,6 @@
 """RandLA-Net data pipeline, numpy only (port of
-``pointsecguard_tpu/data/randla.py:31-137,229-281,325-374``).
+``pointsecguard_tpu/data/randla.py:31-137,229-281,325-374``; the label
+reduction for datasets with ignored labels comes with their slices).
 
 Preparation of a collected room (`data_prepare_s3dis.py:29-72`: 0.04 m
 grid sub-sampling, a KD-tree, the full→sub projection) and the
@@ -20,7 +21,7 @@ import numpy as np
 from scipy.spatial import cKDTree
 
 from pointsecguard_tpu_torch.data.ply import read_ply, write_ply
-from pointsecguard_tpu_torch.data.s3dis import NUM_CLASSES, S3DIS_CLASSES
+from pointsecguard_tpu_torch.data.s3dis import NUM_CLASSES
 from pointsecguard_tpu_torch.ops.subsample import grid_subsample
 
 
@@ -173,13 +174,11 @@ class SpatiallyRegularSampler:
 @dataclass(frozen=True)
 class RandlaDatasetPreset:
     """What a driver needs to run RandLA on a dataset: its config, its
-    label space and a sampler factory over the prepared directory."""
+    class count and a sampler factory over the prepared directory."""
 
     name: str
     cfg: object
-    num_classes: int  # valid classes = the model's logit width
-    class_names: tuple
-    ignored_labels: tuple  # raw labels excluded from loss/metrics
+    num_classes: int  # the model's logit width
     make_sampler: object  # (dir, split, num_points, rng, test_area)
 
 
@@ -199,16 +198,6 @@ def randla_dataset_preset(dataset: str) -> RandlaDatasetPreset:
         )
 
     return RandlaDatasetPreset(
-        "s3dis", configs.RandlaConfig(), NUM_CLASSES, S3DIS_CLASSES, (), make
+        "s3dis", configs.RandlaConfig(), NUM_CLASSES, make
     )
 
-
-def label_reduce_lut(num_classes: int, ignored: tuple) -> np.ndarray:
-    """Raw-label → valid-class-index lookup (`RandLANet.py:103-124`
-    reducing_list semantics): ignored labels map to 0 and must be masked
-    out separately; valid labels map to their contiguous index."""
-    total = num_classes + len(ignored)
-    lut = np.zeros(total, np.int64)
-    keep = [l for l in range(total) if l not in set(ignored)]
-    lut[keep] = np.arange(num_classes)
-    return lut

@@ -61,10 +61,10 @@ class PointConv(nn.Module):
     or "none"; the defaults keep PointNet++'s module and numbers."""
 
     def __init__(self, in_features: int, features: int, *, act: str = "relu",
-                 bn_epsilon: float = 1e-5, use_bias: bool = True):
+                 bn_epsilon: float = 1e-5):
         super().__init__()
         self.act = _ACTS[act]
-        self.dense = nn.Linear(in_features, features, bias=use_bias)
+        self.dense = nn.Linear(in_features, features)
         self.bn = BatchNorm(features, epsilon=bn_epsilon)
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:

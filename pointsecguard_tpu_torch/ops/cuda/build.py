@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-All sources compile with one ``nvcc`` call into one shared library with a
-plain C interface, loaded with ``ctypes``. Nothing here runs at import:
+Each source compiles with its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded with ``ctypes``. Nothing here runs at import:
 the library is built at the first kernel launch (or by an explicit
 ``load_library()``), into ``<repo>/build/kernels/`` — a directory that
 ``.gitignore`` lists — under a name that carries a hash of the sources and
@@ -26,11 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point: name → argtypes (restype is int)
@@ -71,6 +69,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpsg_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]], log: list[str]) -> None:
+    """Run the commands side by side; raise if any of them failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
+def _build(path: Path) -> None:
+    """One ``nvcc -c`` per source, all at once, then one link into
+    ``path``; the compilers' output goes to ``build.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log: list[str] = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        so = os.path.join(tmp, path.name)
+        try:
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                      for o, src in zip(objs, _sources())], log)
+            _run_all([[_nvcc(), *ARCH, "-shared", "-o", so, *objs]], log)
+        finally:
+            (BUILD_DIR / "build.log").write_text("".join(log))
+        os.replace(so, path)  # atomic: a reader never sees half a file
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; idempotent."""
     global _lib
@@ -79,21 +108,7 @@ def load_library() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(str(s) for s in _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (BUILD_DIR / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-                )
-            os.replace(tmp, path)  # atomic: a reader never sees half a file
+            _build(path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
