@@ -1,8 +1,9 @@
-"""Colour-perturbation attacks of the port: the PGD engine (NB / tar_NB)
-and its reference presets (port of ``pointsecguard_tpu/attacks/__init__.py:59-130``).
+"""Colour-perturbation attacks of the port: the PGD engine (NB / tar_NB),
+the C&W engine (NU / tar_NU) and their reference presets (port of
+``pointsecguard_tpu/attacks/__init__.py:59-130``).
 
-C&W (NU / tar_NU), the ares registry, black-box and decision attacks,
-defenses and noise controls are not ported yet.
+The ares registry, black-box and decision attacks, defenses and noise
+controls are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,46 +17,67 @@ from pointsecguard_tpu_torch.attacks.common import (
     per_sample_accuracy,
     point_accuracy,
 )
+from pointsecguard_tpu_torch.attacks.cw import CWConfig, cw_color_attack
 from pointsecguard_tpu_torch.attacks.pgd import PGDConfig, pgd_color_attack
 
-# The reference's PGD benchmark configurations, keyed by (model_family,
+# The reference's benchmark configurations, keyed by (model_family,
 # attack). Sources: BASELINE.md / SURVEY.md §2.
-_PRESETS: dict[tuple[str, str], PGDConfig] = {
+_PRESETS: dict[tuple[str, str], PGDConfig | CWConfig] = {
     # PointNet++ (`PointNet/NB_nontarget_test_semseg.py:169` etc.)
     ("pointnet2", "nb"): PGDConfig(eps=0.1, alpha=0.05, iters=10),
+    ("pointnet2", "nu"): CWConfig(
+        steps=1000, lr=0.01, f_coeff=1.0, smooth_coeff=0.1, l2_coeff=0.1
+    ),
     ("pointnet2", "tar_nb"): PGDConfig(
         eps=0.5, alpha=0.1, iters=500, targeted=True, ce_reduction="mean"
+    ),
+    ("pointnet2", "tar_nu"): CWConfig(
+        steps=1000, lr=0.01, f_coeff=1.0, smooth_coeff=1.0, l2_coeff=1.0,
+        smooth_k=5, targeted=True, lr_halve_every=50,
     ),
     # RandLA-Net / ares (`tester_S3DIS.py:142-145,277-280`)
     ("randla", "nb"): PGDConfig(
         eps=17.0, alpha=1.7, iters=10, loss="hinge", step_norm="l2",
         rand_init_eps=17.0 / 5.0,
     ),
+    ("randla", "nu"): CWConfig(flavor="ares", steps=1000, lr=0.01, f_coeff=0.5),
     ("randla", "tar_nb"): PGDConfig(
         eps=10.0, alpha=1.0, iters=20, loss="hinge", step_norm="l2",
         targeted=True, rand_init_eps=2.0, early_exit_sr=0.90,
     ),
-    # ResGCN (`ResGCN/sem_seg_dense/attacks.py:75,210`)
+    ("randla", "tar_nu"): CWConfig(
+        flavor="ares", steps=1000, lr=0.01, f_coeff=1.0, targeted=True,
+        success_sr=0.95,
+    ),
+    # ResGCN (`ResGCN/sem_seg_dense/attacks.py:75,134,210,288`)
     ("resgcn", "nb"): PGDConfig(eps=0.3, alpha=2.0 / 255.0, iters=50),
+    ("resgcn", "nu"): CWConfig(
+        steps=1000, lr=0.1, f_coeff=0.1, smooth_coeff=1e-4, l2_coeff=1.0
+    ),
     ("resgcn", "tar_nb"): PGDConfig(
         eps=0.4, alpha=0.04, iters=50, targeted=True, ce_reduction="mean"
+    ),
+    ("resgcn", "tar_nu"): CWConfig(
+        steps=1000, lr=0.1, f_coeff=1.0, smooth_coeff=1e-4, l2_coeff=0.1,
+        smooth_k=5, targeted=True,
     ),
 }
 
 
-def attack_preset(model: str, attack: str, **overrides) -> PGDConfig:
-    """Reference PGD budget for (model, attack), with optional overrides.
-
-    Targeted presets still need ``target=<class>``. The C&W presets (nu,
-    tar_nu) are not ported yet and raise KeyError."""
+def attack_preset(model: str, attack: str, **overrides) -> PGDConfig | CWConfig:
+    """Reference attack budget for (model, attack) — a ``PGDConfig`` for
+    nb / tar_nb, a ``CWConfig`` for nu / tar_nu — with optional overrides.
+    Targeted presets still need ``target=<class>``."""
     cfg = _PRESETS[(model, attack)]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 __all__ = [
     "AttackResult",
+    "CWConfig",
     "PGDConfig",
     "attack_preset",
+    "cw_color_attack",
     "make_target_labels",
     "per_point_ce",
     "per_sample_accuracy",

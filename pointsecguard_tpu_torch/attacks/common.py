@@ -10,6 +10,9 @@ from typing import NamedTuple
 
 import torch
 
+from pointsecguard_tpu_torch.ops.distance import square_distance
+from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
+
 COLOR_SLICE = slice(3, 6)
 
 
@@ -51,6 +54,66 @@ def hinge_logit_loss(
     if point_mask is not None:
         per_point = per_point * point_mask.to(per_point.dtype)
     return torch.sum(per_point, dim=-1)
+
+
+def cw_f_prob(
+    outputs: torch.Tensor, labels: torch.Tensor, kappa: float, num_classes: int
+) -> torch.Tensor:
+    """The C&W f on softmax probabilities (`nontarget.py:120-128`):
+    clamp(p_true − max_other_p, min=−κ) per point."""
+    probs = torch.softmax(outputs, dim=-1)
+    one_hot = torch.nn.functional.one_hot(labels.long(), num_classes).to(probs.dtype)
+    j = torch.sum(one_hot * probs, dim=-1)
+    i = torch.amax((1.0 - one_hot) * probs, dim=-1)
+    return torch.clamp(j - i, min=-kappa)
+
+
+def cw_f_targeted(
+    outputs: torch.Tensor, target: int, kappa: float, num_classes: int
+) -> torch.Tensor:
+    """Targeted C&W f on raw outputs (`tcolper.py:155-163` direction):
+    clamp(max_other − target_out, min=−κ) per point; minimising it drives
+    the target class above all others (the PointNet fork's `tar_f` has
+    the sign inverted, `target.py:159-167`; the JAX package implements the
+    working direction, and so does the port)."""
+    one_hot = torch.zeros(num_classes, dtype=outputs.dtype, device=outputs.device)
+    one_hot[target] = 1.0
+    i = torch.sum(one_hot * outputs, dim=-1)
+    j = torch.amax((1.0 - one_hot) * outputs, dim=-1)
+    return torch.clamp(j - i, min=-kappa)
+
+
+class _ColorSmoothness(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, adv_color, ref_color, k):
+        # the JAX association (Σa² − 2·a·rᵀ) + Σr² in full float32
+        d2k, idx = bottom_k_indices(square_distance(adv_color, ref_color), k)
+        # clamp before the sqrt: the self pair starts at ~0 and sqrt'(0) = ∞
+        d = torch.sqrt(torch.clamp(d2k, min=1e-12))
+        ctx.save_for_backward(adv_color, ref_color, d, idx)
+        return torch.sum(d, dim=(1, 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        adv_color, ref_color, d, idx = ctx.saved_tensors
+        B, N, k = idx.shape
+        flat = idx.reshape(B, N * k, 1).long().expand(-1, -1, ref_color.shape[-1])
+        ref_sel = torch.gather(ref_color, 1, flat).reshape(B, N, k, -1)
+        diff = adv_color[:, :, None, :] - ref_sel
+        dinv = 1.0 / torch.clamp(d, min=1e-6)
+        grad_adv = g[:, None, None] * torch.sum(diff * dinv[..., None], dim=2)
+        return grad_adv, torch.zeros_like(ref_color), None
+
+
+def color_smoothness(adv_color: torch.Tensor, ref_color: torch.Tensor, k: int) -> torch.Tensor:
+    """kNN colour-space smoothness term (`nontarget.py:130-135`): for each
+    point the sum of its k smallest colour distances to the reference
+    cloud → [B]. The neighbours are selected by ``bottom_k_indices`` (the
+    bottom-k kernel on the card). The backward reuses that selection,
+    d‖a−r‖/da = (a−r)/‖a−r‖ over each point's selected neighbours, and
+    gives ``ref_color`` a zero gradient: every caller passes the constant
+    clean colours (the JAX package's custom VJP, `attacks/common.py:111-168`)."""
+    return _ColorSmoothness.apply(adv_color, ref_color, k)
 
 
 def point_accuracy(

@@ -2,7 +2,8 @@
 ``pointsecguard_tpu/cli/_attack_blocks.py:18-511`` for PointNet++ SSG).
 
 Per batch of blocks: build the xyz-only geometry once (FPS and bottom-k
-kernels), clean forward, PGD attack, per-block TSV rows in the JAX
+kernels), clean forward, PGD (nb / tar_nb) or C&W (nu / tar_nu) attack,
+per-block TSV rows in the JAX
 CLI's format; per room and per dataset, clean-vs-adversarial IoU from
 pooled votes (`NB_nontarget_test_semseg.py:64-294` protocol).
 """
@@ -18,7 +19,9 @@ def run_blocks(args, log):
     import torch
 
     from pointsecguard_tpu_torch.attacks import (
+        PGDConfig,
         attack_preset,
+        cw_color_attack,
         make_target_labels,
         pgd_color_attack,
     )
@@ -90,7 +93,10 @@ def run_blocks(args, log):
 
                 with torch.no_grad():
                     clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
-                res = pgd_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
+                if isinstance(attack_cfg, PGDConfig):
+                    res = pgd_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
+                else:
+                    res = cw_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
                 clean_pred = clean_pred_d.cpu().numpy()[:valid]
                 adv_pred = res.adv_pred.cpu().numpy()[:valid]
                 steps_row = res.steps_b.cpu().numpy()[:valid]

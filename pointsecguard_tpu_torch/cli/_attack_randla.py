@@ -5,9 +5,10 @@
 Samples spatially-regular clouds, and per batch: builds the pyramid
 (fused kNN kernel) and the position plan once under ``no_grad``, takes
 the clean prediction from that same forward, runs the ares NB / tar_NB
-attack reusing both, and writes one TSV row per cloud in the JAX CLI's
-format. Targeted runs use batch 1 and skip clouds with fewer than 500
-origin points (`tester_S3DIS.py:253-258`).
+(PGD) or NU / tar_NU (C&W) attack reusing both, and writes one TSV row
+per cloud in the JAX CLI's format. Targeted runs use batch 1 and skip
+clouds with fewer than 500 origin points (`tester_S3DIS.py:253-258`).
+``--fused_ap`` builds the model with ``ap_impl="fused"``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ def run_randla(args, log):
     import torch
 
     from pointsecguard_tpu_torch.attacks import (
+        PGDConfig,
         attack_preset,
+        cw_color_attack,
         make_target_labels,
         pgd_color_attack,
     )
@@ -45,7 +48,8 @@ def run_randla(args, log):
     sampler = preset.make_sampler(args.randla_dir, "test", num_points,
                                   np.random.default_rng(args.seed),
                                   test_area=args.test_area)
-    model = RandLANet(num_classes=K, d_out=cfg.d_out)
+    model = RandLANet(num_classes=K, d_out=cfg.d_out,
+                      ap_impl="fused" if args.fused_ap else "reference")
     model.load_state_dict(load_checkpoint(args.log_dir))
     # inference only: the attack needs input gradients, never parameter ones
     model.to(device).eval().requires_grad_(False)
@@ -78,8 +82,15 @@ def run_randla(args, log):
                 # once here; this forward's logits are the clean prediction
                 clean_logits, pos = model(feats_t, pyr, collect_pos=True)
                 clean_pred_d = torch.argmax(clean_logits, dim=-1)
-            res = pgd_color_attack(lambda f: model(f, pyr, pos_plan=pos), feats_t,
-                                   labels_t, attack_cfg, mask=mask, generator=gen)
+
+            def outputs_fn(f, pyr=pyr, pos=pos):
+                return model(f, pyr, pos_plan=pos)
+
+            if isinstance(attack_cfg, PGDConfig):
+                res = pgd_color_attack(outputs_fn, feats_t, labels_t, attack_cfg,
+                                       mask=mask, generator=gen)
+            else:
+                res = cw_color_attack(outputs_fn, feats_t, labels_t, attack_cfg, mask=mask)
             clean_pred = clean_pred_d.cpu().numpy()
             adv_pred = res.adv_pred.cpu().numpy()
             l2_np = res.l2_dist.cpu().numpy()

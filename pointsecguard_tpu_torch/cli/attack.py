@@ -4,10 +4,12 @@
   python -m pointsecguard_tpu_torch.cli.attack --model pointnet2 --attack nb \
       --data_root data/stanford_indoor3d --log_dir log/pointnet2
 
-Ported: ``--attack nb|tar_nb`` for ``--model pointnet2`` over whole-scene
-blocks (``cli/_attack_blocks.py``) and for ``--model randla`` over
-spatially-regular S3DIS clouds (``cli/_attack_randla.py``, prepared with
-``data.randla.prepare_room`` under ``--randla_dir``). The checkpoint is
+Ported: ``--attack nb|tar_nb`` (PGD) and ``nu|tar_nu`` (C&W) for
+``--model pointnet2`` over whole-scene blocks (``cli/_attack_blocks.py``)
+and for ``--model randla`` over spatially-regular S3DIS clouds
+(``cli/_attack_randla.py``, prepared with ``data.randla.prepare_room``
+under ``--randla_dir``); ``--fused_ap`` (``--model randla`` only) runs
+the narrow attentive poolings through the fused kernels. The checkpoint is
 the port's own (``<log_dir>/checkpoints/best.pt``, see
 ``utils/checkpoint.py``). It runs on the GPU; ``--device cpu`` runs the
 plain PyTorch path by request.
@@ -23,10 +25,10 @@ import logging
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
 PORTED_MODELS = ("pointnet2", "randla")
-PORTED_ATTACKS = ("nb", "tar_nb")
+PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu")
 # JAX CLI flags this port does not implement yet
 _UNPORTED_SWITCHES = (
-    "--control", "--log_steps", "--save_adv", "--visual", "--fused_ap",
+    "--control", "--log_steps", "--save_adv", "--visual",
     "--resgcn_fast", "--resgcn_fixed_graphs",
 )
 _UNPORTED_VALUES = (
@@ -66,6 +68,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
+    ap.add_argument("--fused_ap", action="store_true",
+                    help="randla: fused attentive-pooling kernels for the "
+                         "poolings narrower than 128 channels")
     # flags whose only ported value is the default
     ap.add_argument("--defense", default="none")
     ap.add_argument("--devices", "-d", type=int, default=1)
@@ -89,6 +94,9 @@ def _refuse_unported(args) -> None:
             refused.append(f"--{flag} {getattr(args, flag)}")
     if args.ensemble:
         refused.append("--ensemble")
+    if args.fused_ap and args.model != "randla":
+        refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
+                       "attentive pooling: --model randla only)")
     refused += [f for f in _UNPORTED_SWITCHES if getattr(args, f[2:])]
     refused += [f for f in _UNPORTED_VALUES if getattr(args, f[2:]) is not None]
     if refused:

@@ -1,6 +1,6 @@
 """Breakdown of one RandLA NB batch (4 × 40960 points) on the card.
 
-    python -m pointsecguard_tpu_torch.cli.profile_randla [--out FILE]
+    python -m pointsecguard_tpu_torch.cli.profile_randla [--fused_ap] [--out FILE]
 
 Run from the root of a checkout: the set-up is ``chip_smoke.py``'s own
 (its synthetic rooms prepared at 0.04 m, one sampler batch, its
@@ -10,7 +10,8 @@ part of a batch, the host-clock wall of 10 whole batches, the peak
 device memory, and from 3 batches under ``torch.profiler`` the device
 busy time, the kernels launched per batch and the device idle share
 (1 − busy / host wall median); then the profiler's operator table by
-self CUDA time. ``--out`` also writes the JSON and the table to FILE.
+self CUDA time. ``--fused_ap`` profiles the model with
+``ap_impl="fused"``. ``--out`` also writes the JSON and the table to FILE.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ def _busy_ms(prof, batches: int) -> tuple[float, float]:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fused_ap", action="store_true",
+                    help="the fused attentive-pooling kernels (ap_impl='fused')")
     ap.add_argument("--out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
 
@@ -70,7 +73,8 @@ def main(argv=None) -> dict:
     feats = cs.randla_batch(cs.prepare_randla(data), dev)
     labels = torch.randint(0, 13, feats.shape[:2], device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
-    model = RandLANet()
+    ap_impl = "fused" if args.fused_ap else "reference"
+    model = RandLANet(ap_impl=ap_impl)
     model.load_state_dict(cs.randla_state_dict(0, dev, feats))
     model.to(dev).eval().requires_grad_(False)
     cfg = attack_preset("randla", "nb")
@@ -100,7 +104,7 @@ def main(argv=None) -> dict:
                              cfg, generator=gen)
         return r.adv_pred.cpu(), logits.argmax(-1).cpu()
 
-    res = {"card": card}
+    res = {"card": card, "ap_impl": ap_impl}
     for name, fn, reps in (
         ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
         ("collect forward (clean pred + pos plan)", collect, 10),

@@ -12,8 +12,11 @@ pyramid once per batch, and the position encodings of every
 (``collect_pos`` / ``pos_plan``); each attack iteration then skips the
 neighbour-xyz gathers and both position convs.
 
-Only the reference attentive-pooling composition is ported; the fused
-Pallas kernel (``ap_impl="fused"``, ``--fused_ap``) is not.
+``ap_impl="fused"`` (``--fused_ap``) runs the attentive poolings of
+channel width below 128 (layers 0 and 1 at the S3DIS widths) through the
+fused attentive-pooling kernels (``ops/cuda/attentive.py``), as the JAX
+package runs them through its Pallas kernel; the default stays the
+reference composition. The parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from torch import nn
 
 from pointsecguard_tpu_torch import ops
 from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, leaky_relu
+from pointsecguard_tpu_torch.ops.attentive import fused_supported
+from pointsecguard_tpu_torch.ops.cuda.attentive import attentive_pool_fused
 
 # TF batch_normalization defaults in the reference (`RandLANet.py:160`,
 # `helper_tf_util.py:457`): keep fraction 0.99, epsilon 1e-6.
@@ -81,9 +86,15 @@ def build_pyramid(
 
 
 class AttentivePooling(nn.Module):
-    """Attention-weighted neighbour aggregation (`RandLANet.py:397-410`),
-    the reference composition: scores = Dense(feature_set) (no bias),
-    softmax over the K axis in float32, weighted sum, then a conv."""
+    """Attention-weighted neighbour aggregation (`RandLANet.py:397-410`):
+    scores = Dense(feature_set) (no bias), softmax over the K axis in
+    float32, weighted sum, then a conv.
+
+    ``forward`` is the reference composition on feature_set [B, N, K, d];
+    ``fused`` takes the k-major halves fn, fx [K, M, d/2] (fn first, as
+    the feature set concatenates them) to the fused kernel, with the same
+    Dense weight as its [d, d] projection in x·W layout.
+    """
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
@@ -96,54 +107,100 @@ class AttentivePooling(nn.Module):
         agg = torch.sum(feature_set * scores, dim=2)  # [B, N, d]
         return self.mlp(agg, momentum)
 
+    def fused(self, fn: torch.Tensor, fx: torch.Tensor, momentum: float = BN_MOM):
+        afn, afx = attentive_pool_fused(fn, fx, self.fc.weight.t())
+        return self.mlp(torch.cat([afn, afx], dim=-1), momentum)  # [M, d_out]
+
 
 class LocalFeatureAggregation(nn.Module):
     """The `building_block` of `RandLANet.py:332-344`: relative position
     encoding plus two rounds of attentive pooling over the kNN
     neighbourhood.
 
-    ``pos``: the precomputed (f_xyz1, f_xyz2) position encodings from a
-    ``collect_pos=True`` call (eval mode only: batch statistics would
-    differ in train mode); the result is bit-identical either way.
+    ``pos``: the position plan of a ``collect_pos=True`` call (eval mode
+    only: batch statistics would differ in train mode); the result is
+    bit-identical either way. A reference layer's plan is (f_xyz1,
+    f_xyz2); a fused layer's is the k-major (fx1 [K, M, d_in], fx2
+    [K, M, d_out/2], kidx [B, K, N]) with M = B·N, kidx being the
+    neighbour indices k-major within each cloud, so an attack iteration
+    re-transposes no position encoding.
     """
 
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int, ap_impl: str = "reference"):
         super().__init__()
+        self.d_in, self.d_out, self.ap_impl = d_in, d_out, ap_impl
         self.mlp1 = _conv(10, d_in)
         self.att_pooling_1 = AttentivePooling(2 * d_in, d_out // 2)
         self.mlp2 = _conv(d_in, d_out // 2)
         self.att_pooling_2 = AttentivePooling(d_out, d_out)
 
+    def fused(self, k: int) -> bool:
+        """The JAX package's rule (`randlanet.py:221-230`): fused where
+        both poolings are narrower than 128 channels."""
+        return (self.ap_impl == "fused" and fused_supported(k, 2 * self.d_in)
+                and fused_supported(k, self.d_out))
+
     def position_encoding(self, xyz, neigh_idx, momentum: float = BN_MOM):
-        """(f_xyz1, f_xyz2) from xyz alone (`RandLANet.py:346-352`)."""
+        """(f_xyz1, f_xyz2) from xyz alone (`RandLANet.py:346-352`), or
+        their k-major plan (fx1, fx2, kidx) in a fused layer."""
         neighbor_xyz = ops.gather_points(xyz, neigh_idx)  # [B, N, K, 3]
         center = xyz[:, :, None, :].expand_as(neighbor_xyz)
         rel = center - neighbor_xyz
         dist = torch.sqrt(torch.sum(rel**2, dim=-1, keepdim=True))
         f_xyz = torch.cat([dist, rel, center, neighbor_xyz], dim=-1)
         f_xyz1 = self.mlp1(f_xyz, momentum)
-        return f_xyz1, self.mlp2(f_xyz1, momentum)
+        f_xyz2 = self.mlp2(f_xyz1, momentum)
+        B, N, K = neigh_idx.shape
+        if not self.fused(K):
+            return f_xyz1, f_xyz2
+
+        def k_major(f):
+            return f.permute(2, 0, 1, 3).reshape(K, B * N, f.shape[-1])
+
+        kidx = neigh_idx.long().permute(0, 2, 1).contiguous()
+        return k_major(f_xyz1), k_major(f_xyz2), kidx
 
     def forward(self, xyz, feature, neigh_idx, *, pos=None, collect_pos=False,
                 momentum: float = BN_MOM):
-        f_xyz1, f_xyz2 = (self.position_encoding(xyz, neigh_idx, momentum)
-                          if pos is None else pos)
-        f_neigh = ops.gather_points(feature, neigh_idx)  # [B, N, K, d_in]
-        f_agg = self.att_pooling_1(torch.cat([f_neigh, f_xyz1], dim=-1), momentum)
-        f_neigh2 = ops.gather_points(f_agg, neigh_idx)
-        out = self.att_pooling_2(torch.cat([f_neigh2, f_xyz2], dim=-1), momentum)
+        if pos is None:
+            pos = self.position_encoding(xyz, neigh_idx, momentum)
+        B, N, K = neigh_idx.shape
+        if self.fused(K):
+            fx1, fx2, kidx = pos
+            fn = _k_major_rows(feature, kidx)
+            f_agg = self.att_pooling_1.fused(fn, fx1, momentum)  # [M, d_out/2]
+            fn2 = _k_major_rows(f_agg.reshape(B, N, -1), kidx)
+            out = self.att_pooling_2.fused(fn2, fx2, momentum).reshape(B, N, -1)
+        else:
+            f_xyz1, f_xyz2 = pos
+            f_neigh = ops.gather_points(feature, neigh_idx)  # [B, N, K, d_in]
+            f_agg = self.att_pooling_1(torch.cat([f_neigh, f_xyz1], dim=-1), momentum)
+            f_neigh2 = ops.gather_points(f_agg, neigh_idx)
+            out = self.att_pooling_2(torch.cat([f_neigh2, f_xyz2], dim=-1), momentum)
         if collect_pos:
-            return out, (f_xyz1, f_xyz2)
+            return out, pos
         return out
+
+
+def _k_major_rows(rows: torch.Tensor, kidx: torch.Tensor) -> torch.Tensor:
+    """rows [B, N, d] gathered at kidx [B, K, N] → [K, B·N, d].
+
+    The per-cloud gather of the reference composition, then one copy to
+    k-major order. Gathering the flat [B·N, d] rows directly (B = 1 to
+    ``torch.gather``, or ``index_select``) takes PyTorch's vectorized
+    gather kernel, ~1 ms a call at these shapes on an H100 against
+    ~35 us for this one (PERF.md)."""
+    B, K, N = kidx.shape
+    return ops.gather_points(rows, kidx).transpose(0, 1).reshape(K, B * N, rows.shape[-1])
 
 
 class DilatedResBlock(nn.Module):
     """Dilated residual block (`RandLANet.py:323-330`)."""
 
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int, ap_impl: str = "reference"):
         super().__init__()
         self.mlp1 = _conv(d_in, d_out // 2)
-        self.lfa = LocalFeatureAggregation(d_out // 2, d_out)
+        self.lfa = LocalFeatureAggregation(d_out // 2, d_out, ap_impl)
         self.mlp2 = _conv(d_out, 2 * d_out, act="none")
         self.shortcut = _conv(d_in, 2 * d_out, act="none")
 
@@ -169,19 +226,20 @@ class RandLANet(nn.Module):
     reference). ``collect_pos=True`` also returns the per-layer position
     encodings, which a later call takes as ``pos_plan``. ``momentum`` is
     BatchNorm's keep fraction in train mode (the reference's 0.99).
+    ``ap_impl``: "reference" (the unfused composition) or "fused" (the
+    fused attentive-pooling kernel where the JAX package fuses).
     """
 
     def __init__(self, num_classes: int = 13, d_out: Sequence[int] = (16, 64, 128, 256, 512),
                  d_in: int = 6, ap_impl: str = "reference"):
         super().__init__()
-        if ap_impl != "reference":
-            raise ValueError(f"not ported yet: ap_impl={ap_impl!r} "
-                             "(the fused attentive-pooling kernel)")
+        if ap_impl not in ("reference", "fused"):
+            raise ValueError(f"unknown ap_impl={ap_impl!r}: want 'reference' or 'fused'")
         self.fc0 = nn.Linear(d_in, 8)
         self.bn0 = BatchNorm(8, epsilon=BN_EPS)
         widths = [8] + [2 * d for d in d_out]  # block inputs / outputs
         self.blocks = nn.ModuleList(
-            DilatedResBlock(widths[i], d_out[i]) for i in range(len(d_out))
+            DilatedResBlock(widths[i], d_out[i], ap_impl) for i in range(len(d_out))
         )
         self.decoder_0 = _conv(widths[-1], widths[-1])
         # decoder j joins encoder output -j-2 with the upsampled features

@@ -1,25 +1,29 @@
 """The port's hand-written CUDA kernels, each beside its plain version.
 
 ``fps`` (kernel A), ``bottomk`` (kernel B), ``bottomk_chunked`` (wide
-rows) and ``knn`` each hold a wrapper that launches the kernel for a CUDA
-tensor, the plain PyTorch version a CPU tensor goes to, and a launch
-counter; ``build`` compiles ``csrc/`` on first use. Importing this
-package builds nothing and imports no CUDA.
+rows), ``knn`` and ``attentive`` (fused attentive pooling, forward and
+backward) each hold a wrapper that launches the kernel for a CUDA tensor,
+the plain PyTorch version a CPU tensor goes to, and a launch counter;
+``build`` compiles ``csrc/`` on first use. Importing this package builds
+nothing and imports no CUDA.
 """
 
 from __future__ import annotations
 
-from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, fps, knn
+from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, bottomk_chunked, fps, knn
 
-KERNELS = {"fps": fps, "bottom_k": bottomk, "bottom_k_chunked": bottomk_chunked,
-           "knn": knn}
+# counter name → (module, attribute holding its count)
+KERNELS = {"fps": (fps, "launches"), "bottom_k": (bottomk, "launches"),
+           "bottom_k_chunked": (bottomk_chunked, "launches"), "knn": (knn, "launches"),
+           "attentive_fwd": (attentive, "fwd_launches"),
+           "attentive_bwd": (attentive, "bwd_launches")}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

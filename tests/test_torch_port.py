@@ -148,7 +148,7 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     ["--control"], ["--log_steps"], ["--save_adv"], ["--visual"],
     ["--defense", "bit_depth"], ["--ensemble", "pointnet:log"],
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
-    ["--model", "resgcn"], ["--attack", "nu"], ["--eot", "4"],
+    ["--model", "resgcn"], ["--attack", "random"], ["--eot", "4"],
 ])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -225,8 +225,11 @@ def test_convert_round_trip_consumes_every_leaf(full_width):
 
 
 def test_unported_attentive_pooling_is_refused():
-    with pytest.raises(ValueError, match="not ported yet"):
-        RandLANet(ap_impl="fused")
+    """"reference" and "fused" are the port's; the JAX package's Pallas
+    interpreter mode ("fused_interpret") and any other name raise."""
+    for ap_impl in ("fused_interpret", "pallas"):
+        with pytest.raises(ValueError, match="unknown ap_impl"):
+            RandLANet(ap_impl=ap_impl)
 
 
 # --- the attacks on a narrow model ---

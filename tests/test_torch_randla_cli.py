@@ -1,6 +1,7 @@
 """The port's RandLA-Net attack CLI on the CPU against the JAX driver, and
 its guards (unported flags, batch rules, no card)."""
 
+import dataclasses
 import functools
 import inspect
 import os
@@ -13,9 +14,11 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
+from pointsecguard_tpu import attacks as jattacks
 from pointsecguard_tpu import configs as jconfigs
 from pointsecguard_tpu.models import RandLANet as JaxRandLANet
 from pointsecguard_tpu.models import build_pyramid as jax_build_pyramid
+from pointsecguard_tpu_torch import attacks as tattacks
 from pointsecguard_tpu_torch import configs as tconfigs
 from pointsecguard_tpu_torch.cli import attack as tcli
 from pointsecguard_tpu_torch.data import make_synthetic_rooms, randla
@@ -122,9 +125,68 @@ def test_cli_tar_nb_on_cpu_gates_clouds(cli_runs, monkeypatch):
     assert len(_read_tsv(tsv)[1]) == 0
 
 
+def _short_presets(mp, attack, **overrides):
+    """The C&W preset with its 1000 steps cut, in both packages."""
+    for pkg in (jattacks, tattacks):
+        key = ("randla", attack)
+        mp.setitem(pkg._PRESETS, key, dataclasses.replace(pkg._PRESETS[key], **overrides))
+
+
+@pytest.fixture(scope="module")
+def nu_runs(cli_runs):
+    """NU through both drivers on the clouds and weights of ``cli_runs``,
+    20 steps without the early exit (the random weights start below its
+    1/13 accuracy); the port's with --fused_ap (off the TPU the JAX driver
+    runs its reference composition: the two differ by float
+    reassociation)."""
+    from pointsecguard_tpu.cli import attack as jcli
+
+    jlog, tlog = cli_runs
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jconfigs, "RandlaConfig", functools.partial(jconfigs.RandlaConfig, **NARROW))
+    mp.setattr(tconfigs, "RandlaConfig", functools.partial(tconfigs.RandlaConfig, **NARROW))
+    _short_presets(mp, "nu", steps=20, success_acc=0.0)
+    argv = ["--model", "randla", "--attack", "nu", "--randla_dir",
+            str(tlog.parent / "port"), "--randla_points", "512", "--num_clouds", "2"]
+    jcli.main(argv + ["--log_dir", str(jlog)])
+    tcli.main(argv + ["--log_dir", str(tlog), "--device", "cpu", "--fused_ap"])
+    mp.undo()
+    return jlog, tlog
+
+
+def test_cli_nu_fused_on_cpu_matches_the_jax_driver(nu_runs):
+    jlog, tlog = nu_runs
+    jheader, jrows = _read_tsv(jlog / "randla_nu_area5.tsv")
+    header, rows = _read_tsv(tlog / "randla_nu_area5.tsv")
+    assert header == jheader == _jax_randla_header()
+    assert len(rows) == len(jrows) == 2
+    for r, jr in zip(rows, jrows):
+        assert r[0] == jr[0] and r[1] == jr[1]  # the same clouds, clean accuracy
+        assert r[5] == jr[5] == "20" and all(np.isfinite(float(x)) for x in r[1:])
+        assert float(r[2]) <= float(r[1])  # C&W does not raise the accuracy
+        assert float(r[3]) > 0.0  # and moved the colours
+
+
+def test_cli_tar_nu_fused_on_cpu_gates_clouds(cli_runs, monkeypatch):
+    """tar_NU at batch 1 through the fused model: the <500-origin gate,
+    then per-cloud exit within the step budget."""
+    _, tlog = cli_runs
+    monkeypatch.setattr(tconfigs, "RandlaConfig",
+                        functools.partial(tconfigs.RandlaConfig, **NARROW))
+    _short_presets(monkeypatch, "tar_nu", steps=10)
+    tcli.main(["--model", "randla", "--attack", "tar_nu", "--device", "cpu", "--fused_ap",
+               "--randla_dir", str(tlog.parent / "port"), "--log_dir", str(tlog),
+               "--randla_points", "2048", "--num_clouds", "2", "--origin", "2",
+               "--target", "7"])
+    header, rows = _read_tsv(tlog / "randla_tar_nu_area5.tsv")
+    assert header == _jax_randla_header() and len(rows) == 2
+    for r in rows:
+        assert 1 <= int(r[5]) <= 10 and 0.0 <= float(r[4]) <= 1.0
+
+
 @pytest.mark.parametrize("flags", [
-    ["--fused_ap"], ["--randla_dataset", "semantic3d"], ["--shard_points", "2"],
-    ["--precision", "bfloat16"], ["--control"],
+    ["--model", "pointnet2", "--fused_ap"], ["--randla_dataset", "semantic3d"],
+    ["--shard_points", "2"], ["--precision", "bfloat16"], ["--control"],
 ])
 def test_unported_randla_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
