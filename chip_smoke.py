@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels_only]
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -10,10 +10,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 3. FPS and bottom-k against their plain PyTorch versions on the card, at
    the shapes one ``build_geometry`` of a batch of 8 × 4096-point blocks
    gives them: FPS indices equal at all four levels; bottom-k values and
-   indices equal on the ball-query and 3-NN inputs and on tie-heavy
-   rounded values; the contracts' edges (N at the limit, npoint > N,
-   k == N) and refusal past the limit. Median times of kernel and plain
-   (CUDA events, after warm-up).
+   indices equal on the ball-query and 3-NN inputs, on the C&W smooth
+   term's colour distances ([8, 4096, 4096], k = 10 and 5) and on
+   tie-heavy rounded values; the contracts' edges (N at the limit,
+   npoint > N, k == N up to 8192, k = 1, 48, 129) and the orders that
+   stress the selection (descending and constant rows, ±inf, widths off
+   4 and off 128); refusal past the limit. Times of kernel and plain.
 4. kNN and wide-row bottom-k against their plain versions on the card:
    kNN at every ``build_pyramid`` shape of a batch of 4 × 40960-point
    RandLA clouds (k=16 and k=1), at [1, 4096, 64] k=16 and k=48 and on
@@ -41,9 +43,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 8. The fused attentive-pooling kernels (forward and backward) against
    their plain version at the shapes of one RandLA batch ([16, 163840, 8]
    and [16, 40960, 32], with and without dW) and at the contract's edges
-   (M = 1, M off the rows per block, D = 63, K = 4); dW the same on two
-   runs; refusal past the bounds; times of kernel and plain per RandLA
-   forward (4 calls) and per backward.
+   (M = 1, M off the row tile, D = 1, 5, 8, 12, 32, 63, K = 4 and 16); dW
+   the same on two runs; refusal past the bounds; times of kernel and
+   plain per RandLA forward (4 calls) and per backward.
 9. The full-width RandLA with ``ap_impl="fused"`` against the reference
    composition on one sampler batch: logits within 1e-4 of the largest;
    the colour gradient as close to a float64 evaluation as the float32
@@ -63,8 +65,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     pyramid indices equal at every level, logits within 1e-4 of the
     largest magnitude.
 
+Every kernel's time is given twice: ``ms`` is its time on the card alone
+(``device_ms``: the launches are queued behind a spin kernel, so the
+host's time to send them is hidden) and ``eager_ms`` the median of single
+eager calls as a caller sees them; they differ where the card finishes a
+call faster than the host sends it. Beside them stand the plain PyTorch
+version's time, ``bound_ms`` (the least time an H100 could take: every
+input byte read once and every output byte written once at 3.35 TB/s, or
+the operations at 67 TFLOP/s, whichever is larger;
+``pointsecguard_tpu_torch/ops/cuda/bounds.py``), ``library_ms`` (the one
+PyTorch call that computes the same values, ``torch.topk`` for the two
+bottom-k kernels; null where there is none) and ``calls_per_batch`` from
+the launch counters of the slice phases.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
+``--kernels_only`` stops after phases 3, 4, 5 and 8 and exits 1.
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -119,6 +135,40 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def record_bound(rec: dict, work) -> None:
+    """The least time the card could take for ``work`` and what sets it."""
+    rec.update(bound_ms=work.bound_ms, bound_by=work.bound_by)
+
+
+def topk_library(vals: torch.Tensor, k: int):
+    """The one PyTorch call that computes bottom-k's values (it does not
+    order ties, so only its values are comparable). A yardstick for the
+    timings here; the port never calls it."""
+    return torch.topk(vals, k, dim=-1, largest=False, sorted=True)
+
+
+TOPK_CALL = "torch.topk(vals, k, dim=-1, largest=False, sorted=True)"
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Milliseconds of ``fn()`` on the card alone: ``reps`` runs are queued
+    behind a spin kernel of some 20 ms, so the host's time to send the
+    launches is hidden and the events see back-to-back device work.
+    ``cuda_ms`` times one eager call as a caller sees it; for a call that
+    the card finishes faster than the host sends it, the two differ."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def slice_blocks(dev) -> torch.Tensor:
     """[8, 4096, 9]: four blocks of a synthetic room at 25k points/m²
     (padded with repeated points, as WholeSceneBlocks pads) and four
@@ -158,9 +208,14 @@ def geometry_inputs(xyz: torch.Tensor):
 
 
 def phase_kernels(dev, records):
-    from pointsecguard_tpu_torch.ops.cuda import bottomk, fps
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bounds, fps
+    from pointsecguard_tpu_torch.ops.distance import square_distance
 
-    xyz = slice_blocks(dev)[..., :3].contiguous()
+    blocks = slice_blocks(dev)
+    xyz = blocks[..., :3].contiguous()
+    # the C&W smooth term's input: colour distances of a batch, [8, 4096, 4096]
+    colors = blocks[..., 3:6].contiguous()
+    cw_in = square_distance(colors, colors)
     fps_in, bk_in = geometry_inputs(xyz)
     start = torch.zeros(xyz.shape[0], dtype=torch.int32, device=dev)
     fps_err = 0.0  # largest index difference
@@ -177,7 +232,7 @@ def phase_kernels(dev, records):
         (8, 1024, 4096), generator=torch.Generator(device=dev).manual_seed(0),
         device=dev) * 20) / 20
     bk_err = 0.0
-    for vals, k in bk_in + [(rounded, 3), (rounded, 32)]:
+    for vals, k in bk_in + [(rounded, 3), (rounded, 32), (cw_in, 10), (cw_in, 5)]:
         gv, gi = bottomk.bottom_k(vals, k)
         wv, wi = bottomk.bottom_k_plain(vals, k)
         torch.cuda.synchronize()
@@ -196,12 +251,35 @@ def phase_kernels(dev, records):
             raise AssertionError(f"fps kernel != plain at N={n} npoint={npoint}")
     sentinel = torch.where(torch.rand((8, 16, 32), generator=gen, device=dev) < 0.7,
                            32.0, torch.arange(32.0, device=dev))
-    for vals, k in ((torch.rand((2, 64, 8192), generator=gen, device=dev), 48),
-                    (sentinel, 32), (torch.rand((3, 8, 1), generator=gen, device=dev), 1)):
+    wide = torch.rand((2, 64, 8192), generator=gen, device=dev)
+    # orders that stress the selection: a descending row (every element
+    # passes the threshold), a constant row (all ties), ±inf among the
+    # values; widths off 4 and off 128 (the scalar-load kernel); k above
+    # the warp kernel's 128 (the sorting kernel), up to k == N == 8192
+    descending = -torch.arange(4096.0, device=dev).expand(64, 4096).contiguous()
+    constant = torch.full((64, 4096), 2.5, device=dev)
+    odd = torch.rand((5, 33, 4099), generator=gen, device=dev)
+    infs = torch.where(torch.rand((64, 1000), generator=gen, device=dev) < 0.3,
+                       float("inf"), torch.randn((64, 1000), generator=gen, device=dev))
+    infs[:, 7] = float("-inf")
+    edge_cases = (
+        (wide, 48), (wide, 1), (sentinel, 32),
+        (torch.rand((3, 8, 1), generator=gen, device=dev), 1),
+        (descending, 10), (descending, 32), (descending, 128), (constant, 10),
+        (constant, 32), (odd, 16), (odd[..., :130], 130), (odd[..., :130], 7),
+        (odd[..., :2], 2), (infs, 32), (infs, 1000),
+        (torch.round(odd[..., :1001] * 8) / 8, 64),
+        (wide[:, :8], 129), (wide[:1, :4], 8192), (odd[:, :4], 4099),
+    )
+    for vals, k in edge_cases:
+        vals = vals.contiguous()
         gv, gi = bottomk.bottom_k(vals, k)
         wv, wi = bottomk.bottom_k_plain(vals, k)
+        torch.cuda.synchronize()
         if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
             raise AssertionError(f"bottom_k kernel != plain at {tuple(vals.shape)} k={k}")
+    print(f"bottom_k: {len(edge_cases)} edge cases (descending, constant, ±inf, "
+          "N off 4 and 128, k = 1, 48, 129, N = 8192 = k) equal to plain")
     for call in (lambda: fps.fps(torch.zeros((1, 8193, 3), device=dev), 4, start[:1]),
                  lambda: bottomk.bottom_k(torch.zeros((1, 8, 8193), device=dev), 4)):
         try:
@@ -219,23 +297,69 @@ def phase_kernels(dev, records):
     def run_bk(f):
         return lambda: [f(v, k) for v, k in bk_in]
 
+    def rows_of(v):
+        return v.numel() // v.shape[-1]
+
+    work = {
+        "fps": bounds.total(bounds.fps(cur.shape[0], cur.shape[1], n) for cur, n in fps_in),
+        "bottom_k": bounds.total(bounds.bottom_k(rows_of(v), v.shape[-1], k)
+                                 for v, k in bk_in),
+    }
     for name, kern, plain, fn, reps in (
         ("fps", fps.fps, fps.fps_plain, run_fps, 5),
         ("bottom_k", bottomk.bottom_k, bottomk.bottom_k_plain, run_bk, 20),
     ):
-        ms = cuda_ms(fn(kern), reps=20)
+        eager_ms = cuda_ms(fn(kern), reps=20)
+        ms = device_ms(fn(kern))
         plain_ms = cuda_ms(fn(plain), reps=reps)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
-              f"build_geometry of [{BATCH}, {NUM_POINT}] (median)")
-        records[name].update(ms=ms, plain_ms=plain_ms)
+        record_bound(records[name], work[name])
+        bound = records[name]["bound_ms"]
+        print(f"{name}: kernel {ms:.4f} ms on the card ({eager_ms:.4f} ms as eager calls, "
+              f"median), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({records[name]['bound_by']}; {work[name].bytes} bytes, "
+              f"{work[name].operations} operations; share {bound / ms:.3f}) per "
+              f"build_geometry of [{BATCH}, {NUM_POINT}]")
+        records[name].update(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms)
     records["fps"]["max_abs_err"] = fps_err
     records["bottom_k"]["max_abs_err"] = bk_err
+    # the library call on the same inputs: its values must be the kernel's
+    for v, k in bk_in + [(cw_in, 10)]:
+        if not torch.equal(topk_library(v, k)[0], bottomk.bottom_k(v, k)[0]):
+            raise AssertionError(f"torch.topk values != bottom_k at {tuple(v.shape)} k={k}")
+    lib_ms = device_ms(run_bk(topk_library))
+    records["bottom_k"].update(library_ms=lib_ms, library_call=TOPK_CALL)
+    print(f"bottom_k: library call {TOPK_CALL} {lib_ms:.4f} ms per build_geometry")
+    # one call of the C&W smooth term (NU: k = 10, tar_NU: k = 5)
+    cw = {}
+    for k in (10, 5):
+        w = bounds.bottom_k(rows_of(cw_in), cw_in.shape[-1], k)
+        cw[f"k={k}"] = {
+            "shape": list(cw_in.shape),
+            "ms": device_ms(lambda: bottomk.bottom_k(cw_in, k)),
+            "eager_ms": cuda_ms(lambda: bottomk.bottom_k(cw_in, k), reps=20),
+            "plain_ms": cuda_ms(lambda: bottomk.bottom_k_plain(cw_in, k), reps=5),
+            "library_ms": device_ms(lambda: topk_library(cw_in, k)),
+            "bound_ms": w.bound_ms, "bound_by": w.bound_by,
+        }
+        c = cw[f"k={k}"]
+        print(f"bottom_k {tuple(cw_in.shape)} k={k} (one C&W step): kernel {c['ms']:.4f} ms, "
+              f"plain {c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {w.bytes} bytes; share "
+              f"{c['bound_ms'] / c['ms']:.3f})")
+    records["bottom_k"]["cw_step"] = cw
+    for vals, k, what in ((descending.expand(128, 64, 4096).contiguous(), 32, "descending"),
+                          (constant.expand(128, 64, 4096).contiguous(), 32, "constant")):
+        ms = device_ms(lambda: bottomk.bottom_k(vals, k))
+        print(f"  bottom_k {tuple(vals.shape)} k={k} {what} rows: {ms:.4f} ms")
     for cur, n in fps_in:
-        ms = cuda_ms(lambda: fps.fps(cur, n, start), reps=20)
+        ms = device_ms(lambda: fps.fps(cur, n, start))
         print(f"  fps {tuple(cur.shape)} -> {n}: {ms:.4f} ms")
     for v, k in bk_in:
-        ms = cuda_ms(lambda: bottomk.bottom_k(v, k), reps=20)
-        print(f"  bottom_k {tuple(v.shape)} k={k}: {ms:.4f} ms")
+        ms = device_ms(lambda: bottomk.bottom_k(v, k))
+        lib = device_ms(lambda: topk_library(v, k))
+        b = bounds.bottom_k(rows_of(v), v.shape[-1], k).bound_ms
+        print(f"  bottom_k {tuple(v.shape)} k={k}: {ms:.4f} ms (bound {b:.4f} ms, "
+              f"library {lib:.4f} ms)")
 
 
 def random_state_dict(seed: int) -> dict:
@@ -327,6 +451,8 @@ def phase_slice(dev, records, data: str) -> dict:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
         records[name]["launches"] = counts[name]
+        records[name]["calls_per_batch"] = {
+            "pointnet2 nb": counts[name] / (len(rows) // BATCH)}
     return stats
 
 
@@ -414,7 +540,7 @@ def _equal(name, got, want) -> float:
 
 
 def phase_randla_kernels(dev, records, xyz):
-    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, knn
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, knn
     from pointsecguard_tpu_torch.ops.distance import square_distance
 
     calls = pyramid_knn_inputs(xyz)
@@ -466,17 +592,34 @@ def phase_randla_kernels(dev, records, xyz):
          None, dists, f"[{RANDLA_BATCH}, 4096, {RANDLA_POINTS}] k=16"),
     ):
         if fn is not None:
-            ms, plain_ms = cuda_ms(fn(kern), reps=10), cuda_ms(fn(plain), reps=3)
+            eager_ms, plain_ms = cuda_ms(fn(kern), reps=10), cuda_ms(fn(plain), reps=3)
+            ms = device_ms(fn(kern), reps=3)
         else:
-            ms = cuda_ms(lambda: kern(arg, 16), reps=20)
+            eager_ms = cuda_ms(lambda: kern(arg, 16), reps=20)
+            ms = device_ms(lambda: kern(arg, 16))
             plain_ms = cuda_ms(lambda: plain(arg, 16), reps=5)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per {what} (median)")
-        records[name].update(ms=ms, plain_ms=plain_ms)
+        work = (bounds.total(bounds.knn(q.shape[0], q.shape[1], p.shape[1], q.shape[2], k)
+                             for q, p, k in calls) if fn is not None else
+                bounds.bottom_k_chunked(arg.numel() // arg.shape[-1], arg.shape[-1], 16))
+        record_bound(records[name], work)
+        bound = records[name]["bound_ms"]
+        print(f"{name}: kernel {ms:.4f} ms on the card ({eager_ms:.4f} ms as eager calls, "
+              f"median), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({records[name]['bound_by']}; {work.bytes} bytes, {work.operations} "
+              f"operations; share {bound / ms:.3f}) per {what}")
+        records[name].update(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms)
     records["knn"]["max_abs_err"] = knn_err
     records["bottom_k_chunked"]["max_abs_err"] = bk_err
+    if not torch.equal(topk_library(dists, 16)[0], bottomk_chunked.bottom_k_chunked(dists, 16)[0]):
+        raise AssertionError("torch.topk values != bottom_k_chunked")
+    lib_ms = device_ms(lambda: topk_library(dists, 16), reps=5)
+    records["bottom_k_chunked"].update(library_ms=lib_ms, library_call=TOPK_CALL)
+    print(f"bottom_k_chunked: library call {TOPK_CALL} {lib_ms:.4f} ms")
     for q, p, k in calls:
-        ms = cuda_ms(lambda: knn.knn(q, p, k), reps=10)
-        print(f"  knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: {ms:.4f} ms")
+        ms = device_ms(lambda: knn.knn(q, p, k), reps=5)
+        b = bounds.knn(q.shape[0], q.shape[1], p.shape[1], q.shape[2], k)
+        print(f"  knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: {ms:.4f} ms "
+              f"(bound {b.bound_ms:.4f} ms, {b.bound_by})")
 
 
 def phase_routes(records, xyz) -> None:
@@ -495,6 +638,8 @@ def phase_routes(records, xyz) -> None:
     if counts["bottom_k_chunked"] != RANDLA_POINTS // 4096:
         raise AssertionError(f"tiled route launches: {counts}")
     records["bottom_k_chunked"]["launches"] = counts["bottom_k_chunked"]
+    records["bottom_k_chunked"]["calls_per_batch"] = {
+        "tiled kNN of one 40960² level": counts["bottom_k_chunked"]}
     print(f"routes: fused and tiled kNN indices identical at {tuple(xyz.shape)} k=16; "
           f"launches on the tiled route {counts}")
 
@@ -592,6 +737,11 @@ def phase_randla(dev, records, prep: str, sd: dict) -> list[dict]:
             raise AssertionError("the NB attack did not lower the mean accuracy")
         runs.append(stats)
     records["knn"]["launches"] = runs[0]["launches"]["knn"]
+    batches = RANDLA_CLOUDS // RANDLA_BATCH
+    records["knn"]["calls_per_batch"] = {"randla nb": runs[0]["launches"]["knn"] / batches}
+    for name in ("attentive_fwd", "attentive_bwd"):
+        records[name]["calls_per_batch"] = {
+            "randla nb --fused_ap": runs[1]["launches"][name] / batches}
     for name in ("reference", "fused_ap"):
         picked = [r for r in runs if r["fused_ap"] == (name == "fused_ap")]
         print(f"randla nb {name}: ms/cloud warm median "
@@ -621,13 +771,16 @@ def phase_randla_nu(prep: str, records) -> list[dict]:
         if fused_run["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
         records[name]["launches"] = fused_run["launches"][name]
+        records[name]["calls_per_batch"]["randla nu --fused_ap"] = (
+            f"{fused_run['launches'][name]} over {max(fused_run['steps'])} steps")
+    records["knn"]["calls_per_batch"]["randla nu"] = fused_run["launches"]["knn"]
     for name in ("reference", "fused_ap"):
         picked = [r for r in runs if r["fused_ap"] == (name == "fused_ap")]
         print(f"randla nu {name}: ms per step {[r['ms_per_step'] for r in picked]}")
     return runs
 
 
-def phase_pointnet2_nu(data: str) -> dict:
+def phase_pointnet2_nu(data: str, records) -> dict:
     """PointNet++ NU through the CLI on 8 blocks at batch 8: the
     geometry's 8 bottom-k launches and one more per C&W step for the
     smooth term. The checkpoint is ``phase_slice``'s with +2 on the
@@ -674,6 +827,9 @@ def phase_pointnet2_nu(data: str) -> dict:
                              f"bottom_k 8 + {S} steps")
     if S > 1 and not stats["adv_acc"] < stats["clean_acc"]:
         raise AssertionError("the NU attack did not lower the mean accuracy")
+    records["fps"]["calls_per_batch"]["pointnet2 nu"] = counts["fps"]
+    records["bottom_k"]["calls_per_batch"]["pointnet2 nu"] = (
+        f"{counts['bottom_k']} over {S} steps (8 + 1 per step)")
     return stats
 
 
@@ -697,14 +853,20 @@ def grad_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 def phase_attentive_kernels(dev, records):
     from pointsecguard_tpu_torch.ops.attentive import attentive_pool_fused_plain as plain
-    from pointsecguard_tpu_torch.ops.cuda import attentive
+    from pointsecguard_tpu_torch.ops.cuda import attentive, bounds
 
     gen = torch.Generator(device=dev).manual_seed(3)
     fwd_err = bwd_err = 0.0
+    # the slice shapes, then the edges: M = 1 and M off the row tile (a
+    # block holds 64, 32, 8 or 4 rows at D = 1, 8, 32, 63), D off 4 (the
+    # padded layout with 4-byte copies), both K, with and without dW
     cases = [(*ATT_SHAPES[0], False), (*ATT_SHAPES[0], True),
              (*ATT_SHAPES[1], False), (*ATT_SHAPES[1], True),
              (16, 1, 8, True), (16, 1001, 8, True), (16, 1001, 63, True),
-             (4, 1001, 63, True), (4, 37, 5, False)]
+             (4, 1001, 63, True), (4, 37, 5, False),
+             (16, 1001, 1, True), (4, 999, 1, False), (4, 1001, 8, True),
+             (16, 1001, 32, True), (4, 1003, 32, False), (16, 100003, 32, False),
+             (16, 997, 63, False), (16, 5000, 12, True), (4, 70001, 8, True)]
     for K, M, D, want_dw in cases:
         fn, fx, w = attentive_case(K, M, D, gen, dev)
         g1, g2 = torch.randn((2, M, D), generator=gen, device=dev)
@@ -728,15 +890,16 @@ def phase_attentive_kernels(dev, records):
               f"within tolerance of plain")
 
     # dW is summed in a fixed order: two runs give the same bits
-    fn, fx, w = attentive_case(*ATT_SHAPES[1], gen, dev)
-    g1, g2 = torch.randn((2, ATT_SHAPES[1][1], ATT_SHAPES[1][2]), generator=gen, device=dev)
-    dws = []
-    for _ in range(2):
-        wl = w.clone().requires_grad_(True)
-        dws.append(torch.autograd.grad(attentive.attentive_pool_fused(fn, fx, wl), wl,
-                                       (g1, g2))[0])
-    if not torch.equal(*dws):
-        raise AssertionError("attentive dW differs between two runs")
+    for K, M, D in (ATT_SHAPES[1], ATT_SHAPES[0], (16, 20001, 63), (4, 20001, 1)):
+        fn, fx, w = attentive_case(K, M, D, gen, dev)
+        g1, g2 = torch.randn((2, M, D), generator=gen, device=dev)
+        dws = []
+        for _ in range(2):
+            wl = w.clone().requires_grad_(True)
+            dws.append(torch.autograd.grad(attentive.attentive_pool_fused(fn, fx, wl), wl,
+                                           (g1, g2))[0])
+        if not torch.equal(*dws):
+            raise AssertionError(f"attentive dW differs between two runs at [{K}, {M}, {D}]")
     refused = (
         lambda: attentive.attentive_pool_fused(*attentive_case(8, 64, 8, gen, dev)),
         lambda: attentive.attentive_pool_fused(*attentive_case(16, 64, 64, gen, dev)),
@@ -749,8 +912,8 @@ def phase_attentive_kernels(dev, records):
         except ValueError:
             continue
         raise AssertionError("the attentive kernel took an input past its bounds")
-    print("contract edges: M = 1, M = 1001, D = 63, K = 4 within tolerance; dW equal "
-          "on two runs; K = 8, D = 64, float64 refused")
+    print("contract edges: M = 1, M off the row tile, D = 1, 5, 8, 12, 32, 63, K = 4 and 16 "
+          "within tolerance; dW equal on two runs; K = 8, D = 64, float64 refused")
 
     # times per RandLA forward (4 calls) and per backward (the attack's:
     # no dW), the same inputs for kernel and plain
@@ -759,8 +922,10 @@ def phase_attentive_kernels(dev, records):
             for _, M, D in (ATT_SHAPES[i // 2] for i in range(4))]
     res = {}
     for name, f in (("kernel", attentive.attentive_pool_fused), ("plain", plain)):
+        timer = cuda_ms if name == "plain" else device_ms
         with torch.no_grad():
             fwd_ms = cuda_ms(lambda: [f(*c) for c in calls], reps=20)
+            fwd_dev = timer(lambda: [f(*c) for c in calls], reps=10)
         leaves = [(fn.clone().requires_grad_(True), fx.clone().requires_grad_(True), w)
                   for fn, fx, w in calls]
         outs = [o for lv in leaves for o in f(*lv)]
@@ -768,18 +933,40 @@ def phase_attentive_kernels(dev, records):
         cot = [g for c in cots for g in c]
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(outs, flat, cot, retain_graph=True),
                          reps=20)
-        res[name] = (fwd_ms, bwd_ms)
+        bwd_dev = timer(lambda: torch.autograd.grad(outs, flat, cot, retain_graph=True),
+                        reps=10)
+        res[name] = (fwd_ms, bwd_ms, fwd_dev, bwd_dev)
         del leaves, outs, flat
-    (kf, kb), (pf, pb) = res["kernel"], res["plain"]
-    print(f"attentive per RandLA forward (4 calls): kernel {kf:.4f} ms, plain {pf:.4f} ms; "
-          f"backward: kernel {kb:.4f} ms, plain {pb:.4f} ms; forward + backward: "
-          f"kernel {kf + kb:.4f} ms, plain {pf + pb:.4f} ms (median)")
-    records["attentive_fwd"].update(ms=kf, plain_ms=pf, max_abs_err=fwd_err)
-    records["attentive_bwd"].update(ms=kb, plain_ms=pb, max_abs_err=bwd_err)
-    for (K, M, D), (fn, fx, w) in zip((ATT_SHAPES[0], ATT_SHAPES[1]), calls[::2]):
+    (ef, eb, kf, kb), (pf, pb, _, _) = res["kernel"], res["plain"]
+    print(f"attentive per RandLA forward (4 calls): kernel {kf:.4f} ms on the card "
+          f"({ef:.4f} ms as eager calls, median), plain {pf:.4f} ms; backward (no dW): "
+          f"kernel {kb:.4f} ms ({eb:.4f} ms eager), plain {pb:.4f} ms; forward + backward: "
+          f"kernel {kf + kb:.4f} ms, plain {pf + pb:.4f} ms")
+    records["attentive_fwd"].update(ms=kf, eager_ms=ef, plain_ms=pf, max_abs_err=fwd_err)
+    records["attentive_bwd"].update(ms=kb, eager_ms=eb, plain_ms=pb, max_abs_err=bwd_err)
+    shapes = [ATT_SHAPES[i // 2] for i in range(4)]
+    for name, f, ms in (("attentive_fwd", bounds.attentive_fwd, kf),
+                        ("attentive_bwd", bounds.attentive_bwd, kb)):
+        work = bounds.total(f(*shape) for shape in shapes)
+        record_bound(records[name], work)
+        print(f"{name}: bound {work.bound_ms:.4f} ms ({work.bound_by}; {work.bytes} bytes "
+              f"= {work.bytes_ms:.4f} ms, {work.operations} operations = "
+              f"{work.operations_ms:.4f} ms; share {work.bound_ms / ms:.3f}) per RandLA pass")
+    for (K, M, D), (fn, fx, w), (g1, g2) in zip(shapes[::2], calls[::2], cots[::2]):
         with torch.no_grad():
-            ms = cuda_ms(lambda: attentive.attentive_pool_fused(fn, fx, w), reps=20)
-        print(f"  attentive fwd [{K}, {M}, {D}]: {ms:.4f} ms")
+            ms = device_ms(lambda: attentive.attentive_pool_fused(fn, fx, w))
+        bf = bounds.attentive_fwd(K, M, D)
+        print(f"  attentive fwd [{K}, {M}, {D}]: {ms:.4f} ms (bound {bf.bound_ms:.4f} ms, "
+              f"{bf.bound_by})")
+        for want_dw in (False, True):
+            lv = (fn.clone().requires_grad_(True), fx.clone().requires_grad_(True),
+                  w.clone().requires_grad_(want_dw))
+            out = attentive.attentive_pool_fused(*lv)
+            wrt = lv if want_dw else lv[:2]
+            ms = device_ms(lambda: torch.autograd.grad(out, wrt, (g1, g2), retain_graph=True))
+            bb = bounds.attentive_bwd(K, M, D, want_dw)
+            print(f"  attentive bwd [{K}, {M}, {D}] dW={want_dw}: {ms:.4f} ms "
+                  f"(bound {bb.bound_ms:.4f} ms, {bb.bound_by})")
 
 
 def phase_fused_model(dev, feats: torch.Tensor, sd: dict) -> None:
@@ -862,7 +1049,15 @@ def phase_randla_reference(dev, prep: str) -> None:
             raise AssertionError(f"card RandLA ({ap_impl}) logits disagree with the CPU")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels_only", action="store_true",
+                        help="build the kernels and run only the kernel-vs-plain phases "
+                             "(3, 4, 5 and 8); the last line then carries \"ok\": false, "
+                             "because the slices were not driven")
+    args = parser.parse_args(argv)
     import pointsecguard_tpu_torch
     from pointsecguard_tpu_torch.ops.cuda import build
     from pointsecguard_tpu_torch.utils.runtime import require_cuda
@@ -887,28 +1082,34 @@ def main() -> int:
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                print("  ptxas:", line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print("  ptxas:  ", line.replace("ptxas info    :", "").strip())
 
     records = {
         "fps": {"name": "fps", "route": "cuda",
                 "source": "pointsecguard_tpu_torch/csrc/fps.cu",
-                "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27"},
+                "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27",
+                "library_ms": None, "library_call": None},
         "bottom_k": {"name": "bottom_k", "route": "cuda",
                      "source": "pointsecguard_tpu_torch/csrc/bottomk.cu",
                      "replaces": "pointsecguard_tpu/ops/pallas/bottomk.py:66"},
         "knn": {"name": "knn", "route": "cuda",
                 "source": "pointsecguard_tpu_torch/csrc/knn.cu",
-                "replaces": "pointsecguard_tpu/ops/pallas/knn.py:52"},
+                "replaces": "pointsecguard_tpu/ops/pallas/knn.py:52",
+                "library_ms": None, "library_call": None},
         "bottom_k_chunked": {"name": "bottom_k_chunked", "route": "cuda",
                              "source": "pointsecguard_tpu_torch/csrc/bottomk_chunked.cu",
                              "replaces": "pointsecguard_tpu/ops/pallas/bottomk.py:206"},
         "attentive_fwd": {"name": "attentive_fwd", "route": "cuda",
                           "source": "pointsecguard_tpu_torch/csrc/attentive.cu",
-                          "replaces": "pointsecguard_tpu/ops/pallas/attentive.py:100"},
+                          "replaces": "pointsecguard_tpu/ops/pallas/attentive.py:100",
+                          "library_ms": None, "library_call": None},
         "attentive_bwd": {"name": "attentive_bwd", "route": "cuda",
                           "source": "pointsecguard_tpu_torch/csrc/attentive.cu",
-                          "replaces": "pointsecguard_tpu/ops/pallas/attentive.py:115"},
+                          "replaces": "pointsecguard_tpu/ops/pallas/attentive.py:115",
+                          "library_ms": None, "library_call": None},
     }
     from pointsecguard_tpu_torch.data import make_synthetic_rooms
 
@@ -922,9 +1123,14 @@ def main() -> int:
     phase_randla_kernels(dev, records, xyz)
     phase_routes(records, xyz)
     del xyz
+    if args.kernels_only:
+        print(json.dumps({"kernels": list(records.values())}))
+        print(card)
+        print(json.dumps({"ok": False, "kernels_only": True}))
+        return 1
     phase_slice(dev, records, data)
     phase_reference(dev)
-    phase_pointnet2_nu(data)
+    phase_pointnet2_nu(data, records)
     sd = randla_state_dict(0, dev, feats)
     phase_fused_model(dev, feats, sd)
     del feats
@@ -933,8 +1139,14 @@ def main() -> int:
     phase_randla_reference(dev, prep)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}))
+            "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "calls_per_batch")
+    for r in records.values():
+        if not r["launches"] > 0:
+            raise AssertionError(f"kernel {r['name']} never launched on its main path")
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **({"cw_step": r["cw_step"]} if "cw_step" in r else {})}
+        for r in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -943,4 +1155,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

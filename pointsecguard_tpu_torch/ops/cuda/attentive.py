@@ -3,11 +3,13 @@ plain version.
 
 Replaces ``pointsecguard_tpu/ops/pallas/attentive.py:attentive_pool_fused``
 (``_fwd_kernel``, ``_bwd_kernel`` and the custom VJP around them). The
-kernels (``csrc/attentive.cu``) give each (row, channel) one thread, keep
-the K scores of both channel halves in registers and never write a score
-or a [K, M, 2D] tensor to memory; the backward sums dW per block and then
-over blocks in a fixed order (no float atomics), and only when ``w``
-needs a gradient. Bounds: float32, 1 ≤ D ≤ 63, K ∈ {4, 16}.
+kernels (``csrc/attentive.cu``) give each thread one row and four score
+columns at every K (a [K, 4] register tile of the score product), stream
+row tiles through two ``cp.async`` stages, keep the K scores in registers
+and never write a score or a [K, M, 2D] tensor to memory; the backward
+sums dW per block and then over blocks in a fixed order (no float
+atomics), and only when ``w`` needs a gradient. Bounds: float32,
+1 ≤ D ≤ 63, K ∈ {4, 16}.
 
 ``attentive_pool_fused`` is a ``torch.autograd.Function`` for CUDA
 tensors: its forward launches the forward kernel and its backward the
@@ -32,6 +34,19 @@ def _check(fn: torch.Tensor, fx: torch.Tensor, w: torch.Tensor) -> None:
     if fn.dim() != 3 or fx.shape != fn.shape or w.shape != (2 * fn.shape[2],) * 2:
         raise ValueError(f"attentive_pool_fused: want fn, fx [K, M, D] and w [2D, 2D], "
                          f"got {tuple(fn.shape)}, {tuple(fx.shape)}, {tuple(w.shape)}")
+
+
+def check_kernel_args(fn: torch.Tensor, fx: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise on what the kernels do not take (shapes, dtype, K, D)."""
+    _check(fn, fx, w)
+    tensors = (fn, fx, w)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"attentive_pool_fused: want float32, got "
+                         f"{[t.dtype for t in tensors]}")
+    K, _, D = fn.shape
+    if K not in BUILT_K or not 1 <= D <= MAX_D:
+        raise ValueError(f"attentive_pool_fused: K={K}, D={D} outside the kernels' "
+                         f"K in {BUILT_K}, 1 <= D <= {MAX_D}")
 
 
 def _launch_fwd(fn, fx, w):
@@ -59,7 +74,7 @@ def _launch_bwd(fn, fx, w, g1, g2, want_dw: bool):
     dfx = torch.empty_like(fx)
     part = dw = None
     if want_dw:
-        blocks = lib.psg_attentive_dw_blocks(M, D)
+        blocks = lib.psg_attentive_dw_blocks(K, M, D)
         part = torch.empty((max(blocks, 1), 2 * D, 2 * D), dtype=torch.float32,
                            device=fn.device)
         dw = torch.zeros_like(w)  # M == 0 leaves it untouched
@@ -103,13 +118,7 @@ def attentive_pool_fused(
     if fn.device.type != "cuda" or any(t.device != fn.device for t in tensors):
         raise ValueError(f"attentive_pool_fused: unsupported devices "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"attentive_pool_fused: want float32, got "
-                         f"{[t.dtype for t in tensors]}")
-    K, _, D = fn.shape
-    if K not in BUILT_K or not 1 <= D <= MAX_D:
-        raise ValueError(f"attentive_pool_fused: K={K}, D={D} outside the kernels' "
-                         f"K in {BUILT_K}, 1 <= D <= {MAX_D}")
+    check_kernel_args(fn, fx, w)
     from pointsecguard_tpu_torch.ops.cuda import build
 
     build.require_sm90(fn.device)

@@ -1,10 +1,11 @@
 """Exact bottom-k: CUDA kernel B and its plain PyTorch version.
 
 Replaces ``pointsecguard_tpu/ops/pallas/bottomk.py:_bottomk_kernel``
-(entry point ``bottom_k_pallas``). The kernel (``csrc/bottomk.cu``) gives
-each row one warp, stages the row in shared memory once and runs k
-lexicographic-argmin passes over it; it is bounded by those k passes
-over shared memory (k·N reads per row), with device memory read once.
+(entry point ``bottom_k_pallas``). The kernel (``csrc/bottomk.cu``) is
+bound by the one read of each row from device memory: a warp streams its
+row with 128-bit loads, keeps the best so far in registers (one a lane)
+and their k-th as a threshold, and inserts or merges the few elements
+that pass the threshold (k ≤ 32; larger k sorts the row in shared memory).
 Bounds: float32 rows, 1 ≤ k ≤ N ≤ 8192.
 
 Contract (both versions): the k smallest values ascending and their
@@ -28,12 +29,8 @@ def bottom_k_plain(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     return v[..., :k], i[..., :k].to(torch.int32)
 
 
-def bottom_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """k smallest along the last axis of [..., N] float32 (see module doc)."""
-    if vals.device.type == "cpu":
-        return bottom_k_plain(vals, k)
-    if vals.device.type != "cuda":
-        raise ValueError(f"bottom_k: unsupported device {vals.device}")
+def check_kernel_args(vals: torch.Tensor, k: int) -> None:
+    """Raise on what the kernel does not take (dtype, rank, N, k)."""
     if vals.dtype != torch.float32 or vals.dim() < 1:
         raise ValueError(f"bottom_k: want float32 [..., N], got {vals.dtype}")
     N = vals.shape[-1]
@@ -42,6 +39,16 @@ def bottom_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
                          "(wider rows: bottomk_chunked.bottom_k_chunked)")
     if not 1 <= k <= N:
         raise ValueError(f"bottom_k: k={k} outside 1..N={N}")
+
+
+def bottom_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest along the last axis of [..., N] float32 (see module doc)."""
+    if vals.device.type == "cpu":
+        return bottom_k_plain(vals, k)
+    if vals.device.type != "cuda":
+        raise ValueError(f"bottom_k: unsupported device {vals.device}")
+    check_kernel_args(vals, k)
+    N = vals.shape[-1]
     from pointsecguard_tpu_torch.ops.cuda import build
 
     lib = build.load_library()

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "psg_attentive_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # fn, fx, w, g1, g2, dfn, dfx, dw_part, dw, K, M, D, stream
     "psg_attentive_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # M, D → slots of the backward's dW buffer
-    "psg_attentive_dw_blocks": (_I, _I),
+    # K, M, D → slots of the backward's dW buffer
+    "psg_attentive_dw_blocks": (_I, _I, _I),
 }
 
 _lock = threading.Lock()
