@@ -12,18 +12,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gives them: FPS indices equal at all four levels; bottom-k values and
    indices equal on the ball-query and 3-NN inputs, on the C&W smooth
    term's colour distances ([8, 4096, 4096], k = 10 and 5) and on
-   tie-heavy rounded values; the contracts' edges (N at the limit,
-   npoint > N, k == N up to 8192, k = 1, 48, 129) and the orders that
-   stress the selection (descending and constant rows, ±inf, widths off
-   4 and off 128); refusal past the limit. Times of kernel and plain.
+   tie-heavy rounded values; the contracts' edges (FPS: N = 1, 33, 500,
+   1000, 4097 and 8192, npoint > N, the start at N − 1, identical and
+   rounded points, a start outside the cloud; bottom-k: k == N up to
+   8192, k = 1, 48, 129) and the orders that stress the selection
+   (descending and constant rows, ±inf, widths off 4 and off 128);
+   refusal past the limit. Times of kernel and plain, per level, and the
+   time of one dependent FPS step.
 4. kNN and wide-row bottom-k against their plain versions on the card:
    kNN at every ``build_pyramid`` shape of a batch of 4 × 40960-point
-   RandLA clouds (k=16 and k=1), at [1, 4096, 64] k=16 and k=48 and on
-   tie-heavy [2, 2048, 4] k=8; wide-row
+   RandLA clouds (k=16 and k=1), at [1, 4096, 64] k=16 and k=48, on
+   tie-heavy [2, 2048, 4] k=8 and on the orders and shapes that stress its
+   deferred insertion (points sorted far → near and near → far from
+   huddled queries, a constant and a duplicated cloud, S and N off the
+   block, tile and group sizes, k == N == 16, one query, ``query is
+   points`` and a distinct query, k = 17 and 48 at D = 3); wide-row
    bottom-k on [4, 4096, 40960] k=16 pyramid distances, on tie-heavy
    rounded values and at its edges (N = 8193, k = 48, N = 2^20); refusal
    past the bounds. Values and indices equal; median times of kernel and
-   plain, per shape and per ``build_pyramid``.
+   plain, per shape and per ``build_pyramid``, and of the far → near and
+   near → far orders beside the random one.
 5. The two kNN routes at full size: the 40960² level through the fused
    kernel and through the tiled route (``square_distance`` + wide-row
    bottom-k, tile 4096) give identical indices.
@@ -244,11 +252,28 @@ def phase_kernels(dev, records):
     # the contracts' edges: N at the limit, npoint > N (wrap onto index 0),
     # a nonzero start, k == N with sentinel ties, and refusal past the limit
     gen = torch.Generator(device=dev).manual_seed(1)
-    for n, npoint, s in ((8192, 1024, 5), (500, 1024, 7), (1, 4, 0)):
+    # ... and for the argmax by warp reductions: N off 32 and off the
+    # thread count, the start at N - 1, a cloud of identical points (every
+    # step a tie of all N: index 0 from the second step on), rounded
+    # coordinates (tied maxima in different warps), one warp and 32 warps
+    fps_edges = [(8192, 1024, 5, "rand"), (500, 1024, 7, "rand"), (1, 4, 0, "rand"),
+                 (1000, 256, 999, "rand"), (33, 33, 32, "rand"), (4097, 64, 4096, "rand"),
+                 (512, 64, 3, "same"), (1000, 300, 0, "rounded"), (8192, 128, 8191, "rounded")]
+    for n, npoint, s, kind in fps_edges:
         cloud = torch.rand((2, n, 3), generator=gen, device=dev)
+        if kind == "same":
+            cloud = cloud[:, :1].expand(2, n, 3).contiguous()
+        elif kind == "rounded":
+            cloud = torch.round(cloud * 4) / 4
         st = torch.full((2,), s, dtype=torch.int32, device=dev)
         if not torch.equal(fps.fps(cloud, npoint, st), fps.fps_plain(cloud, npoint, st)):
-            raise AssertionError(f"fps kernel != plain at N={n} npoint={npoint}")
+            raise AssertionError(f"fps kernel != plain at N={n} npoint={npoint} ({kind})")
+    outside = torch.tensor([500, -1], dtype=torch.int32, device=dev)
+    if not (fps.fps(cloud[:, :500].contiguous(), 8, outside) == -1).all():
+        raise AssertionError("fps: a start outside [0, N) must give -1")
+    print(f"fps: {len(fps_edges)} edge cases (N = 1, 33, 500, 1000, 4097, 8192, npoint > N, "
+          "start at N - 1, identical and rounded points) equal to plain; "
+          "start outside the cloud gives -1")
     sentinel = torch.where(torch.rand((8, 16, 32), generator=gen, device=dev) < 0.7,
                            32.0, torch.arange(32.0, device=dev))
     wide = torch.rand((2, 64, 8192), generator=gen, device=dev)
@@ -320,6 +345,11 @@ def phase_kernels(dev, records):
               f"{work[name].operations} operations; share {bound / ms:.3f}) per "
               f"build_geometry of [{BATCH}, {NUM_POINT}]")
         records[name].update(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms)
+    # a recurrence: the time of one dependent step says more than the bound
+    steps = sum(n - 1 for _, n in fps_in)
+    records["fps"]["ns_per_step"] = 1e6 * records["fps"]["ms"] / steps
+    print(f"fps: {steps} dependent steps per build_geometry, "
+          f"{records['fps']['ns_per_step']:.0f} ns per step on the card")
     records["fps"]["max_abs_err"] = fps_err
     records["bottom_k"]["max_abs_err"] = bk_err
     # the library call on the same inputs: its values must be the kernel's
@@ -353,7 +383,8 @@ def phase_kernels(dev, records):
         print(f"  bottom_k {tuple(vals.shape)} k={k} {what} rows: {ms:.4f} ms")
     for cur, n in fps_in:
         ms = device_ms(lambda: fps.fps(cur, n, start))
-        print(f"  fps {tuple(cur.shape)} -> {n}: {ms:.4f} ms")
+        print(f"  fps {tuple(cur.shape)} -> {n}: {ms:.4f} ms "
+              f"({1e6 * ms / (n - 1):.0f} ns per step)")
     for v, k in bk_in:
         ms = device_ms(lambda: bottomk.bottom_k(v, k))
         lib = device_ms(lambda: topk_library(v, k))
@@ -539,6 +570,60 @@ def _equal(name, got, want) -> float:
     return (got[0] - want[0]).abs().max().item()
 
 
+def knn_stress(dev, knn, gen):
+    """Orders and shapes that stress the fused kNN's deferred insertion,
+    each equal to the plain version; returns the (query, points) of three
+    orders of the same points, for timing.
+
+    Far -> near: the queries huddle around the cube's centre and the
+    points come sorted by falling distance from it, so nearly every point
+    is below a query's k-th value when it is scanned (the queue's worst
+    case). A constant cloud ties every distance (indices 0..k-1); a
+    duplicated cloud ties pairs; S and N off the block, tile and group
+    sizes; k == N; one query; ``query is points`` and a distinct query."""
+    B, S, N = 4, 4096, 40960
+    pts = torch.rand((B, N, 3), generator=gen, device=dev)
+    centre = torch.full((3,), 0.5, device=dev)
+    order = torch.argsort(((pts - centre) ** 2).sum(-1), dim=-1, descending=True)
+    far = torch.gather(pts, 1, order[..., None].expand(B, N, 3)).contiguous()
+    q = (centre + 1e-3 * torch.randn((B, S, 3), generator=gen, device=dev)).contiguous()
+    constant = torch.full((2, 1000, 3), 0.3, device=dev)
+    dup = torch.rand((2, 3000, 3), generator=gen, device=dev)
+    dup[:, 1500:] = dup[:, :1500]
+    odd_q = torch.rand((3, 1000, 3), generator=gen, device=dev)
+    odd_p = torch.rand((3, 4099, 3), generator=gen, device=dev)
+    tiny = torch.rand((2, 16, 3), generator=gen, device=dev)
+    near = far[:, -2048:].contiguous()
+    one = torch.rand((1, 1, 3), generator=gen, device=dev)
+    cases = [
+        ("far -> near", q, far, 16), ("far -> near", q, far, 1), ("random", q, pts, 16),
+        ("far -> near, query is points", near, near, 16),
+        ("near -> far", q[:, :512], far.flip(1).contiguous(), 16),
+        ("constant", constant, constant, 16), ("constant", constant[:, :7], constant, 1),
+        ("duplicated", dup, dup, 16), ("duplicated, distinct query", dup.clone(), dup, 16),
+        ("S, N off the block and tile", odd_q, odd_p, 16), ("S, N off", odd_q, odd_p, 1),
+        ("N off the group", odd_q[:, :33], odd_p[:, :513], 5),
+        ("k == N == 16", tiny, tiny, 16), ("B = S = 1", one, odd_p[:1, :777], 5),
+        ("k = 48, D = 3", odd_q[:, :300], odd_p, 48), ("k = 17", odd_q[:, :300], odd_p, 17),
+        ("k = 48, far -> near", q[:1, :256], far[:1, :8192].contiguous(), 48),
+    ]
+    for what, a, b, k in cases:
+        _equal(f"knn {what} {tuple(a.shape)} x {tuple(b.shape)} k={k}",
+               knn.knn(a, b, k), knn.knn_plain(a, b, k))
+    idx = knn.knn(constant, constant, 16)[1]
+    if not torch.equal(idx, torch.arange(16, dtype=torch.int32, device=dev).expand_as(idx)):
+        raise AssertionError("knn on a constant cloud: indices are not 0..k-1")
+    print(f"knn: {len(cases)} stress cases (far -> near, near -> far, constant, duplicated, "
+          "S and N off the block / tile / group, k == N, one query, query is points and "
+          "distinct, k = 17 and 48 at D = 3) equal to plain")
+    # as many huddled queries as a cloud has points, against the points
+    # near -> far: after the first few nothing hits, so this is the time
+    # of the scan alone
+    q_full = (centre + 1e-3 * torch.randn((B, N, 3), generator=gen, device=dev)).contiguous()
+    return {"far -> near": (q, far), "random": (q, pts),
+            "near -> far (the scan alone)": (q_full, far.flip(1).contiguous())}
+
+
 def phase_randla_kernels(dev, records, xyz):
     from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, knn
     from pointsecguard_tpu_torch.ops.distance import square_distance
@@ -555,6 +640,8 @@ def phase_randla_kernels(dev, records, xyz):
         knn_err = max(knn_err, _equal(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}",
                                       knn.knn(q, p, k), knn.knn_plain(q, p, k)))
         print(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: values and indices equal")
+
+    stress_orders = knn_stress(dev, knn, gen)
 
     dists = square_distance(xyz[:, :4096], xyz)  # a tile of the tiled route
     rounded = torch.round(dists * 4) / 4
@@ -620,6 +707,11 @@ def phase_randla_kernels(dev, records, xyz):
         b = bounds.knn(q.shape[0], q.shape[1], p.shape[1], q.shape[2], k)
         print(f"  knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: {ms:.4f} ms "
               f"(bound {b.bound_ms:.4f} ms, {b.bound_by})")
+    for what, (q, p) in stress_orders.items():
+        ms = device_ms(lambda: knn.knn(q, p, 16), reps=5)
+        print(f"  knn {tuple(q.shape)} x {tuple(p.shape)} k=16, points in {what} order: "
+              f"{ms:.4f} ms ({1e9 * ms / (q.shape[0] * q.shape[1] * p.shape[1]):.3f} ps "
+              f"per pair)")
 
 
 def phase_routes(records, xyz) -> None:
@@ -1071,6 +1163,9 @@ def main(argv=None) -> int:
     dev = require_cuda()
     card = card_line()
     print(card)
+    print("max SM clock:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1145,7 +1240,8 @@ def main(argv=None) -> int:
         if not r["launches"] > 0:
             raise AssertionError(f"kernel {r['name']} never launched on its main path")
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, **({"cw_step": r["cw_step"]} if "cw_step" in r else {})}
+        {**{k: r[k] for k in keys},
+         **{k: r[k] for k in ("cw_step", "ns_per_step") if k in r}}
         for r in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

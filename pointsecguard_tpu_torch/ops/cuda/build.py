@@ -38,8 +38,8 @@ _SIGNATURES = {
     # vals, out_v, out_i, rows, N, k, stream
     "psg_bottom_k": (_P, _P, _P, _I, _I, _I, _P),
     "psg_bottom_k_chunked": (_P, _P, _P, _I, _I, _I, _P),
-    # query, points, s2, d2, out_v, out_i, B, S, N, D, k, stream
-    "psg_knn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # query, points, out_v, out_i, scratch, B, S, N, D, k, stream
+    "psg_knn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # fn, fx, w, afn, afx, K, M, D, stream
     "psg_attentive_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # fn, fx, w, g1, g2, dfn, dfx, dw_part, dw, K, M, D, stream

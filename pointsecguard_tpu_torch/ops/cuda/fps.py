@@ -2,12 +2,18 @@
 
 Replaces ``pointsecguard_tpu/ops/pallas/fps.py:_fps_kernel`` (entry point
 ``fps_pallas``). The kernel (``csrc/fps.cu``) runs one CTA per cloud with
-the cloud and its running min-distance in registers; it is bounded by
-the latency of the npoint sequential steps (two barriers and a shuffle
-argmax each), not by bytes. Bounds: N ≤ 8192, float32 input.
+the cloud and its running min-distance in registers. It is bounded by
+latency, not by bytes or operations: the npoint steps are a recurrence,
+so what counts is the way from one step's distances to the next
+centroid. The design keeps that way short: the argmax is two hardware
+warp reductions on the distance's bits (a min-distance is ≥ 0, so they
+order as a signed int; ties go to the lowest index), one barrier a step,
+every warp reducing the per-warp partials itself, and the next centroid
+read from a copy of the cloud in shared memory. Bounds: float32
+[B, N, 3], 1 ≤ N ≤ 8192, npoint ≥ 1, start [B] on the same device.
 
-``fps`` launches the kernel for a CUDA tensor and raises when the kernel
-cannot take it; only a CPU tensor goes to ``fps_plain``.
+``fps`` checks its arguments first, on any device; then it launches the
+kernel for a CUDA tensor, and only a CPU tensor goes to ``fps_plain``.
 """
 
 from __future__ import annotations
@@ -40,12 +46,7 @@ def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tens
     return out
 
 
-def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
-    """Farthest point sampling → [B, npoint] int32 (see module doc)."""
-    if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint, start)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"fps: unsupported device {xyz.device}")
+def _check(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> None:
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"fps: want float32 [B, N, 3], got {xyz.dtype} "
                          f"{tuple(xyz.shape)}")
@@ -56,6 +57,16 @@ def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fps: npoint={npoint} < 1")
     if start.shape != (B,) or start.device != xyz.device:
         raise ValueError("fps: start must be [B] on the same device")
+
+
+def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
+    """Farthest point sampling → [B, npoint] int32 (see module doc)."""
+    _check(xyz, npoint, start)
+    if xyz.device.type == "cpu":
+        return fps_plain(xyz, npoint, start)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"fps: unsupported device {xyz.device}")
+    B, N, _ = xyz.shape
     from pointsecguard_tpu_torch.ops.cuda import build
 
     lib = build.load_library()

@@ -4,23 +4,30 @@ Replaces ``pointsecguard_tpu/ops/pallas/knn.py:_knn_kernel`` (entry point
 ``knn_pallas``). The kernel (``csrc/knn.cu``) gives each query one thread,
 streams the points through shared memory and keeps a sorted list of the
 k best (value, index) pairs in registers; the [S, N] distance matrix
-never reaches device memory. It is bounded by the S·N distance
-evaluations. Bounds: float32, D ≥ 1, 1 ≤ k ≤ 48, k ≤ N, B ≤ 65535.
+never reaches device memory. It is bounded by operations — the S·N
+distance evaluations, and among them first by the shared-memory load
+that brings each point to a warp. Its hot loop is arithmetic only (groups
+of independent distance chains, one warp vote a group); candidates wait
+in a per-thread queue and are inserted by all lanes of a warp together,
+which leaves values, indices and tie order as point-by-point insertion
+gives them. Bounds: float32, D ≥ 1, 1 ≤ k ≤ 48, k ≤ N, B ≤ 65535.
 
 Contract (both versions): (sq_dists [B, S, k] float32, idx [B, S, k]
 int32), nearest first, ties to the first occurrence — ``square_distance``
 followed by a stable sort cut to k. The kernel rounds each distance as
-``square_distance`` does: |q|² and |p|² come from the same ``_sum_sq``
-code, the cross term is the fused multiply-add chain a float32 GEMM
-accumulates. ``knn`` launches the kernel for a CUDA tensor and raises
-when the kernel cannot take it; only a CPU tensor goes to ``knn_plain``.
+``square_distance`` does: |q|² and |p|² with ``_sum_sq``'s own roundings
+(small kernels of the same file compute them into the working space the
+wrapper allocates), the cross term as the fused multiply-add chain a
+float32 GEMM accumulates. ``knn`` launches the kernel for a CUDA tensor
+and raises when the kernel cannot take it; only a CPU tensor goes to
+``knn_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointsecguard_tpu_torch.ops.distance import _sum_sq, square_distance
+from pointsecguard_tpu_torch.ops.distance import square_distance
 
 MAX_K = 48
 PLAIN_TILE = 4096  # query rows per distance block of the plain version
@@ -68,16 +75,20 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int):
 
     lib = build.load_library()
     build.require_sm90(query.device)
-    query = query.contiguous()
+    # the pyramid's neighbour search passes one tensor twice: it is then
+    # packed once
     points = points.contiguous()
-    s2 = _sum_sq(query).contiguous()
-    d2 = _sum_sq(points).contiguous()
+    query = points if query is points else query.contiguous()
     out_v = torch.empty((B, S, k), dtype=torch.float32, device=query.device)
     out_i = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
+    # working space: queries and points packed as (x, y, z, |x|²) for
+    # D = 3, |q|² and |p|² for any other D; small kernels of csrc/knn.cu
+    # fill it, rounding as ``_sum_sq`` does
+    scratch = torch.empty((B * S + B * N) * (4 if D == 3 else 1), dtype=torch.float32,
+                          device=query.device)
     stream = torch.cuda.current_stream(query.device).cuda_stream
-    code = lib.psg_knn(query.data_ptr(), points.data_ptr(), s2.data_ptr(),
-                       d2.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                       B, S, N, D, k, stream)
+    code = lib.psg_knn(query.data_ptr(), points.data_ptr(), out_v.data_ptr(),
+                       out_i.data_ptr(), scratch.data_ptr(), B, S, N, D, k, stream)
     build.check(code, "psg_knn")
     global launches
     launches += 1

@@ -1,4 +1,4 @@
-"""What the redesigned bottom-k and attentive wrappers take and refuse.
+"""What the redesigned kernels' wrappers take and refuse.
 
 The CUDA kernels cannot run here, so these tests hold what a CPU can
 see: the argument checks that stand before every launch
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from pointsecguard_tpu_torch.ops.attentive import attentive_pool_fused_plain
-from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk
+from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, fps, knn
 
 
 def _att(K, M, D, dtype=torch.float32, seed=0):
@@ -99,3 +99,80 @@ def test_attentive_takes_and_cpu_equals_plain(K, M, D):
     grads = torch.autograd.grad([g.sum() for g in got], leaves, allow_unused=True)
     assert [tuple(g.shape) for g in grads] == [(K, M, D), (K, M, D), (2 * D, 2 * D)]
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("shape,dtype,npoint,start_shape,match", [
+    ((1, 8193, 3), torch.float32, 4, (1,), "N=8193 outside"),
+    ((2, 0, 3), torch.float32, 4, (2,), "N=0 outside"),
+    ((2, 16, 3), torch.float64, 4, (2,), "want float32"),
+    ((2, 16, 3), torch.float16, 4, (2,), "want float32"),
+    ((2, 16, 2), torch.float32, 4, (2,), "want float32 .B, N, 3."),
+    ((16, 3), torch.float32, 4, (2,), "want float32 .B, N, 3."),
+    ((2, 16, 3), torch.float32, 0, (2,), "npoint=0"),
+    ((2, 16, 3), torch.float32, 4, (3,), "start must be"),
+    ((2, 16, 3), torch.float32, 4, (2, 1), "start must be"),
+])
+def test_fps_refuses_on_the_cpu_what_the_card_refuses(shape, dtype, npoint, start_shape, match):
+    before = fps.launches
+    with pytest.raises(ValueError, match=match):
+        fps.fps(torch.zeros(shape, dtype=dtype), npoint,
+                torch.zeros(start_shape, dtype=torch.int32))
+    assert fps.launches == before
+
+
+@pytest.mark.parametrize("n,npoint,start", [
+    (8192, 8, 8191),  # N at the limit, the start at N - 1
+    (1, 4, 0),        # N = 1: every pick is index 0
+    (1000, 64, 7),    # N off 32
+    (33, 40, 32),     # npoint > N: wraps onto index 0
+])
+def test_fps_takes_and_cpu_equals_plain(n, npoint, start):
+    rng = np.random.default_rng(n)
+    xyz = torch.from_numpy(np.round(rng.random((2, n, 3)) * 8).astype(np.float32) / 8)
+    st = torch.full((2,), start, dtype=torch.int32)
+    before = fps.launches
+    got = fps.fps(xyz, npoint, st)
+    assert fps.launches == before
+    assert got.dtype == torch.int32 and got.shape == (2, npoint)
+    assert torch.equal(got, fps.fps_plain(xyz, npoint, st))
+    assert (got[:, 0] == start).all() and (got < n).all() and (got >= 0).all()
+    if npoint > n:  # once every point is chosen all distances are 0
+        assert (got[:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("q_shape,p_shape,k,match", [
+    ((2, 8, 3), (2, 16, 3), 17, "k=17 outside"),
+    ((2, 8, 3), (2, 64, 3), 49, "k=49 outside"),
+    ((2, 8, 3), (2, 16, 3), 0, "k=0 outside"),
+    ((2, 8, 3), (3, 16, 3), 4, "want query"),
+    ((2, 8, 3), (2, 16, 4), 4, "want query"),
+    ((8, 3), (2, 16, 3), 4, "want query"),
+])
+def test_knn_refuses(q_shape, p_shape, k, match):
+    before = knn.launches
+    with pytest.raises(ValueError, match=match):
+        knn.knn(torch.zeros(q_shape), torch.zeros(p_shape), k)
+    assert knn.launches == before
+
+
+@pytest.mark.parametrize("S,N,D,k", [
+    (1, 1, 3, 1),        # one query, one point
+    (7, 16, 3, 16),      # k == N
+    (100, 4099, 3, 16),  # N off every tile and group of the kernel
+    (33, 300, 3, 48),    # k at its limit
+    (5, 40, 64, 8),      # a feature-space search
+])
+def test_knn_takes_and_cpu_equals_plain(S, N, D, k):
+    rng = np.random.default_rng(S + N)
+    pts = torch.from_numpy(np.round(rng.random((2, N, D)) * 4).astype(np.float32) / 4)
+    q = pts[:, :S].contiguous()
+    before = knn.launches
+    gv, gi = knn.knn(q, pts, k)
+    assert knn.launches == before
+    assert gv.dtype == torch.float32 and gi.dtype == torch.int32
+    assert gv.shape == gi.shape == (2, S, k)
+    d = ((q[:, :, None, :].double() - pts[:, None, :, :].double()) ** 2).sum(-1)
+    want = np.argsort(d.numpy(), axis=-1, kind="stable")[..., :k]
+    # quarter-grid coordinates: every distance is exact, so ties are exact
+    np.testing.assert_array_equal(gi.numpy(), want)
+    np.testing.assert_array_equal(gv.numpy(), np.take_along_axis(d.numpy(), want, -1))

@@ -211,3 +211,108 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     with pytest.raises(ValueError):
         tbkc.bottom_k_chunked(torch.rand(2, 9000, device="meta"), 16)
     assert sum(tcuda.launch_counts().values()) == 0
+
+
+# --- the fused kernel's deferred insertion, emulated -----------------------
+#
+# The CUDA kernel cannot run here; what a CPU can hold is its selection
+# logic. The emulation below does what a warp of ``csrc/knn.cu`` does with
+# one row of distances per lane: groups of ``unroll`` points are compared
+# with each lane's k-th value as it stood at the last flush (stale, never
+# below the current one), hits are appended to the lane's queue in index
+# order, and when any lane's queue could overflow in the next group all
+# lanes flush: each re-tests its queued pairs in order against its current
+# k-th value and inserts the survivors after any equal values.
+
+
+def _insert(vals, idx, d, i):
+    """d < vals[-1]: d goes after every value <= d; the last one drops out."""
+    pos = int(np.searchsorted(vals, d, side="right"))
+    vals[pos + 1:] = vals[pos:-1].copy()
+    idx[pos + 1:] = idx[pos:-1].copy()
+    vals[pos], idx[pos] = d, i
+
+
+def _deferred_knn(dist: np.ndarray, k: int, queue: int, unroll: int):
+    """Bottom-k of each row of ``dist`` [lanes, N] as one warp finds it."""
+    lanes, N = dist.shape
+    vals = np.full((lanes, k), np.inf, np.float32)
+    idx = np.full((lanes, k), np.iinfo(np.int32).max, np.int64)
+    queues = [[] for _ in range(lanes)]
+    stale = vals[:, -1].copy()
+    flushes = 0
+
+    def flush():
+        for lane, q in enumerate(queues):
+            for d, i in q:  # oldest first
+                if d < vals[lane, -1]:
+                    _insert(vals[lane], idx[lane], d, i)
+            q.clear()
+        stale[:] = vals[:, -1]
+
+    for j0 in range(0, N, unroll):
+        group = dist[:, j0:j0 + unroll]
+        hits = group < stale[:, None]
+        if not hits.any():  # the warp vote: nothing else happens
+            continue
+        for lane in range(lanes):
+            for r in np.flatnonzero(hits[lane]):
+                queues[lane].append((group[lane, r], j0 + r))
+            assert len(queues[lane]) <= queue
+        if max(len(q) for q in queues) > queue - unroll:
+            flush()
+            flushes += 1
+    flush()
+    return vals, idx.astype(np.int32), flushes
+
+
+def _stress_cloud(kind: str, N: int, seed: int):
+    """(query [1, 8, 3], points [1, N, 3]) float32."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.random((1, N, 3)) * 3).astype(np.float32)
+    q = pts[:, :8].copy()
+    if kind == "rounded":
+        pts = np.round(pts * 4) / 4
+        q = pts[:, :8].copy()
+    elif kind == "duplicated":
+        pts[:, N // 2:] = pts[:, : N - N // 2]
+        q = pts[:, :8].copy()
+    elif kind == "constant":
+        pts[:] = 0.75
+        q = pts[:, :8].copy()
+    elif kind in ("far_to_near", "near_to_far"):
+        centre = np.full(3, 1.5, np.float32)
+        q = (centre + 1e-3 * rng.standard_normal((1, 8, 3))).astype(np.float32)
+        order = np.argsort(((pts[0] - centre) ** 2).sum(-1))
+        pts = pts[:, order[::-1] if kind == "far_to_near" else order]
+    return np.ascontiguousarray(q), np.ascontiguousarray(pts)
+
+
+@pytest.mark.parametrize("queue,unroll", [(16, 8), (8, 4), (32, 8), (8, 8), (1, 1)])
+@pytest.mark.parametrize("kind", ["uniform", "rounded", "duplicated", "constant",
+                                  "far_to_near", "near_to_far"])
+def test_deferred_insertion_equals_knn_plain(kind, queue, unroll):
+    q, pts = _stress_cloud(kind, 203, seed=len(kind) + queue)  # N off every group size
+    dist = tops.square_distance(_t(q), _t(pts))[0].numpy()
+    for k in (1, 5, 16):
+        wv, wi = tknn.knn_plain(_t(q), _t(pts), k)
+        gv, gi, flushes = _deferred_knn(dist, k, queue, unroll)
+        np.testing.assert_array_equal(gi, wi[0].numpy())
+        np.testing.assert_array_equal(gv, wv[0].numpy())
+        if kind == "far_to_near" and k > 1 and queue < 203:
+            # nearly every point is a hit: the queue fills again and again
+            assert flushes >= 203 // queue - 1
+
+
+def test_deferred_insertion_constant_cloud_keeps_the_first_indices():
+    q, pts = _stress_cloud("constant", 100, seed=0)
+    dist = tops.square_distance(_t(q), _t(pts))[0].numpy()
+    _, gi, _ = _deferred_knn(dist, 16, 16, 8)
+    np.testing.assert_array_equal(gi, np.broadcast_to(np.arange(16, dtype=np.int32), (8, 16)))
+
+
+def test_knn_same_tensor_and_distinct_query_agree():
+    pts = _t(_cloud("duplicated", 2, 300, 3))
+    a = tknn.knn(pts, pts, 16)
+    b = tknn.knn(pts.clone(), pts, 16)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
