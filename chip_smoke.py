@@ -72,6 +72,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 13. Card vs CPU on one 8192-point cloud, reference and fused model:
     pyramid indices equal at every level, logits within 1e-4 of the
     largest magnitude.
+14. FPS and bottom-k at the shapes of one training step: one
+    ``build_geometry`` of 32 × 4096-point blocks with a random FPS start
+    per cloud and level; equal to plain, with their times (part of the
+    kernel phases, so ``--kernels_only`` runs it too).
+15. The trained fixture on the card: ``tests/fixtures/trained_pointnet2.npz``
+    through ``utils/convert.py``, NB and tar_NB (floor → table, 50
+    iterations) on 8 blocks of 128 points, held against
+    ``tests/fixtures/trained_pointnet2.json`` at the tolerances of
+    ``tests/test_torch_attack.py``.
+16. One optimizer step of the full-width PointNet++ from the same
+    weights, batch (8 × 4096), FPS starts and dropout mask on the card
+    (kernels) and on the CPU (plain versions): FPS centres equal,
+    neighbour indices in agreement; on the card's plan, loss, gradients,
+    Adam moments, parameters and BatchNorm statistics within the
+    tolerances stated in ``phase_train_step``.
+17. Training through ``pointsecguard_tpu_torch.cli.train.main`` at full
+    width: batch 32 × 4096 points on four synthetic rooms at 25k
+    points/m², 5 epochs of 13 optimizer steps, two evals; every loss
+    finite, no skipped batch, the last epoch's mean loss below the
+    first's, exactly 4 FPS and 8 bottom-k launches per optimizer step and
+    per eval batch, one ``epoch`` line per epoch; a second call with one
+    more epoch resumes and repeats none. ms per step on the host's clock
+    and by CUDA events, blocks/s, the host's share, peak device memory.
+18. ``cli.eval.main --num_votes 1`` on that checkpoint: accuracy on the
+    Area-5 room at or above ``EVAL_ACC_FLOOR``.
+19. ``cli.attack.main --attack nb --save_adv`` on that checkpoint, 32
+    blocks at batch 8: adversarial accuracy below clean accuracy; then
+    ``cli.eval.main --adv_set`` on the written ``.npz`` gives the attack
+    run's adversarial accuracy back.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -88,7 +117,7 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5 and 8 and exits 1.
+``--kernels_only`` stops after phases 3, 4, 5, 8 and 14 and exits 1.
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -117,6 +146,14 @@ NU_CLOUDS, NU_BLOCKS = 4, 8  # one C&W batch of each model
 # poolings each, [K, M, D] with M = batch × the level's points
 ATT_SHAPES = ((16, RANDLA_BATCH * RANDLA_POINTS, 8), (16, RANDLA_BATCH * RANDLA_POINTS // 4, 32))
 ROOM_POINTS = 400_000  # synthetic 4 × 4 m rooms at 25k points/m²
+# the training slice: batch 32, four train rooms (390 sampler blocks, 13
+# steps an epoch), evals after epochs 3 and 5, one more epoch on resume
+TRAIN_BATCH, TRAIN_AREAS, TRAIN_EPOCHS, TRAIN_EVAL_EVERY = 32, (1, 2, 3, 4), 5, 3
+TRAIN_LR = 0.003
+# whole-scene accuracy the trained checkpoint must reach on the Area-5
+# room (7 classes, the largest three a quarter of the points each);
+# 2/13 is twice the chance of 13 classes
+EVAL_ACC_FLOOR = 0.3
 
 
 def card_line() -> str:
@@ -393,6 +430,107 @@ def phase_kernels(dev, records):
               f"library {lib:.4f} ms)")
 
 
+def train_blocks(dev, n: int = TRAIN_BATCH) -> torch.Tensor:
+    """[n, 4096, 9]: the first n whole-scene blocks of a synthetic room at
+    25k points/m²."""
+    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
+    from pointsecguard_tpu_torch.data.synthetic import make_room
+
+    rng = np.random.default_rng(2)
+    room = make_room(ROOM_POINTS, rng=rng)
+    rooms = RoomSet(["smoke"], [room[:, :6]], [room[:, 6].astype(np.int64)],
+                    [room[:, :3].min(0)], [room[:, :3].max(0)])
+    data, *_ = WholeSceneBlocks(rooms, block_points=NUM_POINT).room_blocks(0, rng)
+    return torch.from_numpy(data[:n]).to(dev)
+
+
+def phase_train_kernels(dev, records) -> None:
+    """FPS and bottom-k at the shapes of one training step: a
+    ``build_geometry`` of [32, 4096] with one random FPS start per cloud
+    and level. Equal to plain; times as in ``phase_kernels``."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.models.pointnet2 import (
+        SSG_NPOINTS, SSG_NSAMPLES, SSG_RADII,
+    )
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bounds, fps
+
+    xyz = train_blocks(dev)[..., :3].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fps_in, bk_in, levels = [], [], [xyz]
+    for npoint, radius, nsample in zip(SSG_NPOINTS, SSG_RADII, SSG_NSAMPLES):
+        cur = levels[-1]
+        n = cur.shape[1]
+        start = torch.randint(0, n, (cur.shape[0],), generator=gen, device=dev,
+                              dtype=torch.int32)
+        got = fps.fps(cur, npoint, start)
+        torch.cuda.synchronize()
+        if not torch.equal(got, fps.fps_plain(cur, npoint, start)):
+            raise AssertionError(f"fps kernel != plain at {tuple(cur.shape)}->{npoint}, "
+                                 "random starts")
+        if not torch.equal(got[:, 0], start):
+            raise AssertionError("fps does not begin at the start it was given")
+        fps_in.append((cur, npoint, start))
+        centers = ops.gather_points(cur, got)
+        sqr = ops.square_distance(centers, cur)
+        arange = torch.arange(n, dtype=torch.float32, device=dev)
+        bk_in.append((torch.where(sqr > radius * radius, float(n), arange), nsample))
+        levels.append(centers)
+    for li in range(4):
+        bk_in.append((ops.square_distance(levels[li], levels[li + 1]), 3))
+    for vals, k in bk_in:
+        gv, gi = bottomk.bottom_k(vals, k)
+        wv, wi = bottomk.bottom_k_plain(vals, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+            raise AssertionError(f"bottom_k kernel != plain at {tuple(vals.shape)} k={k}")
+        if not torch.equal(topk_library(vals, k)[0], gv):
+            raise AssertionError(f"torch.topk values != bottom_k at {tuple(vals.shape)} k={k}")
+        del wv, wi
+    print(f"train step shapes: fps at 4 levels of [{TRAIN_BATCH}, {NUM_POINT}] with random "
+          "starts and bottom_k on its 8 inputs equal to plain")
+
+    def rows_of(v):
+        return v.numel() // v.shape[-1]
+
+    def run_fps(f):
+        return lambda: [f(cur, n, st) for cur, n, st in fps_in]
+
+    def run_bk(f):
+        return lambda: [f(v, k) for v, k in bk_in]
+
+    work = {
+        "fps": bounds.total(bounds.fps(c.shape[0], c.shape[1], n) for c, n, _ in fps_in),
+        "bottom_k": bounds.total(bounds.bottom_k(rows_of(v), v.shape[-1], k)
+                                 for v, k in bk_in),
+    }
+    for name, kern, plain, fn, reps in (
+        ("fps", fps.fps, fps.fps_plain, run_fps, 3),
+        ("bottom_k", bottomk.bottom_k, bottomk.bottom_k_plain, run_bk, 5),
+    ):
+        rec = {"unit": f"one build_geometry of [{TRAIN_BATCH}, {NUM_POINT}], random starts",
+               "eager_ms": cuda_ms(fn(kern), reps=20), "ms": device_ms(fn(kern)),
+               "plain_ms": cuda_ms(fn(plain), reps=reps),
+               "bound_ms": work[name].bound_ms, "bound_by": work[name].bound_by,
+               "library_ms": None}
+        if name == "bottom_k":
+            rec["library_ms"] = device_ms(run_bk(topk_library))
+        print(f"{name} (train step): kernel {rec['ms']:.4f} ms on the card "
+              f"({rec['eager_ms']:.4f} ms as eager calls, median), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+              f"{work[name].bytes} bytes, {work[name].operations} operations; share "
+              f"{rec['bound_ms'] / rec['ms']:.3f}), library {rec['library_ms']} ms per "
+              f"build_geometry of [{TRAIN_BATCH}, {NUM_POINT}]")
+        records[name]["train_step"] = rec
+    for cur, n, st in fps_in:
+        ms = device_ms(lambda: fps.fps(cur, n, st))
+        print(f"  fps {tuple(cur.shape)} -> {n}: {ms:.4f} ms "
+              f"({1e6 * ms / (n - 1):.0f} ns per step)")
+    for v, k in bk_in:
+        ms = device_ms(lambda: bottomk.bottom_k(v, k))
+        b = bounds.bottom_k(rows_of(v), v.shape[-1], k).bound_ms
+        print(f"  bottom_k {tuple(v.shape)} k={k}: {ms:.4f} ms (bound {b:.4f} ms)")
+
+
 def random_state_dict(seed: int) -> dict:
     """Full-width SSG weights from a seeded generator: Linear weights and
     biases uniform in ±1/sqrt(fan_in) (torch's default bound); BatchNorm
@@ -481,7 +619,7 @@ def phase_slice(dev, records, data: str) -> dict:
     for name in ("fps", "bottom_k"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-        records[name]["launches"] = counts[name]
+        records[name]["launches_by_path"] = {"pointnet2 nb": counts[name]}
         records[name]["calls_per_batch"] = {
             "pointnet2 nb": counts[name] / (len(rows) // BATCH)}
     return stats
@@ -1141,6 +1279,328 @@ def phase_randla_reference(dev, prep: str) -> None:
             raise AssertionError(f"card RandLA ({ap_impl}) logits disagree with the CPU")
 
 
+def phase_trained_fixture(dev) -> dict:
+    """The trained PointNet++ fixture on the card: NB at the preset and
+    tar_NB (floor → table, 50 iterations) on the first 8 blocks of 128
+    points of the recipe's synthetic Area-5 room, as
+    ``tools/make_trained_fixture.py`` measured the committed figures."""
+    from pointsecguard_tpu_torch import attacks
+    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks, make_synthetic_rooms
+    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG, build_geometry
+    from pointsecguard_tpu_torch.utils.convert import from_jax_variables
+
+    fixdir = os.path.join(REPO, "tests", "fixtures")
+    with np.load(os.path.join(fixdir, "trained_pointnet2.npz")) as f:
+        sd = from_jax_variables({k: f[k] for k in f.files})
+    with open(os.path.join(fixdir, "trained_pointnet2.json")) as f:
+        expected = json.load(f)["expected"]
+    model = PointNet2SemSegSSG()
+    model.load_state_dict(sd)
+    model.to(dev).eval().requires_grad_(False)
+    data = os.path.join(WORK, "fixture_data")
+    make_synthetic_rooms(data, points_per_room=6000, seed=0)
+    feats, labs, _, _ = WholeSceneBlocks(
+        RoomSet.load(data, "test", 5), block_points=128).room_blocks(
+            0, np.random.default_rng(0))
+    feats = torch.from_numpy(feats[:8]).to(dev)
+    labs = torch.from_numpy(labs[:8]).long().to(dev)
+    geo = build_geometry(feats[..., :3])
+
+    def outputs_fn(p):
+        return model(p, geometry=geo)[0]
+
+    with torch.no_grad():
+        clean = (outputs_fn(feats).argmax(-1) == labs).float().mean().item()
+    nb = attacks.pgd_color_attack(outputs_fn, feats, labs,
+                                  attacks.attack_preset("pointnet2", "nb"))
+    ys, mask = attacks.make_target_labels(labs, 1, 7)
+    tnb = attacks.pgd_color_attack(
+        outputs_fn, feats, ys,
+        attacks.attack_preset("pointnet2", "tar_nb", target=7, iters=50), mask=mask)
+    got = {"clean_acc": clean, "nb_adv_acc": nb.acc.item(),
+           "nb_l2_mean": nb.l2_dist.mean().item(),
+           "tar_nb_success_rate": tnb.success_rate.item()}
+    # tolerances of tests/test_torch_attack.py (tests/test_trained_regression.py's)
+    tol = {"clean_acc": 0.02, "nb_adv_acc": 0.03,
+           "nb_l2_mean": 0.05 * expected["nb_l2_mean"], "tar_nb_success_rate": 0.05}
+    print("trained fixture on the card: " + json.dumps(
+        {k: {"card": got[k], "committed": expected[k], "tolerance": tol[k]} for k in got}))
+    for k in got:
+        if not abs(got[k] - expected[k]) < tol[k]:
+            raise AssertionError(f"trained fixture {k}: {got[k]} vs committed {expected[k]}")
+    return got
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
+def phase_train_step(dev) -> dict:
+    """One optimizer step of the full-width model from the same weights,
+    batch (8 × 4096), FPS starts and dropout mask, on the card (kernels)
+    and on the CPU (plain versions).
+
+    Geometry: FPS centres equal; ball-query and 3-NN indices agree on
+    ≥ 0.999 of the entries (the distance product rounds differently on the
+    card). The step itself runs on both devices on the card's plan, so
+    that what differs is float32 summation order and, on the card, the
+    atomics of the gathers' scatter-add backward (not reproducible from
+    run to run). Tolerances: loss 1e-4 relative; the gradient and Adam's
+    first moment 2e-2 in relative L2 over the whole vector (the CPU step
+    itself sits 4e-3 from a float64 evaluation at a small size,
+    tests/test_torch_train.py), the second moment twice that; BatchNorm
+    statistics 1e-3 of the largest. The first Adam update is
+    lr · g / (|g| + ε), ±lr whatever the size of g, so the parameters'
+    move is compared where |g| is clear of rounding noise (above a fifth
+    of its tensor's largest entry; never a Linear bias under a BatchNorm,
+    whose true gradient is 0): within 1e-5 there."""
+    from pointsecguard_tpu_torch.models import (
+        PointNet2SemSegSSG, build_geometry, init_parameters, weighted_nll_loss,
+    )
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step
+
+    blocks = train_blocks(dev, BATCH)
+    gen = torch.Generator().manual_seed(11)
+    labels = torch.randint(0, 13, blocks.shape[:2], generator=gen)
+    weights = 0.5 + torch.rand(13, generator=gen)
+    mask = torch.rand((BATCH, NUM_POINT, 128), generator=gen) >= 0.5
+    sizes = (NUM_POINT, 1024, 256, 64)
+    starts = [torch.randint(0, n, (BATCH,), generator=gen, dtype=torch.int32) for n in sizes]
+    geo_gpu = build_geometry(blocks[..., :3], start_idx=[s.to(dev) for s in starts])
+    geo_cpu = build_geometry(blocks[..., :3].cpu(), start_idx=starts)
+    for li in range(4):
+        if not torch.equal(geo_gpu["sa"][li][0].cpu(), geo_cpu["sa"][li][0]):
+            raise AssertionError(f"train geometry: FPS centres differ card vs CPU at level {li}")
+        if not torch.equal(geo_gpu["sa"][li][0][:, 0].cpu(),
+                           ([blocks[..., :3].cpu()] + [g[0] for g in geo_cpu["sa"]])[li][
+                               torch.arange(BATCH), starts[li].long()]):
+            raise AssertionError("train geometry: a level does not begin at its start")
+    agree = [
+        (geo_gpu[part][li][item].cpu() == geo_cpu[part][li][item]).float().mean().item()
+        for part, item in (("sa", 1), ("fp", 0)) for li in range(4)
+    ]
+    if min(agree) < 0.999:
+        raise AssertionError(f"train geometry: neighbour agreement {min(agree)} < 0.999")
+    geo_shared = {k: tuple(tuple(t.cpu() for t in p) for p in v) for k, v in geo_gpu.items()}
+
+    out = {}
+    for name, device, geo in (("card", dev, geo_gpu), ("cpu", torch.device("cpu"), geo_shared)):
+        model = PointNet2SemSegSSG()
+        init_parameters(model, torch.Generator().manual_seed(3))
+        state = TrainState(model.to(device))
+        before = state.params.clone()
+        step = make_train_step(model, weighted_nll_loss)
+        t0 = time.perf_counter()
+        loss = step(state, blocks.to(device), labels.to(device), weights.to(device),
+                    TRAIN_LR, 0.1, dropout_mask=mask.to(device), geometry=geo)
+        named = [(k, p.numel()) for k, p in model.named_parameters()]
+        out[name] = {"loss": loss.item(), "grads": state.grads.cpu(), "mu": state.mu.cpu(),
+                     "nu": state.nu.cpu(), "move": (state.params - before).cpu(),
+                     "stats": state.stats.cpu(), "seconds": time.perf_counter() - t0}
+    card, cpu = out["card"], out["cpu"]
+    # a Linear bias under a BatchNorm has a true gradient of 0: all noise
+    clear = torch.cat([
+        (g.abs() > 0.2 * g.abs().max()) & (not key.endswith("dense.bias"))
+        for (key, _), g in zip(named, cpu["grads"].split([n for _, n in named]))])
+    res = {
+        "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+        "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        "grad_rel_l2": _rel_l2(card["grads"], cpu["grads"]),
+        "mu_rel_l2": _rel_l2(card["mu"], cpu["mu"]),
+        "nu_rel_l2": _rel_l2(card["nu"], cpu["nu"]),
+        "move_max_abs_where_clear": (card["move"] - cpu["move"])[clear].abs().max().item(),
+        "clear_entries": int(clear.sum()),
+        "stats_max_abs": (card["stats"] - cpu["stats"]).abs().max().item(),
+        "stats_max": cpu["stats"].abs().max().item(),
+        "neighbour_agreement_min": min(agree),
+        "cpu_step_s": cpu["seconds"],
+    }
+    print("train step, card vs CPU: " + json.dumps(res))
+    ok = (math.isfinite(card["loss"]) and res["loss_rel"] <= 1e-4
+          and res["grad_rel_l2"] <= 2e-2 and res["mu_rel_l2"] <= 2e-2
+          and res["nu_rel_l2"] <= 4e-2 and res["move_max_abs_where_clear"] <= 1e-5
+          and res["clear_entries"] > 10_000
+          and res["stats_max_abs"] <= 1e-3 * res["stats_max"]
+          and card["move"].abs().max().item() > 0)
+    if not ok:
+        raise AssertionError("the card's train step disagrees with the CPU's")
+    return res
+
+
+def read_events(log: str) -> list[dict]:
+    with open(os.path.join(log, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train(dev, records) -> tuple[str, str, dict]:
+    """Training through ``cli.train.main`` at full width, then a resumed
+    call with one more epoch; returns the data root, the log dir and the
+    figures of the run."""
+    from pointsecguard_tpu_torch.cli import train as cli
+    from pointsecguard_tpu_torch.data import (
+        RoomSet, S3DISBlockSampler, WholeSceneBlocks, make_synthetic_rooms,
+    )
+    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG, weighted_nll_loss
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+
+    data = os.path.join(WORK, "train_data")
+    make_synthetic_rooms(data, points_per_room=ROOM_POINTS, seed=0, train_areas=TRAIN_AREAS)
+    log = os.path.join(WORK, "train_log")
+    rooms = RoomSet.load(data, "train", 5)
+    sampler = S3DISBlockSampler(rooms, num_point=NUM_POINT)
+    steps_per_epoch = -(-len(sampler) // TRAIN_BATCH)
+    test_blocks = WholeSceneBlocks(RoomSet.load(data, "test", 5), block_points=NUM_POINT
+                                   ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+    eval_batches = -(-test_blocks // TRAIN_BATCH)
+    if steps_per_epoch * TRAIN_EPOCHS < 60:
+        raise AssertionError(f"{steps_per_epoch} steps an epoch: fewer than 60 in all")
+
+    def argv(epochs):
+        return ["--model", "pointnet2", "--data_root", data, "--log_dir", log,
+                "--npoint", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH),
+                "--epochs", str(epochs), "--eval_every", str(TRAIN_EVAL_EVERY),
+                "--learning_rate", str(TRAIN_LR)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, best_miou = cli.main(argv(TRAIN_EPOCHS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    events = read_events(log)
+    epochs = [e for e in events if e["event"] == "epoch"]
+    evals = [e for e in events if e["event"] == "eval"]
+    if [e["epoch"] for e in epochs] != list(range(TRAIN_EPOCHS)):
+        raise AssertionError(f"epoch lines {[e['epoch'] for e in epochs]}")
+    if len(evals) != 2:
+        raise AssertionError(f"{len(evals)} evals, want 2")
+    if any(e["batches"] != steps_per_epoch or e["nan_batches"] for e in epochs):
+        raise AssertionError(f"steps or skipped batches: {epochs}")
+    if not all(math.isfinite(e["loss"]) for e in epochs):
+        raise AssertionError("a non-finite epoch loss")
+    if not epochs[-1]["loss"] < epochs[0]["loss"]:
+        raise AssertionError("the last epoch's mean loss is not below the first's")
+    steps = steps_per_epoch * TRAIN_EPOCHS
+    passes = steps + len(evals) * eval_batches  # geometries built
+    if counts["fps"] != 4 * passes or counts["bottom_k"] != 8 * passes:
+        raise AssertionError(f"train launches {counts}, want fps {4 * passes} and bottom_k "
+                             f"{8 * passes} ({steps} steps, {len(evals)} × {eval_batches} "
+                             "eval batches)")
+    if any(counts[k] for k in counts if k not in ("fps", "bottom_k")):
+        raise AssertionError(f"a kernel off the training path launched: {counts}")
+    for name, per in (("fps", 4), ("bottom_k", 8)):
+        records[name]["launches_by_path"]["pointnet2 train"] = counts[name]
+        records[name]["calls_per_batch"]["pointnet2 train step"] = per
+        records[name]["calls_per_batch"]["pointnet2 eval batch"] = per
+
+    # the resumed call: one more epoch, none repeated
+    cli.main(argv(TRAIN_EPOCHS + 1))
+    resumed = [e["epoch"] for e in read_events(log) if e["event"] == "epoch"]
+    if resumed != list(range(TRAIN_EPOCHS + 1)):
+        raise AssertionError(f"epochs after the resumed call: {resumed}")
+    latest = CheckpointManager(os.path.join(log, "checkpoints")).restore_latest()
+    if latest["epoch"] != TRAIN_EPOCHS + 1 or latest["step"] != steps + steps_per_epoch:
+        raise AssertionError(f"resumed checkpoint: epoch {latest['epoch']}, step {latest['step']}")
+
+    # the step alone on the card: CUDA events around each of 10 steps on
+    # batches that already lie there
+    model = PointNet2SemSegSSG()
+    state = TrainState(model.to(dev))
+    state.load_payload(latest)
+    step = make_train_step(model, weighted_nll_loss)
+    rng = np.random.default_rng(1)
+    pts, labels = next(iter(sampler.batches(rng, TRAIN_BATCH)))
+    pts, labels = torch.from_numpy(pts).to(dev), torch.from_numpy(labels).to(dev)
+    weights = torch.from_numpy(np.asarray(rooms.label_weights, np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step_ms = cuda_ms(lambda: step(state, pts, labels, weights, 1e-4, 0.1, gen), reps=10)
+    t0 = time.perf_counter()
+    for _ in sampler.batches(rng, TRAIN_BATCH):
+        pass
+    sampler_ms = 1e3 * (time.perf_counter() - t0) / steps_per_epoch
+
+    warm = epochs[1:]  # the first epoch pays the one-off CUDA set-up
+    # an epoch's line is written before its eval runs, so its seconds are
+    # training alone
+    host_ms = 1e3 * sum(e["seconds"] for e in warm) / sum(e["batches"] for e in warm)
+    stats = {
+        "rooms": len(rooms.names), "sampler_blocks": len(sampler),
+        "steps_per_epoch": steps_per_epoch, "steps": steps, "eval_batches": eval_batches,
+        "epoch_loss": [e["loss"] for e in epochs],
+        "eval_accuracy": [e["accuracy"] for e in evals], "eval_miou": [e["miou"] for e in evals],
+        "best_miou": best_miou,
+        "ms_per_step_host_clock": host_ms,
+        "ms_per_step_host_clock_by_epoch": [1e3 * e["seconds"] / e["batches"] for e in epochs],
+        "ms_per_step_cuda_events": step_ms,
+        "blocks_per_s": 1e3 * TRAIN_BATCH / host_ms,
+        "host_share": 1.0 - step_ms / host_ms,
+        "sampler_ms_per_batch_alone": sampler_ms,
+        "peak_device_memory_gb": peak / 1e9,
+        "main_wall_s": wall, "launches": counts,
+    }
+    print("train: " + json.dumps(stats))
+    return data, log, stats
+
+
+def phase_eval(data: str, log: str) -> float:
+    """``cli.eval --num_votes 1`` on the trained checkpoint."""
+    from pointsecguard_tpu_torch.cli import eval as cli
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    total = cli.main(["--model", "pointnet2", "--data_root", data, "--log_dir", log,
+                      "--num_point", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH),
+                      "--num_votes", "1"])
+    counts = kernels.launch_counts()
+    print(f"eval: accuracy {total.accuracy:.4f}, mIoU {total.miou:.4f} on the Area-5 room "
+          f"(floor {EVAL_ACC_FLOOR}, chance 1/13 = {1 / 13:.4f}); launches {counts}")
+    if not (math.isfinite(total.miou) and total.accuracy >= EVAL_ACC_FLOOR >= 2 / 13):
+        raise AssertionError(f"eval accuracy {total.accuracy} under the floor {EVAL_ACC_FLOOR}")
+    if counts["fps"] <= 0 or counts["bottom_k"] != 2 * counts["fps"]:
+        raise AssertionError(f"eval launches {counts}")
+    return total.accuracy
+
+
+def phase_attack_trained(data: str, log: str) -> dict:
+    """NB with ``--save_adv`` on the port's own trained checkpoint, then
+    ``cli.eval --adv_set`` on what it wrote."""
+    from pointsecguard_tpu_torch.cli import attack, eval as cli_eval
+
+    clean_m, adv_m = attack.main([
+        "--model", "pointnet2", "--attack", "nb", "--save_adv", "--data_root", data,
+        "--log_dir", log, "--num_point", str(NUM_POINT), "--batch_size", str(BATCH),
+        "--max_blocks", str(MAX_BLOCKS)])
+    rows = read_tsv(os.path.join(log, "pointnet2_nb_area5.tsv"))
+    clean = float(np.mean([float(r["clean_acc"]) for r in rows]))
+    adv = float(np.mean([float(r["adv_acc"]) for r in rows]))
+    path = os.path.join(log, "pointnet2_nb_adv_area5.npz")
+    m = cli_eval.main(["--model", "pointnet2", "--log_dir", log, "--adv_set", path,
+                       "--batch_size", str(BATCH)])
+    stats = {"blocks": len(rows), "clean_acc": clean, "adv_acc": adv,
+             "l2_mean": float(np.mean([float(r["l2"]) for r in rows])),
+             "ms_per_block_warm_median": float(np.median(
+                 [1e3 * float(r["time_s"]) for r in rows[BATCH:]])),
+             "clean_miou": clean_m.miou, "adv_miou": adv_m.miou,
+             "adv_set_accuracy": m.accuracy}
+    print("attack on the trained checkpoint: " + json.dumps(stats))
+    if len(rows) != MAX_BLOCKS or not adv < clean:
+        raise AssertionError("NB did not lower the trained model's accuracy")
+    if clean < 2 / 13:
+        raise AssertionError(f"the trained model has no accuracy to attack: {clean}")
+    # the TSV rounds each block to 4 decimals; the .npz holds the same
+    # blocks and the checkpoint is the same
+    if abs(m.accuracy - adv) > 1e-3:
+        raise AssertionError(f"--adv_set accuracy {m.accuracy} != the attack run's {adv}")
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1218,6 +1678,7 @@ def main(argv=None) -> int:
     phase_randla_kernels(dev, records, xyz)
     phase_routes(records, xyz)
     del xyz
+    phase_train_kernels(dev, records)
     if args.kernels_only:
         print(json.dumps({"kernels": list(records.values())}))
         print(card)
@@ -1232,16 +1693,27 @@ def main(argv=None) -> int:
     phase_randla(dev, records, prep, sd)
     phase_randla_nu(prep, records)
     phase_randla_reference(dev, prep)
+    phase_trained_fixture(dev)
+    phase_train_step(dev)
+    train_data, train_log, _ = phase_train(dev, records)
+    phase_eval(train_data, train_log)
+    phase_attack_trained(train_data, train_log)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "calls_per_batch")
+    for name in ("fps", "bottom_k"):  # two main paths: the NB slice and training
+        by_path = records[name]["launches_by_path"]
+        if set(by_path) != {"pointnet2 nb", "pointnet2 train"} or min(by_path.values()) <= 0:
+            raise AssertionError(f"kernel {name} missed a main path: {by_path}")
+        records[name]["launches"] = sum(by_path.values())
     for r in records.values():
         if not r["launches"] > 0:
             raise AssertionError(f"kernel {r['name']} never launched on its main path")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **{k: r[k] for k in ("cw_step", "ns_per_step") if k in r}}
+         **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "launches_by_path")
+            if k in r}}
         for r in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

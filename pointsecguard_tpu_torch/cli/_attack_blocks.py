@@ -3,9 +3,10 @@
 
 Per batch of blocks: build the xyz-only geometry once (FPS and bottom-k
 kernels), clean forward, PGD (nb / tar_nb) or C&W (nu / tar_nu) attack,
-per-block TSV rows in the JAX
-CLI's format; per room and per dataset, clean-vs-adversarial IoU from
-pooled votes (`NB_nontarget_test_semseg.py:64-294` protocol).
+per-block TSV rows in the JAX CLI's format, with ``--save_adv`` the
+adversarial blocks as an ``.npz``; per room and per dataset,
+clean-vs-adversarial IoU from pooled votes
+(`NB_nontarget_test_semseg.py:64-294` protocol).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def run_blocks(args, log):
         clean_cm = np.zeros((13, 13))
         adv_cm = np.zeros((13, 13))
         n_blocks_done = 0
+        adv_saved, adv_saved_labels = [], []  # --save_adv: per kept block
         for room_idx, room_name in enumerate(rooms.names):
             data, labels, weights, pidx = ws.room_blocks(room_idx, rng)
             labels_room = rooms.labels[room_idx]
@@ -110,6 +112,10 @@ def run_blocks(args, log):
                 else:
                     sr_b = np.zeros(valid)
                 dt = time.time() - t0
+                if args.save_adv:
+                    adv_saved.append(
+                        res.points_adv.cpu().numpy()[:valid][keep].astype(np.float32))
+                    adv_saved_labels.append(labs_np[:valid][keep].astype(np.int32))
 
                 lab_np = labs_np[:valid]
                 w = weights[start : start + valid]
@@ -160,4 +166,16 @@ def run_blocks(args, log):
         clean_m.miou, clean_m.accuracy, adv_m.miou, adv_m.accuracy,
     )
     log.info("per-block TSV: %s", tsv_path)
+    if args.save_adv and adv_saved:
+        adv_path = os.path.join(
+            args.log_dir,
+            f"{args.model}_{args.attack}_adv_area{args.test_area}.npz",
+        )
+        np.savez_compressed(
+            adv_path,
+            points=np.concatenate(adv_saved, axis=0),
+            labels=np.concatenate(adv_saved_labels, axis=0),
+        )
+        log.info("adversarial set: %s (re-evaluate with cli.eval --adv_set)",
+                 adv_path)
     return clean_m, adv_m

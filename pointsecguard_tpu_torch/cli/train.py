@@ -1,0 +1,108 @@
+"""Training CLI of the port (port of ``pointsecguard_tpu/cli/train.py``):
+
+  python -m pointsecguard_tpu_torch.cli.train --model pointnet2 \
+      --data_root data/stanford_indoor3d --log_dir log/pointnet2 [--epochs 32]
+
+Ported: ``--model pointnet2`` (PointNet++ SSG on S3DIS blocks through the
+host sampler) with ``--data_root``, ``--log_dir``, ``--test_area``,
+``--epochs``, ``--batch_size`` (0 → 32), ``--npoint`` (0 → 4096),
+``--min_block_points``, ``--learning_rate`` (0 → 0.001), ``--seed``,
+``--prefetch`` and ``--eval_every``. It runs on the GPU; ``--device cpu``
+runs the plain PyTorch path by request. Every other flag of the JAX CLI
+is accepted by name and stops the run with "not ported yet" instead of
+being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+_MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
+           "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
+           "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
+PORTED_MODELS = ("pointnet2",)
+# JAX CLI flags this port does not implement yet, with the one value
+# (the JAX default) that is accepted
+_UNPORTED_DEFAULTS = {
+    "randla_dir": "data/randla_input_0.040", "randla_dataset": "s3dis",
+    "randla_points": 0, "val_steps": 0, "steps_per_epoch": 0,
+    "resgcn_blocks": 0, "resgcn_k": 0, "resgcn_filters": 0,
+    "resgcn_block_type": "", "resgcn_conv": "", "resgcn_epsilon": 0.0,
+    "num_category": 40, "precision": "float32", "steps_per_call": 1,
+    "profile": None, "devices": 1, "shard_points": 1, "adv_train": "none",
+    "adv_eps": 0.1, "adv_alpha": 0.05, "adv_iters": 5, "adv_rand_init": 0.0,
+}
+_UNPORTED_SWITCHES = ("no_normals", "remat", "device_sampler",
+                      "device_sampler_exact")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser("train")
+    ap.add_argument("--model", default="pointnet2", choices=_MODELS)
+    ap.add_argument("--data_root", default="data/stanford_indoor3d")
+    ap.add_argument("--log_dir", default="log/run")
+    ap.add_argument("--test_area", type=int, default=5)
+    ap.add_argument("--epochs", type=int, default=32)
+    ap.add_argument("--batch_size", type=int, default=0, help="0 = 32")
+    ap.add_argument("--npoint", type=int, default=0,
+                    help="points per block (0 = 4096)")
+    ap.add_argument("--min_block_points", type=int, default=1024,
+                    help="block sampler: accept training blocks with more "
+                         "than this many raw points (`S3DISDataLoader.py:52-60`)")
+    ap.add_argument("--learning_rate", type=float, default=0.0, help="0 = 0.001")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="batches staged ahead by the background host "
+                         "pipeline (sample + augment + copy to the device); "
+                         "0 = synchronous")
+    ap.add_argument("--eval_every", type=int, default=1)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default) needs a card and raises without "
+                         "one; cpu runs the plain PyTorch path")
+    for name, default in _UNPORTED_DEFAULTS.items():
+        flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
+        kind = type(default) if default is not None else str
+        ap.add_argument(*flags, type=kind, default=default)
+    for name in _UNPORTED_SWITCHES:
+        ap.add_argument(f"--{name}", action="store_true")
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
+    refused += [f"--{name} {getattr(args, name)}"
+                for name, default in _UNPORTED_DEFAULTS.items()
+                if getattr(args, name) != default]
+    refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
+    if refused:
+        raise SystemExit("not ported yet: " + ", ".join(refused))
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+
+    from pointsecguard_tpu_torch.train.loops import train_pointnet_family
+    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+
+    device = resolve_device(args.device)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(message)s",
+        force=True,
+        handlers=[
+            logging.StreamHandler(),
+            logging.FileHandler(f"{args.log_dir.rstrip('/')}.train.log", delay=True),
+        ],
+    )
+    t0 = time.time()
+    args.npoint = args.npoint or 4096
+    result = train_pointnet_family(args, device)
+    logging.info("total wall time %.1f s", time.time() - t0)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
-"""Host data pipeline of the port (numpy): S3DIS rooms, whole-scene
-blocks and the synthetic room fixture; RandLA's room preparation and
-sampler are in ``data.randla``."""
+"""Host data pipeline of the port (numpy): S3DIS rooms, the training
+block sampler, whole-scene blocks and the synthetic room fixture;
+RandLA's room preparation and sampler are in ``data.randla``."""
 
 from pointsecguard_tpu_torch.data.s3dis import (
     NUM_CLASSES,
     S3DIS_CLASSES,
     RoomSet,
+    S3DISBlockSampler,
     WholeSceneBlocks,
     inverse_cube_root_weights,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "NUM_CLASSES",
     "RoomSet",
     "S3DIS_CLASSES",
+    "S3DISBlockSampler",
     "WholeSceneBlocks",
     "inverse_cube_root_weights",
     "make_room",

@@ -3,7 +3,10 @@
 from pointsecguard_tpu_torch.models.pointnet2 import (
     PointNet2SemSegSSG,
     build_geometry,
+    init_parameters,
+    weighted_nll_loss,
 )
 from pointsecguard_tpu_torch.models.randlanet import RandLANet, build_pyramid
 
-__all__ = ["PointNet2SemSegSSG", "RandLANet", "build_geometry", "build_pyramid"]
+__all__ = ["PointNet2SemSegSSG", "RandLANet", "build_geometry", "build_pyramid",
+           "init_parameters", "weighted_nll_loss"]

@@ -6,11 +6,14 @@ Channel specs and grouping semantics are the reference's
 geometry (FPS centres, ball-query groups, 3-NN plans) is built by
 ``build_geometry``; colour attacks never move xyz, so the attack CLI
 builds it once per batch and each attack iteration is gathers and
-matmuls only. FPS starts at index 0, as in the JAX attack path.
+matmuls only. FPS starts at index 0, as in the JAX attack path; the
+trainer passes a generator and every level draws one random start per
+cloud, as the JAX model does under its ``sample`` rng.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -26,11 +29,15 @@ SSG_NSAMPLES = (32, 32, 32, 32)
 SSG_SA_MLPS = ((32, 32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512))
 # feature propagation, in the order applied: fp4 (l3←l4) … fp1 (l0←l1)
 SSG_FP_MLPS = ((256, 256), (256, 256), (256, 128), (128, 128, 128))
+DROPOUT = 0.5  # on the head's 128 features (`pointnet2_sem_seg.py:27`)
 
 
-def sa_plan(cur: torch.Tensor, npoint: int, radius: float, nsample: int):
+def sa_plan(cur: torch.Tensor, npoint: int, radius: float, nsample: int, *,
+            generator: torch.Generator | None = None,
+            start_idx: torch.Tensor | None = None):
     """One SA level's geometry: FPS centres + ball-query group indices."""
-    fps = ops.farthest_point_sample(cur, npoint)
+    fps = ops.farthest_point_sample(cur, npoint, start_idx=start_idx,
+                                    generator=generator)
     centers = ops.gather_points(cur, fps)
     return centers, ops.ball_query(radius, nsample, cur, centers)
 
@@ -42,13 +49,23 @@ def three_nn_plan(dst: torch.Tensor, src: torch.Tensor):
 
 
 @torch.no_grad()
-def build_geometry(xyz: torch.Tensor) -> dict:
+def build_geometry(xyz: torch.Tensor, generator: torch.Generator | None = None,
+                   start_idx: Sequence[torch.Tensor] | None = None) -> dict:
     """The SSG geometry plan from coordinates alone: per SA level
-    (centres, group idx), per FP hop (3-NN idx, weight), l0←l1 first."""
+    (centres, group idx), per FP hop (3-NN idx, weight), l0←l1 first.
+
+    FPS starts at index 0 (the attack and eval paths). The training-mode
+    geometry passes ``generator``: each SA level then draws one start per
+    cloud from it (`pointnet_util.py:74`), four draws of [B] a batch.
+    ``start_idx`` (one [B] tensor per level) fixes the starts instead; the
+    generator wins where both are given. The geometry carries no gradient:
+    indices, and 3-NN weights that depend on xyz alone."""
     sa_plans = []
     cur = xyz
-    for npoint, radius, nsample in zip(SSG_NPOINTS, SSG_RADII, SSG_NSAMPLES):
-        plan = sa_plan(cur, npoint, radius, nsample)
+    for li, (npoint, radius, nsample) in enumerate(
+            zip(SSG_NPOINTS, SSG_RADII, SSG_NSAMPLES)):
+        plan = sa_plan(cur, npoint, radius, nsample, generator=generator,
+                       start_idx=None if start_idx is None else start_idx[li])
         sa_plans.append(plan)
         cur = plan[0]
     levels = [xyz] + [p[0] for p in sa_plans]  # l0..l4 coordinates
@@ -115,11 +132,16 @@ class PointNet2SemSegSSG(nn.Module):
             up = mlp[-1]
         self.fp = nn.ModuleList(fp)
         self.head = PointMLP(up, (128,))
-        self.dropout = nn.Dropout(0.5)
         self.cls = nn.Linear(128, num_classes)
 
     def forward(self, points: torch.Tensor, geometry: dict | None = None,
-                momentum: float = 0.9):
+                momentum: float = 0.9, *,
+                generator: torch.Generator | None = None,
+                dropout_mask: torch.Tensor | None = None):
+        """In training mode the head's dropout (rate 0.5) keeps the
+        entries where ``dropout_mask`` [B, N, 128] is true, or draws the
+        mask from ``generator`` (on the model's device; torch's default
+        generator without one). Evaluation mode applies none."""
         xyz = [points[..., :3]]
         feats = [points]  # all 9 channels, as in the reference forward
         if geometry is None:
@@ -133,6 +155,45 @@ class PointNet2SemSegSSG(nn.Module):
             li = 3 - j  # dense level of this hop
             skip = feats[li] if li > 0 else None
             up = fp(skip, up, geometry["fp"][li], momentum)
-        x = self.dropout(self.head(up, momentum))
+        x = self.head(up, momentum)
+        if self.training:
+            if dropout_mask is None:
+                dropout_mask = torch.rand(
+                    x.shape, generator=generator, device=x.device) >= DROPOUT
+            x = torch.where(dropout_mask, x / (1.0 - DROPOUT), torch.zeros_like(x))
         logits = self.cls(x).float()
         return torch.log_softmax(logits, dim=-1), feats[4]
+
+
+def weighted_nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+                      class_weights: torch.Tensor) -> torch.Tensor:
+    """Weighted NLL with ``F.nll_loss(weight=...)`` semantics
+    (`pointnet2_sem_seg.py:43-49`, `train_semseg.py:177`): the sum over
+    points of w[y]·(−logp[y]) over Σ w[y]."""
+    lp = log_probs.reshape(-1, log_probs.shape[-1])
+    y = labels.reshape(-1)
+    picked = torch.gather(lp, 1, y[:, None])[:, 0]
+    w = class_weights[y]
+    return -(w * picked).sum() / w.sum()
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to ±2
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Initialise ``model`` as flax initialises the JAX model: every
+    Linear weight from a normal of variance 1 / fan_in truncated at two
+    standard deviations (``lecun_normal``), every Linear bias zero;
+    BatchNorm keeps scale 1, bias 0, mean 0, var 1. ``nn.Linear``'s own
+    default (uniform in ±1/sqrt(fan_in), a third of that variance, and a
+    random bias) trains to another band. ``generator`` is a CPU
+    generator: the draw does not depend on the device the model runs on."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            u = torch.rand(mod.weight.shape, generator=generator, dtype=torch.float64)
+            unit = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
+            std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
+            mod.weight.copy_((unit * std).to(mod.weight))
+            mod.bias.zero_()

@@ -26,20 +26,21 @@ def farthest_point_sample(
       xyz: [B, N, 3] point coordinates.
       npoint: number of points to select; npoint > N wraps onto index 0.
       start_idx: optional [B] initial indices. Default 0.
-      generator: if given (and no ``start_idx``), the start index is drawn
-        uniformly from it — the reference's ``torch.randint`` seeding.
+      generator: if given, the start index is drawn uniformly from it (the
+        reference's ``torch.randint`` seeding) and ``start_idx`` is not
+        read: the generator wins, as the key does in the JAX package.
 
     Returns:
       [B, npoint] int32 indices of the selected points.
     """
     B, N, _ = xyz.shape
-    if start_idx is not None:
-        start = start_idx.to(device=xyz.device, dtype=torch.int32)
-    elif generator is not None:
+    if generator is not None:
         start = torch.randint(
             0, N, (B,), generator=generator, device=generator.device,
             dtype=torch.int32,
         ).to(xyz.device)
+    elif start_idx is not None:
+        start = start_idx.to(device=xyz.device, dtype=torch.int32)
     else:
         start = torch.zeros((B,), dtype=torch.int32, device=xyz.device)
     return fps(xyz.float(), npoint, start)

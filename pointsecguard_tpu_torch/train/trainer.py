@@ -1,0 +1,163 @@
+"""Training step of the segmentation models (port of
+``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
+
+One step is: train-mode geometry (random FPS starts), train-mode forward,
+loss, backward, Adam update and the BatchNorm running statistics. The lr
+and the BatchNorm momentum are call arguments, so the per-epoch annealing
+of the reference (`train_semseg.py:136-159`) needs no rebuild.
+
+Nothing in a step reads the device: the loss stays a device tensor (the
+epoch loop reads all of an epoch's losses at once), and the guard that
+skips a batch with a non-finite loss selects old or new state on the
+device. For that the state is kept flat: the model's parameters are views
+into one buffer, their gradients views into a second, the BatchNorm
+statistics views into a third, and Adam's moments are two more buffers of
+the parameters' size. The update and the guard are then a dozen
+elementwise kernels whatever the number of layers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from pointsecguard_tpu_torch.models.pointnet2 import build_geometry
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _flatten(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """One buffer holding ``tensors``; each tensor becomes a view into it."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    offset = 0
+    for t in tensors:
+        t.data = flat[offset : offset + t.numel()].view_as(t)
+        offset += t.numel()
+    return flat
+
+
+class TrainState:
+    """Model, Adam moments and step counts of one training run.
+
+    Build it after the model is on its device; ``model.to(...)`` afterwards
+    would separate the parameters from the flat buffers. ``count`` is
+    Adam's number of updates (a device tensor: a skipped batch leaves it
+    as it was); ``step`` counts every batch, skipped or not, as the JAX
+    ``TrainState.step`` does.
+    """
+
+    def __init__(self, model: nn.Module):
+        self.model = model
+        params = [p for p in model.parameters()]
+        self.params = _flatten(params)
+        self.grads = torch.zeros_like(self.params)
+        offset = 0
+        for p in params:
+            p.grad = self.grads[offset : offset + p.numel()].view_as(p)
+            offset += p.numel()
+        self.stats = _flatten([b for b in model.buffers()])
+        self.mu = torch.zeros_like(self.params)
+        self.nu = torch.zeros_like(self.params)
+        self.count = torch.zeros((), dtype=torch.float64, device=self.params.device)
+        self.step = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    def payload(self) -> dict:
+        """What a checkpoint holds (``utils.checkpoint.CheckpointManager``)."""
+        return {"model": self.model.state_dict(), "mu": self.mu, "nu": self.nu,
+                "count": self.count, "step": self.step}
+
+    def load_payload(self, payload: dict) -> None:
+        self.model.load_state_dict(payload["model"])  # in place: views stay
+        self.mu.copy_(payload["mu"])
+        self.nu.copy_(payload["nu"])
+        self.count.copy_(payload["count"])
+        self.step = int(payload["step"])
+
+
+@torch.no_grad()
+def adam_update(state: TrainState, lr: float, *, weight_decay: float = 1e-4) -> None:
+    """One update of ``state.params`` from ``state.grads``, in place: the
+    JAX package's ``make_optimizer`` followed by ``p − lr·u``
+    (`trainer.py:38-45, 126-131`). L2 of ``weight_decay`` is added to the
+    gradient *before* the moments (torch ``Adam(weight_decay=...)``,
+    `train_semseg.py:126-132`), β 0.9 / 0.999, ε 1e-8 outside the root."""
+    g = torch.add(state.grads, state.params, alpha=weight_decay)
+    state.mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+    state.nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+    state.count.add_(1.0)
+    mu_hat = state.mu / (1.0 - ADAM_B1 ** state.count)
+    nu_hat = state.nu / (1.0 - ADAM_B2 ** state.count)
+    state.params.sub_(mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS), alpha=lr)
+
+
+def make_train_step(
+    model: nn.Module,
+    loss_fn: Callable,
+    *,
+    weight_decay: float = 1e-4,
+) -> Callable:
+    """Build ``train_step(state, points, labels, class_weights, lr,
+    bn_momentum, generator=None, *, start_idx=None, dropout_mask=None,
+    geometry=None) → loss`` (a device tensor).
+
+    ``bn_momentum`` is torch's (the share of the batch statistic); the
+    model takes the keep fraction ``1 − bn_momentum``. ``generator`` (on
+    the model's device) gives the FPS starts, four draws of [B], and then
+    the dropout mask; ``start_idx`` and ``dropout_mask`` fix them instead,
+    and ``geometry`` (a ``build_geometry`` plan) replaces the step's own,
+    so that two devices can be held against each other on one plan.
+
+    NaN guard: on a non-finite loss the step keeps the previous
+    parameters, Adam moments and count, and BatchNorm statistics (the
+    reference's only failure handling was RandLA's NaN catch that ended
+    the run, `RandLANet.py:237-247`). The returned loss still reports the
+    bad value, so that the epoch loop can count it.
+    """
+
+    def train_step(state: TrainState, points, labels, class_weights, lr,
+                   bn_momentum, generator=None, *, start_idx=None,
+                   dropout_mask=None, geometry=None):
+        model.train()
+        if geometry is None:
+            geometry = build_geometry(points[..., :3], generator=generator,
+                                      start_idx=start_idx)
+        old = (state.params.clone(), state.mu.clone(), state.nu.clone(),
+               state.count.clone(), state.stats.clone())
+        state.grads.zero_()
+        log_probs, _ = model(points, geometry=geometry,
+                             momentum=1.0 - bn_momentum, generator=generator,
+                             dropout_mask=dropout_mask)
+        loss = loss_fn(log_probs, labels, class_weights)
+        loss.backward()
+        adam_update(state, lr, weight_decay=weight_decay)
+        ok = torch.isfinite(loss.detach())
+        with torch.no_grad():
+            for new, kept in zip((state.params, state.mu, state.nu, state.count,
+                                  state.stats), old):
+                new.copy_(torch.where(ok, new, kept))
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, device: torch.device) -> Callable:
+    """``predict(points [B, P, 9] numpy) → labels [B, P] numpy``: the
+    evaluation-mode forward (FPS from index 0, running statistics, no
+    dropout) and the argmax, for ``evaluate_whole_scenes``."""
+
+    @torch.no_grad()
+    def predict(points: np.ndarray) -> np.ndarray:
+        model.eval()
+        pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
+        log_probs, _ = model(pts, geometry=build_geometry(pts[..., :3]))
+        return torch.argmax(log_probs, dim=-1).cpu().numpy()
+
+    return predict

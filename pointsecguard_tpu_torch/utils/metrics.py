@@ -1,11 +1,28 @@
 """Segmentation metrics from a confusion matrix, numpy (port of
-``pointsecguard_tpu/utils/metrics.py:49-61``)."""
+``pointsecguard_tpu/utils/metrics.py:18-61``)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+
+
+def confusion_matrix(
+    labels: np.ndarray,
+    preds: np.ndarray,
+    num_classes: int,
+    *,
+    valid: np.ndarray | None = None,
+) -> np.ndarray:
+    """[C, C] float32 confusion matrix (rows ground truth, columns
+    prediction); ``valid`` weights out padding points."""
+    y = np.asarray(labels).reshape(-1).astype(np.int64)
+    p = np.asarray(preds).reshape(-1).astype(np.int64)
+    w = None if valid is None else np.asarray(valid).reshape(-1).astype(np.float32)
+    flat = np.bincount(y * num_classes + p, weights=w,
+                       minlength=num_classes * num_classes)
+    return flat.astype(np.float32).reshape(num_classes, num_classes)
 
 
 class SegMetrics(NamedTuple):
