@@ -101,6 +101,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     blocks at batch 8: adversarial accuracy below clean accuracy; then
     ``cli.eval.main --adv_set`` on the written ``.npz`` gives the attack
     run's adversarial accuracy back.
+20. kNN at the shapes of one RandLA training step: one ``build_pyramid``
+    of [6, 40960] on the train sampler's clouds, each of its 10 calls
+    equal to plain; times (a kernel phase).
+21. The value gradient of bottom-k on the card: ``bottom_k_indices`` on
+    the 3-NN inputs of one ``build_geometry`` of [8, 4096] and on rows of
+    9000 gives the kernels' own values and indices and the CPU's gradient,
+    bit for bit; the 3-NN weights' gradient card vs CPU (a kernel phase).
+22. One RandLA optimizer step, card vs CPU, at full width on 2 × 16384
+    points: pyramid indices equal at every level; loss, gradients, Adam
+    moments, parameters and BatchNorm statistics within the tolerances
+    stated in ``phase_randla_train_step``.
+23. The fused against the reference RandLA in training mode at 6 × 40960:
+    parameter gradients against float64, the fused within twice the
+    reference's distance; the attentive backward with dW at the step's
+    shapes against plain, timed.
+24. Training through ``cli.train.main --model randla`` at full width: batch
+    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 100 steps
+    and 4 validation clouds, one more epoch on resume; every loss finite,
+    no skipped batch, the last epoch's loss below the first's, exactly 10
+    kNN launches per optimizer step and per validation cloud, no epoch
+    repeated. ms per step on the host's clock and by CUDA events, clouds/s,
+    the host's share, the sampler alone, peak device memory.
+25. ``cli.eval.main --model randla`` on that checkpoint: 8 samples at batch
+    4 voted onto the Area-5 cloud; accuracy at or above
+    ``RANDLA_EVAL_ACC_FLOOR`` (0.3, set before the first run).
+26. ``cli.attack.main --model randla --attack nb --save_adv`` on that
+    checkpoint, 8 clouds at batch 4: adversarial accuracy below clean; then
+    ``cli.eval.main --model randla --adv_set`` gives it back to 1e-3.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -117,7 +145,7 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 8 and 14 and exits 1.
+``--kernels_only`` stops after phases 3, 4, 5, 8, 14, 20 and 21 and exits 1.
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -154,6 +182,25 @@ TRAIN_LR = 0.003
 # room (7 classes, the largest three a quarter of the points each);
 # 2/13 is twice the chance of 13 classes
 EVAL_ACC_FLOOR = 0.3
+# RandLA training: the config's batch of 6 × 40960 points on the train
+# cloud prepared at 0.04 m, 100 steps and 4 validation clouds an epoch, 3
+# epochs and one more on resume, the config's lr 1e-2. BatchNorm keeps
+# 0.99 of its running statistics a step, so after 30 steps they are still
+# 74 % the initial ones and evaluation-mode accuracy stays near chance
+# (0.21 on the Area-5 cloud); after 400, 2 %
+RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 100, 4
+RANDLA_TRAIN_EPOCHS = 3
+# the card-vs-CPU step: the CPU's plain pyramid of 2 × 40960 points takes
+# ~100 s on 8 cores (the stable sort of 40960-wide rows), of 2 × 16384 ~15 s
+RANDLA_STEP_POINTS = 16384
+# whole-cloud accuracy the trained RandLA checkpoint must reach on the
+# Area-5 cloud, set before the first run: PointNet++'s floor
+RANDLA_EVAL_ACC_FLOOR = 0.3
+RANDLA_EVAL_CLOUDS = 8
+# the fused attentive poolings of one training step: [K, M, D] at
+# M = 6 × the level's points
+ATT_TRAIN_SHAPES = ((16, RANDLA_TRAIN_BATCH * RANDLA_POINTS, 8),
+                    (16, RANDLA_TRAIN_BATCH * RANDLA_POINTS // 4, 32))
 
 
 def card_line() -> str:
@@ -899,7 +946,8 @@ def randla_state_dict(seed: int, dev, feats) -> dict:
     return model.state_dict()
 
 
-def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int):
+def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int,
+                   extra: tuple = ()):
     """One attack run through the CLI at batch 4, the launch counts set to
     0 just before it and read just after; its rows and summary."""
     from pointsecguard_tpu_torch.cli import attack as cli
@@ -907,7 +955,7 @@ def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int):
 
     argv = ["--model", "randla", "--attack", attack, "--randla_dir", prep,
             "--log_dir", log, "--num_clouds", str(clouds),
-            "--batch_size", str(RANDLA_BATCH)] + (["--fused_ap"] if fused else [])
+            "--batch_size", str(RANDLA_BATCH), *extra] + (["--fused_ap"] if fused else [])
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     clean_m, adv_m = cli.main(argv)
@@ -966,7 +1014,7 @@ def phase_randla(dev, records, prep: str, sd: dict) -> list[dict]:
         if not stats["adv_acc"] < stats["clean_acc"]:
             raise AssertionError("the NB attack did not lower the mean accuracy")
         runs.append(stats)
-    records["knn"]["launches"] = runs[0]["launches"]["knn"]
+    records["knn"]["launches_by_path"] = {"randla nb": runs[0]["launches"]["knn"]}
     batches = RANDLA_CLOUDS // RANDLA_BATCH
     records["knn"]["calls_per_batch"] = {"randla nb": runs[0]["launches"]["knn"] / batches}
     for name in ("attentive_fwd", "attentive_bwd"):
@@ -1509,7 +1557,7 @@ def phase_train(dev, records) -> tuple[str, str, dict]:
     if latest["epoch"] != TRAIN_EPOCHS + 1 or latest["step"] != steps + steps_per_epoch:
         raise AssertionError(f"resumed checkpoint: epoch {latest['epoch']}, step {latest['step']}")
 
-    # the step alone on the card: CUDA events around each of 10 steps on
+    # the step alone on the card: CUDA events around each of 5 steps on
     # batches that already lie there
     model = PointNet2SemSegSSG()
     state = TrainState(model.to(dev))
@@ -1601,13 +1649,484 @@ def phase_attack_trained(data: str, log: str) -> dict:
     return stats
 
 
+def phase_bottom_k_vjp(dev) -> dict:
+    """The value gradient of ``bottom_k_indices`` on the card (one
+    ``autograd.Function`` over every route). On the 3-NN inputs of one
+    ``build_geometry`` of [8, 4096] (kernel B) and on rows of 9000 (the
+    wide-row kernel): values and indices bit-equal to the kernels' own
+    wrappers, each kernel launched once a call, and d(values)/d(vals)
+    bit-equal to the CPU's on the same values (a scatter of the same
+    cotangent at the same indices). Then the 3-NN weights' gradient with
+    respect to both point sets, card and CPU, each against a float64
+    evaluation at its own indices: the weights go as 1 / d², and d² =
+    |q|² − 2 q·p + |p|² of points a few millimetres apart in a 4 m room
+    loses ~1 % to cancellation in float32 on either device (the card's
+    GEMM rounds it differently), so the card must come as close to
+    float64 as the CPU, within a factor of 2, with 3-NN indices equal on
+    ≥ 0.999 of the entries."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.models import build_geometry
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked
+    from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
+
+    xyz = slice_blocks(dev)[..., :3].contiguous()
+    geo = build_geometry(xyz)
+    levels = [xyz] + [geo["sa"][li][0] for li in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    wide = torch.rand((2, 64, 9000), generator=gen, device=dev)
+    cases = [(ops.square_distance(levels[li], levels[li + 1]), 3, bottomk.bottom_k)
+             for li in range(4)] + [(wide, 16, bottomk_chunked.bottom_k_chunked)]
+    kernels.reset_launch_counts()
+    for vals, k, direct in cases:
+        grads, outs = [], []
+        for device in (dev, torch.device("cpu")):
+            leaf = vals.detach().to(device).requires_grad_(True)
+            v, i = bottom_k_indices(leaf, k)
+            cot = torch.linspace(-1.0, 1.0, v.numel(), device=device).view_as(v)
+            (v * cot).sum().backward()
+            grads.append(leaf.grad.cpu())
+            outs.append((v.detach().cpu(), i.cpu()))
+        want_v, want_i = direct(vals, k)
+        if not (torch.equal(outs[0][0], want_v.cpu()) and torch.equal(outs[0][1], want_i.cpu())):
+            raise AssertionError(f"bottom_k_indices at {tuple(vals.shape)} k={k}: values or "
+                                 "indices differ from the kernel's own")
+        if not torch.equal(grads[0], grads[1]):
+            raise AssertionError(f"bottom-k value VJP at {tuple(vals.shape)}: card != CPU")
+    counts = kernels.launch_counts()
+    # the direct wrapper calls above launch once more each
+    if counts["bottom_k"] != 8 or counts["bottom_k_chunked"] != 2:
+        raise AssertionError(f"bottom-k VJP launches {counts}")
+    res = {"vjp_bit_equal_card_vs_cpu": True, "launches": {
+        k: v for k, v in counts.items() if k.startswith("bottom_k")}}
+
+    def weights64(dst, src, idx):
+        # the 3-NN weights in float64 from the difference form at given
+        # indices: no |q|² − 2 q·p + |p|² cancellation
+        d = ((dst[:, :, None, :] - ops.gather_points(src, idx)) ** 2).sum(-1)
+        recip = 1.0 / (d + 1e-8)
+        return recip / recip.sum(-1, keepdim=True)
+
+    errs, agree = {"card": [], "cpu": []}, []
+    for li in range(4):
+        idx_of = {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            dst = levels[li].detach().to(device).requires_grad_(True)
+            src = levels[li + 1].detach().to(device).requires_grad_(True)
+            idx, w = ops.three_nn_plan(dst, src)
+            cot = torch.linspace(-1.0, 1.0, w.numel(), device=device).view_as(w)
+            (w * cot).sum().backward()
+            d64 = levels[li].detach().cpu().double().requires_grad_(True)
+            s64 = levels[li + 1].detach().cpu().double().requires_grad_(True)
+            (weights64(d64, s64, idx.cpu().long()) * cot.cpu().double()).sum().backward()
+            errs[name] += [_rel_l2(dst.grad, d64.grad), _rel_l2(src.grad, s64.grad)]
+            idx_of[name] = idx.cpu()
+        agree.append((idx_of["card"] == idx_of["cpu"]).float().mean().item())
+    res["three_nn_index_agreement_min"] = min(agree)
+    res["three_nn_grad_rel_l2_vs_float64"] = {k: max(v) for k, v in errs.items()}
+    print("bottom-k value VJP on the card: " + json.dumps(res))
+    card, cpu = res["three_nn_grad_rel_l2_vs_float64"].values()
+    if not (min(agree) >= 0.999 and card <= 2 * cpu + 1e-6):
+        raise AssertionError("3-NN weight gradient: the card is further from float64 than "
+                             "twice the CPU")
+    return res
+
+
+def randla_train_batch(prep: str, dev, batch: int, num_points: int, seed: int):
+    """One batch of the train split's sampler: features [B, P, 6] and
+    labels [B, P] on ``dev``."""
+    from pointsecguard_tpu_torch.data.randla import SpatiallyRegularSampler
+
+    sampler = SpatiallyRegularSampler.load(prep, split="train", num_points=num_points,
+                                           rng=np.random.default_rng(seed))
+    _, feats, labels, _, _ = next(sampler.batches(batch, 1))
+    return torch.from_numpy(feats).to(dev), torch.from_numpy(labels).long().to(dev)
+
+
+def phase_randla_train_knn(dev, records, prep: str):
+    """``knn`` at the shapes of one RandLA training step: one
+    ``build_pyramid`` of [6, 40960] on the train sampler's clouds; indices
+    and values equal to plain at each of its 10 calls, 10 launches; times
+    as in ``phase_randla_kernels``. Returns the batch."""
+    from pointsecguard_tpu_torch.models import build_pyramid
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import bounds, knn
+
+    feats, labels = randla_train_batch(prep, dev, RANDLA_TRAIN_BATCH, RANDLA_POINTS, 0)
+    xyz = feats[..., :3].contiguous()
+    calls = pyramid_knn_inputs(xyz)
+    err = 0.0
+    for q, p, k in calls:
+        err = max(err, _equal(f"knn (train step) {tuple(q.shape)} x {tuple(p.shape)} k={k}",
+                              knn.knn(q, p, k), knn.knn_plain(q, p, k)))
+    kernels.reset_launch_counts()
+    build_pyramid(xyz)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["knn"]
+    if launches != 10:
+        raise AssertionError(f"build_pyramid launched knn {launches} times, want 10")
+
+    def run(f):
+        return lambda: [f(q, p, k) for q, p, k in calls]
+
+    work = bounds.total(bounds.knn(q.shape[0], q.shape[1], p.shape[1], q.shape[2], k)
+                        for q, p, k in calls)
+    rec = {"unit": f"one build_pyramid of [{RANDLA_TRAIN_BATCH}, {RANDLA_POINTS}] "
+                   "(a train step)",
+           "eager_ms": cuda_ms(run(knn.knn), reps=10), "ms": device_ms(run(knn.knn), reps=3),
+           "plain_ms": cuda_ms(run(knn.knn_plain), reps=2, warmup=1),
+           "bound_ms": work.bound_ms, "bound_by": work.bound_by, "library_ms": None,
+           "launches": launches, "max_abs_err": err}
+    print(f"knn (train step): kernel {rec['ms']:.4f} ms on the card ({rec['eager_ms']:.4f} ms "
+          f"as eager calls, median), plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {work.bytes} bytes, "
+          f"{work.operations} operations; share {rec['bound_ms'] / rec['ms']:.3f}) per "
+          f"build_pyramid of [{RANDLA_TRAIN_BATCH}, {RANDLA_POINTS}], {launches} launches; "
+          "values and indices equal to plain")
+    records["knn"]["train_step"] = rec
+    return feats, labels
+
+
+def _noise_only(key: str) -> bool:
+    """A Linear bias under a BatchNorm (every conv's, and fc0's under bn0):
+    its true gradient is 0, what is there is rounding noise."""
+    return key.endswith("dense.bias") or key == "fc0.bias"
+
+
+def phase_randla_train_step(dev, prep: str) -> dict:
+    """One optimizer step of the full-width RandLA-Net from the same
+    weights (flax-style initialisation), sampler batch (2 × 16384 points
+    of the train cloud) and dropout mask, on the card (kernels) and on the
+    CPU (plain versions). Pyramid indices equal at every level; the step
+    runs on both devices on the card's pyramid. Tolerances as in
+    ``phase_train_step``: loss 1e-4 relative; the gradient and Adam's
+    first moment 2e-2 in relative L2 and the second moment 4e-2, without
+    the biases under a BatchNorm; BatchNorm statistics 1e-3 of the
+    largest; the parameters' move within 1e-5 where |g| is clear of
+    rounding noise (above a fifth of its tensor's largest entry)."""
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.models import RandLANet, init_parameters, weighted_softmax_ce_loss
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, randla_family
+
+    feats, labels = randla_train_batch(prep, dev, 2, RANDLA_STEP_POINTS, 3)
+    weights = torch.from_numpy(get_class_weights("S3DIS"))
+    mask = torch.rand((2, RANDLA_STEP_POINTS, 32), generator=torch.Generator().manual_seed(12)) >= 0.5
+    family = randla_family()
+    t0 = time.perf_counter()
+    pyr_cpu = family.plan(feats.cpu())
+    cpu_pyramid_s = time.perf_counter() - t0
+    pyr_gpu = family.plan(feats)
+    for key in ("neigh_idx", "sub_idx", "interp_idx"):
+        for level, (g, c) in enumerate(zip(pyr_gpu[key], pyr_cpu[key])):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"train step: card/CPU pyramid {key}[{level}] differ")
+    pyr_shared = {k: tuple(t.cpu() for t in v) for k, v in pyr_gpu.items()}
+
+    out = {}
+    for name, device, pyr in (("card", dev, pyr_gpu), ("cpu", torch.device("cpu"), pyr_shared)):
+        model = RandLANet()
+        init_parameters(model, torch.Generator().manual_seed(3))
+        state = TrainState(model.to(device))
+        before = state.params.clone()
+        step = make_train_step(model, weighted_softmax_ce_loss, weight_decay=0.0, family=family)
+        t0 = time.perf_counter()
+        loss = step(state, feats.to(device), labels.to(device), weights.to(device), 1e-2, None,
+                    dropout_mask=mask.to(device), geometry=pyr)
+        named = [(k, p.numel()) for k, p in model.named_parameters()]
+        out[name] = {"loss": loss.item(), "grads": state.grads.cpu(), "mu": state.mu.cpu(),
+                     "nu": state.nu.cpu(), "move": (state.params - before).cpu(),
+                     "stats": state.stats.cpu(), "seconds": time.perf_counter() - t0}
+    card, cpu = out["card"], out["cpu"]
+    sizes = [n for _, n in named]
+    signal = torch.cat([torch.full((n,), not _noise_only(k)) for k, n in named])
+    clear = torch.cat([(g.abs() > 0.2 * g.abs().max()) & (not _noise_only(k))
+                       for (k, _), g in zip(named, cpu["grads"].split(sizes))])
+    res = {
+        "points": [2, RANDLA_STEP_POINTS],
+        "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+        "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        "grad_rel_l2": _rel_l2(card["grads"][signal], cpu["grads"][signal]),
+        "mu_rel_l2": _rel_l2(card["mu"][signal], cpu["mu"][signal]),
+        "nu_rel_l2": _rel_l2(card["nu"][signal], cpu["nu"][signal]),
+        "move_max_abs_where_clear": (card["move"] - cpu["move"])[clear].abs().max().item(),
+        "clear_entries": int(clear.sum()),
+        "stats_max_abs": (card["stats"] - cpu["stats"]).abs().max().item(),
+        "stats_max": cpu["stats"].abs().max().item(),
+        "cpu_pyramid_s": cpu_pyramid_s, "cpu_step_s": cpu["seconds"],
+    }
+    print("randla train step, card vs CPU: " + json.dumps(res))
+    ok = (math.isfinite(card["loss"]) and res["loss_rel"] <= 1e-4
+          and res["grad_rel_l2"] <= 2e-2 and res["mu_rel_l2"] <= 2e-2
+          and res["nu_rel_l2"] <= 4e-2 and res["move_max_abs_where_clear"] <= 1e-5
+          and res["clear_entries"] > 10_000
+          and res["stats_max_abs"] <= 1e-3 * res["stats_max"]
+          and card["move"].abs().max().item() > 0)
+    if not ok:
+        raise AssertionError("the card's RandLA train step disagrees with the CPU's")
+    return res
+
+
+def phase_fused_train(dev, records, feats, labels) -> dict:
+    """One train-mode forward and backward of the full-width RandLA-Net with
+    ``ap_impl="fused"`` and ``"reference"`` on the same batch of 6 × 40960
+    points, weights and dropout mask: the parameter gradients (without the
+    biases under a BatchNorm) against a float64 evaluation of the
+    reference, in relative L2; the fused one must come as close as the
+    float32 reference, within a factor of 2. The fused pass launches 4
+    forward and 4 backward (with dW) attentive kernels. Then the attentive
+    backward with dW at the step's shapes ([16, 245760, 8] and
+    [16, 61440, 32]): kernel against plain and timed."""
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.models import (
+        RandLANet, build_pyramid, init_parameters, weighted_softmax_ce_loss,
+    )
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.attentive import attentive_pool_fused_plain as plain
+    from pointsecguard_tpu_torch.ops.cuda import attentive, bounds
+
+    pyr = build_pyramid(feats[..., :3])
+    weights = torch.from_numpy(get_class_weights("S3DIS")).to(dev)
+    mask = torch.rand((*feats.shape[:2], 32), generator=torch.Generator(device=dev).manual_seed(13),
+                      device=dev) >= 0.5
+    model0 = RandLANet()
+    init_parameters(model0, torch.Generator().manual_seed(5))
+    sd = model0.state_dict()
+    keys = [k for k, _ in model0.named_parameters()]
+    grads, counts = {}, None
+    for ap_impl, dtype in (("reference", torch.float64), ("reference", torch.float32),
+                           ("fused", torch.float32)):
+        model = RandLANet(ap_impl=ap_impl)
+        model.load_state_dict(sd)
+        model.to(dev, dtype).train()
+        p = dict(pyr, xyz=tuple(x.to(dtype) for x in pyr["xyz"]))
+        kernels.reset_launch_counts()
+        logits = model(feats.to(dtype), p, dropout_mask=mask)
+        loss = weighted_softmax_ce_loss(logits, labels, weights.to(dtype))
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        if ap_impl == "fused":
+            counts = kernels.launch_counts()
+        grads[ap_impl, dtype] = torch.cat([t.reshape(-1).double() for k, t in zip(keys, g)
+                                           if not _noise_only(k)])
+        del model, logits, loss, g
+    g64 = grads["reference", torch.float64]
+    ref_err = _rel_l2(grads["reference", torch.float32], g64)
+    fused_err = _rel_l2(grads["fused", torch.float32], g64)
+    res = {"points": list(feats.shape[:2]), "grad_rel_l2_reference": ref_err,
+           "grad_rel_l2_fused": fused_err, "attentive_launches": {
+               k: counts[k] for k in ("attentive_fwd", "attentive_bwd")}}
+    print("fused vs reference RandLA, train mode: " + json.dumps(res))
+    if (counts["attentive_fwd"], counts["attentive_bwd"]) != (4, 4):
+        raise AssertionError(f"fused train-mode pass launches {counts}, want 4 and 4")
+    if not (math.isfinite(fused_err) and fused_err <= 2 * ref_err):
+        raise AssertionError("the fused parameter gradient is further from float64 than "
+                             "twice the float32 reference's")
+    del grads, g64
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    calls = [attentive_case(*ATT_TRAIN_SHAPES[i // 2], gen, dev) for i in range(4)]
+    cots = [tuple(torch.randn((2, M, D), generator=gen, device=dev))
+            for _, M, D in (ATT_TRAIN_SHAPES[i // 2] for i in range(4))]
+    err = 0.0
+    for (fn, fx, w), (g1, g2) in zip(calls[::2], cots[::2]):
+        got = {}
+        for name, f in (("kernel", attentive.attentive_pool_fused), ("plain", plain)):
+            leaves = [fn.clone().requires_grad_(True), fx.clone().requires_grad_(True),
+                      w.clone().requires_grad_(True)]
+            got[name] = torch.autograd.grad(f(*leaves), leaves, (g1, g2))
+        for gname, a, b in zip(("dfn", "dfx", "dw"), got["kernel"], got["plain"]):
+            err = max(err, grad_err(f"attentive {gname} (train) {tuple(fn.shape)}", a, b))
+    times = {}
+    for name, f in (("kernel", attentive.attentive_pool_fused), ("plain", plain)):
+        leaves = [(fn.clone().requires_grad_(True), fx.clone().requires_grad_(True),
+                   w.clone().requires_grad_(True)) for fn, fx, w in calls]
+        outs = [o for lv in leaves for o in f(*lv)]
+        flat = [t for lv in leaves for t in lv]
+        cot = [g for c in cots for g in c]
+
+        def bwd():
+            return torch.autograd.grad(outs, flat, cot, retain_graph=True)
+
+        times[name] = (cuda_ms(bwd, reps=10), device_ms(bwd, reps=5) if name == "kernel" else None)
+        del leaves, outs, flat
+    work = bounds.total(bounds.attentive_bwd(*ATT_TRAIN_SHAPES[i // 2], True) for i in range(4))
+    rec = {"unit": "backward with dW of the 4 calls of one training pass: "
+                   + ", ".join(f"2 x {list(s)}" for s in ATT_TRAIN_SHAPES),
+           "ms": times["kernel"][1], "eager_ms": times["kernel"][0],
+           "plain_ms": times["plain"][0], "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+           "library_ms": None, "launches": counts["attentive_bwd"], "max_abs_err": err}
+    print(f"attentive bwd with dW (train step): kernel {rec['ms']:.4f} ms on the card "
+          f"({rec['eager_ms']:.4f} ms as eager calls), plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {work.bytes} bytes, "
+          f"{work.operations} operations; share {rec['bound_ms'] / rec['ms']:.3f}); "
+          f"{rec['launches']} launches per training pass; within tolerance of plain")
+    records["attentive_bwd"]["train_step"] = rec
+    res["attentive_bwd_dw"] = rec
+    return res
+
+
+def phase_randla_train(dev, records, prep: str) -> tuple[str, dict]:
+    """Training through ``cli.train.main --model randla`` at full width,
+    then a resumed call with one more epoch; returns the log dir and the
+    figures of the run."""
+    from pointsecguard_tpu_torch.cli import train as cli
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.data.randla import SpatiallyRegularSampler
+    from pointsecguard_tpu_torch.models import RandLANet, weighted_softmax_ce_loss
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, randla_family
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+
+    log = os.path.join(WORK, "randla_train_log")
+
+    def argv(epochs):
+        return ["--model", "randla", "--randla_dir", prep, "--log_dir", log,
+                "--randla_points", str(RANDLA_POINTS), "--batch_size", str(RANDLA_TRAIN_BATCH),
+                "--steps_per_epoch", str(RANDLA_TRAIN_STEPS),
+                "--val_steps", str(RANDLA_VAL_STEPS), "--epochs", str(epochs)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, best_miou = cli.main(argv(RANDLA_TRAIN_EPOCHS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    events = read_events(log)
+    epochs = [e for e in events if e["event"] == "epoch"]
+    evals = [e for e in events if e["event"] == "eval"]
+    if [e["epoch"] for e in epochs] != list(range(RANDLA_TRAIN_EPOCHS)) or len(evals) != len(epochs):
+        raise AssertionError(f"epoch lines {[e['epoch'] for e in epochs]}, {len(evals)} evals")
+    if any(e["batches"] != RANDLA_TRAIN_STEPS or e["nan_batches"] for e in epochs):
+        raise AssertionError(f"steps or skipped batches: {epochs}")
+    if not all(math.isfinite(e["loss"]) for e in epochs):
+        raise AssertionError("a non-finite epoch loss")
+    if not epochs[-1]["loss"] < epochs[0]["loss"]:
+        raise AssertionError("the last epoch's mean loss is not below the first's")
+    steps = RANDLA_TRAIN_STEPS * RANDLA_TRAIN_EPOCHS
+    val_clouds = RANDLA_VAL_STEPS * RANDLA_TRAIN_EPOCHS
+    if counts["knn"] != 10 * (steps + val_clouds):
+        raise AssertionError(f"randla train launches {counts}, want knn 10 × ({steps} steps + "
+                             f"{val_clouds} validation clouds)")
+    if any(counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"a kernel off the training path launched: {counts}")
+    records["knn"]["launches_by_path"]["randla train"] = counts["knn"]
+    records["knn"]["calls_per_batch"]["randla train step"] = 10
+    records["knn"]["calls_per_batch"]["randla validation cloud"] = 10
+
+    cli.main(argv(RANDLA_TRAIN_EPOCHS + 1))
+    resumed = [e["epoch"] for e in read_events(log) if e["event"] == "epoch"]
+    if resumed != list(range(RANDLA_TRAIN_EPOCHS + 1)):
+        raise AssertionError(f"epochs after the resumed call: {resumed}")
+    latest = CheckpointManager(os.path.join(log, "checkpoints")).restore_latest()
+    if (latest["epoch"] != RANDLA_TRAIN_EPOCHS + 1
+            or latest["step"] != steps + RANDLA_TRAIN_STEPS):
+        raise AssertionError(f"resumed checkpoint: epoch {latest['epoch']}, step {latest['step']}")
+
+    # the step alone on the card: CUDA events around each of 5 steps on a
+    # batch that already lies there
+    model = RandLANet()
+    state = TrainState(model.to(dev))
+    state.load_payload(latest)
+    step = make_train_step(model, weighted_softmax_ce_loss, weight_decay=0.0,
+                           family=randla_family())
+    feats, labels = randla_train_batch(prep, dev, RANDLA_TRAIN_BATCH, RANDLA_POINTS, 1)
+    weights = torch.from_numpy(get_class_weights("S3DIS")).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step_ms = cuda_ms(lambda: step(state, feats, labels, weights, 1e-4, None, gen), reps=5)
+    sampler = SpatiallyRegularSampler.load(prep, split="train", num_points=RANDLA_POINTS,
+                                           rng=np.random.default_rng(2))
+    t0 = time.perf_counter()
+    for _ in sampler.batches(RANDLA_TRAIN_BATCH, 5):
+        pass
+    sampler_ms = 1e3 * (time.perf_counter() - t0) / 5
+
+    warm = epochs[1:]  # the first epoch pays the one-off CUDA set-up
+    # an epoch's line is written before its validation runs
+    host_ms = 1e3 * sum(e["seconds"] for e in warm) / sum(e["batches"] for e in warm)
+    stats = {
+        "batch": [RANDLA_TRAIN_BATCH, RANDLA_POINTS], "steps_per_epoch": RANDLA_TRAIN_STEPS,
+        "steps": steps, "val_clouds": val_clouds,
+        "epoch_loss": [e["loss"] for e in epochs],
+        "val_accuracy": [e["accuracy"] for e in evals], "val_miou": [e["miou"] for e in evals],
+        "best_miou": best_miou,
+        "randla_train_ms_per_step_host_clock": host_ms,
+        "ms_per_step_host_clock_by_epoch": [1e3 * e["seconds"] / e["batches"] for e in epochs],
+        "randla_train_ms_per_step": step_ms,
+        "randla_train_hostpipe_clouds_per_sec": 1e3 * RANDLA_TRAIN_BATCH / host_ms,
+        "host_share": 1.0 - step_ms / host_ms,
+        "sampler_ms_per_batch_alone": sampler_ms,
+        "peak_device_memory_gb": peak / 1e9,
+        "main_wall_s": wall, "launches": counts,
+    }
+    print("randla train: " + json.dumps(stats))
+    return log, stats
+
+
+def phase_randla_eval(prep: str, log: str, records) -> dict:
+    """``cli.eval.main --model randla`` on the trained checkpoint: 8
+    samples at batch 4 voted onto the Area-5 cloud and reprojected to its
+    full resolution; accuracy at or above ``RANDLA_EVAL_ACC_FLOOR``."""
+    from pointsecguard_tpu_torch.cli import eval as cli
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = cli.main(["--model", "randla", "--randla_dir", prep, "--log_dir", log,
+                  "--randla_points", str(RANDLA_POINTS), "--num_clouds", str(RANDLA_EVAL_CLOUDS),
+                  "--batch_size", str(RANDLA_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    stats = {"accuracy": m.accuracy, "miou": m.miou, "clouds": RANDLA_EVAL_CLOUDS,
+             "randla_eval_ms_per_cloud": 1e3 * wall / RANDLA_EVAL_CLOUDS, "launches": counts}
+    print(f"randla eval: {json.dumps(stats)} (floor {RANDLA_EVAL_ACC_FLOOR}, chance 1/13 = "
+          f"{1 / 13:.4f})")
+    if not (math.isfinite(m.miou) and m.accuracy >= RANDLA_EVAL_ACC_FLOOR >= 2 / 13):
+        raise AssertionError(f"randla eval accuracy {m.accuracy} under the floor "
+                             f"{RANDLA_EVAL_ACC_FLOOR}")
+    if counts["knn"] != 10 * RANDLA_EVAL_CLOUDS // RANDLA_BATCH:
+        raise AssertionError(f"randla eval launches {counts}, want knn 10 per batch")
+    records["knn"]["launches_by_path"]["randla eval"] = counts["knn"]
+    records["knn"]["calls_per_batch"]["randla eval batch"] = 10
+    return stats
+
+
+def phase_randla_attack_trained(prep: str, log: str) -> dict:
+    """NB with ``--save_adv`` on the trained RandLA checkpoint, 8 clouds at
+    batch 4, then ``cli.eval --model randla --adv_set`` on what it wrote."""
+    from pointsecguard_tpu_torch.cli import eval as cli_eval
+
+    stats = run_randla_cli(prep, log, "nb", False, RANDLA_CLOUDS,
+                           extra=("--save_adv", "--randla_points", str(RANDLA_POINTS)))
+    path = os.path.join(log, "randla_nb_adv_area5.npz")
+    m = cli_eval.main(["--model", "randla", "--log_dir", log, "--adv_set", path,
+                       "--batch_size", str(RANDLA_BATCH)])
+    stats["adv_set_accuracy"] = m.accuracy
+    print("randla attack on the trained checkpoint: " + json.dumps(stats))
+    if not stats["adv_acc"] < stats["clean_acc"]:
+        raise AssertionError("NB did not lower the trained RandLA model's accuracy")
+    if stats["clean_acc"] < 2 / 13:
+        raise AssertionError(f"the trained RandLA model has no accuracy to attack: "
+                             f"{stats['clean_acc']}")
+    # the TSV rounds each cloud to 4 decimals; the .npz holds the same clouds
+    if abs(m.accuracy - stats["adv_acc"]) > 1e-3:
+        raise AssertionError(f"--adv_set accuracy {m.accuracy} != the attack run's "
+                             f"{stats['adv_acc']}")
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5 and 8); the last line then carries \"ok\": false, "
+                             "(3, 4, 5, 8, 14, 20 and 21); the last line then carries "
+                             "\"ok\": false, "
                              "because the slices were not driven")
     args = parser.parse_args(argv)
     import pointsecguard_tpu_torch
@@ -1679,6 +2198,8 @@ def main(argv=None) -> int:
     phase_routes(records, xyz)
     del xyz
     phase_train_kernels(dev, records)
+    train_feats, train_labels = phase_randla_train_knn(dev, records, prep)
+    phase_bottom_k_vjp(dev)
     if args.kernels_only:
         print(json.dumps({"kernels": list(records.values())}))
         print(card)
@@ -1698,13 +2219,21 @@ def main(argv=None) -> int:
     train_data, train_log, _ = phase_train(dev, records)
     phase_eval(train_data, train_log)
     phase_attack_trained(train_data, train_log)
+    phase_randla_train_step(dev, prep)
+    phase_fused_train(dev, records, train_feats, train_labels)
+    del train_feats, train_labels
+    randla_log, _ = phase_randla_train(dev, records, prep)
+    phase_randla_eval(prep, randla_log, records)
+    phase_randla_attack_trained(prep, randla_log)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "calls_per_batch")
-    for name in ("fps", "bottom_k"):  # two main paths: the NB slice and training
+    for name, paths in (("fps", {"pointnet2 nb", "pointnet2 train"}),
+                        ("bottom_k", {"pointnet2 nb", "pointnet2 train"}),
+                        ("knn", {"randla nb", "randla train", "randla eval"})):
         by_path = records[name]["launches_by_path"]
-        if set(by_path) != {"pointnet2 nb", "pointnet2 train"} or min(by_path.values()) <= 0:
+        if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")
         records[name]["launches"] = sum(by_path.values())
     for r in records.values():

@@ -8,7 +8,10 @@ the clean prediction from that same forward, runs the ares NB / tar_NB
 (PGD) or NU / tar_NU (C&W) attack reusing both, and writes one TSV row
 per cloud in the JAX CLI's format. Targeted runs use batch 1 and skip
 clouds with fewer than 500 origin points (`tester_S3DIS.py:253-258`).
-``--fused_ap`` builds the model with ``ap_impl="fused"``.
+``--fused_ap`` builds the model with ``ap_impl="fused"``. ``--save_adv``
+writes the adversarial clouds and their labels to
+``<log_dir>/randla_<attack>_adv_area<test_area>.npz`` for ``cli.eval
+--model randla --adv_set``.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ def run_randla(args, log):
     clean_cm = np.zeros((K, K))
     adv_cm = np.zeros((K, K))
     n_done = 0
+    adv_saved, adv_saved_labels = [], []
     with open(tsv_path, "w") as tsv:
         tsv.write("cloud\tclean_acc\tadv_acc\tl2\tsr\tsteps\ttime_s\n")
         for _, feats, labels, _, cloud_idx in sampler.batches(B, -(-args.num_clouds // B)):
@@ -97,6 +101,9 @@ def run_randla(args, log):
             steps_row = res.steps_b.cpu().numpy()
             sr_global = float(res.success_rate)
             mask_np = None if mask is None else mask.cpu().numpy()
+            if args.save_adv:
+                adv_saved.append(res.points_adv.cpu().numpy().astype(np.float32))
+                adv_saved_labels.append(labels.astype(np.int32))
             dt = time.time() - t0
             np.add.at(clean_cm, (labels.reshape(-1), clean_pred.reshape(-1)), 1)
             np.add.at(adv_cm, (labels.reshape(-1), adv_pred.reshape(-1)), 1)
@@ -121,4 +128,11 @@ def run_randla(args, log):
     log.info("RANDLA %s: clean mIoU %.4f acc %.4f | adv mIoU %.4f acc %.4f (%d clouds)",
              args.attack, cm.miou, cm.accuracy, am.miou, am.accuracy, n_done)
     log.info("per-cloud TSV: %s", tsv_path)
+    if args.save_adv and adv_saved:
+        adv_path = os.path.join(args.log_dir,
+                                f"randla_{args.attack}_adv_area{args.test_area}.npz")
+        np.savez_compressed(adv_path, points=np.concatenate(adv_saved, axis=0),
+                            labels=np.concatenate(adv_saved_labels, axis=0))
+        log.info("adversarial set: %s (re-evaluate with cli.eval --model randla "
+                 "--adv_set)", adv_path)
     return cm, am

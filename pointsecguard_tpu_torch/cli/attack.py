@@ -10,8 +10,7 @@ and for ``--model randla`` over spatially-regular S3DIS clouds
 (``cli/_attack_randla.py``, prepared with ``data.randla.prepare_room``
 under ``--randla_dir``); ``--fused_ap`` (``--model randla`` only) runs
 the narrow attentive poolings through the fused kernels; ``--save_adv``
-(``--model pointnet2``) writes the adversarial blocks for ``cli.eval
---adv_set``. The checkpoint is the port's own (``<log_dir>/checkpoints/``:
+writes the adversarial blocks or clouds for ``cli.eval --adv_set``. The checkpoint is the port's own (``<log_dir>/checkpoints/``:
 ``best.pt``, else ``latest.pt``, see ``utils/checkpoint.py``). It runs on
 the GPU; ``--device cpu`` runs the plain PyTorch path by request.
 Every other flag of the JAX CLI is accepted by name and stops the run
@@ -70,7 +69,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
     ap.add_argument("--save_adv", action="store_true",
-                    help="pointnet2: write the adversarial blocks and their "
+                    help="write the adversarial blocks (clouds) and their "
                          "labels to <log_dir>/<model>_<attack>_adv_area<k>.npz "
                          "(re-evaluate with cli.eval --adv_set)")
     ap.add_argument("--fused_ap", action="store_true",
@@ -99,8 +98,6 @@ def _refuse_unported(args) -> None:
             refused.append(f"--{flag} {getattr(args, flag)}")
     if args.ensemble:
         refused.append("--ensemble")
-    if args.save_adv and args.model != "pointnet2":
-        refused.append(f"--save_adv with --model {args.model}")
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")

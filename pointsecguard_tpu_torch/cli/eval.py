@@ -3,14 +3,19 @@
 
   python -m pointsecguard_tpu_torch.cli.eval --model pointnet2 \
       --data_root data/stanford_indoor3d --log_dir log/pointnet2 [--num_votes 5]
+  python -m pointsecguard_tpu_torch.cli.eval --model randla \
+      --randla_dir data/randla_input_0.040 --log_dir log/randla [--num_clouds 200]
 
 Ported: ``--model pointnet2`` with ``--num_votes``, ``--num_point``
 (0 → 4096), ``--batch_size`` (0 → 16), ``--seed`` and ``--adv_set`` (a
-saved adversarial set from ``cli.attack --save_adv``). The checkpoint is
-the port's own (``<log_dir>/checkpoints/``: the best one, else the
-latest). It runs on the GPU; ``--device cpu`` runs the plain PyTorch
-path by request. Every other flag of the JAX CLI is accepted by name and
-stops the run with "not ported yet".
+saved adversarial set from ``cli.attack --save_adv``); ``--model randla``
+(whole-cloud voting, ``_eval_randla``) with ``--randla_dir``,
+``--randla_points`` (0 → 40960), ``--num_clouds``, ``--batch_size``
+(0 → the config's val_batch_size 1), ``--seed`` and ``--adv_set``. The
+checkpoint is the port's own (``<log_dir>/checkpoints/``: the best one,
+else the latest). It runs on the GPU; ``--device cpu`` runs the plain
+PyTorch path by request. Every other flag of the JAX CLI is accepted by
+name and stops the run with "not ported yet".
 """
 
 from __future__ import annotations
@@ -22,12 +27,11 @@ import os
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2",)
+PORTED_MODELS = ("pointnet2", "randla")
 _UNPORTED_DEFAULTS = {
     "num_category": 40, "resgcn_blocks": 0, "resgcn_k": 0, "resgcn_filters": 0,
     "resgcn_block_type": "", "resgcn_conv": "", "resgcn_epsilon": 0.0,
-    "randla_dir": "data/randla_input_0.040", "randla_dataset": "s3dis",
-    "num_clouds": 200, "randla_points": 0, "save_preds": None, "devices": 1,
+    "randla_dataset": "s3dis", "save_preds": None, "devices": 1,
     "shard_points": 1, "precision": "float32",
 }
 _UNPORTED_SWITCHES = ("no_normals", "resgcn_fast", "visual")
@@ -46,8 +50,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--num_point", type=int, default=0,
                     help="points per block (0 = 4096)")
-    ap.add_argument("--batch_size", type=int, default=0, help="0 = 16")
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="0 = 16 (pointnet2), the config's val_batch_size 1 (randla)")
     ap.add_argument("--num_votes", type=int, default=5)
+    ap.add_argument("--randla_dir", default="data/randla_input_0.040",
+                    help="randla: the prepared clouds (data.randla.prepare_room)")
+    ap.add_argument("--num_clouds", type=int, default=200,
+                    help="randla: spatially-regular samples to vote over")
+    ap.add_argument("--randla_points", type=int, default=0,
+                    help="randla: points per cloud (0 = the config's 40960)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
@@ -84,9 +95,120 @@ def _padded_batches(n: int, batch_size: int):
         yield idx, valid
 
 
+def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int):
+    """Metrics of a saved adversarial set (``cli.attack --save_adv``): a
+    batched forward over the stored blocks or clouds; the .npz is
+    self-contained."""
+    import numpy as np
+
+    from pointsecguard_tpu_torch.utils.metrics import (
+        confusion_matrix,
+        metrics_from_confusion,
+    )
+
+    adv_npz = np.load(path)
+    pts_all = adv_npz["points"].astype(np.float32)
+    labs_all = adv_npz["labels"].astype(np.int32)
+    cm = np.zeros((num_classes, num_classes))
+    for idx, v in _padded_batches(len(pts_all), batch_size):
+        preds = predict(pts_all[idx])[:v]
+        cm += confusion_matrix(labs_all[idx[:v]], preds, num_classes)
+    return len(pts_all), metrics_from_confusion(cm)
+
+
+def _eval_randla(args, log):
+    """RandLA whole-cloud evaluation (``pointsecguard_tpu/cli/eval.py:358-575``):
+    the evaluation-mode softmax of ``--num_clouds`` spatially-regular
+    samples is voted into one float64 pool per sub-cloud at the sampler's
+    point indices (``np.add.at``, the JAX order of the sums), then the
+    argmax is reprojected onto the full-resolution cloud through the
+    prepared ``<name>_proj.pkl``. Clouds never sampled are skipped; where
+    ``_proj.pkl`` is missing or its lengths differ, the sub-cloud labels
+    are scored."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from pointsecguard_tpu_torch.data import S3DIS_CLASSES
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.models import RandLANet
+    from pointsecguard_tpu_torch.train.trainer import randla_family
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
+    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+
+    preset = randla_dataset_preset(args.randla_dataset)
+    cfg, K = preset.cfg, preset.num_classes
+    device = resolve_device(args.device)
+    B = args.batch_size or cfg.val_batch_size
+    model = RandLANet(num_classes=K, d_out=cfg.d_out)
+    model.load_state_dict(load_checkpoint(args.log_dir))
+    model.to(device).eval().requires_grad_(False)
+    family = randla_family(cfg)
+
+    @torch.no_grad()
+    def probs_fn(feats: np.ndarray) -> np.ndarray:
+        f = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device)
+        return torch.softmax(family.apply(model, f, family.plan(f)), dim=-1).cpu().numpy()
+
+    if args.adv_set:
+        n, m = _adv_set_metrics(lambda f: np.argmax(probs_fn(f), axis=-1), args.adv_set,
+                                B, K)
+        log.info("ADVSET %s: %d clouds  mIoU %.4f  acc %.4f",
+                 os.path.basename(args.adv_set), n, m.miou, m.accuracy)
+        return m
+
+    num_points = args.randla_points or cfg.num_points
+    sampler = preset.make_sampler(args.randla_dir, "test", num_points,
+                                  np.random.default_rng(args.seed),
+                                  test_area=args.test_area)
+    # per-sub-cloud vote pools; --num_clouds counts samples, not batches
+    pools = [np.zeros((len(c.labels), K), np.float64) for c in sampler.clouds]
+    for _, feats, _, idx, cloud_idx in sampler.batches(B, -(-args.num_clouds // B)):
+        probs = probs_fn(feats)
+        for b in range(B):
+            np.add.at(pools[int(cloud_idx[b])], idx[b], probs[b])
+
+    cm = np.zeros((K, K), np.float64)
+    n_scored = 0
+    for ci, cloud in enumerate(sampler.clouds):
+        if not pools[ci].any():
+            # never sampled: an all-zero pool would score every point class 0
+            continue
+        n_scored += 1
+        sub_pred = pools[ci].argmax(axis=1)
+        y, p = cloud.labels, sub_pred  # sub-cloud resolution, the fallback
+        proj_path = os.path.join(args.randla_dir, cloud.name + "_proj.pkl")
+        if os.path.exists(proj_path):
+            with open(proj_path, "rb") as f:
+                proj_idx, full_labels = pickle.load(f)
+            proj_idx = np.asarray(proj_idx).reshape(-1)
+            full_labels = np.asarray(full_labels, np.int64).reshape(-1)
+            if len(proj_idx) == len(full_labels):
+                y, p = full_labels, sub_pred[proj_idx]
+            else:
+                log.warning("%s: proj/labels length mismatch (%d vs %d) — scoring at "
+                            "sub-cloud resolution", cloud.name, len(proj_idx),
+                            len(full_labels))
+        np.add.at(cm, (np.asarray(y).reshape(-1), np.asarray(p).reshape(-1)), 1.0)
+    if n_scored < len(sampler.clouds):
+        log.info("scored %d/%d clouds (raise --num_clouds to cover all)",
+                 n_scored, len(sampler.clouds))
+    m = metrics_from_confusion(cm)
+    for cls, iou in zip(S3DIS_CLASSES, m.class_iou):
+        log.info("%18s: %.4f", cls, iou)
+    log.info("RANDLA mIoU %.4f acc %.4f", m.miou, m.accuracy)
+    return m
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
+    log = logging.getLogger("eval")
+    if args.model == "randla":
+        return _eval_randla(args, log)
 
     import numpy as np
 
@@ -95,15 +217,9 @@ def main(argv=None):
     from pointsecguard_tpu_torch.train.evaluator import evaluate_whole_scenes
     from pointsecguard_tpu_torch.train.trainer import make_eval_step
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.metrics import (
-        confusion_matrix,
-        metrics_from_confusion,
-    )
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(args.device)
-    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
-    log = logging.getLogger("eval")
     args.batch_size = args.batch_size or 16
     args.num_point = args.num_point or 4096
 
@@ -113,23 +229,12 @@ def main(argv=None):
     predict = make_eval_step(model, device)
 
     if args.adv_set:
-        # saved adversarial set: batched forward over the stored blocks,
-        # confusion-based metrics; the .npz is self-contained
-        adv_npz = np.load(args.adv_set)
-        pts_all = adv_npz["points"].astype(np.float32)
-        labs_all = adv_npz["labels"].astype(np.int32)
-        cm = np.zeros((13, 13))
-        for idx, v in _padded_batches(len(pts_all), args.batch_size):
-            preds = predict(pts_all[idx])[:v]
-            cm += confusion_matrix(labs_all[idx[:v]], preds, 13)
-        m = metrics_from_confusion(cm)
+        n, m = _adv_set_metrics(predict, args.adv_set, args.batch_size, 13)
         log.info("---- class IoU ----")
         for cls, iou in zip(S3DIS_CLASSES, m.class_iou):
             log.info("%12s: %.4f", cls, iou)
-        log.info(
-            "ADVSET %s: %d blocks  mIoU %.4f  acc %.4f",
-            os.path.basename(args.adv_set), len(pts_all), m.miou, m.accuracy,
-        )
+        log.info("ADVSET %s: %d blocks  mIoU %.4f  acc %.4f",
+                 os.path.basename(args.adv_set), n, m.miou, m.accuracy)
         return m
 
     rooms = RoomSet.load(args.data_root, "test", args.test_area)

@@ -1,6 +1,7 @@
-"""Breakdown of one RandLA NB batch (4 × 40960 points) on the card.
+"""Breakdown of one RandLA NB batch (4 × 40960 points) or, with
+``--train``, of one RandLA optimizer step (6 × 40960 points) on the card.
 
-    python -m pointsecguard_tpu_torch.cli.profile_randla [--fused_ap] [--out FILE]
+    python -m pointsecguard_tpu_torch.cli.profile_randla [--fused_ap] [--train] [--out FILE]
 
 Run from the root of a checkout: the set-up is ``chip_smoke.py``'s own
 (its synthetic rooms prepared at 0.04 m, one sampler batch, its
@@ -11,7 +12,11 @@ device memory, and from 3 batches under ``torch.profiler`` the device
 busy time, the kernels launched per batch and the device idle share
 (1 − busy / host wall median); then the profiler's operator table by
 self CUDA time. ``--fused_ap`` profiles the model with
-``ap_impl="fused"``. ``--out`` also writes the JSON and the table to FILE.
+``ap_impl="fused"``. ``--train`` profiles the trainer's step instead, on
+one batch of the train cloud's sampler and the flax-style initial weights:
+the pyramid, pyramid + forward + backward, the whole step (the Adam
+update and the NaN guard included). ``--out`` also writes the JSON and the
+table to FILE.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fused_ap", action="store_true",
                     help="the fused attentive-pooling kernels (ap_impl='fused')")
+    ap.add_argument("--train", action="store_true",
+                    help="one optimizer step of 6 clouds instead of one NB batch of 4")
     ap.add_argument("--out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
 
@@ -60,7 +67,14 @@ def main(argv=None) -> dict:
 
     from pointsecguard_tpu_torch.attacks import attack_preset, pgd_color_attack
     from pointsecguard_tpu_torch.data import make_synthetic_rooms
-    from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.models import (
+        RandLANet,
+        build_pyramid,
+        init_parameters,
+        weighted_softmax_ce_loss,
+    )
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, randla_family
     from pointsecguard_tpu_torch.utils.runtime import require_cuda
 
     dev = require_cuda()
@@ -70,48 +84,79 @@ def main(argv=None) -> dict:
     os.makedirs(cs.WORK, exist_ok=True)
     data = os.path.join(cs.WORK, "data")
     make_synthetic_rooms(data, points_per_room=cs.ROOM_POINTS, seed=0)
-    feats = cs.randla_batch(cs.prepare_randla(data), dev)
-    labels = torch.randint(0, 13, feats.shape[:2], device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(0))
+    prep = cs.prepare_randla(data)
     ap_impl = "fused" if args.fused_ap else "reference"
     model = RandLANet(ap_impl=ap_impl)
-    model.load_state_dict(cs.randla_state_dict(0, dev, feats))
-    model.to(dev).eval().requires_grad_(False)
-    cfg = attack_preset("randla", "nb")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    pyr = build_pyramid(feats[..., :3])
-    with torch.no_grad():
-        _, pos = model(feats, pyr, collect_pos=True)
-
-    def collect():
-        with torch.no_grad():
-            return model(feats, pyr, collect_pos=True)
-
-    def fwd_bwd():
-        c = feats[..., 3:6].detach().requires_grad_(True)
-        out = model(torch.cat([feats[..., :3], c], -1), pyr, pos_plan=pos)
-        return torch.autograd.grad(out.sum(), c)
-
-    def attack():
-        return pgd_color_attack(lambda f: model(f, pyr, pos_plan=pos), feats,
-                                labels, cfg, generator=gen)
-
-    def batch():  # what the driver does per batch, transfers included
-        with torch.no_grad():
-            p = build_pyramid(feats[..., :3])
-            logits, ps = model(feats, p, collect_pos=True)
-        r = pgd_color_attack(lambda f: model(f, p, pos_plan=ps), feats, labels,
-                             cfg, generator=gen)
-        return r.adv_pred.cpu(), logits.argmax(-1).cpu()
-
     res = {"card": card, "ap_impl": ap_impl}
-    for name, fn, reps in (
-        ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
-        ("collect forward (clean pred + pos plan)", collect, 10),
-        ("one forward + input backward", fwd_bwd, 10),
-        ("attack: 10 iterations + final forward", attack, 5),
-        ("whole batch, CUDA events", batch, 5),
-    ):
+    if args.train:
+        feats, labels = cs.randla_train_batch(prep, dev, cs.RANDLA_TRAIN_BATCH,
+                                              cs.RANDLA_POINTS, 0)
+        res["what"] = f"train step, {cs.RANDLA_TRAIN_BATCH} x {cs.RANDLA_POINTS} points"
+        init_parameters(model, torch.Generator().manual_seed(0))
+        state = TrainState(model.to(dev))
+        family = randla_family()
+        step = make_train_step(model, weighted_softmax_ce_loss, weight_decay=0.0,
+                               family=family)
+        weights = torch.from_numpy(get_class_weights("S3DIS")).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def batch():
+            return step(state, feats, labels, weights, 1e-4, None, gen)
+
+        def forward_backward():
+            model.train()
+            state.grads.zero_()
+            pyr = family.plan(feats)
+            out = model(feats, pyr, generator=gen)
+            weighted_softmax_ce_loss(out, labels, weights).backward()
+
+        parts = (
+            ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
+            ("pyramid + forward + backward", forward_backward, 10),
+            ("whole step, CUDA events", batch, 10),
+        )
+    else:
+        feats = cs.randla_batch(prep, dev)
+        labels = torch.randint(0, 13, feats.shape[:2], device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+        res["what"] = f"NB batch, {cs.RANDLA_BATCH} x {cs.RANDLA_POINTS} points"
+        model.load_state_dict(cs.randla_state_dict(0, dev, feats))
+        model.to(dev).eval().requires_grad_(False)
+        cfg = attack_preset("randla", "nb")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pyr = build_pyramid(feats[..., :3])
+        with torch.no_grad():
+            _, pos = model(feats, pyr, collect_pos=True)
+
+        def collect():
+            with torch.no_grad():
+                return model(feats, pyr, collect_pos=True)
+
+        def fwd_bwd():
+            c = feats[..., 3:6].detach().requires_grad_(True)
+            out = model(torch.cat([feats[..., :3], c], -1), pyr, pos_plan=pos)
+            return torch.autograd.grad(out.sum(), c)
+
+        def attack():
+            return pgd_color_attack(lambda f: model(f, pyr, pos_plan=pos), feats,
+                                    labels, cfg, generator=gen)
+
+        def batch():  # what the driver does per batch, transfers included
+            with torch.no_grad():
+                p = build_pyramid(feats[..., :3])
+                logits, ps = model(feats, p, collect_pos=True)
+            r = pgd_color_attack(lambda f: model(f, p, pos_plan=ps), feats, labels,
+                                 cfg, generator=gen)
+            return r.adv_pred.cpu(), logits.argmax(-1).cpu()
+
+        parts = (
+            ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
+            ("collect forward (clean pred + pos plan)", collect, 10),
+            ("one forward + input backward", fwd_bwd, 10),
+            ("attack: 10 iterations + final forward", attack, 5),
+            ("whole batch, CUDA events", batch, 5),
+        )
+    for name, fn, reps in parts:
         res[name + " ms"] = cs.cuda_ms(fn, reps=reps)
     walls = []
     for _ in range(10):

@@ -2,15 +2,22 @@
 
   python -m pointsecguard_tpu_torch.cli.train --model pointnet2 \
       --data_root data/stanford_indoor3d --log_dir log/pointnet2 [--epochs 32]
+  python -m pointsecguard_tpu_torch.cli.train --model randla \
+      --randla_dir data/randla_input_0.040 --log_dir log/randla [--epochs 32]
 
 Ported: ``--model pointnet2`` (PointNet++ SSG on S3DIS blocks through the
 host sampler) with ``--data_root``, ``--log_dir``, ``--test_area``,
 ``--epochs``, ``--batch_size`` (0 → 32), ``--npoint`` (0 → 4096),
 ``--min_block_points``, ``--learning_rate`` (0 → 0.001), ``--seed``,
-``--prefetch`` and ``--eval_every``. It runs on the GPU; ``--device cpu``
-runs the plain PyTorch path by request. Every other flag of the JAX CLI
-is accepted by name and stops the run with "not ported yet" instead of
-being ignored.
+``--prefetch`` and ``--eval_every``; ``--model randla`` (RandLA-Net on
+the S3DIS clouds prepared by ``data.randla.prepare_room``) with
+``--randla_dir``, ``--randla_points`` (0 → 40960), ``--steps_per_epoch``
+(0 → 500), ``--val_steps`` (0 → 100), ``--batch_size`` (0 → 6),
+``--learning_rate`` (0 → 1e-2), ``--log_dir``, ``--test_area``,
+``--epochs``, ``--seed`` and ``--prefetch``; RandLA validates after every
+epoch. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
+by request. Every other flag of the JAX CLI is accepted by name and stops
+the run with "not ported yet" instead of being ignored.
 """
 
 from __future__ import annotations
@@ -22,13 +29,11 @@ import time
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2",)
+PORTED_MODELS = ("pointnet2", "randla")
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
 _UNPORTED_DEFAULTS = {
-    "randla_dir": "data/randla_input_0.040", "randla_dataset": "s3dis",
-    "randla_points": 0, "val_steps": 0, "steps_per_epoch": 0,
-    "resgcn_blocks": 0, "resgcn_k": 0, "resgcn_filters": 0,
+    "randla_dataset": "s3dis", "resgcn_blocks": 0, "resgcn_k": 0, "resgcn_filters": 0,
     "resgcn_block_type": "", "resgcn_conv": "", "resgcn_epsilon": 0.0,
     "num_category": 40, "precision": "float32", "steps_per_call": 1,
     "profile": None, "devices": 1, "shard_points": 1, "adv_train": "none",
@@ -45,19 +50,29 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log_dir", default="log/run")
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--epochs", type=int, default=32)
-    ap.add_argument("--batch_size", type=int, default=0, help="0 = 32")
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="0 = 32 (pointnet2), the config's 6 (randla)")
     ap.add_argument("--npoint", type=int, default=0,
                     help="points per block (0 = 4096)")
     ap.add_argument("--min_block_points", type=int, default=1024,
                     help="block sampler: accept training blocks with more "
                          "than this many raw points (`S3DISDataLoader.py:52-60`)")
-    ap.add_argument("--learning_rate", type=float, default=0.0, help="0 = 0.001")
+    ap.add_argument("--learning_rate", type=float, default=0.0,
+                    help="0 = 0.001 (pointnet2), the config's 1e-2 (randla)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches staged ahead by the background host "
                          "pipeline (sample + augment + copy to the device); "
                          "0 = synchronous")
     ap.add_argument("--eval_every", type=int, default=1)
+    ap.add_argument("--randla_dir", default="data/randla_input_0.040",
+                    help="randla: the prepared clouds (data.randla.prepare_room)")
+    ap.add_argument("--randla_points", type=int, default=0,
+                    help="randla: points per cloud (0 = the config's 40960)")
+    ap.add_argument("--steps_per_epoch", type=int, default=0,
+                    help="randla: optimizer steps per epoch (0 = the config's 500)")
+    ap.add_argument("--val_steps", type=int, default=0,
+                    help="randla: validation clouds per epoch (0 = the config's 100)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
@@ -84,7 +99,7 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
 
-    from pointsecguard_tpu_torch.train.loops import train_pointnet_family
+    from pointsecguard_tpu_torch.train.loops import train_pointnet_family, train_randla
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(args.device)
@@ -98,8 +113,11 @@ def main(argv=None):
         ],
     )
     t0 = time.time()
-    args.npoint = args.npoint or 4096
-    result = train_pointnet_family(args, device)
+    if args.model == "randla":
+        result = train_randla(args, device)
+    else:
+        args.npoint = args.npoint or 4096
+        result = train_pointnet_family(args, device)
     logging.info("total wall time %.1f s", time.time() - t0)
     return result
 

@@ -13,7 +13,6 @@ cloud, as the JAX model does under its ``sample`` rng.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -175,25 +174,3 @@ def weighted_nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     picked = torch.gather(lp, 1, y[:, None])[:, 0]
     w = class_weights[y]
     return -(w * picked).sum() / w.sum()
-
-
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to ±2
-
-
-@torch.no_grad()
-def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Initialise ``model`` as flax initialises the JAX model: every
-    Linear weight from a normal of variance 1 / fan_in truncated at two
-    standard deviations (``lecun_normal``), every Linear bias zero;
-    BatchNorm keeps scale 1, bias 0, mean 0, var 1. ``nn.Linear``'s own
-    default (uniform in ±1/sqrt(fan_in), a third of that variance, and a
-    random bias) trains to another band. ``generator`` is a CPU
-    generator: the draw does not depend on the device the model runs on."""
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            u = torch.rand(mod.weight.shape, generator=generator, dtype=torch.float64)
-            unit = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
-            std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
-            mod.weight.copy_((unit * std).to(mod.weight))
-            mod.bias.zero_()

@@ -17,6 +17,11 @@ channel width below 128 (layers 0 and 1 at the S3DIS widths) through the
 fused attentive-pooling kernels (``ops/cuda/attentive.py``), as the JAX
 package runs them through its Pallas kernel; the default stays the
 reference composition. The parameters are the same either way.
+
+Training (``train.loops.train_randla``) runs the same module in train
+mode: batch statistics at the fixed keep fraction 0.99 and the head's
+dropout, whose mask a caller may draw from a generator or pass in;
+``weighted_softmax_ce_loss`` is the reference's loss.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from pointsecguard_tpu_torch.ops.cuda.attentive import attentive_pool_fused
 # `helper_tf_util.py:457`): keep fraction 0.99, epsilon 1e-6.
 BN_EPS = 1e-6
 BN_MOM = 0.99
+DROPOUT = 0.5  # on the head's 32 features, the JAX model's rate
 
 
 def _conv(in_features: int, features: int, act: str = "leaky_relu") -> PointConv:
@@ -252,11 +258,16 @@ class RandLANet(nn.Module):
         self.decoders = nn.ModuleList(dec)
         self.fc1 = _conv(up, 64)
         self.fc2 = _conv(64, 32)
-        self.dropout = nn.Dropout(0.5)
         self.fc = nn.Linear(32, num_classes)
 
     def forward(self, features: torch.Tensor, pyramid: dict, *, pos_plan=None,
-                collect_pos: bool = False, momentum: float = BN_MOM):
+                collect_pos: bool = False, momentum: float = BN_MOM,
+                generator: torch.Generator | None = None,
+                dropout_mask: torch.Tensor | None = None):
+        """In training mode the head's dropout (rate 0.5) keeps the
+        entries where ``dropout_mask`` [B, N, 32] is true, or draws the
+        mask from ``generator`` (on the model's device; torch's default
+        generator without one). Evaluation mode applies none."""
         xyz, neigh_idx = pyramid["xyz"], pyramid["neigh_idx"]
         f = leaky_relu(self.bn0(self.fc0(features), momentum))
         enc, pos_out = [], []
@@ -276,7 +287,29 @@ class RandLANet(nn.Module):
             f_interp = ops.nearest_upsample(f, pyramid["interp_idx"][-j - 1])
             f = dec(torch.cat([enc[-j - 2], f_interp], dim=-1), momentum)
         f = self.fc2(self.fc1(f, momentum), momentum)
-        logits = self.fc(self.dropout(f)).float()
+        if self.training:
+            if dropout_mask is None:
+                dropout_mask = torch.rand(
+                    f.shape, generator=generator, device=f.device) >= DROPOUT
+            f = torch.where(dropout_mask, f / (1.0 - DROPOUT), torch.zeros_like(f))
+        logits = self.fc(f).float()
         if collect_pos:
             return logits, tuple(pos_out)
         return logits
+
+
+def weighted_softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                             class_weights: torch.Tensor, *,
+                             ignored_labels: tuple = ()) -> torch.Tensor:
+    """RandLA's weighted softmax cross-entropy (`RandLANet.py:313-321`) in
+    its S3DIS form, which has no ignored label: the mean over points of
+    ``ce · w[y]``. The ignored-label reduction of SemanticKITTI and
+    Semantic3D (`RandLANet.py:103-124`) comes with their presets."""
+    if ignored_labels:
+        raise NotImplementedError(
+            f"not ported yet: weighted_softmax_ce_loss with ignored_labels "
+            f"{tuple(ignored_labels)} (the SemanticKITTI / Semantic3D presets)")
+    y = labels.reshape(-1).long()
+    lp = torch.log_softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
+    ce = -torch.gather(lp, 1, y[:, None])[:, 0]
+    return torch.mean(ce * class_weights[y])

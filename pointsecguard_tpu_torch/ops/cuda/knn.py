@@ -43,7 +43,8 @@ def knn_plain(
     for s in range(0, query.shape[1], PLAIN_TILE):
         d = square_distance(query[:, s : s + PLAIN_TILE], points)
         v, i = torch.sort(d, dim=-1, stable=True)
-        vals.append(v[..., :k])
+        # copies, so that no block's whole sorted row outlives the loop
+        vals.append(v[..., :k].clone())
         idx.append(i[..., :k].to(torch.int32))
     return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
 

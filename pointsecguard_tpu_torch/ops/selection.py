@@ -8,6 +8,13 @@ Results are ascending with first-occurrence tie-breaking, identical to
 each takes its plain version only for a CPU tensor. Larger k takes the
 stable sort, as JAX sends it to ``lax.top_k``. The opt-in JAX strategies
 (approx, twostage, iterative) are not ported.
+
+The values carry a gradient on every route, the JAX package's
+``_pallas_bottom_k_diff`` (`selection.py:75-124`): the kernels return
+plain tensors, so the selection is one ``autograd.Function`` whose
+backward scatters the values' cotangent into a zero row at the returned
+indices. 3-NN interpolation weights differentiate through those values
+under coordinate attacks.
 """
 
 from __future__ import annotations
@@ -19,6 +26,34 @@ from pointsecguard_tpu_torch.ops.cuda.bottomk import bottom_k, bottom_k_plain
 from pointsecguard_tpu_torch.ops.cuda.bottomk_chunked import bottom_k_chunked
 
 KERNEL_MAX_K = 48
+
+
+def _select(work: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if k > KERNEL_MAX_K:
+        return bottom_k_plain(work, k)
+    if work.shape[-1] > NARROW_MAX_N:
+        return bottom_k_chunked(work, k)
+    return bottom_k(work, k)
+
+
+class _BottomK(torch.autograd.Function):
+    """The route's values and indices; d(values)/d(vals) is the VJP of a
+    gather at the indices (``_pallas_bottom_k_bwd``): the indices of a
+    row are distinct, so the scatter's add is a set."""
+
+    @staticmethod
+    def forward(ctx, work, k):
+        v, i = _select(work, k)
+        ctx.save_for_backward(i)
+        ctx.width = work.shape[-1]
+        ctx.mark_non_differentiable(i)
+        return v, i
+
+    @staticmethod
+    def backward(ctx, dv, _di):
+        (i,) = ctx.saved_tensors
+        dvals = dv.new_zeros((*dv.shape[:-1], ctx.width))
+        return dvals.scatter_(-1, i.long(), dv), None
 
 
 def bottom_k_indices(
@@ -34,11 +69,5 @@ def bottom_k_indices(
     Returns:
       (values [..., k] in ``vals.dtype``, indices [..., k] int32), ascending.
     """
-    work = vals.float()
-    if k > KERNEL_MAX_K:
-        v, i = bottom_k_plain(work, k)
-    elif work.shape[-1] > NARROW_MAX_N:
-        v, i = bottom_k_chunked(work, k)
-    else:
-        v, i = bottom_k(work, k)
+    v, i = _BottomK.apply(vals.float(), k)
     return v.to(vals.dtype), i

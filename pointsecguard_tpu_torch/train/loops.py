@@ -1,10 +1,19 @@
-"""Training loop of the PointNet family behind ``cli.train`` (port of
-``pointsecguard_tpu/train/loops.py:71-285`` for ``--model pointnet2`` on
-the host sampler).
+"""Training loops behind ``cli.train`` (port of
+``pointsecguard_tpu/train/loops.py:71-456``): the PointNet family
+(``--model pointnet2``) on the host block sampler and RandLA-Net on the
+spatially-regular sampler.
 
-Semantics of the reference script `train_semseg.py:148-265`: z-rotation
-augmentation, weighted NLL, Adam with step decay and the BatchNorm
-momentum anneal, whole-scene eval, best-mIoU checkpointing, auto-resume.
+PointNet++ follows the reference script `train_semseg.py:148-265`:
+z-rotation augmentation, weighted NLL, Adam with step decay and the
+BatchNorm momentum anneal, whole-scene eval, best-mIoU checkpointing,
+auto-resume. RandLA-Net follows `RandLANet.py:197-311`: weighted softmax
+cross-entropy, Adam without weight decay at ``1e-2 · 0.95^epoch``, a
+validation confusion after every epoch.
+
+Both loops save ``latest.pt`` after every evaluated epoch and ``best.pt``
+when the mIoU improves, and resume from ``latest.pt``. The JAX RandLA
+loop saves only on improvement (``pointsecguard_tpu/train/loops.py:453-455``),
+so a rerun there can repeat epochs; here none is repeated.
 """
 
 from __future__ import annotations
@@ -98,15 +107,7 @@ def train_pointnet_family(args, device: torch.device):
             losses.append(step_fn(state, pts, labels, weights, lr, bn_m, gen))
         # one read of the device per EPOCH: reading each step's loss would
         # make the host wait for the device and sample only in between
-        losses_np = (
-            torch.stack(losses).cpu().numpy() if losses
-            else np.zeros(0, np.float32)
-        )
-        finite = np.isfinite(losses_np)
-        nan_batches = int((~finite).sum())  # updates skipped by the NaN guard
-        n_batches = int(losses_np.size)
-        loss_sum = float(losses_np[finite].sum())
-        mean_loss = loss_sum / max(n_batches - nan_batches, 1)
+        mean_loss, n_batches, nan_batches = _epoch_losses(losses)
         log.info(
             "epoch %d lr %.2g bn_m %.3f loss %.4f (%.1fs, %d batches, %d skipped)",
             epoch, lr, bn_m, mean_loss, time.time() - t0, n_batches, nan_batches,
@@ -131,6 +132,126 @@ def train_pointnet_family(args, device: torch.device):
             tb.scalars(epoch, miou=miou, accuracy=float(total.accuracy))
             best_miou = max(best_miou, miou)
             ckpt.save(epoch + 1, state.payload(), miou=miou)
+    events.close()
+    tb.close()
+    log.info("best mIoU %.4f", best_miou)
+    return state, best_miou
+
+
+def _epoch_losses(losses: list) -> tuple[float, int, int]:
+    """(mean finite loss, batches, batches the NaN guard skipped) from an
+    epoch's device losses, read in one transfer."""
+    losses_np = (torch.stack(losses).cpu().numpy() if losses
+                 else np.zeros(0, np.float32))
+    finite = np.isfinite(losses_np)
+    nan_batches = int((~finite).sum())
+    n_batches = int(losses_np.size)
+    mean_loss = float(losses_np[finite].sum()) / max(n_batches - nan_batches, 1)
+    return mean_loss, n_batches, nan_batches
+
+
+def train_randla(args, device: torch.device):
+    """Train RandLA-Net on the clouds prepared under ``args.randla_dir``
+    (``data.randla.prepare_room``); returns ``(state, best mIoU)``.
+    ``args`` carries ``cli.train``'s flags (randla_dir, randla_dataset,
+    randla_points, log_dir, test_area, epochs, batch_size, learning_rate,
+    steps_per_epoch, val_steps, seed, prefetch); 0 means the config's
+    value (``configs.RandlaConfig``: batch 6, 40960 points, lr 1e-2, 500
+    steps and 100 validation clouds an epoch)."""
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.models import (
+        RandLANet,
+        init_parameters,
+        weighted_softmax_ce_loss,
+    )
+    from pointsecguard_tpu_torch.train.schedules import randla_lr
+    from pointsecguard_tpu_torch.train.trainer import (
+        TrainState,
+        make_eval_step,
+        make_train_step,
+        randla_family,
+    )
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
+    from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
+
+    preset = randla_dataset_preset(args.randla_dataset)
+    cfg, num_classes = preset.cfg, preset.num_classes
+    num_points = args.randla_points or cfg.num_points
+    train_steps = args.steps_per_epoch or cfg.train_steps
+    val_steps = args.val_steps or cfg.val_steps
+    batch_size = args.batch_size or cfg.batch_size
+    base_lr = args.learning_rate or cfg.learning_rate
+    depth = getattr(args, "prefetch", 2)
+
+    train_sampler = preset.make_sampler(args.randla_dir, "train", num_points,
+                                        np.random.default_rng(args.seed),
+                                        test_area=args.test_area)
+    val_sampler = preset.make_sampler(args.randla_dir, "test", num_points,
+                                      np.random.default_rng(args.seed + 9),
+                                      test_area=args.test_area)
+    # the JAX loop spends one sampler batch on shaping its initial state
+    # (`loops.py:358`); it advances the possibilities, so it is spent here
+    # too and both loops then train on the same clouds
+    next(iter(train_sampler.batches(batch_size, 1)))
+    model = RandLANet(num_classes=num_classes, d_out=cfg.d_out)
+    init_parameters(model, torch.Generator().manual_seed(args.seed))
+    state = TrainState(model.to(device))
+    family = randla_family(cfg)
+    # tf.train.AdamOptimizer has no weight decay (`RandLANet.py:127`)
+    step_fn = make_train_step(model, weighted_softmax_ce_loss, weight_decay=0.0,
+                              family=family)
+    eval_fn = make_eval_step(model, device, family)
+    # the reference's S3DIS weights (`helper_tool.py:245-261`): the only
+    # preset ported
+    weights = torch.from_numpy(get_class_weights("S3DIS")).to(device)
+    ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
+    resumed = ckpt.restore_latest()
+    start_epoch = 0
+    if resumed:
+        state.load_payload(resumed)
+        start_epoch = resumed["epoch"]
+        log.info("resumed from epoch %d", start_epoch)
+
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)  # dropout masks
+    events = EventLog(f"{args.log_dir}/events.jsonl")
+    tb = SummaryLogger(f"{args.log_dir}/tb")
+    put = make_batch_put(device, depth)
+    best_miou = 0.0
+    for epoch in range(start_epoch, args.epochs):
+        lr = randla_lr(epoch, base=base_lr, decay=cfg.lr_decay)
+        t0 = time.time()
+
+        def _pairs():  # sampled on the prefetch thread, which alone reads its RNG
+            for _, feats, labels, _, _ in train_sampler.batches(batch_size, train_steps):
+                yield feats, labels
+
+        losses = []
+        for batch in prefetch(_pairs(), put, depth=depth):
+            feats, labels = wait_batch(batch)
+            # RandLA's BatchNorm keep is fixed: no momentum is passed
+            losses.append(step_fn(state, feats, labels, weights, lr, None, gen))
+        mean_loss, n_batches, nan_batches = _epoch_losses(losses)
+        seconds = time.time() - t0
+        log.info("epoch %d lr %.3g loss %.4f (%.1fs, %d batches, %d skipped)",
+                 epoch, lr, mean_loss, seconds, n_batches, nan_batches)
+        events.write("epoch", epoch=epoch, lr=lr, loss=mean_loss,
+                     nan_batches=nan_batches, batches=n_batches, seconds=seconds)
+        tb.scalars(epoch, loss=mean_loss, learning_rate=lr)
+
+        # validation confusion over val_steps clouds (`RandLANet.py:255-311`)
+        cm = np.zeros((num_classes, num_classes))
+        for _, feats, labels, _, _ in val_sampler.batches(cfg.val_batch_size, val_steps):
+            preds = eval_fn(feats)
+            np.add.at(cm, (labels.reshape(-1), preds.reshape(-1)), 1)
+        m = metrics_from_confusion(cm)
+        log.info("epoch %d val mIoU %.4f acc %.4f", epoch, m.miou, m.accuracy)
+        events.write("eval", epoch=epoch, miou=m.miou, accuracy=m.accuracy)
+        tb.scalars(epoch, miou=m.miou, accuracy=m.accuracy)
+        best_miou = max(best_miou, m.miou)
+        ckpt.save(epoch + 1, state.payload(), miou=m.miou)
     events.close()
     tb.close()
     log.info("best mIoU %.4f", best_miou)

@@ -1,5 +1,5 @@
 """Training schedules of the reference scripts (port of
-``pointsecguard_tpu/train/schedules.py:6-18``)."""
+``pointsecguard_tpu/train/schedules.py:6-23``)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,8 @@ def pointnet2_bn_momentum(epoch: int, *, original: float = 0.1,
     Returns the *torch* momentum m; the port's BatchNorm takes keep = 1 − m."""
     m = original * decay ** (epoch // step_size)
     return max(m, floor)
+
+
+def randla_lr(epoch: int, *, base: float = 1e-2, decay: float = 0.95) -> float:
+    """Per-epoch exponential decay (`helper_tool.py:58`, `RandLANet.py:232`)."""
+    return base * decay**epoch

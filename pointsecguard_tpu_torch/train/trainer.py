@@ -1,10 +1,13 @@
 """Training step of the segmentation models (port of
 ``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
 
-One step is: train-mode geometry (random FPS starts), train-mode forward,
-loss, backward, Adam update and the BatchNorm running statistics. The lr
-and the BatchNorm momentum are call arguments, so the per-epoch annealing
-of the reference (`train_semseg.py:136-159`) needs no rebuild.
+One step is: the family's neighbour plan (PointNet++: train-mode
+geometry with random FPS starts; RandLA-Net: the kNN pyramid), train-mode
+forward, loss, backward, Adam update and the BatchNorm running
+statistics. A ``Family`` says how a model family is called, as the JAX
+step's ``model_args`` / ``output_head`` do. The lr and the BatchNorm
+momentum are call arguments, so the per-epoch annealing of the reference
+(`train_semseg.py:136-159`) needs no rebuild.
 
 Nothing in a step reads the device: the loss stays a device tensor (the
 epoch loop reads all of an epoch's losses at once), and the guard that
@@ -18,15 +21,62 @@ elementwise kernels whatever the number of layers.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from pointsecguard_tpu_torch.configs import RandlaConfig
 from pointsecguard_tpu_torch.models.pointnet2 import build_geometry
+from pointsecguard_tpu_torch.models.randlanet import build_pyramid
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+class Family(NamedTuple):
+    """How the step calls one model family.
+
+    ``plan(points, generator=None, start_idx=None)`` builds the neighbour
+    plan from the points' xyz; ``apply(model, points, plan, bn_momentum,
+    generator=, dropout_mask=)`` runs the forward (``bn_momentum`` is
+    torch's share of the batch statistic, None in evaluation); ``head``
+    picks the per-point scores that the loss and the argmax read."""
+
+    plan: Callable
+    apply: Callable
+    head: Callable
+
+
+def _pointnet2_apply(model, points, plan, bn_momentum=None, **kw):
+    # the model takes BatchNorm's keep fraction 1 − m
+    keep = 0.9 if bn_momentum is None else 1.0 - bn_momentum
+    return model(points, geometry=plan, momentum=keep, **kw)
+
+
+POINTNET2 = Family(
+    plan=lambda points, generator=None, start_idx=None: build_geometry(
+        points[..., :3], generator=generator, start_idx=start_idx),
+    apply=_pointnet2_apply,
+    head=lambda out: out[0],  # log-probabilities
+)
+
+
+def randla_family(cfg: RandlaConfig | None = None) -> Family:
+    """RandLA-Net: the plan is ``build_pyramid`` of the config's depth,
+    the head the logits. Its BatchNorm keep fraction is fixed at 0.99, as
+    the JAX model's (`pointsecguard_tpu/models/randlanet.py:321-328`
+    drops the trainer's momentum), so ``apply`` reads no ``bn_momentum``."""
+    cfg = cfg or RandlaConfig()
+
+    def plan(points, generator=None, start_idx=None):
+        return build_pyramid(points[..., :3], num_layers=cfg.num_layers, k=cfg.k_n,
+                             sub_ratios=cfg.sub_sampling_ratio)
+
+    def apply(model, points, pyramid, bn_momentum=None, **kw):
+        return model(points, pyramid, **kw)
+
+    return Family(plan=plan, apply=apply, head=lambda out: out)
 
 
 def _flatten(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -102,17 +152,21 @@ def make_train_step(
     loss_fn: Callable,
     *,
     weight_decay: float = 1e-4,
+    family: Family = POINTNET2,
 ) -> Callable:
     """Build ``train_step(state, points, labels, class_weights, lr,
     bn_momentum, generator=None, *, start_idx=None, dropout_mask=None,
     geometry=None) → loss`` (a device tensor).
 
-    ``bn_momentum`` is torch's (the share of the batch statistic); the
-    model takes the keep fraction ``1 − bn_momentum``. ``generator`` (on
-    the model's device) gives the FPS starts, four draws of [B], and then
-    the dropout mask; ``start_idx`` and ``dropout_mask`` fix them instead,
-    and ``geometry`` (a ``build_geometry`` plan) replaces the step's own,
-    so that two devices can be held against each other on one plan.
+    ``bn_momentum`` is torch's (the share of the batch statistic); a
+    PointNet++ model takes the keep fraction ``1 − bn_momentum``, a RandLA
+    model none (see ``randla_family``). ``generator`` (on the model's
+    device) gives PointNet++'s FPS starts, four draws of [B], and then the
+    dropout mask; ``start_idx`` and ``dropout_mask`` fix them instead, and
+    ``geometry`` (a plan of ``family.plan``) replaces the step's own, so
+    that two devices can be held against each other on one plan.
+    ``weight_decay`` is the L2 term of ``adam_update`` (RandLA: 0,
+    ``tf.train.AdamOptimizer`` has none).
 
     NaN guard: on a non-finite loss the step keeps the previous
     parameters, Adam moments and count, and BatchNorm statistics (the
@@ -126,15 +180,13 @@ def make_train_step(
                    dropout_mask=None, geometry=None):
         model.train()
         if geometry is None:
-            geometry = build_geometry(points[..., :3], generator=generator,
-                                      start_idx=start_idx)
+            geometry = family.plan(points, generator=generator, start_idx=start_idx)
         old = (state.params.clone(), state.mu.clone(), state.nu.clone(),
                state.count.clone(), state.stats.clone())
         state.grads.zero_()
-        log_probs, _ = model(points, geometry=geometry,
-                             momentum=1.0 - bn_momentum, generator=generator,
-                             dropout_mask=dropout_mask)
-        loss = loss_fn(log_probs, labels, class_weights)
+        out = family.apply(model, points, geometry, bn_momentum,
+                           generator=generator, dropout_mask=dropout_mask)
+        loss = loss_fn(family.head(out), labels, class_weights)
         loss.backward()
         adam_update(state, lr, weight_decay=weight_decay)
         ok = torch.isfinite(loss.detach())
@@ -148,16 +200,18 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: nn.Module, device: torch.device) -> Callable:
-    """``predict(points [B, P, 9] numpy) → labels [B, P] numpy``: the
-    evaluation-mode forward (FPS from index 0, running statistics, no
-    dropout) and the argmax, for ``evaluate_whole_scenes``."""
+def make_eval_step(model: nn.Module, device: torch.device,
+                   family: Family = POINTNET2) -> Callable:
+    """``predict(points [B, P, C] numpy) → labels [B, P] numpy``: the
+    evaluation-mode forward (PointNet++: FPS from index 0; running
+    statistics, no dropout) and the argmax, for ``evaluate_whole_scenes``
+    and RandLA's validation."""
 
     @torch.no_grad()
     def predict(points: np.ndarray) -> np.ndarray:
         model.eval()
         pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
-        log_probs, _ = model(pts, geometry=build_geometry(pts[..., :3]))
-        return torch.argmax(log_probs, dim=-1).cpu().numpy()
+        out = family.apply(model, pts, family.plan(pts))
+        return torch.argmax(family.head(out), dim=-1).cpu().numpy()
 
     return predict

@@ -145,7 +145,8 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--control"], ["--log_steps"], ["--model", "randla", "--save_adv"], ["--visual"],
+    ["--control"], ["--log_steps"], ["--model", "randla", "--randla_dataset", "semantickitti"],
+    ["--visual"],
     ["--defense", "bit_depth"], ["--ensemble", "pointnet:log"],
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
     ["--model", "resgcn"], ["--attack", "random"], ["--eot", "4"],

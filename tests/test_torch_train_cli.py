@@ -157,29 +157,44 @@ def test_eval_without_a_checkpoint_stops(trained, tmp_path):
 # --- flags -------------------------------------------------------------------
 
 _TRAIN_REFUSED = [
-    ["--model", "pointnet2_msg"], ["--model", "pointnet"], ["--model", "randla"],
+    ["--model", "pointnet2_msg"], ["--model", "pointnet"],
     ["--model", "resgcn"], ["--model", "pointnet2_cls"], ["--model", "pointnet2_part_seg"],
     ["--steps_per_call", "4"], ["--device_sampler"], ["--device_sampler_exact"],
     ["--adv_train", "nb"], ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
     ["--adv_iters", "3"], ["--adv_rand_init", "0.1"], ["--precision", "bfloat16"],
     ["--devices", "2"], ["-d", "4"], ["--shard_points", "2"], ["--remat"],
-    ["--profile", "trace"], ["--randla_dir", "elsewhere"],
-    ["--randla_dataset", "semantickitti"], ["--randla_points", "512"],
-    ["--val_steps", "4"], ["--steps_per_epoch", "4"], ["--resgcn_blocks", "3"],
+    ["--profile", "trace"],
+    ["--randla_dataset", "semantickitti"], ["--resgcn_blocks", "3"],
     ["--resgcn_k", "8"], ["--resgcn_filters", "32"], ["--resgcn_block_type", "dense"],
     ["--resgcn_conv", "mr"], ["--resgcn_epsilon", "0.2"], ["--num_category", "10"],
     ["--no_normals"],
 ]
 
 _EVAL_REFUSED = [
-    ["--model", "pointnet2_msg"], ["--model", "pointnet"], ["--model", "randla"],
+    ["--model", "pointnet2_msg"], ["--model", "pointnet"],
     ["--model", "resgcn"], ["--model", "pointnet_cls"], ["--visual"],
     ["--save_preds", "out"], ["--devices", "2"], ["--shard_points", "2"],
     ["--precision", "bfloat16"], ["--num_category", "10"], ["--no_normals"],
     ["--resgcn_blocks", "3"], ["--resgcn_k", "8"], ["--resgcn_filters", "32"],
     ["--resgcn_block_type", "plain"], ["--resgcn_conv", "edge"],
-    ["--resgcn_epsilon", "0.2"], ["--resgcn_fast"], ["--randla_dir", "elsewhere"],
-    ["--randla_dataset", "semantic3d"], ["--num_clouds", "10"], ["--randla_points", "512"],
+    ["--resgcn_epsilon", "0.2"], ["--resgcn_fast"],
+    ["--randla_dataset", "semantic3d"],
+]
+
+# flags of RandLA's training and eval, ported: parsed into the arguments,
+# refused by nothing (tests/test_torch_randla_train_cli.py runs them)
+_TRAIN_TAKEN = [
+    (["--model", "randla"], "model", "randla"),
+    (["--randla_dir", "elsewhere"], "randla_dir", "elsewhere"),
+    (["--randla_points", "512"], "randla_points", 512),
+    (["--val_steps", "4"], "val_steps", 4),
+    (["--steps_per_epoch", "4"], "steps_per_epoch", 4),
+]
+_EVAL_TAKEN = [
+    (["--model", "randla"], "model", "randla"),
+    (["--randla_dir", "elsewhere"], "randla_dir", "elsewhere"),
+    (["--num_clouds", "10"], "num_clouds", 10),
+    (["--randla_points", "512"], "randla_points", 512),
 ]
 
 
@@ -193,6 +208,17 @@ def test_train_refuses_unported_flags(flags):
 def test_eval_refuses_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         eval_cli.main(flags)
+
+
+@pytest.mark.parametrize("cli,flags,name,value",
+                         [(train_cli, *t) for t in _TRAIN_TAKEN]
+                         + [(eval_cli, *t) for t in _EVAL_TAKEN],
+                         ids=[f"train {' '.join(t[0])}" for t in _TRAIN_TAKEN]
+                         + [f"eval {' '.join(t[0])}" for t in _EVAL_TAKEN])
+def test_randla_flags_are_taken(cli, flags, name, value):
+    args = cli._parser().parse_args(flags)
+    cli._refuse_unported(args)
+    assert getattr(args, name) == value
 
 
 def _flag_names(main, monkeypatch):
