@@ -130,6 +130,41 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     checkpoint, 8 clouds at batch 4: adversarial accuracy below clean; then
     ``cli.eval.main --model randla --adv_set`` gives it back to 1e-3.
 
+27. kNN at the four shapes of one full-width ResGCN-28 forward of 8 ×
+    4096 points (seeded weights, BatchNorm statistics from one forward):
+    the head graph over xyz (D = 3, k = 16) and DynConv_0..2 over their
+    real input features (D = 64, k·d = 16, 32, 48), equal to plain except
+    in near-tie rows (counted); card, eager and plain ms, bound, share, 4
+    launches a forward. The large-k selection of DynConv_3..26 (k·d = 64
+    … 432, [8, 4096, 4096]): the stable sort of the route, the ``bottom_k``
+    kernel and ``torch.topk``, equal and timed (a kernel phase), printed
+    as a record of its own on a ``{"selection": [...]}`` line, not in the
+    kernel records: ``bottom_k`` never launches on this route.
+28. ResGCN card vs CPU on two blocks: every block's graph rebuilt on the
+    CPU from the card's features equal to the card's except in near-tie
+    rows; on the card's graphs, logits and colour gradient of the card no
+    further from a float64 evaluation than twice the CPU's float32, and
+    card vs CPU logits within 4e-4 of the largest.
+29. ResGCN NB through ``cli.attack.main --model resgcn`` on a random-weight
+    checkpoint, 8 blocks at batch 8, 50 iterations: 4 kNN launches per
+    forward, adversarial accuracy below clean, ms/block, peak memory.
+30. ResGCN NU through the C&W engine on one batch, the preset cut to
+    ``RESGCN_NU_STEPS`` steps: one ``bottom_k`` launch a step, 4 kNN a
+    forward.
+31. One ResGCN optimizer step card vs CPU on two blocks, on the card's
+    train-mode graphs, at ``phase_train_step``'s tolerances.
+32. ``cli.train.main --model resgcn`` at 8 × 4096 on one synthetic train
+    room (13 steps an epoch), 3 epochs and one more on resume: losses
+    finite and falling, 4 kNN launches a step, no epoch repeated; ms per
+    step (host clock, CUDA events), blocks/s, host share, peak memory.
+33. ``cli.eval.main --model resgcn --num_votes 1`` on that checkpoint:
+    accuracy at or above ``RESGCN_EVAL_ACC_FLOOR`` (0.3, set before the
+    first run), 4 kNN launches a batch of 16.
+34. On that checkpoint: NB ``--save_adv`` on 8 blocks lowers the
+    accuracy and ``cli.eval --adv_set`` gives it back; tar_NB (board →
+    table) at batch 1 on up to 2 blocks, the per-cloud gates both
+    attacking and skipping clouds.
+
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
 host's time to send them is hidden) and ``eager_ms`` the median of single
@@ -145,7 +180,7 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 8, 14, 20 and 21 and exits 1.
+``--kernels_only`` stops after phases 3, 4, 5, 8, 14, 20, 21 and 27 and exits 1.
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -154,6 +189,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -201,6 +237,19 @@ RANDLA_EVAL_CLOUDS = 8
 # M = 6 × the level's points
 ATT_TRAIN_SHAPES = ((16, RANDLA_TRAIN_BATCH * RANDLA_POINTS, 8),
                     (16, RANDLA_TRAIN_BATCH * RANDLA_POINTS // 4, 32))
+
+
+# ResGCN-28 at full width: 28 blocks, 64 filters, k = 16, 188 tensors
+RESGCN_STATE_FLOATS = 3_651_469
+RESGCN_BATCH, RESGCN_BLOCKS, RESGCN_TAR_BLOCKS = 8, 8, 2
+RESGCN_NU_STEPS = 10  # the NU phase cuts the preset's 1000 C&W steps to this
+# training: one train room at 25k points/m² (97 sampler blocks, 13 steps an
+# epoch at 8 × 4096), the config's constant lr 1e-3, 3 epochs and one more
+# on resume
+RESGCN_TRAIN_EPOCHS = 3
+# whole-scene accuracy the trained checkpoint must reach on the Area-5
+# room, set before the first run: PointNet++'s floor
+RESGCN_EVAL_ACC_FLOOR = 0.3
 
 
 def card_line() -> str:
@@ -2119,13 +2168,591 @@ def phase_randla_attack_trained(prep: str, log: str) -> dict:
     return stats
 
 
+def resgcn_room_batch(data: str, n: int, dev, seed: int = 0):
+    """The first n whole-scene blocks [n, 4096, 9] of the Area-5 room under
+    ``data`` and their labels [n, 4096], on ``dev``."""
+    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
+
+    rooms = RoomSet.load(data, "test", 5)
+    blocks, labels, *_ = WholeSceneBlocks(rooms, block_points=NUM_POINT).room_blocks(
+        0, np.random.default_rng(seed))
+    return (torch.from_numpy(blocks[:n]).to(dev),
+            torch.from_numpy(labels[:n].astype(np.int64)).to(dev))
+
+
+def resgcn_state_dict(seed: int, blocks: torch.Tensor) -> dict:
+    """Full-width ResGCN-28 weights from a seeded generator as flax
+    initialises them (``kaiming_normal``, biases 0), with BatchNorm
+    statistics from one train-mode forward over ``blocks`` at keep 0, so
+    that the random network's predictions vary from point to point."""
+    import functools
+
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, init_parameters
+    from pointsecguard_tpu_torch.models.common import BatchNorm
+
+    model = DenseDeepGCN()
+    init_parameters(model, torch.Generator().manual_seed(seed), scale=2.0)
+    n = sum(t.numel() for t in model.state_dict().values())
+    if n != RESGCN_STATE_FLOATS or len(model.state_dict()) != 188:
+        raise AssertionError(f"ResGCN state holds {n} floats in {len(model.state_dict())} "
+                             f"tensors, want {RESGCN_STATE_FLOATS} in 188")
+    model.to(blocks.device).train()
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.forward = functools.partial(BatchNorm.forward, m, momentum=0.0)
+    with torch.no_grad():
+        model(blocks)
+    for m in bns:
+        del m.forward
+    return model.state_dict()
+
+
+def resgcn_model(sd: dict, dev):
+    from pointsecguard_tpu_torch.models import DenseDeepGCN
+
+    model = DenseDeepGCN()
+    model.load_state_dict(sd)
+    return model.to(dev).eval()
+
+
+def block_inputs(model, points: torch.Tensor) -> tuple[dict, tuple]:
+    """The input features of every backbone block (hooks) and the graphs
+    of one evaluation-mode forward of ``points``."""
+    inputs = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args, i=i: inputs.__setitem__(i, args[0].detach()))
+        for i, blk in enumerate(model.backbone)]
+    with torch.no_grad():
+        _, graphs = model(points, collect_graphs=True)
+    for h in hooks:
+        h.remove()
+    return inputs, graphs
+
+
+def near_tie_check(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor):
+    """Rows of a kNN graph of ``x`` [B, N, D] where ``got`` and ``want``
+    differ, and how many of them differ by more than a near-tie. A row's
+    difference is a near-tie when ``got`` holds no index twice and the
+    distances (the plain version's ``square_distance``, on ``x``'s device)
+    of ``got``'s neighbours equal those of ``want``'s position by position
+    within 4 ulp of |q|² + the largest |p|² of those neighbours, the scale
+    of the distance's rounding: a different summation order may swap
+    neighbours only inside such a run. Returns (differing rows, rows that
+    differ by more than a near-tie)."""
+    from pointsecguard_tpu_torch.ops.distance import square_distance
+
+    got = got.to(want.device)
+    rows = (got != want).any(-1).nonzero()
+    bad = 0
+    eps = torch.finfo(torch.float32).eps
+    for c in range(0, rows.shape[0], 256):
+        b, s = rows[c : c + 256].unbind(1)
+        g, w = got[b, s].to(x.device).long(), want[b, s].to(x.device).long()
+        b, s = b.to(x.device), s.to(x.device)
+        q = x[b, s][:, None, :]
+        d = square_distance(q, x[b])[:, 0]  # [m, N]
+        p2 = (x[b[:, None], torch.cat([g, w], 1)] ** 2).sum(-1).amax(-1)
+        scale = (q[:, 0] ** 2).sum(-1) + p2
+        apart = (d.gather(1, g) - d.gather(1, w)).abs().amax(-1) > 4 * eps * scale
+        srt = g.sort(-1).values
+        bad += int((apart | (srt[:, 1:] == srt[:, :-1]).any(-1)).sum())
+    return int(rows.shape[0]), bad
+
+
+def phase_resgcn_kernels(dev, records, data: str) -> dict:
+    """27. kNN at the four shapes of one full-width ResGCN forward of 8
+    blocks of the Area-5 room (seeded weights): the head graph over xyz
+    (D = 3, k = 16) and DynConv_0..2 over their real input features
+    (D = 64, k·d = 16, 32, 48). Each call equal to plain, or different only
+    in near-tie rows (``near_tie_check``); card, eager and plain ms, bound
+    and share; 4 launches a forward. Then the large-k selection of
+    DynConv_3..26 (k·d = 64 … 432) on their [8, 4096, 4096] distances: the
+    stable sort (the route), the ``bottom_k`` kernel (equal indices) and
+    ``torch.topk`` (equal values), each timed."""
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bounds, knn
+    from pointsecguard_tpu_torch.ops.distance import square_distance
+
+    blocks, _ = resgcn_room_batch(data, RESGCN_BATCH, dev)
+    model = resgcn_model(resgcn_state_dict(0, blocks), dev)
+    inputs, _ = block_inputs(model, blocks)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(blocks)
+    torch.cuda.synchronize()
+    per_forward = kernels.launch_counts()["knn"]
+    if per_forward != 4:
+        raise AssertionError(f"one ResGCN forward launched knn {per_forward} times, want 4")
+    calls = [("head graph, xyz", blocks[..., :3].contiguous(), 16)] + [
+        (f"DynConv_{i}", inputs[i].contiguous(), 16 * (i + 1)) for i in range(3)]
+    rows, total = [], bounds.Work()
+    for name, x, k in calls:
+        got, want = knn.knn(x, x, k), knn.knn_plain(x, x, k)
+        torch.cuda.synchronize()
+        differ, bad = near_tie_check(x, got[1], want[1])
+        if bad:
+            raise AssertionError(f"knn {name} {tuple(x.shape)} k={k}: {differ} rows differ "
+                                 f"from plain, {bad} of them not near-ties")
+        if not differ and not torch.equal(got[0], want[0]):
+            raise AssertionError(f"knn {name}: equal indices, different distances")
+        work = bounds.knn(x.shape[0], x.shape[1], x.shape[1], x.shape[2], k)
+        total = total + work
+        rec = {"call": name, "shape": list(x.shape), "k": k,
+               "ms": device_ms(lambda: knn.knn(x, x, k), reps=5),
+               "eager_ms": cuda_ms(lambda: knn.knn(x, x, k), reps=10),
+               "plain_ms": cuda_ms(lambda: knn.knn_plain(x, x, k), reps=3),
+               "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+               "launches_per_forward": 1, "rows_differ": differ, "rows_not_near_tie": bad}
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        rows.append(rec)
+        print(f"resgcn knn {name} {tuple(x.shape)} k={k}: {rec['ms']:.4f} ms on the card "
+              f"({rec['eager_ms']:.4f} eager), plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share {rec['share']:.3f}; "
+              f"{differ} rows differ from plain, all near-ties")
+    forward_ms = sum(r["ms"] for r in rows)
+    records["knn"]["resgcn_forward"] = {
+        "unit": f"4 calls of one ResGCN-28 forward of [{RESGCN_BATCH}, {NUM_POINT}]",
+        "ms": forward_ms, "bound_ms": total.bound_ms, "bound_by": total.bound_by,
+        "launches": per_forward, "calls": rows}
+
+    # large-k selection of the dilated graphs: not a TPU kernel (lax.top_k
+    # in JAX); the port's route is the stable sort
+    large = []
+    for i in range(3, len(model.backbone)):
+        K = 16 * (i + 1)
+        d = square_distance(inputs[i], inputs[i])
+        v_sort, i_sort = bottomk.bottom_k_plain(d, K)
+        v_bk, i_bk = bottomk.bottom_k(d, K)
+        v_top, _ = topk_library(d, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(i_bk, i_sort) and torch.equal(v_bk, v_sort)
+                and torch.equal(v_top, v_sort)):
+            raise AssertionError(f"large-k selection k={K}: bottom_k or torch.topk != the sort")
+        large.append({"block": f"DynConv_{i}", "k": K,
+                      "sort_ms": device_ms(lambda: bottomk.bottom_k_plain(d, K), reps=3),
+                      "bottom_k_ms": device_ms(lambda: bottomk.bottom_k(d, K), reps=3),
+                      "topk_ms": device_ms(lambda: topk_library(d, K), reps=3),
+                      "bottom_k_bound_ms": bounds.bottom_k(d.numel() // d.shape[-1],
+                                                           d.shape[-1], K).bound_ms})
+        del d, v_sort, i_sort, v_bk, i_bk, v_top
+    sums = {key: sum(r[key] for r in large) for key in ("sort_ms", "bottom_k_ms", "topk_ms")}
+    print(f"resgcn large-k selection, {len(large)} graphs a forward (k·d = 64 … "
+          f"{large[-1]['k']}) on [{RESGCN_BATCH}, {NUM_POINT}, {NUM_POINT}]: stable sort "
+          f"{sums['sort_ms']:.3f} ms, bottom_k kernel {sums['bottom_k_ms']:.3f} ms, "
+          f"torch.topk {sums['topk_ms']:.3f} ms a forward; per k: " + json.dumps(large))
+    # a record of its own: the bottom_k kernel never launches on this route
+    return {"name": "resgcn_large_k_selection",
+            "route": "torch.sort (stable): bottom_k_plain, not a kernel of the port",
+            "replaces": "pointsecguard_tpu/ops/selection.py:160 (lax.top_k, not a Pallas kernel)",
+            "timed_beside": ["bottom_k kernel", "torch.topk"],
+            "per_forward": sums, "per_k": large}
+
+
+def phase_resgcn_reference(dev) -> dict:
+    """28. Card vs CPU, full-width ResGCN-28 with seeded weights on two
+    blocks: every block's graph built on the CPU from the card's input
+    features equal to the card's, except in near-tie rows. On the card's
+    graphs (``graphs=``), the logits and the colour gradient (of the
+    summed log-probability of random labels) of the card, of the CPU in
+    float32 and of the CPU in float64: the card no further from float64
+    than twice the CPU's float32 (plus 1e-6 of the largest logit, 1e-5
+    in relative L2), and card vs CPU logits within 4e-4 of the largest
+    magnitude: about 4 times the 1.021e-4 that three runs on an H100 80GB
+    HBM3 read (PERF.md). Twenty-eight residual blocks of float32 sums put
+    the two float32 results that far apart: channels whose calibrated
+    variance is near 0 scale rounding by up to 1/sqrt(ε) = 316 on both
+    devices alike, so each is also judged by its distance from float64
+    (the rule of the 3-NN weights' gradient phase)."""
+    from pointsecguard_tpu_torch import ops
+
+    blocks = train_blocks(dev, 8)
+    sd = resgcn_state_dict(1, blocks)
+    pts = blocks[[0, 5]].contiguous()
+    model = resgcn_model(sd, dev)
+    inputs, graphs = block_inputs(model, pts)
+    differ, bad, total = 0, 0, 0
+    feats = [pts[..., :3]] + [inputs[i] for i in range(len(model.backbone))]
+    for i, (x, g) in enumerate(zip(feats, graphs)):
+        dilation = max(i, 1)  # the head and DynConv_0 take 1, DynConv_i 1 + i
+        K = model.k * dilation
+        want = ops.dilate_neighbors(ops.dense_knn_graph(x.cpu(), K), dilation)
+        d, b = near_tie_check(x.cpu(), g.cpu(), want)
+        differ, bad, total = differ + d, bad + b, total + g.shape[0] * g.shape[1]
+    labels = torch.randint(0, 13, pts.shape[:2], generator=torch.Generator().manual_seed(5))
+    out = {}
+    cpu = torch.device("cpu")
+    for name, device, dtype in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
+                                ("float64", cpu, torch.float64)):
+        m = model.to(device=device, dtype=dtype)
+        p = pts.to(device=device, dtype=dtype).clone().requires_grad_(True)
+        logits = m(p, graphs=tuple(g.to(device) for g in graphs))
+        lp = torch.log_softmax(logits, -1)
+        torch.gather(lp, -1, labels.to(device)[..., None]).sum().backward()
+        out[name] = (logits.detach().double().cpu(), p.grad[..., 3:6].double().cpu())
+    ref_logits, ref_grad = out["float64"]
+    scale = ref_logits.abs().max().item()
+    err = {n: (out[n][0] - ref_logits).abs().max().item() for n in ("card", "cpu")}
+    grad_err = {n: _rel_l2(out[n][1], ref_grad) for n in ("card", "cpu")}
+    card_cpu = (out["card"][0] - out["cpu"][0]).abs().max().item()
+    res = {"graph_rows": total, "rows_differ": differ, "rows_not_near_tie": bad,
+           "fraction_equal": 1 - differ / total, "largest_logit": scale,
+           "logits_card_vs_cpu_over_largest": card_cpu / scale,
+           "logits_vs_float64_over_largest": {n: e / scale for n, e in err.items()},
+           "colour_grad_card_vs_cpu_rel_l2": _rel_l2(out["card"][1], out["cpu"][1]),
+           "colour_grad_vs_float64_rel_l2": grad_err}
+    print("resgcn card vs CPU: " + json.dumps(res))
+    ok = (not bad and torch.isfinite(out["card"][0]).all()
+          and err["card"] <= 2 * err["cpu"] + 1e-6 * scale and card_cpu <= 4e-4 * scale
+          and grad_err["card"] <= 2 * grad_err["cpu"] + 1e-5)
+    if not ok:
+        raise AssertionError("the card's ResGCN disagrees with the CPU's")
+    return res
+
+
+def phase_resgcn_nb(dev, records, data: str) -> dict:
+    """29. NB through ``cli.attack.main --model resgcn`` on a random-weight
+    checkpoint (BatchNorm statistics from one forward), 8 blocks of the
+    Area-5 room at batch 8, the preset's 50 iterations: exactly 4 kNN
+    launches per forward the engine runs (the clean forward, one per
+    iteration and PGD's last), finite output, adversarial accuracy below
+    clean; ms/block, peak memory."""
+    from pointsecguard_tpu_torch.cli import attack
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.utils.checkpoint import save_checkpoint
+
+    blocks, _ = resgcn_room_batch(data, RESGCN_BATCH, dev, seed=3)
+    log = os.path.join(WORK, "resgcn_log")
+    save_checkpoint(log, resgcn_state_dict(0, blocks))
+    argv = ["--model", "resgcn", "--attack", "nb", "--data_root", data, "--log_dir", log,
+            "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+            "--max_blocks", str(RESGCN_BLOCKS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clean_m, adv_m = attack.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    rows = read_tsv(os.path.join(log, "resgcn_nb_area5.tsv"))
+    col = {c: np.array([float(r[c]) for r in rows]) for c in
+           ("clean_acc", "adv_acc", "l2", "time_s", "steps")}
+    S = int(col["steps"].max())
+    stats = {"blocks": len(rows), "nb_iters": S,
+             "ms_per_block": float(1e3 * col["time_s"].mean()), "main_wall_s": wall,
+             "clean_acc": float(col["clean_acc"].mean()),
+             "adv_acc": float(col["adv_acc"].mean()), "l2_mean": float(col["l2"].mean()),
+             "clean_miou": clean_m.miou, "adv_miou": adv_m.miou,
+             "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": counts}
+    print("resgcn nb: " + json.dumps(stats))
+    values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
+    if len(rows) != RESGCN_BLOCKS or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"resgcn NB: {len(rows)} rows or a non-finite value")
+    if S != 50 or counts["knn"] != 4 * (S + 2):
+        raise AssertionError(f"resgcn NB launches {counts} over {S} iterations, want knn "
+                             f"4 × ({S} + 2)")
+    if any(counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"a kernel off the ResGCN NB path launched: {counts}")
+    if not stats["adv_acc"] < stats["clean_acc"]:
+        raise AssertionError("the ResGCN NB attack did not lower the mean accuracy")
+    records["knn"]["launches_by_path"]["resgcn nb"] = counts["knn"]
+    records["knn"]["calls_per_batch"]["resgcn nb"] = f"{counts['knn']} over {S + 2} forwards"
+    return stats
+
+
+def phase_resgcn_nu(dev, records, data: str) -> dict:
+    """30. NU through the C&W engine on one batch of 8 blocks with the
+    random-weight checkpoint of phase 29, the preset with its steps cut to
+    ``RESGCN_NU_STEPS``: one ``bottom_k`` launch a step for the smooth term
+    and 4 kNN launches a forward."""
+    from pointsecguard_tpu_torch.attacks import attack_preset, cw_color_attack
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model = resgcn_model(load_checkpoint(os.path.join(WORK, "resgcn_log")), dev)
+    model.requires_grad_(False)
+    pts, labels = resgcn_room_batch(data, RESGCN_BATCH, dev)
+    cfg = attack_preset("resgcn", "nu", steps=RESGCN_NU_STEPS)
+    forwards = [0]
+
+    def outputs_fn(p):
+        forwards[0] += 1
+        return model(p)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cw_color_attack(outputs_fn, pts, labels, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    S = int(res.steps)
+    stats = {"steps": S, "forwards": forwards[0], "ms_per_step": 1e3 * wall / max(S, 1),
+             "l2_mean": res.l2_dist.mean().item(), "acc": res.acc.item(), "launches": counts}
+    print("resgcn nu: " + json.dumps(stats))
+    if not (1 <= S <= RESGCN_NU_STEPS and torch.isfinite(res.points_adv).all()):
+        raise AssertionError(f"resgcn NU: {S} steps or a non-finite output")
+    if counts["bottom_k"] != S or counts["knn"] != 4 * forwards[0]:
+        raise AssertionError(f"resgcn NU launches {counts}, want bottom_k {S} and knn "
+                             f"4 × {forwards[0]}")
+    records["bottom_k"]["calls_per_batch"]["resgcn nu"] = f"{counts['bottom_k']} over {S} steps"
+    records["knn"]["calls_per_batch"]["resgcn nu"] = f"{counts['knn']} over {S} steps"
+    return stats
+
+
+def phase_resgcn_train_step(dev) -> dict:
+    """31. One optimizer step of the full-width ResGCN-28 from the same
+    weights (flax-style initialisation) and two blocks with random labels,
+    on the card and on the CPU, both on the graphs of the card's
+    train-mode forward. Tolerances as in ``phase_train_step``: loss 1e-4
+    relative; the gradient and Adam's first moment 2e-2 in relative L2 and
+    the second moment 4e-2; BatchNorm statistics 1e-3 of the largest; the parameters' move within
+    1e-5 where |g| is clear of rounding noise (above a fifth of its
+    tensor's largest entry)."""
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, init_parameters
+    from pointsecguard_tpu_torch.models.resgcn import ce_loss
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, resgcn_family
+
+    pts = train_blocks(dev, 8)[[1, 6]].contiguous()
+    labels = torch.randint(0, 13, pts.shape[:2], generator=torch.Generator().manual_seed(13))
+    out, graphs = {}, None
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = DenseDeepGCN()
+        init_parameters(model, torch.Generator().manual_seed(3), scale=2.0)
+        state = TrainState(model.to(device))
+        if graphs is None:  # the card's train-mode graphs; statistics restored
+            stats0 = state.stats.clone()
+            with torch.no_grad():
+                _, graphs = model.train()(pts, collect_graphs=True)
+            state.stats.copy_(stats0)
+        before = state.params.clone()
+        step = make_train_step(model, ce_loss, weight_decay=0.0, family=resgcn_family())
+        t0 = time.perf_counter()
+        loss = step(state, pts.to(device), labels.to(device), None, 1e-3, None,
+                    geometry=tuple(g.to(device) for g in graphs))
+        named = [(k, p.numel()) for k, p in model.named_parameters()]
+        out[name] = {"loss": loss.item(), "grads": state.grads.cpu(), "mu": state.mu.cpu(),
+                     "nu": state.nu.cpu(), "move": (state.params - before).cpu(),
+                     "stats": state.stats.cpu(), "seconds": time.perf_counter() - t0}
+    card, cpu = out["card"], out["cpu"]
+    # BasicConv puts the activation between its Linear and its BatchNorm,
+    # so no bias has a gradient of 0 by construction: every entry counts
+    clear = torch.cat([g.abs() > 0.2 * g.abs().max()
+                       for g in cpu["grads"].split([n for _, n in named])])
+    res = {
+        "points": list(pts.shape[:2]),
+        "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+        "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        "grad_rel_l2": _rel_l2(card["grads"], cpu["grads"]),
+        "mu_rel_l2": _rel_l2(card["mu"], cpu["mu"]),
+        "nu_rel_l2": _rel_l2(card["nu"], cpu["nu"]),
+        "move_max_abs_where_clear": (card["move"] - cpu["move"])[clear].abs().max().item(),
+        "clear_entries": int(clear.sum()),
+        "stats_max_abs": (card["stats"] - cpu["stats"]).abs().max().item(),
+        "stats_max": cpu["stats"].abs().max().item(), "cpu_step_s": cpu["seconds"],
+    }
+    print("resgcn train step, card vs CPU: " + json.dumps(res))
+    ok = (math.isfinite(card["loss"]) and res["loss_rel"] <= 1e-4
+          and res["grad_rel_l2"] <= 2e-2 and res["mu_rel_l2"] <= 2e-2
+          and res["nu_rel_l2"] <= 4e-2 and res["move_max_abs_where_clear"] <= 1e-5
+          and res["clear_entries"] > 10_000
+          and res["stats_max_abs"] <= 1e-3 * res["stats_max"]
+          and card["move"].abs().max().item() > 0)
+    if not ok:
+        raise AssertionError("the card's ResGCN train step disagrees with the CPU's")
+    return res
+
+
+def phase_resgcn_train(dev, records) -> tuple[str, str, dict]:
+    """32. Training through ``cli.train.main --model resgcn`` at full width,
+    batch 8 × 4096 on one synthetic train room (12–16 steps an epoch),
+    ``RESGCN_TRAIN_EPOCHS`` epochs, then a resumed call with one more:
+    every loss finite, no skipped batch, the last epoch's loss below the
+    first's, exactly 4 kNN launches per optimizer step, no epoch repeated.
+    ms per step on the host's clock and by CUDA events, blocks/s, the
+    host's share, peak memory. Returns the data root, the log dir and the
+    figures."""
+    from pointsecguard_tpu_torch.cli import train as cli
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler, make_synthetic_rooms
+    from pointsecguard_tpu_torch.models import DenseDeepGCN
+    from pointsecguard_tpu_torch.models.resgcn import ce_loss
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, resgcn_family
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+
+    data = os.path.join(WORK, "resgcn_data")
+    make_synthetic_rooms(data, points_per_room=ROOM_POINTS, seed=0)
+    log = os.path.join(WORK, "resgcn_train_log")
+    sampler = S3DISBlockSampler(RoomSet.load(data, "train", 5), num_point=NUM_POINT)
+    steps_per_epoch = -(-len(sampler) // RESGCN_BATCH)
+    if not 12 <= steps_per_epoch <= 16:
+        raise AssertionError(f"{steps_per_epoch} steps an epoch, want 12-16")
+
+    def argv(epochs):
+        return ["--model", "resgcn", "--data_root", data, "--log_dir", log,
+                "--npoint", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+                "--epochs", str(epochs)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(argv(RESGCN_TRAIN_EPOCHS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    epochs = [e for e in read_events(log) if e["event"] == "epoch"]
+    if [e["epoch"] for e in epochs] != list(range(RESGCN_TRAIN_EPOCHS)):
+        raise AssertionError(f"epoch lines {[e['epoch'] for e in epochs]}")
+    if any(e["batches"] != steps_per_epoch or e["nan_batches"] for e in epochs):
+        raise AssertionError(f"steps or skipped batches: {epochs}")
+    if not all(math.isfinite(e["loss"]) for e in epochs):
+        raise AssertionError("a non-finite epoch loss")
+    if not epochs[-1]["loss"] < epochs[0]["loss"]:
+        raise AssertionError("the last epoch's mean loss is not below the first's")
+    steps = steps_per_epoch * RESGCN_TRAIN_EPOCHS
+    if counts["knn"] != 4 * steps or any(counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"resgcn train launches {counts}, want knn 4 × {steps} steps")
+    records["knn"]["launches_by_path"]["resgcn train"] = counts["knn"]
+    records["knn"]["calls_per_batch"]["resgcn train step"] = 4
+
+    cli.main(argv(RESGCN_TRAIN_EPOCHS + 1))
+    events = [e for e in read_events(log) if e["event"] == "epoch"]
+    if [e["epoch"] for e in events] != list(range(RESGCN_TRAIN_EPOCHS + 1)):
+        raise AssertionError(f"epochs after the resumed call: {[e['epoch'] for e in events]}")
+    ckpt = CheckpointManager(os.path.join(log, "checkpoints"))
+    latest = ckpt.restore_latest()
+    if (latest["epoch"] != RESGCN_TRAIN_EPOCHS + 1 or latest["step"] != steps + steps_per_epoch
+            or ckpt.restore_best() is not None):
+        raise AssertionError(f"resumed checkpoint: epoch {latest['epoch']}, step "
+                             f"{latest['step']}, or a best.pt was written")
+
+    # the step alone on the card: CUDA events around each of 5 steps
+    model = DenseDeepGCN()
+    state = TrainState(model.to(dev))
+    state.load_payload(latest)
+    step = make_train_step(model, ce_loss, weight_decay=0.0, family=resgcn_family())
+    rng = np.random.default_rng(1)
+    pts, labels = next(iter(sampler.batches(rng, RESGCN_BATCH)))
+    pts, labels = torch.from_numpy(pts).to(dev), torch.from_numpy(labels).long().to(dev)
+    step_ms = cuda_ms(lambda: step(state, pts, labels, None, 1e-5, None), reps=5)
+    t0 = time.perf_counter()
+    for _ in sampler.batches(rng, RESGCN_BATCH):
+        pass
+    sampler_ms = 1e3 * (time.perf_counter() - t0) / steps_per_epoch
+    warm = events[1:]  # the first epoch pays the one-off CUDA set-up
+    host_ms = 1e3 * sum(e["seconds"] for e in warm) / sum(e["batches"] for e in warm)
+    stats = {
+        "sampler_blocks": len(sampler), "steps_per_epoch": steps_per_epoch,
+        "steps": steps + steps_per_epoch, "epoch_loss": [e["loss"] for e in events],
+        "ms_per_step_host_clock": host_ms,
+        "ms_per_step_host_clock_by_epoch": [1e3 * e["seconds"] / e["batches"] for e in events],
+        "ms_per_step_cuda_events": step_ms, "blocks_per_s": 1e3 * RESGCN_BATCH / host_ms,
+        "host_share": 1.0 - step_ms / host_ms, "sampler_ms_per_batch_alone": sampler_ms,
+        "peak_device_memory_gb": peak / 1e9, "main_wall_s": wall, "launches": counts,
+    }
+    print("resgcn train: " + json.dumps(stats))
+    return data, log, stats
+
+
+def phase_resgcn_eval(data: str, log: str, records) -> dict:
+    """33. ``cli.eval.main --model resgcn --num_votes 1`` on that
+    checkpoint at the default batch of 16: accuracy on the Area-5 room at
+    or above ``RESGCN_EVAL_ACC_FLOOR``, 4 kNN launches a batch."""
+    from pointsecguard_tpu_torch.cli import eval as cli
+    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    n_blocks = WholeSceneBlocks(RoomSet.load(data, "test", 5), block_points=NUM_POINT
+                                ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+    batches = -(-n_blocks // 16)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    total = cli.main(["--model", "resgcn", "--data_root", data, "--log_dir", log,
+                      "--num_point", str(NUM_POINT), "--num_votes", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    stats = {"accuracy": total.accuracy, "miou": total.miou, "blocks": n_blocks,
+             "ms_per_block": 1e3 * wall / n_blocks, "launches": counts}
+    print(f"resgcn eval: {json.dumps(stats)} (floor {RESGCN_EVAL_ACC_FLOOR}, chance 1/13 = "
+          f"{1 / 13:.4f})")
+    if not (math.isfinite(total.miou) and total.accuracy >= RESGCN_EVAL_ACC_FLOOR >= 2 / 13):
+        raise AssertionError(f"resgcn eval accuracy {total.accuracy} under the floor "
+                             f"{RESGCN_EVAL_ACC_FLOOR}")
+    if counts["knn"] != 4 * batches:
+        raise AssertionError(f"resgcn eval launches {counts}, want knn 4 × {batches} batches")
+    records["knn"]["launches_by_path"]["resgcn eval"] = counts["knn"]
+    records["knn"]["calls_per_batch"]["resgcn eval batch"] = 4
+    return stats
+
+
+def phase_resgcn_attack_trained(data: str, log: str) -> dict:
+    """34. On the trained checkpoint: ``--attack nb --save_adv`` on 8
+    blocks at batch 8 (adversarial accuracy below clean), ``cli.eval
+    --adv_set`` gives it back to 1e-3; ``--attack tar_nb`` (board →
+    table) at batch 1 on up to 2 blocks of the room: the per-cloud gates
+    both attack and skip clouds."""
+    import logging
+
+    from pointsecguard_tpu_torch.cli import attack, eval as cli_eval
+
+    base = ["--model", "resgcn", "--data_root", data, "--log_dir", log,
+            "--num_point", str(NUM_POINT)]
+    clean_m, adv_m = attack.main(base + ["--attack", "nb", "--save_adv", "--batch_size",
+                                         str(RESGCN_BATCH), "--max_blocks", str(RESGCN_BLOCKS)])
+    rows = read_tsv(os.path.join(log, "resgcn_nb_area5.tsv"))
+    clean = float(np.mean([float(r["clean_acc"]) for r in rows]))
+    adv = float(np.mean([float(r["adv_acc"]) for r in rows]))
+    m = cli_eval.main(["--model", "resgcn", "--log_dir", log, "--adv_set",
+                       os.path.join(log, "resgcn_nb_adv_area5.npz"),
+                       "--batch_size", str(RESGCN_BATCH)])
+
+    class Gates(logging.Handler):
+        lines: list = []
+
+        def emit(self, record):
+            if record.getMessage().startswith("resgcn gates"):
+                self.lines.append(record.getMessage())
+
+    handler = Gates()
+    logging.getLogger("attack").addHandler(handler)
+    try:
+        attack.main(base + ["--attack", "tar_nb", "--max_blocks", str(RESGCN_TAR_BLOCKS)])
+    finally:
+        logging.getLogger("attack").removeHandler(handler)
+    tar_rows = read_tsv(os.path.join(log, "resgcn_tar_nb_area5.tsv"))
+    found = re.search(r"(\d+) clouds attacked, (\d+) skipped .*, (\d+) with",
+                      handler.lines[-1] if handler.lines else "")
+    gates = [int(g) for g in found.groups()] if found else []
+    stats = {"blocks": len(rows), "clean_acc": clean, "adv_acc": adv,
+             "l2_mean": float(np.mean([float(r["l2"]) for r in rows])),
+             "ms_per_block": float(np.mean([1e3 * float(r["time_s"]) for r in rows])),
+             "clean_miou": clean_m.miou, "adv_miou": adv_m.miou,
+             "adv_set_accuracy": m.accuracy, "tar_nb_gates": handler.lines,
+             "tar_nb_rows": [{k: r[k] for k in ("block", "clean_acc", "adv_acc", "sr",
+                                                "steps")} for r in tar_rows]}
+    print("resgcn attack on the trained checkpoint: " + json.dumps(stats))
+    if len(rows) != RESGCN_BLOCKS or not adv < clean:
+        raise AssertionError("NB did not lower the trained ResGCN's accuracy")
+    if abs(m.accuracy - adv) > 1e-3:
+        raise AssertionError(f"--adv_set accuracy {m.accuracy} != the attack run's {adv}")
+    # gates: [attacked, skipped for origin points, skipped for accuracy]
+    if len(gates) != 3 or not (1 <= gates[0] == len(tar_rows) <= RESGCN_TAR_BLOCKS
+                               and gates[1] + gates[2] >= 1):
+        raise AssertionError(f"tar_nb gates {handler.lines}: want clouds both attacked and "
+                             "skipped")
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 8, 14, 20 and 21); the last line then carries "
+                             "(3, 4, 5, 8, 14, 20, 21 and 27); the last line then carries "
                              "\"ok\": false, "
                              "because the slices were not driven")
     args = parser.parse_args(argv)
@@ -2200,7 +2827,9 @@ def main(argv=None) -> int:
     phase_train_kernels(dev, records)
     train_feats, train_labels = phase_randla_train_knn(dev, records, prep)
     phase_bottom_k_vjp(dev)
+    selection = phase_resgcn_kernels(dev, records, data)
     if args.kernels_only:
+        print(json.dumps({"selection": [selection]}))
         print(json.dumps({"kernels": list(records.values())}))
         print(card)
         print(json.dumps({"ok": False, "kernels_only": True}))
@@ -2225,13 +2854,21 @@ def main(argv=None) -> int:
     randla_log, _ = phase_randla_train(dev, records, prep)
     phase_randla_eval(prep, randla_log, records)
     phase_randla_attack_trained(prep, randla_log)
+    phase_resgcn_reference(dev)
+    phase_resgcn_nb(dev, records, data)
+    phase_resgcn_nu(dev, records, data)
+    phase_resgcn_train_step(dev)
+    resgcn_data, resgcn_log, _ = phase_resgcn_train(dev, records)
+    phase_resgcn_eval(resgcn_data, resgcn_log, records)
+    phase_resgcn_attack_trained(resgcn_data, resgcn_log)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "calls_per_batch")
     for name, paths in (("fps", {"pointnet2 nb", "pointnet2 train"}),
                         ("bottom_k", {"pointnet2 nb", "pointnet2 train"}),
-                        ("knn", {"randla nb", "randla train", "randla eval"})):
+                        ("knn", {"randla nb", "randla train", "randla eval",
+                                 "resgcn nb", "resgcn train", "resgcn eval"})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")
@@ -2239,10 +2876,11 @@ def main(argv=None) -> int:
     for r in records.values():
         if not r["launches"] > 0:
             raise AssertionError(f"kernel {r['name']} never launched on its main path")
+    print(json.dumps({"selection": [selection]}))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "launches_by_path")
-            if k in r}}
+         **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "resgcn_forward",
+                              "launches_by_path") if k in r}}
         for r in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

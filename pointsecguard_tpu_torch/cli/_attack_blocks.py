@@ -1,12 +1,18 @@
 """Block attack loop of the port (port of
-``pointsecguard_tpu/cli/_attack_blocks.py:18-511`` for PointNet++ SSG).
+``pointsecguard_tpu/cli/_attack_blocks.py:18-511`` for PointNet++ SSG and
+ResGCN-28).
 
-Per batch of blocks: build the xyz-only geometry once (FPS and bottom-k
-kernels), clean forward, PGD (nb / tar_nb) or C&W (nu / tar_nu) attack,
+Per batch of blocks: for PointNet++ build the xyz-only geometry once (FPS
+and bottom-k kernels; ResGCN builds its graphs in every forward, four of
+them on the kNN kernel), clean forward, PGD (nb / tar_nb) or C&W (nu /
+tar_nu) attack,
 per-block TSV rows in the JAX CLI's format, with ``--save_adv`` the
 adversarial blocks as an ``.npz``; per room and per dataset,
 clean-vs-adversarial IoU from pooled votes
-(`NB_nontarget_test_semseg.py:64-294` protocol).
+(`NB_nontarget_test_semseg.py:64-294` protocol). ResGCN's targeted runs
+(batch 1) skip a cloud with ≤ 500 origin points or a masked clean
+accuracy below 0.5 (`sem_seg_dense/attacks.py:204-207`); the clean
+forward of that gate is the run's clean prediction.
 """
 
 from __future__ import annotations
@@ -26,24 +32,41 @@ def run_blocks(args, log):
         make_target_labels,
         pgd_color_attack,
     )
+    from pointsecguard_tpu_torch.configs import resgcn_overrides
     from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
-    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG, build_geometry
+    from pointsecguard_tpu_torch.models import (
+        DenseDeepGCN,
+        PointNet2SemSegSSG,
+        build_geometry,
+    )
     from pointsecguard_tpu_torch.train.evaluator import add_votes
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(args.device)
-    model = PointNet2SemSegSSG()
+    resgcn = args.model == "resgcn"
+    model = DenseDeepGCN(**resgcn_overrides(args)) if resgcn else PointNet2SemSegSSG()
     model.load_state_dict(load_checkpoint(args.log_dir))
     # inference only: the attack needs input gradients, never parameter ones
     model.to(device).eval().requires_grad_(False)
 
+    def make_outputs_fn(pts):
+        if resgcn:  # the logits; the graphs are rebuilt in every forward
+            return model
+        # xyz-only geometry, once per batch: colour attacks never move xyz
+        geo = build_geometry(pts[..., :3])
+        return lambda p: model(p, geometry=geo)[0]
+
     rooms = RoomSet.load(args.data_root, "test", args.test_area)
     B = args.batch_size
     targeted = args.attack.startswith("tar_")
+    # ResGCN's targeted protocol gates clouds one by one (batch 1)
+    resgcn_gates = resgcn and targeted
+    gate_skips = {"origin": 0, "accuracy": 0}
     overrides = {"targeted": True, "target": args.target} if targeted else {}
-    attack_cfg = attack_preset("pointnet2", args.attack, **overrides)
+    attack_cfg = attack_preset("resgcn" if resgcn else "pointnet2", args.attack,
+                               **overrides)
 
     os.makedirs(args.log_dir, exist_ok=True)
     tsv_path = os.path.join(
@@ -76,25 +99,37 @@ def run_blocks(args, log):
                     labs_np = np.repeat(labs_np, reps, axis=0)
                 pts = torch.from_numpy(pts_np).to(device)
                 labs = torch.from_numpy(labs_np).to(device).long()
+                outputs_fn = make_outputs_fn(pts)
+                clean_pred_d = None
                 if targeted:
                     _, mask = make_target_labels(labs, args.origin, args.target)
                     mask_np = mask.cpu().numpy()[:valid]
-                    if not mask_np.any():
+                    if resgcn_gates:
+                        # `attacks.py:204-205`: skip clouds with ≤ 500 origin points
+                        if int(mask_np.sum()) <= 500:
+                            gate_skips["origin"] += 1
+                            continue
+                        # `attacks.py:206-207`: skip if masked clean accuracy < 0.5
+                        with torch.no_grad():
+                            clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
+                        cp = clean_pred_d.cpu().numpy()[:valid]
+                        if (cp[mask_np] == labs_np[:valid][mask_np]).mean() < 0.5:
+                            gate_skips["accuracy"] += 1
+                            continue
+                        keep = np.ones(valid, bool)  # the cloud is kept whole
+                    elif not mask_np.any():
                         continue  # skip blocks without origin points (`:174`)
-                    # per-row gate: origin-free blocks of a mixed batch are
-                    # dropped from the TSV and both vote pools
-                    keep = mask_np.any(axis=1)
+                    else:
+                        # per-row gate: origin-free blocks of a mixed batch
+                        # are dropped from the TSV and both vote pools
+                        keep = mask_np.any(axis=1)
                 else:
                     mask = None
                     keep = np.ones(valid, bool)
-                # xyz-only geometry, once per batch: colour attacks never move xyz
-                geo = build_geometry(pts[..., :3])
 
-                def outputs_fn(p, geo=geo):
-                    return model(p, geometry=geo)[0]
-
-                with torch.no_grad():
-                    clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
+                if clean_pred_d is None:
+                    with torch.no_grad():
+                        clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
                 if isinstance(attack_cfg, PGDConfig):
                     res = pgd_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
                 else:
@@ -159,6 +194,10 @@ def run_blocks(args, log):
             )
             if args.max_blocks and n_blocks_done >= args.max_blocks:
                 break
+    if resgcn_gates:
+        log.info("resgcn gates: %d clouds attacked, %d skipped with <= 500 origin "
+                 "points, %d with masked clean accuracy < 0.5", n_blocks_done,
+                 gate_skips["origin"], gate_skips["accuracy"])
     clean_m = metrics_from_confusion(clean_cm)
     adv_m = metrics_from_confusion(adv_cm)
     log.info(

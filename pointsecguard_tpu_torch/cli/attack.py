@@ -5,7 +5,10 @@
       --data_root data/stanford_indoor3d --log_dir log/pointnet2
 
 Ported: ``--attack nb|tar_nb`` (PGD) and ``nu|tar_nu`` (C&W) for
-``--model pointnet2`` over whole-scene blocks (``cli/_attack_blocks.py``)
+``--model pointnet2`` and ``--model resgcn`` (with the ``--resgcn_*``
+model flags; targeted runs at ``--batch_size 1``, the per-cloud gates of
+`sem_seg_dense/attacks.py:204-207`) over whole-scene blocks
+(``cli/_attack_blocks.py``)
 and for ``--model randla`` over spatially-regular S3DIS clouds
 (``cli/_attack_randla.py``, prepared with ``data.randla.prepare_room``
 under ``--randla_dir``); ``--fused_ap`` (``--model randla`` only) runs
@@ -22,9 +25,11 @@ from __future__ import annotations
 import argparse
 import logging
 
+from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusals
+
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
-PORTED_MODELS = ("pointnet2", "randla")
+PORTED_MODELS = ("pointnet2", "randla", "resgcn")
 PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu")
 # JAX CLI flags this port does not implement yet
 _UNPORTED_SWITCHES = (
@@ -32,8 +37,6 @@ _UNPORTED_SWITCHES = (
     "--resgcn_fast", "--resgcn_fixed_graphs",
 )
 _UNPORTED_VALUES = (
-    "--resgcn_blocks", "--resgcn_k", "--resgcn_filters",
-    "--resgcn_block_type", "--resgcn_conv", "--resgcn_epsilon",
     "--ensemble_mode", "--defense_bits", "--defense_sigma",
     "--defense_quality", "--defense_knn", "--eot", "--noise_norm",
 )
@@ -57,8 +60,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--num_point", type=int, default=4096)
     ap.add_argument("--batch_size", type=int, default=0,
                     help="0 = auto: 8 untargeted, 1 targeted (per-block "
-                         "outcomes do not depend on the batch size); randla "
-                         "takes its config's val_batch_size 1")
+                         "outcomes do not depend on the batch size; resgcn "
+                         "targeted runs take 1 only); randla takes its "
+                         "config's val_batch_size 1")
     # targeted defaults origin=11 (board) → target=7 (table)
     # (`NB_target_test_semseg.py:48-49`)
     ap.add_argument("--origin", type=int, default=11)
@@ -81,6 +85,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard_points", type=int, default=1)
     ap.add_argument("--precision", default="float32")
     ap.add_argument("--ensemble", action="append", default=[])
+    add_resgcn_arguments(ap)
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true")
     for flag in _UNPORTED_VALUES:
@@ -101,6 +106,7 @@ def _refuse_unported(args) -> None:
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")
+    refused += resgcn_refusals(args)
     refused += [f for f in _UNPORTED_SWITCHES if getattr(args, f[2:])]
     refused += [f for f in _UNPORTED_VALUES if getattr(args, f[2:]) is not None]
     if refused:
@@ -116,8 +122,15 @@ def main(argv=None):
         from pointsecguard_tpu_torch.cli._attack_randla import run_randla
 
         return run_randla(args, log)
+    # unlike the JAX CLI, resgcn's auto value is not capped at 1: that cap
+    # works around a TPU compiler failure at batch 8
     if args.batch_size == 0:
         args.batch_size = 1 if args.attack.startswith("tar_") else 8
+    # ResGCN's targeted gates work per cloud (`sem_seg_dense/attacks.py:
+    # 204-207`): the reference's batch size, before any checkpoint work
+    if args.model == "resgcn" and args.attack.startswith("tar_") and args.batch_size != 1:
+        raise SystemExit("resgcn targeted attacks use --batch_size 1 "
+                         "(per-cloud skip gates, `attacks.py:204-207`)")
     from pointsecguard_tpu_torch.cli._attack_blocks import run_blocks
 
     return run_blocks(args, log)

@@ -3,12 +3,15 @@
 
   python -m pointsecguard_tpu_torch.cli.eval --model pointnet2 \
       --data_root data/stanford_indoor3d --log_dir log/pointnet2 [--num_votes 5]
+  python -m pointsecguard_tpu_torch.cli.eval --model resgcn \
+      --data_root data/stanford_indoor3d --log_dir log/resgcn [--num_votes 5]
   python -m pointsecguard_tpu_torch.cli.eval --model randla \
       --randla_dir data/randla_input_0.040 --log_dir log/randla [--num_clouds 200]
 
 Ported: ``--model pointnet2`` with ``--num_votes``, ``--num_point``
 (0 → 4096), ``--batch_size`` (0 → 16), ``--seed`` and ``--adv_set`` (a
-saved adversarial set from ``cli.attack --save_adv``); ``--model randla``
+saved adversarial set from ``cli.attack --save_adv``), and so
+``--model resgcn`` with the ``--resgcn_*`` model flags; ``--model randla``
 (whole-cloud voting, ``_eval_randla``) with ``--randla_dir``,
 ``--randla_points`` (0 → 40960), ``--num_clouds``, ``--batch_size``
 (0 → the config's val_batch_size 1), ``--seed`` and ``--adv_set``. The
@@ -24,14 +27,18 @@ import argparse
 import logging
 import os
 
+from pointsecguard_tpu_torch.configs import (
+    add_resgcn_arguments,
+    resgcn_overrides,
+    resgcn_refusals,
+)
+
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "randla")
+PORTED_MODELS = ("pointnet2", "randla", "resgcn")
 _UNPORTED_DEFAULTS = {
-    "num_category": 40, "resgcn_blocks": 0, "resgcn_k": 0, "resgcn_filters": 0,
-    "resgcn_block_type": "", "resgcn_conv": "", "resgcn_epsilon": 0.0,
-    "randla_dataset": "s3dis", "save_preds": None, "devices": 1,
+    "num_category": 40, "randla_dataset": "s3dis", "save_preds": None, "devices": 1,
     "shard_points": 1, "precision": "float32",
 }
 _UNPORTED_SWITCHES = ("no_normals", "resgcn_fast", "visual")
@@ -51,7 +58,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--num_point", type=int, default=0,
                     help="points per block (0 = 4096)")
     ap.add_argument("--batch_size", type=int, default=0,
-                    help="0 = 16 (pointnet2), the config's val_batch_size 1 (randla)")
+                    help="0 = 16 (pointnet2, resgcn), the config's val_batch_size "
+                         "1 (randla)")
     ap.add_argument("--num_votes", type=int, default=5)
     ap.add_argument("--randla_dir", default="data/randla_input_0.040",
                     help="randla: the prepared clouds (data.randla.prepare_room)")
@@ -63,6 +71,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
+    add_resgcn_arguments(ap)
     for name, default in _UNPORTED_DEFAULTS.items():
         flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
         kind = type(default) if default is not None else str
@@ -78,6 +87,7 @@ def _refuse_unported(args) -> None:
                 for name, default in _UNPORTED_DEFAULTS.items()
                 if getattr(args, name) != default]
     refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
+    refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 
@@ -213,9 +223,9 @@ def main(argv=None):
     import numpy as np
 
     from pointsecguard_tpu_torch.data import S3DIS_CLASSES, RoomSet
-    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, PointNet2SemSegSSG
     from pointsecguard_tpu_torch.train.evaluator import evaluate_whole_scenes
-    from pointsecguard_tpu_torch.train.trainer import make_eval_step
+    from pointsecguard_tpu_torch.train.trainer import POINTNET2, make_eval_step, resgcn_family
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
@@ -223,10 +233,15 @@ def main(argv=None):
     args.batch_size = args.batch_size or 16
     args.num_point = args.num_point or 4096
 
-    model = PointNet2SemSegSSG()
+    # ResGCN: block evaluation of the dense GCN (`ResGCN/sem_seg_dense/
+    # test.py:40-66`); whole-scene voting at num_votes=1 is the same pass
+    if args.model == "resgcn":
+        model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
+    else:
+        model, family = PointNet2SemSegSSG(), POINTNET2
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
-    predict = make_eval_step(model, device)
+    predict = make_eval_step(model, device, family)
 
     if args.adv_set:
         n, m = _adv_set_metrics(predict, args.adv_set, args.batch_size, 13)

@@ -4,6 +4,8 @@
       --data_root data/stanford_indoor3d --log_dir log/pointnet2 [--epochs 32]
   python -m pointsecguard_tpu_torch.cli.train --model randla \
       --randla_dir data/randla_input_0.040 --log_dir log/randla [--epochs 32]
+  python -m pointsecguard_tpu_torch.cli.train --model resgcn \
+      --data_root data/stanford_indoor3d --log_dir log/resgcn [--epochs 32]
 
 Ported: ``--model pointnet2`` (PointNet++ SSG on S3DIS blocks through the
 host sampler) with ``--data_root``, ``--log_dir``, ``--test_area``,
@@ -15,7 +17,12 @@ the S3DIS clouds prepared by ``data.randla.prepare_room``) with
 (0 → 500), ``--val_steps`` (0 → 100), ``--batch_size`` (0 → 6),
 ``--learning_rate`` (0 → 1e-2), ``--log_dir``, ``--test_area``,
 ``--epochs``, ``--seed`` and ``--prefetch``; RandLA validates after every
-epoch. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
+epoch; ``--model resgcn`` (ResGCN-28 on S3DIS blocks through the host
+sampler, no evaluation in the loop, ``latest.pt`` kept) with
+``--data_root``, ``--log_dir``, ``--test_area``, ``--epochs``,
+``--batch_size`` (0 → 8), ``--npoint`` (0 → 4096), ``--min_block_points``,
+``--learning_rate`` (0 → 1e-3), ``--seed``, ``--prefetch`` and the
+``--resgcn_*`` model flags. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
 by request. Every other flag of the JAX CLI is accepted by name and stops
 the run with "not ported yet" instead of being ignored.
 """
@@ -26,16 +33,16 @@ import argparse
 import logging
 import time
 
+from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusals
+
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "randla")
+PORTED_MODELS = ("pointnet2", "randla", "resgcn")
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
 _UNPORTED_DEFAULTS = {
-    "randla_dataset": "s3dis", "resgcn_blocks": 0, "resgcn_k": 0, "resgcn_filters": 0,
-    "resgcn_block_type": "", "resgcn_conv": "", "resgcn_epsilon": 0.0,
-    "num_category": 40, "precision": "float32", "steps_per_call": 1,
+    "randla_dataset": "s3dis", "num_category": 40, "precision": "float32", "steps_per_call": 1,
     "profile": None, "devices": 1, "shard_points": 1, "adv_train": "none",
     "adv_eps": 0.1, "adv_alpha": 0.05, "adv_iters": 5, "adv_rand_init": 0.0,
 }
@@ -51,14 +58,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--epochs", type=int, default=32)
     ap.add_argument("--batch_size", type=int, default=0,
-                    help="0 = 32 (pointnet2), the config's 6 (randla)")
+                    help="0 = 32 (pointnet2), the config's 6 (randla), 8 (resgcn)")
     ap.add_argument("--npoint", type=int, default=0,
                     help="points per block (0 = 4096)")
     ap.add_argument("--min_block_points", type=int, default=1024,
                     help="block sampler: accept training blocks with more "
                          "than this many raw points (`S3DISDataLoader.py:52-60`)")
     ap.add_argument("--learning_rate", type=float, default=0.0,
-                    help="0 = 0.001 (pointnet2), the config's 1e-2 (randla)")
+                    help="0 = 0.001 (pointnet2), the config's 1e-2 (randla), "
+                         "its 1e-3 (resgcn)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches staged ahead by the background host "
@@ -76,6 +84,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
+    add_resgcn_arguments(ap)
     for name, default in _UNPORTED_DEFAULTS.items():
         flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
         kind = type(default) if default is not None else str
@@ -91,6 +100,7 @@ def _refuse_unported(args) -> None:
                 for name, default in _UNPORTED_DEFAULTS.items()
                 if getattr(args, name) != default]
     refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
+    refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 
@@ -99,7 +109,11 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
 
-    from pointsecguard_tpu_torch.train.loops import train_pointnet_family, train_randla
+    from pointsecguard_tpu_torch.train.loops import (
+        train_pointnet_family,
+        train_randla,
+        train_resgcn,
+    )
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(args.device)
@@ -115,6 +129,8 @@ def main(argv=None):
     t0 = time.time()
     if args.model == "randla":
         result = train_randla(args, device)
+    elif args.model == "resgcn":
+        result = train_resgcn(args, device)
     else:
         args.npoint = args.npoint or 4096
         result = train_pointnet_family(args, device)

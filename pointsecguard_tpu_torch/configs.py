@@ -24,3 +24,66 @@ class RandlaConfig:
     max_epoch: int = 100
     learning_rate: float = 1e-2
     lr_decay: float = 0.95
+
+
+@dataclass(frozen=True)
+class ResgcnConfig:
+    """`ResGCN/sem_seg_dense/config.py:18-92` defaults (the fields the
+    ported paths read; the JAX config's batch size and epoch count belong
+    to its CLI, and its ``stochastic`` is always on: the dilation is
+    stochastic in training whenever ``epsilon`` > 0). The block and conv
+    types default in ``DenseDeepGCN``; the StepLR fields are read by no
+    path of either package, so ``resgcn_lr`` keeps its lr constant."""
+
+    num_point: int = 4096
+    k: int = 16
+    n_blocks: int = 28
+    n_filters: int = 64
+    epsilon: float = 0.0  # stochastic knn epsilon (0.2 to enable)
+    dropout: float = 0.0
+    lr: float = 1e-3
+
+
+def resgcn_overrides(args) -> dict:
+    """CLI flags → ``DenseDeepGCN`` keyword arguments (the reference's
+    OptInit model flags, `ResGCN/sem_seg_dense/config.py:40-57`: --n_blocks,
+    --n_filters, --kernel_size/k, --block, --conv, --epsilon/stochastic).
+    0 / "" / None means "use the config default"; shared by cli.{train,
+    eval, attack} so that a non-default model trains, evaluates and is
+    attacked with one flag set. ``--resgcn_fast`` (the JAX package's
+    subsample dilation and approximate kNN) is not ported: the CLIs refuse
+    it by name."""
+    ov = {}
+    for flag, key in (("resgcn_blocks", "n_blocks"), ("resgcn_k", "k"),
+                      ("resgcn_filters", "n_filters"), ("resgcn_block_type", "block"),
+                      ("resgcn_conv", "conv"), ("resgcn_epsilon", "epsilon")):
+        value = getattr(args, flag, None)
+        if value:
+            ov[key] = value
+    return ov
+
+
+def resgcn_refusals(args) -> list[str]:
+    """The refusal the three CLIs share: ``--resgcn_*`` flags with a model
+    other than resgcn."""
+    if args.model != "resgcn" and resgcn_overrides(args):
+        return [f"--resgcn_* with --model {args.model}"]
+    return []
+
+
+def add_resgcn_arguments(ap) -> None:
+    """The ``--resgcn_*`` model flags of the three CLIs (the JAX CLIs'
+    names, types and defaults); ``resgcn_overrides`` reads them."""
+    ap.add_argument("--resgcn_blocks", type=int, default=0,
+                    help="resgcn depth (0 = the config's 28; must match the checkpoint)")
+    ap.add_argument("--resgcn_k", type=int, default=0,
+                    help="resgcn kNN k (0 = the config's 16)")
+    ap.add_argument("--resgcn_filters", type=int, default=0,
+                    help="resgcn channel width (0 = the config's 64)")
+    ap.add_argument("--resgcn_block_type", default="", choices=["", "res", "dense", "plain"],
+                    help="resgcn backbone block (OptInit --block; \"\" = res)")
+    ap.add_argument("--resgcn_conv", default="", choices=["", "edge", "mr"],
+                    help="resgcn graph conv (OptInit --conv; \"\" = edge)")
+    ap.add_argument("--resgcn_epsilon", type=float, default=0.0,
+                    help="resgcn stochastic-dilation epsilon in training "
+                         "(OptInit --epsilon; the reference enables it with 0.2)")

@@ -1,4 +1,4 @@
-"""Models of the port (PointNet++ SSG and RandLA-Net so far)."""
+"""Models of the port (PointNet++ SSG, RandLA-Net and ResGCN-28 so far)."""
 
 from pointsecguard_tpu_torch.models.common import init_parameters
 from pointsecguard_tpu_torch.models.pointnet2 import (
@@ -11,6 +11,8 @@ from pointsecguard_tpu_torch.models.randlanet import (
     build_pyramid,
     weighted_softmax_ce_loss,
 )
+from pointsecguard_tpu_torch.models.resgcn import DenseDeepGCN
 
-__all__ = ["PointNet2SemSegSSG", "RandLANet", "build_geometry", "build_pyramid",
-           "init_parameters", "weighted_nll_loss", "weighted_softmax_ce_loss"]
+__all__ = ["DenseDeepGCN", "PointNet2SemSegSSG", "RandLANet", "build_geometry",
+           "build_pyramid", "init_parameters", "weighted_nll_loss",
+           "weighted_softmax_ce_loss"]

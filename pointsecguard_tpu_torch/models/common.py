@@ -92,10 +92,12 @@ _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to ±2
 
 
 @torch.no_grad()
-def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+def init_parameters(model: nn.Module, generator: torch.Generator, *,
+                    scale: float = 1.0) -> None:
     """Initialise ``model`` as flax initialises the JAX model: every
-    Linear weight from a normal of variance 1 / fan_in truncated at two
-    standard deviations (``lecun_normal``), every Linear bias zero;
+    Linear weight from a normal of variance scale / fan_in truncated at
+    two standard deviations (``lecun_normal``; ResGCN's ``kaiming_normal``
+    is scale 2), every Linear bias zero;
     BatchNorm keeps scale 1, bias 0, mean 0, var 1. ``nn.Linear``'s own
     default (uniform in ±1/sqrt(fan_in), a third of that variance, and a
     random bias) trains to another band. ``generator`` is a CPU
@@ -105,7 +107,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(mod, nn.Linear):
             u = torch.rand(mod.weight.shape, generator=generator, dtype=torch.float64)
             unit = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
-            std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
+            std = math.sqrt(scale / mod.in_features) / _TRUNC_STD
             mod.weight.copy_((unit * std).to(mod.weight))
             if mod.bias is not None:
                 mod.bias.zero_()

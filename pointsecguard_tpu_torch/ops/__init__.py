@@ -1,5 +1,5 @@
 """Point-cloud ops of the port (the JAX package's ``ops`` slice that the
-PointNet++ SSG and RandLA-Net paths run)."""
+PointNet++ SSG, RandLA-Net and ResGCN paths run)."""
 
 from pointsecguard_tpu_torch.ops.distance import square_distance
 from pointsecguard_tpu_torch.ops.gather import gather_points
@@ -9,7 +9,13 @@ from pointsecguard_tpu_torch.ops.interpolate import (
     nearest_upsample,
     three_nn_plan,
 )
-from pointsecguard_tpu_torch.ops.neighbors import ball_query, knn, repeat_pad_k
+from pointsecguard_tpu_torch.ops.neighbors import (
+    ball_query,
+    dense_knn_graph,
+    dilate_neighbors,
+    knn,
+    repeat_pad_k,
+)
 from pointsecguard_tpu_torch.ops.sampling import (
     farthest_point_sample,
     random_sample_pool,
@@ -19,6 +25,8 @@ from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
 __all__ = [
     "apply_three_nn",
     "ball_query",
+    "dense_knn_graph",
+    "dilate_neighbors",
     "bottom_k_indices",
     "farthest_point_sample",
     "gather_points",

@@ -1,7 +1,6 @@
 """Neighbourhood search (port of ``pointsecguard_tpu/ops/neighbors.py``):
-exact kNN, ``repeat_pad_k`` and the ball query.
-
-The dilated kNN graphs serve ResGCN and are not ported yet.
+exact kNN, ``repeat_pad_k``, the ball query, and ResGCN's dense dilated
+kNN graphs (``dense_knn_graph``, ``dilate_neighbors``).
 """
 
 from __future__ import annotations
@@ -101,3 +100,60 @@ def ball_query(
     group_idx = group_val.to(torch.int32)
     first = group_idx[:, :, :1]
     return torch.where(group_idx == N, first, group_idx)
+
+
+def dense_knn_graph(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Self-kNN graph over feature space (ResGCN `dense_knn_matrix:45-59`).
+
+    Routed as the JAX package routes it (``_use_fused_knn``): k ≤ 48 goes
+    to the fused kNN kernel (``ops/cuda/knn.py``; its plain version for a
+    CPU tensor), larger k to ``square_distance`` and the stable sort of
+    ``bottom_k_indices`` (JAX sends it to ``lax.top_k``, an XLA sort).
+    The graph is built from ``x.detach()``: it is integer indices and
+    carries no gradient, so autograd keeps nothing of the [B, N, N]
+    distances.
+
+    Args:
+      x: [B, N, C] features.
+      k: neighbours per node.
+
+    Returns:
+      [B, N, k] int32 neighbour indices, nearest first, ties to the lower
+      index; the point itself is included, as in the reference's topk
+      over the full distance row.
+    """
+    x = x.detach().float().contiguous()
+    strategy = "auto" if k <= knn_kernel.MAX_K else "pallas"
+    return knn(x, x, k, strategy=strategy)[1]
+
+
+def dilate_neighbors(
+    idx: torch.Tensor,
+    dilation: int,
+    *,
+    stochastic: bool = False,
+    epsilon: float = 0.0,
+    generator: torch.Generator | None = None,
+    draws: tuple | None = None,
+) -> torch.Tensor:
+    """Dilated neighbour selection (ResGCN `DenseDilated:6-29`).
+
+    Given [B, N, k·dilation] candidates, keep every ``dilation``-th, or,
+    with probability ``epsilon`` in stochastic training, one random subset
+    of k columns for the whole batch. The draw is ``draws = (u, perm)`` (u
+    a uniform scalar, perm the column order) where given, else taken from
+    ``generator``; with neither, or not ``stochastic``, the strided
+    selection. The draws cannot equal ``jax.random``'s: the two agree in
+    distribution only.
+    """
+    k = idx.shape[-1] // max(dilation, 1)
+    strided = idx[..., ::dilation] if dilation > 1 else idx
+    if not stochastic or (draws is None and generator is None):
+        return strided
+    if draws is None:
+        dev = generator.device
+        draws = (torch.rand((), generator=generator, device=dev),
+                 torch.randperm(idx.shape[-1], generator=generator, device=dev))
+    u, perm = draws
+    random_sel = idx[..., torch.as_tensor(perm, device=idx.device)[:k]]
+    return torch.where(torch.as_tensor(u, device=idx.device) < epsilon, random_sel, strided)

@@ -1,7 +1,7 @@
 """Training loops behind ``cli.train`` (port of
-``pointsecguard_tpu/train/loops.py:71-456``): the PointNet family
-(``--model pointnet2``) on the host block sampler and RandLA-Net on the
-spatially-regular sampler.
+``pointsecguard_tpu/train/loops.py:71-611``): the PointNet family
+(``--model pointnet2``) and ResGCN-28 (``--model resgcn``) on the host
+block sampler, RandLA-Net on the spatially-regular sampler.
 
 PointNet++ follows the reference script `train_semseg.py:148-265`:
 z-rotation augmentation, weighted NLL, Adam with step decay and the
@@ -10,8 +10,15 @@ auto-resume. RandLA-Net follows `RandLANet.py:197-311`: weighted softmax
 cross-entropy, Adam without weight decay at ``1e-2 · 0.95^epoch``, a
 validation confusion after every epoch.
 
-Both loops save ``latest.pt`` after every evaluated epoch and ``best.pt``
-when the mIoU improves, and resume from ``latest.pt``. The JAX RandLA
+ResGCN follows `sem_seg_dense/train.py:50-95`: raw sampler blocks (no
+augmentation), plain mean cross-entropy, Adam without weight decay at a
+constant 1e-3, no evaluation in the loop.
+
+The PointNet++ and RandLA loops save ``latest.pt`` after every evaluated
+epoch and ``best.pt`` when the mIoU improves; the ResGCN loop saves
+``latest.pt`` after every epoch with −loss as its metric and no
+``best.pt`` (the JAX loop's keep-latest manager). All three resume from
+``latest.pt``. The JAX RandLA
 loop saves only on improvement (``pointsecguard_tpu/train/loops.py:453-455``),
 so a rerun there can repeat epochs; here none is repeated.
 """
@@ -256,3 +263,78 @@ def train_randla(args, device: torch.device):
     tb.close()
     log.info("best mIoU %.4f", best_miou)
     return state, best_miou
+
+
+def train_resgcn(args, device: torch.device):
+    """Train ResGCN-28 on the rooms under ``args.data_root``; returns
+    ``(state, None)`` (the loop does not evaluate, as in the JAX package).
+    ``args`` carries ``cli.train``'s flags (data_root, log_dir, test_area,
+    npoint, min_block_points, batch_size, learning_rate, seed, prefetch,
+    epochs and the ``--resgcn_*`` overrides); 0 means the config's value
+    (``configs.ResgcnConfig``: 4096 points, lr 1e-3) or batch 8."""
+    from pointsecguard_tpu_torch.configs import ResgcnConfig, resgcn_overrides
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler
+    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, init_parameters
+    from pointsecguard_tpu_torch.models.resgcn import ce_loss
+    from pointsecguard_tpu_torch.train.schedules import resgcn_lr
+    from pointsecguard_tpu_torch.train.trainer import (
+        TrainState,
+        make_train_step,
+        resgcn_family,
+    )
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
+
+    cfg = ResgcnConfig()
+    rooms = RoomSet.load(args.data_root, "train", args.test_area)
+    sampler = S3DISBlockSampler(rooms, num_point=args.npoint or cfg.num_point,
+                                min_points=getattr(args, "min_block_points", 1024))
+    batch_size = args.batch_size or 8
+    depth = getattr(args, "prefetch", 2)
+    model_kwargs = dict(n_blocks=cfg.n_blocks, n_filters=cfg.n_filters, k=cfg.k,
+                        epsilon=cfg.epsilon, dropout=cfg.dropout)
+    model_kwargs.update(resgcn_overrides(args))
+
+    rng = np.random.default_rng(args.seed)
+    # the JAX loop shapes its initial state on one sampler batch: spent here too
+    next(iter(sampler.batches(rng, batch_size)))
+    model = DenseDeepGCN(**model_kwargs)
+    # every BasicConv Dense takes flax's kaiming_normal (variance 2 / fan_in)
+    init_parameters(model, torch.Generator().manual_seed(args.seed), scale=2.0)
+    state = TrainState(model.to(device))
+    # torch.optim.Adam without weight decay (`sem_seg_dense/train.py:31`)
+    step_fn = make_train_step(model, ce_loss, weight_decay=0.0, family=resgcn_family())
+    ones = torch.ones(13, device=device)  # the loss reads no class weights
+    ckpt = CheckpointManager(f"{args.log_dir}/checkpoints", keep="latest")
+    resumed = ckpt.restore_latest()
+    start_epoch = 0
+    if resumed:
+        state.load_payload(resumed)
+        start_epoch = resumed["epoch"]
+        log.info("resumed from epoch %d", start_epoch)
+
+    # stochastic dilation (epsilon > 0) and dropout draws of every step
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    events = EventLog(f"{args.log_dir}/events.jsonl")
+    tb = SummaryLogger(f"{args.log_dir}/tb")
+    put = make_batch_put(device, depth)
+    for epoch in range(start_epoch, args.epochs):
+        lr = resgcn_lr(epoch, base=args.learning_rate or cfg.lr)
+        t0 = time.time()
+        losses = []
+        for batch in prefetch(sampler.batches(rng, batch_size), put, depth=depth):
+            pts, labels = wait_batch(batch)
+            # ResGCN's BatchNorm keep is fixed: no momentum is passed
+            losses.append(step_fn(state, pts, labels, ones, lr, None, gen))
+        mean_loss, n_batches, nan_batches = _epoch_losses(losses)
+        seconds = time.time() - t0
+        log.info("epoch %d lr %.3g loss %.4f (%.1fs, %d batches, %d skipped)",
+                 epoch, lr, mean_loss, seconds, n_batches, nan_batches)
+        events.write("epoch", epoch=epoch, lr=lr, loss=mean_loss,
+                     nan_batches=nan_batches, batches=n_batches, seconds=seconds)
+        tb.scalars(epoch, loss=mean_loss, learning_rate=lr)
+        ckpt.save(epoch + 1, state.payload(), miou=-mean_loss)
+    events.close()
+    tb.close()
+    return state, None

@@ -1,5 +1,5 @@
 """Training schedules of the reference scripts (port of
-``pointsecguard_tpu/train/schedules.py:6-23``)."""
+``pointsecguard_tpu/train/schedules.py:6-32``)."""
 
 from __future__ import annotations
 
@@ -22,3 +22,13 @@ def pointnet2_bn_momentum(epoch: int, *, original: float = 0.1,
 def randla_lr(epoch: int, *, base: float = 1e-2, decay: float = 0.95) -> float:
     """Per-epoch exponential decay (`helper_tool.py:58`, `RandLANet.py:232`)."""
     return base * decay**epoch
+
+
+def resgcn_lr(epoch: int, *, base: float = 1e-3, decay: float = 0.5,
+              adjust_freq: int = 20, enabled: bool = False) -> float:
+    """StepLR (`ResGCN/sem_seg_dense/train.py:33`, `config.py:43-45`;
+    lr_decay_rate defaults to 0, which disables the schedule in the
+    reference): the constant ``base`` unless ``enabled``."""
+    if not enabled:
+        return base
+    return base * decay ** (epoch // adjust_freq)

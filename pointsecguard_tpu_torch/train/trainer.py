@@ -2,7 +2,8 @@
 ``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
 
 One step is: the family's neighbour plan (PointNet++: train-mode
-geometry with random FPS starts; RandLA-Net: the kNN pyramid), train-mode
+geometry with random FPS starts; RandLA-Net: the kNN pyramid; ResGCN:
+none, its graphs are built inside the forward), train-mode
 forward, loss, backward, Adam update and the BatchNorm running
 statistics. A ``Family`` says how a model family is called, as the JAX
 step's ``model_args`` / ``output_head`` do. The lr and the BatchNorm
@@ -77,6 +78,21 @@ def randla_family(cfg: RandlaConfig | None = None) -> Family:
         return model(points, pyramid, **kw)
 
     return Family(plan=plan, apply=apply, head=lambda out: out)
+
+
+def resgcn_family() -> Family:
+    """ResGCN-28: the kNN graphs are built inside the forward from the
+    features of each block, so the plan is None (a plan given to the step
+    as ``geometry=`` is the graphs, pinned); ``apply`` passes the
+    generator of the stochastic dilation and dropout; the head is the
+    logits. Its BatchNorm keep is fixed at 0.9 (the JAX model drops the
+    trainer's momentum, `pointsecguard_tpu/models/resgcn.py:210-212`)."""
+
+    def apply(model, points, graphs, bn_momentum=None, **kw):
+        return model(points, graphs=graphs, **kw)
+
+    return Family(plan=lambda points, generator=None, start_idx=None: None,
+                  apply=apply, head=lambda out: out)
 
 
 def _flatten(tensors: list[torch.Tensor]) -> torch.Tensor:

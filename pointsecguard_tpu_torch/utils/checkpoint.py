@@ -70,11 +70,17 @@ class CheckpointManager:
 
     ``save(epoch, payload, miou=)`` writes ``payload`` (a dict with a
     ``"model"`` state dict, see ``train.trainer.TrainState.payload``) as
-    ``latest.pt`` and, when ``miou`` is the highest so far, its model as
-    ``best.pt``."""
+    ``latest.pt`` and, with ``keep="best"``, when ``miou`` is the highest
+    so far, its model as ``best.pt``. ``keep="latest"`` writes no
+    ``best.pt``, so that ``load_checkpoint`` reads the newest epoch: the
+    JAX ResGCN loop's keep-latest manager, whose save metric is only
+    −loss (`pointsecguard_tpu/train/loops.py:558-561`)."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, *, keep: str = "best"):
+        if keep not in ("best", "latest"):
+            raise ValueError(f"keep must be 'best' or 'latest', got {keep!r}")
         self.directory = os.path.abspath(directory)
+        self.keep = keep
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, name: str) -> str:
@@ -87,7 +93,7 @@ class CheckpointManager:
         _write(self._path(LATEST), dict(
             payload, epoch=int(epoch),
             best_miou=float(miou) if is_best else best))
-        if is_best or not os.path.exists(self._path(BEST)):
+        if self.keep == "best" and (is_best or not os.path.exists(self._path(BEST))):
             _write(self._path(BEST), payload["model"])
 
     def restore_latest(self) -> dict | None:

@@ -3,8 +3,8 @@
 Weights cross as numpy arrays keyed by flax paths, flattened with "/":
 ``params/SetAbstraction_0/PointMLP_0/PointConv_0/Dense_0/kernel``,
 ``batch_stats/.../BatchNorm_0/mean`` … (134 leaves for PointNet++ SSG,
-276 for RandLA-Net). PointNet++ SSG (``from_jax_variables``) follows the
-flax auto-names the JAX importer writes
+276 for RandLA-Net, 188 for ResGCN-28). PointNet++ SSG
+(``from_jax_variables``) follows the flax auto-names the JAX importer writes
 (`pointsecguard_tpu/utils/importers.py:83-118`):
 
   SetAbstraction_i → sa.i        FeaturePropagation_i → fp.i
@@ -15,7 +15,9 @@ flax auto-names the JAX importer writes
 RandLA-Net (``randla_from_jax_variables``) maps module paths one to one
 (``randla_module_map``), in the flax declaration order of
 `pointsecguard_tpu/models/randlanet.py:252-254` and the schema of
-`utils/importers.py:461-579 map_randla_vars`.
+`utils/importers.py:461-579 map_randla_vars`; ResGCN
+(``resgcn_from_jax_variables``, 188 leaves at full width) likewise
+(``resgcn_module_map``).
 
 Dense kernels are [in, out] in flax and [out, in] in ``nn.Linear``.
 """
@@ -152,20 +154,7 @@ def randla_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Te
     Raises ValueError unless every leaf is consumed and every tensor of
     the port model is filled with the right shape."""
     shape = _randla_shape(flat)
-    modules = randla_module_map(len(shape["d_out"]))
-    sd: dict[str, torch.Tensor] = {}
-    unmapped = []
-    for path, value in flat.items():
-        collection, _, rest = path.partition("/")
-        mod, _, leaf = rest.rpartition("/")
-        if mod not in modules or _LEAF_COLLECTION.get(leaf) != collection:
-            unmapped.append(path)
-            continue
-        arr = np.asarray(value, dtype=np.float32)
-        if leaf == "kernel":
-            arr = arr.T
-        key = f"{modules[mod]}.{'weight' if leaf == 'kernel' else leaf}"
-        sd[key] = torch.from_numpy(np.array(arr, order="C"))
+    sd, unmapped = _mapped_state_dict(flat, randla_module_map(len(shape["d_out"])))
     template = RandLANet(**shape).state_dict()
     missing = sorted(set(template) - set(sd))
     if unmapped or missing:
@@ -181,7 +170,31 @@ def randla_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np
     """Inverse of ``randla_from_jax_variables``: state dict → flat flax
     leaves."""
     num_layers = len({k.split(".")[1] for k in state_dict if k.startswith("blocks.")})
-    inverse = {v: k for k, v in randla_module_map(num_layers).items()}
+    return _inverse_mapped(state_dict, randla_module_map(num_layers))
+
+
+def _mapped_state_dict(flat: dict, modules: dict[str, str]):
+    """(state dict, unmapped flax paths) of flat flax leaves under a module
+    map (flax module path → port module path)."""
+    sd: dict[str, torch.Tensor] = {}
+    unmapped = []
+    for path, value in flat.items():
+        collection, _, rest = path.partition("/")
+        mod, _, leaf = rest.rpartition("/")
+        if mod not in modules or _LEAF_COLLECTION.get(leaf) != collection:
+            unmapped.append(path)
+            continue
+        arr = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            arr = arr.T
+        key = f"{modules[mod]}.{'weight' if leaf == 'kernel' else leaf}"
+        sd[key] = torch.from_numpy(np.array(arr, order="C"))
+    return sd, unmapped
+
+
+def _inverse_mapped(state_dict: dict, modules: dict[str, str]) -> dict[str, np.ndarray]:
+    """Flat flax leaves of a state dict under a module map."""
+    inverse = {v: k for k, v in modules.items()}
     flat = {}
     for key, t in state_dict.items():
         mod, _, leaf = key.rpartition(".")
@@ -190,3 +203,73 @@ def randla_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np
         flat[f"{_LEAF_COLLECTION[flax_leaf]}/{inverse[mod]}/{flax_leaf}"] = (
             arr.T.copy() if leaf == "weight" else arr.copy())
     return flat
+
+
+def resgcn_module_map(n_blocks: int = 28, conv: str = "edge") -> dict[str, str]:
+    """flax module path → ``DenseDeepGCN`` module path, over the flax
+    auto-names of `pointsecguard_tpu/models/resgcn.py:210-307`: the head
+    ``EdgeConv_0`` (``MRConv_0``), ``DynConv_{i}`` for the backbone, and
+    ``BasicConv_0..3`` for the fusion, the two prediction convs and the
+    classifier (which has no BatchNorm)."""
+    g = {"edge": "EdgeConv", "mr": "MRConv"}[conv]
+    m = {}
+
+    def basic(flax: str, port: str, norm: bool = True) -> None:
+        m[f"{flax}/Dense_0"] = f"{port}.dense"
+        if norm:
+            m[f"{flax}/BatchNorm_0"] = f"{port}.bn"
+
+    basic(f"{g}_0/BasicConv_0", "head.nn")
+    for i in range(n_blocks - 1):
+        basic(f"DynConv_{i}/{g}_0/BasicConv_0", f"backbone.{i}.conv.nn")
+    for j, port in enumerate(("fusion", "pred.0", "pred.1")):
+        basic(f"BasicConv_{j}", port)
+    basic("BasicConv_3", "cls", norm=False)
+    return m
+
+
+def _resgcn_shape(flat: dict) -> dict:
+    """``DenseDeepGCN`` constructor arguments read off the flax leaves (res
+    and plain have the same leaves: the template takes res)."""
+    conv = "mr" if any(p.startswith("params/MRConv_0/") for p in flat) else "edge"
+    g = {"edge": "EdgeConv", "mr": "MRConv"}[conv]
+    head = flat[f"params/{g}_0/BasicConv_0/Dense_0/kernel"]
+    n_blocks = 1
+    while f"params/DynConv_{n_blocks - 1}/{g}_0/BasicConv_0/Dense_0/kernel" in flat:
+        n_blocks += 1
+    dense = (n_blocks > 2 and flat[f"params/DynConv_1/{g}_0/BasicConv_0/Dense_0/kernel"]
+             .shape[0] > 2 * head.shape[1])
+    return {"num_classes": flat["params/BasicConv_3/Dense_0/kernel"].shape[1],
+            "in_channels": head.shape[0] // 2, "n_blocks": n_blocks,
+            "n_filters": head.shape[1], "conv": conv, "block": "dense" if dense else "res"}
+
+
+def resgcn_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax variables of ``DenseDeepGCN`` → the port's state dict
+    (188 leaves at full width).
+
+    Raises ValueError unless every leaf is consumed and every tensor of
+    the port model is filled with the right shape."""
+    from pointsecguard_tpu_torch.models.resgcn import DenseDeepGCN
+
+    shape = _resgcn_shape(flat)
+    modules = resgcn_module_map(shape["n_blocks"], shape["conv"])
+    sd, unmapped = _mapped_state_dict(flat, modules)
+    template = DenseDeepGCN(**shape).state_dict()
+    missing = sorted(set(template) - set(sd))
+    if unmapped or missing:
+        raise ValueError(f"flax leaves do not fill the port model: "
+                         f"missing {missing}, unconsumed {sorted(unmapped)}")
+    bad = [k for k in template if template[k].shape != sd[k].shape]
+    if bad:
+        raise ValueError(f"shape mismatch for {bad}")
+    return sd
+
+
+def resgcn_to_jax_variables(state_dict: dict[str, torch.Tensor],
+                            conv: str = "edge") -> dict[str, np.ndarray]:
+    """Inverse of ``resgcn_from_jax_variables``: state dict → flat flax
+    leaves. ``conv`` names the graph conv, which the port's keys do not
+    show (the flax names do)."""
+    n_blocks = 1 + len({k.split(".")[1] for k in state_dict if k.startswith("backbone.")})
+    return _inverse_mapped(state_dict, resgcn_module_map(n_blocks, conv))

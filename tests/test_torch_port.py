@@ -149,7 +149,8 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     ["--visual"],
     ["--defense", "bit_depth"], ["--ensemble", "pointnet:log"],
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
-    ["--model", "resgcn"], ["--attack", "random"], ["--eot", "4"],
+    # resgcn is ported: its frozen-graph surrogate is not
+    ["--model", "resgcn", "--resgcn_fixed_graphs"], ["--attack", "random"], ["--eot", "4"],
 ])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -158,7 +158,9 @@ def test_eval_without_a_checkpoint_stops(trained, tmp_path):
 
 _TRAIN_REFUSED = [
     ["--model", "pointnet2_msg"], ["--model", "pointnet"],
-    ["--model", "resgcn"], ["--model", "pointnet2_cls"], ["--model", "pointnet2_part_seg"],
+    # resgcn is ported; --remat, which its run would take, is not
+    pytest.param(["--model", "resgcn", "--remat"], id="--model resgcn"),
+    ["--model", "pointnet2_cls"], ["--model", "pointnet2_part_seg"],
     ["--steps_per_call", "4"], ["--device_sampler"], ["--device_sampler_exact"],
     ["--adv_train", "nb"], ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
     ["--adv_iters", "3"], ["--adv_rand_init", "0.1"], ["--precision", "bfloat16"],
@@ -172,7 +174,9 @@ _TRAIN_REFUSED = [
 
 _EVAL_REFUSED = [
     ["--model", "pointnet2_msg"], ["--model", "pointnet"],
-    ["--model", "resgcn"], ["--model", "pointnet_cls"], ["--visual"],
+    # resgcn is ported; its subsample dilation (--resgcn_fast) is not
+    pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
+    ["--model", "pointnet_cls"], ["--visual"],
     ["--save_preds", "out"], ["--devices", "2"], ["--shard_points", "2"],
     ["--precision", "bfloat16"], ["--num_category", "10"], ["--no_normals"],
     ["--resgcn_blocks", "3"], ["--resgcn_k", "8"], ["--resgcn_filters", "32"],
@@ -181,20 +185,27 @@ _EVAL_REFUSED = [
     ["--randla_dataset", "semantic3d"],
 ]
 
-# flags of RandLA's training and eval, ported: parsed into the arguments,
-# refused by nothing (tests/test_torch_randla_train_cli.py runs them)
+# flags of RandLA's and ResGCN's training and eval, ported: parsed into the
+# arguments, refused by nothing (tests/test_torch_randla_train_cli.py and
+# tests/test_torch_resgcn_cli.py run them)
 _TRAIN_TAKEN = [
     (["--model", "randla"], "model", "randla"),
     (["--randla_dir", "elsewhere"], "randla_dir", "elsewhere"),
     (["--randla_points", "512"], "randla_points", 512),
     (["--val_steps", "4"], "val_steps", 4),
     (["--steps_per_epoch", "4"], "steps_per_epoch", 4),
+    (["--model", "resgcn"], "model", "resgcn"),
+    (["--model", "resgcn", "--resgcn_blocks", "3"], "resgcn_blocks", 3),
+    (["--model", "resgcn", "--resgcn_epsilon", "0.2"], "resgcn_epsilon", 0.2),
 ]
 _EVAL_TAKEN = [
     (["--model", "randla"], "model", "randla"),
     (["--randla_dir", "elsewhere"], "randla_dir", "elsewhere"),
     (["--num_clouds", "10"], "num_clouds", 10),
     (["--randla_points", "512"], "randla_points", 512),
+    (["--model", "resgcn"], "model", "resgcn"),
+    (["--model", "resgcn", "--resgcn_block_type", "plain"], "resgcn_block_type", "plain"),
+    (["--model", "resgcn", "--resgcn_conv", "mr"], "resgcn_conv", "mr"),
 ]
 
 
