@@ -6,7 +6,9 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. ``require_cuda()``; print the card's name and power limit.
-2. Build the port's CUDA kernels from ``pointsecguard_tpu_torch/csrc``.
+2. Build the port's CUDA kernels from ``pointsecguard_tpu_torch/csrc``;
+   fail if ptxas reports spill bytes for the any-D kNN kernel
+   (``knn_tiled_kernel``) at any of its list sizes (1, 16, 48).
 3. FPS and bottom-k against their plain PyTorch versions on the card, at
    the shapes one ``build_geometry`` of a batch of 8 × 4096-point blocks
    gives them: FPS indices equal at all four levels; bottom-k values and
@@ -26,10 +28,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    deferred insertion (points sorted far → near and near → far from
    huddled queries, a constant and a duplicated cloud, S and N off the
    block, tile and group sizes, k == N == 16, one query, ``query is
-   points`` and a distinct query, k = 17 and 48 at D = 3); wide-row
+   points`` and a distinct query, k = 17 and 48 at D = 3); the any-D
+   kernel at the edges of its tiling (``knn_any_d_edges``: D = 1, 2, 4, 9,
+   31, 33, 63, 64, 65, 128, 512 and 4096, S = 1, 127, 129 and 4096, N = 1,
+   63, 65 and 4099, k = 1, 16, 17, 48 and k == N, ``query is points`` and
+   a distinct query, quarter-grid, constant and far → near clouds, on
+   grids where every product is exact); wide-row
    bottom-k on [4, 4096, 40960] k=16 pyramid distances, on tie-heavy
    rounded values and at its edges (N = 8193, k = 48, N = 2^20); refusal
-   past the bounds. Values and indices equal; median times of kernel and
+   past the bounds (k = 49 at D = 3 and 64, D > 4096). Values and indices
+   equal; median times of kernel and
    plain, per shape and per ``build_pyramid``, and of the far → near and
    near → far orders beside the random one.
 5. The two kNN routes at full size: the 40960² level through the fused
@@ -134,8 +142,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     4096 points (seeded weights, BatchNorm statistics from one forward):
     the head graph over xyz (D = 3, k = 16) and DynConv_0..2 over their
     real input features (D = 64, k·d = 16, 32, 48), equal to plain except
-    in near-tie rows (counted); card, eager and plain ms, bound, share, 4
-    launches a forward. The large-k selection of DynConv_3..26 (k·d = 64
+    in near-tie rows (counted); card, eager and plain ms, bound, share,
+    ``cross_bmm_ms`` (cuBLAS's float32 ``torch.bmm`` of the cross term
+    alone, a yardstick), 4 launches a forward. The large-k selection of
+    DynConv_3..26 (k·d = 64
     … 432, [8, 4096, 4096]): the stable sort of the route, the ``bottom_k``
     kernel and ``torch.topk``, equal and timed (a kernel phase), printed
     as a record of its own on a ``{"selection": [...]}`` line, not in the
@@ -858,6 +868,63 @@ def knn_stress(dev, knn, gen):
             "near -> far (the scan alone)": (q_full, far.flip(1).contiguous())}
 
 
+def knn_any_d_edges(dev, knn, gen) -> int:
+    """The any-D kNN kernel (``knn_tiled_kernel``) at the edges of its
+    tiling, each equal to the plain version in values and indices: D off
+    and on the 16-coordinate chunk up to the contract's widest, S off the
+    128-query block, N off the 64-point tile, k at 1, 16, 17, 48 and k == N,
+    ``query is points`` and a distinct query, a quarter-grid tie-heavy
+    cloud, a constant cloud and points sorted far → near from huddled
+    queries. The coordinates lie on grids fine enough to be varied but
+    coarse enough that every product and sum is exact, so cuBLAS's
+    product in the plain version rounds nothing at any D; the rounding
+    chain on real features is phase 27's. Returns the number of cases."""
+
+    def grid(B, n, D, step=16, lo=-2.0, hi=2.0):
+        x = lo + (hi - lo) * torch.rand((B, n, D), generator=gen, device=dev)
+        return torch.round(x * step) / step
+
+    def far_to_near(B, S, N, D):
+        pts = grid(B, N, D, 16, 0.0, 2.0)
+        order = torch.argsort(((pts - 1.0) ** 2).sum(-1), dim=-1, descending=True)
+        pts = torch.gather(pts, 1, order[..., None].expand(B, N, D)).contiguous()
+        q = 1.0 + torch.round(0.05 * torch.randn((B, S, D), generator=gen, device=dev) * 64) / 64
+        return q, pts
+
+    quarter = lambda B, n, D: grid(B, n, D, 4, 0.0, 1.0)  # noqa: E731
+    same = lambda x: (x, x)  # noqa: E731  query is points
+    cases = [  # (what, query, points, k)
+        ("D = 1, query is points", *same(grid(2, 4096, 1)), 16),
+        ("D = 2, S = 1, N = 4099", grid(2, 1, 2), grid(2, 4099, 2), 48),
+        ("D = 4, quarter grid, S = 127, N = 63", quarter(2, 127, 4), quarter(2, 63, 4), 17),
+        ("D = 9, quarter grid, S = 129, N = 65", quarter(2, 129, 9), quarter(2, 65, 9), 48),
+        ("D = 31, N = 1", grid(2, 300, 31), grid(2, 1, 31), 1),
+        ("D = 33, k == N == 16, query is points", *same(grid(2, 16, 33)), 16),
+        ("D = 63, constant", *same(torch.full((2, 1000, 63), 0.5, device=dev)), 48),
+        ("D = 64, far -> near", *far_to_near(2, 256, 4099, 64), 48),
+        ("D = 64, far -> near, k = 1", *far_to_near(2, 129, 4099, 64), 1),
+        ("D = 65, query is points", *same(grid(1, 4096, 65)), 16),
+        ("D = 65, k == N == 48", grid(2, 100, 65), grid(2, 48, 65), 48),
+        ("D = 128, quarter grid, S = 129, N = 4099", quarter(2, 129, 128),
+         quarter(2, 4099, 128), 17),
+        ("D = 512, S = 127, N = 600", grid(2, 127, 512), grid(2, 600, 512), 48),
+        (f"D = {knn.MAX_D}, S = 64, N = 300", grid(2, 64, knn.MAX_D), grid(2, 300, knn.MAX_D),
+         16),
+    ]
+    x = grid(2, 700, 64)
+    cases.append(("D = 64, query is points and a distinct copy", x, x.clone(), 16))
+    for what, q, p, k in cases:
+        _equal(f"knn {what} {tuple(q.shape)} x {tuple(p.shape)} k={k}",
+               knn.knn(q, p, k), knn.knn_plain(q, p, k))
+    idx = knn.knn(cases[6][1], cases[6][2], 48)[1]
+    if not torch.equal(idx, torch.arange(48, dtype=torch.int32, device=dev).expand_as(idx)):
+        raise AssertionError("knn on a constant cloud at D = 63: indices are not 0..k-1")
+    print(f"knn any-D kernel: {len(cases)} tiling edges (D = 1 … {knn.MAX_D}, S off the block, "
+          "N off the tile, k = 1, 16, 17, 48 and k == N, query is points and distinct, "
+          "quarter-grid, constant, far -> near) equal to plain")
+    return len(cases)
+
+
 def phase_randla_kernels(dev, records, xyz):
     from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, knn
     from pointsecguard_tpu_torch.ops.distance import square_distance
@@ -876,6 +943,7 @@ def phase_randla_kernels(dev, records, xyz):
         print(f"knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: values and indices equal")
 
     stress_orders = knn_stress(dev, knn, gen)
+    knn_any_d_edges(dev, knn, gen)
 
     dists = square_distance(xyz[:, :4096], xyz)  # a tile of the tiled route
     rounded = torch.round(dists * 4) / 4
@@ -889,7 +957,9 @@ def phase_randla_kernels(dev, records, xyz):
         print(f"bottom_k_chunked {tuple(vals.shape)} k={k}: values and indices equal")
     refused = (
         lambda: knn.knn(xyz[:, :64], xyz[:, :64], 49),
+        lambda: knn.knn(feat64, feat64, 49),
         lambda: knn.knn(xyz[:, :8], xyz[:, :8], 9),
+        lambda: knn.knn(*(2 * [torch.zeros((1, 64, knn.MAX_D + 1), device=dev)]), 16),
         lambda: bottomk_chunked.bottom_k_chunked(dists[:1, :1], 49),
         lambda: bottomk_chunked.bottom_k_chunked(
             torch.zeros((1, bottomk_chunked.MAX_N + 1), device=dev), 4),
@@ -901,7 +971,7 @@ def phase_randla_kernels(dev, records, xyz):
             continue
         raise AssertionError("a kernel took a shape past its bounds")
     print("contract edges: N = 8193, k = 48, N = 2^20 equal to plain; "
-          "k = 49, k > N, N > 2^22 refused")
+          f"k = 49 (D = 3 and 64), k > N, D > {knn.MAX_D}, N > 2^22 refused")
 
     def run_knn(f):
         return lambda: [f(q, p, k) for q, p, k in calls]
@@ -2302,12 +2372,16 @@ def phase_resgcn_kernels(dev, records, data: str) -> dict:
                "eager_ms": cuda_ms(lambda: knn.knn(x, x, k), reps=10),
                "plain_ms": cuda_ms(lambda: knn.knn_plain(x, x, k), reps=3),
                "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+               # a yardstick, not an equivalent: cuBLAS's full-float32 GEMM
+               # of the cross term alone, no norms and no selection
+               "cross_bmm_ms": device_ms(lambda: torch.bmm(x, x.transpose(1, 2)), reps=5),
                "launches_per_forward": 1, "rows_differ": differ, "rows_not_near_tie": bad}
         rec["share"] = rec["bound_ms"] / rec["ms"]
         rows.append(rec)
         print(f"resgcn knn {name} {tuple(x.shape)} k={k}: {rec['ms']:.4f} ms on the card "
               f"({rec['eager_ms']:.4f} eager), plain {rec['plain_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share {rec['share']:.3f}; "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share {rec['share']:.3f}, "
+              f"cross-term torch.bmm {rec['cross_bmm_ms']:.4f} ms; "
               f"{differ} rows differ from plain, all near-ties")
     forward_ms = sum(r["ms"] for r in rows)
     records["knn"]["resgcn_forward"] = {
@@ -2746,6 +2820,38 @@ def phase_resgcn_attack_trained(data: str, log: str) -> dict:
     return stats
 
 
+def ptxas_functions(log: str) -> dict:
+    """Entry function → [registers, spill store bytes, spill load bytes]
+    from the ``-Xptxas -v`` lines of a build log."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            found[name] = [None, 0, 0]
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            found[name][1:] = [int(m.group(1)), int(m.group(2))]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
+    return found
+
+
+def check_tiled_knn_spills(log: str) -> None:
+    """The any-D kNN kernel keeps its list in registers only where ptxas
+    spills nothing: fail the build step otherwise, at every list size."""
+    tiled = {int(m.group(1)): r for n, r in ptxas_functions(log).items()
+             if "knn_tiled_kernel" in n and (m := re.search(r"ILi(\d+)E", n))}
+    if sorted(tiled) != [1, 16, 48]:
+        raise AssertionError(f"build log: knn_tiled_kernel at list sizes {sorted(tiled)}, "
+                             f"want [1, 16, 48] (is -Xptxas -v on?)")
+    for kmax, (regs, stores, loads) in sorted(tiled.items()):
+        if stores or loads:
+            raise AssertionError(f"ptxas: knn_tiled_kernel<{kmax}> spills {stores} bytes "
+                                 f"stored, {loads} loaded")
+        print(f"  knn_tiled_kernel<{kmax}>: {regs} registers, 0 spill bytes")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2787,6 +2893,7 @@ def main(argv=None) -> int:
                 print("  ptxas:", line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 print("  ptxas:  ", line.replace("ptxas info    :", "").strip())
+    check_tiled_knn_spills(log.read_text() if log.exists() else "")
 
     records = {
         "fps": {"name": "fps", "route": "cuda",

@@ -1,29 +1,33 @@
 // Exact k nearest neighbours fused with their squared distance (sm_90a).
 //
 // Replaces the TPU kernel pointsecguard_tpu/ops/pallas/knn.py:_knn_kernel
-// (entry point knn_pallas). Same contract: query [B, S, D] and points
-// [B, N, D] f32 in; for each query the k smallest squared distances,
-// ascending, and their int32 point indices, ties to the first occurrence
-// (a stable sort of the distance row cut to k); the [S, N] distance matrix
-// is never written to device memory. NaN inputs are outside the contract.
+// (entry point knn_pallas) with two kernels: knn_xyz_kernel for D = 3
+// (RandLA's pyramid, ResGCN's head graph) and knn_tiled_kernel for every
+// other D (ResGCN's feature-space graphs, D = 64 and wider). Same contract
+// for both: query [B, S, D] and points [B, N, D] f32 in; for each query the
+// k smallest squared distances, ascending, and their int32 point indices,
+// ties to the first occurrence (a stable sort of the distance row cut to
+// k); the [S, N] distance matrix is never written to device memory. NaN
+// inputs are outside the contract.
 //
 // Arithmetic: the distance is (s2 - 2*cross) + d2, rounded exactly as the
 // port's square_distance (ops/distance.py) rounds it. s2 = |q|^2 and
-// d2 = |p|^2 are made by two small kernels of this file with the plain
+// d2 = |p|^2 are made by small kernels of this file with the plain
 // version's own roundings (sum_sq below); cross = q.p is a fused
 // multiply-add chain over the coordinates in index order,
 // fma(q2, p2, fma(q1, p1, q0 * p0)), which is how a float32 GEMM
-// accumulates a depth-3 product. s2 - 2*cross is one fma(-2, cross, s2):
+// accumulates its product. s2 - 2*cross is one fma(-2, cross, s2):
 // doubling is exact, so it rounds as the subtraction does. Every step is
 // written with __fmul_rn / __fmaf_rn / __fadd_rn so that nvcc cannot
-// re-contract it. Float32 FMA only: TF32 or the tensor cores would flip
-// near-tie neighbours.
+// re-contract it. Float32 FMA only, in both kernels: TF32, 3xTF32 or the
+// tensor cores would round the cross term otherwise and flip near-tie
+// neighbours.
 //
-// What bounds it: operations, not bytes (device memory sees the points
-// once per block of queries and the outputs once), and of the operations
-// not the float pipe alone: a pair costs 5 float instructions, one compare
-// (half rate on an H100) and one 16-byte broadcast load from shared
-// memory, and that load is what saturates first. A warp-wide
+// D = 3. What bounds it: operations, not bytes (device memory sees the
+// points once per block of queries and the outputs once), and of the
+// operations not the float pipe alone: a pair costs 5 float instructions,
+// one compare (half rate on an H100) and one 16-byte broadcast load from
+// shared memory, and that load is what saturates first. A warp-wide
 // 16-byte load takes the SM's one load path 3 to 4 cycles, so four
 // schedulers cannot get past one pair per ~13 lane-cycles however many
 // warps there are; more queries a thread would halve the loads, but two
@@ -35,11 +39,10 @@
 // a data-dependent branch per point keeps the compiler from overlapping
 // the distance chains of neighbouring points.
 //
-// Design (D = 3, RandLA's xyz): one thread per query (two at k = 1, where
-// registers allow it and one load then feeds two distances), the query
-// and its k best (value, index) pairs in registers (a sorted list of KMAX
-// slots, all indices compile-time constants, so it never goes to local
-// memory).
+// Design (D = 3): one thread per query (two at k = 1, where registers
+// allow it and one load then feeds two distances), the query and its k
+// best (value, index) pairs in registers (a sorted list of KMAX slots, all
+// indices compile-time constants, so it never goes to local memory).
 //  - The hot loop is arithmetic only. Points come in groups of kUnroll:
 //    one 16-byte broadcast load each (x, y, z, |p|^2), kUnroll independent
 //    distance chains, each compared with the thread's k-th value, the hits
@@ -63,10 +66,45 @@
 //    distance +inf, which never hit. Small blocks (kThreads queries, 32 KB
 //    of shared memory at k <= 16) let 24 warps share an SM and keep the
 //    grid's tail fine-grained.
-// Any other D (no caller on a ported path yet) keeps the simpler kernel:
-// the query read from the L1-cached row, the cross terms of kRegBlock
-// points accumulated together, insertion point by point into the same
-// list.
+//
+// Any other D. What bounds it: the float pipe. A pair costs D FMAs and 3
+// more instructions, so at D = 64 the bound is the FMA rate and a kernel
+// that loads an operand from shared memory for every FMA (a thread per
+// query, a point at a time) runs at a twentieth of it. The design is an
+// SGEMM's, with the selection beside it:
+//  - A block of kWQ queries walks the points in tiles of kWP. For each
+//    tile it forms the [kWQ, kWP] block of cross terms in registers, each
+//    thread a kWM x kWN micro-tile: per coordinate, four 16-byte shared
+//    loads feed 64 FMAs. Queries and points are staged transposed,
+//    [coordinate][row], in chunks of kWC coordinates, by 4-byte cp.async
+//    (any D, any alignment). The points stream through two stages, so the
+//    next chunk arrives while this one is multiplied, with one barrier a
+//    chunk. The block's queries are copied once and stay (up to
+//    kWQSlots chunks, D <= 64: ResGCN's graphs), else they stream beside
+//    the points: held, they take two thirds of the copies out of every
+//    chunk. The accumulators carry across chunks, so every pair's chain
+//    runs in coordinate order.
+//  - D is padded with zeros to a whole chunk, and rows past S or N are
+//    zeros. That is exact: the chain starts from +0 instead of q0 * p0,
+//    and fma(0, 0, acc) is acc; the two differ at most in the sign of a
+//    zero cross term, and fma(-2, +-0, s2) + d2 is the same number either
+//    way (s2, d2 >= 0).
+//  - Epilogue: (s2 - 2*cross) + d2 into a [kWQ][kWP + 4] distance block in
+//    shared memory (+inf past N), padded so that 16-byte rows do not
+//    conflict.
+//  - Selection: the tile's row is the queue of the D = 3 kernel's deferred
+//    insertion. Thread t owns query t of the block and its TopK list; it
+//    marks the points of its row below its k-th value as it stood at the
+//    tile's start (a 64-bit mask), then the 32 lanes of a warp walk their
+//    marks together, lowest index first, re-testing each against the
+//    current k-th value and inserting the survivors by the rule above. A
+//    warp pays the largest mark count of its lanes in a tile, not one
+//    insertion per point: the first tile is nearly all marks, later ones
+//    about k / t at tile t. A 48-slot list makes each step of the walk
+//    three times a 16-slot one's: the call at k = 48 is the slower one.
+//  - The list stays in registers (ptxas must report no spill; chip_smoke.py
+//    fails the build if it does). 76 KB of dynamic shared memory a block,
+//    two blocks an SM, so [8, 4096] is one wave of 256 blocks on 132 SMs.
 
 #include <cuda_runtime.h>
 
@@ -82,11 +120,30 @@ constexpr int kTile = 512;                 // points per shared-memory stage
 constexpr int kQueue = 16;                 // queued candidates per query
 constexpr int kQptOne = 2;                 // queries per thread at k = 1 ...
 constexpr int kFillBlocks = 264;           // ... if the call still has so many blocks
-constexpr int kRegBlock = 8;               // any-D kernel: points per register block
 constexpr int kSmemBytes = 48 * 1024;      // static-size limit, no attribute
 constexpr unsigned kFullMask = 0xffffffffu;
+// the any-D kernel (knn_tiled_kernel)
+constexpr int kWQ = 128;                   // queries per block, one a thread in the selection
+constexpr int kWP = 64;                    // points per tile
+constexpr int kWC = 16;                    // coordinates per chunk (D is padded to whole ones)
+constexpr int kWM = 8;                     // queries of a thread's micro-tile ...
+constexpr int kWN = 8;                     // ... and its points
+constexpr int kWQStride = kWQ + 4;         // floats a staged coordinate of the queries ...
+constexpr int kWPStride = kWP + 4;         // ... of the points, and a row of the distance block
+constexpr int kWQChunk = kWC * kWQStride;  // floats a staged chunk of the queries ...
+constexpr int kWPChunk = kWC * kWPStride;  // ... and of the points
+constexpr int kWQSlots = 4;                // query chunks held: all of them up to D = 64
+constexpr int kLoadLanes = 8;              // lanes that copy one row's 8 coordinates
+constexpr int kMaxD = 4096;                // the contract's widest D
+constexpr size_t kWSmemBytes =
+    (kWQSlots * kWQChunk + 2 * kWPChunk + kWQ * kWPStride + kWQ) * sizeof(float);
 
 static_assert(kTile % kUnroll == 0 && kQueue >= 2 * kUnroll, "queue holds two groups");
+static_assert(kWQ == kThreads && (kWQ / kWM) * (kWP / kWN) == kThreads, "one query a thread");
+static_assert(kWM == 8 && kWN == 8 && kWP == 64, "two float4 halves a side; a 64-bit mask a row");
+static_assert(kWC % kLoadLanes == 0 && kWQ % (kThreads / kLoadLanes) == 0 &&
+              kWP % (kThreads / kLoadLanes) == 0, "whole copy passes");
+static_assert(kWQSlots >= 2, "streamed queries take two slots");
 
 // The k best (value, index) pairs, ascending, in the last k of KMAX slots;
 // the first KMAX - k slots hold -inf and never move. So the k-th value is
@@ -147,6 +204,21 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_commit_and_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 4 bytes, or (ok false) 4 zero bytes and nothing read from gmem
+__device__ __forceinline__ void cp_async_4(float* smem, const float* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // |x|^2 of a row of D floats, rounded exactly as the plain version's
@@ -313,57 +385,173 @@ cudaError_t launch_xyz(const float4* queries, const float4* packed, float* ov, i
   return cudaGetLastError();
 }
 
-// Any D: the points tile is [tile][D] in shared memory; the cross terms of
-// kRegBlock points are accumulated together, one coordinate at a time.
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
-knn_wide_d_kernel(const float* __restrict__ query, const float* __restrict__ points,
-                  const float* __restrict__ s2, const float* __restrict__ d2,
-                  float* __restrict__ out_v, int* __restrict__ out_i,
-                  int S, int N, int D, int k, int tile) {
-  extern __shared__ float smem[];
-  float* sp = smem;                        // [tile][D]
-  float* sd = smem + (size_t)tile * D;     // [tile]
-  const int b = blockIdx.y;
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = row < S;
-  const float* qr = query + ((size_t)b * S + (valid ? row : 0)) * D;
-  const float qs2 = valid ? s2[(size_t)b * S + row] : 0.f;
-  TopK<KMAX> best;
-  best.init(k);
-  const float* pb = points + (size_t)b * N * D;
-  const float* db = d2 + (size_t)b * N;
-  for (int base = 0; base < N; base += tile) {
-    const int nt = min(tile, N - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < nt * D; j += kThreads)
-      sp[j] = pb[(size_t)base * D + j];
-    for (int j = threadIdx.x; j < nt; j += kThreads) sd[j] = db[base + j];
-    __syncthreads();
-    if (!valid) continue;
-    for (int j0 = 0; j0 < nt; j0 += kRegBlock) {
-      float acc[kRegBlock];
-      const float q0 = __ldg(qr);
+// Any D. Rows [0, ROWS) of a [rows][D] matrix starting at `first`,
+// coordinates [c0, c0 + kWC), transposed into a stage [kWC][STRIDE] by
+// 4-byte cp.async; rows at or past `rows` and coordinates past D become
+// zeros. Lane l copies coordinates l % 8 and 8 + l % 8 of rows l / 8 + 16 g,
+// so a warp reads four 32-byte runs and writes 32 distinct banks.
+template <int ROWS, int STRIDE>
+__device__ __forceinline__ void load_rows(float* stage, const float* __restrict__ first,
+                                          int rows, int c0, int D) {
+  constexpr int kRowsPerPass = kThreads / kLoadLanes;
+  const int lrow = threadIdx.x / kLoadLanes, lcol = threadIdx.x % kLoadLanes;
 #pragma unroll
-      for (int r = 0; r < kRegBlock; ++r)
-        acc[r] = __fmul_rn(q0, sp[(size_t)(j0 + r) * D]);
-      for (int c = 1; c < D; ++c) {
-        const float qc = __ldg(qr + c);
+  for (int h = 0; h < kWC / kLoadLanes; ++h) {
+    const int cc = h * kLoadLanes + lcol;
+    const int c = c0 + cc;
 #pragma unroll
-        for (int r = 0; r < kRegBlock; ++r)
-          acc[r] = __fmaf_rn(qc, sp[(size_t)(j0 + r) * D + c], acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRegBlock; ++r) {
-        if (j0 + r < nt) {
-          const float d = combine(qs2, acc[r], sd[j0 + r]);
-          if (d < best.kth()) best.insert(d, base + j0 + r);
-        }
-      }
+    for (int g = 0; g < ROWS / kRowsPerPass; ++g) {
+      const int r = g * kRowsPerPass + lrow;
+      const bool ok = c < D && r < rows;
+      cp_async_4(stage + cc * STRIDE + r, ok ? first + (size_t)r * D + c : first, ok);
     }
   }
+}
+
+// One query's row of a tile's distance block against its list: mark the
+// points below the k-th value as it stood at the tile's start, then the
+// warp's lanes walk their marks together, lowest index first, each
+// re-tested against the current k-th value (a stale threshold is never
+// below it, so the marks hold every point that point-by-point insertion
+// would take).
+template <int KMAX>
+__device__ __forceinline__ void select_row(TopK<KMAX>& best, const float* row, int base) {
+  const float kth = best.kth();
+  unsigned lo = 0u, hi = 0u;
+#pragma unroll
+  for (int j = 0; j < kWP / 2; j += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(row + j);
+    const float4 c = *reinterpret_cast<const float4*>(row + kWP / 2 + j);
+    lo |= (unsigned)(a.x < kth) << j | (unsigned)(a.y < kth) << (j + 1) |
+          (unsigned)(a.z < kth) << (j + 2) | (unsigned)(a.w < kth) << (j + 3);
+    hi |= (unsigned)(c.x < kth) << j | (unsigned)(c.y < kth) << (j + 1) |
+          (unsigned)(c.z < kth) << (j + 2) | (unsigned)(c.w < kth) << (j + 3);
+  }
+  while (__any_sync(kFullMask, (lo | hi) != 0u)) {
+    if ((lo | hi) != 0u) {
+      int j;
+      if (lo != 0u) {
+        j = __ffs(lo) - 1;
+        lo &= lo - 1u;
+      } else {
+        j = kWP / 2 + __ffs(hi) - 1;
+        hi &= hi - 1u;
+      }
+      const float d = row[j];
+      if (d < best.kth()) best.insert(d, base + j);
+    }
+  }
+}
+
+// Any D (see the file's note): a block of kWQ queries against tiles of kWP
+// points, the cross terms as an SGEMM micro-tile from transposed chunks,
+// then the tile's distance block through select_row. Thread (ty, tx) of
+// the micro-tile owns queries ty * 4 + i and kWQ / 2 + ty * 4 + i and
+// points tx * 4 + j and kWP / 2 + tx * 4 + j (i, j < 4); in the selection
+// thread t owns query t.
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads, 2)
+knn_tiled_kernel(const float* __restrict__ query, const float* __restrict__ points,
+                 const float* __restrict__ s2, const float* __restrict__ d2,
+                 float* __restrict__ out_v, int* __restrict__ out_i, int S, int N, int D,
+                 int k) {
+  extern __shared__ float4 wsmem[];
+  float* qbuf = reinterpret_cast<float*>(wsmem);  // kWQSlots x [kWC][kWQStride]
+  float* pbuf = qbuf + kWQSlots * kWQChunk;       // 2 x [kWC][kWPStride]
+  float* dist = pbuf + 2 * kWPChunk;              // [kWQ][kWPStride]
+  float* qnorm = dist + kWQ * kWPStride;          // [kWQ]
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kWQ;
+  const int tx = tid % (kWP / kWN), ty = tid / (kWP / kWN);
+  const bool valid = q0 + tid < S;
+  qnorm[tid] = valid ? s2[(size_t)b * S + q0 + tid] : 0.f;
+  TopK<KMAX> best;
+  best.init(valid ? k : 0);  // a row past S never hits
+  const int chunks = (D + kWC - 1) / kWC;
+  const int tiles = (N + kWP - 1) / kWP;
+  // the block's queries stay in shared memory when they fit (D <= 64),
+  // else they stream beside the points, a chunk a stage
+  const bool resident = chunks <= kWQSlots;
+  const float* qfirst = query + ((size_t)b * S + q0) * D;
+  const float* pfirst = points + (size_t)b * N * D;
+  const float* d2b = d2 + (size_t)b * N;
+  float acc[kWM][kWN];
+#pragma unroll
+  for (int i = 0; i < kWM; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN; ++j) acc[i][j] = 0.f;
+  for (int j = 0; j < (resident ? chunks : 1); ++j)
+    load_rows<kWQ, kWQStride>(qbuf + j * kWQChunk, qfirst, S - q0, j * kWC, D);
+  load_rows<kWP, kWPStride>(pbuf, pfirst, N, 0, D);
+  cp_async_commit();
+  int t = 0, c = 0;  // tile and chunk in stage s & 1
+  for (int s = 0; t < tiles; ++s) {
+    cp_async_wait_all();
+    // chunk s is in its stages for every thread, and every thread is done
+    // with chunk s - 1, whose stages the next copy overwrites, and with
+    // the last tile's distance block
+    __syncthreads();
+    const bool last = c + 1 == chunks;
+    const int next_t = last ? t + 1 : t, next_c = last ? 0 : c + 1;
+    if (next_t < tiles) {
+      if (!resident)
+        load_rows<kWQ, kWQStride>(qbuf + ((s + 1) & 1) * kWQChunk, qfirst, S - q0,
+                                  next_c * kWC, D);
+      load_rows<kWP, kWPStride>(pbuf + ((s + 1) & 1) * kWPChunk,
+                                pfirst + (size_t)next_t * kWP * D, N - next_t * kWP,
+                                next_c * kWC, D);
+      cp_async_commit();
+    }
+    float pd2[kWN];  // |p|^2 of the thread's points, +inf past N
+    if (last) {
+#pragma unroll
+      for (int j = 0; j < kWN; ++j) {
+        const int p = t * kWP + (j / 4) * (kWP / 2) + tx * 4 + j % 4;
+        pd2[j] = p < N ? __ldg(d2b + p) : INFINITY;
+      }
+    }
+    const float* qs = qbuf + (resident ? c : s & 1) * kWQChunk;
+    const float* ps = pbuf + (s & 1) * kWPChunk;
+#pragma unroll
+    for (int cc = 0; cc < kWC; ++cc) {
+      const float4 a0 = *reinterpret_cast<const float4*>(qs + cc * kWQStride + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(qs + cc * kWQStride + kWQ / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(ps + cc * kWPStride + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(ps + cc * kWPStride + kWP / 2 + tx * 4);
+      const float qa[kWM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float pb[kWN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < kWM; ++i)
+#pragma unroll
+        for (int j = 0; j < kWN; ++j) acc[i][j] = __fmaf_rn(qa[i], pb[j], acc[i][j]);
+    }
+    if (last) {
+#pragma unroll
+      for (int i = 0; i < kWM; ++i) {
+        const int row = (i / 4) * (kWQ / 2) + ty * 4 + i % 4;
+        const float qs2 = qnorm[row];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 o = make_float4(combine(qs2, acc[i][4 * h], pd2[4 * h]),
+                                       combine(qs2, acc[i][4 * h + 1], pd2[4 * h + 1]),
+                                       combine(qs2, acc[i][4 * h + 2], pd2[4 * h + 2]),
+                                       combine(qs2, acc[i][4 * h + 3], pd2[4 * h + 3]));
+          *reinterpret_cast<float4*>(dist + row * kWPStride + h * (kWP / 2) + tx * 4) = o;
+        }
+#pragma unroll
+        for (int j = 0; j < kWN; ++j) acc[i][j] = 0.f;
+      }
+      __syncthreads();  // the tile's distance block is whole
+      select_row(best, dist + tid * kWPStride, t * kWP);
+    }
+    t = next_t;
+    c = next_c;
+  }
   if (valid) {
-    const size_t o = ((size_t)b * S + row) * k;
+    const size_t o = ((size_t)b * S + q0 + tid) * k;
     best.store(out_v + o, out_i + o, k);
   }
 }
@@ -381,7 +569,8 @@ cudaError_t dispatch_xyz(const float4* queries, const float4* packed, float* ov,
 
 // scratch, D = 3: the points packed as float4 [B * N], then the queries
 // [B * S] unless they are the points themselves. Any other D: |p|^2
-// [B * N], then |q|^2 [B * S]. Small kernels fill it first.
+// [B * N], then |q|^2 [B * S] (unused when the queries are the points).
+// Small kernels fill it first.
 template <int KMAX>
 cudaError_t launch(const float* q, const float* p, float* ov, int* oi, float* scratch, int B,
                    int S, int N, int D, int k, cudaStream_t stream) {
@@ -403,13 +592,17 @@ cudaError_t launch(const float* q, const float* p, float* ov, int* oi, float* sc
   float* d2 = scratch;
   float* s2 = scratch + prows;
   norms_kernel<<<pblocks, kPrep, 0, stream>>>(p, d2, prows, D);
-  norms_kernel<<<qblocks, kPrep, 0, stream>>>(q, s2, qrows, D);
-  const dim3 grid((S + kThreads - 1) / kThreads, B);
-  // whole register blocks (the tail of a tile is read but masked)
-  const int per_point = (D + 1) * (int)sizeof(float);
-  const int tile = (kSmemBytes / per_point) / kRegBlock * kRegBlock;
-  knn_wide_d_kernel<KMAX><<<grid, kThreads, (size_t)tile * per_point, stream>>>(
-      q, p, s2, d2, ov, oi, S, N, D, k, tile);
+  if (q != p || S != N)
+    norms_kernel<<<qblocks, kPrep, 0, stream>>>(q, s2, qrows, D);
+  else
+    s2 = d2;
+  // above 48 KB of dynamic shared memory a kernel must opt in
+  const cudaError_t attr = cudaFuncSetAttribute(
+      knn_tiled_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + kWQ - 1) / kWQ, B);
+  knn_tiled_kernel<KMAX><<<grid, kThreads, kWSmemBytes, stream>>>(q, p, s2, d2, ov, oi, S, N,
+                                                                  D, k);
   return cudaGetLastError();
 }
 
@@ -420,7 +613,7 @@ cudaError_t launch(const float* q, const float* p, float* ov, int* oi, float* sc
 extern "C" int psg_knn(const void* query, const void* points, void* out_v, void* out_i,
                        void* scratch, int B, int S, int N, int D, int k, void* stream) {
   if (B < 0 || S < 0 || N < 1 || D < 1 || k < 1 || k > 48 || k > N ||
-      B > 65535 || (size_t)(D + 1) * sizeof(float) * kRegBlock > kSmemBytes)
+      B > 65535 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const auto* q = static_cast<const float*>(query);

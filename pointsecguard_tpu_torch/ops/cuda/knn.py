@@ -1,26 +1,38 @@
 """Exact kNN fused with its distance: CUDA kernel 4 and its plain version.
 
 Replaces ``pointsecguard_tpu/ops/pallas/knn.py:_knn_kernel`` (entry point
-``knn_pallas``). The kernel (``csrc/knn.cu``) gives each query one thread,
-streams the points through shared memory and keeps a sorted list of the
-k best (value, index) pairs in registers; the [S, N] distance matrix
-never reaches device memory. It is bounded by operations — the S·N
-distance evaluations, and among them first by the shared-memory load
-that brings each point to a warp. Its hot loop is arithmetic only (groups
-of independent distance chains, one warp vote a group); candidates wait
-in a per-thread queue and are inserted by all lanes of a warp together,
-which leaves values, indices and tie order as point-by-point insertion
-gives them. Bounds: float32, D ≥ 1, 1 ≤ k ≤ 48, k ≤ N, B ≤ 65535.
+``knn_pallas``). ``csrc/knn.cu`` holds two kernels; the [S, N] distance
+matrix reaches device memory in neither.
+
+- D = 3 (RandLA's pyramid, ResGCN's head graph): one thread per query
+  streams the points, packed as (x, y, z, |p|²), through shared memory and
+  keeps a sorted list of its k best (value, index) pairs in registers.
+  Bounded by operations, first by the shared-memory load that brings each
+  point to a warp. Its hot loop is arithmetic only (groups of independent
+  distance chains, one warp vote a group); candidates wait in a per-thread
+  queue and are inserted by all lanes of a warp together.
+- Any other D (ResGCN's feature-space graphs): a block of 128 queries walks
+  the points in tiles of 64. It forms each tile's [128, 64] block of cross
+  terms as an SGEMM micro-tile in registers (8 × 8 a thread, four 16-byte
+  shared loads a coordinate for 64 FMAs) from queries and points staged
+  transposed in chunks of 16 coordinates, writes the block's distances to
+  shared memory, and each thread then selects from its query's row: the
+  points below its k-th value at the tile's start, walked by the lanes of a
+  warp together. Bounded by the float32 FMA rate.
+
+Both leave values, indices and tie order as point-by-point insertion gives
+them. The kernels' bounds: float32, 1 ≤ D ≤ 4096, 1 ≤ k ≤ 48, k ≤ N,
+B ≤ 65535 (the plain version takes any D).
 
 Contract (both versions): (sq_dists [B, S, k] float32, idx [B, S, k]
 int32), nearest first, ties to the first occurrence — ``square_distance``
-followed by a stable sort cut to k. The kernel rounds each distance as
+followed by a stable sort cut to k. The kernels round each distance as
 ``square_distance`` does: |q|² and |p|² with ``_sum_sq``'s own roundings
 (small kernels of the same file compute them into the working space the
 wrapper allocates), the cross term as the fused multiply-add chain a
-float32 GEMM accumulates. ``knn`` launches the kernel for a CUDA tensor
-and raises when the kernel cannot take it; only a CPU tensor goes to
-``knn_plain``.
+float32 GEMM accumulates, in coordinate order, with no TF32 or tensor
+core. ``knn`` launches the kernel for a CUDA tensor and raises when the
+kernel cannot take it; only a CPU tensor goes to ``knn_plain``.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import torch
 from pointsecguard_tpu_torch.ops.distance import square_distance
 
 MAX_K = 48
+MAX_D = 4096  # the kernels' widest D (csrc/knn.cu kMaxD); the plain version takes any
 PLAIN_TILE = 4096  # query rows per distance block of the plain version
 launches = 0  # kernel launches by ``knn``; never counts the plain version
 
@@ -72,6 +85,8 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int):
     N = points.shape[1]
     if B > 65535:
         raise ValueError(f"knn: B={B} above the kernel's grid limit 65535")
+    if D > MAX_D:
+        raise ValueError(f"knn: D={D} above the kernel's limit {MAX_D}")
     from pointsecguard_tpu_torch.ops.cuda import build
 
     lib = build.load_library()

@@ -8,6 +8,9 @@ CPU tensors the wrappers return the plain version's result at those
 shapes without counting a launch.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -161,6 +164,12 @@ def test_knn_refuses(q_shape, p_shape, k, match):
     (100, 4099, 3, 16),  # N off every tile and group of the kernel
     (33, 300, 3, 48),    # k at its limit
     (5, 40, 64, 8),      # a feature-space search
+    # the any-D kernel at its largest list: D off and on its 16-coordinate
+    # chunk, N off its 64-point tile
+    (33, 100, 1, 48),
+    (65, 129, 9, 48),
+    (48, 48, 65, 48),    # k == N
+    (10, 63, 512, 48),
 ])
 def test_knn_takes_and_cpu_equals_plain(S, N, D, k):
     rng = np.random.default_rng(S + N)
@@ -176,3 +185,10 @@ def test_knn_takes_and_cpu_equals_plain(S, N, D, k):
     # quarter-grid coordinates: every distance is exact, so ties are exact
     np.testing.assert_array_equal(gi.numpy(), want)
     np.testing.assert_array_equal(gv.numpy(), np.take_along_axis(d.numpy(), want, -1))
+
+
+def test_knn_bounds_match_the_kernel_source():
+    """The wrapper's limits are the C entry point's (``csrc/knn.cu``)."""
+    src = (Path(knn.__file__).resolve().parents[2] / "csrc" / "knn.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxD = (\d+);", src).group(1)) == knn.MAX_D
+    assert f"k > {knn.MAX_K} ||" in src

@@ -10,6 +10,8 @@ Pallas interpreter.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -128,18 +130,43 @@ def test_repeat_pad_k_matches_jax(k_eff, k):
                                   np.asarray(jops.repeat_pad_k(jnp.asarray(idx), k)))
 
 
-@pytest.mark.parametrize("kind,N,k", [("uniform", 700, 8), ("rounded", 700, 16),
-                                      ("uniform", 300, 1)])
-def test_knn_plain_matches_pallas_kernel_body(kind, N, k):
-    pts = _cloud(kind, 2, N, seed=7)
+def _features(kind: str, B: int, N: int, D: int, seed: int) -> np.ndarray:
+    """[B, N, D] float32 features: uniform in [0, 1), or (``rounded``) on the
+    quarter grid, where every product and sum of a distance is exact."""
+    x = np.random.default_rng(seed).random((B, N, D)).astype(np.float32)
+    return np.round(x * 4) / 4 if kind == "rounded" else x
+
+
+@pytest.mark.parametrize("kind,N,k,D", [
+    pytest.param("uniform", 700, 8, 3, id="uniform-700-8"),
+    pytest.param("rounded", 700, 16, 3, id="rounded-700-16"),
+    pytest.param("uniform", 300, 1, 3, id="uniform-300-1"),
+    # feature space: the any-D kernel's inputs (ResGCN's graphs are D = 64)
+    pytest.param("rounded", 700, 16, 9, id="rounded-700-16-D9"),
+    pytest.param("rounded", 700, 48, 9, id="rounded-700-48-D9"),
+    pytest.param("rounded", 700, 16, 64, id="rounded-700-16-D64"),
+    pytest.param("rounded", 700, 48, 64, id="rounded-700-48-D64"),
+    pytest.param("uniform", 700, 16, 9, id="uniform-700-16-D9"),
+    pytest.param("uniform", 700, 48, 9, id="uniform-700-48-D9"),
+    pytest.param("uniform", 700, 16, 64, id="uniform-700-16-D64"),
+    pytest.param("uniform", 700, 48, 64, id="uniform-700-48-D64"),
+])
+def test_knn_plain_matches_pallas_kernel_body(kind, N, k, D):
+    pts = _cloud(kind, 2, N, seed=7) if D == 3 else _features(kind, 2, N, D, seed=7 + D)
     q = pts[:, :16]
     wv, wi = _knn_interpret(q, pts, k)
     gv, gi = tknn.knn_plain(_t(q), _t(pts), k)
     np.testing.assert_array_equal(gi.numpy(), wi)
     if kind == "rounded":  # quarter-grid coordinates: every step is exact
         np.testing.assert_array_equal(gv.numpy(), wv)
-    else:  # the interpreter's dot may round the cross term differently
+    elif D == 3:  # the interpreter's dot may round the cross term differently
         np.testing.assert_allclose(gv.numpy(), wv, atol=1e-5)
+    else:
+        # ... by a few float32 ulps of the distance's scale, |q|² + |p|²
+        # (up to 128 at D = 64 on [0, 1) coordinates)
+        scale = (q**2).sum(-1).max() + (pts**2).sum(-1).max()
+        atol = 4 * np.finfo(np.float32).eps * scale
+        np.testing.assert_allclose(gv.numpy(), wv, rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("B,S,N,k", [
@@ -316,3 +343,101 @@ def test_knn_same_tensor_and_distinct_query_agree():
     a = tknn.knn(pts, pts, 16)
     b = tknn.knn(pts.clone(), pts, 16)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# --- the any-D kernel's tile walk, emulated --------------------------------
+#
+# ``knn_tiled_kernel`` of ``csrc/knn.cu`` forms a [queries, PT] block of
+# distances a tile and then selects: each query marks the points of its
+# row below its k-th value as it stood at the tile's start, and the lanes of
+# a warp walk their marks together, lowest index first, re-testing each
+# against the current k-th value and inserting the survivors after equal
+# values. The emulation does that with one row per lane.
+
+_KNN_CU = Path(__file__).resolve().parents[1] / "pointsecguard_tpu_torch" / "csrc" / "knn.cu"
+
+
+def _kernel_constant(name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", _KNN_CU.read_text())
+    assert m, f"{name} not found in {_KNN_CU}"
+    return int(m.group(1))
+
+
+def _tile_walk(dist: np.ndarray, k: int, pt: int):
+    """Bottom-k of each row of ``dist`` [lanes, N] as the tiled kernel's
+    warp finds it, tile by tile; also the walk's steps (the largest mark
+    count of the lanes, summed over the tiles)."""
+    lanes, N = dist.shape
+    vals = np.full((lanes, k), np.inf, np.float32)
+    idx = np.full((lanes, k), np.iinfo(np.int32).max, np.int64)
+    steps = 0
+    for base in range(0, N, pt):
+        block = np.full((lanes, pt), np.inf, np.float32)  # +inf past N
+        block[:, : min(pt, N - base)] = dist[:, base : base + pt]
+        marks = [np.flatnonzero(row < kth) for row, kth in zip(block, vals[:, -1])]
+        walk = max(len(m) for m in marks)
+        for step in range(walk):  # the lanes walk their marks together
+            for lane, m in enumerate(marks):
+                if step < len(m):
+                    d = block[lane, m[step]]
+                    if d < vals[lane, -1]:
+                        _insert(vals[lane], idx[lane], d, base + m[step])
+        steps += walk
+    return vals, idx.astype(np.int32), steps
+
+
+def _lift(x: np.ndarray, D: int) -> np.ndarray:
+    """[..., 3] → [..., D], coordinates repeated in turn: every distance is
+    a sum of the 3-D squared differences, so the cloud's ties and its
+    order from the queries carry over exactly on a quarter grid."""
+    return np.ascontiguousarray(x[..., np.arange(D) % 3])
+
+
+_KERNEL_PT = _kernel_constant("kWP")
+
+
+@pytest.mark.parametrize("pt", [_KERNEL_PT, 1, 8])
+@pytest.mark.parametrize("D", [9, 64, 65])
+@pytest.mark.parametrize("kind", ["uniform", "rounded", "duplicated", "constant",
+                                  "far_to_near"])
+def test_tile_walk_equals_knn_plain(kind, D, pt):
+    q, pts = _stress_cloud(kind, 203, seed=D + pt)  # N off every tile
+    q, pts = _t(_lift(q, D)), _t(_lift(pts, D))
+    dist = tops.square_distance(q, pts)[0].numpy()
+    for k in (1, 16, 17, 48):
+        wv, wi = tknn.knn_plain(q, pts, k)
+        gv, gi, steps = _tile_walk(dist, k, pt)
+        np.testing.assert_array_equal(gi, wi[0].numpy())
+        np.testing.assert_array_equal(gv, wv[0].numpy())
+        if kind == "far_to_near":  # most points are marks: the walk's worst case
+            assert steps > 203 // 2
+
+
+@pytest.mark.parametrize("kind", ["uniform", "rounded", "far_to_near"])
+def test_tile_walk_equals_knn_plain_at_a_graphs_width(kind):
+    """N = 4099 (off the tile) at D = 64 with the kernel's tile: the walk
+    takes far fewer steps than points once the lists have filled."""
+    q, pts = _stress_cloud(kind, 4099, seed=3)
+    q, pts = _t(_lift(q, 64)), _t(_lift(pts, 64))
+    dist = tops.square_distance(q, pts)[0].numpy()
+    for k in (16, 48):
+        wv, wi = tknn.knn_plain(q, pts, k)
+        gv, gi, steps = _tile_walk(dist, k, _KERNEL_PT)
+        np.testing.assert_array_equal(gi, wi[0].numpy())
+        np.testing.assert_array_equal(gv, wv[0].numpy())
+        if kind == "uniform":
+            assert steps < 4099 // 4
+
+
+@pytest.mark.parametrize("N,k", [(16, 16), (48, 48), (65, 48)])
+def test_tile_walk_k_equals_n_and_constant_cloud(N, k):
+    """k == N (every point kept, in index order among ties) and a constant
+    cloud at D = 65 (indices 0..k-1)."""
+    q, pts = _stress_cloud("constant", N, seed=N)
+    q, pts = _t(_lift(q, 65)), _t(_lift(pts, 65))
+    dist = tops.square_distance(q, pts)[0].numpy()
+    wv, wi = tknn.knn_plain(q, pts, k)
+    gv, gi, _ = _tile_walk(dist, k, _KERNEL_PT)
+    np.testing.assert_array_equal(gi, wi[0].numpy())
+    np.testing.assert_array_equal(gv, wv[0].numpy())
+    np.testing.assert_array_equal(gi, np.broadcast_to(np.arange(k, dtype=np.int32), (8, k)))
