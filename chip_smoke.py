@@ -175,6 +175,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     table) at batch 1 on up to 2 blocks, the per-cloud gates both
     attacking and skipping clouds.
 
+35. FPS and bottom-k at PointNet++ MSG's shapes (a kernel phase, run
+    after 27): one ``build_geometry_msg`` of [8, 4096] from index 0 and of
+    [32, 4096] with random starts, 4 FPS and 12 bottom-k calls each (ball
+    queries at k = 16 and 32 on rows up to [B, 1024, 4096], 3-NN at k = 3):
+    equal to plain (indices; values, so the 3-NN weights), the geometry
+    equal to ``build_geometry_msg``'s, ``torch.topk``'s values equal; card,
+    eager, plain and ``torch.topk`` ms, bound and share of each set
+    (records ``msg_attack`` and ``msg_train_step``).
+
+Phases 36-41 run for PointNet++ MSG and then for PointNet (206 and 102
+tensors, 1,895,253 and 3,541,334 floats), after phase 34:
+
+36. Card vs CPU on two blocks, calibrated seeded weights (``phase_block_
+    reference``): MSG's geometry built on both (FPS centres equal,
+    neighbours in agreement); log-probabilities and the NB loss's colour
+    gradient in float64 on the card within 1e-6 of the CPU's; in float32
+    the card's log-probabilities no further from float64 than twice the
+    CPU's and within 4e-4 of the largest of them, its gradient within 5 %
+    of float64 (MSG's maxima over tied groups: 2.8 % from rounding alone).
+37. NB through ``cli.attack.main`` on 32 blocks at batch 8 (phase 6's
+    protocol): MSG launches 4 FPS and 12 bottom-k a batch, PointNet none
+    (said on a line of its own); then NU on 8 blocks, the preset cut to
+    ``BLOCK_NU_STEPS``: the geometry's launches plus one bottom-k a step.
+38. One optimizer step of 32 × 4096 card vs CPU at phase 16's tolerances
+    (MSG: pinned FPS starts and dropout mask; PointNet: the feature-
+    transform aux loss).
+39. ``cli.train.main`` at 32 × 4096 on phase 17's rooms, 2 epochs (an eval
+    after the second) and one more on resume: losses finite and falling,
+    one geometry's launches per step and per eval batch (PointNet none).
+40. ``cli.eval.main --num_votes 1``: accuracy at or above ``EVAL_ACC_FLOOR``.
+41. NB ``--save_adv`` on 32 blocks lowers the trained model's accuracy, and
+    ``cli.eval --adv_set`` gives the attack run's accuracy back.
+
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
 host's time to send them is hidden) and ``eager_ms`` the median of single
@@ -190,7 +223,8 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 8, 14, 20, 21 and 27 and exits 1.
+``--kernels_only`` stops after phases 3, 4, 5, 8, 14, 20, 21, 27 and 35 and
+exits 1.
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -213,6 +247,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 BATCH, NUM_POINT, MAX_BLOCKS = 8, 4096, 32
 STATE_FLOATS = 975_949  # full-width SSG: parameters + BN running stats
+# the block models of the PointNet family at full width: their state
+# floats (SSG 134 tensors, MSG 206, PointNet 102) and the kernel launches
+# of one geometry (a batch's forward or train step): four FPS levels, one
+# ball query per radius and four 3-NN plans; PointNet builds none
+MODEL_STATE_FLOATS = {"pointnet2": STATE_FLOATS, "pointnet2_msg": 1_895_253,
+                      "pointnet": 3_541_334}
+GEOMETRY_LAUNCHES = {"pointnet2": {"fps": 4, "bottom_k": 8},
+                     "pointnet2_msg": {"fps": 4, "bottom_k": 12},
+                     "pointnet": {"fps": 0, "bottom_k": 0}}
+# phases 36-41 drive these two as 6 and 12-19 drive SSG: NU cut to 10 C&W
+# steps, cli.train on phase 17's rooms for 2 epochs (an eval after the
+# second) and one more on resume (with its eval)
+BLOCK_MODELS = ("pointnet2_msg", "pointnet")
+BLOCK_NU_STEPS, BLOCK_TRAIN_EPOCHS = 10, 2
 RANDLA_BATCH, RANDLA_POINTS, RANDLA_CLOUDS = 4, 40960, 8
 RANDLA_STATE_FLOATS = 5_010_981  # full-width S3DIS RandLA-Net
 NU_CLOUDS, NU_BLOCKS = 4, 8  # one C&W batch of each model
@@ -637,38 +685,264 @@ def phase_train_kernels(dev, records) -> None:
         print(f"  bottom_k {tuple(v.shape)} k={k}: {ms:.4f} ms (bound {b:.4f} ms)")
 
 
-def random_state_dict(seed: int) -> dict:
-    """Full-width SSG weights from a seeded generator: Linear weights and
-    biases uniform in ±1/sqrt(fan_in) (torch's default bound); BatchNorm
-    at its initial scale 1, bias 0, mean 0, var 1."""
-    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG
+def msg_kernel_inputs(xyz: torch.Tensor, starts):
+    """The FPS and bottom-k inputs of one ``build_geometry_msg`` from the
+    given starts (one [B] tensor a level): per level the cloud and its
+    start, one ball-query row set per radius (index values, the sentinel
+    N out of the radius), then the four 3-NN distance sets."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.models.pointnet2 import MSG_SPEC
+    from pointsecguard_tpu_torch.ops.cuda import fps
+
+    fps_in, bk_in, levels = [], [], [xyz]
+    for (npoint, radii, nsamples), start in zip(MSG_SPEC, starts):
+        cur = levels[-1]
+        n = cur.shape[1]
+        fps_in.append((cur, npoint, start))
+        centers = ops.gather_points(cur, fps.fps(cur, npoint, start))
+        sqr = ops.square_distance(centers, cur)
+        arange = torch.arange(n, dtype=torch.float32, device=cur.device)
+        for radius, nsample in zip(radii, nsamples):
+            bk_in.append((torch.where(sqr > radius * radius, float(n), arange), nsample))
+        levels.append(centers)
+    for li in range(len(MSG_SPEC)):
+        bk_in.append((ops.square_distance(levels[li], levels[li + 1]), 3))
+    return fps_in, bk_in
+
+
+def phase_msg_kernels(dev, records) -> None:
+    """35. FPS and bottom-k at the shapes of PointNet++ MSG: one
+    ``build_geometry_msg`` of [8, 4096] from index 0 (an attack batch) and
+    of [32, 4096] with a random start per cloud and level (a train step):
+    4 FPS and 12 bottom-k calls each (k = 16 and 32 on rows up to [B,
+    1024, 4096], k = 3 for the 3-NN). Kernel equal to plain (indices, and
+    values, so the 3-NN weights too), the geometry the kernels' inputs
+    give equal to ``build_geometry_msg``'s, ``torch.topk``'s values equal;
+    times as in ``phase_kernels`` (a kernel phase)."""
+    from pointsecguard_tpu_torch.models import build_geometry_msg
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bounds, fps
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sizes = (NUM_POINT, 1024, 256, 64)
+    for key, xyz, random_starts in (
+            ("msg_attack", slice_blocks(dev)[..., :3].contiguous(), False),
+            ("msg_train_step", train_blocks(dev)[..., :3].contiguous(), True)):
+        b = xyz.shape[0]
+        starts = [torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+                  if random_starts else torch.zeros(b, dtype=torch.int32, device=dev)
+                  for n in sizes]
+        fps_in, bk_in = msg_kernel_inputs(xyz, starts)
+        geo = build_geometry_msg(xyz, start_idx=starts)
+        for li, (cur, npoint, st) in enumerate(fps_in):
+            got = fps.fps(cur, npoint, st)
+            if not torch.equal(got, fps.fps_plain(cur, npoint, st)):
+                raise AssertionError(f"fps kernel != plain at {tuple(cur.shape)}->{npoint}")
+            if not torch.equal(geo["sa"][li][0], cur.gather(
+                    1, got.long()[..., None].expand(-1, -1, 3))):
+                raise AssertionError(f"build_geometry_msg centres != the kernel's, level {li}")
+        weights = []
+        for j, (vals, k) in enumerate(bk_in):
+            gv, gi = bottomk.bottom_k(vals, k)
+            wv, wi = bottomk.bottom_k_plain(vals, k)
+            if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+                raise AssertionError(f"bottom_k kernel != plain at {tuple(vals.shape)} k={k}")
+            if not torch.equal(topk_library(vals, k)[0], gv):
+                raise AssertionError(f"torch.topk values != bottom_k at {tuple(vals.shape)} "
+                                     f"k={k}")
+            if j < 8:  # a ball query: index values, the sentinel N → the first
+                n = vals.shape[-1]
+                g = gv.to(torch.int32)
+                want = geo["sa"][j // 2][1][j % 2]
+                if not torch.equal(torch.where(g == n, g[..., :1], g), want):
+                    raise AssertionError(f"build_geometry_msg groups != the kernel's ({j})")
+            else:  # a 3-NN plan: indices and the weights of kernel and plain
+                recip = [1.0 / (v + 1e-8) for v in (gv, wv)]
+                w_k, w_p = (r / torch.sum(r, dim=-1, keepdim=True) for r in recip)
+                idx, w = geo["fp"][j - 8]
+                if not (torch.equal(w_k, w_p) and torch.equal(gi, idx) and torch.equal(w_k, w)):
+                    raise AssertionError(f"3-NN plan differs kernel vs plain ({j - 8})")
+                weights.append(w_k)
+            del wv, wi
+        torch.cuda.synchronize()
+        print(f"msg geometry [{b}, {NUM_POINT}]{', random starts' if random_starts else ''}: "
+              "fps at 4 levels and bottom_k on its 12 inputs (8 ball queries at k = 16 / 32, "
+              "4 three-NN) equal to plain, 3-NN weights equal, build_geometry_msg equal")
+
+        def rows_of(v):
+            return v.numel() // v.shape[-1]
+
+        def run_fps(f, fps_in=fps_in):
+            return lambda: [f(cur, n, st) for cur, n, st in fps_in]
+
+        def run_bk(f, bk_in=bk_in):
+            return lambda: [f(v, k) for v, k in bk_in]
+
+        work = {
+            "fps": bounds.total(bounds.fps(c.shape[0], c.shape[1], n) for c, n, _ in fps_in),
+            "bottom_k": bounds.total(bounds.bottom_k(rows_of(v), v.shape[-1], k)
+                                     for v, k in bk_in),
+        }
+        unit = (f"one build_geometry_msg of [{b}, {NUM_POINT}]"
+                + (", random starts" if random_starts else ""))
+        for name, kern, plain, fn, reps in (
+            ("fps", fps.fps, fps.fps_plain, run_fps, 3),
+            ("bottom_k", bottomk.bottom_k, bottomk.bottom_k_plain, run_bk, 5),
+        ):
+            rec = {"unit": unit, "eager_ms": cuda_ms(fn(kern), reps=20),
+                   "ms": device_ms(fn(kern)), "plain_ms": cuda_ms(fn(plain), reps=reps),
+                   "bound_ms": work[name].bound_ms, "bound_by": work[name].bound_by,
+                   "library_ms": device_ms(run_bk(topk_library)) if name == "bottom_k"
+                   else None, "calls": len(fps_in) if name == "fps" else len(bk_in)}
+            print(f"{name} (MSG): kernel {rec['ms']:.4f} ms on the card "
+                  f"({rec['eager_ms']:.4f} ms as eager calls, median), plain "
+                  f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}; {work[name].bytes} bytes, {work[name].operations} "
+                  f"operations; share {rec['bound_ms'] / rec['ms']:.3f}), library "
+                  f"{rec['library_ms']} ms per {unit}")
+            records[name][key] = rec
+        for cur, n, st in fps_in:
+            ms = device_ms(lambda: fps.fps(cur, n, st))
+            print(f"  fps {tuple(cur.shape)} -> {n}: {ms:.4f} ms "
+                  f"({1e6 * ms / (n - 1):.0f} ns per step)")
+        for v, k in bk_in:
+            ms = device_ms(lambda: bottomk.bottom_k(v, k))
+            lib = device_ms(lambda: topk_library(v, k))
+            bd = bounds.bottom_k(rows_of(v), v.shape[-1], k).bound_ms
+            print(f"  bottom_k {tuple(v.shape)} k={k}: {ms:.4f} ms (bound {bd:.4f} ms, "
+                  f"library {lib:.4f} ms)")
+        del fps_in, bk_in, geo, weights
+
+
+def phase_block_reference(dev, model: str) -> dict:
+    """36. Card vs CPU for a block model (MSG or PointNet), calibrated
+    seeded weights, on two blocks: for MSG the geometry built on both (FPS
+    centres equal, neighbour indices in agreement) and the card's shared;
+    then the log-probabilities and the colour gradient of the NB loss (the
+    summed per-point cross-entropy of random labels) on the card and on
+    the CPU, each in float32 and in float64.
+
+    In float64 the card computes what the CPU does: log-probabilities and
+    gradient within 1e-6 (relative to the largest, and in relative L2).
+    In float32 the card's log-probabilities are no further from float64
+    than twice the CPU's (plus 1e-6 of the largest), and within 4e-4 of
+    the largest of the CPU's: calibrated BatchNorm statistics leave
+    channels of near-zero variance that scale rounding on both devices
+    alike (as in ``phase_resgcn_reference``). The float32 colour gradient
+    is held within 5 % of float64 in relative L2: it runs through maxima
+    over groups of repeated and nearly tied points (two thirds of MSG's
+    first-level maxima are exact ties), so float32 rounding alone moves
+    MSG's by 2.8 % on an H100 80GB HBM3 and 0.6 to 1.5 % on two CPUs
+    (SSG's and PointNet's by under 0.06 %)."""
+    from pointsecguard_tpu_torch.attacks.common import per_point_ce
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS
+
+    model_cls, family = POINTNET_MODELS[model]
+    net = model_cls()
+    net.load_state_dict(calibrated_state_dict(1, dev, model))
+    net.eval()
+    pts = slice_blocks(dev)[[0, 4]].contiguous()
+    geo = family.plan(pts)
+    agree = [1.0]
+    if geo is not None:
+        geo_cpu = family.plan(pts.cpu())
+        for li in range(4):
+            if not torch.equal(geo["sa"][li][0].cpu(), geo_cpu["sa"][li][0]):
+                raise AssertionError(f"{model}: FPS centres differ card vs CPU at level {li}")
+        agree = [(g.cpu() == c).float().mean().item()
+                 for g, c in zip(_neighbour_indices(geo), _neighbour_indices(geo_cpu))]
+        if min(agree) < 0.999:
+            raise AssertionError(f"{model}: card/CPU neighbour agreement {min(agree)} < 0.999")
+    labels = torch.randint(0, 13, pts.shape[:2], generator=torch.Generator().manual_seed(5))
+    out = {}
+    cpu = torch.device("cpu")
+    for name, device, dtype in (("card", dev, torch.float32), ("card64", dev, torch.float64),
+                                ("cpu", cpu, torch.float32), ("float64", cpu, torch.float64)):
+        m = net.to(device=device, dtype=dtype)
+        p = pts.to(device=device, dtype=dtype).clone().requires_grad_(True)
+        lp = family.head(family.apply(m, p, _to_device(geo, device, dtype)))
+        per_point_ce(lp, labels.to(device)).sum().backward()
+        out[name] = (lp.detach().double().cpu(), p.grad[..., 3:6].double().cpu())
+    ref_lp, ref_grad = out["float64"]
+    scale = ref_lp.abs().max().item()
+    err = {n: (out[n][0] - ref_lp).abs().max().item() / scale for n in ("card", "card64", "cpu")}
+    grad_err = {n: _rel_l2(out[n][1], ref_grad) for n in ("card", "card64", "cpu")}
+    card_cpu = (out["card"][0] - out["cpu"][0]).abs().max().item() / scale
+    res = {"neighbour_agreement_min": min(agree), "largest_log_prob": scale,
+           "log_probs_card_vs_cpu_over_largest": card_cpu,
+           "log_probs_vs_cpu_float64_over_largest": err,
+           "colour_grad_card_vs_cpu_rel_l2": _rel_l2(out["card"][1], out["cpu"][1]),
+           "colour_grad_vs_cpu_float64_rel_l2": grad_err}
+    print(f"{model} card vs CPU: " + json.dumps(res))
+    ok = (torch.isfinite(out["card"][0]).all() and out["card"][0].shape == (2, NUM_POINT, 13)
+          and err["card64"] <= 1e-6 and grad_err["card64"] <= 1e-6
+          and err["card"] <= 2 * err["cpu"] + 1e-6 and card_cpu <= 4e-4
+          and grad_err["card"] <= 0.05)
+    if not ok:
+        raise AssertionError(f"the card's {model} disagrees with the CPU's")
+    return res
+
+
+def _to_device(geo, device, dtype):
+    """A geometry plan on ``device``, its floating tensors (centres, 3-NN
+    weights) in ``dtype``, its indices as they are."""
+    if isinstance(geo, dict):
+        return {k: _to_device(v, device, dtype) for k, v in geo.items()}
+    if isinstance(geo, tuple):
+        return tuple(_to_device(v, device, dtype) for v in geo)
+    if geo is None:
+        return None
+    return geo.to(device=device, dtype=dtype if geo.is_floating_point() else geo.dtype)
+
+
+def random_state_dict(seed: int, model: str = "pointnet2") -> dict:
+    """Full-width weights of a block model of the PointNet family (SSG by
+    default) from a seeded generator: every Linear's weight and bias
+    uniform in ±1/sqrt(fan_in) (torch's default bound); BatchNorm at its
+    initial scale 1, bias 0, mean 0, var 1."""
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS
 
     gen = torch.Generator().manual_seed(seed)
-    sd = PointNet2SemSegSSG().state_dict()
+    net = POINTNET_MODELS[model][0]()
+    linear = {name for name, m in net.named_modules() if isinstance(m, torch.nn.Linear)}
+    sd = net.state_dict()
     for key, t in sd.items():
-        if key.endswith(("dense.weight", "dense.bias", "cls.weight", "cls.bias")):
-            fan_in = sd[key.rsplit(".", 1)[0] + ".weight"].shape[1]
-            bound = 1.0 / math.sqrt(fan_in)
+        mod = key.rpartition(".")[0]
+        if mod in linear:
+            bound = 1.0 / math.sqrt(sd[mod + ".weight"].shape[1])
             t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
     n = sum(t.numel() for t in sd.values())
-    if n != STATE_FLOATS:
-        raise AssertionError(f"state dict holds {n} floats, want {STATE_FLOATS}")
+    if n != MODEL_STATE_FLOATS[model]:
+        raise AssertionError(f"{model} state dict holds {n} floats, "
+                             f"want {MODEL_STATE_FLOATS[model]}")
     return sd
 
 
-def calibrated_state_dict(seed: int, dev) -> dict:
+def calibrated_state_dict(seed: int, dev, model: str = "pointnet2") -> dict:
     """``random_state_dict`` with BatchNorm running statistics set from
     one train-mode forward over four synthetic blocks (keep fraction 0),
     so the random network's predictions vary from point to point and the
     attack has decisions to flip."""
-    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS
 
-    model = PointNet2SemSegSSG()
-    model.load_state_dict(random_state_dict(seed))
-    model.to(dev).train()
+    net = POINTNET_MODELS[model][0]()
+    net.load_state_dict(random_state_dict(seed, model))
+    net.to(dev).train()
     with torch.no_grad():
-        model(slice_blocks(dev)[:4], momentum=0.0)
-    return model.state_dict()
+        net(slice_blocks(dev)[:4], momentum=0.0)
+    return net.state_dict()
+
+
+def check_geometry_launches(model: str, counts: dict, geometries: int, what: str) -> None:
+    """Exactly ``GEOMETRY_LAUNCHES[model]`` FPS and bottom-k launches per
+    geometry built, and no kernel off the path."""
+    want = {k: n * geometries for k, n in GEOMETRY_LAUNCHES[model].items()}
+    got = {k: counts[k] for k in want}
+    if got != want or any(counts[k] for k in counts if k not in want):
+        raise AssertionError(f"{model} {what} launches {counts}, want {want} "
+                             f"({geometries} geometries)")
+    if not any(want.values()):
+        print(f"{model} {what}: no kernel launched (PointNet builds no neighbourhood): "
+              + json.dumps(counts))
 
 
 def read_tsv(path: str) -> list[dict]:
@@ -677,14 +951,17 @@ def read_tsv(path: str) -> list[dict]:
         return [dict(zip(header, line.rstrip("\n").split("\t"))) for line in f]
 
 
-def phase_slice(dev, records, data: str) -> dict:
+def phase_slice(dev, records, data: str, model: str = "pointnet2") -> dict:
+    """NB through ``cli.attack.main`` on 32 blocks at batch 8 with the
+    calibrated random checkpoint of ``model``: one geometry's launches a
+    batch (``GEOMETRY_LAUNCHES``), finite output."""
     from pointsecguard_tpu_torch.cli import attack
     from pointsecguard_tpu_torch.ops import cuda as kernels
     from pointsecguard_tpu_torch.utils.checkpoint import save_checkpoint
 
-    log = os.path.join(WORK, "log")
-    save_checkpoint(log, calibrated_state_dict(0, dev))
-    argv = ["--model", "pointnet2", "--attack", "nb", "--data_root", data,
+    log = os.path.join(WORK, "log" if model == "pointnet2" else f"log_{model}")
+    save_checkpoint(log, calibrated_state_dict(0, dev, model))
+    argv = ["--model", model, "--attack", "nb", "--data_root", data,
             "--log_dir", log, "--num_point", str(NUM_POINT),
             "--batch_size", str(BATCH), "--max_blocks", str(MAX_BLOCKS)]
 
@@ -695,7 +972,7 @@ def phase_slice(dev, records, data: str) -> dict:
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
 
-    rows = read_tsv(os.path.join(log, "pointnet2_nb_area5.tsv"))
+    rows = read_tsv(os.path.join(log, f"{model}_nb_area5.tsv"))
     if len(rows) < MAX_BLOCKS:
         raise AssertionError(f"{len(rows)} TSV rows, want {MAX_BLOCKS}")
     col = {c: np.array([float(r[c]) for r in rows]) for c in
@@ -718,16 +995,17 @@ def phase_slice(dev, records, data: str) -> dict:
         "adv_miou": adv_m.miou,
         "launches": counts,
     }
-    print("slice: " + json.dumps(stats))
+    print(("slice: " if model == "pointnet2" else f"{model} nb: ") + json.dumps(stats))
     values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError("non-finite value in the slice's output")
-    for name in ("fps", "bottom_k"):
-        if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
-        records[name]["launches_by_path"] = {"pointnet2 nb": counts[name]}
-        records[name]["calls_per_batch"] = {
-            "pointnet2 nb": counts[name] / (len(rows) // BATCH)}
+    batches = len(rows) // BATCH
+    check_geometry_launches(model, counts, batches, "nb")
+    for name, per in GEOMETRY_LAUNCHES[model].items():
+        if per:
+            records[name].setdefault("launches_by_path", {})[f"{model} nb"] = counts[name]
+            records[name].setdefault("calls_per_batch", {})[f"{model} nb"] = (
+                counts[name] / batches)
     return stats
 
 
@@ -1177,31 +1455,44 @@ def phase_randla_nu(prep: str, records) -> list[dict]:
     return runs
 
 
-def phase_pointnet2_nu(data: str, records) -> dict:
-    """PointNet++ NU through the CLI on 8 blocks at batch 8: the
-    geometry's 8 bottom-k launches and one more per C&W step for the
-    smooth term. The checkpoint is ``phase_slice``'s with +2 on the
-    ceiling, floor and wall logits (3/4 of the room's points): the
-    random weights alone start below NU's 1/13 accuracy exit on every
-    block, so the attack would stop at its first step."""
+def phase_pointnet2_nu(data: str, records, model: str = "pointnet2") -> dict:
+    """NU through the CLI on 8 blocks at batch 8: the geometry's
+    launches and one more bottom-k per C&W step for the smooth term.
+    The checkpoint is ``phase_slice``'s with +2 on the ceiling, floor and
+    wall logits (3/4 of the room's points): the random weights alone
+    start below NU's 1/13 accuracy exit on every block, so the attack
+    would stop at its first step. SSG runs the preset's 1000 steps or its
+    exit; the other models ``BLOCK_NU_STEPS``."""
+    import dataclasses
+
+    from pointsecguard_tpu_torch import attacks
     from pointsecguard_tpu_torch.cli import attack as cli
     from pointsecguard_tpu_torch.ops import cuda as kernels
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
-    sd = load_checkpoint(os.path.join(WORK, "log"))
+    src = "log" if model == "pointnet2" else f"log_{model}"
+    sd = load_checkpoint(os.path.join(WORK, src))
     sd["cls.bias"][:3] += 2.0
-    log = os.path.join(WORK, "log_nu")
+    log = os.path.join(WORK, f"{src}_nu")
     save_checkpoint(log, sd)
-    argv = ["--model", "pointnet2", "--attack", "nu", "--data_root", data,
+    argv = ["--model", model, "--attack", "nu", "--data_root", data,
             "--log_dir", log, "--num_point", str(NUM_POINT),
             "--batch_size", str(BATCH), "--max_blocks", str(NU_BLOCKS)]
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    clean_m, adv_m = cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    rows = read_tsv(os.path.join(log, "pointnet2_nu_area5.tsv"))
+    key = ("pointnet2", "nu")  # every PointNet-family model takes these presets
+    preset = attacks._PRESETS[key]
+    cut = model != "pointnet2"
+    if cut:
+        attacks._PRESETS[key] = dataclasses.replace(preset, steps=BLOCK_NU_STEPS)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        clean_m, adv_m = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        attacks._PRESETS[key] = preset
+    rows = read_tsv(os.path.join(log, f"{model}_nu_area5.tsv"))
     col = {c: np.array([float(r[c]) for r in rows]) for c in
            ("clean_acc", "adv_acc", "l2", "time_s", "steps")}
     S = int(col["steps"].max())
@@ -1215,18 +1506,22 @@ def phase_pointnet2_nu(data: str, records) -> dict:
         "l2_mean": float(col["l2"].mean()),
         "launches": counts,
     }
-    print("pointnet2 nu: " + json.dumps(stats))
+    print(("pointnet2 nu: " if model == "pointnet2" else
+           f"{model} nu ({BLOCK_NU_STEPS} steps at most): ") + json.dumps(stats))
     values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
     if len(rows) != NU_BLOCKS or not all(math.isfinite(v) for v in values):
-        raise AssertionError(f"PointNet++ NU: {len(rows)} rows or a non-finite value")
-    if counts["fps"] != 4 or counts["bottom_k"] != 8 + S:
-        raise AssertionError(f"PointNet++ NU launches {counts}, want fps 4 and "
-                             f"bottom_k 8 + {S} steps")
-    if S > 1 and not stats["adv_acc"] < stats["clean_acc"]:
+        raise AssertionError(f"{model} NU: {len(rows)} rows or a non-finite value")
+    geo = GEOMETRY_LAUNCHES[model]
+    if (counts["fps"] != geo["fps"] or counts["bottom_k"] != geo["bottom_k"] + S
+            or (cut and S > BLOCK_NU_STEPS)):
+        raise AssertionError(f"{model} NU launches {counts}, want fps {geo['fps']} and "
+                             f"bottom_k {geo['bottom_k']} + {S} steps")
+    if not cut and S > 1 and not stats["adv_acc"] < stats["clean_acc"]:
         raise AssertionError("the NU attack did not lower the mean accuracy")
-    records["fps"]["calls_per_batch"]["pointnet2 nu"] = counts["fps"]
-    records["bottom_k"]["calls_per_batch"]["pointnet2 nu"] = (
-        f"{counts['bottom_k']} over {S} steps (8 + 1 per step)")
+    if geo["fps"]:
+        records["fps"]["calls_per_batch"][f"{model} nu"] = counts["fps"]
+    records["bottom_k"]["calls_per_batch"][f"{model} nu"] = (
+        f"{counts['bottom_k']} over {S} steps ({geo['bottom_k']} + 1 per step)")
     return stats
 
 
@@ -1503,10 +1798,11 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
 
 
-def phase_train_step(dev) -> dict:
-    """One optimizer step of the full-width model from the same weights,
-    batch (8 × 4096), FPS starts and dropout mask, on the card (kernels)
-    and on the CPU (plain versions).
+def phase_train_step(dev, model: str = "pointnet2", batch: int = BATCH) -> dict:
+    """One optimizer step of a full-width block model (SSG by default)
+    from the same weights, batch (``batch`` × 4096), FPS starts and
+    dropout mask (PointNet: neither; its step adds the feature-transform
+    aux loss), on the card (kernels) and on the CPU (plain versions).
 
     Geometry: FPS centres equal; ball-query and 3-NN indices agree on
     ≥ 0.999 of the entries (the distance product rounds differently on the
@@ -1520,55 +1816,56 @@ def phase_train_step(dev) -> dict:
     statistics 1e-3 of the largest. The first Adam update is
     lr · g / (|g| + ε), ±lr whatever the size of g, so the parameters'
     move is compared where |g| is clear of rounding noise (above a fifth
-    of its tensor's largest entry; never a Linear bias under a BatchNorm,
-    whose true gradient is 0): within 1e-5 there."""
-    from pointsecguard_tpu_torch.models import (
-        PointNet2SemSegSSG, build_geometry, init_parameters, weighted_nll_loss,
+    of its tensor's largest entry; never a tensor whose true gradient is
+    0, ``_block_noise_only``): within 1e-5 there."""
+    from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
+    from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS, TrainState, make_train_step,
     )
-    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step
 
-    blocks = train_blocks(dev, BATCH)
+    model_cls, family = POINTNET_MODELS[model]
+    blocks = train_blocks(dev, batch)
     gen = torch.Generator().manual_seed(11)
     labels = torch.randint(0, 13, blocks.shape[:2], generator=gen)
     weights = 0.5 + torch.rand(13, generator=gen)
-    mask = torch.rand((BATCH, NUM_POINT, 128), generator=gen) >= 0.5
+    mask = torch.rand((batch, NUM_POINT, 128), generator=gen) >= 0.5
     sizes = (NUM_POINT, 1024, 256, 64)
-    starts = [torch.randint(0, n, (BATCH,), generator=gen, dtype=torch.int32) for n in sizes]
-    geo_gpu = build_geometry(blocks[..., :3], start_idx=[s.to(dev) for s in starts])
-    geo_cpu = build_geometry(blocks[..., :3].cpu(), start_idx=starts)
-    for li in range(4):
-        if not torch.equal(geo_gpu["sa"][li][0].cpu(), geo_cpu["sa"][li][0]):
-            raise AssertionError(f"train geometry: FPS centres differ card vs CPU at level {li}")
-        if not torch.equal(geo_gpu["sa"][li][0][:, 0].cpu(),
-                           ([blocks[..., :3].cpu()] + [g[0] for g in geo_cpu["sa"]])[li][
-                               torch.arange(BATCH), starts[li].long()]):
-            raise AssertionError("train geometry: a level does not begin at its start")
-    agree = [
-        (geo_gpu[part][li][item].cpu() == geo_cpu[part][li][item]).float().mean().item()
-        for part, item in (("sa", 1), ("fp", 0)) for li in range(4)
-    ]
-    if min(agree) < 0.999:
-        raise AssertionError(f"train geometry: neighbour agreement {min(agree)} < 0.999")
-    geo_shared = {k: tuple(tuple(t.cpu() for t in p) for p in v) for k, v in geo_gpu.items()}
+    starts = [torch.randint(0, n, (batch,), generator=gen, dtype=torch.int32) for n in sizes]
+    geo_gpu = family.plan(blocks, start_idx=[s.to(dev) for s in starts])
+    agree = [1.0]
+    if geo_gpu is not None:
+        geo_cpu = family.plan(blocks.cpu(), start_idx=starts)
+        for li in range(4):
+            if not torch.equal(geo_gpu["sa"][li][0].cpu(), geo_cpu["sa"][li][0]):
+                raise AssertionError(f"train geometry: FPS centres differ card vs CPU at "
+                                     f"level {li}")
+            if not torch.equal(geo_gpu["sa"][li][0][:, 0].cpu(),
+                               ([blocks[..., :3].cpu()] + [g[0] for g in geo_cpu["sa"]])[li][
+                                   torch.arange(batch), starts[li].long()]):
+                raise AssertionError("train geometry: a level does not begin at its start")
+        agree = [(g.cpu() == c).float().mean().item()
+                 for g, c in zip(_neighbour_indices(geo_gpu), _neighbour_indices(geo_cpu))]
+        if min(agree) < 0.999:
+            raise AssertionError(f"train geometry: neighbour agreement {min(agree)} < 0.999")
+    geo_shared = _to_device(geo_gpu, torch.device("cpu"), torch.float32)
 
     out = {}
     for name, device, geo in (("card", dev, geo_gpu), ("cpu", torch.device("cpu"), geo_shared)):
-        model = PointNet2SemSegSSG()
-        init_parameters(model, torch.Generator().manual_seed(3))
-        state = TrainState(model.to(device))
+        net = model_cls()
+        init_parameters(net, torch.Generator().manual_seed(3))
+        state = TrainState(net.to(device))
         before = state.params.clone()
-        step = make_train_step(model, weighted_nll_loss)
+        step = make_train_step(net, weighted_nll_loss, family=family)
         t0 = time.perf_counter()
         loss = step(state, blocks.to(device), labels.to(device), weights.to(device),
                     TRAIN_LR, 0.1, dropout_mask=mask.to(device), geometry=geo)
-        named = [(k, p.numel()) for k, p in model.named_parameters()]
+        named = [(k, p.numel()) for k, p in net.named_parameters()]
         out[name] = {"loss": loss.item(), "grads": state.grads.cpu(), "mu": state.mu.cpu(),
                      "nu": state.nu.cpu(), "move": (state.params - before).cpu(),
                      "stats": state.stats.cpu(), "seconds": time.perf_counter() - t0}
     card, cpu = out["card"], out["cpu"]
-    # a Linear bias under a BatchNorm has a true gradient of 0: all noise
     clear = torch.cat([
-        (g.abs() > 0.2 * g.abs().max()) & (not key.endswith("dense.bias"))
+        (g.abs() > 0.2 * g.abs().max()) & (not _block_noise_only(model, key))
         for (key, _), g in zip(named, cpu["grads"].split([n for _, n in named]))])
     res = {
         "loss_card": card["loss"], "loss_cpu": cpu["loss"],
@@ -1581,9 +1878,10 @@ def phase_train_step(dev) -> dict:
         "stats_max_abs": (card["stats"] - cpu["stats"]).abs().max().item(),
         "stats_max": cpu["stats"].abs().max().item(),
         "neighbour_agreement_min": min(agree),
-        "cpu_step_s": cpu["seconds"],
+        "card_step_s": card["seconds"], "cpu_step_s": cpu["seconds"],
     }
-    print("train step, card vs CPU: " + json.dumps(res))
+    print(("train step, card vs CPU: " if model == "pointnet2" else
+           f"{model} train step [{batch}, {NUM_POINT}], card vs CPU: ") + json.dumps(res))
     ok = (math.isfinite(card["loss"]) and res["loss_rel"] <= 1e-4
           and res["grad_rel_l2"] <= 2e-2 and res["mu_rel_l2"] <= 2e-2
           and res["nu_rel_l2"] <= 4e-2 and res["move_max_abs_where_clear"] <= 1e-5
@@ -1591,8 +1889,30 @@ def phase_train_step(dev) -> dict:
           and res["stats_max_abs"] <= 1e-3 * res["stats_max"]
           and card["move"].abs().max().item() > 0)
     if not ok:
-        raise AssertionError("the card's train step disagrees with the CPU's")
+        raise AssertionError(f"the card's {model} train step disagrees with the CPU's")
     return res
+
+
+def _neighbour_indices(geo: dict) -> list:
+    """The ball-query groups (one or, for MSG, one per radius a level) and
+    the 3-NN indices of a geometry plan."""
+    groups = []
+    for _, idx in geo["sa"]:
+        groups += list(idx) if isinstance(idx, tuple) else [idx]
+    return groups + [idx for idx, _ in geo["fp"]]
+
+
+def _block_noise_only(model: str, key: str) -> bool:
+    """Parameters whose true gradient is 0, so that what they get is
+    rounding noise: a Linear bias under a BatchNorm, and in PointNet the
+    BatchNorm bias of the last conv before a max over the points (the
+    shift passes the max whole, the same for every cloud, and the next
+    BatchNorm takes it out; the STNs' ReLU clips no channel's max of 4096
+    points)."""
+    return key.endswith("dense.bias") or model == "pointnet" and key in (
+        "feat.stn.fc.0.bias", "feat.stn.fc.1.bias", "feat.fstn.fc.0.bias",
+        "feat.fstn.fc.1.bias", "feat.conv3.bn.bias", "feat.stn.convs.2.bn.bias",
+        "feat.fstn.convs.2.bn.bias")
 
 
 def read_events(log: str) -> list[dict]:
@@ -1600,33 +1920,43 @@ def read_events(log: str) -> list[dict]:
         return [json.loads(line) for line in f]
 
 
-def phase_train(dev, records) -> tuple[str, str, dict]:
-    """Training through ``cli.train.main`` at full width, then a resumed
-    call with one more epoch; returns the data root, the log dir and the
-    figures of the run."""
+def phase_train(dev, records, model: str = "pointnet2", n_epochs: int = TRAIN_EPOCHS,
+                data: str | None = None) -> tuple[str, str, dict]:
+    """Training of a block model (SSG by default) through
+    ``cli.train.main`` at full width for ``n_epochs`` epochs (an eval every
+    ``TRAIN_EVAL_EVERY`` and after the last), then a resumed call with one
+    more epoch: losses finite and falling, one geometry's launches per
+    step and per eval batch. ``data`` reuses rooms made before. Returns
+    the data root, the log dir and the figures of the run."""
     from pointsecguard_tpu_torch.cli import train as cli
     from pointsecguard_tpu_torch.data import (
         RoomSet, S3DISBlockSampler, WholeSceneBlocks, make_synthetic_rooms,
     )
-    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG, weighted_nll_loss
+    from pointsecguard_tpu_torch.models import weighted_nll_loss
     from pointsecguard_tpu_torch.ops import cuda as kernels
-    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step
+    from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS, TrainState, make_train_step,
+    )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
 
-    data = os.path.join(WORK, "train_data")
-    make_synthetic_rooms(data, points_per_room=ROOM_POINTS, seed=0, train_areas=TRAIN_AREAS)
-    log = os.path.join(WORK, "train_log")
+    if data is None:
+        data = os.path.join(WORK, "train_data")
+        make_synthetic_rooms(data, points_per_room=ROOM_POINTS, seed=0,
+                             train_areas=TRAIN_AREAS)
+    log = os.path.join(WORK, "train_log" if model == "pointnet2" else f"train_log_{model}")
     rooms = RoomSet.load(data, "train", 5)
     sampler = S3DISBlockSampler(rooms, num_point=NUM_POINT)
     steps_per_epoch = -(-len(sampler) // TRAIN_BATCH)
     test_blocks = WholeSceneBlocks(RoomSet.load(data, "test", 5), block_points=NUM_POINT
                                    ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
     eval_batches = -(-test_blocks // TRAIN_BATCH)
-    if steps_per_epoch * TRAIN_EPOCHS < 60:
+    if model == "pointnet2" and steps_per_epoch * n_epochs < 60:
         raise AssertionError(f"{steps_per_epoch} steps an epoch: fewer than 60 in all")
+    want_evals = sum((e + 1) % TRAIN_EVAL_EVERY == 0 or e == n_epochs - 1
+                     for e in range(n_epochs))
 
     def argv(epochs):
-        return ["--model", "pointnet2", "--data_root", data, "--log_dir", log,
+        return ["--model", model, "--data_root", data, "--log_dir", log,
                 "--npoint", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH),
                 "--epochs", str(epochs), "--eval_every", str(TRAIN_EVAL_EVERY),
                 "--learning_rate", str(TRAIN_LR)]
@@ -1635,7 +1965,7 @@ def phase_train(dev, records) -> tuple[str, str, dict]:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    _, best_miou = cli.main(argv(TRAIN_EPOCHS))
+    _, best_miou = cli.main(argv(n_epochs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -1644,44 +1974,42 @@ def phase_train(dev, records) -> tuple[str, str, dict]:
     events = read_events(log)
     epochs = [e for e in events if e["event"] == "epoch"]
     evals = [e for e in events if e["event"] == "eval"]
-    if [e["epoch"] for e in epochs] != list(range(TRAIN_EPOCHS)):
+    if [e["epoch"] for e in epochs] != list(range(n_epochs)):
         raise AssertionError(f"epoch lines {[e['epoch'] for e in epochs]}")
-    if len(evals) != 2:
-        raise AssertionError(f"{len(evals)} evals, want 2")
+    if len(evals) != want_evals:
+        raise AssertionError(f"{len(evals)} evals, want {want_evals}")
     if any(e["batches"] != steps_per_epoch or e["nan_batches"] for e in epochs):
         raise AssertionError(f"steps or skipped batches: {epochs}")
     if not all(math.isfinite(e["loss"]) for e in epochs):
         raise AssertionError("a non-finite epoch loss")
     if not epochs[-1]["loss"] < epochs[0]["loss"]:
         raise AssertionError("the last epoch's mean loss is not below the first's")
-    steps = steps_per_epoch * TRAIN_EPOCHS
+    steps = steps_per_epoch * n_epochs
     passes = steps + len(evals) * eval_batches  # geometries built
-    if counts["fps"] != 4 * passes or counts["bottom_k"] != 8 * passes:
-        raise AssertionError(f"train launches {counts}, want fps {4 * passes} and bottom_k "
-                             f"{8 * passes} ({steps} steps, {len(evals)} × {eval_batches} "
-                             "eval batches)")
-    if any(counts[k] for k in counts if k not in ("fps", "bottom_k")):
-        raise AssertionError(f"a kernel off the training path launched: {counts}")
-    for name, per in (("fps", 4), ("bottom_k", 8)):
-        records[name]["launches_by_path"]["pointnet2 train"] = counts[name]
-        records[name]["calls_per_batch"]["pointnet2 train step"] = per
-        records[name]["calls_per_batch"]["pointnet2 eval batch"] = per
+    check_geometry_launches(model, counts, passes,
+                            f"train ({steps} steps, {len(evals)} × {eval_batches} eval batches)")
+    for name, per in GEOMETRY_LAUNCHES[model].items():
+        if per:
+            records[name]["launches_by_path"][f"{model} train"] = counts[name]
+            records[name]["calls_per_batch"][f"{model} train step"] = per
+            records[name]["calls_per_batch"][f"{model} eval batch"] = per
 
     # the resumed call: one more epoch, none repeated
-    cli.main(argv(TRAIN_EPOCHS + 1))
+    cli.main(argv(n_epochs + 1))
     resumed = [e["epoch"] for e in read_events(log) if e["event"] == "epoch"]
-    if resumed != list(range(TRAIN_EPOCHS + 1)):
+    if resumed != list(range(n_epochs + 1)):
         raise AssertionError(f"epochs after the resumed call: {resumed}")
     latest = CheckpointManager(os.path.join(log, "checkpoints")).restore_latest()
-    if latest["epoch"] != TRAIN_EPOCHS + 1 or latest["step"] != steps + steps_per_epoch:
+    if latest["epoch"] != n_epochs + 1 or latest["step"] != steps + steps_per_epoch:
         raise AssertionError(f"resumed checkpoint: epoch {latest['epoch']}, step {latest['step']}")
 
-    # the step alone on the card: CUDA events around each of 5 steps on
+    # the step alone on the card: CUDA events around each of 10 steps on
     # batches that already lie there
-    model = PointNet2SemSegSSG()
-    state = TrainState(model.to(dev))
+    model_cls, family = POINTNET_MODELS[model]
+    net = model_cls()
+    state = TrainState(net.to(dev))
     state.load_payload(latest)
-    step = make_train_step(model, weighted_nll_loss)
+    step = make_train_step(net, weighted_nll_loss, family=family)
     rng = np.random.default_rng(1)
     pts, labels = next(iter(sampler.batches(rng, TRAIN_BATCH)))
     pts, labels = torch.from_numpy(pts).to(dev), torch.from_numpy(labels).to(dev)
@@ -1712,43 +2040,48 @@ def phase_train(dev, records) -> tuple[str, str, dict]:
         "peak_device_memory_gb": peak / 1e9,
         "main_wall_s": wall, "launches": counts,
     }
-    print("train: " + json.dumps(stats))
+    print(("train: " if model == "pointnet2" else f"{model} train: ") + json.dumps(stats))
     return data, log, stats
 
 
-def phase_eval(data: str, log: str) -> float:
-    """``cli.eval --num_votes 1`` on the trained checkpoint."""
+def phase_eval(data: str, log: str, model: str = "pointnet2") -> float:
+    """``cli.eval --num_votes 1`` on the trained checkpoint: one
+    geometry's launches a batch."""
     from pointsecguard_tpu_torch.cli import eval as cli
     from pointsecguard_tpu_torch.ops import cuda as kernels
 
     kernels.reset_launch_counts()
-    total = cli.main(["--model", "pointnet2", "--data_root", data, "--log_dir", log,
+    total = cli.main(["--model", model, "--data_root", data, "--log_dir", log,
                       "--num_point", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH),
                       "--num_votes", "1"])
     counts = kernels.launch_counts()
-    print(f"eval: accuracy {total.accuracy:.4f}, mIoU {total.miou:.4f} on the Area-5 room "
+    print(("eval: " if model == "pointnet2" else f"{model} eval: ")
+          + f"accuracy {total.accuracy:.4f}, mIoU {total.miou:.4f} on the Area-5 room "
           f"(floor {EVAL_ACC_FLOOR}, chance 1/13 = {1 / 13:.4f}); launches {counts}")
     if not (math.isfinite(total.miou) and total.accuracy >= EVAL_ACC_FLOOR >= 2 / 13):
         raise AssertionError(f"eval accuracy {total.accuracy} under the floor {EVAL_ACC_FLOOR}")
-    if counts["fps"] <= 0 or counts["bottom_k"] != 2 * counts["fps"]:
+    per = GEOMETRY_LAUNCHES[model]["fps"]
+    batches = counts["fps"] // per if per else 0
+    if per and batches <= 0:
         raise AssertionError(f"eval launches {counts}")
+    check_geometry_launches(model, counts, batches, "eval")
     return total.accuracy
 
 
-def phase_attack_trained(data: str, log: str) -> dict:
+def phase_attack_trained(data: str, log: str, model: str = "pointnet2") -> dict:
     """NB with ``--save_adv`` on the port's own trained checkpoint, then
     ``cli.eval --adv_set`` on what it wrote."""
     from pointsecguard_tpu_torch.cli import attack, eval as cli_eval
 
     clean_m, adv_m = attack.main([
-        "--model", "pointnet2", "--attack", "nb", "--save_adv", "--data_root", data,
+        "--model", model, "--attack", "nb", "--save_adv", "--data_root", data,
         "--log_dir", log, "--num_point", str(NUM_POINT), "--batch_size", str(BATCH),
         "--max_blocks", str(MAX_BLOCKS)])
-    rows = read_tsv(os.path.join(log, "pointnet2_nb_area5.tsv"))
+    rows = read_tsv(os.path.join(log, f"{model}_nb_area5.tsv"))
     clean = float(np.mean([float(r["clean_acc"]) for r in rows]))
     adv = float(np.mean([float(r["adv_acc"]) for r in rows]))
-    path = os.path.join(log, "pointnet2_nb_adv_area5.npz")
-    m = cli_eval.main(["--model", "pointnet2", "--log_dir", log, "--adv_set", path,
+    path = os.path.join(log, f"{model}_nb_adv_area5.npz")
+    m = cli_eval.main(["--model", model, "--log_dir", log, "--adv_set", path,
                        "--batch_size", str(BATCH)])
     stats = {"blocks": len(rows), "clean_acc": clean, "adv_acc": adv,
              "l2_mean": float(np.mean([float(r["l2"]) for r in rows])),
@@ -1756,7 +2089,8 @@ def phase_attack_trained(data: str, log: str) -> dict:
                  [1e3 * float(r["time_s"]) for r in rows[BATCH:]])),
              "clean_miou": clean_m.miou, "adv_miou": adv_m.miou,
              "adv_set_accuracy": m.accuracy}
-    print("attack on the trained checkpoint: " + json.dumps(stats))
+    print(("attack on the trained checkpoint: " if model == "pointnet2" else
+           f"{model} attack on the trained checkpoint: ") + json.dumps(stats))
     if len(rows) != MAX_BLOCKS or not adv < clean:
         raise AssertionError("NB did not lower the trained model's accuracy")
     if clean < 2 / 13:
@@ -2858,7 +3192,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 8, 14, 20, 21 and 27); the last line then carries "
+                             "(3, 4, 5, 8, 14, 20, 21, 27 and 35); the last line then carries "
                              "\"ok\": false, "
                              "because the slices were not driven")
     args = parser.parse_args(argv)
@@ -2883,7 +3217,7 @@ def main(argv=None) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
-    t0 = time.perf_counter()
+    started = t0 = time.perf_counter()
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({build.library_path().name})")
     log = build.BUILD_DIR / "build.log"
@@ -2935,6 +3269,9 @@ def main(argv=None) -> int:
     train_feats, train_labels = phase_randla_train_knn(dev, records, prep)
     phase_bottom_k_vjp(dev)
     selection = phase_resgcn_kernels(dev, records, data)
+    t0 = time.perf_counter()
+    phase_msg_kernels(dev, records)
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s")
     if args.kernels_only:
         print(json.dumps({"selection": [selection]}))
         print(json.dumps({"kernels": list(records.values())}))
@@ -2968,12 +3305,29 @@ def main(argv=None) -> int:
     resgcn_data, resgcn_log, _ = phase_resgcn_train(dev, records)
     phase_resgcn_eval(resgcn_data, resgcn_log, records)
     phase_resgcn_attack_trained(resgcn_data, resgcn_log)
+    phases_36_41 = time.perf_counter()
+    for model in BLOCK_MODELS:
+        t0 = time.perf_counter()
+        phase_block_reference(dev, model)
+        phase_slice(dev, records, data, model)
+        phase_pointnet2_nu(data, records, model)
+        t1 = time.perf_counter()
+        phase_train_step(dev, model, TRAIN_BATCH)
+        t2 = time.perf_counter()
+        _, log, _ = phase_train(dev, records, model, BLOCK_TRAIN_EPOCHS, data=train_data)
+        phase_eval(train_data, log, model)
+        phase_attack_trained(train_data, log, model)
+        print(f"{model} phases 36-41: {time.perf_counter() - t0:.1f} s (36-37 "
+              f"{t1 - t0:.1f}, 38 {t2 - t1:.1f}, 39-41 {time.perf_counter() - t2:.1f})")
+    print(f"phases 36-41: {time.perf_counter() - phases_36_41:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "calls_per_batch")
-    for name, paths in (("fps", {"pointnet2 nb", "pointnet2 train"}),
-                        ("bottom_k", {"pointnet2 nb", "pointnet2 train"}),
+    geometry_paths = {"pointnet2 nb", "pointnet2 train", "pointnet2_msg nb",
+                      "pointnet2_msg train"}
+    for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval"})):
         by_path = records[name]["launches_by_path"]
@@ -2986,8 +3340,9 @@ def main(argv=None) -> int:
     print(json.dumps({"selection": [selection]}))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "resgcn_forward",
-                              "launches_by_path") if k in r}}
+         **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "msg_attack",
+                              "msg_train_step", "resgcn_forward", "launches_by_path")
+            if k in r}}
         for r in records.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,11 @@
 """Block attack loop of the port (port of
 ``pointsecguard_tpu/cli/_attack_blocks.py:18-511`` for PointNet++ SSG and
-ResGCN-28).
+MSG, PointNet and ResGCN-28).
 
 Per batch of blocks: for PointNet++ build the xyz-only geometry once (FPS
 and bottom-k kernels; ResGCN builds its graphs in every forward, four of
-them on the kNN kernel), clean forward, PGD (nb / tar_nb) or C&W (nu /
-tar_nu) attack,
-per-block TSV rows in the JAX CLI's format, with ``--save_adv`` the
+them on the kNN kernel; PointNet has none), clean forward, PGD (nb /
+tar_nb) or C&W (nu / tar_nu) attack, per-block TSV rows in the JAX CLI's format, with ``--save_adv`` the
 adversarial blocks as an ``.npz``; per room and per dataset,
 clean-vs-adversarial IoU from pooled votes
 (`NB_nontarget_test_semseg.py:64-294` protocol). ResGCN's targeted runs
@@ -34,29 +33,32 @@ def run_blocks(args, log):
     )
     from pointsecguard_tpu_torch.configs import resgcn_overrides
     from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
-    from pointsecguard_tpu_torch.models import (
-        DenseDeepGCN,
-        PointNet2SemSegSSG,
-        build_geometry,
-    )
+    from pointsecguard_tpu_torch.models import DenseDeepGCN
     from pointsecguard_tpu_torch.train.evaluator import add_votes
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS, resgcn_family
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(args.device)
+    # the JAX driver's model table (`_attack_blocks.py:51-98`): every model
+    # of the PointNet family takes the "pointnet2" presets
     resgcn = args.model == "resgcn"
-    model = DenseDeepGCN(**resgcn_overrides(args)) if resgcn else PointNet2SemSegSSG()
+    if resgcn:
+        model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
+    else:
+        model_cls, family = POINTNET_MODELS[args.model]
+        model = model_cls()
     model.load_state_dict(load_checkpoint(args.log_dir))
     # inference only: the attack needs input gradients, never parameter ones
     model.to(device).eval().requires_grad_(False)
 
     def make_outputs_fn(pts):
-        if resgcn:  # the logits; the graphs are rebuilt in every forward
-            return model
-        # xyz-only geometry, once per batch: colour attacks never move xyz
-        geo = build_geometry(pts[..., :3])
-        return lambda p: model(p, geometry=geo)[0]
+        # PointNet++: the xyz-only geometry, once per batch (colour attacks
+        # never move xyz); ResGCN rebuilds its graphs in every forward and
+        # PointNet has none, so their plan is None
+        plan = family.plan(pts)
+        return lambda p: family.head(family.apply(model, p, plan))
 
     rooms = RoomSet.load(args.data_root, "test", args.test_area)
     B = args.batch_size

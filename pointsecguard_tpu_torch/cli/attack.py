@@ -5,13 +5,12 @@
       --data_root data/stanford_indoor3d --log_dir log/pointnet2
 
 Ported: ``--attack nb|tar_nb`` (PGD) and ``nu|tar_nu`` (C&W) for
-``--model pointnet2`` and ``--model resgcn`` (with the ``--resgcn_*``
-model flags; targeted runs at ``--batch_size 1``, the per-cloud gates of
-`sem_seg_dense/attacks.py:204-207`) over whole-scene blocks
-(``cli/_attack_blocks.py``)
-and for ``--model randla`` over spatially-regular S3DIS clouds
-(``cli/_attack_randla.py``, prepared with ``data.randla.prepare_room``
-under ``--randla_dir``); ``--fused_ap`` (``--model randla`` only) runs
+``--model pointnet2``, ``pointnet2_msg``, ``pointnet`` and ``resgcn``
+(with the ``--resgcn_*`` model flags; targeted runs at ``--batch_size 1``,
+the per-cloud gates of `sem_seg_dense/attacks.py:204-207`) over
+whole-scene blocks (``cli/_attack_blocks.py``) and for ``--model randla``
+over spatially-regular S3DIS clouds (``cli/_attack_randla.py``, prepared
+with ``data.randla.prepare_room`` under ``--randla_dir``); ``--fused_ap`` (``--model randla`` only) runs
 the narrow attentive poolings through the fused kernels; ``--save_adv``
 writes the adversarial blocks or clouds for ``cli.eval --adv_set``. The checkpoint is the port's own (``<log_dir>/checkpoints/``:
 ``best.pt``, else ``latest.pt``, see ``utils/checkpoint.py``). It runs on
@@ -29,7 +28,7 @@ from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusal
 
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
-PORTED_MODELS = ("pointnet2", "randla", "resgcn")
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu")
 # JAX CLI flags this port does not implement yet
 _UNPORTED_SWITCHES = (

@@ -8,10 +8,11 @@
   python -m pointsecguard_tpu_torch.cli.eval --model randla \
       --randla_dir data/randla_input_0.040 --log_dir log/randla [--num_clouds 200]
 
-Ported: ``--model pointnet2`` with ``--num_votes``, ``--num_point``
-(0 → 4096), ``--batch_size`` (0 → 16), ``--seed`` and ``--adv_set`` (a
-saved adversarial set from ``cli.attack --save_adv``), and so
-``--model resgcn`` with the ``--resgcn_*`` model flags; ``--model randla``
+Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet`` with
+``--num_votes``, ``--num_point`` (0 → 4096), ``--batch_size`` (0 → 16),
+``--seed`` and ``--adv_set`` (a saved adversarial set from
+``cli.attack --save_adv``), and so ``--model resgcn`` with the
+``--resgcn_*`` model flags; ``--model randla``
 (whole-cloud voting, ``_eval_randla``) with ``--randla_dir``,
 ``--randla_points`` (0 → 40960), ``--num_clouds``, ``--batch_size``
 (0 → the config's val_batch_size 1), ``--seed`` and ``--adv_set``. The
@@ -36,7 +37,7 @@ from pointsecguard_tpu_torch.configs import (
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "randla", "resgcn")
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 _UNPORTED_DEFAULTS = {
     "num_category": 40, "randla_dataset": "s3dis", "save_preds": None, "devices": 1,
     "shard_points": 1, "precision": "float32",
@@ -58,8 +59,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--num_point", type=int, default=0,
                     help="points per block (0 = 4096)")
     ap.add_argument("--batch_size", type=int, default=0,
-                    help="0 = 16 (pointnet2, resgcn), the config's val_batch_size "
-                         "1 (randla)")
+                    help="0 = 16 (the PointNet family, resgcn), the config's "
+                         "val_batch_size 1 (randla)")
     ap.add_argument("--num_votes", type=int, default=5)
     ap.add_argument("--randla_dir", default="data/randla_input_0.040",
                     help="randla: the prepared clouds (data.randla.prepare_room)")
@@ -223,9 +224,13 @@ def main(argv=None):
     import numpy as np
 
     from pointsecguard_tpu_torch.data import S3DIS_CLASSES, RoomSet
-    from pointsecguard_tpu_torch.models import DenseDeepGCN, PointNet2SemSegSSG
+    from pointsecguard_tpu_torch.models import DenseDeepGCN
     from pointsecguard_tpu_torch.train.evaluator import evaluate_whole_scenes
-    from pointsecguard_tpu_torch.train.trainer import POINTNET2, make_eval_step, resgcn_family
+    from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS,
+        make_eval_step,
+        resgcn_family,
+    )
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
@@ -238,7 +243,8 @@ def main(argv=None):
     if args.model == "resgcn":
         model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
     else:
-        model, family = PointNet2SemSegSSG(), POINTNET2
+        model_cls, family = POINTNET_MODELS[args.model]
+        model = model_cls()
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     predict = make_eval_step(model, device, family)

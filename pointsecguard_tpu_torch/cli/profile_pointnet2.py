@@ -1,12 +1,15 @@
-"""Breakdown of one PointNet++ NB batch (8 × 4096 points) or, with
-``--train``, of one train step (32 × 4096 points) on the card.
+"""Breakdown of one NB batch (8 × 4096 points) or, with ``--train``, of
+one train step (32 × 4096 points) on the card, for PointNet++ SSG
+(``--model pointnet2``, the default), MSG or PointNet.
 
-    python -m pointsecguard_tpu_torch.cli.profile_pointnet2 [--train] [--out FILE]
+    python -m pointsecguard_tpu_torch.cli.profile_pointnet2 \
+        [--model pointnet2|pointnet2_msg|pointnet] [--train] [--out FILE]
 
 Run from the root of a checkout: the set-up is ``chip_smoke.py``'s own
 (its synthetic room at 25k points/m², its calibrated full-width
 checkpoint for the attack, the trainer's initialisation for the step), so
-the numbers describe what the smoke run drives. Prints, as JSON, the
+the numbers describe what the smoke run drives. PointNet builds no
+geometry: its "geometry" part times the family's plan, which is None. Prints, as JSON, the
 median CUDA-event time of each part, the host-clock wall of 10 whole
 batches or steps, the peak device memory, and from 3 of them under
 ``torch.profiler`` the device busy time, the kernels launched and the
@@ -26,6 +29,8 @@ import time
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="pointnet2",
+                    choices=["pointnet2", "pointnet2_msg", "pointnet"])
     ap.add_argument("--train", action="store_true",
                     help="one train step of 32 blocks instead of one NB batch of 8")
     ap.add_argument("--out", default=None, help="also write the results here")
@@ -39,13 +44,12 @@ def main(argv=None) -> dict:
 
     from pointsecguard_tpu_torch.attacks import attack_preset, pgd_color_attack
     from pointsecguard_tpu_torch.cli.profile_randla import _busy_ms
-    from pointsecguard_tpu_torch.models import (
-        PointNet2SemSegSSG,
-        build_geometry,
-        init_parameters,
-        weighted_nll_loss,
+    from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
+    from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS,
+        TrainState,
+        make_train_step,
     )
-    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step
     from pointsecguard_tpu_torch.utils.runtime import require_cuda
 
     dev = require_cuda()
@@ -56,14 +60,15 @@ def main(argv=None) -> dict:
     labels = torch.randint(0, 13, blocks.shape[:2], device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = PointNet2SemSegSSG()
-    res = {"card": card, "what": f"train step, {n} blocks" if args.train
-           else f"NB batch, {n} blocks"}
+    model_cls, family = POINTNET_MODELS[args.model]
+    model = model_cls()
+    res = {"card": card, "model": args.model,
+           "what": f"train step, {n} blocks" if args.train else f"NB batch, {n} blocks"}
 
     if args.train:
         init_parameters(model, torch.Generator().manual_seed(0))
         state = TrainState(model.to(dev))
-        step = make_train_step(model, weighted_nll_loss)
+        step = make_train_step(model, weighted_nll_loss, family=family)
         weights = torch.ones(13, device=dev)
 
         def whole():
@@ -72,40 +77,45 @@ def main(argv=None) -> dict:
         def forward_backward():
             model.train()
             state.grads.zero_()
-            geo = build_geometry(blocks[..., :3], generator=gen)
-            out, _ = model(blocks, geometry=geo, momentum=0.9, generator=gen)
-            weighted_nll_loss(out, labels, weights).backward()
+            plan = family.plan(blocks, generator=gen)
+            out = family.apply(model, blocks, plan, 0.1, generator=gen)
+            loss = weighted_nll_loss(family.head(out), labels, weights)
+            if family.aux_loss is not None:
+                loss = loss + family.aux_loss(out)
+            loss.backward()
 
         parts = (
-            ("build_geometry, random starts",
-             lambda: build_geometry(blocks[..., :3], generator=gen), 10),
+            ("geometry, random starts", lambda: family.plan(blocks, generator=gen), 10),
             ("geometry + forward + backward", forward_backward, 10),
             ("whole step, CUDA events", whole, 10),
         )
     else:
-        model.load_state_dict(cs.calibrated_state_dict(0, dev))
+        model.load_state_dict(cs.calibrated_state_dict(0, dev, args.model))
         model.to(dev).eval().requires_grad_(False)
         cfg = attack_preset("pointnet2", "nb")
-        geo = build_geometry(blocks[..., :3])
+        plan = family.plan(blocks)
+
+        def outputs(p, g=plan):
+            return family.head(family.apply(model, p, g))
 
         def clean():
             with torch.no_grad():
-                return model(blocks, geometry=geo)[0]
+                return outputs(blocks)
 
         def fwd_bwd():
             c = blocks[..., 3:6].detach().requires_grad_(True)
-            out = model(torch.cat([blocks[..., :3], c, blocks[..., 6:]], -1), geometry=geo)[0]
+            out = outputs(torch.cat([blocks[..., :3], c, blocks[..., 6:]], -1))
             return torch.autograd.grad(out.sum(), c)
 
         def whole():  # what the attack CLI does per batch, transfers included
-            g = build_geometry(blocks[..., :3])
+            g = family.plan(blocks)
             with torch.no_grad():
-                pred = torch.argmax(model(blocks, geometry=g)[0], dim=-1)
-            r = pgd_color_attack(lambda p: model(p, geometry=g)[0], blocks, labels, cfg)
+                pred = torch.argmax(outputs(blocks, g), dim=-1)
+            r = pgd_color_attack(lambda p: outputs(p, g), blocks, labels, cfg)
             return r.adv_pred.cpu(), pred.cpu()
 
         parts = (
-            ("build_geometry", lambda: build_geometry(blocks[..., :3]), 10),
+            ("geometry", lambda: family.plan(blocks), 10),
             ("clean forward", clean, 10),
             ("one forward + input backward", fwd_bwd, 10),
             ("whole batch, CUDA events", whole, 5),

@@ -7,8 +7,9 @@
   python -m pointsecguard_tpu_torch.cli.train --model resgcn \
       --data_root data/stanford_indoor3d --log_dir log/resgcn [--epochs 32]
 
-Ported: ``--model pointnet2`` (PointNet++ SSG on S3DIS blocks through the
-host sampler) with ``--data_root``, ``--log_dir``, ``--test_area``,
+Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet``
+(PointNet++ SSG and MSG, PointNet on S3DIS blocks through the host
+sampler) with ``--data_root``, ``--log_dir``, ``--test_area``,
 ``--epochs``, ``--batch_size`` (0 → 32), ``--npoint`` (0 → 4096),
 ``--min_block_points``, ``--learning_rate`` (0 → 0.001), ``--seed``,
 ``--prefetch`` and ``--eval_every``; ``--model randla`` (RandLA-Net on
@@ -38,7 +39,7 @@ from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusal
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "randla", "resgcn")
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
 _UNPORTED_DEFAULTS = {
@@ -58,14 +59,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--epochs", type=int, default=32)
     ap.add_argument("--batch_size", type=int, default=0,
-                    help="0 = 32 (pointnet2), the config's 6 (randla), 8 (resgcn)")
+                    help="0 = 32 (pointnet2, pointnet2_msg, pointnet), the "
+                         "config's 6 (randla), 8 (resgcn)")
     ap.add_argument("--npoint", type=int, default=0,
                     help="points per block (0 = 4096)")
     ap.add_argument("--min_block_points", type=int, default=1024,
                     help="block sampler: accept training blocks with more "
                          "than this many raw points (`S3DISDataLoader.py:52-60`)")
     ap.add_argument("--learning_rate", type=float, default=0.0,
-                    help="0 = 0.001 (pointnet2), the config's 1e-2 (randla), "
+                    help="0 = 0.001 (the PointNet family), the config's 1e-2 (randla), "
                          "its 1e-3 (resgcn)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefetch", type=int, default=2,

@@ -34,8 +34,12 @@ def group_relative(
     feats: torch.Tensor | None,
     idx: torch.Tensor,
     centers: torch.Tensor,
+    *,
+    feats_first: bool = False,
 ) -> torch.Tensor:
-    """[centre-relative xyz | feats] neighbourhood gather, as ONE gather.
+    """[centre-relative xyz | feats] neighbourhood gather, as ONE gather
+    (``feats_first=True`` → [feats | rel-xyz], the MSG channel order,
+    `pointnet_util.py:255`).
 
     Equal to gathering xyz and feats apart and concatenating (subtracting
     0 from the feature half is exact), but the backward is one
@@ -44,6 +48,8 @@ def group_relative(
         return gather_points(xyz, idx) - centers[:, :, None, :]
     # by shape, not by slicing feats: npoint may exceed N (FPS wraps)
     zeros = feats.new_zeros((*centers.shape[:2], feats.shape[-1]))
-    both = gather_points(torch.cat([xyz, feats], dim=-1), idx)
-    offset = torch.cat([centers, zeros], dim=-1)
-    return both - offset[:, :, None, :]
+    parts, offsets = [xyz, feats], [centers, zeros]
+    if feats_first:
+        parts, offsets = parts[::-1], offsets[::-1]
+    both = gather_points(torch.cat(parts, dim=-1), idx)
+    return both - torch.cat(offsets, dim=-1)[:, :, None, :]

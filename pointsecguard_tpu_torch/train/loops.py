@@ -1,12 +1,15 @@
 """Training loops behind ``cli.train`` (port of
 ``pointsecguard_tpu/train/loops.py:71-611``): the PointNet family
-(``--model pointnet2``) and ResGCN-28 (``--model resgcn``) on the host
-block sampler, RandLA-Net on the spatially-regular sampler.
+(``--model pointnet2|pointnet2_msg|pointnet``) and ResGCN-28 (``--model
+resgcn``) on the host block sampler, RandLA-Net on the spatially-regular
+sampler.
 
-PointNet++ follows the reference script `train_semseg.py:148-265`:
-z-rotation augmentation, weighted NLL, Adam with step decay and the
-BatchNorm momentum anneal, whole-scene eval, best-mIoU checkpointing,
-auto-resume. RandLA-Net follows `RandLANet.py:197-311`: weighted softmax
+The PointNet family follows the reference script
+`train_semseg.py:148-265`: z-rotation augmentation, weighted NLL
+(PointNet: plus 0.001 times the feature-transform regularizer,
+`pointnet_sem_seg.py:40-49`), Adam with step decay and the BatchNorm
+momentum anneal, whole-scene eval, best-mIoU checkpointing, auto-resume.
+RandLA-Net follows `RandLANet.py:197-311`: weighted softmax
 cross-entropy, Adam without weight decay at ``1e-2 · 0.95^epoch``, a
 validation confusion after every epoch.
 
@@ -35,24 +38,21 @@ log = logging.getLogger(__name__)
 
 
 def train_pointnet_family(args, device: torch.device):
-    """Train ``args.model`` (pointnet2) on the rooms under
-    ``args.data_root``; returns ``(state, best mIoU)``. ``args`` carries
+    """Train ``args.model`` (pointnet2, pointnet2_msg or pointnet) on the
+    rooms under ``args.data_root``; returns ``(state, best mIoU)``. ``args`` carries
     ``cli.train``'s flags (data_root, log_dir, test_area, npoint,
     min_block_points, batch_size, learning_rate, seed, prefetch, epochs,
     eval_every)."""
     from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler, augment
     from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
-    from pointsecguard_tpu_torch.models import (
-        PointNet2SemSegSSG,
-        init_parameters,
-        weighted_nll_loss,
-    )
+    from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
     from pointsecguard_tpu_torch.train.evaluator import evaluate_whole_scenes
     from pointsecguard_tpu_torch.train.schedules import (
         pointnet2_bn_momentum,
         pointnet2_lr,
     )
     from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS,
         TrainState,
         make_eval_step,
         make_train_step,
@@ -75,11 +75,13 @@ def train_pointnet_family(args, device: torch.device):
     # the same draw is spent here, so that both loops train on the same
     # batches from the same seed
     next(iter(sampler.batches(rng, batch_size)))
-    model = PointNet2SemSegSSG()
+    model_cls, family = POINTNET_MODELS[args.model]
+    model = model_cls()
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
-    step_fn = make_train_step(model, weighted_nll_loss)
-    eval_fn = make_eval_step(model, device)
+    # PointNet's family adds 0.001 · the feature-transform regularizer
+    step_fn = make_train_step(model, weighted_nll_loss, family=family)
+    eval_fn = make_eval_step(model, device, family)
     weights = torch.from_numpy(
         np.asarray(rooms.label_weights, np.float32)).to(device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
@@ -90,7 +92,8 @@ def train_pointnet_family(args, device: torch.device):
         start_epoch = resumed["epoch"]
         log.info("resumed from epoch %d", start_epoch)
 
-    # FPS starts and dropout masks of every step, drawn on the device
+    # FPS starts and dropout masks of every step (PointNet++), drawn on
+    # the device
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     events = EventLog(f"{args.log_dir}/events.jsonl")
     tb = SummaryLogger(f"{args.log_dir}/tb")

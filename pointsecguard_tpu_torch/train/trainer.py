@@ -1,10 +1,11 @@
 """Training step of the segmentation models (port of
 ``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
 
-One step is: the family's neighbour plan (PointNet++: train-mode
-geometry with random FPS starts; RandLA-Net: the kNN pyramid; ResGCN:
-none, its graphs are built inside the forward), train-mode
-forward, loss, backward, Adam update and the BatchNorm running
+One step is: the family's neighbour plan (PointNet++ SSG and MSG:
+train-mode geometry with random FPS starts; RandLA-Net: the kNN pyramid;
+ResGCN: none, its graphs are built inside the forward; PointNet: none,
+it has no neighbourhoods), train-mode forward, loss (with PointNet's
+feature-transform term), backward, Adam update and the BatchNorm running
 statistics. A ``Family`` says how a model family is called, as the JAX
 step's ``model_args`` / ``output_head`` do. The lr and the BatchNorm
 momentum are call arguments, so the per-epoch annealing of the reference
@@ -29,7 +30,13 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch.configs import RandlaConfig
-from pointsecguard_tpu_torch.models.pointnet2 import build_geometry
+from pointsecguard_tpu_torch.models.pointnet import PointNetSemSeg, pointnet_aux_loss
+from pointsecguard_tpu_torch.models.pointnet2 import (
+    PointNet2SemSegMSG,
+    PointNet2SemSegSSG,
+    build_geometry,
+    build_geometry_msg,
+)
 from pointsecguard_tpu_torch.models.randlanet import build_pyramid
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -42,11 +49,15 @@ class Family(NamedTuple):
     plan from the points' xyz; ``apply(model, points, plan, bn_momentum,
     generator=, dropout_mask=)`` runs the forward (``bn_momentum`` is
     torch's share of the batch statistic, None in evaluation); ``head``
-    picks the per-point scores that the loss and the argmax read."""
+    picks the per-point scores that the loss and the argmax read;
+    ``aux_loss(out)``, where there is one, is the JAX step's hook of the
+    same name (`trainer.py:166-188`): a training loss added to the
+    head's."""
 
     plan: Callable
     apply: Callable
     head: Callable
+    aux_loss: Callable | None = None
 
 
 def _pointnet2_apply(model, points, plan, bn_momentum=None, **kw):
@@ -61,6 +72,28 @@ POINTNET2 = Family(
     apply=_pointnet2_apply,
     head=lambda out: out[0],  # log-probabilities
 )
+# MSG: the same draws of the generator (four FPS starts of [B], then the
+# dropout mask) over one ball query per radius
+POINTNET2_MSG = POINTNET2._replace(
+    plan=lambda points, generator=None, start_idx=None: build_geometry_msg(
+        points[..., :3], generator=generator, start_idx=start_idx))
+
+
+def _pointnet_apply(model, points, plan, bn_momentum=None, **kw):
+    # no neighbourhood and no dropout: the plan and the draws go unread
+    return model(points, momentum=0.9 if bn_momentum is None else 1.0 - bn_momentum)
+
+
+POINTNET = Family(plan=lambda points, generator=None, start_idx=None: None,
+                  apply=_pointnet_apply, head=lambda out: out[0],
+                  aux_loss=pointnet_aux_loss)
+# the block models of the PointNet family by their ``--model`` name: the
+# model class and its family
+POINTNET_MODELS = {
+    "pointnet2": (PointNet2SemSegSSG, POINTNET2),
+    "pointnet2_msg": (PointNet2SemSegMSG, POINTNET2_MSG),
+    "pointnet": (PointNetSemSeg, POINTNET),
+}
 
 
 def randla_family(cfg: RandlaConfig | None = None) -> Family:
@@ -182,13 +215,16 @@ def make_train_step(
     ``geometry`` (a plan of ``family.plan``) replaces the step's own, so
     that two devices can be held against each other on one plan.
     ``weight_decay`` is the L2 term of ``adam_update`` (RandLA: 0,
-    ``tf.train.AdamOptimizer`` has none).
+    ``tf.train.AdamOptimizer`` has none). The family's ``aux_loss``
+    adds to the loss before the backward (PointNet's
+    ``0.001 · feature_transform_regularizer``).
 
-    NaN guard: on a non-finite loss the step keeps the previous
-    parameters, Adam moments and count, and BatchNorm statistics (the
-    reference's only failure handling was RandLA's NaN catch that ended
-    the run, `RandLANet.py:237-247`). The returned loss still reports the
-    bad value, so that the epoch loop can count it.
+    NaN guard: on a non-finite loss (the sum, where there is an aux term)
+    the step keeps the previous parameters, Adam moments and count, and
+    BatchNorm statistics (the reference's only failure handling was
+    RandLA's NaN catch that ended the run, `RandLANet.py:237-247`). The
+    returned loss still reports the bad value, so that the epoch loop can
+    count it.
     """
 
     def train_step(state: TrainState, points, labels, class_weights, lr,
@@ -203,6 +239,8 @@ def make_train_step(
         out = family.apply(model, points, geometry, bn_momentum,
                            generator=generator, dropout_mask=dropout_mask)
         loss = loss_fn(family.head(out), labels, class_weights)
+        if family.aux_loss is not None:
+            loss = loss + family.aux_loss(out)
         loss.backward()
         adam_update(state, lr, weight_decay=weight_decay)
         ok = torch.isfinite(loss.detach())
@@ -219,8 +257,8 @@ def make_train_step(
 def make_eval_step(model: nn.Module, device: torch.device,
                    family: Family = POINTNET2) -> Callable:
     """``predict(points [B, P, C] numpy) → labels [B, P] numpy``: the
-    evaluation-mode forward (PointNet++: FPS from index 0; running
-    statistics, no dropout) and the argmax, for ``evaluate_whole_scenes``
+    evaluation-mode forward of any family (PointNet++: FPS from index 0;
+    running statistics, no dropout) and the argmax, for ``evaluate_whole_scenes``
     and RandLA's validation."""
 
     @torch.no_grad()

@@ -3,7 +3,8 @@
 Weights cross as numpy arrays keyed by flax paths, flattened with "/":
 ``params/SetAbstraction_0/PointMLP_0/PointConv_0/Dense_0/kernel``,
 ``batch_stats/.../BatchNorm_0/mean`` … (134 leaves for PointNet++ SSG,
-276 for RandLA-Net, 188 for ResGCN-28). PointNet++ SSG
+206 for MSG, 102 for PointNet, 276 for RandLA-Net, 188 for ResGCN-28).
+PointNet++ SSG
 (``from_jax_variables``) follows the flax auto-names the JAX importer writes
 (`pointsecguard_tpu/utils/importers.py:83-118`):
 
@@ -16,8 +17,11 @@ RandLA-Net (``randla_from_jax_variables``) maps module paths one to one
 (``randla_module_map``), in the flax declaration order of
 `pointsecguard_tpu/models/randlanet.py:252-254` and the schema of
 `utils/importers.py:461-579 map_randla_vars`; ResGCN
-(``resgcn_from_jax_variables``, 188 leaves at full width) likewise
-(``resgcn_module_map``).
+(``resgcn_from_jax_variables``, 188 leaves at full width), PointNet++
+MSG (``pointnet2_msg_from_jax_variables``: ``SetAbstractionMSG_i/
+PointMLP_j`` → ``sa.i.mlps.j``) and PointNet (``pointnet_from_jax_variables``:
+``PointNetEncoder_0/STN_0|STN_1`` → ``feat.stn|fstn``) likewise
+(``resgcn_module_map``, ``pointnet2_msg_module_map``, ``pointnet_module_map``).
 
 Dense kernels are [in, out] in flax and [out, in] in ``nn.Linear``.
 """
@@ -109,32 +113,32 @@ def to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarra
     return flat
 
 
+def _conv(m: dict, flax: str, port: str) -> None:
+    """A flax ``PointConv`` is two entries: its ``Dense_0`` and ``BatchNorm_0``."""
+    m[f"{flax}/Dense_0"] = f"{port}.dense"
+    m[f"{flax}/BatchNorm_0"] = f"{port}.bn"
+
+
 def randla_module_map(num_layers: int = 5) -> dict[str, str]:
-    """flax module path → ``RandLANet`` module path. A flax ``PointConv``
-    is two entries (its ``Dense_0`` and ``BatchNorm_0``)."""
+    """flax module path → ``RandLANet`` module path."""
     m = {"Dense_0": "fc0", "BatchNorm_0": "bn0", "Dense_1": "fc"}
-
-    def conv(flax: str, port: str) -> None:
-        m[f"{flax}/Dense_0"] = f"{port}.dense"
-        m[f"{flax}/BatchNorm_0"] = f"{port}.bn"
-
     for i in range(num_layers):
         blk, pblk = f"DilatedResBlock_{i}", f"blocks.{i}"
         lfa, plfa = f"{blk}/LocalFeatureAggregation_0", f"{pblk}.lfa"
-        conv(f"{blk}/PointConv_0", f"{pblk}.mlp1")
-        conv(f"{lfa}/PointConv_0", f"{plfa}.mlp1")
-        conv(f"{lfa}/PointConv_1", f"{plfa}.mlp2")
+        _conv(m, f"{blk}/PointConv_0", f"{pblk}.mlp1")
+        _conv(m, f"{lfa}/PointConv_0", f"{plfa}.mlp1")
+        _conv(m, f"{lfa}/PointConv_1", f"{plfa}.mlp2")
         for a in (0, 1):
             ap, pap = f"{lfa}/AttentivePooling_{a}", f"{plfa}.att_pooling_{a + 1}"
             m[f"{ap}/Dense_0"] = f"{pap}.fc"
-            conv(f"{ap}/PointConv_0", f"{pap}.mlp")
-        conv(f"{blk}/PointConv_1", f"{pblk}.mlp2")
-        conv(f"{blk}/PointConv_2", f"{pblk}.shortcut")
-    conv("PointConv_0", "decoder_0")
+            _conv(m, f"{ap}/PointConv_0", f"{pap}.mlp")
+        _conv(m, f"{blk}/PointConv_1", f"{pblk}.mlp2")
+        _conv(m, f"{blk}/PointConv_2", f"{pblk}.shortcut")
+    _conv(m, "PointConv_0", "decoder_0")
     for j in range(num_layers):
-        conv(f"PointConv_{1 + j}", f"decoders.{j}")
-    conv(f"PointConv_{1 + num_layers}", "fc1")
-    conv(f"PointConv_{2 + num_layers}", "fc2")
+        _conv(m, f"PointConv_{1 + j}", f"decoders.{j}")
+    _conv(m, f"PointConv_{1 + num_layers}", "fc1")
+    _conv(m, f"PointConv_{2 + num_layers}", "fc2")
     return m
 
 
@@ -154,16 +158,7 @@ def randla_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Te
     Raises ValueError unless every leaf is consumed and every tensor of
     the port model is filled with the right shape."""
     shape = _randla_shape(flat)
-    sd, unmapped = _mapped_state_dict(flat, randla_module_map(len(shape["d_out"])))
-    template = RandLANet(**shape).state_dict()
-    missing = sorted(set(template) - set(sd))
-    if unmapped or missing:
-        raise ValueError(f"flax leaves do not fill the port model: "
-                         f"missing {missing}, unconsumed {sorted(unmapped)}")
-    bad = [k for k in template if template[k].shape != sd[k].shape]
-    if bad:
-        raise ValueError(f"shape mismatch for {bad}")
-    return sd
+    return _filled(flat, randla_module_map(len(shape["d_out"])), RandLANet(**shape))
 
 
 def randla_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
@@ -190,6 +185,23 @@ def _mapped_state_dict(flat: dict, modules: dict[str, str]):
         key = f"{modules[mod]}.{'weight' if leaf == 'kernel' else leaf}"
         sd[key] = torch.from_numpy(np.array(arr, order="C"))
     return sd, unmapped
+
+
+def _filled(flat: dict, modules: dict[str, str], model) -> dict[str, torch.Tensor]:
+    """The state dict of ``model`` from flat flax leaves under a module map.
+
+    Raises ValueError unless every leaf is consumed and every tensor of
+    the port model is filled with the right shape."""
+    sd, unmapped = _mapped_state_dict(flat, modules)
+    template = model.state_dict()
+    missing = sorted(set(template) - set(sd))
+    if unmapped or missing:
+        raise ValueError(f"flax leaves do not fill the port model: "
+                         f"missing {missing}, unconsumed {sorted(unmapped)}")
+    bad = [k for k in template if template[k].shape != sd[k].shape]
+    if bad:
+        raise ValueError(f"shape mismatch for {bad}")
+    return sd
 
 
 def _inverse_mapped(state_dict: dict, modules: dict[str, str]) -> dict[str, np.ndarray]:
@@ -253,17 +265,8 @@ def resgcn_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Te
     from pointsecguard_tpu_torch.models.resgcn import DenseDeepGCN
 
     shape = _resgcn_shape(flat)
-    modules = resgcn_module_map(shape["n_blocks"], shape["conv"])
-    sd, unmapped = _mapped_state_dict(flat, modules)
-    template = DenseDeepGCN(**shape).state_dict()
-    missing = sorted(set(template) - set(sd))
-    if unmapped or missing:
-        raise ValueError(f"flax leaves do not fill the port model: "
-                         f"missing {missing}, unconsumed {sorted(unmapped)}")
-    bad = [k for k in template if template[k].shape != sd[k].shape]
-    if bad:
-        raise ValueError(f"shape mismatch for {bad}")
-    return sd
+    return _filled(flat, resgcn_module_map(shape["n_blocks"], shape["conv"]),
+                   DenseDeepGCN(**shape))
 
 
 def resgcn_to_jax_variables(state_dict: dict[str, torch.Tensor],
@@ -273,3 +276,80 @@ def resgcn_to_jax_variables(state_dict: dict[str, torch.Tensor],
     show (the flax names do)."""
     n_blocks = 1 + len({k.split(".")[1] for k in state_dict if k.startswith("backbone.")})
     return _inverse_mapped(state_dict, resgcn_module_map(n_blocks, conv))
+
+
+
+def _num_classes(flat: dict) -> int:
+    """The classifier's width (``Dense_0`` at the top), 13 without one."""
+    kernel = flat.get("params/Dense_0/kernel")
+    return 13 if kernel is None else kernel.shape[1]
+
+
+def pointnet2_msg_module_map() -> dict[str, str]:
+    """flax module path → ``PointNet2SemSegMSG`` module path
+    (`pointsecguard_tpu/models/pointnet2.py:254-306`): one ``PointMLP`` per
+    radius of each ``SetAbstractionMSG``, then SSG's FP stack and head."""
+    from pointsecguard_tpu_torch.models.pointnet2 import MSG_SA_MLPS, SSG_FP_MLPS
+
+    m = {"Dense_0": "cls"}
+    for i, mlps in enumerate(MSG_SA_MLPS):
+        for j, mlp in enumerate(mlps):
+            for k in range(len(mlp)):
+                _conv(m, f"SetAbstractionMSG_{i}/PointMLP_{j}/PointConv_{k}",
+                      f"sa.{i}.mlps.{j}.convs.{k}")
+    for i, mlp in enumerate(SSG_FP_MLPS):
+        for k in range(len(mlp)):
+            _conv(m, f"FeaturePropagation_{i}/PointMLP_0/PointConv_{k}",
+                  f"fp.{i}.mlp.convs.{k}")
+    _conv(m, "PointMLP_0/PointConv_0", "head.convs.0")
+    return m
+
+
+def pointnet2_msg_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax variables of ``PointNet2SemSegMSG`` → the port's state dict
+    (206 leaves). Raises ValueError on a missing or unconsumed leaf."""
+    from pointsecguard_tpu_torch.models.pointnet2 import PointNet2SemSegMSG
+
+    num_classes = _num_classes(flat)
+    return _filled(flat, pointnet2_msg_module_map(),
+                   PointNet2SemSegMSG(num_classes=num_classes))
+
+
+def pointnet2_msg_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``pointnet2_msg_from_jax_variables``."""
+    return _inverse_mapped(state_dict, pointnet2_msg_module_map())
+
+
+def pointnet_module_map() -> dict[str, str]:
+    """flax module path → ``PointNetSemSeg`` module path
+    (`pointsecguard_tpu/models/pointnet.py:18-103`): the encoder's two
+    ``STN``s (per point ``PointConv_0..2``, then ``Dense_0`` / ``BatchNorm_0``,
+    ``Dense_1`` / ``BatchNorm_1`` and ``Dense_2``), its three ``PointConv``s,
+    the head's three and its ``Dense_0``."""
+    enc = "PointNetEncoder_0"
+    m = {"Dense_0": "cls"}
+    for flax, port in (("STN_0", "feat.stn"), ("STN_1", "feat.fstn")):
+        for k in range(3):
+            _conv(m, f"{enc}/{flax}/PointConv_{k}", f"{port}.convs.{k}")
+        for k in range(2):
+            m[f"{enc}/{flax}/Dense_{k}"] = f"{port}.fc.{k}"
+            m[f"{enc}/{flax}/BatchNorm_{k}"] = f"{port}.bns.{k}"
+        m[f"{enc}/{flax}/Dense_2"] = f"{port}.out"
+    for k in range(3):
+        _conv(m, f"{enc}/PointConv_{k}", f"feat.conv{k + 1}")
+        _conv(m, f"PointConv_{k}", f"convs.{k}")
+    return m
+
+
+def pointnet_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax variables of ``PointNetSemSeg`` → the port's state dict
+    (102 leaves). Raises ValueError on a missing or unconsumed leaf."""
+    from pointsecguard_tpu_torch.models.pointnet import PointNetSemSeg
+
+    num_classes = _num_classes(flat)
+    return _filled(flat, pointnet_module_map(), PointNetSemSeg(num_classes=num_classes))
+
+
+def pointnet_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``pointnet_from_jax_variables``."""
+    return _inverse_mapped(state_dict, pointnet_module_map())

@@ -151,6 +151,9 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
     # resgcn is ported: its frozen-graph surrogate is not
     ["--model", "resgcn", "--resgcn_fixed_graphs"], ["--attack", "random"], ["--eot", "4"],
+    # PointNet and MSG are ported: the equal-norm control and RandLA's fused
+    # attentive pooling are not theirs
+    ["--model", "pointnet", "--control"], ["--model", "pointnet2_msg", "--fused_ap"],
 ])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -157,7 +157,6 @@ def test_eval_without_a_checkpoint_stops(trained, tmp_path):
 # --- flags -------------------------------------------------------------------
 
 _TRAIN_REFUSED = [
-    ["--model", "pointnet2_msg"], ["--model", "pointnet"],
     # resgcn is ported; --remat, which its run would take, is not
     pytest.param(["--model", "resgcn", "--remat"], id="--model resgcn"),
     ["--model", "pointnet2_cls"], ["--model", "pointnet2_part_seg"],
@@ -173,7 +172,6 @@ _TRAIN_REFUSED = [
 ]
 
 _EVAL_REFUSED = [
-    ["--model", "pointnet2_msg"], ["--model", "pointnet"],
     # resgcn is ported; its subsample dilation (--resgcn_fast) is not
     pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
     ["--model", "pointnet_cls"], ["--visual"],
@@ -185,10 +183,13 @@ _EVAL_REFUSED = [
     ["--randla_dataset", "semantic3d"],
 ]
 
-# flags of RandLA's and ResGCN's training and eval, ported: parsed into the
-# arguments, refused by nothing (tests/test_torch_randla_train_cli.py and
-# tests/test_torch_resgcn_cli.py run them)
+# flags of RandLA's, ResGCN's, PointNet++ MSG's and PointNet's training and
+# eval, ported: parsed into the arguments, refused by nothing
+# (tests/test_torch_randla_train_cli.py, tests/test_torch_resgcn_cli.py and
+# tests/test_torch_pointnet_cli.py run them)
 _TRAIN_TAKEN = [
+    (["--model", "pointnet2_msg"], "model", "pointnet2_msg"),
+    (["--model", "pointnet"], "model", "pointnet"),
     (["--model", "randla"], "model", "randla"),
     (["--randla_dir", "elsewhere"], "randla_dir", "elsewhere"),
     (["--randla_points", "512"], "randla_points", 512),
@@ -199,6 +200,8 @@ _TRAIN_TAKEN = [
     (["--model", "resgcn", "--resgcn_epsilon", "0.2"], "resgcn_epsilon", 0.2),
 ]
 _EVAL_TAKEN = [
+    (["--model", "pointnet2_msg"], "model", "pointnet2_msg"),
+    (["--model", "pointnet"], "model", "pointnet"),
     (["--model", "randla"], "model", "randla"),
     (["--randla_dir", "elsewhere"], "randla_dir", "elsewhere"),
     (["--num_clouds", "10"], "num_clouds", 10),
