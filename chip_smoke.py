@@ -208,6 +208,32 @@ tensors, 1,895,253 and 3,541,334 floats), after phase 34:
 41. NB ``--save_adv`` on 32 blocks lowers the trained model's accuracy, and
     ``cli.eval --adv_set`` gives the attack run's accuracy back.
 
+Phases 42-46 drive the attack CLIs' protocol flags:
+
+42. The D = 3 kNN kernel at the resample defense's shapes (a kernel phase,
+    run after 5): the self-kNN over xyz of [8, 4096, 3] and [4, 40960, 3]
+    at k = 8, equal to plain, card, eager and plain ms, bound and share
+    (the ``resample`` entry of the knn record).
+43. On the trained SSG of phase 17, two batches of 8 blocks each (ms a
+    block of the second) through ``cli.attack.main``: NB without flags,
+    NB ``--control --log_steps`` (adversarial accuracy below
+    ``rand_acc``), NB ``--control --log_steps --defense resample --eot 2
+    --visual`` (exactly 25 kNN launches a batch: the deployed defense's
+    clean, adversarial and control forwards, two EoT draws for each of the
+    10 attack forwards and PGD's last; 10 steps rows a batch; six visual
+    files), ``--defense bit_depth``, ``jitter``, ``jpeg`` and ``--attack
+    random`` (l2 1.0); ms a block of each.
+44. The defenses card vs CPU on two blocks (bit depth, resample and jitter
+    on the same draws exactly; JPEG at quality 95 and 10 within 1e-6
+    outside the tests' rounding-boundary rule) and one NB trajectory of the
+    calibrated SSG in float64 on both devices within 1e-4.
+45. On the trained RandLA of phase 24: NB on 4 clouds with ``--defense
+    resample --control --log_steps`` (exactly 10 + 14 kNN launches), then
+    ``cli.eval --model randla --visual --save_preds``.
+46. ResGCN NB with ``--resgcn_fixed_graphs`` on phase 29's checkpoint and
+    blocks: 12 kNN launches (graph collection, clean and adversarial
+    forwards), ms a block and adversarial accuracy beside phase 29's.
+
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
 host's time to send them is hidden) and ``eager_ms`` the median of single
@@ -223,8 +249,8 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 8, 14, 20, 21, 27 and 35 and
-exits 1.
+``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27 and 35
+and exits 1.
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -1344,9 +1370,10 @@ def randla_state_dict(seed: int, dev, feats) -> dict:
 
 
 def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int,
-                   extra: tuple = ()):
+                   extra: tuple = (), knn_per_batch: int = 10):
     """One attack run through the CLI at batch 4, the launch counts set to
-    0 just before it and read just after; its rows and summary."""
+    0 just before it and read just after; its rows and summary. Without a
+    defense a batch launches ``knn`` 10 times, for its pyramid."""
     from pointsecguard_tpu_torch.cli import attack as cli
     from pointsecguard_tpu_torch.ops import cuda as kernels
 
@@ -1382,13 +1409,14 @@ def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int,
     values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"non-finite value in the RandLA {attack} output")
-    if counts["knn"] != 10 * clouds // RANDLA_BATCH:
-        raise AssertionError(f"kNN launches {counts['knn']}, want 10 per batch")
+    if counts["knn"] != knn_per_batch * clouds // RANDLA_BATCH:
+        raise AssertionError(f"kNN launches {counts['knn']}, want {knn_per_batch} per batch")
     # model passes per batch: the collect forward, one forward + backward
-    # per attack step, and PGD's final forward; S = the batch's steps
+    # per attack step, PGD's final forward and the adversarial prediction's
+    # forward; S = the batch's steps
     steps = [max(col["steps"][b : b + RANDLA_BATCH]) for b in range(0, clouds, RANDLA_BATCH)]
-    extra = 2 if attack in ("nb", "tar_nb") else 1
-    fwd, bwd = sum(int(S) + extra for S in steps), sum(int(S) for S in steps)
+    passes = 3 if attack in ("nb", "tar_nb") else 2
+    fwd, bwd = sum(int(S) + passes for S in steps), sum(int(S) for S in steps)
     want = (4 * fwd, 4 * bwd) if fused else (0, 0)
     if (counts["attentive_fwd"], counts["attentive_bwd"]) != want:
         raise AssertionError(f"attentive launches {counts}, want fwd/bwd {want} "
@@ -2821,9 +2849,9 @@ def phase_resgcn_nb(dev, records, data: str) -> dict:
     """29. NB through ``cli.attack.main --model resgcn`` on a random-weight
     checkpoint (BatchNorm statistics from one forward), 8 blocks of the
     Area-5 room at batch 8, the preset's 50 iterations: exactly 4 kNN
-    launches per forward the engine runs (the clean forward, one per
-    iteration and PGD's last), finite output, adversarial accuracy below
-    clean; ms/block, peak memory."""
+    launches per forward the CLI runs (the clean forward, one per
+    iteration, PGD's last and the adversarial prediction's), finite
+    output, adversarial accuracy below clean; ms/block, peak memory."""
     from pointsecguard_tpu_torch.cli import attack
     from pointsecguard_tpu_torch.ops import cuda as kernels
     from pointsecguard_tpu_torch.utils.checkpoint import save_checkpoint
@@ -2857,15 +2885,15 @@ def phase_resgcn_nb(dev, records, data: str) -> dict:
     values = [v for c in col.values() for v in c] + [clean_m.miou, adv_m.miou]
     if len(rows) != RESGCN_BLOCKS or not all(math.isfinite(v) for v in values):
         raise AssertionError(f"resgcn NB: {len(rows)} rows or a non-finite value")
-    if S != 50 or counts["knn"] != 4 * (S + 2):
+    if S != 50 or counts["knn"] != 4 * (S + 3):
         raise AssertionError(f"resgcn NB launches {counts} over {S} iterations, want knn "
-                             f"4 × ({S} + 2)")
+                             f"4 × ({S} + 3)")
     if any(counts[k] for k in counts if k != "knn"):
         raise AssertionError(f"a kernel off the ResGCN NB path launched: {counts}")
     if not stats["adv_acc"] < stats["clean_acc"]:
         raise AssertionError("the ResGCN NB attack did not lower the mean accuracy")
     records["knn"]["launches_by_path"]["resgcn nb"] = counts["knn"]
-    records["knn"]["calls_per_batch"]["resgcn nb"] = f"{counts['knn']} over {S + 2} forwards"
+    records["knn"]["calls_per_batch"]["resgcn nb"] = f"{counts['knn']} over {S + 3} forwards"
     return stats
 
 
@@ -3154,6 +3182,297 @@ def phase_resgcn_attack_trained(data: str, log: str) -> dict:
     return stats
 
 
+# --- the attack CLIs' protocol flags (phases 42-46) -----------------------
+
+PROTOCOL_BATCHES = 2  # of 8 blocks: the second batch's time is the warm one
+RESAMPLE_K = 8  # --defense_knn's default: the resample defense's self-kNN
+
+
+def phase_resample_knn(dev, records, xyz) -> dict:
+    """42. The D = 3 kNN kernel at the shapes of ``--defense resample``:
+    the self-kNN over xyz of a batch of 8 × 4096-point blocks and of a
+    RandLA batch of 4 × 40960-point clouds, k = 8. Values and indices equal
+    to the plain version (and ``resample_neighbors``'s indices to the
+    kernel's); card, eager and plain ms, bound and share (a kernel phase)."""
+    from pointsecguard_tpu_torch.attacks.defenses import resample_neighbors
+    from pointsecguard_tpu_torch.ops.cuda import bounds, knn
+
+    shapes = {f"blocks [{BATCH}, {NUM_POINT}, 3] k={RESAMPLE_K}":
+              slice_blocks(dev)[..., :3].contiguous(),
+              f"randla [{RANDLA_BATCH}, {RANDLA_POINTS}, 3] k={RESAMPLE_K}": xyz}
+    out = {}
+    for what, x in shapes.items():
+        err = _equal(f"knn resample {what}", knn.knn(x, x, RESAMPLE_K),
+                     knn.knn_plain(x, x, RESAMPLE_K))
+        if not torch.equal(resample_neighbors(x, RESAMPLE_K), knn.knn(x, x, RESAMPLE_K)[1]):
+            raise AssertionError(f"resample_neighbors {what} != the kernel's indices")
+        ms = device_ms(lambda: knn.knn(x, x, RESAMPLE_K), reps=10)
+        eager = cuda_ms(lambda: knn.knn(x, x, RESAMPLE_K), reps=10)
+        plain = cuda_ms(lambda: knn.knn_plain(x, x, RESAMPLE_K), reps=3, warmup=1)
+        work = bounds.knn(x.shape[0], x.shape[1], x.shape[1], 3, RESAMPLE_K)
+        out[what] = {"ms": ms, "eager_ms": eager, "plain_ms": plain,
+                     "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+                     "share": work.bound_ms / ms, "max_abs_err": err}
+        print(f"knn resample {what}: values and indices equal; kernel {ms:.4f} ms on the card "
+              f"({eager:.4f} ms eager), plain {plain:.4f} ms, bound {work.bound_ms:.4f} ms "
+              f"({work.bound_by}; share {work.bound_ms / ms:.3f})")
+    records["knn"]["resample"] = out
+    return out
+
+
+def _protocol_run(data: str, log: str, flags: list, model: str = "pointnet2") -> dict:
+    """``PROTOCOL_BATCHES`` batches of 8 blocks through ``cli.attack.main``
+    with ``flags``, the launch counts set to 0 just before and read just
+    after: the counts, ms a block of the last (warm) batch and the run's
+    wall; accuracies and L2 over every block."""
+    from pointsecguard_tpu_torch.cli import attack
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    argv = ["--model", model, "--data_root", data, "--log_dir", log,
+            "--num_point", str(NUM_POINT), "--batch_size", str(BATCH),
+            "--max_blocks", str(PROTOCOL_BATCHES * BATCH), *flags]
+    name = flags[flags.index("--attack") + 1] if "--attack" in flags else "nb"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    attack.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    rows = read_tsv(os.path.join(log, f"{model}_{name}_area5.tsv"))
+    if len(rows) != PROTOCOL_BATCHES * BATCH:
+        raise AssertionError(f"{flags}: {len(rows)} TSV rows, want {PROTOCOL_BATCHES * BATCH}")
+    col = {c: np.array([float(r[c]) for r in rows]) for c in rows[0] if c != "room"}
+    if not all(np.isfinite(v).all() for v in col.values()):
+        raise AssertionError(f"{flags}: a non-finite value in the TSV")
+    stats = {"flags": " ".join(flags),
+             "ms_per_block": float(1e3 * col["time_s"][-BATCH:].mean()),
+             "ms_per_block_first_batch": float(1e3 * col["time_s"][:BATCH].mean()),
+             "main_wall_s": wall, "clean_acc": float(col["clean_acc"].mean()),
+             "adv_acc": float(col["adv_acc"].mean()), "l2_mean": float(col["l2"].mean()),
+             "steps": int(col["steps"].max()), "launches": counts}
+    if "rand_acc" in col:
+        stats["rand_acc"] = float(col["rand_acc"].mean())
+    return stats
+
+
+def phase_protocol_blocks(data: str, log: str, records) -> list[dict]:
+    """43. The protocol flags on the trained full-width SSG (phase 17's
+    checkpoint), two batches of 8 × 4096 blocks each (ms a block of the
+    second), through ``cli.attack.main``: NB without flags (the yardstick), NB ``--control
+    --log_steps`` (the attack must beat its equal-norm control, as
+    ``tools/run_demo.py``'s verdict requires), NB ``--control --log_steps
+    --defense resample --eot 2 --visual`` (exactly 2 + 2 × 11 + 1 = 25 kNN
+    launches a batch: the clean, adversarial and control forwards of the
+    deployed defense, and two EoT draws for each of the 10 attack forwards
+    and PGD's last; 10 steps rows a batch; the room's visual files), ``--defense bit_depth``,
+    ``jitter`` and ``jpeg`` (no kNN), and ``--attack random``."""
+    runs = []
+    for flags in (["--attack", "nb"],
+                  ["--attack", "nb", "--control", "--log_steps"],
+                  ["--attack", "nb", "--control", "--log_steps", "--defense", "resample",
+                   "--eot", "2", "--visual"],
+                  ["--attack", "nb", "--defense", "bit_depth"],
+                  ["--attack", "nb", "--defense", "jitter"],
+                  ["--attack", "nb", "--defense", "jpeg"],
+                  ["--attack", "random", "--noise_norm", "1.0"]):
+        stats = _protocol_run(data, log, flags)
+        counts, n = stats["launches"], PROTOCOL_BATCHES
+        resample = "resample" in flags
+        want_knn = n * (2 + 2 * (stats["steps"] + 1) + 1) if resample else 0
+        if (counts["fps"], counts["bottom_k"], counts["knn"]) != (4 * n, 8 * n, want_knn):
+            raise AssertionError(f"{flags}: launches {counts}, want fps {4 * n}, bottom_k "
+                                 f"{8 * n}, knn {want_knn}")
+        if "--log_steps" in flags:
+            steps = read_tsv(os.path.join(log, "pointnet2_nb_area5_steps.tsv"))
+            if len(steps) != 10 * n or stats["steps"] != 10:
+                raise AssertionError(f"{flags}: {len(steps)} steps rows, want {10 * n}")
+            stats["steps_rows"] = len(steps)
+        if "--visual" in flags:
+            vis = sorted(os.listdir(os.path.join(log, "visual")))
+            if len(vis) != 6:
+                raise AssertionError(f"--visual wrote {vis}, want 6 files for the room")
+            stats["visual_files"] = vis
+            stats["visual_host_s"] = stats["main_wall_s"] - 1e-3 * BATCH * (
+                stats["ms_per_block"] + stats["ms_per_block_first_batch"])
+        if "random" in flags and stats["l2_mean"] != 1.0:
+            raise AssertionError(f"--attack random: l2 {stats['l2_mean']}, want 1.0")
+        print("protocol blocks: " + json.dumps(stats))
+        runs.append(stats)
+    control = runs[1]
+    if not control["adv_acc"] < control["rand_acc"]:
+        raise AssertionError(f"NB adv acc {control['adv_acc']} does not beat its equal-norm "
+                             f"control {control['rand_acc']}")
+    records["knn"]["launches_by_path"]["pointnet2 nb --defense resample"] = \
+        runs[2]["launches"]["knn"]
+    records["knn"]["calls_per_batch"]["pointnet2 nb --defense resample --eot 2"] = \
+        runs[2]["launches"]["knn"] / PROTOCOL_BATCHES
+    print("protocol blocks ms/block: " + json.dumps(
+        {r["flags"]: round(r["ms_per_block"], 3) for r in runs}))
+    return runs
+
+
+def _near_half_boundary(color: torch.Tensor, quality: int, block: int = 64) -> torch.Tensor:
+    """[B, N, 3] bool: the points of every (block, channel) of the JPEG
+    defense with a DCT coefficient whose coeffs / step lies within 1e-5 of
+    a .5 boundary, in float64 (tests/test_torch_defenses.py's rule: there
+    two float32 einsums may round to different steps)."""
+    x = color.double().cpu()
+    B, N, C = x.shape
+    x = torch.nn.functional.pad(x, (0, 0, 0, (-N) % block)).reshape(B, -1, block, C)
+    k = torch.arange(block, dtype=torch.float64)
+    D = torch.cos(math.pi * (2 * k[None, :] + 1) * k[:, None] / (2 * block)) * math.sqrt(2 / block)
+    D[0] /= math.sqrt(2.0)
+    scale = (5000.0 / quality if quality < 50 else 200.0 - 2.0 * quality) / 100.0
+    step = torch.clamp((16.0 + 4.0 * k) * scale / 255.0 * math.sqrt(block / 2.0), min=1e-6)
+    ratio = torch.einsum("fk,bnkc->bnfc", D, x) / step[None, None, :, None]
+    near = ((ratio - torch.floor(ratio) - 0.5).abs() < 1e-5).any(dim=2)
+    return near.repeat_interleave(block, dim=1)[:, :N]
+
+
+def phase_defense_reference(dev) -> dict:
+    """44. The defenses card vs CPU on two blocks of 4096 points: bit depth
+    and resample (the same CPU-drawn pick; the kNN kernel against its plain
+    version) equal exactly, jitter (the same draw) exactly, JPEG at quality
+    95 and 10 within 1e-6 outside the rounding-boundary rule of the tests;
+    then one NB run with its trajectory on both devices, the calibrated
+    full-width SSG in float64 on the card's geometry: per-step accuracy,
+    success rate and L2 within 1e-4."""
+    from pointsecguard_tpu_torch import attacks
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS
+
+    pts = slice_blocks(dev)[[0, 4]].contiguous()
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(3)
+    choice = torch.randint(0, RESAMPLE_K, (2, NUM_POINT, 1), generator=gen)
+    noise = torch.randn((2, NUM_POINT, 3), generator=gen)
+    res = {}
+    for name, fn in (
+        ("bit_depth", lambda p: attacks.bit_depth_reduction(p, 4)),
+        ("resample", lambda p: attacks.random_color_resample(p, RESAMPLE_K, choice=choice)),
+        ("jitter", lambda p: attacks.random_color_jitter(p, 0.02, noise=noise)),
+    ):
+        card, host = fn(pts).cpu(), fn(pts.cpu())
+        if not torch.equal(card, host):
+            raise AssertionError(f"{name}: the card's defended output != the CPU's")
+        res[name] = "equal"
+    for q in (95, 10):
+        card, host = attacks.jpeg_color_compression(pts, q).cpu(), \
+            attacks.jpeg_color_compression(pts.cpu(), q)
+        near = _near_half_boundary(pts[..., 3:6], q)
+        diff = (card - host)[..., 3:6].abs()
+        outside = diff[~near].max().item()
+        res[f"jpeg q{q}"] = {"max_abs_outside": outside, "max_abs": diff.max().item(),
+                             "exempt_points": int(near.any(-1).sum())}
+        if outside > 1e-6:
+            raise AssertionError(f"jpeg q{q}: card vs CPU {outside} outside the boundary rule")
+    model_cls, family = POINTNET_MODELS["pointnet2"]
+    net = model_cls()
+    net.load_state_dict(calibrated_state_dict(1, dev, "pointnet2"))
+    net.eval().requires_grad_(False)
+    geo = family.plan(pts)
+    labels = torch.randint(0, 13, pts.shape[:2], generator=torch.Generator().manual_seed(5))
+    cfg = attacks.attack_preset("pointnet2", "nb")
+    traj = {}
+    for name, device in (("card", dev), ("cpu", cpu)):
+        m = net.to(device=device, dtype=torch.float64)
+        g = _to_device(geo, device, torch.float64)
+        _, t = attacks.pgd_color_attack(
+            lambda p: family.head(family.apply(m, p, g)), pts.to(device, torch.float64),
+            labels.to(device), cfg, trajectory=True)
+        traj[name] = {k: v.double().cpu() for k, v in t.items()}
+    err = {k: (traj["card"][k] - traj["cpu"][k]).abs().max().item() for k in traj["card"]}
+    res["nb_trajectory_float64_max_abs"] = err
+    res["nb_trajectory_l2_last"] = traj["card"]["l2"][-1].tolist()
+    print("defenses card vs CPU: " + json.dumps(res))
+    if max(err.values()) > 1e-4:
+        raise AssertionError(f"NB trajectory card vs CPU {err}, want within 1e-4")
+    return res
+
+
+def phase_randla_protocol(prep: str, log: str, records) -> dict:
+    """45. On the trained RandLA checkpoint (phase 24): NB on one batch of
+    4 clouds with ``--defense resample --control --log_steps``: exactly 10
+    + 14 kNN launches (the pyramid; the resample defense's self-kNN of the
+    clean, adversarial and control forwards, the 10 attack forwards and
+    PGD's last), the control's and the steps TSV's rows; then ``cli.eval
+    --model randla --visual --save_preds``: the Area-5 cloud's label
+    clouds, viewer and prediction PLY at full resolution."""
+    from pointsecguard_tpu_torch.cli import eval as cli_eval
+    from pointsecguard_tpu_torch.data.ply import read_ply
+
+    stats = run_randla_cli(prep, log, "nb", False, RANDLA_BATCH,
+                           extra=("--defense", "resample", "--control", "--log_steps"),
+                           knn_per_batch=10 + 14)
+    rows = read_tsv(os.path.join(log, "randla_nb_area5.tsv"))
+    stats["rand_acc"] = float(np.mean([float(r["rand_acc"]) for r in rows]))
+    steps = read_tsv(os.path.join(log, "randla_nb_area5_steps.tsv"))
+    if len(steps) != 10 * RANDLA_BATCH:
+        raise AssertionError(f"{len(steps)} RandLA steps rows, want {10 * RANDLA_BATCH}")
+    records["knn"]["launches_by_path"]["randla nb --defense resample"] = \
+        stats["launches"]["knn"]
+    records["knn"]["calls_per_batch"]["randla nb --defense resample"] = stats["launches"]["knn"]
+    preds = os.path.join(WORK, "randla_preds")
+    t0 = time.perf_counter()
+    m = cli_eval.main(["--model", "randla", "--randla_dir", prep, "--log_dir", log,
+                       "--num_clouds", str(RANDLA_EVAL_CLOUDS), "--batch_size",
+                       str(RANDLA_BATCH), "--visual", "--save_preds", preds])
+    stats["eval_visual_save_preds_s"] = time.perf_counter() - t0
+    stats["eval_accuracy"] = m.accuracy
+    plys = sorted(os.listdir(preds))
+    vis = [f for f in os.listdir(os.path.join(log, "visual")) if not f.startswith("cloud")]
+    stats.update(save_preds=plys, eval_visual=sorted(vis))
+    print("randla protocol: " + json.dumps(stats))
+    if not plys or len(vis) != 3 * len(plys):
+        raise AssertionError(f"cli.eval --save_preds / --visual wrote {plys}, {vis}")
+    n = len(read_ply(os.path.join(preds, plys[0]))["pred"])
+    with open(os.path.join(prep, plys[0][: -len(".ply")] + "_proj.pkl"), "rb") as f:
+        import pickle
+
+        if n != len(np.asarray(pickle.load(f)[1]).reshape(-1)):
+            raise AssertionError("the prediction PLY is not at the cloud's full resolution")
+    return stats
+
+
+def phase_resgcn_fixed(data: str, records, dynamic: dict) -> dict:
+    """46. ResGCN NB with ``--resgcn_fixed_graphs`` on phase 29's
+    checkpoint and blocks: exactly 12 kNN launches (4 a forward: the graph
+    collection on the clean input, the clean and the adversarial forwards
+    of the dynamic model; none in the surrogate's 51), ms a block and
+    adversarial accuracy beside phase 29's dynamic run."""
+    from pointsecguard_tpu_torch.cli import attack
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    log = os.path.join(WORK, "resgcn_log")
+    argv = ["--model", "resgcn", "--attack", "nb", "--data_root", data, "--log_dir", log,
+            "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+            "--max_blocks", str(RESGCN_BLOCKS), "--resgcn_fixed_graphs"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clean_m, adv_m = attack.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    rows = read_tsv(os.path.join(log, "resgcn_nb_area5.tsv"))
+    stats = {"blocks": len(rows),
+             "ms_per_block": float(np.mean([1e3 * float(r["time_s"]) for r in rows])),
+             "main_wall_s": wall,
+             "clean_acc": float(np.mean([float(r["clean_acc"]) for r in rows])),
+             "adv_acc": float(np.mean([float(r["adv_acc"]) for r in rows])),
+             "l2_mean": float(np.mean([float(r["l2"]) for r in rows])), "launches": counts,
+             "dynamic_ms_per_block": dynamic["ms_per_block"],
+             "dynamic_adv_acc": dynamic["adv_acc"], "dynamic_clean_acc": dynamic["clean_acc"]}
+    print("resgcn nb --resgcn_fixed_graphs: " + json.dumps(stats))
+    if len(rows) != RESGCN_BLOCKS or counts["knn"] != 12 or any(
+            counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"resgcn fixed graphs: {len(rows)} rows, launches {counts}, "
+                             "want knn 12")
+    if stats["clean_acc"] != dynamic["clean_acc"]:
+        raise AssertionError("the fixed-graph run's clean accuracy is not the dynamic model's")
+    records["knn"]["launches_by_path"]["resgcn nb --resgcn_fixed_graphs"] = counts["knn"]
+    records["knn"]["calls_per_batch"]["resgcn nb --resgcn_fixed_graphs"] = counts["knn"]
+    return stats
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -3192,7 +3511,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 8, 14, 20, 21, 27 and 35); the last line then carries "
+                             "(3, 4, 5, 42, 8, 14, 20, 21, 27 and 35); the last line then carries "
                              "\"ok\": false, "
                              "because the slices were not driven")
     args = parser.parse_args(argv)
@@ -3264,6 +3583,9 @@ def main(argv=None) -> int:
     xyz = feats[..., :3].contiguous()
     phase_randla_kernels(dev, records, xyz)
     phase_routes(records, xyz)
+    t0 = time.perf_counter()
+    phase_resample_knn(dev, records, xyz)
+    print(f"phase 42: {time.perf_counter() - t0:.1f} s")
     del xyz
     phase_train_kernels(dev, records)
     train_feats, train_labels = phase_randla_train_knn(dev, records, prep)
@@ -3292,14 +3614,25 @@ def main(argv=None) -> int:
     train_data, train_log, _ = phase_train(dev, records)
     phase_eval(train_data, train_log)
     phase_attack_trained(train_data, train_log)
+    t0 = time.perf_counter()
+    phase_protocol_blocks(train_data, train_log, records)
+    t1 = time.perf_counter()
+    phase_defense_reference(dev)
+    print(f"phases 43-44: {t1 - t0:.1f} + {time.perf_counter() - t1:.1f} s")
     phase_randla_train_step(dev, prep)
     phase_fused_train(dev, records, train_feats, train_labels)
     del train_feats, train_labels
     randla_log, _ = phase_randla_train(dev, records, prep)
     phase_randla_eval(prep, randla_log, records)
     phase_randla_attack_trained(prep, randla_log)
+    t0 = time.perf_counter()
+    phase_randla_protocol(prep, randla_log, records)
+    print(f"phase 45: {time.perf_counter() - t0:.1f} s")
     phase_resgcn_reference(dev)
-    phase_resgcn_nb(dev, records, data)
+    resgcn_dynamic = phase_resgcn_nb(dev, records, data)
+    t0 = time.perf_counter()
+    phase_resgcn_fixed(data, records, resgcn_dynamic)
+    print(f"phase 46: {time.perf_counter() - t0:.1f} s")
     phase_resgcn_nu(dev, records, data)
     phase_resgcn_train_step(dev)
     resgcn_data, resgcn_log, _ = phase_resgcn_train(dev, records)
@@ -3329,7 +3662,10 @@ def main(argv=None) -> int:
                       "pointnet2_msg train"}
     for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
                         ("knn", {"randla nb", "randla train", "randla eval",
-                                 "resgcn nb", "resgcn train", "resgcn eval"})):
+                                 "resgcn nb", "resgcn train", "resgcn eval",
+                                 "pointnet2 nb --defense resample",
+                                 "randla nb --defense resample",
+                                 "resgcn nb --resgcn_fixed_graphs"})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")
@@ -3341,7 +3677,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "msg_attack",
-                              "msg_train_step", "resgcn_forward", "launches_by_path")
+                              "msg_train_step", "resgcn_forward", "resample",
+                              "launches_by_path")
             if k in r}}
         for r in records.values()]}))
     print(card)

@@ -1,9 +1,11 @@
 """Colour-perturbation attacks of the port: the PGD engine (NB / tar_NB),
-the C&W engine (NU / tar_NU) and their reference presets (port of
-``pointsecguard_tpu/attacks/__init__.py:59-130``).
+the C&W engine (NU / tar_NU), their reference presets (port of
+``pointsecguard_tpu/attacks/__init__.py:59-130``), both with the
+per-step trajectory mode, the equal-norm noise control and the colour
+defenses ``cli.attack`` deploys.
 
-The ares registry, black-box and decision attacks, defenses and noise
-controls are not ported yet.
+The ares registry, MIM, the black-box and decision attacks and the
+coordinate defenses (SOR, SRS) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,16 @@ from pointsecguard_tpu_torch.attacks.common import (
     point_accuracy,
 )
 from pointsecguard_tpu_torch.attacks.cw import CWConfig, cw_color_attack
+from pointsecguard_tpu_torch.attacks.defenses import (
+    apply_color_defense,
+    bit_depth_reduction,
+    jpeg_color_compression,
+    random_color_jitter,
+    random_color_resample,
+    randomized_defense_wraps,
+    seeded_draws,
+)
+from pointsecguard_tpu_torch.attacks.noise import equal_norm_color_noise
 from pointsecguard_tpu_torch.attacks.pgd import PGDConfig, pgd_color_attack
 
 # The reference's benchmark configurations, keyed by (model_family,
@@ -76,11 +88,19 @@ __all__ = [
     "AttackResult",
     "CWConfig",
     "PGDConfig",
+    "apply_color_defense",
     "attack_preset",
+    "bit_depth_reduction",
     "cw_color_attack",
+    "equal_norm_color_noise",
+    "jpeg_color_compression",
     "make_target_labels",
     "per_point_ce",
     "per_sample_accuracy",
     "pgd_color_attack",
     "point_accuracy",
+    "random_color_jitter",
+    "random_color_resample",
+    "randomized_defense_wraps",
+    "seeded_draws",
 ]

@@ -16,6 +16,12 @@ from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
 COLOR_SLICE = slice(3, 6)
 
 
+def set_color(points: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
+    """``points`` with its colour channels replaced by ``color``."""
+    lo, hi = COLOR_SLICE.start, COLOR_SLICE.stop
+    return torch.cat([points[..., :lo], color, points[..., hi:]], dim=-1)
+
+
 class AttackResult(NamedTuple):
     """Outcome of one batched attack run (all fields on the device)."""
 
@@ -136,6 +142,23 @@ def per_sample_accuracy(
         return torch.mean(correct, dim=1)
     m = mask.float()
     return torch.sum(correct * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
+
+
+def pooled_accuracy(
+    pred: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+    rows: int | None = None,
+) -> torch.Tensor:
+    """Point accuracy pooled over the (masked) points of the first ``rows``
+    clouds → [] (all clouds when None): the trajectory's per-step figure.
+    The JAX engines take the mean of per-cloud means over every row, a
+    caller's padded copies included (`attacks/pgd.py:251-253`,
+    `attacks/cw.py:263-265`); the two agree at batch 1 and on equal masks
+    without padding."""
+    correct = (pred[:rows] == labels[:rows]).float()
+    if mask is None:
+        return torch.mean(correct)
+    m = mask[:rows].float()
+    return torch.sum(correct * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def make_target_labels(

@@ -17,8 +17,10 @@ freeze at the iteration its own success test fires (accuracy below
 so a batch equals its B=1 runs. The JAX engine runs the loop as one
 ``lax.while_loop``; this one is eager and reads ``done.all()`` back to the
 host once per iteration to decide whether to go on, with the same
-semantics (``steps`` is the number of iterations executed). The
-per-iteration trajectory mode (``--log_steps``) is not ported.
+semantics (``steps`` is the number of iterations executed).
+``trajectory=True`` (``--log_steps``) runs exactly ``cfg.steps`` steps with
+no early exit and no read, and also returns the per-step accuracy, success
+rate and per-cloud L2, kept on the device until the caller reads them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from pointsecguard_tpu_torch.attacks.common import (
     cw_f_prob,
     cw_f_targeted,
     per_sample_accuracy,
+    pooled_accuracy,
 )
 
 _TANH_BOUND = 1.0 - 1e-6  # ares `_scale_to_tanh` clamp (`NUattack.py:115-119`)
@@ -91,7 +94,9 @@ def cw_color_attack(
     cfg: CWConfig,
     *,
     mask: torch.Tensor | None = None,
-) -> AttackResult:
+    trajectory: bool = False,
+    valid_rows: int | None = None,
+) -> AttackResult | tuple[AttackResult, dict]:
     """Run the C&W colour attack on a batch.
 
     Args:
@@ -103,6 +108,13 @@ def cw_color_attack(
       cfg: attack configuration.
       mask: [B, N] bool — the points allowed to change (targeted), or the
         valid points (untargeted).
+      trajectory: no early exit, exactly ``cfg.steps`` steps, and return
+        ``(result, traj)`` with ``traj`` = {"acc": [steps], "sr": [steps],
+        "l2": [steps, B]} (JAX `attacks/cw.py:260-270`): each step's
+        accuracy and success rate (``pooled_accuracy``) and the L2 of the
+        colour it evaluated.
+      valid_rows: the trajectory pools over the first ``valid_rows`` clouds
+        (a caller's padded rows excluded; default all).
     """
     lo, hi = cfg.channels
     points = points.detach()
@@ -159,7 +171,7 @@ def cw_color_attack(
     target_labels = torch.full_like(labels, cfg.target)
     # targeted clouds with an empty mask can never reach the success
     # exit: done from the start, so they cannot stall the batch
-    if cfg.targeted and mask is not None:
+    if cfg.targeted and mask is not None and not trajectory:
         done = mask.sum(dim=1) == 0
     else:
         done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -171,8 +183,9 @@ def cw_color_attack(
     mm = torch.zeros_like(w)
     vv = torch.zeros_like(w)
     t, lr = 0, cfg.lr
+    traj = {"acc": [], "sr": [], "l2": []}
     i = 0
-    while i < cfg.steps and not bool(done.all()):
+    while i < cfg.steps and (trajectory or not bool(done.all())):
         leaf = w.detach().requires_grad_(True)
         cost, outputs = cost_fn(leaf)
         (g,) = torch.autograd.grad(cost, leaf)
@@ -188,7 +201,16 @@ def cw_color_attack(
             snap = torch.where(write[:, None, None], adv_color_of(w), snap)
             pred_snap = torch.where(write[:, None], pred, pred_snap)
             steps_b = torch.where(done, steps_b, torch.full_like(steps_b, i + 1))
-            done = done | success
+            if trajectory:
+                if cfg.targeted:
+                    traj["acc"].append(pooled_accuracy(pred, labels, None, valid_rows))
+                    traj["sr"].append(pooled_accuracy(pred, target_labels, mask, valid_rows))
+                else:
+                    traj["acc"].append(pooled_accuracy(pred, labels, mask, valid_rows))
+                    traj["sr"].append(torch.zeros((), device=dev))
+                traj["l2"].append(torch.linalg.norm((snap - color0).reshape(B, -1), dim=1))
+            else:
+                done = done | success
             t += 1
             mm = cfg.adam_b1 * mm + (1 - cfg.adam_b1) * g
             vv = cfg.adam_b2 * vv + (1 - cfg.adam_b2) * g * g
@@ -216,5 +238,8 @@ def cw_color_attack(
             else:
                 acc = torch.sum(correct * m[..., 0]) / torch.clamp(torch.sum(m[..., 0]), min=1.0)
             sr = torch.zeros((), device=dev)
-    return AttackResult(adv, torch.tensor(i, dtype=torch.int32), acc, sr, l2,
-                        pred_snap, steps_b)
+    result = AttackResult(adv, torch.tensor(i, dtype=torch.int32), acc, sr, l2,
+                          pred_snap, steps_b)
+    if trajectory:
+        return result, {k: torch.stack(v) for k, v in traj.items()}
+    return result

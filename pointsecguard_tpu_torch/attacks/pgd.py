@@ -11,7 +11,9 @@ Input gradients come from ``torch.autograd.grad`` with respect to the
 perturbed channel slice. Without early exit (every PointNet++ preset)
 the loop never reads a value back to the host, so the GPU runs the
 iterations back to back; with early exit, one ``done.all()`` read per
-iteration decides whether to go on.
+iteration decides whether to go on. ``trajectory=True`` (``--log_steps``)
+turns early exit off, runs exactly ``cfg.iters`` steps and also returns
+the per-step accuracy, success rate and per-cloud L2, kept on the device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from pointsecguard_tpu_torch.attacks.common import (
     per_point_ce,
     per_sample_accuracy,
     point_accuracy,
+    pooled_accuracy,
 )
 
 
@@ -58,7 +61,9 @@ def pgd_color_attack(
     *,
     mask: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
-) -> AttackResult:
+    trajectory: bool = False,
+    valid_rows: int | None = None,
+) -> AttackResult | tuple[AttackResult, dict]:
     """Run the attack on a batch.
 
     Args:
@@ -71,6 +76,14 @@ def pgd_color_attack(
       cfg: attack budget.
       mask: [B, N] bool — points allowed to change (targeted attacks).
       generator: draws the random init (required if rand_init_eps > 0).
+      trajectory: no early exit, exactly ``cfg.iters`` steps, and return
+        ``(result, traj)`` with ``traj`` = {"acc": [iters], "sr": [iters],
+        "l2": [iters, B]} (JAX `attacks/pgd.py:243-256`): each step's
+        accuracy and success rate of the evaluation before its update
+        (``pooled_accuracy``), and the L2 after it.
+      valid_rows: the trajectory pools its accuracy and success rate over
+        the first ``valid_rows`` clouds (a caller's padded rows excluded;
+        default all).
     """
     lo, hi = cfg.channels
     points = points.detach()
@@ -143,7 +156,7 @@ def pgd_color_attack(
 
     # per-sample early exit (TBIM `:508`): a cloud's colour and step count
     # freeze once ITS success rate passes the threshold, as at batch 1
-    track_exit = cfg.early_exit_sr > 0
+    track_exit = cfg.early_exit_sr > 0 and not trajectory
     if track_exit and cfg.targeted and mask is not None:
         done = mask.sum(dim=1) == 0  # can never succeed: never stalls
     else:
@@ -151,6 +164,7 @@ def pgd_color_attack(
     snap = color
     steps_b = torch.zeros(B, dtype=torch.int32, device=points.device)
     direction = -1.0 if cfg.targeted else 1.0
+    traj = {"acc": [], "sr": [], "l2": []}
     steps = 0
     for i in range(cfg.iters):
         if track_exit and bool(done.all()):
@@ -169,6 +183,16 @@ def pgd_color_attack(
                 sr_b = per_sample_accuracy(
                     pred, torch.full_like(labels, cfg.target), mask)
                 done = done | (sr_b > cfg.early_exit_sr)
+            if trajectory:
+                pred = torch.argmax(outputs, dim=-1)
+                traj["acc"].append(pooled_accuracy(
+                    pred, labels, None if cfg.targeted else mask, valid_rows))
+                traj["sr"].append(
+                    pooled_accuracy(pred, torch.full_like(labels, cfg.target), mask,
+                                    valid_rows)
+                    if cfg.targeted and mask is not None
+                    else torch.zeros((), device=points.device))
+                traj["l2"].append(torch.linalg.norm((color - color0).reshape(B, -1), dim=1))
         steps = i + 1
 
     with torch.no_grad():
@@ -181,7 +205,10 @@ def pgd_color_attack(
         else:
             sr = torch.zeros((), device=points.device)
         l2 = torch.linalg.norm((snap - color0).reshape(B, -1), dim=1)
-    return AttackResult(
+    result = AttackResult(
         adv, torch.tensor(steps, dtype=torch.int32), acc, sr, l2, adv_pred,
         steps_b,
     )
+    if trajectory:
+        return result, {k: torch.stack(v) for k, v in traj.items()}
+    return result

@@ -5,13 +5,25 @@ MSG, PointNet and ResGCN-28).
 Per batch of blocks: for PointNet++ build the xyz-only geometry once (FPS
 and bottom-k kernels; ResGCN builds its graphs in every forward, four of
 them on the kNN kernel; PointNet has none), clean forward, PGD (nb /
-tar_nb) or C&W (nu / tar_nu) attack, per-block TSV rows in the JAX CLI's format, with ``--save_adv`` the
-adversarial blocks as an ``.npz``; per room and per dataset,
-clean-vs-adversarial IoU from pooled votes
-(`NB_nontarget_test_semseg.py:64-294` protocol). ResGCN's targeted runs
-(batch 1) skip a cloud with ≤ 500 origin points or a masked clean
-accuracy below 0.5 (`sem_seg_dense/attacks.py:204-207`); the clean
-forward of that gate is the run's clean prediction.
+tar_nb) or C&W (nu / tar_nu) attack, or with ``--attack random`` noise of
+``--noise_norm`` and no engine, then the adversarial forward; per-block
+TSV rows in the JAX CLI's format, with ``--save_adv`` the adversarial
+blocks as an ``.npz``; per room and per dataset, clean-vs-adversarial IoU
+from pooled votes (`NB_nontarget_test_semseg.py:64-294` protocol).
+ResGCN's targeted runs (batch 1) skip a cloud with ≤ 500 origin points or
+a masked clean accuracy below 0.5 (`sem_seg_dense/attacks.py:204-207`);
+the clean forward of that gate is the run's clean prediction.
+
+The protocol flags: ``--defense`` / ``--eot`` wrap the model
+(``cli/_attack_common.py:defense_wrapper``), and every reported prediction
+(clean, adversarial, control) is the deployed defense's forward, while the
+attacker differentiates ``attack_wrap``; ``--control`` adds the
+equal-norm random control at each block's measured L2 (``rand_acc``);
+``--log_steps`` writes ``<model>_<attack>_area<k>_steps.tsv``;
+``--visual`` the room's ``.xyzrgb`` dumps and HTML viewers (the room's
+adversarial colours are gathered on the device and read once a room);
+``--resgcn_fixed_graphs`` gives ResGCN's attacker a surrogate on the
+graphs of the clean input.
 """
 
 from __future__ import annotations
@@ -28,9 +40,11 @@ def run_blocks(args, log):
         PGDConfig,
         attack_preset,
         cw_color_attack,
+        equal_norm_color_noise,
         make_target_labels,
         pgd_color_attack,
     )
+    from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper, write_room_visuals
     from pointsecguard_tpu_torch.configs import resgcn_overrides
     from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
     from pointsecguard_tpu_torch.models import DenseDeepGCN
@@ -60,22 +74,51 @@ def run_blocks(args, log):
         plan = family.plan(pts)
         return lambda p: family.head(family.apply(model, p, plan))
 
+    if resgcn and args.resgcn_fixed_graphs:
+        # the attacker's surrogate: edge graphs frozen at the clean input
+        # (no kNN in the attack's forwards); every reported metric still
+        # evaluates the dynamic model, which rebuilds its graphs
+        # (`torch_vertex.py:69-71`; JAX `_attack_blocks.py:100-115`)
+        def make_attack_outputs(pts):
+            with torch.no_grad():
+                _, graphs = model(pts, collect_graphs=True)
+            return lambda p: model(p, graphs=graphs)
+    else:
+        make_attack_outputs = None  # the attacker differentiates the victim
+
+    wraps = defense_wrapper(args)
+    eval_wrap, attack_wrap = wraps if wraps is not None else (None, None)
+
     rooms = RoomSet.load(args.data_root, "test", args.test_area)
     B = args.batch_size
     targeted = args.attack.startswith("tar_")
     # ResGCN's targeted protocol gates clouds one by one (batch 1)
     resgcn_gates = resgcn and targeted
     gate_skips = {"origin": 0, "accuracy": 0}
-    overrides = {"targeted": True, "target": args.target} if targeted else {}
-    attack_cfg = attack_preset("resgcn" if resgcn else "pointnet2", args.attack,
-                               **overrides)
+    if args.attack == "random":
+        attack_cfg = None
+        if args.control:  # the "attack" is the equal-norm noise itself
+            log.info("--control is a no-op with --attack random; ignoring")
+            args.control = False
+    else:
+        overrides = {"targeted": True, "target": args.target} if targeted else {}
+        attack_cfg = attack_preset("resgcn" if resgcn else "pointnet2", args.attack,
+                                   **overrides)
+    # the random noise of --attack random and of --control
+    gen = torch.Generator(device=device).manual_seed(args.seed)
 
     os.makedirs(args.log_dir, exist_ok=True)
     tsv_path = os.path.join(
         args.log_dir, f"{args.model}_{args.attack}_area{args.test_area}.tsv"
     )
+    steps_tsv = None
+    if args.log_steps and attack_cfg is not None:
+        steps_tsv = open(tsv_path.replace(".tsv", "_steps.tsv"), "w")
+        steps_tsv.write("room\tblock\titer\tacc\tsr\tl2\n")
     with open(tsv_path, "w") as tsv:
         header = "room\tblock\tclean_acc\tadv_acc\tl2\tsr\tother_acc\tsteps\ttime_s"
+        if args.control:
+            header += "\trand_acc"
         tsv.write(header + "\n")
 
         ws = WholeSceneBlocks(rooms, block_points=args.num_point)
@@ -89,6 +132,9 @@ def run_blocks(args, log):
             labels_room = rooms.labels[room_idx]
             clean_pool = np.zeros((len(labels_room), 13))
             adv_pool = np.zeros((len(labels_room), 13))
+            # --visual: the room's adversarial colours, gathered on the device
+            room_colors = (torch.from_numpy(rooms.points[room_idx][:, 3:6] / 255.0).to(device)
+                           if args.visual else None)
             nb = data.shape[0]
             for start in range(0, nb, B):
                 valid = min(B, nb - start)  # keep the room tail; pad the batch
@@ -102,6 +148,12 @@ def run_blocks(args, log):
                 pts = torch.from_numpy(pts_np).to(device)
                 labs = torch.from_numpy(labs_np).to(device).long()
                 outputs_fn = make_outputs_fn(pts)
+                f_eval = eval_wrap(outputs_fn) if eval_wrap else outputs_fn
+
+                @torch.no_grad()
+                def predict(p):  # every reported prediction: the deployed model
+                    return torch.argmax(f_eval(p), dim=-1)
+
                 clean_pred_d = None
                 if targeted:
                     _, mask = make_target_labels(labs, args.origin, args.target)
@@ -112,8 +164,7 @@ def run_blocks(args, log):
                             gate_skips["origin"] += 1
                             continue
                         # `attacks.py:206-207`: skip if masked clean accuracy < 0.5
-                        with torch.no_grad():
-                            clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
+                        clean_pred_d = predict(pts)
                         cp = clean_pred_d.cpu().numpy()[:valid]
                         if (cp[mask_np] == labs_np[:valid][mask_np]).mean() < 0.5:
                             gate_skips["accuracy"] += 1
@@ -130,17 +181,38 @@ def run_blocks(args, log):
                     keep = np.ones(valid, bool)
 
                 if clean_pred_d is None:
-                    with torch.no_grad():
-                        clean_pred_d = torch.argmax(outputs_fn(pts), dim=-1)
-                if isinstance(attack_cfg, PGDConfig):
-                    res = pgd_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
+                    clean_pred_d = predict(pts)
+                traj = rand_pred_d = None
+                if attack_cfg is None:  # --attack random
+                    adv_pts = equal_norm_color_noise(
+                        pts, torch.full((B,), args.noise_norm, device=device), mask=mask,
+                        generator=gen)
+                    steps_row = np.zeros(valid, np.int64)
+                    l2_b = np.full(valid, float(args.noise_norm))
                 else:
-                    res = cw_color_attack(outputs_fn, pts, labs, attack_cfg, mask=mask)
+                    attack_fn = (outputs_fn if make_attack_outputs is None
+                                 else make_attack_outputs(pts))
+                    f_atk = attack_wrap(attack_fn) if attack_wrap else attack_fn
+                    engine = pgd_color_attack if isinstance(attack_cfg, PGDConfig) \
+                        else cw_color_attack
+                    res = engine(f_atk, pts, labs, attack_cfg, mask=mask,
+                                 trajectory=args.log_steps, valid_rows=valid)
+                    res, traj = res if args.log_steps else (res, None)
+                    adv_pts = res.points_adv
+                    if args.control:
+                        # equal-norm random control at the attack's *measured*
+                        # L2 (`NUattack.py:236-254`), under the deployed defense
+                        rand_pred_d = predict(equal_norm_color_noise(
+                            pts, res.l2_dist, mask=mask, generator=gen))
+                    steps_row = res.steps_b.cpu().numpy()[:valid]
+                    l2_b = res.l2_dist.cpu().numpy()[:valid]
+                # scored under the deployed defense, never the attack's closure
+                adv_pred_d = predict(adv_pts)
                 clean_pred = clean_pred_d.cpu().numpy()[:valid]
-                adv_pred = res.adv_pred.cpu().numpy()[:valid]
-                steps_row = res.steps_b.cpu().numpy()[:valid]
-                l2_b = res.l2_dist.cpu().numpy()[:valid]
+                adv_pred = adv_pred_d.cpu().numpy()[:valid]
+                rand_pred = None if rand_pred_d is None else rand_pred_d.cpu().numpy()[:valid]
                 if targeted:
+                    # the protocol's success rate from the deployed predictions
                     sr_b = np.array([
                         float((adv_pred[b][mask_np[b]] == args.target).mean())
                         if mask_np[b].any() else 0.0
@@ -148,15 +220,25 @@ def run_blocks(args, log):
                     ])
                 else:
                     sr_b = np.zeros(valid)
-                dt = time.time() - t0
                 if args.save_adv:
-                    adv_saved.append(
-                        res.points_adv.cpu().numpy()[:valid][keep].astype(np.float32))
+                    adv_saved.append(adv_pts.cpu().numpy()[:valid][keep].astype(np.float32))
                     adv_saved_labels.append(labs_np[:valid][keep].astype(np.int32))
+                pi = pidx[start : start + valid]
+                if room_colors is not None:
+                    # the last copy of a point sampled twice wins, as numpy's
+                    # assignment gives it
+                    flat = pi[keep].reshape(-1)
+                    _, first_rev = np.unique(flat[::-1], return_index=True)
+                    last = len(flat) - 1 - first_rev
+                    adv_c = adv_pts[:valid][torch.from_numpy(keep).to(device)][..., 3:6]
+                    room_colors[torch.from_numpy(flat[last]).to(device)] = \
+                        adv_c.reshape(-1, 3)[torch.from_numpy(last).to(device)].to(room_colors)
+                traj_np = (None if traj is None
+                           else {k: v.cpu().numpy() for k, v in traj.items()})
+                dt = time.time() - t0
 
                 lab_np = labs_np[:valid]
                 w = weights[start : start + valid]
-                pi = pidx[start : start + valid]
                 add_votes(clean_pool, pi[keep], clean_pred[keep], w[keep])
                 add_votes(adv_pool, pi[keep], adv_pred[keep], w[keep])
                 # one protocol row per block (`NB_nontarget_test_semseg.py:213-215`)
@@ -174,18 +256,31 @@ def run_blocks(args, log):
                         )
                     else:
                         other_acc = adv_acc
-                    tsv.write(
-                        f"{room_name}\t{start + b}\t{clean_acc:.4f}"
-                        f"\t{adv_acc:.4f}\t{l2_b[b]:.4f}\t{sr_b[b]:.4f}"
-                        f"\t{other_acc:.4f}\t{int(steps_row[b])}"
-                        f"\t{dt / valid:.4f}\n"
-                    )
+                    row = (f"{room_name}\t{start + b}\t{clean_acc:.4f}"
+                           f"\t{adv_acc:.4f}\t{l2_b[b]:.4f}\t{sr_b[b]:.4f}"
+                           f"\t{other_acc:.4f}\t{int(steps_row[b])}"
+                           f"\t{dt / valid:.4f}")
+                    if args.control:
+                        row += f"\t{float((rand_pred[b] == lab_np[b]).mean()):.4f}"
+                    tsv.write(row + "\n")
                 tsv.flush()
+                if steps_tsv is not None:
+                    # acc / sr pooled over the batch's real blocks, l2 their mean
+                    t_l2 = traj_np["l2"][:, :valid].mean(axis=1)
+                    for it in range(len(t_l2)):
+                        steps_tsv.write(
+                            f"{room_name}\t{start}\t{it}\t{traj_np['acc'][it]:.4f}"
+                            f"\t{traj_np['sr'][it]:.4f}\t{t_l2[it]:.4f}\n")
+                    steps_tsv.flush()
                 n_blocks_done += int(keep.sum())
                 if args.max_blocks and n_blocks_done >= args.max_blocks:
                     break
             clean_room = np.argmax(clean_pool, 1)
             adv_room = np.argmax(adv_pool, 1)
+            if room_colors is not None:
+                write_room_visuals(os.path.join(args.log_dir, "visual"), room_name,
+                                   args.attack, rooms.points[room_idx],
+                                   room_colors.cpu().numpy(), adv_room, labels_room)
             seen = clean_pool.sum(1) > 0
             np.add.at(clean_cm, (labels_room[seen], clean_room[seen]), 1)
             np.add.at(adv_cm, (labels_room[seen], adv_room[seen]), 1)
@@ -196,6 +291,8 @@ def run_blocks(args, log):
             )
             if args.max_blocks and n_blocks_done >= args.max_blocks:
                 break
+    if steps_tsv is not None:
+        steps_tsv.close()
     if resgcn_gates:
         log.info("resgcn gates: %d clouds attacked, %d skipped with <= 500 origin "
                  "points, %d with masked clean accuracy < 0.5", n_blocks_done,

@@ -3,21 +3,43 @@
 `tester_S3DIS.py:59-319`).
 
 Samples spatially-regular clouds, and per batch: builds the pyramid
-(fused kNN kernel) and the position plan once under ``no_grad``, takes
-the clean prediction from that same forward, runs the ares NB / tar_NB
-(PGD) or NU / tar_NU (C&W) attack reusing both, and writes one TSV row
-per cloud in the JAX CLI's format. Targeted runs use batch 1 and skip
-clouds with fewer than 500 origin points (`tester_S3DIS.py:253-258`).
+(fused kNN kernel) and the position plan once under ``no_grad``, runs the
+ares NB / tar_NB (PGD) or NU / tar_NU (C&W) attack reusing both, or with
+``--attack random`` noise of ``--noise_norm`` and no engine, and writes one
+TSV row per cloud in the JAX CLI's format. Targeted runs use batch 1 and
+skip clouds with fewer than 500 origin points (`tester_S3DIS.py:253-258`).
 ``--fused_ap`` builds the model with ``ap_impl="fused"``. ``--save_adv``
 writes the adversarial clouds and their labels to
 ``<log_dir>/randla_<attack>_adv_area<test_area>.npz`` for ``cli.eval
 --model randla --adv_set``.
+
+The protocol flags, as in the block loop: ``--defense`` / ``--eot``
+transform the features before the model (the pyramid and the position
+plan stay xyz-only: every defense leaves xyz alone), and every reported
+prediction is the deployed defense's; ``--control`` adds ``rand_acc``;
+``--log_steps`` writes ``randla_<attack>_area<k>_steps.tsv``; ``--visual``
+the per-cloud ``.xyzrgb`` dumps and HTML viewer.
 """
 
 from __future__ import annotations
 
 import os
 import time
+
+
+def _write_cloud_visuals(vis_dir, cloud, attack, xyz, feats, adv_feats, adv_pred, labels):
+    """Per-cloud visual artifacts (JAX `_attack_randla.py:318-345`)."""
+    from pointsecguard_tpu_torch.utils.logging import write_label_cloud, write_xyzrgb
+    from pointsecguard_tpu_torch.utils.viz import export_html_viewer
+
+    os.makedirs(vis_dir, exist_ok=True)
+    base = os.path.join(vis_dir, f"cloud{cloud}_{attack}")
+    write_xyzrgb(base + "_raw.xyzrgb", xyz, feats[:, 3:6])
+    write_xyzrgb(base + "_adv_raw.xyzrgb", xyz, adv_feats[:, 3:6])
+    write_label_cloud(base + "_pred.xyzrgb", xyz, adv_pred)
+    write_label_cloud(base + "_gt.xyzrgb", xyz, labels)
+    export_html_viewer(base + "_adv.html", xyz, colors=adv_feats[:, 3:6],
+                       title=f"cloud {cloud} {attack} adversarial")
 
 
 def run_randla(args, log):
@@ -28,9 +50,11 @@ def run_randla(args, log):
         PGDConfig,
         attack_preset,
         cw_color_attack,
+        equal_norm_color_noise,
         make_target_labels,
         pgd_color_attack,
     )
+    from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
@@ -56,20 +80,36 @@ def run_randla(args, log):
     model.load_state_dict(load_checkpoint(args.log_dir))
     # inference only: the attack needs input gradients, never parameter ones
     model.to(device).eval().requires_grad_(False)
-    overrides = {"targeted": True, "target": args.target} if targeted else {}
-    attack_cfg = attack_preset("randla", args.attack, **overrides)
-    # the ares random start; torch's generator cannot give jax.random's bits
+    wraps = defense_wrapper(args)
+    eval_wrap, attack_wrap = wraps if wraps is not None else (None, None)
+    if args.attack == "random":
+        # fixed-norm noise as its own run (`sem_seg_dense/test.py:47-109`
+        # at the cloud level; the NB preset's magnitude is 17)
+        attack_cfg = None
+        if args.control:  # the "attack" is the equal-norm noise itself
+            log.info("--control is a no-op with --attack random; ignoring")
+            args.control = False
+    else:
+        overrides = {"targeted": True, "target": args.target} if targeted else {}
+        attack_cfg = attack_preset("randla", args.attack, **overrides)
+    # the ares random start and the noise of --attack random / --control;
+    # torch's generator cannot give jax.random's bits
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     os.makedirs(args.log_dir, exist_ok=True)
     tsv_path = os.path.join(args.log_dir, f"randla_{args.attack}_area{args.test_area}.tsv")
+    steps_tsv = None
+    if args.log_steps and attack_cfg is not None:
+        steps_tsv = open(tsv_path.replace(".tsv", "_steps.tsv"), "w")
+        steps_tsv.write("cloud\titer\tacc\tsr\tl2\n")
     clean_cm = np.zeros((K, K))
     adv_cm = np.zeros((K, K))
     n_done = 0
     adv_saved, adv_saved_labels = [], []
     with open(tsv_path, "w") as tsv:
-        tsv.write("cloud\tclean_acc\tadv_acc\tl2\tsr\tsteps\ttime_s\n")
-        for _, feats, labels, _, cloud_idx in sampler.batches(B, -(-args.num_clouds // B)):
+        header = "cloud\tclean_acc\tadv_acc\tl2\tsr\tsteps\ttime_s"
+        tsv.write(header + ("\trand_acc" if args.control else "") + "\n")
+        for xyz, feats, labels, _, cloud_idx in sampler.batches(B, -(-args.num_clouds // B)):
             feats_t = torch.from_numpy(feats).to(device)
             labels_t = torch.from_numpy(labels).to(device).long()
             if targeted:
@@ -83,26 +123,56 @@ def run_randla(args, log):
                 pyr = build_pyramid(feats_t[..., :3], num_layers=cfg.num_layers,
                                     k=cfg.k_n, sub_ratios=cfg.sub_sampling_ratio)
                 # position encodings depend only on xyz + parameters: computed
-                # once here; this forward's logits are the clean prediction
+                # once here; without a defense this forward's logits are the
+                # clean prediction
                 clean_logits, pos = model(feats_t, pyr, collect_pos=True)
-                clean_pred_d = torch.argmax(clean_logits, dim=-1)
 
             def outputs_fn(f, pyr=pyr, pos=pos):
                 return model(f, pyr, pos_plan=pos)
 
-            if isinstance(attack_cfg, PGDConfig):
-                res = pgd_color_attack(outputs_fn, feats_t, labels_t, attack_cfg,
-                                       mask=mask, generator=gen)
+            f_eval = eval_wrap(outputs_fn) if eval_wrap else outputs_fn
+
+            @torch.no_grad()
+            def predict(f):  # every reported prediction: the deployed model
+                return torch.argmax(f_eval(f), dim=-1)
+
+            clean_pred_d = (predict(feats_t) if eval_wrap
+                            else torch.argmax(clean_logits, dim=-1))
+            traj = rand_pred_d = None
+            if attack_cfg is None:  # --attack random
+                adv_t = equal_norm_color_noise(
+                    feats_t, torch.full((B,), args.noise_norm, device=device), mask=mask,
+                    generator=gen)
+                l2_np = np.full(B, float(args.noise_norm))
+                steps_row = np.zeros(B, np.int64)
+                sr_global = 0.0
             else:
-                res = cw_color_attack(outputs_fn, feats_t, labels_t, attack_cfg, mask=mask)
+                f_atk = attack_wrap(outputs_fn) if attack_wrap else outputs_fn
+                if isinstance(attack_cfg, PGDConfig):
+                    res = pgd_color_attack(f_atk, feats_t, labels_t, attack_cfg, mask=mask,
+                                           generator=gen, trajectory=args.log_steps)
+                else:
+                    res = cw_color_attack(f_atk, feats_t, labels_t, attack_cfg, mask=mask,
+                                          trajectory=args.log_steps)
+                res, traj = res if args.log_steps else (res, None)
+                adv_t = res.points_adv
+                if args.control:
+                    # ares runs the control at the *found* distortion norm
+                    # (`NUattack.py:236-254`), under the deployed defense
+                    rand_pred_d = predict(equal_norm_color_noise(
+                        feats_t, res.l2_dist, mask=mask, generator=gen))
+                l2_np = res.l2_dist.cpu().numpy()
+                steps_row = res.steps_b.cpu().numpy()
+                sr_global = float(res.success_rate)
+            # scored under the deployed defense, never the attack's closure
+            adv_pred = predict(adv_t).cpu().numpy()
             clean_pred = clean_pred_d.cpu().numpy()
-            adv_pred = res.adv_pred.cpu().numpy()
-            l2_np = res.l2_dist.cpu().numpy()
-            steps_row = res.steps_b.cpu().numpy()
-            sr_global = float(res.success_rate)
+            rand_pred = None if rand_pred_d is None else rand_pred_d.cpu().numpy()
+            traj_np = None if traj is None else {k: v.cpu().numpy() for k, v in traj.items()}
             mask_np = None if mask is None else mask.cpu().numpy()
+            adv_np = adv_t.cpu().numpy() if (args.save_adv or args.visual) else None
             if args.save_adv:
-                adv_saved.append(res.points_adv.cpu().numpy().astype(np.float32))
+                adv_saved.append(adv_np.astype(np.float32))
                 adv_saved_labels.append(labels.astype(np.int32))
             dt = time.time() - t0
             np.add.at(clean_cm, (labels.reshape(-1), clean_pred.reshape(-1)), 1)
@@ -114,15 +184,33 @@ def run_randla(args, log):
                     sr_b = float((adv_pred[b][mask_np[b]] == args.target).mean())
                 else:
                     sr_b = sr_global
-                tsv.write(f"{int(cloud_idx[b])}\t{clean_acc:.4f}\t{adv_acc:.4f}"
-                          f"\t{float(l2_np[b]):.4f}\t{sr_b:.4f}"
-                          f"\t{int(steps_row[b])}\t{dt / B:.4f}\n")
+                row = (f"{int(cloud_idx[b])}\t{clean_acc:.4f}\t{adv_acc:.4f}"
+                       f"\t{float(l2_np[b]):.4f}\t{sr_b:.4f}"
+                       f"\t{int(steps_row[b])}\t{dt / B:.4f}")
+                if args.control:
+                    row += f"\t{float((rand_pred[b] == labels[b]).mean()):.4f}"
+                tsv.write(row + "\n")
             tsv.flush()
+            if args.visual:
+                for b in range(B):
+                    _write_cloud_visuals(os.path.join(args.log_dir, "visual"),
+                                         int(cloud_idx[b]), args.attack, xyz[b],
+                                         feats[b], adv_np[b], adv_pred[b], labels[b])
+            if steps_tsv is not None:
+                # acc / sr pooled over the batch's clouds; l2 per cloud
+                for b in range(B):
+                    for it in range(len(traj_np["acc"])):
+                        steps_tsv.write(
+                            f"{int(cloud_idx[b])}\t{it}\t{traj_np['acc'][it]:.4f}"
+                            f"\t{traj_np['sr'][it]:.4f}\t{traj_np['l2'][it, b]:.4f}\n")
+                steps_tsv.flush()
             n_done += B
             if n_done % 10 == 0:
                 log.info("%d clouds: clean mIoU %.4f adv mIoU %.4f", n_done,
                          metrics_from_confusion(clean_cm).miou,
                          metrics_from_confusion(adv_cm).miou)
+    if steps_tsv is not None:
+        steps_tsv.close()
     cm = metrics_from_confusion(clean_cm)
     am = metrics_from_confusion(adv_cm)
     log.info("RANDLA %s: clean mIoU %.4f acc %.4f | adv mIoU %.4f acc %.4f (%d clouds)",

@@ -10,12 +10,25 @@ Ported: ``--attack nb|tar_nb`` (PGD) and ``nu|tar_nu`` (C&W) for
 the per-cloud gates of `sem_seg_dense/attacks.py:204-207`) over
 whole-scene blocks (``cli/_attack_blocks.py``) and for ``--model randla``
 over spatially-regular S3DIS clouds (``cli/_attack_randla.py``, prepared
-with ``data.randla.prepare_room`` under ``--randla_dir``); ``--fused_ap`` (``--model randla`` only) runs
-the narrow attentive poolings through the fused kernels; ``--save_adv``
-writes the adversarial blocks or clouds for ``cli.eval --adv_set``. The checkpoint is the port's own (``<log_dir>/checkpoints/``:
-``best.pt``, else ``latest.pt``, see ``utils/checkpoint.py``). It runs on
-the GPU; ``--device cpu`` runs the plain PyTorch path by request.
-Every other flag of the JAX CLI is accepted by name and stops the run
+with ``data.randla.prepare_room`` under ``--randla_dir``); ``--fused_ap``
+(``--model randla`` only) runs the narrow attentive poolings through the
+fused kernels; ``--save_adv`` writes the adversarial blocks or clouds for
+``cli.eval --adv_set``. The reference's protocol flags, for every model:
+``--attack random`` with ``--noise_norm`` (noise of a fixed norm, no
+attack engine), ``--control`` (the equal-norm random control at the
+attack's measured L2, a ``rand_acc`` column), ``--log_steps`` (per-step
+trajectories to ``*_steps.tsv``, no early exit), ``--visual``
+(``.xyzrgb`` dumps and HTML viewers under ``<log_dir>/visual``),
+``--defense bit_depth|jitter|jpeg|resample`` with ``--defense_*`` and
+``--eot`` (every reported prediction under the deployed defense; the
+attacker differentiates the EoT mean), and ``--resgcn_fixed_graphs``
+(ResGCN's attacker on graphs frozen at the clean input; the metrics
+evaluate the dynamic model). The checkpoint is the port's own
+(``<log_dir>/checkpoints/``: ``best.pt``, else ``latest.pt``, see
+``utils/checkpoint.py``). It runs on the GPU; ``--device cpu`` runs the
+plain PyTorch path by request. Every other flag of the JAX CLI
+(``--ensemble``, ``--ensemble_mode``, ``--resgcn_fast``, ``--devices``,
+``--shard_points``, ``--precision``) is accepted by name and stops the run
 with "not ported yet" instead of being ignored.
 """
 
@@ -29,16 +42,10 @@ from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusal
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
-PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu")
+PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu", "random")
 # JAX CLI flags this port does not implement yet
-_UNPORTED_SWITCHES = (
-    "--control", "--log_steps", "--visual",
-    "--resgcn_fast", "--resgcn_fixed_graphs",
-)
-_UNPORTED_VALUES = (
-    "--ensemble_mode", "--defense_bits", "--defense_sigma",
-    "--defense_quality", "--defense_knn", "--eot", "--noise_norm",
-)
+_UNPORTED_SWITCHES = ("--resgcn_fast",)
+_UNPORTED_VALUES = ("--ensemble_mode",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -78,8 +85,40 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused_ap", action="store_true",
                     help="randla: fused attentive-pooling kernels for the "
                          "poolings narrower than 128 channels")
+    ap.add_argument("--defense", default="none",
+                    choices=["none", "bit_depth", "jitter", "jpeg", "resample"],
+                    help="input-transformation defense on the model (the "
+                         "attack sees the defended model, BPDA-style)")
+    ap.add_argument("--defense_bits", type=int, default=4)
+    ap.add_argument("--defense_sigma", type=float, default=0.02)
+    ap.add_argument("--defense_quality", type=int, default=95,
+                    help="jpeg defense quality (libjpeg curve)")
+    ap.add_argument("--defense_knn", type=int, default=8,
+                    help="resample defense: neighbours per point the random "
+                         "colour pick draws from")
+    ap.add_argument("--eot", type=int, default=1,
+                    help="expectation over transformation for a randomized "
+                         "(jitter / resample) defense: the attack "
+                         "differentiates the mean of K fixed defended draws; "
+                         "every reported metric evaluates the deployed draw")
+    ap.add_argument("--control", action="store_true",
+                    help="also evaluate the equal-norm random-noise control "
+                         "at the attack's measured L2 per block "
+                         "(`NUattack.py:236-254` protocol)")
+    ap.add_argument("--noise_norm", type=float, default=1.0,
+                    help="L2 norm for --attack random "
+                         "(`sem_seg_dense/test.py:68` data_result = 1.0)")
+    ap.add_argument("--log_steps", action="store_true",
+                    help="write per-iteration acc / sr / L2 to *_steps.tsv "
+                         "(ares `bim.py:216-237`); turns the early exit off")
+    ap.add_argument("--visual", action="store_true",
+                    help="dump clean / adv / pred / gt .xyzrgb clouds and HTML "
+                         "viewers per room (cloud) to <log_dir>/visual")
+    ap.add_argument("--resgcn_fixed_graphs", action="store_true",
+                    help="resgcn: the attacker differentiates a surrogate whose "
+                         "graphs are frozen at the clean input; every metric "
+                         "evaluates the dynamic model")
     # flags whose only ported value is the default
-    ap.add_argument("--defense", default="none")
     ap.add_argument("--devices", "-d", type=int, default=1)
     ap.add_argument("--shard_points", type=int, default=1)
     ap.add_argument("--precision", default="float32")
@@ -96,8 +135,7 @@ def _refuse_unported(args) -> None:
     refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
     if args.attack not in PORTED_ATTACKS:
         refused.append(f"--attack {args.attack}")
-    for flag, ported in (("defense", "none"), ("devices", 1),
-                         ("shard_points", 1), ("precision", "float32")):
+    for flag, ported in (("devices", 1), ("shard_points", 1), ("precision", "float32")):
         if getattr(args, flag) != ported:
             refused.append(f"--{flag} {getattr(args, flag)}")
     if args.ensemble:
@@ -105,6 +143,8 @@ def _refuse_unported(args) -> None:
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")
+    if args.resgcn_fixed_graphs and args.model != "resgcn":
+        refused.append(f"--resgcn_fixed_graphs with --model {args.model}")
     refused += resgcn_refusals(args)
     refused += [f for f in _UNPORTED_SWITCHES if getattr(args, f[2:])]
     refused += [f for f in _UNPORTED_VALUES if getattr(args, f[2:]) is not None]

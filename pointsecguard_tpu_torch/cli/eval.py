@@ -15,7 +15,10 @@ Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet`` with
 ``--resgcn_*`` model flags; ``--model randla``
 (whole-cloud voting, ``_eval_randla``) with ``--randla_dir``,
 ``--randla_points`` (0 → 40960), ``--num_clouds``, ``--batch_size``
-(0 → the config's val_batch_size 1), ``--seed`` and ``--adv_set``. The
+(0 → the config's val_batch_size 1), ``--seed``, ``--adv_set`` and
+``--save_preds`` (per-cloud prediction PLYs). ``--visual`` writes the
+per-room (per-cloud) prediction and ground-truth label clouds and an HTML
+viewer under ``<log_dir>/visual`` for every model. The
 checkpoint is the port's own (``<log_dir>/checkpoints/``: the best one,
 else the latest). It runs on the GPU; ``--device cpu`` runs the plain
 PyTorch path by request. Every other flag of the JAX CLI is accepted by
@@ -39,10 +42,10 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 _UNPORTED_DEFAULTS = {
-    "num_category": 40, "randla_dataset": "s3dis", "save_preds": None, "devices": 1,
+    "num_category": 40, "randla_dataset": "s3dis", "devices": 1,
     "shard_points": 1, "precision": "float32",
 }
-_UNPORTED_SWITCHES = ("no_normals", "resgcn_fast", "visual")
+_UNPORTED_SWITCHES = ("no_normals", "resgcn_fast")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -69,6 +72,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--randla_points", type=int, default=0,
                     help="randla: points per cloud (0 = the config's 40960)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--visual", action="store_true",
+                    help="write per-room (randla: per-cloud) prediction / GT "
+                         "label clouds (.xyzrgb + HTML viewer) to "
+                         "<log_dir>/visual (`test_semseg.py:101-174`)")
+    ap.add_argument("--save_preds", default=None,
+                    help="randla: save per-cloud prediction PLYs here")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
@@ -88,6 +97,8 @@ def _refuse_unported(args) -> None:
                 for name, default in _UNPORTED_DEFAULTS.items()
                 if getattr(args, name) != default]
     refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
+    if args.save_preds and args.model != "randla":
+        refused.append(f"--save_preds with --model {args.model} (randla only)")
     refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
@@ -135,13 +146,15 @@ def _eval_randla(args, log):
     argmax is reprojected onto the full-resolution cloud through the
     prepared ``<name>_proj.pkl``. Clouds never sampled are skipped; where
     ``_proj.pkl`` is missing or its lengths differ, the sub-cloud labels
-    are scored."""
+    are scored. ``--save_preds`` writes each reprojected prediction as a
+    PLY; ``--visual`` the sub-cloud's label clouds and viewer."""
     import pickle
 
     import numpy as np
     import torch
 
     from pointsecguard_tpu_torch.data import S3DIS_CLASSES
+    from pointsecguard_tpu_torch.data.ply import write_ply
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import RandLANet
     from pointsecguard_tpu_torch.train.trainer import randla_family
@@ -182,6 +195,8 @@ def _eval_randla(args, log):
             np.add.at(pools[int(cloud_idx[b])], idx[b], probs[b])
 
     cm = np.zeros((K, K), np.float64)
+    if args.save_preds:
+        os.makedirs(args.save_preds, exist_ok=True)
     n_scored = 0
     for ci, cloud in enumerate(sampler.clouds):
         if not pools[ci].any():
@@ -198,11 +213,26 @@ def _eval_randla(args, log):
             full_labels = np.asarray(full_labels, np.int64).reshape(-1)
             if len(proj_idx) == len(full_labels):
                 y, p = full_labels, sub_pred[proj_idx]
+                if args.save_preds:
+                    write_ply(os.path.join(args.save_preds, cloud.name + ".ply"),
+                              [p.astype(np.int32)], ["pred"])
             else:
                 log.warning("%s: proj/labels length mismatch (%d vs %d) — scoring at "
                             "sub-cloud resolution", cloud.name, len(proj_idx),
                             len(full_labels))
         np.add.at(cm, (np.asarray(y).reshape(-1), np.asarray(p).reshape(-1)), 1.0)
+        if args.visual:
+            # per-cloud pred / gt label clouds + HTML at the sub-cloud resolution
+            from pointsecguard_tpu_torch.utils.logging import write_label_cloud
+            from pointsecguard_tpu_torch.utils.viz import export_html_viewer
+
+            vis_dir = os.path.join(args.log_dir, "visual")
+            os.makedirs(vis_dir, exist_ok=True)
+            base = os.path.join(vis_dir, cloud.name)
+            write_label_cloud(base + "_pred.xyzrgb", cloud.xyz, sub_pred)
+            write_label_cloud(base + "_gt.xyzrgb", cloud.xyz, cloud.labels)
+            export_html_viewer(base + "_pred.html", cloud.xyz, labels=sub_pred,
+                               title=f"{cloud.name} predictions")
     if n_scored < len(sampler.clouds):
         log.info("scored %d/%d clouds (raise --num_clouds to cover all)",
                  n_scored, len(sampler.clouds))
@@ -262,6 +292,7 @@ def main(argv=None):
     total, per_room = evaluate_whole_scenes(
         predict, rooms, batch_size=args.batch_size, num_votes=args.num_votes,
         block_points=args.num_point, rng=np.random.default_rng(args.seed),
+        visual_dir=os.path.join(args.log_dir, "visual") if args.visual else None,
     )
     for name, m in zip(rooms.names, per_room):
         log.info("%s: mIoU %.4f acc %.4f", name, m.miou, m.accuracy)

@@ -10,6 +10,8 @@ and fold the room into a global confusion matrix. The attack CLI uses
 
 from __future__ import annotations
 
+import os
+
 from typing import Callable
 
 import numpy as np
@@ -53,14 +55,14 @@ def evaluate_whole_scenes(
         (``train.trainer.make_eval_step``). Every call gets ``batch_size``
         blocks: the last chunk of a room is padded with all-zero blocks,
         whose predictions are dropped.
-      visual_dir: the per-room label clouds of the JAX package; not
-        ported yet, so anything but None is refused.
+      visual_dir: if set, write each room's predicted and ground-truth
+        label clouds (``.xyzrgb``) and the predictions' HTML viewer there:
+        the reference test script's ``--visual`` artifacts
+        (`test_semseg.py:101-174`).
 
     Returns:
       (dataset-level metrics, per-room metrics) — both confusion-based.
     """
-    if visual_dir is not None:
-        raise NotImplementedError("not ported yet: visual_dir (per-room label clouds)")
     rng = rng or np.random.default_rng(0)
     ws = WholeSceneBlocks(rooms, block_points=block_points)
     total_cm = np.zeros((num_classes, num_classes), np.float64)
@@ -84,6 +86,17 @@ def evaluate_whole_scenes(
                     vote_pool, pidx[start:end], preds, weights[start:end]
                 )
         room_pred = np.argmax(vote_pool, axis=1)
+        if visual_dir is not None:
+            from pointsecguard_tpu_torch.utils.logging import write_label_cloud
+            from pointsecguard_tpu_torch.utils.viz import export_html_viewer
+
+            os.makedirs(visual_dir, exist_ok=True)
+            xyz = rooms.points[room_idx][:, :3]
+            base = os.path.join(visual_dir, rooms.names[room_idx])
+            write_label_cloud(base + "_pred.xyzrgb", xyz, room_pred)
+            write_label_cloud(base + "_gt.xyzrgb", xyz, labels_room)
+            export_html_viewer(base + "_pred.html", xyz, labels=room_pred,
+                               title=f"{rooms.names[room_idx]} predictions")
         cm = np.zeros((num_classes, num_classes), np.float64)
         np.add.at(cm, (labels_room, room_pred), 1.0)
         total_cm += cm

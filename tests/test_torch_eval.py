@@ -8,6 +8,7 @@ writes ``tests/fixtures/trained_pointnet2.npz`` from the msgpack anew.
 """
 
 import os
+import re
 import sys
 
 import flax.serialization
@@ -135,10 +136,28 @@ def test_votes_pool_over_passes(rooms_dir):
     assert not np.array_equal(two[n_first], one[0])
 
 
-def test_visual_dir_is_refused(rooms_dir):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        evaluate_whole_scenes(lambda c: c, RoomSet.load(rooms_dir, "test", 5),
-                              visual_dir="somewhere")
+def test_visual_dir_is_refused(rooms_dir, tmp_path):
+    """``visual_dir`` was refused before the port's visual dumps landed; it
+    now writes the JAX evaluator's files on the same predictions: the label
+    clouds byte for byte, the viewer with the same numbers at its 4
+    decimals (``utils/viz.py`` formats them without numpy's alignment)."""
+    ours, theirs = tmp_path / "port", tmp_path / "jax"
+    evaluate_whole_scenes(_stub([]), RoomSet.load(rooms_dir, "test", 5), batch_size=8,
+                          block_points=128, rng=np.random.default_rng(2), visual_dir=str(ours))
+    jax_evaluate(_stub([]), jax_s3dis.RoomSet.load(rooms_dir, "test", 5), batch_size=8,
+                 block_points=128, rng=np.random.default_rng(2), visual_dir=str(theirs))
+    names = sorted(os.listdir(theirs))
+    assert sorted(os.listdir(ours)) == names and len(names) == 2 * 3  # two rooms
+    arrays = re.compile(r"new Float32Array\((\[[^\]]*\])\)")
+    for n in names:
+        got, want = (ours / n).read_text(), (theirs / n).read_text()
+        if n.endswith(".xyzrgb"):
+            assert got == want, n
+            continue
+        assert arrays.sub("[]", got) == arrays.sub("[]", want)
+        for a, b in zip(arrays.findall(got), arrays.findall(want), strict=True):
+            np.testing.assert_allclose(np.array(a[1:-1].split(","), float),
+                                       np.array(b[1:-1].split(","), float), rtol=0, atol=1e-4)
 
 
 # --- cli.eval on the trained fixture against the JAX CLI ---------------------

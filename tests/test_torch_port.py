@@ -145,15 +145,17 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--control"], ["--log_steps"], ["--model", "randla", "--randla_dataset", "semantickitti"],
-    ["--visual"],
-    ["--defense", "bit_depth"], ["--ensemble", "pointnet:log"],
+    # the protocol flags (--control, --log_steps, --visual, --defense, --eot,
+    # --attack random, --resgcn_fixed_graphs) are ported:
+    # tests/test_torch_protocol_cli.py runs them
+    ["--model", "randla", "--randla_dataset", "semantickitti"],
+    ["--ensemble", "pointnet:log"], ["--ensemble_mode", "log_probs"],
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
-    # resgcn is ported: its frozen-graph surrogate is not
-    ["--model", "resgcn", "--resgcn_fixed_graphs"], ["--attack", "random"], ["--eot", "4"],
-    # PointNet and MSG are ported: the equal-norm control and RandLA's fused
-    # attentive pooling are not theirs
-    ["--model", "pointnet", "--control"], ["--model", "pointnet2_msg", "--fused_ap"],
+    # resgcn is ported: its subsample dilation is not, and the frozen-graph
+    # surrogate is resgcn's alone
+    ["--model", "resgcn", "--resgcn_fast"], ["--model", "pointnet", "--resgcn_fixed_graphs"],
+    # RandLA's fused attentive pooling is not MSG's
+    ["--model", "pointnet2_msg", "--fused_ap"],
 ])
 def test_unported_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -186,7 +186,7 @@ def test_cli_tar_nu_fused_on_cpu_gates_clouds(cli_runs, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--model", "pointnet2", "--fused_ap"], ["--randla_dataset", "semantic3d"],
-    ["--shard_points", "2"], ["--precision", "bfloat16"], ["--control"],
+    ["--shard_points", "2"], ["--precision", "bfloat16"], ["--ensemble", "pointnet:log"],
 ])
 def test_unported_randla_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -272,10 +272,7 @@ def test_save_adv_then_eval_adv_set(prepared, jax_weights, narrow):
 @pytest.mark.parametrize("cli,flags", [
     (train_cli, ["--randla_dataset", "semantickitti"]),
     (eval_cli, ["--randla_dataset", "semantickitti"]),
-    (eval_cli, ["--save_preds", "preds"]),
-    (eval_cli, ["--visual"]),
-], ids=["train --randla_dataset", "eval --randla_dataset", "eval --save_preds",
-        "eval --visual"])
+], ids=["train --randla_dataset", "eval --randla_dataset"])
 def test_randla_flags_still_refused(cli, flags):
     with pytest.raises(SystemExit, match=f"not ported yet: {flags[0]}"):
         cli.main(["--model", "randla", "--device", "cpu"] + flags)

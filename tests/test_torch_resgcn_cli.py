@@ -228,7 +228,7 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("cli,argv", [
     (attack_cli, ["--model", "resgcn", "--resgcn_fast"]),
-    (attack_cli, ["--model", "resgcn", "--resgcn_fixed_graphs"]),
+    (attack_cli, ["--model", "pointnet2", "--resgcn_fixed_graphs"]),
     (attack_cli, ["--model", "resgcn", "--precision", "bfloat16"]),
     (attack_cli, ["--model", "pointnet2", "--resgcn_blocks", "3"]),
     (train_cli, ["--model", "resgcn", "--remat"]),

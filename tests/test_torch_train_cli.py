@@ -174,7 +174,8 @@ _TRAIN_REFUSED = [
 _EVAL_REFUSED = [
     # resgcn is ported; its subsample dilation (--resgcn_fast) is not
     pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
-    ["--model", "pointnet_cls"], ["--visual"],
+    ["--model", "pointnet_cls"],
+    # --save_preds is RandLA's (PLYs of reprojected clouds)
     ["--save_preds", "out"], ["--devices", "2"], ["--shard_points", "2"],
     ["--precision", "bfloat16"], ["--num_category", "10"], ["--no_normals"],
     ["--resgcn_blocks", "3"], ["--resgcn_k", "8"], ["--resgcn_filters", "32"],
@@ -209,6 +210,8 @@ _EVAL_TAKEN = [
     (["--model", "resgcn"], "model", "resgcn"),
     (["--model", "resgcn", "--resgcn_block_type", "plain"], "resgcn_block_type", "plain"),
     (["--model", "resgcn", "--resgcn_conv", "mr"], "resgcn_conv", "mr"),
+    (["--visual"], "visual", True),
+    (["--model", "randla", "--save_preds", "out"], "save_preds", "out"),
 ]
 
 
