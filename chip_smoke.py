@@ -234,6 +234,35 @@ Phases 42-46 drive the attack CLIs' protocol flags:
     blocks: 12 kNN launches (graph collection, clean and adversarial
     forwards), ms a block and adversarial accuracy beside phase 29's.
 
+Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
+41, each at full width and with its own seconds:
+
+47. ``cli.attack --attack nb`` on the trained SSG (phase 17) with ``--ensemble
+    pointnet2_msg:<MSG log> --ensemble pointnet:<PointNet log>:0.5`` (phase
+    39's logs), two batches of 8 × 4096 under ``--ensemble_mode probs`` and
+    ``log_probs``: exactly 8 FPS (4 SSG + 4 MSG) and 20 bottom-k (8 + 12)
+    launches a batch, ms a block beside NB alone; a self-ensemble's clean
+    accuracy equal to the single model's.
+48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch of 8 ×
+    4096 a call: ``--mode prediction``, then ``--mode attack`` with fgsm,
+    bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples 16
+    --iters 10``) and nattack (its own 100 × 16): ms and forwards a batch,
+    queries per second of the score-based three, adversarial accuracy and
+    success; 4 FPS and 8 bottom-k launches a batch whatever the query
+    count (C&W: one more bottom-k a step).
+49. ``--mode distortion --attack_name pgd`` (probes, minimal ε),
+    ``--mode iteration --attack_name bim`` (10 rows, L2 monotone or not) and
+    ``--mode worstcase --attack_names pgd,nes``.
+50. NES and SPSA card vs CPU on two blocks with the same draws through
+    ``noise=`` at 4 pairs × 3 iterations (the colour elements that differ in
+    float32, in units of α), NES's first step with every flipped sign
+    within the estimate's rounding bound, and MIM in float64 card vs CPU
+    within 1e-10.
+51. ``cli.benchmark --model randla --attack_name pgd`` on phase 24's
+    checkpoint, 4 × 40960 (10 kNN launches), and ``--model resgcn
+    --attack_name bim --iters 10`` on phase 29's, 8 × 4096 (4 kNN a
+    forward).
+
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
 host's time to send them is hidden) and ``eager_ms`` the median of single
@@ -3473,6 +3502,404 @@ def phase_resgcn_fixed(data: str, records, dynamic: dict) -> dict:
     return stats
 
 
+# phases 47-51: the ensemble victim and the ares benchmark layer
+BENCH_BLOCKS = 8  # one batch of 8 × 4096 blocks per cli.benchmark call
+SCORE_BUDGET = {"nes": 16, "spsa": 16}  # --samples at --iters 10 (nattack: its own 100 × 16)
+BENCH_CW_STEPS = 200
+# phase 50's NES / SPSA budget and MIM's iterations
+REFERENCE_SAMPLES, REFERENCE_ITERS, REFERENCE_MIM_ITERS = 4, 3, 10
+
+
+def phase_ensemble(data: str, logs: dict, records) -> dict:
+    """47. ``cli.attack --attack nb`` on the trained SSG (phase 17) with
+    ``--ensemble pointnet2_msg:<MSG log> --ensemble pointnet:<PointNet
+    log>:0.5`` (phases 39), two batches of 8 × 4096 under ``--ensemble_mode
+    probs`` and then ``log_probs``: exactly 4 + 4 FPS and 8 + 12 bottom-k
+    launches a batch (each PointNet++ member's geometry once a batch, shared
+    by the eval and attack closures), ms a block beside NB alone; then a
+    self-ensemble (the SSG twice), whose clean accuracy must equal the
+    single model's."""
+    n = PROTOCOL_BATCHES
+    alone = _protocol_run(data, logs["pointnet2"], ["--attack", "nb"])
+    members = ["--ensemble", f"pointnet2_msg:{logs['pointnet2_msg']}",
+               "--ensemble", f"pointnet:{logs['pointnet']}:0.5"]
+    runs = {"nb alone": alone}
+    for mode in ("probs", "log_probs"):
+        stats = _protocol_run(data, logs["pointnet2"], ["--attack", "nb", *members,
+                                                        "--ensemble_mode", mode])
+        counts = stats["launches"]
+        if (counts["fps"], counts["bottom_k"], counts["knn"]) != (8 * n, 20 * n, 0):
+            raise AssertionError(f"ensemble {mode}: launches {counts}, want fps {8 * n}, "
+                                 f"bottom_k {20 * n}, knn 0")
+        if not stats["adv_acc"] < stats["clean_acc"]:
+            raise AssertionError(f"ensemble {mode}: NB did not lower the mixture's accuracy")
+        runs[f"ensemble {mode}"] = stats
+    self_ens = _protocol_run(data, logs["pointnet2"], [
+        "--attack", "nb", "--ensemble", f"pointnet2:{logs['pointnet2']}"])
+    runs["self-ensemble"] = self_ens
+    if self_ens["clean_acc"] != alone["clean_acc"]:
+        raise AssertionError(f"self-ensemble clean accuracy {self_ens['clean_acc']} != the "
+                             f"single model's {alone['clean_acc']}")
+    if (self_ens["launches"]["fps"], self_ens["launches"]["bottom_k"]) != (8 * n, 16 * n):
+        raise AssertionError(f"self-ensemble launches {self_ens['launches']}")
+    for name in ("fps", "bottom_k"):
+        records[name]["launches_by_path"]["pointnet2 nb --ensemble"] = \
+            runs["ensemble probs"]["launches"][name]
+        records[name]["calls_per_batch"]["pointnet2 nb --ensemble msg + pointnet"] = \
+            runs["ensemble probs"]["launches"][name] / n
+    for k, v in runs.items():
+        print(f"ensemble {k}: " + json.dumps(v))
+    print("ensemble ms/block: " + json.dumps({k: round(v["ms_per_block"], 3)
+                                              for k, v in runs.items()}))
+    return runs
+
+
+def _bench_cli(argv: list, model_cls) -> dict:
+    """One ``cli.benchmark.main`` call with the launch counts set to 0 just
+    before and read just after; the harness's wall (``AttackBenchmark.run``
+    or ``worst_case_run``, synchronised) and the model's forwards."""
+    from pointsecguard_tpu_torch.attacks import benchmark as harness
+    from pointsecguard_tpu_torch.cli import benchmark as cli_bench
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    seconds, forwards = [], [0]
+    real_run, real_forward = harness.AttackBenchmark.run, model_cls.forward
+
+    def run(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_run(self, *a, **k)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    def forward(self, *a, **k):
+        forwards[0] += 1
+        return real_forward(self, *a, **k)
+
+    harness.AttackBenchmark.run, model_cls.forward = run, forward
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = cli_bench.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        harness.AttackBenchmark.run, model_cls.forward = real_run, real_forward
+    return {"out": out, "main_wall_s": time.perf_counter() - t0,
+            "harness_s": sum(seconds), "forwards": forwards[0],
+            "launches": kernels.launch_counts()}
+
+
+def _bench_argv(data: str, log: str, *flags, model: str = "pointnet2") -> list:
+    return ["--model", model, "--data_root", data, "--log_dir", log, "--num_point",
+            str(NUM_POINT), "--batch_size", str(BATCH), "--max_blocks", str(BENCH_BLOCKS),
+            *flags]
+
+
+def phase_benchmark_registry(data: str, log: str, records) -> dict:
+    """48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch
+    of 8 × 4096 a call: ``--mode prediction``, then ``--mode attack`` with
+    fgsm, bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples
+    16 --iters 10``) and nattack (its own 100 × 16): ms a batch, forwards a
+    batch, queries per second for the score-based three (forwards × blocks
+    / wall), adversarial accuracy and success rate. 4 FPS and 8 bottom-k
+    launches a batch whatever the query count (C&W adds one bottom-k a
+    step for its smooth term)."""
+    from pointsecguard_tpu_torch.attacks import NAttackConfig
+    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG
+
+    pred = _bench_cli(_bench_argv(data, log, "--mode", "prediction"), PointNet2SemSegSSG)
+    ys, _, preds = pred["out"]
+    runs = {"prediction": {"main_wall_s": pred["main_wall_s"], "forwards": pred["forwards"],
+                           "acc": float((preds == ys).mean()), "launches": pred["launches"]}}
+    if pred["forwards"] != 1 or (pred["launches"]["fps"], pred["launches"]["bottom_k"]) != (4, 8):
+        raise AssertionError(f"prediction: {pred['forwards']} forwards, {pred['launches']}")
+    total = {"fps": 4, "bottom_k": 8}
+    for name in ("fgsm", "bim", "pgd", "mim", "cw", "nes", "spsa", "nattack"):
+        flags = ["--mode", "attack", "--attack_name", name]
+        if name == "cw":
+            flags += ["--cw_steps", str(BENCH_CW_STEPS)]
+        if name in SCORE_BUDGET:
+            flags += ["--samples", str(SCORE_BUDGET[name]), "--iters", "10"]
+        r = _bench_cli(_bench_argv(data, log, *flags), PointNet2SemSegSSG)
+        acc, acc_adv, tot, succ, dist = r["out"]
+        counts = r["launches"]
+        stats = {"ms_per_batch": 1e3 * r["harness_s"], "forwards_per_batch": r["forwards"],
+                 "acc": float(acc.mean()), "adv_acc": float(acc_adv.mean()),
+                 "succ": float(succ.sum() / max(tot.sum(), 1)), "dist_mean": float(dist.mean()),
+                 "main_wall_s": r["main_wall_s"], "launches": counts}
+        if name in ("nes", "spsa", "nattack"):
+            stats["queries_per_s"] = r["forwards"] * BENCH_BLOCKS / r["harness_s"]
+        # the clean forward, the queries and the final forward
+        want_forwards = {"nes": 2 + 2 * SCORE_BUDGET.get("nes", 0) * 10,
+                         "spsa": 2 + 2 * SCORE_BUDGET.get("spsa", 0) * 10,
+                         "nattack": 2 + 16 * NAttackConfig(eps=0.0).iters}.get(name)
+        print(f"benchmark {name}: " + json.dumps(stats))
+        if want_forwards is not None and r["forwards"] != want_forwards:
+            raise AssertionError(f"{name}: {r['forwards']} forwards, want {want_forwards}")
+        if counts["fps"] != 4 or counts["knn"] or (
+                counts["bottom_k"] != 8 if name != "cw" else counts["bottom_k"] <= 8):
+            raise AssertionError(f"{name}: launches {counts}, want fps 4 and bottom_k 8 "
+                                 "(C&W: 8 + one a step)")
+        if not all(math.isfinite(v) for v in (stats["adv_acc"], stats["dist_mean"])):
+            raise AssertionError(f"{name}: a non-finite result")
+        if not stats["adv_acc"] <= stats["acc"]:
+            raise AssertionError(f"{name}: adversarial accuracy above clean")
+        runs[name] = stats
+        if name != "cw":
+            for k in total:
+                total[k] += counts[k]
+    for k, v in total.items():
+        records[k]["launches_by_path"]["pointnet2 benchmark"] = v
+        records[k]["calls_per_batch"]["pointnet2 benchmark (any registry attack)"] = \
+            GEOMETRY_LAUNCHES["pointnet2"][k]
+    print("benchmark ms/batch: " + json.dumps(
+        {k: round(v["ms_per_batch"], 3) for k, v in runs.items() if "ms_per_batch" in v}))
+    print("benchmark queries/s: " + json.dumps(
+        {k: round(v["queries_per_s"], 1) for k, v in runs.items() if "queries_per_s" in v}))
+    return runs
+
+
+def phase_benchmark_sweeps(data: str, log: str) -> dict:
+    """49. ``cli.benchmark`` sweeps on the trained SSG, one batch of 8 ×
+    4096: ``--mode distortion --attack_name pgd`` (the probes and the
+    minimal ε; one geometry for all probes), ``--mode iteration
+    --attack_name bim`` (10 rows, their L2 and whether it rises
+    monotonically), ``--mode worstcase --attack_names pgd,nes`` (one
+    geometry a batch and attack)."""
+    from pointsecguard_tpu_torch.models import PointNet2SemSegSSG
+
+    out = {}
+    t0 = time.perf_counter()
+    r = _bench_cli(_bench_argv(data, log, "--mode", "distortion", "--attack_name", "pgd"),
+                   PointNet2SemSegSSG)
+    eps, details = r["out"]
+    out["distortion"] = {"epsilon": eps, "probes": details["probes"], "s": time.perf_counter() - t0,
+                         "launches": r["launches"]}
+    if not details["probes"] or (r["launches"]["fps"], r["launches"]["bottom_k"]) != (4, 8):
+        raise AssertionError(f"distortion: {details}, launches {r['launches']}")
+    if math.isfinite(eps) and not any(p["success"] and p["eps"] == eps
+                                      for p in details["probes"]):
+        raise AssertionError(f"distortion: minimal ε {eps} is no successful probe")
+    t0 = time.perf_counter()
+    r = _bench_cli(_bench_argv(data, log, "--mode", "iteration", "--attack_name", "bim"),
+                   PointNet2SemSegSSG)
+    rows = r["out"]
+    l2 = [p["l2"] for p in rows]
+    out["iteration"] = {"rows": rows, "l2_monotone": all(a <= b for a, b in zip(l2, l2[1:])),
+                        "s": time.perf_counter() - t0, "launches": r["launches"]}
+    if [p["iters"] for p in rows] != list(range(1, 11)) or not l2[-1] > l2[0]:
+        raise AssertionError(f"iteration: rows {rows}")
+    t0 = time.perf_counter()
+    r = _bench_cli(_bench_argv(data, log, "--mode", "worstcase", "--attack_names", "pgd,nes"),
+                   PointNet2SemSegSSG)
+    robust, per_attack, combined = r["out"]
+    out["worstcase"] = {"robust_acc": robust, "per_attack": per_attack,
+                        "s": time.perf_counter() - t0, "launches": r["launches"]}
+    if (r["launches"]["fps"], r["launches"]["bottom_k"]) != (8, 16):
+        raise AssertionError(f"worstcase launches {r['launches']}, want fps 8, bottom_k 16")
+    if not robust <= 1.0 - max(v["succ_rate"] for v in per_attack.values()) + 1e-12:
+        raise AssertionError(f"worstcase: robust accuracy {robust} above an attack's")
+    print("benchmark sweeps: " + json.dumps(out))
+    return out
+
+
+def phase_score_reference(dev, log: str) -> dict:
+    """50. Card against CPU on two 4096-point blocks of the trained SSG, on
+    the card's geometry: NES and SPSA at ``REFERENCE_SAMPLES`` pairs and
+    ``REFERENCE_ITERS`` iterations with the same CPU-drawn noise through
+    ``noise=``, in float32: how many colour elements took a different step
+    (more than 1e-4 apart), by how many α (a sign flip of NES's estimate,
+    where the two devices round a near-zero element apart, moves an element
+    by 2α; so can SPSA's first Adam step, g / |g|), and how many differ by
+    rounding alone. Then why, on NES's first step from the same clean
+    colours (``nes_first_step``): every flipped sign lies within the rounding
+    bound of the estimate. Then MIM (the registry's decay 1.0,
+    ``REFERENCE_MIM_ITERS`` iterations) in float64 within 1e-10.
+
+    The head's logits are float32 on every trunk dtype (as JAX's), so the
+    loss queries round at float32 even on a float64 trunk: a float64 NES
+    trajectory can flip a sign too, and a flip early on moves the later
+    queries, so whole trajectories are counted, not exempted."""
+    from pointsecguard_tpu_torch import attacks
+    from pointsecguard_tpu_torch.attacks import benchmark as harness
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model_cls, family = POINTNET_MODELS["pointnet2"]
+    net = model_cls()
+    net.load_state_dict(load_checkpoint(log))
+    net.eval().requires_grad_(False)
+    pts = slice_blocks(dev)[[0, 4]].contiguous()
+    geo = family.plan(pts)
+    labels = torch.argmax(family.head(family.apply(net.to(dev), pts, geo)), -1)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(11)
+    shape = (2, NUM_POINT, 3)
+    draws = {"nes": [[torch.randn(shape, generator=gen) for _ in range(REFERENCE_SAMPLES)]
+                     for _ in range(REFERENCE_ITERS)],
+             "spsa": [[(2 * torch.randint(0, 2, shape, generator=gen) - 1).float()
+                       for _ in range(REFERENCE_SAMPLES)] for _ in range(REFERENCE_ITERS)]}
+    cfgs = {"nes": harness.load_attack("nes", {"eps": 0.1, "alpha": 0.05,
+                                               "iters": REFERENCE_ITERS,
+                                               "samples": REFERENCE_SAMPLES}),
+            "spsa": harness.load_attack("spsa", {"eps": 0.1, "alpha": 0.05,
+                                                 "iters": REFERENCE_ITERS,
+                                                 "samples": REFERENCE_SAMPLES})}
+    out = {}
+    for name, dtype in (("nes", torch.float32), ("spsa", torch.float32)):
+        adv = {}
+        for where, device in (("card", dev), ("cpu", cpu)):
+            m = net.to(device=device, dtype=dtype)
+            g = _to_device(geo, device, dtype)
+            res = harness.run_registered_attack(
+                lambda p: family.head(family.apply(m, p, g)), pts.to(device, dtype),
+                labels.to(device), cfgs[name],
+                noise=lambda it, s: draws[name][it][s].to(device, dtype))
+            adv[where] = res.points_adv[..., 3:6].cpu().double()
+        diff = (adv["card"] - adv["cpu"]).abs()
+        # a different step moves a colour by a share of α (0.05); rounding of
+        # the same step by ~1e-7
+        differ = diff > 1e-4
+        key = f"{name} {str(dtype).split('.')[-1]}"
+        out[key] = {"elements": diff.numel(), "differ": int(differ.sum()),
+                    "rounding_only": int(((diff > 0) & ~differ).sum()),
+                    "max_abs": diff.max().item(),
+                    "differ_in_alphas": sorted({round(v / 0.05, 2)
+                                                for v in diff[differ].tolist()})[:12]}
+        print(f"score attack card vs CPU {key}: " + json.dumps(out[key]))
+        limit = 0.05 * diff.numel()
+        if out[key]["differ"] > limit:
+            raise AssertionError(f"{key}: {out[key]['differ']} colour elements differ card vs "
+                                 f"CPU, want at most {limit}")
+    out["nes_first_step"] = nes_first_step(dev, net, family, geo, pts, labels,
+                                           draws["nes"][0])
+    cfg = harness.load_attack("mim", {"eps": 0.1, "alpha": 0.05, "iters": REFERENCE_MIM_ITERS})
+    adv = {}
+    for where, device in (("card", dev), ("cpu", cpu)):
+        m = net.to(device=device, dtype=torch.float64)
+        g = _to_device(geo, device, torch.float64)
+        adv[where] = attacks.pgd_color_attack(
+            lambda p: family.head(family.apply(m, p, g)), pts.to(device, torch.float64),
+            labels.to(device), cfg).points_adv.cpu()
+    out["mim float64 max_abs"] = (adv["card"] - adv["cpu"]).abs().max().item()
+    print("mim float64 card vs CPU: " + json.dumps(out["mim float64 max_abs"]))
+    if out["mim float64 max_abs"] > 1e-10:
+        raise AssertionError(f"MIM float64 card vs CPU {out['mim float64 max_abs']}")
+    return out
+
+
+def nes_first_step(dev, net, family, geo, pts, labels, draws) -> dict:
+    """NES's first step (``REFERENCE_SAMPLES`` pairs of ``draws``) on the
+    card and on the CPU from the same clean colours, in float32. Each side's
+    estimate g is recomputed from the loss queries its engine made (the
+    same sum in the same order, so its signs are the engine's: checked
+    against the engine's step, exactly). Where the two signs differ, the
+    CPU's |g| must lie within the rounding bound
+
+        Σ_s |Δd_s|·|u_s| / (2·S·σ) + 8·2⁻²⁴·Σ_s |d_s|·|u_s| / (2·S·σ),
+
+    Δd_s the card-vs-CPU gap of pair s's loss difference d_s = lp − lm (and
+    the second term the float32 rounding of the sum itself); every query's
+    loss must agree within 1e-4 of the largest (the float32 forward's own
+    gap is ~1e-6 of its scale: phases 1 and 36; a different computation,
+    such as another geometry, moves a loss by percents); and the steps must
+    differ at the flipped signs only. The flips are counted, not excused
+    beyond the bound."""
+    from pointsecguard_tpu_torch.attacks import benchmark as harness
+    from pointsecguard_tpu_torch.attacks.common import per_point_ce
+
+    cfg = harness.load_attack("nes", {"eps": 0.1, "alpha": 0.05, "iters": 1,
+                                      "samples": REFERENCE_SAMPLES})
+    sides = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = net.to(device=device, dtype=torch.float32)
+        g = _to_device(geo, device, torch.float32)
+        seen = []
+
+        def outputs_fn(p, m=m, g=g, seen=seen):
+            seen.append(family.head(family.apply(m, p, g)))
+            return seen[-1]
+
+        x, ys = pts.to(device), labels.to(device)
+        us = [u.to(device) for u in draws]
+        res = harness.run_registered_attack(outputs_fn, x, ys, cfg, noise=lambda it, s: us[s])
+        losses = [torch.mean(per_point_ce(o, ys), dim=1) for o in seen[:2 * cfg.samples]]
+        color0 = x[..., 3:6]
+        est = torch.zeros_like(color0)
+        for s in range(cfg.samples):
+            est = est + (losses[2 * s] - losses[2 * s + 1])[:, None, None] * us[s]
+        est = est / (2.0 * cfg.samples * cfg.sigma)
+        # the engine's step and projection on this side's signs
+        step = color0 + 1.0 * (cfg.alpha * torch.sign(est))
+        want = torch.clamp(color0 + torch.clamp(step - color0, -cfg.eps, cfg.eps), *cfg.clip)
+        if not torch.equal(res.points_adv[..., 3:6], want):
+            raise AssertionError(f"nes first step on the {where}: the engine's step is not "
+                                 "the sign of the recomputed estimate")
+        sides[where] = {"adv": want.cpu().double(), "est": est.cpu().double(),
+                        "loss": torch.stack(losses).cpu().double()}  # [2S, B]
+    card, cpu = sides["card"], sides["cpu"]
+    d = {k: v["loss"][0::2] - v["loss"][1::2] for k, v in sides.items()}  # [S, B]
+    u = torch.stack([v.double() for v in draws]).abs()  # [S, B, N, 3]
+    scale = 2.0 * cfg.samples * cfg.sigma
+    bound = ((d["card"] - d["cpu"]).abs()[:, :, None, None] * u).sum(0) / scale \
+        + 8 * 2.0 ** -24 * (d["cpu"].abs()[:, :, None, None] * u).sum(0) / scale
+    flips = torch.sign(card["est"]) != torch.sign(cpu["est"])
+    differ = (card["adv"] - cpu["adv"]).abs() > 1e-4
+    loss_gap = (card["loss"] - cpu["loss"]).abs().max().item()
+    loss_limit = 1e-4 * cpu["loss"].abs().max().item()
+    out = {"elements": flips.numel(), "flips": int(flips.sum()),
+           "unexplained": int((flips & (cpu["est"].abs() > bound)).sum()),
+           "differ_not_flipped": int((differ & ~flips).sum()),
+           "loss_gap": loss_gap, "loss_limit": loss_limit,
+           "flipped_abs_g_max": cpu["est"].abs()[flips].max().item() if flips.any() else 0.0,
+           "bound_median": bound.median().item(),
+           "abs_g_median": cpu["est"].abs().median().item()}
+    print("nes first step card vs CPU: " + json.dumps(out))
+    if out["unexplained"] or out["differ_not_flipped"] or not loss_gap <= loss_limit:
+        raise AssertionError(f"nes first step card vs CPU: {out}")
+    return out
+
+
+def phase_benchmark_victims(data: str, prep: str, randla_log: str, resgcn_log: str,
+                            records) -> dict:
+    """51. ``cli.benchmark --mode attack`` on the other victims: ``--model
+    randla --attack_name pgd`` on the trained RandLA (phase 24), one batch of
+    4 × 40960 (exactly 10 kNN launches: one pyramid a batch); ``--model
+    resgcn --attack_name bim --iters 10`` on phase 29's checkpoint, one batch
+    of 8 × 4096 (4 kNN launches a forward: clean, 10 iterations, final)."""
+    from pointsecguard_tpu_torch import configs
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, RandLANet
+
+    out = {}
+    r = _bench_cli(["--model", "randla", "--randla_dir", prep, "--log_dir", randla_log,
+                    "--batch_size", str(RANDLA_BATCH), "--max_blocks", str(RANDLA_BATCH),
+                    "--mode", "attack", "--attack_name", "pgd"], RandLANet)
+    r2 = _bench_cli(["--model", "resgcn", "--data_root", data, "--log_dir", resgcn_log,
+                     "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+                     "--max_blocks", str(RESGCN_BATCH), "--mode", "attack", "--attack_name",
+                     "bim", "--iters", "10"], DenseDeepGCN)
+    # the pyramid: a neighbour list and an up-sampling list a layer
+    pyramid = 2 * configs.RandlaConfig().num_layers
+    for name, run, knn_want in (("randla", r, pyramid), ("resgcn", r2, 4 * r2["forwards"])):
+        acc, acc_adv, tot, succ, dist = run["out"]
+        counts = run["launches"]
+        out[name] = {"ms_per_batch": 1e3 * run["harness_s"], "forwards": run["forwards"],
+                     "acc": float(acc.mean()), "adv_acc": float(acc_adv.mean()),
+                     "succ": float(succ.sum() / max(tot.sum(), 1)),
+                     "dist_mean": float(dist.mean()), "launches": counts}
+        print(f"benchmark {name}: " + json.dumps(out[name]))
+        if counts["knn"] != knn_want or any(counts[k] for k in counts if k != "knn"):
+            raise AssertionError(f"{name} benchmark launches {counts}, want knn {knn_want}")
+        if not (math.isfinite(out[name]["dist_mean"]) and out[name]["adv_acc"] <= out[name]["acc"]):
+            raise AssertionError(f"{name} benchmark: {out[name]}")
+        records["knn"]["launches_by_path"][f"{name} benchmark"] = counts["knn"]
+        records["knn"]["calls_per_batch"][f"{name} benchmark"] = counts["knn"]
+    if r2["forwards"] != 12:
+        raise AssertionError(f"resgcn bim: {r2['forwards']} forwards, want 12")
+    return out
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -3639,6 +4066,7 @@ def main(argv=None) -> int:
     phase_resgcn_eval(resgcn_data, resgcn_log, records)
     phase_resgcn_attack_trained(resgcn_data, resgcn_log)
     phases_36_41 = time.perf_counter()
+    block_logs = {"pointnet2": train_log}
     for model in BLOCK_MODELS:
         t0 = time.perf_counter()
         phase_block_reference(dev, model)
@@ -3648,24 +4076,39 @@ def main(argv=None) -> int:
         phase_train_step(dev, model, TRAIN_BATCH)
         t2 = time.perf_counter()
         _, log, _ = phase_train(dev, records, model, BLOCK_TRAIN_EPOCHS, data=train_data)
+        block_logs[model] = log
         phase_eval(train_data, log, model)
         phase_attack_trained(train_data, log, model)
         print(f"{model} phases 36-41: {time.perf_counter() - t0:.1f} s (36-37 "
               f"{t1 - t0:.1f}, 38 {t2 - t1:.1f}, 39-41 {time.perf_counter() - t2:.1f})")
     print(f"phases 36-41: {time.perf_counter() - phases_36_41:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_47_51 = time.perf_counter()
+    for number, phase in (
+            (47, lambda: phase_ensemble(train_data, block_logs, records)),
+            (48, lambda: phase_benchmark_registry(train_data, train_log, records)),
+            (49, lambda: phase_benchmark_sweeps(train_data, train_log)),
+            (50, lambda: phase_score_reference(dev, train_log)),
+            (51, lambda: phase_benchmark_victims(data, prep, randla_log,
+                                                 os.path.join(WORK, "resgcn_log"), records))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
+    print(f"phases 47-51: {time.perf_counter() - phases_47_51:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "calls_per_batch")
     geometry_paths = {"pointnet2 nb", "pointnet2 train", "pointnet2_msg nb",
-                      "pointnet2_msg train"}
+                      "pointnet2_msg train", "pointnet2 nb --ensemble", "pointnet2 benchmark"}
     for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval",
                                  "pointnet2 nb --defense resample",
                                  "randla nb --defense resample",
-                                 "resgcn nb --resgcn_fixed_graphs"})):
+                                 "resgcn nb --resgcn_fixed_graphs",
+                                 "randla benchmark", "resgcn benchmark"})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")

@@ -1,17 +1,37 @@
-"""Colour-perturbation attacks of the port: the PGD engine (NB / tar_NB),
-the C&W engine (NU / tar_NU), their reference presets (port of
-``pointsecguard_tpu/attacks/__init__.py:59-130``), both with the
-per-step trajectory mode, the equal-norm noise control and the colour
-defenses ``cli.attack`` deploys.
+"""Colour-perturbation attacks of the port: the PGD engine (NB / tar_NB,
+and MIM with ``PGDConfig.momentum``), the C&W engine (NU / tar_NU), their
+reference presets (port of ``pointsecguard_tpu/attacks/__init__.py:59-130``),
+both with the per-step trajectory mode, the score-based NES, SPSA and
+NAttack (``blackbox.py``), the ares registry and benchmark harnesses
+(``benchmark.py``: eight of its eleven names), the equal-norm noise
+control and the colour defenses ``cli.attack`` deploys.
 
-The ares registry, MIM, the black-box and decision attacks and the
-coordinate defenses (SOR, SRS) are not ported yet.
+The decision and minimal-perturbation attacks (deepfool, boundary,
+evolutionary: one decision per shape, ``--task cls``) and the coordinate
+defenses (SOR, SRS) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from pointsecguard_tpu_torch.attacks.benchmark import (
+    ATTACKS,
+    AttackBenchmark,
+    distortion_binsearch,
+    iteration_curve,
+    load_attack,
+    run_registered_attack,
+    worst_case_run,
+)
+from pointsecguard_tpu_torch.attacks.blackbox import (
+    NAttackConfig,
+    NESConfig,
+    SPSAConfig,
+    nattack,
+    nes_attack,
+    spsa_attack,
+)
 from pointsecguard_tpu_torch.attacks.common import (
     AttackResult,
     make_target_labels,
@@ -85,16 +105,26 @@ def attack_preset(model: str, attack: str, **overrides) -> PGDConfig | CWConfig:
 
 
 __all__ = [
+    "ATTACKS",
+    "AttackBenchmark",
     "AttackResult",
     "CWConfig",
+    "NAttackConfig",
+    "NESConfig",
     "PGDConfig",
+    "SPSAConfig",
     "apply_color_defense",
     "attack_preset",
     "bit_depth_reduction",
     "cw_color_attack",
+    "distortion_binsearch",
     "equal_norm_color_noise",
+    "iteration_curve",
     "jpeg_color_compression",
+    "load_attack",
     "make_target_labels",
+    "nattack",
+    "nes_attack",
     "per_point_ce",
     "per_sample_accuracy",
     "pgd_color_attack",
@@ -102,5 +132,8 @@ __all__ = [
     "random_color_jitter",
     "random_color_resample",
     "randomized_defense_wraps",
+    "run_registered_attack",
     "seeded_draws",
+    "spsa_attack",
+    "worst_case_run",
 ]

@@ -161,6 +161,28 @@ def pooled_accuracy(
     return torch.sum(correct * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
+@torch.no_grad()
+def finish_attack_result(
+    outputs_fn, adv: torch.Tensor, points: torch.Tensor, labels: torch.Tensor,
+    steps: int, *, channels: tuple[int, int], targeted: bool = False,
+    target: int = -1, mask: torch.Tensor | None = None,
+) -> AttackResult:
+    """Shared attack epilogue (JAX `attacks/common.py:206-230`): the final
+    forward, accuracy, targeted success rate and per-cloud L2 over the
+    perturbed channel slice."""
+    lo, hi = channels
+    outputs = outputs_fn(adv)
+    adv_pred = torch.argmax(outputs, dim=-1)
+    acc = point_accuracy(outputs, labels, None if targeted else mask)
+    if targeted and mask is not None:
+        sr = point_accuracy(outputs, torch.full_like(labels, target), mask)
+    else:
+        sr = torch.zeros((), device=points.device)
+    diff = (adv[..., lo:hi] - points[..., lo:hi]).reshape(points.shape[0], -1)
+    return AttackResult(adv, torch.tensor(steps, dtype=torch.int32), acc, sr,
+                        torch.linalg.norm(diff, dim=1), adv_pred)
+
+
 def make_target_labels(
     labels: torch.Tensor, origin: int, target: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

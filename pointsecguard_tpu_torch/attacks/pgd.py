@@ -11,7 +11,9 @@ Input gradients come from ``torch.autograd.grad`` with respect to the
 perturbed channel slice. Without early exit (every PointNet++ preset)
 the loop never reads a value back to the host, so the GPU runs the
 iterations back to back; with early exit, one ``done.all()`` read per
-iteration decides whether to go on. ``trajectory=True`` (``--log_steps``)
+iteration decides whether to go on. With ``cfg.momentum`` > 0 (MIM) the
+step is taken on the accumulator of L1-normalised gradients (JAX
+`attacks/pgd.py:155-178`). ``trajectory=True`` (``--log_steps``)
 turns early exit off, runs exactly ``cfg.iters`` steps and also returns
 the per-step accuracy, success rate and per-cloud L2, kept on the device.
 """
@@ -49,6 +51,9 @@ class PGDConfig:
     num_classes: int = 13
     rand_init_eps: float = 0.0  # ares NBattack random start magnitude
     early_exit_sr: float = 0.0  # >0 ⇒ per-sample stop past this success rate
+    # >0 ⇒ MIM (Dong et al. 2018; the ares registry's 'mim'): accumulate the
+    # per-cloud L1-normalised gradient with this decay, step on the sum
+    momentum: float = 0.0
     channels: tuple[int, int] = (3, 6)
     clip: tuple[float, float] | None = (0.0, 1.0)
 
@@ -165,6 +170,7 @@ def pgd_color_attack(
     steps_b = torch.zeros(B, dtype=torch.int32, device=points.device)
     direction = -1.0 if cfg.targeted else 1.0
     traj = {"acc": [], "sr": [], "l2": []}
+    g_acc = torch.zeros_like(color) if cfg.momentum > 0 else None
     steps = 0
     for i in range(cfg.iters):
         if track_exit and bool(done.all()):
@@ -173,6 +179,13 @@ def pgd_color_attack(
         loss, outputs = attack_loss(leaf)
         (g,) = torch.autograd.grad(loss, leaf)
         with torch.no_grad():
+            if g_acc is not None:
+                # MIM accumulator (Dong et al. 2018 eq. 6): per-cloud
+                # L1-normalised gradient with decay μ
+                flat = g.reshape(B, -1)
+                l1 = torch.clamp(torch.sum(torch.abs(flat), dim=1, keepdim=True), min=1e-12)
+                g_acc = cfg.momentum * g_acc + (flat / l1).reshape(g.shape)
+                g = g_acc
             step = torch.sign(g) if cfg.step_norm == "linf" else unit_l2(g)
             color = project(color + direction * cfg.alpha * step)
             live = ~done

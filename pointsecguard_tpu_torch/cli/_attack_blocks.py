@@ -23,13 +23,98 @@ equal-norm random control at each block's measured L2 (``rand_acc``);
 ``--visual`` the room's ``.xyzrgb`` dumps and HTML viewers (the room's
 adversarial colours are gathered on the device and read once a room);
 ``--resgcn_fixed_graphs`` gives ResGCN's attacker a surrogate on the
-graphs of the clean input.
+graphs of the clean input. ``--ensemble`` adds block models to the victim
+(``ensemble_closures``): every reported prediction is the weighted softmax
+mixture's, and each PointNet++ member builds its geometry once a batch.
 """
 
 from __future__ import annotations
 
 import os
 import time
+
+BLOCK_FAMILY = ("pointnet2", "pointnet2_msg", "pointnet", "resgcn")
+
+
+def load_block_model(name, log_dir, args, device):
+    """(model, family) of a block model with the port checkpoint of
+    ``log_dir``, on ``device`` for inference only: the attacks need input
+    gradients, never parameter ones. ResGCN takes the ``--resgcn_*`` flags."""
+    from pointsecguard_tpu_torch.configs import resgcn_overrides
+    from pointsecguard_tpu_torch.models import DenseDeepGCN
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS, resgcn_family
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    if name == "resgcn":
+        model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
+    else:
+        model_cls, family = POINTNET_MODELS[name]
+        model = model_cls()
+    model.load_state_dict(load_checkpoint(log_dir))
+    model.to(device).eval().requires_grad_(False)
+    return model, family
+
+
+def member_factory(model, family):
+    """``make(pts) → outputs_fn`` of one batch: the family's plan is built
+    once from the batch's xyz (PointNet++: the geometry, FPS and bottom-k
+    kernels; colour attacks never move xyz), and every forward of the batch
+    reuses it. ResGCN rebuilds its graphs in every forward and PointNet has
+    no neighbourhoods, so their plan is None."""
+
+    def make(pts):
+        plan = family.plan(pts)
+        return lambda p: family.head(family.apply(model, p, plan))
+
+    return make
+
+
+def parse_ensemble(specs) -> list[tuple[str, str, float]]:
+    """``--ensemble MODEL:LOG_DIR[:WEIGHT]`` specs → (model, log_dir,
+    weight); SystemExit on a malformed spec or a member outside the block
+    family (the JAX driver's messages)."""
+    members = []
+    for spec in specs:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3):
+            raise SystemExit(f"--ensemble expects MODEL:LOG_DIR[:WEIGHT], got '{spec}'")
+        if parts[0] not in BLOCK_FAMILY:
+            raise SystemExit(
+                f"--ensemble member '{parts[0]}' is not a block-family "
+                "model (pointnet2/pointnet2_msg/pointnet/resgcn)")
+        members.append((parts[0], parts[1], float(parts[2]) if len(parts) == 3 else 1.0))
+    return members
+
+
+def ensemble_closures(args, device, make_closures, log):
+    """``--ensemble`` / ``--ensemble_mode``: the weighted ensemble victim
+    (JAX `_attack_blocks.py:122-205`; ares `model/ensemble.py:9-25`). The
+    primary model has weight 1, every member its spec's; each member loads
+    its own checkpoint and builds its plan once per batch, shared by the
+    eval and attack closures. Returns ``make_closures(pts, attack)`` of the
+    ensemble: the eval closure is the ``probs`` mixture, which every
+    reported metric reads; the attack closure is the ``--ensemble_mode``
+    objective over the primary's attack closure (the ``--resgcn_fixed_graphs``
+    surrogate where given) and the members. ``--defense`` wraps the
+    mixture, not its members."""
+    from pointsecguard_tpu_torch.models.registry import ensemble_outputs_fn
+
+    specs = parse_ensemble(args.ensemble)
+    member_makes = [member_factory(*load_block_model(name, path, args, device))
+                    for name, path, _ in specs]
+    weights = [1.0] + [w for _, _, w in specs]
+    log.info("ensemble victim: %s + %s (weights %s, attack mode %s)", args.model,
+             [name for name, _, _ in specs], weights, args.ensemble_mode)
+
+    def closures(pts, attack):
+        prim_eval, prim_atk = make_closures(pts, attack)
+        fns = [make(pts) for make in member_makes]
+        f_eval = ensemble_outputs_fn([prim_eval] + fns, weights, mode="probs")
+        if not attack:
+            return f_eval, None
+        return f_eval, ensemble_outputs_fn([prim_atk] + fns, weights, mode=args.ensemble_mode)
+
+    return closures
 
 
 def run_blocks(args, log):
@@ -45,35 +130,19 @@ def run_blocks(args, log):
         pgd_color_attack,
     )
     from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper, write_room_visuals
-    from pointsecguard_tpu_torch.configs import resgcn_overrides
     from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
-    from pointsecguard_tpu_torch.models import DenseDeepGCN
     from pointsecguard_tpu_torch.train.evaluator import add_votes
-    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS, resgcn_family
-    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
+    parse_ensemble(args.ensemble)  # a malformed spec stops before any checkpoint work
     device = resolve_device(args.device)
     # the JAX driver's model table (`_attack_blocks.py:51-98`): every model
     # of the PointNet family takes the "pointnet2" presets
     resgcn = args.model == "resgcn"
-    if resgcn:
-        model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
-    else:
-        model_cls, family = POINTNET_MODELS[args.model]
-        model = model_cls()
-    model.load_state_dict(load_checkpoint(args.log_dir))
-    # inference only: the attack needs input gradients, never parameter ones
-    model.to(device).eval().requires_grad_(False)
+    model, family = load_block_model(args.model, args.log_dir, args, device)
 
-    def make_outputs_fn(pts):
-        # PointNet++: the xyz-only geometry, once per batch (colour attacks
-        # never move xyz); ResGCN rebuilds its graphs in every forward and
-        # PointNet has none, so their plan is None
-        plan = family.plan(pts)
-        return lambda p: family.head(family.apply(model, p, plan))
-
+    make_outputs_fn = member_factory(model, family)
     if resgcn and args.resgcn_fixed_graphs:
         # the attacker's surrogate: edge graphs frozen at the clean input
         # (no kNN in the attack's forwards); every reported metric still
@@ -85,6 +154,17 @@ def run_blocks(args, log):
             return lambda p: model(p, graphs=graphs)
     else:
         make_attack_outputs = None  # the attacker differentiates the victim
+
+    def make_closures(pts, attack):
+        """The batch's (eval, attack) closures; the attack's is None
+        without an attack engine."""
+        f = make_outputs_fn(pts)
+        if not attack:
+            return f, None
+        return f, f if make_attack_outputs is None else make_attack_outputs(pts)
+
+    if args.ensemble:
+        make_closures = ensemble_closures(args, device, make_closures, log)
 
     wraps = defense_wrapper(args)
     eval_wrap, attack_wrap = wraps if wraps is not None else (None, None)
@@ -147,7 +227,7 @@ def run_blocks(args, log):
                     labs_np = np.repeat(labs_np, reps, axis=0)
                 pts = torch.from_numpy(pts_np).to(device)
                 labs = torch.from_numpy(labs_np).to(device).long()
-                outputs_fn = make_outputs_fn(pts)
+                outputs_fn, attack_fn = make_closures(pts, attack_cfg is not None)
                 f_eval = eval_wrap(outputs_fn) if eval_wrap else outputs_fn
 
                 @torch.no_grad()
@@ -190,8 +270,6 @@ def run_blocks(args, log):
                     steps_row = np.zeros(valid, np.int64)
                     l2_b = np.full(valid, float(args.noise_norm))
                 else:
-                    attack_fn = (outputs_fn if make_attack_outputs is None
-                                 else make_attack_outputs(pts))
                     f_atk = attack_wrap(attack_fn) if attack_wrap else attack_fn
                     engine = pgd_color_attack if isinstance(attack_cfg, PGDConfig) \
                         else cw_color_attack

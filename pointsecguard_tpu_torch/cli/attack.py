@@ -23,11 +23,14 @@ trajectories to ``*_steps.tsv``, no early exit), ``--visual``
 ``--eot`` (every reported prediction under the deployed defense; the
 attacker differentiates the EoT mean), and ``--resgcn_fixed_graphs``
 (ResGCN's attacker on graphs frozen at the clean input; the metrics
-evaluate the dynamic model). The checkpoint is the port's own
+evaluate the dynamic model), and ``--ensemble MODEL:LOG_DIR[:WEIGHT]``
+(repeatable; block models only) with ``--ensemble_mode probs|log_probs``
+(a weighted ensemble victim: every metric evaluates the softmax mixture,
+the attack differentiates the mode's objective). The checkpoint is the port's own
 (``<log_dir>/checkpoints/``: ``best.pt``, else ``latest.pt``, see
 ``utils/checkpoint.py``). It runs on the GPU; ``--device cpu`` runs the
 plain PyTorch path by request. Every other flag of the JAX CLI
-(``--ensemble``, ``--ensemble_mode``, ``--resgcn_fast``, ``--devices``,
+(``--resgcn_fast``, ``--devices``,
 ``--shard_points``, ``--precision``) is accepted by name and stops the run
 with "not ported yet" instead of being ignored.
 """
@@ -45,7 +48,6 @@ PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu", "random")
 # JAX CLI flags this port does not implement yet
 _UNPORTED_SWITCHES = ("--resgcn_fast",)
-_UNPORTED_VALUES = ("--ensemble_mode",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -122,12 +124,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--devices", "-d", type=int, default=1)
     ap.add_argument("--shard_points", type=int, default=1)
     ap.add_argument("--precision", default="float32")
-    ap.add_argument("--ensemble", action="append", default=[])
+    ap.add_argument("--ensemble", action="append", default=[],
+                    metavar="MODEL:LOG_DIR[:WEIGHT]",
+                    help="add this block model (pointnet2 / pointnet2_msg / pointnet / "
+                         "resgcn) with its checkpoint dir to the victim, repeatable; the "
+                         "primary model's weight is 1, weights are normalised; every "
+                         "metric evaluates the weighted softmax mixture "
+                         "(ares `model/ensemble.py:9-25`)")
+    ap.add_argument("--ensemble_mode", default="probs", choices=["probs", "log_probs"],
+                    help="the attacked ensemble objective: 'probs' = CE of the softmax "
+                         "mixture; 'log_probs' = the weighted per-model CE direction of "
+                         "ares `loss/cross_entropy.py:22-38` plus the mixture normaliser")
     add_resgcn_arguments(ap)
     for flag in _UNPORTED_SWITCHES:
         ap.add_argument(flag, action="store_true")
-    for flag in _UNPORTED_VALUES:
-        ap.add_argument(flag, default=None)
     return ap
 
 
@@ -138,8 +148,6 @@ def _refuse_unported(args) -> None:
     for flag, ported in (("devices", 1), ("shard_points", 1), ("precision", "float32")):
         if getattr(args, flag) != ported:
             refused.append(f"--{flag} {getattr(args, flag)}")
-    if args.ensemble:
-        refused.append("--ensemble")
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")
@@ -147,7 +155,6 @@ def _refuse_unported(args) -> None:
         refused.append(f"--resgcn_fixed_graphs with --model {args.model}")
     refused += resgcn_refusals(args)
     refused += [f for f in _UNPORTED_SWITCHES if getattr(args, f[2:])]
-    refused += [f for f in _UNPORTED_VALUES if getattr(args, f[2:]) is not None]
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 
@@ -158,6 +165,10 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
     log = logging.getLogger("attack")
     if args.model == "randla":
+        if args.ensemble:
+            raise SystemExit("--ensemble is a block-family feature "
+                             "(members share the [B,N,9] block input; "
+                             "RandLA clouds have a different contract)")
         from pointsecguard_tpu_torch.cli._attack_randla import run_randla
 
         return run_randla(args, log)

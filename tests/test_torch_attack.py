@@ -189,9 +189,9 @@ def test_pgd_presets_match_jax():
         for attack in ("nb", "tar_nb"):
             want = dataclasses.asdict(jattacks.attack_preset(family, attack))
             got = dataclasses.asdict(tattacks.attack_preset(family, attack))
-            assert got == {k: want[k] for k in got}, (family, attack)
-            # the one JAX field the port leaves out (MIM) is off in every preset
-            assert set(want) - set(got) == {"momentum"} and want["momentum"] == 0.0
+            # every JAX field, MIM's momentum (off in every preset) included
+            assert got == want, (family, attack)
+            assert got["momentum"] == 0.0
 
 
 def test_ce_and_target_labels_match_jax():

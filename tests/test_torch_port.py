@@ -149,7 +149,8 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     # --attack random, --resgcn_fixed_graphs) are ported:
     # tests/test_torch_protocol_cli.py runs them
     ["--model", "randla", "--randla_dataset", "semantickitti"],
-    ["--ensemble", "pointnet:log"], ["--ensemble_mode", "log_probs"],
+    # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py
+    ["--model", "randla", "--randla_dataset", "semantic3d"], ["--devices", "4"],
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
     # resgcn is ported: its subsample dilation is not, and the frozen-graph
     # surrogate is resgcn's alone

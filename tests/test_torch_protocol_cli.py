@@ -164,7 +164,8 @@ def test_eot_needs_a_randomized_defense(ssg_run):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ensemble", "x:y"], ["--ensemble_mode", "log_probs"], ["--resgcn_fast"],
+    # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py
+    ["--devices", "4"], ["--model", "randla", "--resgcn_fast"], ["--resgcn_fast"],
     ["--model", "resgcn", "--resgcn_fast"], ["--devices", "2"], ["--shard_points", "2"],
     ["--precision", "bfloat16"], ["--resgcn_fixed_graphs"],
 ])
