@@ -229,7 +229,8 @@ Phases 42-46 drive the attack CLIs' protocol flags:
     calibrated SSG in float64 on both devices within 1e-4.
 45. On the trained RandLA of phase 24: NB on 4 clouds with ``--defense
     resample --control --log_steps`` (exactly 10 + 14 kNN launches), then
-    ``cli.eval --model randla --visual --save_preds``.
+    ``cli.eval --model randla --visual --save_preds``, and ``cli.cv6fold``
+    on those PLYs (eval's accuracy and mIoU).
 46. ResGCN NB with ``--resgcn_fixed_graphs`` on phase 29's checkpoint and
     blocks: 12 kNN launches (graph collection, clean and adversarial
     forwards), ms a block and adversarial accuracy beside phase 29's.
@@ -262,6 +263,28 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     checkpoint, 4 × 40960 (10 kNN launches), and ``--model resgcn
     --attack_name bim --iters 10`` on phase 29's, 8 × 4096 (4 kNN a
     forward).
+52. Raw SemanticKITTI (sequences 00, 08, 11; 120k-point scans with
+    ignored ids and a learning-map yaml), Semantic3D (two labeled 160k-point
+    clouds, one of them ``bildstein_station3``, and an unlabeled one, with
+    label-0 points) and S3DIS (``Area_*/room/Annotations`` of phase 3's
+    rooms) written in the datasets' formats, then ``cli.prepare`` on each;
+    its seconds, and every cloud at least the preset's sample size.
+53. ``knn`` at every call of one ``build_pyramid`` of Semantic3D's [4,
+    65536] (10 calls) and SemanticKITTI's [6, 45056] (8 calls), equal to
+    plain; launches and times per pyramid against the bound; the fused
+    attentive pair at a Semantic3D pass (2 × [16, 262144, 8], 2 × [16,
+    65536, 32]) within tolerance of plain, timed (a kernel phase).
+54. Semantic3D at full width: ``cli.train`` 4 × 65536 (8 steps and one
+    validation batch of 16 an epoch, 2 epochs + 1 on resume; ms a step by
+    CUDA events and the host's clock, peak memory), ``cli.eval`` with
+    ``--save_preds`` (a prediction for every point of the original cloud),
+    ``cli.attack --attack nb`` on 4 clouds with and without ``--fused_ap``
+    (10 kNN a batch, ignored points' colours unchanged, accuracy lowered),
+    and the 8-class model and ignored-label loss card vs CPU against
+    float64 on 8192 points.
+55. SemanticKITTI at full width: ``cli.train`` 6 × 45056 on xyz-only
+    features (2 epochs, 8 kNN a step), ``cli.eval`` at sub-cloud
+    resolution, ``cli.attack`` refused for the xyz-only reason.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -1106,12 +1129,15 @@ def phase_reference(dev) -> None:
 
 def prepare_randla(data: str) -> str:
     """The synthetic rooms prepared as RandLA clouds (0.04 m grid, KD-tree,
-    projection); the Area-5 cloud must keep ≥ 40960 points."""
+    projection, and the full-resolution ``original_ply`` beside them, as
+    ``cli.prepare`` lays them out); the Area-5 cloud must keep ≥ 40960
+    points."""
     from pointsecguard_tpu_torch.data.randla import SpatiallyRegularSampler, prepare_room
 
     prep = os.path.join(WORK, "randla_input_0.040")
     for name in sorted(os.listdir(data)):
-        prepare_room(os.path.join(data, name), prep, 0.04)
+        prepare_room(os.path.join(data, name), prep, 0.04,
+                     original_dir=os.path.join(WORK, "original_ply"))
     sizes = {c.name: len(c.labels) for c in
              SpatiallyRegularSampler.load(prep, split="test").clouds}
     print(f"randla clouds (test split, 0.04 m grid): {sizes}")
@@ -1130,10 +1156,10 @@ def randla_batch(prep: str, dev, num_points: int = RANDLA_POINTS, batch: int = R
     return torch.from_numpy(feats).to(dev)
 
 
-def pyramid_knn_inputs(xyz: torch.Tensor):
+def pyramid_knn_inputs(xyz: torch.Tensor, ratios=(4, 4, 4, 4, 2)):
     """The (query, points, k) of every kNN call of one build_pyramid."""
     calls, cur = [], xyz
-    for ratio in (4, 4, 4, 4, 2):
+    for ratio in ratios:
         sub = cur[:, : cur.shape[1] // ratio]
         calls += [(cur, cur, 16), (cur, sub, 1)]
         cur = sub
@@ -1373,15 +1399,16 @@ def phase_routes(records, xyz) -> None:
           f"launches on the tiled route {counts}")
 
 
-def randla_state_dict(seed: int, dev, feats) -> dict:
+def randla_state_dict(seed: int, dev, feats, floats: int = RANDLA_STATE_FLOATS,
+                      **model_kwargs) -> dict:
     """Full-width RandLA weights from a seeded generator (Linear weights
     and biases uniform in ±1/sqrt(fan_in), BatchNorm at scale 1, bias 0)
     with BatchNorm statistics from one train-mode forward over ``feats``
-    (keep fraction 0)."""
+    (keep fraction 0); ``model_kwargs`` go to ``RandLANet`` (5 levels)."""
     from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
 
     gen = torch.Generator().manual_seed(seed)
-    model = RandLANet()
+    model = RandLANet(**model_kwargs)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, torch.nn.Linear):
@@ -1390,8 +1417,8 @@ def randla_state_dict(seed: int, dev, feats) -> dict:
                     if t is not None:
                         t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
     n = sum(t.numel() for t in model.state_dict().values())
-    if n != RANDLA_STATE_FLOATS:
-        raise AssertionError(f"RandLA state holds {n} floats, want {RANDLA_STATE_FLOATS}")
+    if n != floats:
+        raise AssertionError(f"RandLA state holds {n} floats, want {floats}")
     model.to(dev).train()
     with torch.no_grad():
         model(feats, build_pyramid(feats[..., :3]), momentum=0.0)
@@ -1399,7 +1426,7 @@ def randla_state_dict(seed: int, dev, feats) -> dict:
 
 
 def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int,
-                   extra: tuple = (), knn_per_batch: int = 10):
+                   extra: tuple = (), knn_per_batch: int = 10, points: int = RANDLA_POINTS):
     """One attack run through the CLI at batch 4, the launch counts set to
     0 just before it and read just after; its rows and summary. Without a
     defense a batch launches ``knn`` 10 times, for its pyramid."""
@@ -1422,7 +1449,7 @@ def run_randla_cli(prep: str, log: str, attack: str, fused: bool, clouds: int,
            ("clean_acc", "adv_acc", "l2", "time_s", "steps")}
     ms_cloud = 1e3 * col["time_s"]  # each row: its batch's wall / batch size
     stats = {
-        "attack": attack, "fused_ap": fused, "clouds": len(rows), "points": RANDLA_POINTS,
+        "attack": attack, "fused_ap": fused, "clouds": len(rows), "points": points,
         "steps": [int(x) for x in col["steps"]],
         "ms_per_cloud_mean": float(ms_cloud.mean()),
         "ms_per_cloud_warm_median": float(np.median(ms_cloud[RANDLA_BATCH:]
@@ -3425,7 +3452,10 @@ def phase_randla_protocol(prep: str, log: str, records) -> dict:
     clean, adversarial and control forwards, the 10 attack forwards and
     PGD's last), the control's and the steps TSV's rows; then ``cli.eval
     --model randla --visual --save_preds``: the Area-5 cloud's label
-    clouds, viewer and prediction PLY at full resolution."""
+    clouds, viewer and prediction PLY at full resolution, which
+    ``cli.cv6fold`` scores against the ``original_ply`` to eval's own
+    accuracy and mIoU."""
+    from pointsecguard_tpu_torch.cli import cv6fold
     from pointsecguard_tpu_torch.cli import eval as cli_eval
     from pointsecguard_tpu_torch.data.ply import read_ply
 
@@ -3448,6 +3478,9 @@ def phase_randla_protocol(prep: str, log: str, records) -> dict:
     stats["eval_visual_save_preds_s"] = time.perf_counter() - t0
     stats["eval_accuracy"] = m.accuracy
     plys = sorted(os.listdir(preds))
+    cv = cv6fold.main(["--results_dir", preds, "--original_dir",
+                       os.path.join(WORK, "original_ply")])
+    stats["cv6fold"] = {"accuracy": cv.accuracy, "miou": cv.miou}
     vis = [f for f in os.listdir(os.path.join(log, "visual")) if not f.startswith("cloud")]
     stats.update(save_preds=plys, eval_visual=sorted(vis))
     print("randla protocol: " + json.dumps(stats))
@@ -3459,6 +3492,9 @@ def phase_randla_protocol(prep: str, log: str, records) -> dict:
 
         if n != len(np.asarray(pickle.load(f)[1]).reshape(-1)):
             raise AssertionError("the prediction PLY is not at the cloud's full resolution")
+    if abs(cv.accuracy - m.accuracy) > 1e-12 or abs(cv.miou - m.miou) > 1e-12:
+        raise AssertionError(f"cv6fold on the saved predictions: {cv.accuracy} / {cv.miou}, "
+                             f"eval {m.accuracy} / {m.miou}")
     return stats
 
 
@@ -3900,6 +3936,456 @@ def phase_benchmark_victims(data: str, prep: str, randla_log: str, resgcn_log: s
     return out
 
 
+# --- phases 52-55: RandLA-Net's outdoor presets at full width ------------------
+# Semantic3D: the config's batch of 4 × 65536 points, 5 levels, 8 classes;
+# SemanticKITTI: 6 × 45056, 4 levels, 19 classes on xyz-only features. The
+# raw stand-ins are street scenes written in the datasets' own formats
+# (data/synthetic_outdoor.py): three Semantic3D clouds of 160k points over
+# 50 × 50 m (each keeps over 65536 points on the 0.06 m grid), four KITTI
+# scans of 120k points (sequences 00 × 2, 08, 11)
+SEM3D_BATCH, SEM3D_POINTS, SEM3D_RAW_POINTS, SEM3D_EXTENT = 4, 65536, 160_000, 25.0
+KITTI_BATCH, KITTI_POINTS, KITTI_RAW_POINTS = 6, 45056, 120_000
+SEM3D_STATE_FLOATS = 5_010_816  # the S3DIS model with an 8-class head
+KITTI_STATE_FLOATS = 1_250_003  # 4 levels to 512 channels, 3 inputs, 19 classes
+# training: a few steps an epoch, one validation batch (the configs' 16 × 65536
+# and 20 × 45056 clouds), 2 epochs and one more on resume (Semantic3D)
+OUTDOOR_TRAIN_STEPS, OUTDOOR_VAL_STEPS, OUTDOOR_TRAIN_EPOCHS = 8, 1, 2
+
+
+def phase_prepare_outdoor(data: str) -> dict:
+    """52. Raw SemanticKITTI, Semantic3D and S3DIS trees in the datasets'
+    formats, then ``cli.prepare`` on each; the clouds must hold the
+    presets' sample sizes. Returns the prepared directories."""
+    from pointsecguard_tpu_torch.cli import prepare
+    from pointsecguard_tpu_torch.data import synthetic_outdoor as synth
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    seq, yaml_path = synth.write_raw_semantickitti(os.path.join(WORK, "kitti_raw"),
+                                                   points=KITTI_RAW_POINTS, seed=0)
+    synth.write_raw_semantic3d(os.path.join(WORK, "sem3d_raw"), points=SEM3D_RAW_POINTS,
+                               extent=SEM3D_EXTENT, seed=0)
+    rooms = sorted(os.path.join(data, f) for f in os.listdir(data))
+    synth.write_raw_s3dis(rooms, os.path.join(WORK, "s3dis_raw"))
+    seconds["write raw"] = time.perf_counter() - t0
+    for dataset, argv in (
+            ("semantickitti", ["--dataset", "semantickitti", "--raw_root", seq,
+                               "--kitti_yaml", yaml_path, "--out_root",
+                               os.path.join(WORK, "kitti_prep")]),
+            ("semantic3d", ["--dataset", "semantic3d", "--raw_root",
+                            os.path.join(WORK, "sem3d_raw"), "--out_root",
+                            os.path.join(WORK, "sem3d_prep")]),
+            ("s3dis", ["--raw_root", os.path.join(WORK, "s3dis_raw"), "--out_root",
+                       os.path.join(WORK, "s3dis_rooms"), "--randla_out",
+                       os.path.join(WORK, "s3dis_prep", "randla_input_0.040")])):
+        t0 = time.perf_counter()
+        prepare.main(argv)
+        seconds[dataset] = time.perf_counter() - t0
+    out["semantickitti"] = os.path.join(WORK, "kitti_prep")
+    out["semantic3d"] = os.path.join(WORK, "sem3d_prep", "input_0.060")
+    out["semantic3d_original"] = os.path.join(WORK, "sem3d_prep", "original_ply")
+    for a, b in zip(rooms, sorted(os.listdir(os.path.join(WORK, "s3dis_rooms")))):
+        if np.load(a).shape != np.load(os.path.join(WORK, "s3dis_rooms", b)).shape:
+            raise AssertionError(f"cli.prepare collected {b} with another point count")
+    sizes = {}
+    for dataset, want in (("semantickitti", KITTI_POINTS), ("semantic3d", SEM3D_POINTS)):
+        preset = randla_dataset_preset(dataset)
+        for split in ("train", "test"):
+            clouds = preset.make_sampler(out[dataset], split, want, None).clouds
+            if not clouds:
+                raise AssertionError(f"cli.prepare left no {dataset} {split} cloud")
+            for c in clouds:
+                sizes[c.name] = len(c.labels)
+                if len(c.labels) < want:
+                    raise AssertionError(f"{dataset} cloud {c.name}: {len(c.labels)} points, "
+                                         f"fewer than the preset's {want}")
+    print(f"phase 52 prepare: seconds {json.dumps(seconds)}; sub-cloud points {sizes}")
+    return out
+
+
+def outdoor_batch(prep: str, dataset: str, split: str, dev, seed: int = 7):
+    """One sampler batch of the preset at its config's batch and points:
+    features [B, P, 6] (Semantic3D) or [B, P, 3] (SemanticKITTI) and raw
+    labels on ``dev``."""
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+
+    preset = randla_dataset_preset(dataset)
+    cfg = preset.cfg
+    sampler = preset.make_sampler(prep, split, cfg.num_points, np.random.default_rng(seed))
+    _, feats, labels, _, _ = next(sampler.batches(cfg.batch_size, 1))
+    return torch.from_numpy(feats).to(dev), torch.from_numpy(labels).long().to(dev)
+
+
+def phase_outdoor_knn(dev, records, preps: dict) -> None:
+    """53. ``knn`` at every call of one ``build_pyramid`` of Semantic3D's
+    [4, 65536] (5 levels, 10 calls) and SemanticKITTI's [6, 45056] (4
+    levels, 8 calls) on the samplers' clouds: values and indices equal to
+    ``knn_plain`` on the card, the launches of one pyramid counted, median
+    kernel and plain times per pyramid against the bound (a kernel phase)."""
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.models import build_pyramid
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import bounds, knn
+
+    for dataset in ("semantic3d", "semantickitti"):
+        cfg = randla_dataset_preset(dataset).cfg
+        feats, _ = outdoor_batch(preps[dataset], dataset, "train", dev)
+        xyz = feats[..., :3].contiguous()
+        calls = pyramid_knn_inputs(xyz, cfg.sub_sampling_ratio)
+        err = 0.0
+        for q, p, k in calls:
+            err = max(err, _equal(f"knn ({dataset}) {tuple(q.shape)} x {tuple(p.shape)} k={k}",
+                                  knn.knn(q, p, k), knn.knn_plain(q, p, k)))
+        kernels.reset_launch_counts()
+        build_pyramid(xyz, num_layers=cfg.num_layers, k=cfg.k_n,
+                      sub_ratios=cfg.sub_sampling_ratio)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["knn"]
+        if launches != 2 * cfg.num_layers:
+            raise AssertionError(f"{dataset} build_pyramid launched knn {launches} times, "
+                                 f"want {2 * cfg.num_layers}")
+
+        def run(f):
+            return lambda: [f(q, p, k) for q, p, k in calls]
+
+        work = bounds.total(bounds.knn(q.shape[0], q.shape[1], p.shape[1], q.shape[2], k)
+                            for q, p, k in calls)
+        unit = f"one build_pyramid of [{cfg.batch_size}, {cfg.num_points}] ({dataset})"
+        rec = {"unit": unit, "ms": device_ms(run(knn.knn), reps=3),
+               "eager_ms": cuda_ms(run(knn.knn), reps=10),
+               "plain_ms": cuda_ms(run(knn.knn_plain), reps=2, warmup=1),
+               "bound_ms": work.bound_ms, "bound_by": work.bound_by, "library_ms": None,
+               "launches": launches, "max_abs_err": err}
+        print(f"knn ({dataset}): kernel {rec['ms']:.4f} ms on the card ({rec['eager_ms']:.4f} "
+              f"ms as eager calls, median), plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {work.bytes} bytes, "
+              f"{work.operations} operations; share {rec['bound_ms'] / rec['ms']:.3f}) per "
+              f"{unit}, {launches} launches; values and indices equal to plain at all "
+              f"{len(calls)} calls")
+        for q, p, k in calls:
+            ms = device_ms(lambda: knn.knn(q, p, k), reps=3)
+            b = bounds.knn(q.shape[0], q.shape[1], p.shape[1], q.shape[2], k)
+            print(f"  knn {tuple(q.shape)} x {tuple(p.shape)} k={k}: {ms:.4f} ms "
+                  f"(bound {b.bound_ms:.4f} ms, {b.bound_by})")
+        records["knn"][f"{dataset}_pyramid"] = rec
+    outdoor_attentive(dev, records)
+
+
+def outdoor_attentive(dev, records) -> None:
+    """The fused attentive pair at one Semantic3D attack pass under
+    ``--fused_ap``: 2 × [16, 4 · 65536, 8] and 2 × [16, 65536, 32], forward
+    and backward without dW within tolerance of plain (values and the fn /
+    fx gradients), timed per pass against the bound."""
+    from pointsecguard_tpu_torch.ops.attentive import attentive_pool_fused_plain as plain
+    from pointsecguard_tpu_torch.ops.cuda import attentive, bounds
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    M = SEM3D_BATCH * SEM3D_POINTS
+    shapes = [(16, M, 8), (16, M, 8), (16, M // 4, 32), (16, M // 4, 32)]
+    calls = [attentive_case(*shape, gen, dev) for shape in shapes]
+    cots = [tuple(torch.randn((2, m, d), generator=gen, device=dev)) for _, m, d in shapes]
+    res, errs = {}, [0.0, 0.0]
+    for name, f in (("kernel", attentive.attentive_pool_fused), ("plain", plain)):
+        timer = cuda_ms if name == "plain" else device_ms
+        with torch.no_grad():
+            eager_f = cuda_ms(lambda: [f(*c) for c in calls], reps=10)
+            dev_f = timer(lambda: [f(*c) for c in calls], reps=5)
+        leaves = [(fn.clone().requires_grad_(True), fx.clone().requires_grad_(True), w)
+                  for fn, fx, w in calls]
+        outs = [o for lv in leaves for o in f(*lv)]
+        flat = [t for lv in leaves for t in lv[:2]]
+        cot = [g for c in cots for g in c]
+        grads = torch.autograd.grad(outs, flat, cot, retain_graph=True)
+        eager_b = cuda_ms(lambda: torch.autograd.grad(outs, flat, cot, retain_graph=True),
+                          reps=10)
+        dev_b = timer(lambda: torch.autograd.grad(outs, flat, cot, retain_graph=True), reps=5)
+        res[name] = (eager_f, dev_f, eager_b, dev_b, [o.detach() for o in outs], grads)
+        del leaves, outs, flat
+    (ef, kf, eb, kb, ko, kg), (_, pf, _, pb, po, pg) = res["kernel"], res["plain"]
+    for a, b in zip(ko, po):
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, rtol=2e-5, atol=2e-6)):
+            raise AssertionError(f"attentive fwd at {tuple(a.shape)}: "
+                                 f"max |diff| {(a - b).abs().max().item():.3e}")
+        errs[0] = max(errs[0], (a - b).abs().max().item())
+    for a, b in zip(kg, pg):
+        errs[1] = max(errs[1], grad_err(f"attentive bwd {tuple(a.shape)}", a, b))
+    for name, f, ms, eager, plain_ms, err in (
+            ("attentive_fwd", bounds.attentive_fwd, kf, ef, pf, errs[0]),
+            ("attentive_bwd", bounds.attentive_bwd, kb, eb, pb, errs[1])):
+        work = bounds.total(f(*shape) for shape in shapes)
+        records[name]["semantic3d_pass"] = {
+            "unit": f"4 calls of one Semantic3D pass: 2 x [16, {M}, 8], 2 x [16, {M // 4}, 32]",
+            "ms": ms, "eager_ms": eager, "plain_ms": plain_ms, "bound_ms": work.bound_ms,
+            "bound_by": work.bound_by, "library_ms": None, "max_abs_err": err}
+        print(f"{name} (semantic3d pass, 4 calls): kernel {ms:.4f} ms on the card "
+              f"({eager:.4f} ms as eager calls, median), plain {plain_ms:.4f} ms, bound "
+              f"{work.bound_ms:.4f} ms ({work.bound_by}; share {work.bound_ms / ms:.3f}); "
+              f"within tolerance of plain (max |diff| {err:.3e})")
+
+
+def _outdoor_train(dataset: str, prep: str, records, epochs: int, resume: bool) -> dict:
+    """``cli.train.main --model randla --randla_dataset <dataset>`` at the
+    preset's batch and points, ``OUTDOOR_TRAIN_STEPS`` steps and one
+    validation batch an epoch, then (``resume``) one more epoch; the
+    launches of the first call counted (2 × levels a train step and a
+    validation batch)."""
+    from pointsecguard_tpu_torch.cli import train as cli
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = randla_dataset_preset(dataset).cfg
+    log = os.path.join(WORK, f"{dataset}_train_log")
+
+    def argv(n):
+        return ["--model", "randla", "--randla_dataset", dataset, "--randla_dir", prep,
+                "--log_dir", log, "--steps_per_epoch", str(OUTDOOR_TRAIN_STEPS),
+                "--val_steps", str(OUTDOOR_VAL_STEPS), "--epochs", str(n)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(argv(epochs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    events = read_events(log)
+    ep = [e for e in events if e["event"] == "epoch"]
+    ev = [e for e in events if e["event"] == "eval"]
+    if [e["epoch"] for e in ep] != list(range(epochs)) or len(ev) != epochs:
+        raise AssertionError(f"{dataset} epoch lines {[e['epoch'] for e in ep]}, {len(ev)} evals")
+    if any(e["batches"] != OUTDOOR_TRAIN_STEPS or e["nan_batches"] for e in ep):
+        raise AssertionError(f"{dataset} steps or skipped batches: {ep}")
+    if not all(math.isfinite(e["loss"]) for e in ep):
+        raise AssertionError(f"{dataset}: a non-finite epoch loss")
+    per_batch = 2 * cfg.num_layers
+    batches = OUTDOOR_TRAIN_STEPS * epochs + OUTDOOR_VAL_STEPS * epochs
+    if counts["knn"] != per_batch * batches or any(counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"{dataset} train launches {counts}, want knn {per_batch} × "
+                             f"{batches} batches and nothing else")
+    records["knn"]["launches_by_path"][f"randla {dataset} train"] = counts["knn"]
+    records["knn"]["calls_per_batch"][f"randla {dataset} train step"] = per_batch
+    if resume:
+        cli.main(argv(epochs + 1))
+        resumed = [e["epoch"] for e in read_events(log) if e["event"] == "epoch"]
+        latest = CheckpointManager(os.path.join(log, "checkpoints")).restore_latest()
+        if resumed != list(range(epochs + 1)) or latest["epoch"] != epochs + 1:
+            raise AssertionError(f"{dataset} epochs after the resumed call: {resumed}")
+    warm = ep[1:]  # the first epoch pays the one-off set-up
+    host_ms = 1e3 * sum(e["seconds"] for e in warm) / sum(e["batches"] for e in warm)
+    return {"log": log, "batch": [cfg.batch_size, cfg.num_points],
+            "epoch_loss": [e["loss"] for e in ep], "val_accuracy": [e["accuracy"] for e in ev],
+            "val_miou": [e["miou"] for e in ev], "ms_per_step_host_clock": host_ms,
+            "clouds_per_sec": 1e3 * cfg.batch_size / host_ms,
+            "peak_device_memory_gb": peak / 1e9, "main_wall_s": wall, "launches": counts}
+
+
+def _outdoor_step_ms(dataset: str, prep: str, log: str, dev) -> float:
+    """ms of one optimizer step alone on the card (CUDA events around each
+    of 5 steps on a batch that already lies there), on the trained state."""
+    from functools import partial
+
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.models import RandLANet, weighted_softmax_ce_loss
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, randla_family
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+
+    preset = randla_dataset_preset(dataset)
+    cfg = preset.cfg
+    model = RandLANet(num_classes=preset.num_classes, d_out=cfg.d_out,
+                      d_in=6 if preset.has_colors else 3)
+    state = TrainState(model.to(dev))
+    state.load_payload(CheckpointManager(os.path.join(log, "checkpoints")).restore_latest())
+    table = torch.from_numpy(preset.label_table()).to(dev)
+    step = make_train_step(model, partial(weighted_softmax_ce_loss, label_table=table),
+                           weight_decay=0.0, family=randla_family(cfg))
+    feats, labels = outdoor_batch(prep, dataset, "train", dev, seed=1)
+    weights = torch.from_numpy(get_class_weights(preset.weights_key)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cuda_ms(lambda: step(state, feats, labels, weights, 1e-4, None, gen), reps=5)
+
+
+def _outdoor_eval(dataset: str, prep: str, log: str, records, extra=()) -> dict:
+    """``cli.eval.main`` on the trained checkpoint: two batches of the
+    preset's training batch size voted; 2 × levels kNN launches a batch."""
+    from pointsecguard_tpu_torch.cli import eval as cli
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    cfg = randla_dataset_preset(dataset).cfg
+    clouds = 2 * cfg.batch_size
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = cli.main(["--model", "randla", "--randla_dataset", dataset, "--randla_dir", prep,
+                  "--log_dir", log, "--num_clouds", str(clouds),
+                  "--batch_size", str(cfg.batch_size), *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = 2 * cfg.num_layers * 2
+    if counts["knn"] != want or not (math.isfinite(m.miou) and 0.0 <= m.accuracy <= 1.0):
+        raise AssertionError(f"{dataset} eval: launches {counts} (want knn {want}), "
+                             f"accuracy {m.accuracy}, mIoU {m.miou}")
+    records["knn"]["launches_by_path"][f"randla {dataset} eval"] = counts["knn"]
+    return {"accuracy": m.accuracy, "miou": m.miou, "class_iou": list(m.class_iou),
+            "clouds": clouds, "ms_per_cloud": 1e3 * wall / clouds, "launches": counts}
+
+
+def phase_semantic3d(dev, records, preps: dict) -> dict:
+    """54. Semantic3D at full width: ``cli.train`` 4 × 65536 (2 epochs + 1
+    on resume), the step alone by CUDA events; ``cli.eval`` (voting,
+    reprojection through ``_proj.pkl``) with ``--save_preds``, a
+    prediction for every point of the original cloud; NB through ``cli.attack`` on 4
+    clouds at batch 4 on a calibrated random model, with and without
+    ``--fused_ap`` (10 kNN a batch, the fused kernels' launches, ignored
+    points' colours unchanged, mean accuracy lowered); the 5-layer 8-class
+    model and the ignored-label loss card vs CPU against float64."""
+    from pointsecguard_tpu_torch.data.ply import read_ply
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.utils.checkpoint import save_checkpoint
+
+    prep, out = preps["semantic3d"], {}
+    t0 = time.perf_counter()
+    train = _outdoor_train("semantic3d", prep, records, OUTDOOR_TRAIN_EPOCHS, resume=True)
+    train["ms_per_step"] = _outdoor_step_ms("semantic3d", prep, train["log"], dev)
+    train["host_share"] = 1.0 - train["ms_per_step"] / train["ms_per_step_host_clock"]
+    print("semantic3d train: " + json.dumps({k: v for k, v in train.items() if k != "log"}))
+    preds = os.path.join(WORK, "semantic3d_preds")
+    ev = _outdoor_eval("semantic3d", prep, train["log"], records, ("--save_preds", preds))
+    plys = sorted(os.listdir(preds))
+    for name in plys:
+        n = len(read_ply(os.path.join(preds, name))["pred"])
+        want = len(read_ply(os.path.join(preps["semantic3d_original"], name))["class"])
+        if n != want:
+            raise AssertionError(f"{name}: {n} predictions for {want} original points")
+    if not plys:
+        raise AssertionError("cli.eval --save_preds wrote no Semantic3D prediction")
+    print(f"semantic3d eval: {json.dumps(ev)}; predictions {plys} at the original clouds' "
+          "resolution")
+    out.update(train={k: v for k, v in train.items() if k != "log"}, eval=ev)
+
+    # NB on a calibrated random model: trained for 24 steps, BatchNorm's
+    # running statistics are still mostly the initial ones
+    feats, _ = outdoor_batch(prep, "semantic3d", "test", dev, seed=3)
+    sd = randla_state_dict(0, dev, feats, floats=SEM3D_STATE_FLOATS, num_classes=8)
+    log = os.path.join(WORK, "semantic3d_attack_log")
+    save_checkpoint(log, sd)
+    runs = []
+    for fused in (False, True):
+        stats = run_randla_cli(prep, log, "nb", fused, SEM3D_BATCH,
+                               extra=("--randla_dataset", "semantic3d", "--save_adv"),
+                               points=SEM3D_POINTS)
+        with np.load(os.path.join(log, "randla_nb_adv_area5.npz")) as npz:
+            adv, raw = npz["points"], npz["labels"]
+        sampler = randla_dataset_preset("semantic3d").make_sampler(
+            prep, "test", SEM3D_POINTS, np.random.default_rng(0))
+        clean = next(sampler.batches(SEM3D_BATCH, 1))[1]
+        ignored = raw == 0
+        if not ignored.any() or not np.array_equal(adv[ignored], clean[ignored]):
+            raise AssertionError("NB moved the colour of an ignored point "
+                                 f"({int(ignored.sum())} ignored)")
+        if not stats["adv_acc"] < stats["clean_acc"]:
+            raise AssertionError(f"semantic3d NB did not lower the mean accuracy: {stats}")
+        stats["ignored_points"] = int(ignored.sum())
+        print("semantic3d nb: " + json.dumps(stats))
+        runs.append(stats)
+    records["knn"]["launches_by_path"]["randla semantic3d nb"] = runs[0]["launches"]["knn"]
+    records["knn"]["calls_per_batch"]["randla semantic3d nb"] = runs[0]["launches"]["knn"]
+    for name in ("attentive_fwd", "attentive_bwd"):
+        records[name]["calls_per_batch"]["randla semantic3d nb --fused_ap"] = \
+            runs[1]["launches"][name]
+    out["nb"] = runs
+    out["reference"] = outdoor_reference(dev, prep)
+    print(f"phase 54: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def outdoor_reference(dev, prep: str) -> dict:
+    """The 5-layer 8-class model's logits and the ignored-label loss on one
+    8192-point Semantic3D cloud (CPU's pyramid, on both devices), each
+    against the CPU's float64 run: the float64 run on the card within 5e-7
+    of the largest logit and of the loss (the attentive scores' softmax and
+    the head's logits are float32 on every trunk dtype, as in the JAX
+    model: a few float32 ulps apart; on the H100 it read 2.0e-7, where a
+    float32 run reads 1.2e-6 to 1.5e-6, so a float64 run that computed in
+    float32 fails), each device's float32 run within 1e-5."""
+    from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
+    from pointsecguard_tpu_torch.models import RandLANet, build_pyramid, weighted_softmax_ce_loss
+
+    preset = randla_dataset_preset("semantic3d")
+    sampler = preset.make_sampler(prep, "test", 8192, np.random.default_rng(5))
+    _, feats, labels, _, _ = next(sampler.batches(1, 1))
+    feats, labels = torch.from_numpy(feats), torch.from_numpy(labels).long()
+    sd = randla_state_dict(2, dev, feats.to(dev), floats=SEM3D_STATE_FLOATS, num_classes=8)
+    pyr = build_pyramid(feats[..., :3])
+    table = torch.from_numpy(preset.label_table())
+    w = torch.from_numpy(get_class_weights(preset.weights_key))
+    got = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        for dtype in (torch.float32, torch.float64):
+            model = RandLANet(num_classes=8)
+            model.load_state_dict(sd)
+            model.to(device=device, dtype=dtype).eval()
+            p = {k: [t.to(device, dtype) if t.is_floating_point() else t.to(device)
+                     for t in v] for k, v in pyr.items()}
+            with torch.no_grad():
+                lg = model(feats.to(device, dtype), p)
+                loss = weighted_softmax_ce_loss(lg, labels.to(device), w.to(device, dtype),
+                                                label_table=table.to(device))
+            got[(where, dtype)] = (lg.double().cpu(), float(loss))
+    ref_lg, ref_loss = got[("cpu", torch.float64)]
+    scale = ref_lg.abs().max().item()
+    errs = {f"{d} {str(t)[6:]}": ((lg - ref_lg).abs().max().item() / scale,
+                                  abs(loss - ref_loss) / abs(ref_loss))
+            for (d, t), (lg, loss) in got.items()}
+    print(f"semantic3d model card vs CPU against CPU float64 (relative to the largest logit "
+          f"{scale:.4f}; loss {ref_loss:.6f} over {int((labels > 0).sum())} valid of "
+          f"{labels.numel()} points): {json.dumps(errs)}")
+    if not (errs["card float64"][0] <= 5e-7 and errs["card float64"][1] <= 5e-7
+            and all(e[0] <= 1e-5 and e[1] <= 1e-5 for e in errs.values())):
+        raise AssertionError(f"the Semantic3D model disagrees card vs CPU: {errs}")
+    return errs
+
+
+def phase_semantickitti(dev, records, preps: dict) -> dict:
+    """55. SemanticKITTI at full width: ``cli.train`` 6 × 45056 on xyz-only
+    features (2 epochs, 8 kNN launches a step), ``cli.eval`` at sub-cloud
+    resolution, and ``cli.attack --randla_dataset semantickitti`` refused
+    for the xyz-only reason."""
+    from pointsecguard_tpu_torch.cli import attack as cli_attack
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    prep = preps["semantickitti"]
+    t0 = time.perf_counter()
+    train = _outdoor_train("semantickitti", prep, records, OUTDOOR_TRAIN_EPOCHS, resume=False)
+    sd = load_checkpoint(train["log"])
+    floats = sum(t.numel() for t in sd.values())
+    if sd["fc0.weight"].shape != (8, 3) or floats != KITTI_STATE_FLOATS:
+        raise AssertionError(f"SemanticKITTI model: fc0 {tuple(sd['fc0.weight'].shape)}, "
+                             f"{floats} floats")
+    train["ms_per_step"] = _outdoor_step_ms("semantickitti", prep, train["log"], dev)
+    train["host_share"] = 1.0 - train["ms_per_step"] / train["ms_per_step_host_clock"]
+    print("semantickitti train: " + json.dumps({k: v for k, v in train.items() if k != "log"}))
+    ev = _outdoor_eval("semantickitti", prep, train["log"], records)
+    print(f"semantickitti eval (sub-cloud resolution): {json.dumps(ev)}")
+    try:
+        cli_attack.main(["--model", "randla", "--randla_dataset", "semantickitti",
+                         "--randla_dir", prep, "--log_dir", train["log"]])
+    except SystemExit as refusal:
+        if "xyz-only" not in str(refusal):
+            raise AssertionError(f"cli.attack semantickitti stopped otherwise: {refusal}")
+        print(f"semantickitti attack refused: {refusal}")
+    else:
+        raise AssertionError("cli.attack --randla_dataset semantickitti was not refused")
+    print(f"phase 55: {time.perf_counter() - t0:.1f} s")
+    return {"train": {k: v for k, v in train.items() if k != "log"}, "eval": ev}
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -4096,6 +4582,16 @@ def main(argv=None) -> int:
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
     print(f"phases 47-51: {time.perf_counter() - phases_47_51:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_52_55 = time.perf_counter()
+    preps = phase_prepare_outdoor(data)
+    print(f"phase 52: {time.perf_counter() - phases_52_55:.1f} s")
+    t0 = time.perf_counter()
+    phase_outdoor_knn(dev, records, preps)
+    print(f"phase 53: {time.perf_counter() - t0:.1f} s")
+    phase_semantic3d(dev, records, preps)
+    phase_semantickitti(dev, records, preps)
+    print(f"phases 52-55: {time.perf_counter() - phases_52_55:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4108,7 +4604,10 @@ def main(argv=None) -> int:
                                  "pointnet2 nb --defense resample",
                                  "randla nb --defense resample",
                                  "resgcn nb --resgcn_fixed_graphs",
-                                 "randla benchmark", "resgcn benchmark"})):
+                                 "randla benchmark", "resgcn benchmark",
+                                 "randla semantic3d train", "randla semantic3d eval",
+                                 "randla semantic3d nb", "randla semantickitti train",
+                                 "randla semantickitti eval"})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")
@@ -4121,7 +4620,8 @@ def main(argv=None) -> int:
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "msg_attack",
                               "msg_train_step", "resgcn_forward", "resample",
-                              "launches_by_path")
+                              "semantic3d_pyramid", "semantickitti_pyramid",
+                              "semantic3d_pass", "launches_by_path")
             if k in r}}
         for r in records.values()]}))
     print(card)

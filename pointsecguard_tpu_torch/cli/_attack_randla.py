@@ -2,7 +2,9 @@
 ``pointsecguard_tpu/cli/_attack_randla.py:14-406``; the reference
 `tester_S3DIS.py:59-319`).
 
-Samples spatially-regular clouds, and per batch: builds the pyramid
+Samples spatially-regular clouds of the ``--randla_dataset`` preset
+(S3DIS or Semantic3D; SemanticKITTI's clouds are xyz-only, so the colour
+threat model does not apply and the run is refused), and per batch: builds the pyramid
 (fused kNN kernel) and the position plan once under ``no_grad``, runs the
 ares NB / tar_NB (PGD) or NU / tar_NU (C&W) attack reusing both, or with
 ``--attack random`` noise of ``--noise_norm`` and no engine, and writes one
@@ -19,6 +21,12 @@ plan stay xyz-only: every defense leaves xyz alone), and every reported
 prediction is the deployed defense's; ``--control`` adds ``rand_acc``;
 ``--log_steps`` writes ``randla_<attack>_area<k>_steps.tsv``; ``--visual``
 the per-cloud ``.xyzrgb`` dumps and HTML viewer.
+
+On a preset with ignored labels (Semantic3D's label 0) the model predicts
+the valid classes only: raw labels are reduced to them, ignored points are
+masked out of the attack objective (so their colours never move), of the
+random noise and of every metric, and ``--origin`` / ``--target`` stay raw
+dataset labels. ``--save_adv`` keeps the raw labels.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import time
 
 
 def _write_cloud_visuals(vis_dir, cloud, attack, xyz, feats, adv_feats, adv_pred, labels):
-    """Per-cloud visual artifacts (JAX `_attack_randla.py:318-345`)."""
+    """Per-cloud visual artifacts (JAX `_attack_randla.py:318-360`);
+    ``labels`` in the predictions' class space."""
     from pointsecguard_tpu_torch.utils.logging import write_label_cloud, write_xyzrgb
     from pointsecguard_tpu_torch.utils.viz import export_html_viewer
 
@@ -62,7 +71,12 @@ def run_randla(args, log):
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     preset = randla_dataset_preset(args.randla_dataset)
-    cfg, K = preset.cfg, preset.num_classes
+    if not preset.has_colors:
+        raise SystemExit(
+            f"--randla_dataset {preset.name} clouds are xyz-only; the "
+            "paper's color threat model (and the equal-norm noise "
+            "control) does not apply")
+    cfg, K, ignored = preset.cfg, preset.num_classes, preset.ignored_labels
     num_points = args.randla_points or cfg.num_points
     targeted = args.attack.startswith("tar_")
     # targeted runs keep B=1: the <500-origin skip gate is a per-cloud
@@ -71,6 +85,16 @@ def run_randla(args, log):
     if targeted and B != 1:
         raise SystemExit("randla targeted attacks use --batch_size 1 (per-cloud "
                          "skip gates, `tester_S3DIS.py:253-258`)")
+    if targeted and ignored:
+        n_raw = K + len(ignored)
+        if args.origin in ignored or args.target in ignored \
+                or not (0 <= args.origin < n_raw and 0 <= args.target < n_raw):
+            raise SystemExit(
+                f"--origin/--target must be valid raw {preset.name} labels "
+                f"(1..{n_raw - 1}; label(s) {set(ignored)} are ignored)")
+    # the attack's labels live in the valid class space
+    target_v = (int(preset.reduce(np.asarray(args.target))[1]) if (targeted and ignored)
+                else args.target)
     device = resolve_device(args.device)
     sampler = preset.make_sampler(args.randla_dir, "test", num_points,
                                   np.random.default_rng(args.seed),
@@ -90,7 +114,11 @@ def run_randla(args, log):
             log.info("--control is a no-op with --attack random; ignoring")
             args.control = False
     else:
-        overrides = {"targeted": True, "target": args.target} if targeted else {}
+        overrides = {"targeted": True, "target": target_v} if targeted else {}
+        if K != 13:
+            overrides["num_classes"] = K
+            if args.attack in ("nu", "tar_nu"):
+                overrides["success_acc"] = 1.0 / K
         attack_cfg = attack_preset("randla", args.attack, **overrides)
     # the ares random start and the noise of --attack random / --control;
     # torch's generator cannot give jax.random's bits
@@ -111,11 +139,18 @@ def run_randla(args, log):
         tsv.write(header + ("\trand_acc" if args.control else "") + "\n")
         for xyz, feats, labels, _, cloud_idx in sampler.batches(B, -(-args.num_clouds // B)):
             feats_t = torch.from_numpy(feats).to(device)
-            labels_t = torch.from_numpy(labels).to(device).long()
+            # ignored points leave the objective and every score below
+            valid_np, labels_v = preset.reduce(labels)
+            labels_t = torch.from_numpy(labels_v).to(device).long()
             if targeted:
-                _, mask = make_target_labels(labels_t, args.origin, args.target)
+                # the origin mask reads the raw labels (a validated origin
+                # is never ignored)
+                _, mask = make_target_labels(torch.from_numpy(labels).to(device),
+                                             args.origin, args.target)
                 if int(mask.sum()) < 500:  # `tester_S3DIS.py:253-258`
                     continue
+            elif ignored:
+                mask = torch.from_numpy(valid_np).to(device)
             else:
                 mask = None
             t0 = time.time()
@@ -175,27 +210,32 @@ def run_randla(args, log):
                 adv_saved.append(adv_np.astype(np.float32))
                 adv_saved_labels.append(labels.astype(np.int32))
             dt = time.time() - t0
-            np.add.at(clean_cm, (labels.reshape(-1), clean_pred.reshape(-1)), 1)
-            np.add.at(adv_cm, (labels.reshape(-1), adv_pred.reshape(-1)), 1)
+            vv = valid_np.reshape(-1)
+            np.add.at(clean_cm, (labels_v.reshape(-1)[vv], clean_pred.reshape(-1)[vv]), 1)
+            np.add.at(adv_cm, (labels_v.reshape(-1)[vv], adv_pred.reshape(-1)[vv]), 1)
             for b in range(B):  # one protocol row per cloud
-                clean_acc = float((clean_pred[b] == labels[b]).mean())
-                adv_acc = float((adv_pred[b] == labels[b]).mean())
+                vb, yb = valid_np[b], labels_v[b][valid_np[b]]
+                clean_acc = float((clean_pred[b][vb] == yb).mean())
+                adv_acc = float((adv_pred[b][vb] == yb).mean())
                 if targeted and mask_np[b].any():
-                    sr_b = float((adv_pred[b][mask_np[b]] == args.target).mean())
+                    sr_b = float((adv_pred[b][mask_np[b]] == target_v).mean())
                 else:
                     sr_b = sr_global
                 row = (f"{int(cloud_idx[b])}\t{clean_acc:.4f}\t{adv_acc:.4f}"
                        f"\t{float(l2_np[b]):.4f}\t{sr_b:.4f}"
                        f"\t{int(steps_row[b])}\t{dt / B:.4f}")
                 if args.control:
-                    row += f"\t{float((rand_pred[b] == labels[b]).mean()):.4f}"
+                    row += f"\t{float((rand_pred[b][vb] == yb).mean()):.4f}"
                 tsv.write(row + "\n")
             tsv.flush()
             if args.visual:
                 for b in range(B):
+                    # gt in the predictions' reduced class space; ignored
+                    # points take the palette's slot K
+                    gt_disp = np.where(valid_np[b], labels_v[b], K)
                     _write_cloud_visuals(os.path.join(args.log_dir, "visual"),
                                          int(cloud_idx[b]), args.attack, xyz[b],
-                                         feats[b], adv_np[b], adv_pred[b], labels[b])
+                                         feats[b], adv_np[b], adv_pred[b], gt_disp)
             if steps_tsv is not None:
                 # acc / sr pooled over the batch's clouds; l2 per cloud
                 for b in range(B):

@@ -9,8 +9,10 @@ Ported: ``--attack nb|tar_nb`` (PGD) and ``nu|tar_nu`` (C&W) for
 (with the ``--resgcn_*`` model flags; targeted runs at ``--batch_size 1``,
 the per-cloud gates of `sem_seg_dense/attacks.py:204-207`) over
 whole-scene blocks (``cli/_attack_blocks.py``) and for ``--model randla``
-over spatially-regular S3DIS clouds (``cli/_attack_randla.py``, prepared
-with ``data.randla.prepare_room`` under ``--randla_dir``); ``--fused_ap``
+over spatially-regular clouds (``cli/_attack_randla.py``) of the tree
+``cli.prepare`` wrote under ``--randla_dir``, S3DIS or, with
+``--randla_dataset semantic3d``, Semantic3D (its ignored label 0 masked
+out; ``semantickitti`` is refused: its clouds are xyz-only); ``--fused_ap``
 (``--model randla`` only) runs the narrow attentive poolings through the
 fused kernels; ``--save_adv`` writes the adversarial blocks or clouds for
 ``cli.eval --adv_set``. The reference's protocol flags, for every model:
@@ -56,7 +58,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--randla_dir", default="data/randla_input_0.040")
     ap.add_argument("--randla_dataset", default="s3dis",
                     choices=["s3dis", "semantickitti", "semantic3d"],
-                    help="randla: dataset preset; only s3dis is ported")
+                    help="randla: dataset preset (`helper_tool.py:18-100`) "
+                         "over the cli.prepare artifact tree; semantic3d "
+                         "attacks mask out the ignored label 0, kitti is "
+                         "rejected (xyz-only, no color threat surface)")
     ap.add_argument("--num_clouds", type=int, default=100,
                     help="randla: number of sampled clouds (`tester_S3DIS.py:166`)")
     ap.add_argument("--randla_points", type=int, default=0,

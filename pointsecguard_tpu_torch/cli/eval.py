@@ -13,9 +13,11 @@ Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet`` with
 ``--seed`` and ``--adv_set`` (a saved adversarial set from
 ``cli.attack --save_adv``), and so ``--model resgcn`` with the
 ``--resgcn_*`` model flags; ``--model randla``
-(whole-cloud voting, ``_eval_randla``) with ``--randla_dir``,
-``--randla_points`` (0 → 40960), ``--num_clouds``, ``--batch_size``
-(0 → the config's val_batch_size 1), ``--seed``, ``--adv_set`` and
+(whole-cloud voting, ``_eval_randla``) with ``--randla_dataset
+s3dis|semantickitti|semantic3d``, ``--randla_dir``, ``--randla_points``
+(0 → the preset's 40960, 45056 or 65536), ``--num_clouds``,
+``--batch_size`` (0 → the preset's val_batch_size 1, 20 or 16),
+``--seed``, ``--adv_set`` and
 ``--save_preds`` (per-cloud prediction PLYs). ``--visual`` writes the
 per-room (per-cloud) prediction and ground-truth label clouds and an HTML
 viewer under ``<log_dir>/visual`` for every model. The
@@ -42,7 +44,7 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 _UNPORTED_DEFAULTS = {
-    "num_category": 40, "randla_dataset": "s3dis", "devices": 1,
+    "num_category": 40, "devices": 1,
     "shard_points": 1, "precision": "float32",
 }
 _UNPORTED_SWITCHES = ("no_normals", "resgcn_fast")
@@ -66,11 +68,19 @@ def _parser() -> argparse.ArgumentParser:
                          "val_batch_size 1 (randla)")
     ap.add_argument("--num_votes", type=int, default=5)
     ap.add_argument("--randla_dir", default="data/randla_input_0.040",
-                    help="randla: the prepared clouds (data.randla.prepare_room)")
+                    help="randla: the prepared tree (cli.prepare)")
+    ap.add_argument("--randla_dataset",
+                    choices=["s3dis", "semantickitti", "semantic3d"],
+                    default="s3dis",
+                    help="randla: dataset preset (`helper_tool.py:18-100` "
+                         "configs) over the cli.prepare artifact tree; "
+                         "kitti scores held-out seq 08, sem3d the labeled "
+                         "validation clouds (label 0 ignored)")
     ap.add_argument("--num_clouds", type=int, default=200,
                     help="randla: spatially-regular samples to vote over")
     ap.add_argument("--randla_points", type=int, default=0,
-                    help="randla: points per cloud (0 = the config's 40960)")
+                    help="randla: points per cloud (0 = the preset config's 40960, "
+                         "45056 semantickitti, 65536 semantic3d)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--visual", action="store_true",
                     help="write per-room (randla: per-cloud) prediction / GT "
@@ -117,10 +127,12 @@ def _padded_batches(n: int, batch_size: int):
         yield idx, valid
 
 
-def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int):
+def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int,
+                     reduce=None):
     """Metrics of a saved adversarial set (``cli.attack --save_adv``): a
     batched forward over the stored blocks or clouds; the .npz is
-    self-contained."""
+    self-contained. ``reduce(labels, preds)`` maps stored raw labels to the
+    scored class space (RandLA's ignored labels)."""
     import numpy as np
 
     from pointsecguard_tpu_torch.utils.metrics import (
@@ -133,8 +145,10 @@ def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int):
     labs_all = adv_npz["labels"].astype(np.int32)
     cm = np.zeros((num_classes, num_classes))
     for idx, v in _padded_batches(len(pts_all), batch_size):
-        preds = predict(pts_all[idx])[:v]
-        cm += confusion_matrix(labs_all[idx[:v]], preds, num_classes)
+        labels, preds = labs_all[idx[:v]], predict(pts_all[idx])[:v]
+        if reduce is not None:
+            labels, preds = reduce(labels, preds)
+        cm += confusion_matrix(labels, preds, num_classes)
     return len(pts_all), metrics_from_confusion(cm)
 
 
@@ -145,15 +159,18 @@ def _eval_randla(args, log):
     point indices (``np.add.at``, the JAX order of the sums), then the
     argmax is reprojected onto the full-resolution cloud through the
     prepared ``<name>_proj.pkl``. Clouds never sampled are skipped; where
-    ``_proj.pkl`` is missing or its lengths differ, the sub-cloud labels
-    are scored. ``--save_preds`` writes each reprojected prediction as a
-    PLY; ``--visual`` the sub-cloud's label clouds and viewer."""
+    ``_proj.pkl`` is missing (SemanticKITTI's seq-08 scans keep theirs per
+    sequence) or its lengths differ, the sub-cloud labels are scored.
+    ``--randla_dataset`` picks the preset: its ignored labels (label 0 of
+    SemanticKITTI and Semantic3D) are left out of every score and the rest
+    reduced to the valid classes the model predicts (`RandLANet.py:103-124`).
+    ``--save_preds`` writes each reprojected prediction as a PLY;
+    ``--visual`` the sub-cloud's label clouds and viewer."""
     import pickle
 
     import numpy as np
     import torch
 
-    from pointsecguard_tpu_torch.data import S3DIS_CLASSES
     from pointsecguard_tpu_torch.data.ply import write_ply
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import RandLANet
@@ -164,9 +181,15 @@ def _eval_randla(args, log):
 
     preset = randla_dataset_preset(args.randla_dataset)
     cfg, K = preset.cfg, preset.num_classes
+
+    def _reduced(raw_labels, preds):
+        """(valid raw labels → contiguous index, matching preds)."""
+        valid, y = preset.reduce(np.asarray(raw_labels).reshape(-1))
+        return y[valid], np.asarray(preds).reshape(-1)[valid]
+
     device = resolve_device(args.device)
     B = args.batch_size or cfg.val_batch_size
-    model = RandLANet(num_classes=K, d_out=cfg.d_out)
+    model = RandLANet(num_classes=K, d_out=cfg.d_out, d_in=6 if preset.has_colors else 3)
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     family = randla_family(cfg)
@@ -178,7 +201,7 @@ def _eval_randla(args, log):
 
     if args.adv_set:
         n, m = _adv_set_metrics(lambda f: np.argmax(probs_fn(f), axis=-1), args.adv_set,
-                                B, K)
+                                B, K, reduce=_reduced)
         log.info("ADVSET %s: %d clouds  mIoU %.4f  acc %.4f",
                  os.path.basename(args.adv_set), n, m.miou, m.accuracy)
         return m
@@ -217,27 +240,35 @@ def _eval_randla(args, log):
                     write_ply(os.path.join(args.save_preds, cloud.name + ".ply"),
                               [p.astype(np.int32)], ["pred"])
             else:
+                # the reference's Semantic3D prep pickles proj indices over
+                # the 0.01-grid points beside raw-cloud labels
+                # (`data_prepare_semantic3d.py:56-59`); cli.prepare writes
+                # matched pairs
                 log.warning("%s: proj/labels length mismatch (%d vs %d) — scoring at "
                             "sub-cloud resolution", cloud.name, len(proj_idx),
                             len(full_labels))
-        np.add.at(cm, (np.asarray(y).reshape(-1), np.asarray(p).reshape(-1)), 1.0)
+        np.add.at(cm, _reduced(y, p), 1.0)
         if args.visual:
-            # per-cloud pred / gt label clouds + HTML at the sub-cloud resolution
+            # per-cloud pred / gt label clouds + HTML at the sub-cloud
+            # resolution; gt in the predictions' reduced class space, the
+            # ignored points in the palette's slot K
             from pointsecguard_tpu_torch.utils.logging import write_label_cloud
             from pointsecguard_tpu_torch.utils.viz import export_html_viewer
 
             vis_dir = os.path.join(args.log_dir, "visual")
             os.makedirs(vis_dir, exist_ok=True)
             base = os.path.join(vis_dir, cloud.name)
+            valid, gt_disp = preset.reduce(np.asarray(cloud.labels).astype(int))
+            gt_disp[~valid] = K
             write_label_cloud(base + "_pred.xyzrgb", cloud.xyz, sub_pred)
-            write_label_cloud(base + "_gt.xyzrgb", cloud.xyz, cloud.labels)
+            write_label_cloud(base + "_gt.xyzrgb", cloud.xyz, gt_disp)
             export_html_viewer(base + "_pred.html", cloud.xyz, labels=sub_pred,
                                title=f"{cloud.name} predictions")
     if n_scored < len(sampler.clouds):
         log.info("scored %d/%d clouds (raise --num_clouds to cover all)",
                  n_scored, len(sampler.clouds))
     m = metrics_from_confusion(cm)
-    for cls, iou in zip(S3DIS_CLASSES, m.class_iou):
+    for cls, iou in zip(preset.class_names, m.class_iou):
         log.info("%18s: %.4f", cls, iou)
     log.info("RANDLA mIoU %.4f acc %.4f", m.miou, m.accuracy)
     return m

@@ -1,7 +1,8 @@
 """Breakdown of one RandLA NB batch (4 × 40960 points) or, with
 ``--train``, of one RandLA optimizer step (6 × 40960 points) on the card.
 
-    python -m pointsecguard_tpu_torch.cli.profile_randla [--fused_ap] [--train] [--out FILE]
+    python -m pointsecguard_tpu_torch.cli.profile_randla [--fused_ap] [--train] \
+        [--randla_dataset s3dis|semantic3d|semantickitti] [--out FILE]
 
 Run from the root of a checkout: the set-up is ``chip_smoke.py``'s own
 (its synthetic rooms prepared at 0.04 m, one sampler batch, its
@@ -16,7 +17,12 @@ self CUDA time. ``--fused_ap`` profiles the model with
 one batch of the train cloud's sampler and the flax-style initial weights:
 the pyramid, pyramid + forward + backward, the whole step (the Adam
 update and the NaN guard included). ``--out`` also writes the JSON and the
-table to FILE.
+table to FILE. ``--randla_dataset semantic3d|semantickitti`` profiles
+that preset instead, at its config's batch and points, on the clouds of
+``chip_smoke.py`` phase 52 (Semantic3D's NB batch of 4 × 65536 on a
+calibrated 8-class model; the steps with the preset's class weights and
+ignored-label loss); SemanticKITTI's xyz-only clouds take ``--train``
+only.
 """
 
 from __future__ import annotations
@@ -56,8 +62,14 @@ def main(argv=None) -> dict:
                     help="the fused attentive-pooling kernels (ap_impl='fused')")
     ap.add_argument("--train", action="store_true",
                     help="one optimizer step of 6 clouds instead of one NB batch of 4")
+    ap.add_argument("--randla_dataset", default="s3dis",
+                    choices=["s3dis", "semantickitti", "semantic3d"],
+                    help="the preset profiled, at its config's batch and points")
     ap.add_argument("--out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
+    if args.randla_dataset == "semantickitti" and not args.train:
+        ap.error("semantickitti clouds are xyz-only: no colour attack to profile "
+                 "(use --train)")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -66,8 +78,11 @@ def main(argv=None) -> dict:
     import chip_smoke as cs
 
     from pointsecguard_tpu_torch.attacks import attack_preset, pgd_color_attack
+    from functools import partial
+
     from pointsecguard_tpu_torch.data import make_synthetic_rooms
     from pointsecguard_tpu_torch.data.class_weights import get_class_weights
+    from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import (
         RandLANet,
         build_pyramid,
@@ -84,20 +99,37 @@ def main(argv=None) -> dict:
     os.makedirs(cs.WORK, exist_ok=True)
     data = os.path.join(cs.WORK, "data")
     make_synthetic_rooms(data, points_per_room=cs.ROOM_POINTS, seed=0)
-    prep = cs.prepare_randla(data)
+    preset = randla_dataset_preset(args.randla_dataset)
+    cfg, K = preset.cfg, preset.num_classes
+    outdoor = args.randla_dataset != "s3dis"
+    if outdoor:
+        prep = cs.phase_prepare_outdoor(data)[args.randla_dataset]
+    else:
+        prep = cs.prepare_randla(data)
     ap_impl = "fused" if args.fused_ap else "reference"
-    model = RandLANet(ap_impl=ap_impl)
-    res = {"card": card, "ap_impl": ap_impl}
+    model = RandLANet(num_classes=K, d_out=cfg.d_out, d_in=6 if preset.has_colors else 3,
+                      ap_impl=ap_impl)
+    res = {"card": card, "ap_impl": ap_impl, "randla_dataset": preset.name}
+
+    def build_pyramid_cfg(xyz):
+        return build_pyramid(xyz, num_layers=cfg.num_layers, k=cfg.k_n,
+                             sub_ratios=cfg.sub_sampling_ratio)
+
     if args.train:
-        feats, labels = cs.randla_train_batch(prep, dev, cs.RANDLA_TRAIN_BATCH,
-                                              cs.RANDLA_POINTS, 0)
-        res["what"] = f"train step, {cs.RANDLA_TRAIN_BATCH} x {cs.RANDLA_POINTS} points"
+        if outdoor:
+            feats, labels = cs.outdoor_batch(prep, preset.name, "train", dev, seed=0)
+        else:
+            feats, labels = cs.randla_train_batch(prep, dev, cs.RANDLA_TRAIN_BATCH,
+                                                  cs.RANDLA_POINTS, 0)
+        res["what"] = f"train step, {feats.shape[0]} x {feats.shape[1]} points"
         init_parameters(model, torch.Generator().manual_seed(0))
         state = TrainState(model.to(dev))
-        family = randla_family()
-        step = make_train_step(model, weighted_softmax_ce_loss, weight_decay=0.0,
-                               family=family)
-        weights = torch.from_numpy(get_class_weights("S3DIS")).to(dev)
+        family = randla_family(cfg)
+        loss_fn = (partial(weighted_softmax_ce_loss,
+                           label_table=torch.from_numpy(preset.label_table()).to(dev))
+                   if preset.ignored_labels else weighted_softmax_ce_loss)
+        step = make_train_step(model, loss_fn, weight_decay=0.0, family=family)
+        weights = torch.from_numpy(get_class_weights(preset.weights_key)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(0)
 
         def batch():
@@ -108,23 +140,29 @@ def main(argv=None) -> dict:
             state.grads.zero_()
             pyr = family.plan(feats)
             out = model(feats, pyr, generator=gen)
-            weighted_softmax_ce_loss(out, labels, weights).backward()
+            loss_fn(out, labels, weights).backward()
 
         parts = (
-            ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
+            ("build_pyramid", lambda: build_pyramid_cfg(feats[..., :3]), 10),
             ("pyramid + forward + backward", forward_backward, 10),
             ("whole step, CUDA events", batch, 10),
         )
     else:
-        feats = cs.randla_batch(prep, dev)
-        labels = torch.randint(0, 13, feats.shape[:2], device=dev,
+        if outdoor:
+            feats, _ = cs.outdoor_batch(prep, preset.name, "test", dev, seed=7)
+            sd = cs.randla_state_dict(0, dev, feats, floats=cs.SEM3D_STATE_FLOATS,
+                                      num_classes=K)
+        else:
+            feats = cs.randla_batch(prep, dev)
+            sd = cs.randla_state_dict(0, dev, feats)
+        labels = torch.randint(0, K, feats.shape[:2], device=dev,
                                generator=torch.Generator(device=dev).manual_seed(0))
-        res["what"] = f"NB batch, {cs.RANDLA_BATCH} x {cs.RANDLA_POINTS} points"
-        model.load_state_dict(cs.randla_state_dict(0, dev, feats))
+        res["what"] = f"NB batch, {feats.shape[0]} x {feats.shape[1]} points"
+        model.load_state_dict(sd)
         model.to(dev).eval().requires_grad_(False)
-        cfg = attack_preset("randla", "nb")
+        attack_cfg = attack_preset("randla", "nb", **({"num_classes": K} if K != 13 else {}))
         gen = torch.Generator(device=dev).manual_seed(0)
-        pyr = build_pyramid(feats[..., :3])
+        pyr = build_pyramid_cfg(feats[..., :3])
         with torch.no_grad():
             _, pos = model(feats, pyr, collect_pos=True)
 
@@ -139,18 +177,18 @@ def main(argv=None) -> dict:
 
         def attack():
             return pgd_color_attack(lambda f: model(f, pyr, pos_plan=pos), feats,
-                                    labels, cfg, generator=gen)
+                                    labels, attack_cfg, generator=gen)
 
         def batch():  # what the driver does per batch, transfers included
             with torch.no_grad():
-                p = build_pyramid(feats[..., :3])
+                p = build_pyramid_cfg(feats[..., :3])
                 logits, ps = model(feats, p, collect_pos=True)
             r = pgd_color_attack(lambda f: model(f, p, pos_plan=ps), feats, labels,
-                                 cfg, generator=gen)
+                                 attack_cfg, generator=gen)
             return r.adv_pred.cpu(), logits.argmax(-1).cpu()
 
         parts = (
-            ("build_pyramid", lambda: build_pyramid(feats[..., :3]), 10),
+            ("build_pyramid", lambda: build_pyramid_cfg(feats[..., :3]), 10),
             ("collect forward (clean pred + pos plan)", collect, 10),
             ("one forward + input backward", fwd_bwd, 10),
             ("attack: 10 iterations + final forward", attack, 5),

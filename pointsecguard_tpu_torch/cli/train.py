@@ -4,6 +4,9 @@
       --data_root data/stanford_indoor3d --log_dir log/pointnet2 [--epochs 32]
   python -m pointsecguard_tpu_torch.cli.train --model randla \
       --randla_dir data/randla_input_0.040 --log_dir log/randla [--epochs 32]
+  python -m pointsecguard_tpu_torch.cli.train --model randla \
+      --randla_dataset semantic3d --randla_dir data/semantic3d/input_0.060 \
+      --log_dir log/randla_sem3d
   python -m pointsecguard_tpu_torch.cli.train --model resgcn \
       --data_root data/stanford_indoor3d --log_dir log/resgcn [--epochs 32]
 
@@ -13,9 +16,12 @@ sampler) with ``--data_root``, ``--log_dir``, ``--test_area``,
 ``--epochs``, ``--batch_size`` (0 → 32), ``--npoint`` (0 → 4096),
 ``--min_block_points``, ``--learning_rate`` (0 → 0.001), ``--seed``,
 ``--prefetch`` and ``--eval_every``; ``--model randla`` (RandLA-Net on
-the S3DIS clouds prepared by ``data.randla.prepare_room``) with
-``--randla_dir``, ``--randla_points`` (0 → 40960), ``--steps_per_epoch``
-(0 → 500), ``--val_steps`` (0 → 100), ``--batch_size`` (0 → 6),
+the tree ``cli.prepare`` wrote) with ``--randla_dataset
+s3dis|semantickitti|semantic3d`` (the preset: config, label space, loader;
+SemanticKITTI trains on xyz-only features), ``--randla_dir``,
+``--randla_points`` (0 → the preset's 40960, 45056 or 65536),
+``--steps_per_epoch`` (0 → 500), ``--val_steps`` (0 → 100),
+``--batch_size`` (0 → the preset's 6, 6 or 4),
 ``--learning_rate`` (0 → 1e-2), ``--log_dir``, ``--test_area``,
 ``--epochs``, ``--seed`` and ``--prefetch``; RandLA validates after every
 epoch; ``--model resgcn`` (ResGCN-28 on S3DIS blocks through the host
@@ -43,7 +49,7 @@ PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
 _UNPORTED_DEFAULTS = {
-    "randla_dataset": "s3dis", "num_category": 40, "precision": "float32", "steps_per_call": 1,
+    "num_category": 40, "precision": "float32", "steps_per_call": 1,
     "profile": None, "devices": 1, "shard_points": 1, "adv_train": "none",
     "adv_eps": 0.1, "adv_alpha": 0.05, "adv_iters": 5, "adv_rand_init": 0.0,
 }
@@ -76,9 +82,16 @@ def _parser() -> argparse.ArgumentParser:
                          "0 = synchronous")
     ap.add_argument("--eval_every", type=int, default=1)
     ap.add_argument("--randla_dir", default="data/randla_input_0.040",
-                    help="randla: the prepared clouds (data.randla.prepare_room)")
+                    help="randla: the prepared tree (cli.prepare)")
+    ap.add_argument("--randla_dataset",
+                    choices=["s3dis", "semantickitti", "semantic3d"],
+                    default="s3dis",
+                    help="randla only: dataset preset + prepared-tree "
+                         "layout (`helper_tool.py:18-100` configs; "
+                         "kitti/sem3d read cli.prepare artifact trees)")
     ap.add_argument("--randla_points", type=int, default=0,
-                    help="randla: points per cloud (0 = the config's 40960)")
+                    help="randla: points per cloud (0 = the preset config's 40960, "
+                         "45056 semantickitti, 65536 semantic3d)")
     ap.add_argument("--steps_per_epoch", type=int, default=0,
                     help="randla: optimizer steps per epoch (0 = the config's 500)")
     ap.add_argument("--val_steps", type=int, default=0,

@@ -27,6 +27,47 @@ class RandlaConfig:
 
 
 @dataclass(frozen=True)
+class RandlaSemanticKITTIConfig:
+    """`helper_tool.py:18-41` ConfigSemanticKITTI."""
+
+    k_n: int = 16
+    num_layers: int = 4
+    num_points: int = 45056
+    num_classes: int = 19
+    sub_grid_size: float = 0.06
+    batch_size: int = 6
+    val_batch_size: int = 20
+    train_steps: int = 500
+    val_steps: int = 100
+    sub_sampling_ratio: tuple = (4, 4, 4, 4)
+    d_out: tuple = (16, 64, 128, 256)
+    noise_init: float = 3.5
+    learning_rate: float = 1e-2
+    lr_decay: float = 0.95
+
+
+@dataclass(frozen=True)
+class RandlaSemantic3DConfig:
+    """`helper_tool.py:69-100` ConfigSemantic3D (its augmentation fields
+    are read by no training loop of either package, so they are left out)."""
+
+    k_n: int = 16
+    num_layers: int = 5
+    num_points: int = 65536
+    num_classes: int = 8
+    sub_grid_size: float = 0.06
+    batch_size: int = 4
+    val_batch_size: int = 16
+    train_steps: int = 500
+    val_steps: int = 100
+    sub_sampling_ratio: tuple = (4, 4, 4, 4, 2)
+    d_out: tuple = (16, 64, 128, 256, 512)
+    noise_init: float = 3.5
+    learning_rate: float = 1e-2
+    lr_decay: float = 0.95
+
+
+@dataclass(frozen=True)
 class ResgcnConfig:
     """`ResGCN/sem_seg_dense/config.py:18-92` defaults (the fields the
     ported paths read; the JAX config's batch size and epoch count belong

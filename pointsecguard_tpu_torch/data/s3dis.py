@@ -1,5 +1,6 @@
 """S3DIS rooms, the training block sampler and whole-scene blocks, numpy
-only (port of ``pointsecguard_tpu/data/s3dis.py:73-367``).
+only (port of ``pointsecguard_tpu/data/s3dis.py:25-367``), with the
+collection of raw ``Area_*/room/Annotations`` trees into room files.
 
 A copy, not an import: the JAX package's ``__init__`` imports JAX, which
 the machine with the card does not have. The code and its RNG calls are
@@ -20,6 +21,45 @@ S3DIS_CLASSES = (
     "table", "chair", "sofa", "bookcase", "board", "clutter",
 )
 NUM_CLASSES = len(S3DIS_CLASSES)
+_CLASS2LABEL = {c: i for i, c in enumerate(S3DIS_CLASSES)}
+
+
+def collect_room(anno_path: str) -> np.ndarray:
+    """Aggregate one room's per-instance annotation files into an Nx7
+    xyzrgbl array (`indoor3d_util.py:36-77`). Unknown classes map to
+    clutter; xyz is shifted to put the minimum corner at the origin."""
+    import glob
+
+    points_list = []
+    for f in sorted(glob.glob(os.path.join(anno_path, "*.txt"))):
+        cls = os.path.basename(f).split("_")[0]
+        if cls not in _CLASS2LABEL:
+            cls = "clutter"
+        pts = np.loadtxt(f)
+        labels = np.full((pts.shape[0], 1), _CLASS2LABEL[cls], np.float64)
+        points_list.append(np.concatenate([pts, labels], axis=1))
+    data = np.concatenate(points_list, axis=0)
+    data[:, 0:3] -= np.amin(data, axis=0)[0:3]
+    return data
+
+
+def collect_s3dis(raw_root: str, out_root: str) -> list[str]:
+    """Batch collection driver (`collect_indoor3d_data.py`): every
+    Area_*/room/Annotations directory → ``<out_root>/<area>_<room>.npy``."""
+    os.makedirs(out_root, exist_ok=True)
+    written = []
+    for area in sorted(os.listdir(raw_root)):
+        area_dir = os.path.join(raw_root, area)
+        if not area.startswith("Area_") or not os.path.isdir(area_dir):
+            continue
+        for room in sorted(os.listdir(area_dir)):
+            anno = os.path.join(area_dir, room, "Annotations")
+            if not os.path.isdir(anno):
+                continue
+            out = os.path.join(out_root, f"{area}_{room}.npy")
+            np.save(out, collect_room(anno))
+            written.append(out)
+    return written
 
 
 def inverse_cube_root_weights(label_hist: np.ndarray) -> np.ndarray:

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
+from pointsecguard_tpu_torch.data.randla import reduce_labels
 from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, leaky_relu
 from pointsecguard_tpu_torch.ops.attentive import fused_supported
 from pointsecguard_tpu_torch.ops.cuda.attentive import attentive_pool_fused
@@ -300,16 +301,24 @@ class RandLANet(nn.Module):
 
 def weighted_softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
                              class_weights: torch.Tensor, *,
-                             ignored_labels: tuple = ()) -> torch.Tensor:
-    """RandLA's weighted softmax cross-entropy (`RandLANet.py:313-321`) in
-    its S3DIS form, which has no ignored label: the mean over points of
-    ``ce · w[y]``. The ignored-label reduction of SemanticKITTI and
-    Semantic3D (`RandLANet.py:103-124`) comes with their presets."""
-    if ignored_labels:
-        raise NotImplementedError(
-            f"not ported yet: weighted_softmax_ce_loss with ignored_labels "
-            f"{tuple(ignored_labels)} (the SemanticKITTI / Semantic3D presets)")
+                             label_table: torch.Tensor | None = None) -> torch.Tensor:
+    """RandLA's weighted softmax cross-entropy (`RandLANet.py:313-321`)
+    with the ignored-label reduction of `RandLANet.py:103-124`: given
+    ``label_table`` (a preset's ``label_table()`` on the labels' device,
+    for SemanticKITTI's and Semantic3D's label 0; S3DIS has none), points
+    whose raw label is ignored contribute nothing, and raw labels are
+    reduced to the contiguous valid-class range. ``class_weights`` is
+    indexed by the reduced label. Without a table the result is the mean
+    over points of ``ce · w[y]``; with one, the masked mean, its
+    denominator clamped at 1."""
     y = labels.reshape(-1).long()
+    valid = None
+    if label_table is not None:
+        valid, y = reduce_labels(label_table, y)
     lp = torch.log_softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
     ce = -torch.gather(lp, 1, y[:, None])[:, 0]
-    return torch.mean(ce * class_weights[y])
+    w = class_weights[y]
+    if valid is None:
+        return torch.mean(ce * w)
+    v = valid.to(ce.dtype)
+    return torch.sum(ce * w * v) / torch.clamp(torch.sum(v), min=1.0)

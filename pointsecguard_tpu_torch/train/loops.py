@@ -162,12 +162,18 @@ def _epoch_losses(losses: list) -> tuple[float, int, int]:
 
 def train_randla(args, device: torch.device):
     """Train RandLA-Net on the clouds prepared under ``args.randla_dir``
-    (``data.randla.prepare_room``); returns ``(state, best mIoU)``.
-    ``args`` carries ``cli.train``'s flags (randla_dir, randla_dataset,
-    randla_points, log_dir, test_area, epochs, batch_size, learning_rate,
-    steps_per_epoch, val_steps, seed, prefetch); 0 means the config's
-    value (``configs.RandlaConfig``: batch 6, 40960 points, lr 1e-2, 500
-    steps and 100 validation clouds an epoch)."""
+    (``cli.prepare``) for the ``--randla_dataset`` preset; returns
+    ``(state, best mIoU)``. ``args`` carries ``cli.train``'s flags
+    (randla_dir, randla_dataset, randla_points, log_dir, test_area, epochs,
+    batch_size, learning_rate, steps_per_epoch, val_steps, seed, prefetch);
+    0 means the preset config's value (S3DIS: batch 6, 40960 points;
+    SemanticKITTI: 6, 45056; Semantic3D: 4, 65536; lr 1e-2, 500 steps and
+    100 validation batches an epoch). The loss and the validation
+    confusion leave the preset's ignored labels out and score in the
+    reduced class space; the model takes xyz-only features (d_in 3) on
+    SemanticKITTI."""
+    from functools import partial
+
     from pointsecguard_tpu_torch.data.class_weights import get_class_weights
     from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
@@ -206,17 +212,20 @@ def train_randla(args, device: torch.device):
     # (`loops.py:358`); it advances the possibilities, so it is spent here
     # too and both loops then train on the same clouds
     next(iter(train_sampler.batches(batch_size, 1)))
-    model = RandLANet(num_classes=num_classes, d_out=cfg.d_out)
+    model = RandLANet(num_classes=num_classes, d_out=cfg.d_out,
+                      d_in=6 if preset.has_colors else 3)
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
     family = randla_family(cfg)
+    # the label table goes to the device once, so that no step waits on a copy
+    loss_fn = (partial(weighted_softmax_ce_loss,
+                       label_table=torch.from_numpy(preset.label_table()).to(device))
+               if preset.ignored_labels else weighted_softmax_ce_loss)
     # tf.train.AdamOptimizer has no weight decay (`RandLANet.py:127`)
-    step_fn = make_train_step(model, weighted_softmax_ce_loss, weight_decay=0.0,
-                              family=family)
+    step_fn = make_train_step(model, loss_fn, weight_decay=0.0, family=family)
     eval_fn = make_eval_step(model, device, family)
-    # the reference's S3DIS weights (`helper_tool.py:245-261`): the only
-    # preset ported
-    weights = torch.from_numpy(get_class_weights("S3DIS")).to(device)
+    # the reference's weights of the preset's dataset (`helper_tool.py:245-261`)
+    weights = torch.from_numpy(get_class_weights(preset.weights_key)).to(device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
     resumed = ckpt.restore_latest()
     start_epoch = 0
@@ -251,11 +260,13 @@ def train_randla(args, device: torch.device):
                      nan_batches=nan_batches, batches=n_batches, seconds=seconds)
         tb.scalars(epoch, loss=mean_loss, learning_rate=lr)
 
-        # validation confusion over val_steps clouds (`RandLANet.py:255-311`)
+        # validation confusion over val_steps batches (`RandLANet.py:255-311`);
+        # ignored labels are left out, the rest reduced to the valid classes
+        # (`RandLANet.py:103-124`)
         cm = np.zeros((num_classes, num_classes))
         for _, feats, labels, _, _ in val_sampler.batches(cfg.val_batch_size, val_steps):
-            preds = eval_fn(feats)
-            np.add.at(cm, (labels.reshape(-1), preds.reshape(-1)), 1)
+            valid, y = preset.reduce(labels.reshape(-1))
+            np.add.at(cm, (y[valid], eval_fn(feats).reshape(-1)[valid]), 1)
         m = metrics_from_confusion(cm)
         log.info("epoch %d val mIoU %.4f acc %.4f", epoch, m.miou, m.accuracy)
         events.write("eval", epoch=epoch, miou=m.miou, accuracy=m.accuracy)

@@ -147,10 +147,12 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
 @pytest.mark.parametrize("flags", [
     # the protocol flags (--control, --log_steps, --visual, --defense, --eot,
     # --attack random, --resgcn_fixed_graphs) are ported:
-    # tests/test_torch_protocol_cli.py runs them
+    # tests/test_torch_protocol_cli.py runs them. SemanticKITTI's clouds are
+    # xyz-only: its attack is refused for that reason, not as unported
     ["--model", "randla", "--randla_dataset", "semantickitti"],
-    # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py
-    ["--model", "randla", "--randla_dataset", "semantic3d"], ["--devices", "4"],
+    # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py;
+    # --randla_dataset semantic3d too (test_randla_dataset_is_taken)
+    ["--model", "randla", "--shard_points", "4"], ["--devices", "4"],
     ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
     # resgcn is ported: its subsample dilation is not, and the frozen-graph
     # surrogate is resgcn's alone
@@ -159,8 +161,17 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     ["--model", "pointnet2_msg", "--fused_ap"],
 ])
 def test_unported_flags_are_refused(flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    refusal = "xyz-only" if "semantickitti" in flags else "not ported yet"
+    with pytest.raises(SystemExit, match=refusal):
         tcli.main(flags)
+
+
+def test_randla_dataset_is_taken():
+    """``--randla_dataset semantic3d`` is parsed and refused by nothing
+    (tests/test_torch_randla_presets_cli.py attacks Semantic3D clouds)."""
+    args = tcli._parser().parse_args(["--model", "randla", "--randla_dataset", "semantic3d"])
+    tcli._refuse_unported(args)
+    assert args.randla_dataset == "semantic3d"
 
 
 def test_cuda_device_without_a_card_raises(tiny_run):

@@ -143,12 +143,14 @@ def test_sampler_batches_equal_jax_package(prepared, num_points):
 
 
 def test_label_lut_and_unported_datasets():
-    """Only S3DIS is ported (the label reduction for datasets with ignored
-    labels comes with them); its config equals the JAX one on every field
-    the port keeps."""
-    for name in ("semantickitti", "semantic3d"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            randla.randla_dataset_preset(name)
+    """The three presets are ported: the outdoor ones ignore label 0 and
+    equal the JAX presets' fields (tests/test_torch_randla_presets.py
+    holds their loaders and label reduction); S3DIS's config equals the
+    JAX one on every field the port keeps."""
+    for name, classes, colors in (("semantickitti", 19, False), ("semantic3d", 8, True)):
+        ours, theirs = randla.randla_dataset_preset(name), jrandla.randla_dataset_preset(name)
+        assert (ours.num_classes, ours.ignored_labels, ours.has_colors) == (classes, (0,), colors)
+        assert (ours.weights_key, ours.class_names) == (theirs.weights_key, theirs.class_names)
     preset = randla.randla_dataset_preset("s3dis")
     jpreset = jrandla.randla_dataset_preset("s3dis")
     assert preset.num_classes == jpreset.num_classes == 13

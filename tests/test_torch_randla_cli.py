@@ -185,7 +185,8 @@ def test_cli_tar_nu_fused_on_cpu_gates_clouds(cli_runs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--model", "pointnet2", "--fused_ap"], ["--randla_dataset", "semantic3d"],
+    # --randla_dataset semantic3d is ported: tests/test_torch_randla_presets_cli.py
+    ["--model", "pointnet2", "--fused_ap"], ["--resgcn_fast"],
     ["--shard_points", "2"], ["--precision", "bfloat16"],
     # --ensemble is refused with RandLA in the JAX driver's words: tests/test_torch_ensemble.py
     ["--devices", "2"],

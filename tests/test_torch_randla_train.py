@@ -31,6 +31,7 @@ from pointsecguard_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from pointsecguard_tpu.train.trainer import make_train_step as jax_make_train_step
 from pointsecguard_tpu_torch.configs import RandlaConfig
 from pointsecguard_tpu_torch.data import class_weights
+from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
 from pointsecguard_tpu_torch.models import (
     RandLANet,
     init_parameters,
@@ -93,9 +94,23 @@ def test_weighted_softmax_ce_loss_matches_jax():
 
 
 def test_weighted_softmax_ce_loss_refuses_ignored_labels():
-    with pytest.raises(NotImplementedError, match="ignored_labels"):
-        weighted_softmax_ce_loss(torch.zeros(1, 4, 13), torch.zeros(1, 4, dtype=torch.long),
-                                 torch.ones(13), ignored_labels=(0,))
+    """Kept under its name from before the ignored-label loss was ported; it
+    now holds that loss to the JAX one: ignored points are left out and the
+    rest reduced to the valid classes (SemanticKITTI's 19 classes, label 0
+    ignored; tests/test_torch_randla_presets.py holds its gradient), and a
+    batch of only ignored points gives 0."""
+    rng = np.random.default_rng(1)
+    logits = (3 * rng.standard_normal((2, 400, 19))).astype(np.float32)
+    labels = rng.integers(0, 20, (2, 400))
+    w = class_weights.get_class_weights("SemanticKITTI")
+    table = torch.from_numpy(randla_dataset_preset("semantickitti").label_table())
+    want = float(jax_ce_loss(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(w),
+                             ignored_labels=(0,)))
+    got = weighted_softmax_ce_loss(torch.from_numpy(logits), torch.from_numpy(labels),
+                                   torch.from_numpy(w), label_table=table).item()
+    assert abs(got - want) <= 1e-6 * max(1.0, abs(want))
+    assert weighted_softmax_ce_loss(torch.zeros(1, 4, 19), torch.zeros(1, 4, dtype=torch.long),
+                                    torch.ones(19), label_table=table).item() == 0.0
 
 
 # --- one optimizer step ------------------------------------------------------

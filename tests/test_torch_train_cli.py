@@ -165,7 +165,7 @@ _TRAIN_REFUSED = [
     ["--adv_iters", "3"], ["--adv_rand_init", "0.1"], ["--precision", "bfloat16"],
     ["--devices", "2"], ["-d", "4"], ["--shard_points", "2"], ["--remat"],
     ["--profile", "trace"],
-    ["--randla_dataset", "semantickitti"], ["--resgcn_blocks", "3"],
+    ["--resgcn_blocks", "3"],
     ["--resgcn_k", "8"], ["--resgcn_filters", "32"], ["--resgcn_block_type", "dense"],
     ["--resgcn_conv", "mr"], ["--resgcn_epsilon", "0.2"], ["--num_category", "10"],
     ["--no_normals"],
@@ -181,7 +181,6 @@ _EVAL_REFUSED = [
     ["--resgcn_blocks", "3"], ["--resgcn_k", "8"], ["--resgcn_filters", "32"],
     ["--resgcn_block_type", "plain"], ["--resgcn_conv", "edge"],
     ["--resgcn_epsilon", "0.2"], ["--resgcn_fast"],
-    ["--randla_dataset", "semantic3d"],
 ]
 
 # flags of RandLA's, ResGCN's, PointNet++ MSG's and PointNet's training and
@@ -199,6 +198,7 @@ _TRAIN_TAKEN = [
     (["--model", "resgcn"], "model", "resgcn"),
     (["--model", "resgcn", "--resgcn_blocks", "3"], "resgcn_blocks", 3),
     (["--model", "resgcn", "--resgcn_epsilon", "0.2"], "resgcn_epsilon", 0.2),
+    (["--randla_dataset", "semantickitti"], "randla_dataset", "semantickitti"),
 ]
 _EVAL_TAKEN = [
     (["--model", "pointnet2_msg"], "model", "pointnet2_msg"),
@@ -212,6 +212,7 @@ _EVAL_TAKEN = [
     (["--model", "resgcn", "--resgcn_conv", "mr"], "resgcn_conv", "mr"),
     (["--visual"], "visual", True),
     (["--model", "randla", "--save_preds", "out"], "save_preds", "out"),
+    (["--randla_dataset", "semantic3d"], "randla_dataset", "semantic3d"),
 ]
 
 
