@@ -2,13 +2,12 @@
 and MIM with ``PGDConfig.momentum``), the C&W engine (NU / tar_NU), their
 reference presets (port of ``pointsecguard_tpu/attacks/__init__.py:59-130``),
 both with the per-step trajectory mode, the score-based NES, SPSA and
-NAttack (``blackbox.py``), the ares registry and benchmark harnesses
-(``benchmark.py``: eight of its eleven names), the equal-norm noise
-control and the colour defenses ``cli.attack`` deploys.
-
-The decision and minimal-perturbation attacks (deepfool, boundary,
-evolutionary: one decision per shape, ``--task cls``) and the coordinate
-defenses (SOR, SRS) are not ported yet.
+NAttack (``blackbox.py``), DeepFool (``deepfool.py``), the decision-based
+Boundary and Evolutionary (``decision.py``; those three need one decision
+per shape, the classifiers), the ares registry and benchmark harnesses
+(``benchmark.py``: all eleven names), the equal-norm noise control, the
+colour defenses ``cli.attack`` deploys and the coordinate defenses SOR and
+SRS that ``cli.attack_object`` deploys.
 """
 
 from __future__ import annotations
@@ -40,6 +39,13 @@ from pointsecguard_tpu_torch.attacks.common import (
     point_accuracy,
 )
 from pointsecguard_tpu_torch.attacks.cw import CWConfig, cw_color_attack
+from pointsecguard_tpu_torch.attacks.decision import (
+    BoundaryConfig,
+    EvolutionaryConfig,
+    boundary_attack,
+    evolutionary_attack,
+)
+from pointsecguard_tpu_torch.attacks.deepfool import DeepFoolConfig, deepfool_attack
 from pointsecguard_tpu_torch.attacks.defenses import (
     apply_color_defense,
     bit_depth_reduction,
@@ -48,6 +54,9 @@ from pointsecguard_tpu_torch.attacks.defenses import (
     random_color_resample,
     randomized_defense_wraps,
     seeded_draws,
+    simple_random_subsample,
+    srs_donors,
+    statistical_outlier_removal,
 )
 from pointsecguard_tpu_torch.attacks.noise import equal_norm_color_noise
 from pointsecguard_tpu_torch.attacks.pgd import PGDConfig, pgd_color_attack
@@ -108,7 +117,10 @@ __all__ = [
     "ATTACKS",
     "AttackBenchmark",
     "AttackResult",
+    "BoundaryConfig",
     "CWConfig",
+    "DeepFoolConfig",
+    "EvolutionaryConfig",
     "NAttackConfig",
     "NESConfig",
     "PGDConfig",
@@ -116,9 +128,12 @@ __all__ = [
     "apply_color_defense",
     "attack_preset",
     "bit_depth_reduction",
+    "boundary_attack",
     "cw_color_attack",
+    "deepfool_attack",
     "distortion_binsearch",
     "equal_norm_color_noise",
+    "evolutionary_attack",
     "iteration_curve",
     "jpeg_color_compression",
     "load_attack",
@@ -134,6 +149,9 @@ __all__ = [
     "randomized_defense_wraps",
     "run_registered_attack",
     "seeded_draws",
+    "simple_random_subsample",
     "spsa_attack",
+    "srs_donors",
+    "statistical_outlier_removal",
     "worst_case_run",
 ]

@@ -19,9 +19,12 @@ splits its key once per batch. The single-batch harnesses replay the same
 draws for every probe (the generator's state is restored before each),
 as the JAX ones pass the same key to every probe.
 
-``deepfool``, ``boundary`` and ``evolutionary`` stay in the registry's
-name list but are refused: their engines take one decision per shape
-(``--task cls``), which no ported path has yet.
+``deepfool``, ``boundary`` and ``evolutionary`` take one decision per
+shape (outputs [B, 1, K], ``--task cls``). DeepFool is untargeted by
+construction; the decision attacks take goals ``'ut'`` and ``'t'``, the
+targeted one seeded with an example the model already predicts as the
+target (``AttackBenchmark`` harvests it from the batches before the first
+attack, as ares scans its dataset).
 """
 
 from __future__ import annotations
@@ -43,27 +46,35 @@ from pointsecguard_tpu_torch.attacks.blackbox import (
 )
 from pointsecguard_tpu_torch.attacks.common import make_target_labels
 from pointsecguard_tpu_torch.attacks.cw import CWConfig, cw_color_attack
+from pointsecguard_tpu_torch.attacks.decision import (
+    BoundaryConfig,
+    EvolutionaryConfig,
+    boundary_attack,
+    evolutionary_attack,
+)
+from pointsecguard_tpu_torch.attacks.deepfool import DeepFoolConfig, deepfool_attack
 from pointsecguard_tpu_torch.attacks.pgd import PGDConfig, pgd_color_attack
 
 MakeOutputs = Callable[[torch.Tensor], Callable[[torch.Tensor], torch.Tensor]]
 
-# the ares registry (`benchmark/utils.py:8-20`) less the decision-based and
-# minimal-perturbation attacks of the object task
+# the ares registry (`benchmark/utils.py:8-20`)
 ATTACKS: dict[str, type] = {
     "fgsm": PGDConfig,  # single step, α = ε, no random init
     "bim": PGDConfig,  # iterative, no random init
     "pgd": PGDConfig,  # iterative with a random start
     "mim": PGDConfig,  # BIM + L1-normalised gradient momentum
     "cw": CWConfig,
+    "deepfool": DeepFoolConfig,  # white-box nearest-boundary crossing
     "nes": NESConfig,  # score-based, Gaussian antithetic queries
     "spsa": SPSAConfig,  # score-based, Rademacher antithetic queries
     "nattack": NAttackConfig,  # score-based distribution learning
+    "boundary": BoundaryConfig,  # decision-based boundary walk
+    "evolutionary": EvolutionaryConfig,  # decision-based (1+1)-ES
 }
-NOT_PORTED = ("deepfool", "boundary", "evolutionary")
-
-
-def not_ported(name: str) -> str:
-    return f"{name}: not ported yet (needs --task cls, ROADMAP item 8b)"
+# deepfool crosses the nearest boundary: goal 'ut' only. A targeted drive
+# scored untargeted ('tm') means nothing to a decision predicate
+UNTARGETED_ONLY = frozenset({"deepfool"})
+DECISION_ATTACKS = frozenset({"boundary", "evolutionary"})
 
 
 def _generator(points: torch.Tensor, generator: torch.Generator | None) -> torch.Generator:
@@ -80,12 +91,24 @@ def run_registered_attack(
     mask: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     noise=None,
+    start: torch.Tensor | None = None,
 ):
     """Dispatch a registry config to its engine (ares dispatches through
     its Attack base class, `attack/base.py`). ``noise`` reaches the
-    score-based engines only."""
+    score-based and decision engines; ``start``, the decision attacks'
+    seeds, is refused by every other engine."""
+    if start is not None and not isinstance(cfg, (BoundaryConfig, EvolutionaryConfig)):
+        raise ValueError(f"start= is a decision-attack seed; {type(cfg).__name__} "
+                         "does not take one")
     if isinstance(cfg, CWConfig):
         return cw_color_attack(outputs_fn, points, labels, cfg, mask=mask)
+    if isinstance(cfg, DeepFoolConfig):
+        return deepfool_attack(outputs_fn, points, labels, cfg, mask=mask)
+    if isinstance(cfg, (BoundaryConfig, EvolutionaryConfig)):
+        fn = boundary_attack if isinstance(cfg, BoundaryConfig) else evolutionary_attack
+        return fn(outputs_fn, points, labels, cfg, mask=mask, start=start,
+                  generator=None if noise is not None else _generator(points, generator),
+                  noise=noise)
     for cls, fn in ((NESConfig, nes_attack), (SPSAConfig, spsa_attack),
                     (NAttackConfig, nattack)):
         if isinstance(cfg, cls):
@@ -134,10 +157,11 @@ def distortion_binsearch(
 ) -> tuple[float, dict]:
     """Minimal ε at which the attack succeeds, by exponential search then
     bisection (`distortion.py` protocol), for the ε-bounded configs
-    (fgsm / bim / pgd / mim / nes / spsa / nattack). C&W has no ε: it
-    minimises distortion itself, so it runs once and reports the achieved
-    per-sample distortion where it succeeded (``details["optimized"]``;
-    the scalar is the mean successful distortion, inf if none).
+    (fgsm / bim / pgd / mim / nes / spsa / nattack). C&W, DeepFool and the
+    decision attacks have no ε: they minimise distortion themselves, so
+    they run once and report the achieved per-sample distortion where they
+    succeeded (``details["optimized"]``; the scalar is the mean successful
+    distortion, inf if none).
 
     Success = adversarial accuracy < ``success_acc`` (untargeted) or success
     rate > 0.9 (targeted); ``success_criterion="acc"`` forces the accuracy
@@ -150,7 +174,8 @@ def distortion_binsearch(
     outputs_fn = make_outputs_fn(points)
     replay = _Replay(generator)
     if not hasattr(base_cfg, "eps"):
-        if getattr(base_cfg, "targeted", False):
+        targeted = getattr(base_cfg, "targeted", False)
+        if targeted and not isinstance(base_cfg, (BoundaryConfig, EvolutionaryConfig)):
             raise ValueError(
                 "targeted C&W has no per-sample success signal here; use "
                 "AttackBenchmark (--mode attack)")
@@ -162,10 +187,16 @@ def distortion_binsearch(
         batch_axes = tuple(range(1, lab.ndim))
         adv_pred = res.adv_pred.cpu().numpy()
         clean_acc = (clean_pred == lab).mean(axis=batch_axes)
-        # samples the clean model already "breaks" would count at ~zero
-        # distortion: only the eligible ones are scored
-        eligible = clean_acc >= success_acc
-        succ = eligible & ((adv_pred == lab).mean(axis=batch_axes) < success_acc)
+        if targeted:
+            tgt = base_cfg.target
+            eligible = (clean_pred != tgt).all(axis=batch_axes)
+            succ = eligible & (adv_pred == tgt).all(axis=batch_axes)
+        else:
+            # samples the clean model already "breaks" would count at ~zero
+            # distortion: only the eligible ones are scored (on the
+            # classifiers, exactly the clean-correct ones)
+            eligible = clean_acc >= success_acc
+            succ = eligible & ((adv_pred == lab).mean(axis=batch_axes) < success_acc)
         dists = res.l2_dist.cpu().numpy()
         details = {"optimized": True, "dist": dists.tolist(), "success": succ.tolist(),
                    "eligible": eligible.tolist(), "clean_acc": clean_acc.tolist()}
@@ -235,8 +266,6 @@ def load_attack(attack_name: str, init_kwargs: dict):
     """A registry config by name, keeping only the kwargs the config
     declares (ares filters by the attack class's ``__init__`` signature,
     `benchmark/utils.py:23-38`)."""
-    if attack_name in NOT_PORTED:
-        raise ValueError(not_ported(attack_name))
     cls = ATTACKS[attack_name]
     fields = {f.name for f in dataclasses.fields(cls)}
     cfg = cls(**{k: v for k, v in init_kwargs.items() if k in fields})
@@ -331,15 +360,21 @@ class AttackBenchmark:
         target: int | None = None,
         **kwargs,
     ):
-        if attack_name in NOT_PORTED:
-            raise ValueError(not_ported(attack_name))
         if goal not in ("ut", "tm", "t"):
             raise ValueError(f"unknown goal {goal!r}")
+        if goal != "ut" and attack_name in UNTARGETED_ONLY:
+            raise ValueError(f"{attack_name} is untargeted by construction; only goal "
+                             f"'ut' is supported (got {goal!r})")
+        if goal == "tm" and attack_name in DECISION_ATTACKS:
+            raise ValueError(f"{attack_name} queries a decision predicate — a targeted "
+                             "drive scored untargeted ('tm') is meaningless; use goal "
+                             "'ut' or 't'")
         if distance_metric not in ("l_2", "l_inf"):
             raise ValueError(f"unknown distance metric {distance_metric!r}")
         if goal == "t" and target is None:
             raise ValueError("targeted goal needs target=")
-        if goal == "t" and origin is None:
+        if goal == "t" and origin is None and attack_name not in DECISION_ATTACKS:
+            # a decision attack drives the whole shape: no origin mask
             raise ValueError("targeted goal needs origin= and target=")
         if goal == "tm" and target is None:
             raise ValueError("goal 'tm' needs target=")
@@ -352,6 +387,20 @@ class AttackBenchmark:
         self.goal = goal
         self.distance_metric = distance_metric
         self.origin, self.target = origin, target
+        # targeted decision attacks: one example the model predicts as the
+        # target seeds every sample's start (`gen_starting_points`'s
+        # per-label cache, `benchmark/utils.py:72-84`)
+        self._start_example: torch.Tensor | None = None
+
+    def _harvest_start(self, points, clean_pred):
+        """Keep the first example predicted as the target; that example
+        broadcast over the batch, or None before one is seen."""
+        hits = (clean_pred == self.target).reshape(len(points), -1).any(dim=1)
+        if self._start_example is None and bool(hits.any()):
+            self._start_example = points[int(torch.argmax(hits.int()))].clone()
+        if self._start_example is None:
+            return None
+        return self._start_example.to(points.device).expand(len(points), -1, -1)
 
     def run(self, batches, logger: logging.Logger | None = None, *,
             generator: torch.Generator | None = None):
@@ -359,11 +408,27 @@ class AttackBenchmark:
         five concatenated numpy arrays in ares' order (acc, acc_adv,
         total, succ, dist)."""
         acc, acc_adv, total, succ, dist = [], [], [], [], []
+        seeded = self.goal == "t" and self.attack_name in DECISION_ATTACKS
+        if seeded and self._start_example is None:
+            # the seed first, as ares scans its dataset before attacking:
+            # otherwise batches before the first hit would run unseeded
+            batches = list(batches)
+            for points, _ in batches:
+                with torch.no_grad():
+                    self._harvest_start(points, torch.argmax(
+                        self.make_outputs_fn(points)(points), dim=-1))
+                if self._start_example is not None:
+                    break
         for points, labels in batches:
             outputs_fn = self.make_outputs_fn(points)
             with torch.no_grad():
                 clean_pred = torch.argmax(outputs_fn(points), dim=-1)
-            if self.goal == "t":
+            start = None
+            if seeded:
+                # the targeted predicate lives in the config: no mask
+                ys_attack, mask = labels, None
+                start = self._harvest_start(points, clean_pred)
+            elif self.goal == "t":
                 ys_attack, mask = make_target_labels(labels, self.origin, self.target)
             elif self.goal == "tm":
                 # the full target vector, no origin mask (`bim.py:144`)
@@ -372,7 +437,7 @@ class AttackBenchmark:
                 ys_attack, mask = labels, None
             generator = _generator(points, generator)
             res = run_registered_attack(outputs_fn, points, ys_attack, self.cfg, mask=mask,
-                                        generator=generator)
+                                        generator=generator, start=start)
             accs = (clean_pred == labels).cpu().numpy().ravel()
             accs_adv = (res.adv_pred == labels).cpu().numpy().ravel()
             if self.goal == "t":

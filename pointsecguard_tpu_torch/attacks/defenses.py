@@ -1,6 +1,7 @@
-"""Input-transformation defenses on the colour channels (port of
-``pointsecguard_tpu/attacks/defenses.py:23-164,243-252``: the ones
-``cli.attack`` reaches).
+"""Input-transformation defenses (port of
+``pointsecguard_tpu/attacks/defenses.py:23-229,243-252``): on the colour
+channels the ones ``cli.attack`` reaches, on the coordinates SOR and SRS,
+which ``cli.attack_object`` deploys.
 
 The reference's ares defense module (`RandLA-Net/ares/ares/defense/`:
 bit-depth reduction, randomization, JPEG, the input-transformation
@@ -166,15 +167,21 @@ def jpeg_color_compression(points: torch.Tensor, quality: int = 95,
     return set_color(points, color + (y - color).detach())
 
 
-def resample_neighbors(points: torch.Tensor, k: int) -> torch.Tensor:
-    """The k nearest spatial neighbours of each point, self included →
-    [B, N, k] int32. k ≤ 48 takes the D = 3 kNN kernel (its plain version
-    on a CPU tensor); larger k the square-distance route with a stable sort
-    per block of queries, as ``dense_knn_graph`` routes it, so that no k
-    raises from inside an attack."""
+def self_knn(points: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(squared distances, indices) [B, N, k] of the k nearest spatial
+    neighbours of each point, self included, nearest first. k ≤ 48 takes
+    the D = 3 kNN kernel (its plain version on a CPU tensor); larger k the
+    square-distance route with a stable sort per block of queries, as
+    ``dense_knn_graph`` routes it, so that no k raises from inside an
+    attack. No gradient."""
     xyz = points[..., :3].detach().float().contiguous()
     strategy = "auto" if k <= knn_kernel.MAX_K else "pallas"
-    return knn(xyz, xyz, k, strategy=strategy, tile=knn_kernel.PLAIN_TILE)[1]
+    return knn(xyz, xyz, k, strategy=strategy, tile=knn_kernel.PLAIN_TILE)
+
+
+def resample_neighbors(points: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices [B, N, k] int32 of ``self_knn``."""
+    return self_knn(points, k)[1]
 
 
 def random_color_resample(points: torch.Tensor, k: int = 8, *,
@@ -202,6 +209,68 @@ def random_color_resample(points: torch.Tensor, k: int = 8, *,
     picked = torch.gather(idx.long(), 2, choice.to(idx.device).long())  # [B, N, 1]
     resampled = torch.gather(color, 1, picked.expand(-1, -1, color.shape[-1]))
     return set_color(points, resampled)
+
+
+def statistical_outlier_removal(points: torch.Tensor, k: int = 10,
+                                alpha: float = 1.1) -> torch.Tensor:
+    """SOR, the coordinate-domain defense of DUP-Net (Zhou et al. 2019,
+    §3.1; JAX `attacks/defenses.py:167-206`): a point is an outlier when
+    its mean distance to its k nearest neighbours exceeds μ + α·σ of the
+    cloud's (σ the population deviation).
+
+    Shapes stay fixed: each outlier takes the whole row of the first inlier
+    in its neighbour list (an inlier itself: the self point leads the
+    list, up to distance-0 ties, which first occurrence breaks), which max
+    pooling treats as a removal. The transform is a gather, so an attacker
+    gets the true gradient; the masks come from distances, with none."""
+    B, N = points.shape[:2]
+    k_eff = min(k + 1, N)  # + 1: a point is the nearest neighbour of itself
+    d2, idx = self_knn(points, k_eff)
+    mean_d = torch.sqrt(torch.clamp(d2[..., 1:], min=0.0)).mean(dim=2)  # [B, N]
+    mu = mean_d.mean(dim=1, keepdim=True)
+    sd = mean_d.std(dim=1, keepdim=True, correction=0)
+    inlier = mean_d <= mu + alpha * sd
+    flags = torch.gather(inlier, 1, idx.long().reshape(B, -1)).reshape(idx.shape)
+    # argmax over integers returns the first maximum: the first inlier
+    first = torch.argmax(flags.to(torch.int8), dim=2, keepdim=True)
+    donor = torch.gather(idx.long(), 2, first)[..., 0]
+    own = torch.arange(N, device=points.device).expand(B, N)
+    donor = torch.where(flags.any(dim=2), donor, own)
+    return torch.gather(points, 1, donor[..., None].expand(-1, -1, points.shape[-1]))
+
+
+def srs_donors(shape: tuple, ratio: float, generator: torch.Generator) -> torch.Tensor:
+    """SRS's draw for clouds of ``shape`` [B, N, ...]: per cloud a random
+    permutation keeps its first round(ratio·N) points, each dropped slot
+    takes a uniformly chosen kept point → donor indices [B, N] int64 (a
+    kept point its own)."""
+    B, N = shape[:2]
+    n_keep = max(1, int(round(ratio * N)))
+    donors = []
+    for _ in range(B):
+        kept = torch.randperm(N, generator=generator)[:n_keep]
+        fill = kept[torch.randint(0, n_keep, (N,), generator=generator)]
+        keep = torch.zeros(N, dtype=torch.bool)
+        keep[kept] = True
+        donors.append(torch.where(keep, torch.arange(N), fill))
+    return torch.stack(donors)
+
+
+def simple_random_subsample(points: torch.Tensor, ratio: float = 0.875, *,
+                            donor: torch.Tensor | None = None,
+                            generator: torch.Generator | None = None) -> torch.Tensor:
+    """SRS, the randomized coordinate-domain defense (JAX
+    `attacks/defenses.py:209-229`): keep a random ``ratio`` of the points;
+    each dropped slot takes the whole row of a kept point (duplicates are
+    removals under max pooling). ``donor`` [B, N] is the draw
+    (``srs_donors``, or JAX's permutation in the parity tests); else it
+    is drawn from the CPU ``generator``."""
+    if donor is None:
+        if generator is None:
+            raise ValueError("simple_random_subsample needs donor= or generator=")
+        donor = srs_donors(points.shape, ratio, generator)
+    donor = donor.to(points.device).long()
+    return torch.gather(points, 1, donor[..., None].expand(-1, -1, points.shape[-1]))
 
 
 def apply_color_defense(outputs_fn: Callable, defense: Callable, *defense_args) -> Callable:

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from pointsecguard_tpu_torch.attacks.common import COLOR_SLICE, set_color
 
 
 def equal_norm_color_noise(
@@ -20,6 +19,7 @@ def equal_norm_color_noise(
     l2_norm: torch.Tensor,
     *,
     mask: torch.Tensor | None = None,
+    channels: tuple[int, int] = (3, 6),
     clip: tuple[float, float] | None = (0.0, 1.0),
     centered: bool = False,
     noise: torch.Tensor | None = None,
@@ -31,11 +31,13 @@ def equal_norm_color_noise(
       points: [B, N, C] clean inputs.
       l2_norm: [B] target norms (e.g. the attack's measured distortion).
       mask: optional [B, N] bool — the noise lands on these points only.
-      clip: the colours' box (None: no clip).
+      channels: the perturbed channel slice (the colours; the object
+        tasks pass (0, 3), the coordinates, with no clip).
+      clip: the perturbed channels' box (None: no clip).
       centered: draw U[-1, 1) instead of the references' positive U[0, 1)
         (`NUattack.py:236` np.random.uniform(0, 1), `test.py:77`
         uniform_(0, 1)).
-      noise: the draw itself, [B, N, 3] in the range above (the
+      noise: the draw itself, [B, N, hi − lo] in the range above (the
         parity tests pass ``jax.random.uniform``'s); else it is drawn from
         ``generator`` on the generator's device.
 
@@ -44,7 +46,8 @@ def equal_norm_color_noise(
       ``l2_norm`` per cloud before the clip (a cloud whose draw is all
       zero stays unmoved: the norm is floored at 1e-12).
     """
-    color0 = points[..., COLOR_SLICE]
+    lo, hi = channels
+    color0 = points[..., lo:hi]
     if noise is None:
         if generator is None:
             raise ValueError("equal_norm_color_noise needs noise= or generator=")
@@ -59,4 +62,4 @@ def equal_norm_color_noise(
     out = color0 + (unit * l2_norm.to(unit)[:, None]).reshape(color0.shape)
     if clip is not None:
         out = torch.clamp(out, clip[0], clip[1])
-    return set_color(points, out)
+    return torch.cat([points[..., :lo], out, points[..., hi:]], dim=-1)

@@ -18,14 +18,17 @@ over the first Area-``--test_area`` room's blocks, and ``--model randla``
 over spatially-regular S3DIS clouds of ``--randla_dir``; the colour threat
 model. Each batch builds its plan once (PointNet++: the geometry; RandLA:
 the pyramid; ResGCN rebuilds its graphs in every forward), however many
-forwards the attack makes. The registry holds fgsm, bim, pgd, mim, cw,
-nes, spsa and nattack. It runs on the GPU; ``--device cpu`` runs the plain
-PyTorch path by request. Accepted by name and refused with "not ported
-yet": ``--task cls`` and the ``*_cls`` models, ``--attack_name
-deepfool|boundary|evolutionary`` (they need ``--task cls``), the flags
-only they read (``--overshoot``, ``--init_tries``, ``--spherical_step``,
-``--source_step``, ``--num_category``, ``--no_normals``) away from their
-defaults, ``--devices`` other than 1 and ``--precision bfloat16``.
+forwards the attack makes. ``--task cls`` for ``--model
+pointnet2_cls|pointnet2_cls_msg|pointnet_cls`` over the ModelNet test
+shapes of ``--data_root`` (``--num_category``, ``--no_normals``): the
+coordinate threat model of ``cli.attack_object`` (xyz channels 0:3, no
+clip, C&W's box (−1, 1)), one prediction per shape ([B, 1, K] outputs),
+the geometry built again in every forward. The registry holds all eleven
+names; deepfool, boundary and evolutionary (``--overshoot``,
+``--init_tries``, ``--spherical_step``, ``--source_step``) need ``--task
+cls``. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
+by request. Accepted by name and refused with "not ported yet":
+``--devices`` other than 1 and ``--precision bfloat16``.
 """
 
 from __future__ import annotations
@@ -34,11 +37,11 @@ import argparse
 import logging
 import os
 
-# JAX CLI flags of the paths not ported yet (deepfool / boundary /
-# evolutionary, --task cls, several chips, bfloat16): only their defaults
-_UNPORTED_DEFAULTS = {"overshoot": 0.02, "init_tries": 20, "spherical_step": 0.1,
-                      "source_step": 0.1, "num_category": 40, "devices": 1,
-                      "precision": "float32"}
+from pointsecguard_tpu_torch.cli.train import CLS_MODELS
+
+# JAX CLI flags of the paths not ported yet (several chips, bfloat16):
+# only their defaults
+_UNPORTED_DEFAULTS = {"devices": 1, "precision": "float32"}
 
 
 def _check_batch_coverage(log, n: int, batch_size: int, unit: str) -> None:
@@ -68,13 +71,21 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["fgsm", "bim", "pgd", "mim", "cw", "deepfool", "nes", "spsa",
                              "nattack", "boundary", "evolutionary"],
                     help="attack-mode registry name (`benchmark/utils.py:8-20`); "
-                         "deepfool / boundary / evolutionary are not ported yet")
+                         "deepfool / boundary / evolutionary need --task cls")
     ap.add_argument("--samples", type=int, default=16,
                     help="nes/spsa: antithetic query pairs per iteration; "
                          "nattack: population size")
     ap.add_argument("--sigma", type=float, default=None,
                     help="nes search radius (default 0.01), nattack sampling std "
                          "(0.1); unset keeps each attack's default")
+    ap.add_argument("--overshoot", type=float, default=0.02,
+                    help="deepfool: boundary overshoot")
+    ap.add_argument("--init_tries", type=int, default=20,
+                    help="boundary/evolutionary: random-search draws for the start")
+    ap.add_argument("--spherical_step", type=float, default=0.1,
+                    help="boundary: initial orthogonal step (relative)")
+    ap.add_argument("--source_step", type=float, default=0.1,
+                    help="boundary: initial contraction step toward the original")
     ap.add_argument("--spsa_delta", type=float, default=0.01,
                     help="spsa: finite-difference radius")
     ap.add_argument("--momentum", type=float, default=0.0,
@@ -82,8 +93,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--goal", default="ut", choices=["ut", "tm", "t"])
     ap.add_argument("--distance", default="l_2", choices=["l_2", "l_inf"])
     ap.add_argument("--task", default="semseg", choices=["semseg", "cls"],
-                    help="semseg: Area-5 blocks, colour threat model; cls is not "
-                         "ported yet")
+                    help="semseg: Area-5 blocks, colour threat model; cls: "
+                         "ModelNet shapes, coordinate threat model")
     ap.add_argument("--model", default="pointnet2",
                     choices=["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla",
                              "pointnet2_cls", "pointnet2_cls_msg", "pointnet_cls"])
@@ -94,11 +105,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log_dir", default="log/run")
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--num_point", type=int, default=0,
-                    help="points per sample (0 = 4096 blocks, randla the config's 40960)")
+                    help="points per sample (0 = 4096 blocks, randla the config's 40960, "
+                         "cls 1024)")
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--max_blocks", type=int, default=16,
-                    help="blocks (randla: clouds) to benchmark; 0 = all blocks")
-    ap.add_argument("--no_normals", action="store_true", help="cls (not ported yet)")
+                    help="blocks (randla: clouds, cls: shapes) to benchmark; 0 = all")
+    ap.add_argument("--num_category", type=int, default=40,
+                    help="cls: ModelNet10 or ModelNet40 lists")
+    ap.add_argument("--no_normals", action="store_true", help="cls: xyz only")
     ap.add_argument("--origin", type=int, default=11)
     ap.add_argument("--target", type=int, default=7)
     ap.add_argument("--eps", type=float, default=0.1)
@@ -122,34 +136,50 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    from pointsecguard_tpu_torch.attacks.benchmark import NOT_PORTED
     from pointsecguard_tpu_torch.configs import resgcn_refusals
 
-    refused = []
-    if args.task != "semseg":
-        refused.append(f"--task {args.task}")
-    if "cls" in args.model:
-        refused.append(f"--model {args.model}")
-    if args.mode not in ("prediction", "worstcase") and args.attack_name in NOT_PORTED:
-        refused.append(f"--attack_name {args.attack_name} (needs --task cls, "
-                       "ROADMAP item 8b)")
-    if args.mode == "worstcase":
-        names = [n.strip() for n in args.attack_names.split(",")]
-        refused += [f"--attack_names {n}" for n in names if n in NOT_PORTED]
-    refused += [f"--{name} {getattr(args, name)}"
-                for name, default in _UNPORTED_DEFAULTS.items()
-                if getattr(args, name) != default]
-    if args.no_normals:
-        refused.append("--no_normals")
+    refused = [f"--{name} {getattr(args, name)}"
+               for name, default in _UNPORTED_DEFAULTS.items()
+               if getattr(args, name) != default]
     refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 
 
+def _check_task(args) -> None:
+    """The JAX CLI's checks: a model of the task, and the one-decision
+    attacks on the classifiers, DeepFool untargeted, no 'tm' goal for a
+    decision predicate."""
+    from pointsecguard_tpu_torch.attacks.benchmark import DECISION_ATTACKS, UNTARGETED_ONLY
+
+    is_cls = args.model in CLS_MODELS
+    if is_cls != (args.task == "cls"):
+        raise SystemExit(
+            f"--model {args.model} is a {'classification' if is_cls else 'semseg'} model; "
+            f"pass --task {'cls' if is_cls else 'semseg'} (got {args.task})")
+    names = ([n.strip() for n in args.attack_names.split(",") if n.strip()]
+             if args.mode == "worstcase" else
+             [] if args.mode == "prediction" else [args.attack_name])
+    one_decision = [n for n in names if n in UNTARGETED_ONLY | DECISION_ATTACKS]
+    if one_decision and not is_cls:
+        raise SystemExit(f"{', '.join(one_decision)} need one decision per shape: "
+                         "--task cls with a classifier")
+    for n in names:
+        if args.goal != "ut" and n in UNTARGETED_ONLY:
+            raise SystemExit(f"{n} is untargeted by construction; --goal {args.goal} "
+                             "is not supported")
+        if args.goal == "tm" and n in DECISION_ATTACKS:
+            raise SystemExit(f"{n} queries a decision predicate; --goal tm (targeted "
+                             "drive, untargeted scoring) is meaningless — use ut or t")
+
+
 def _victim(args, device, log):
-    """(make_outputs_fn, batches, num_classes): the checkpoint's model as a
-    per-batch closure factory (its plan built once a batch: xyz never
-    moves), and a generator of (points, labels) device batches."""
+    """(make_outputs_fn, batches, num_classes, domain): the checkpoint's
+    model as a per-batch closure factory (semseg: its plan built once a
+    batch, xyz never moves; cls: the geometry in every forward, the
+    coordinates move), a generator of (points, labels) device batches, and
+    the configs' perturbation domain (empty: the engines' colour
+    defaults)."""
     import numpy as np
     import torch
 
@@ -157,6 +187,31 @@ def _victim(args, device, log):
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
 
     B = args.batch_size
+    if args.task == "cls":
+        from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
+        from pointsecguard_tpu_torch.train.trainer import cls_model
+
+        use_normals = not args.no_normals
+        dataset = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
+                                  num_category=args.num_category, use_normals=use_normals)
+        K = dataset.num_classes
+        model, _ = cls_model(args.model, K, use_normals)
+        model.load_state_dict(load_checkpoint(args.log_dir))
+        model.to(device).eval().requires_grad_(False)
+        n_shapes = min(len(dataset), args.max_blocks) if args.max_blocks else len(dataset)
+        _check_batch_coverage(log, n_shapes, B, "shapes")
+
+        def batches():
+            for s in range(0, n_shapes - B + 1, B):
+                pts = np.stack([dataset.load(i)[0] for i in range(s, s + B)])
+                labs = dataset.labels[s:s + B].astype(np.int64)[:, None]
+                yield torch.from_numpy(pts).to(device), torch.from_numpy(labs).to(device)
+
+        # [B, K] log-probabilities as [B, 1, K] one-point clouds
+        make = lambda pts: (lambda p: model(p)[0][:, None, :])
+        domain = {"channels": (0, 3), "clip": None, "box": (-1.0, 1.0), "num_classes": K,
+                  "success_acc": 1.0 / K}
+        return make, batches, K, domain
     if args.model == "randla":
         # whole sampled clouds, where the vendored ares lived
         from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
@@ -203,12 +258,13 @@ def _victim(args, device, log):
                 yield (torch.from_numpy(feats[s:s + B]).to(device),
                        torch.from_numpy(labs[s:s + B].astype(np.int64)).to(device))
 
-    return member_factory(model, family), batches, 13
+    return member_factory(model, family), batches, 13, {}
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    _check_task(args)
     logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
     log = logging.getLogger("benchmark")
 
@@ -216,6 +272,7 @@ def main(argv=None):
     import torch
 
     from pointsecguard_tpu_torch.attacks.benchmark import (
+        DECISION_ATTACKS,
         AttackBenchmark,
         distortion_binsearch,
         iteration_curve,
@@ -227,7 +284,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     B = args.batch_size
-    make_outputs_fn, batches, num_classes = _victim(args, device, log)
+    make_outputs_fn, batches, num_classes, domain = _victim(args, device, log)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     if args.mode == "prediction":
@@ -254,7 +311,7 @@ def main(argv=None):
         return ys, ys_target, preds
 
     # flags that fall back to each attack's own config default when unset
-    own_defaults = args.attack_name == "nattack"
+    own_defaults = args.attack_name in ("deepfool", "nattack", "boundary", "evolutionary")
     extra = {} if args.sigma is None else {"sigma": args.sigma}
     if args.alpha is not None:
         extra["alpha"] = args.alpha
@@ -269,7 +326,9 @@ def main(argv=None):
         extra["momentum"] = args.momentum
     if args.mode in ("attack", "worstcase"):
         kwargs = dict(eps=args.eps, steps=args.cw_steps, samples=args.samples,
-                      delta=args.spsa_delta, **extra)
+                      delta=args.spsa_delta, overshoot=args.overshoot,
+                      init_tries=args.init_tries, spherical_step=args.spherical_step,
+                      source_step=args.source_step, **extra, **domain)
         if args.goal == "t":
             kwargs.update(origin=args.origin, target=args.target, ce_reduction="mean")
         elif args.goal == "tm":
@@ -303,10 +362,12 @@ def main(argv=None):
     mask = None
     if args.goal != "ut":
         extra.update(targeted=True, target=args.target, ce_reduction="mean")
-        if args.goal == "t":
+        if args.goal == "t" and args.attack_name not in DECISION_ATTACKS:
             _, mask = make_target_labels(ys, args.origin, args.target)
-    cfg = load_attack(args.attack_name, dict(eps=args.eps, samples=args.samples,
-                                             delta=args.spsa_delta, **extra))
+    cfg = load_attack(args.attack_name, dict(
+        eps=args.eps, samples=args.samples, delta=args.spsa_delta, overshoot=args.overshoot,
+        init_tries=args.init_tries, spherical_step=args.spherical_step,
+        source_step=args.source_step, **extra, **domain))
     if args.mode == "distortion":
         eps, details = distortion_binsearch(
             make_outputs_fn, pts, ys, cfg, success_acc=1.0 / num_classes, mask=mask,

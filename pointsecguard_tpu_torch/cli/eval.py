@@ -7,6 +7,8 @@
       --data_root data/stanford_indoor3d --log_dir log/resgcn [--num_votes 5]
   python -m pointsecguard_tpu_torch.cli.eval --model randla \
       --randla_dir data/randla_input_0.040 --log_dir log/randla [--num_clouds 200]
+  python -m pointsecguard_tpu_torch.cli.eval --model pointnet2_cls \
+      --data_root data/modelnet40_normal_resampled --log_dir log/cls [--num_votes 3]
 
 Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet`` with
 ``--num_votes``, ``--num_point`` (0 → 4096), ``--batch_size`` (0 → 16),
@@ -18,7 +20,11 @@ s3dis|semantickitti|semantic3d``, ``--randla_dir``, ``--randla_points``
 (0 → the preset's 40960, 45056 or 65536), ``--num_clouds``,
 ``--batch_size`` (0 → the preset's val_batch_size 1, 20 or 16),
 ``--seed``, ``--adv_set`` and
-``--save_preds`` (per-cloud prediction PLYs). ``--visual`` writes the
+``--save_preds`` (per-cloud prediction PLYs); ``--model pointnet2_cls``,
+``pointnet2_cls_msg`` and ``pointnet_cls`` (ModelNet instance and class
+accuracy, ``_eval_cls``) with ``--data_root``, ``--num_category``,
+``--no_normals``, ``--num_point`` (0 → 1024), ``--batch_size`` (0 → 16),
+``--num_votes`` and ``--seed``. ``--visual`` writes the
 per-room (per-cloud) prediction and ground-truth label clouds and an HTML
 viewer under ``<log_dir>/visual`` for every model. The
 checkpoint is the port's own (``<log_dir>/checkpoints/``: the best one,
@@ -33,6 +39,7 @@ import argparse
 import logging
 import os
 
+from pointsecguard_tpu_torch.cli.train import CLS_MODELS, cls_refusals
 from pointsecguard_tpu_torch.configs import (
     add_resgcn_arguments,
     resgcn_overrides,
@@ -42,12 +49,9 @@ from pointsecguard_tpu_torch.configs import (
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
-_UNPORTED_DEFAULTS = {
-    "num_category": 40, "devices": 1,
-    "shard_points": 1, "precision": "float32",
-}
-_UNPORTED_SWITCHES = ("no_normals", "resgcn_fast")
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS)
+_UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1, "precision": "float32"}
+_UNPORTED_SWITCHES = ("resgcn_fast",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -62,10 +66,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log_dir", default="log/run")
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--num_point", type=int, default=0,
-                    help="points per block (0 = 4096)")
+                    help="points per sample (0 = 4096 a block, 1024 a ModelNet shape)")
     ap.add_argument("--batch_size", type=int, default=0,
-                    help="0 = 16 (the PointNet family, resgcn), the config's "
-                         "val_batch_size 1 (randla)")
+                    help="0 = 16 (the PointNet family, resgcn, the classifiers), "
+                         "the config's val_batch_size 1 (randla)")
+    ap.add_argument("--num_category", type=int, default=40,
+                    help="classifiers: ModelNet10 or ModelNet40 lists")
+    ap.add_argument("--no_normals", action="store_true",
+                    help="classifiers: xyz only (no normal channels)")
     ap.add_argument("--num_votes", type=int, default=5)
     ap.add_argument("--randla_dir", default="data/randla_input_0.040",
                     help="randla: the prepared tree (cli.prepare)")
@@ -109,22 +117,10 @@ def _refuse_unported(args) -> None:
     refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
     if args.save_preds and args.model != "randla":
         refused.append(f"--save_preds with --model {args.model} (randla only)")
+    refused += cls_refusals(args)
     refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
-
-
-def _padded_batches(n: int, batch_size: int):
-    """(indices [batch_size], number valid) over ``range(n)``; the last
-    batch is filled up with index 0 to the fixed size."""
-    import numpy as np
-
-    for start in range(0, n, batch_size):
-        idx = np.arange(start, min(start + batch_size, n))
-        valid = len(idx)
-        if valid < batch_size:
-            idx = np.concatenate([idx, np.zeros(batch_size - valid, int)])
-        yield idx, valid
 
 
 def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int,
@@ -135,6 +131,7 @@ def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int,
     scored class space (RandLA's ignored labels)."""
     import numpy as np
 
+    from pointsecguard_tpu_torch.train.object_eval import _padded_batches
     from pointsecguard_tpu_torch.utils.metrics import (
         confusion_matrix,
         metrics_from_confusion,
@@ -274,6 +271,36 @@ def _eval_randla(args, log):
     return m
 
 
+def _eval_cls(args, log):
+    """ModelNet classification (``pointsecguard_tpu/cli/eval.py:244-316``,
+    ``_restore_object_state`` and ``_eval_cls``): the test split through
+    ``evaluate_cls`` with ``--num_votes`` votes pooled in softmax space
+    (vote 0 the first N points, later votes random subsets from
+    ``--seed``); logs the instance and the mean class accuracy."""
+    import numpy as np
+
+    from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
+    from pointsecguard_tpu_torch.train.object_eval import evaluate_cls
+    from pointsecguard_tpu_torch.train.trainer import cls_model, make_logp_step
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+
+    device = resolve_device(args.device)
+    use_normals = not args.no_normals
+    ds = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
+                         num_category=args.num_category, use_normals=use_normals)
+    model, family = cls_model(args.model, ds.num_classes, use_normals)
+    model.load_state_dict(load_checkpoint(args.log_dir))
+    model.to(device).eval().requires_grad_(False)
+    inst_acc, class_acc, _ = evaluate_cls(make_logp_step(model, device, family), ds,
+                                          batch_size=args.batch_size,
+                                          num_votes=args.num_votes,
+                                          rng=np.random.default_rng(args.seed))
+    log.info("CLS instance accuracy %.4f  class accuracy %.4f (%d shapes, %d votes)",
+             inst_acc, class_acc, len(ds), args.num_votes)
+    return inst_acc, class_acc
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
@@ -281,6 +308,13 @@ def main(argv=None):
     log = logging.getLogger("eval")
     if args.model == "randla":
         return _eval_randla(args, log)
+    if args.model in CLS_MODELS:
+        if args.visual or args.adv_set:
+            raise SystemExit(
+                "--visual and --adv_set cover the segmentation models; a "
+                "classifier has no scene to render and no saved block set")
+        args.batch_size = args.batch_size or 16
+        return _eval_cls(args, log)
 
     import numpy as np
 

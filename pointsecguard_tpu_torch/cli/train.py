@@ -9,6 +9,8 @@
       --log_dir log/randla_sem3d
   python -m pointsecguard_tpu_torch.cli.train --model resgcn \
       --data_root data/stanford_indoor3d --log_dir log/resgcn [--epochs 32]
+  python -m pointsecguard_tpu_torch.cli.train --model pointnet2_cls \
+      --data_root data/modelnet40_normal_resampled --log_dir log/cls
 
 Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet``
 (PointNet++ SSG and MSG, PointNet on S3DIS blocks through the host
@@ -29,7 +31,12 @@ sampler, no evaluation in the loop, ``latest.pt`` kept) with
 ``--data_root``, ``--log_dir``, ``--test_area``, ``--epochs``,
 ``--batch_size`` (0 → 8), ``--npoint`` (0 → 4096), ``--min_block_points``,
 ``--learning_rate`` (0 → 1e-3), ``--seed``, ``--prefetch`` and the
-``--resgcn_*`` model flags. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
+``--resgcn_*`` model flags; ``--model pointnet2_cls``, ``pointnet2_cls_msg``
+and ``pointnet_cls`` (the ModelNet classifiers, ``train_cls``) with
+``--data_root`` (a ModelNet tree), ``--num_category``, ``--no_normals``,
+``--npoint`` (0 → 1024), ``--batch_size`` (0 → 24), ``--learning_rate``
+(0 → 1e-3), ``--eval_every``, ``--log_dir``, ``--epochs``, ``--seed`` and
+``--prefetch``. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
 by request. Every other flag of the JAX CLI is accepted by name and stops
 the run with "not ported yet" instead of being ignored.
 """
@@ -45,16 +52,19 @@ from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusal
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
+CLS_MODELS = ("pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg")
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS)
+# the classifiers' data flags: taken with a classifier, refused with any
+# other model (the JAX CLI would ignore them there)
+CLS_DEFAULTS = {"num_category": 40, "no_normals": False}
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
 _UNPORTED_DEFAULTS = {
-    "num_category": 40, "precision": "float32", "steps_per_call": 1,
+    "precision": "float32", "steps_per_call": 1,
     "profile": None, "devices": 1, "shard_points": 1, "adv_train": "none",
     "adv_eps": 0.1, "adv_alpha": 0.05, "adv_iters": 5, "adv_rand_init": 0.0,
 }
-_UNPORTED_SWITCHES = ("no_normals", "remat", "device_sampler",
-                      "device_sampler_exact")
+_UNPORTED_SWITCHES = ("remat", "device_sampler", "device_sampler_exact")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -66,9 +76,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=32)
     ap.add_argument("--batch_size", type=int, default=0,
                     help="0 = 32 (pointnet2, pointnet2_msg, pointnet), the "
-                         "config's 6 (randla), 8 (resgcn)")
+                         "config's 6 (randla), 8 (resgcn), 24 (the classifiers)")
     ap.add_argument("--npoint", type=int, default=0,
-                    help="points per block (0 = 4096)")
+                    help="points per sample (0 = 4096 a block, 1024 a ModelNet shape)")
+    ap.add_argument("--num_category", type=int, default=40,
+                    help="classifiers: ModelNet10 or ModelNet40 lists")
+    ap.add_argument("--no_normals", action="store_true",
+                    help="classifiers: xyz only (no normal channels)")
     ap.add_argument("--min_block_points", type=int, default=1024,
                     help="block sampler: accept training blocks with more "
                          "than this many raw points (`S3DISDataLoader.py:52-60`)")
@@ -115,9 +129,20 @@ def _refuse_unported(args) -> None:
                 for name, default in _UNPORTED_DEFAULTS.items()
                 if getattr(args, name) != default]
     refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
+    refused += cls_refusals(args)
     refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
+
+
+def cls_refusals(args) -> list[str]:
+    """The classifiers' data flags away from their defaults with another
+    model."""
+    if args.model in CLS_MODELS:
+        return []
+    return [f"--{name}" + ("" if isinstance(d, bool) else f" {getattr(args, name)}")
+            + f" (with --model {args.model})"
+            for name, d in CLS_DEFAULTS.items() if getattr(args, name) != d]
 
 
 def main(argv=None):
@@ -125,6 +150,7 @@ def main(argv=None):
     _refuse_unported(args)
 
     from pointsecguard_tpu_torch.train.loops import (
+        train_cls,
         train_pointnet_family,
         train_randla,
         train_resgcn,
@@ -146,6 +172,8 @@ def main(argv=None):
         result = train_randla(args, device)
     elif args.model == "resgcn":
         result = train_resgcn(args, device)
+    elif args.model in CLS_MODELS:
+        result = train_cls(args, device)  # npoint 0 → the loop's 1024
     else:
         args.npoint = args.npoint or 4096
         result = train_pointnet_family(args, device)

@@ -1,5 +1,6 @@
 """Host data pipeline of the port (numpy): S3DIS rooms, the training
 block sampler, whole-scene blocks and the synthetic room fixture;
+ModelNet shapes and their synthetic fixture in ``data.modelnet``;
 RandLA's room preparation, sampler and dataset presets are in
 ``data.randla``, SemanticKITTI and Semantic3D preparation in
 ``data.other_datasets``, raw stand-ins of the three datasets in

@@ -48,6 +48,16 @@ class BatchNorm(nn.Module):
         return (x - mean) * inv * self.scale + self.bias
 
 
+def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout keeping the entries where ``mask`` is true, or
+    where a draw of ``generator`` (on ``x``'s device; torch's default
+    generator without one) is ≥ ``rate``."""
+    if mask is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return nn.functional.leaky_relu(x, negative_slope=0.2)
 

@@ -1,9 +1,9 @@
-"""PointNet semantic segmentation (port of
+"""PointNet semantic segmentation and classification (port of
 ``pointsecguard_tpu/models/pointnet.py:18-137``).
 
 The reference's `PointNet/models/pointnet.py` (STN3d `:10-45`, STNkd
 `:48-85`, PointNetEncoder `:88-132`, regularizer `:135-141`) and its
-`pointnet_sem_seg.py` head, channels-last: the per-point convs are
+`pointnet_sem_seg.py` and `pointnet_cls.py` heads, channels-last: the per-point convs are
 ``PointConv`` (a Linear over the trailing axis), the 3 × 3 and 64 × 64
 alignments batched matrix products. PointNet builds no neighbourhood, so
 its path launches none of the port's kernels.
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv
+from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, dropout
 
 
 class STN(nn.Module):
@@ -44,14 +44,16 @@ class STN(nn.Module):
 
 
 class PointNetEncoder(nn.Module):
-    """The shared-MLP encoder of the segmentation net (`pointnet.py:88-132`
-    with ``global_feat=False, feature_transform=True``): the STN3d matrix
-    turns the xyz channels (the others pass through), the 64 × 64 STN the
-    64-wide features; returns ([B, N, 1024 + 64] per-point features, the
-    STN3d matrix, the feature matrix)."""
+    """The shared-MLP encoder (`pointnet.py:88-132` with
+    ``feature_transform=True``): the STN3d matrix turns the xyz channels
+    (the others pass through), the 64 × 64 STN the 64-wide features;
+    returns ([B, N, 1024 + 64] per-point features, the STN3d matrix, the
+    feature matrix), or with ``global_feat`` the [B, 1024] max in place of
+    the per-point features (the classifier's)."""
 
-    def __init__(self, in_features: int = 6):
+    def __init__(self, in_features: int = 6, *, global_feat: bool = False):
         super().__init__()
+        self.global_feat = global_feat
         self.stn = STN(3, in_features)
         self.conv1 = PointConv(in_features, 64)
         self.fstn = STN(64, 64)
@@ -69,6 +71,8 @@ class PointNetEncoder(nn.Module):
         # amax: the max of a cloud of repeated points splits its gradient
         # over the ties, as jnp.max does
         global_feat = torch.amax(x, dim=1, keepdim=True)  # [B, 1, 1024]
+        if self.global_feat:
+            return global_feat[:, 0], trans, trans_feat
         tiled = global_feat.expand(-1, x.shape[1], -1)
         return torch.cat([tiled, point_feat], dim=-1), trans, trans_feat
 
@@ -94,6 +98,35 @@ class PointNetSemSeg(nn.Module):
             x = conv(x, momentum)
         logits = self.cls(x).float()
         return torch.log_softmax(logits, dim=-1), trans_feat
+
+
+class PointNetCls(nn.Module):
+    """PointNet classifier (`pointnet_cls.py:6-29`): the encoder's global
+    feature of the first 6 input channels (3 with ``normal_channel=False``),
+    then Linear 512, BatchNorm, ReLU, Linear 256, dropout 0.4, BatchNorm,
+    ReLU, Linear K, in the reference's order (the BatchNorm after the
+    dropout). Returns (log-probabilities [B, K], the feature transform)."""
+
+    def __init__(self, num_classes: int = 40, normal_channel: bool = True):
+        super().__init__()
+        self.in_features = 6 if normal_channel else 3
+        self.feat = PointNetEncoder(self.in_features, global_feat=True)
+        self.fc = nn.ModuleList([nn.Linear(1024, 512), nn.Linear(512, 256)])
+        self.bns = nn.ModuleList([BatchNorm(512), BatchNorm(256)])
+        self.cls = nn.Linear(256, num_classes)
+
+    def forward(self, points: torch.Tensor, momentum: float = 0.9, *,
+                generator: torch.Generator | None = None,
+                dropout_mask: torch.Tensor | None = None):
+        """In training mode the dropout keeps ``dropout_mask`` [B, 256] or
+        draws it from ``generator``."""
+        x, _, trans_feat = self.feat(points[..., : self.in_features], momentum)
+        x = torch.relu(self.bns[0](self.fc[0](x), momentum))
+        x = self.fc[1](x)
+        if self.training:
+            x = dropout(x, 0.4, dropout_mask, generator)
+        x = torch.relu(self.bns[1](x, momentum))
+        return torch.log_softmax(self.cls(x).float(), dim=-1), trans_feat
 
 
 def pointnet_aux_loss(out) -> torch.Tensor:

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
-from pointsecguard_tpu_torch.models.common import PointMLP
+from pointsecguard_tpu_torch.models.common import PointMLP, dropout
 
 # SSG architecture spec (`pointnet2_sem_seg.py:9-16`)
 SSG_NPOINTS = (1024, 256, 64, 16)
@@ -116,15 +116,22 @@ def build_geometry_msg(xyz: torch.Tensor, generator: torch.Generator | None = No
 
 class SetAbstraction(nn.Module):
     """SSG set abstraction (`pointnet_util.py:166-207`) over a planned
-    geometry: grouped [rel-xyz | feats], shared MLP, max over the group."""
+    geometry: grouped [rel-xyz | feats], shared MLP, max over the group.
+    ``group_all`` is the classifiers' last level: one group of every
+    point, [xyz | feats] not centred (``ops.sample_and_group_all``), and
+    no plan."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int]):
+    def __init__(self, in_features: int, mlp: Sequence[int], *, group_all: bool = False):
         super().__init__()
+        self.group_all = group_all
         self.mlp = PointMLP(3 + in_features, mlp)
 
     def forward(self, xyz, feats, plan, momentum: float = 0.9):
-        new_xyz, idx = plan
-        grouped = ops.group_relative(xyz, feats, idx, new_xyz)
+        if self.group_all:
+            new_xyz, grouped = ops.sample_and_group_all(xyz, feats)
+        else:
+            new_xyz, idx = plan
+            grouped = ops.group_relative(xyz, feats, idx, new_xyz)
         x = self.mlp(grouped, momentum)
         # amax, not max(dim): the groups are full of exact duplicates and
         # amax splits the gradient evenly over tied maxima, as JAX does
@@ -206,10 +213,7 @@ class _PointNet2SemSeg(nn.Module):
             up = fp(skip, up, geometry["fp"][li], momentum)
         x = self.head(up, momentum)
         if self.training:
-            if dropout_mask is None:
-                dropout_mask = torch.rand(
-                    x.shape, generator=generator, device=x.device) >= DROPOUT
-            x = torch.where(dropout_mask, x / (1.0 - DROPOUT), torch.zeros_like(x))
+            x = dropout(x, DROPOUT, dropout_mask, generator)
         logits = self.cls(x).float()
         return torch.log_softmax(logits, dim=-1), feats[4]
 

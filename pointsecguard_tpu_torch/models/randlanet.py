@@ -33,7 +33,7 @@ from torch import nn
 
 from pointsecguard_tpu_torch import ops
 from pointsecguard_tpu_torch.data.randla import reduce_labels
-from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, leaky_relu
+from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, dropout, leaky_relu
 from pointsecguard_tpu_torch.ops.attentive import fused_supported
 from pointsecguard_tpu_torch.ops.cuda.attentive import attentive_pool_fused
 
@@ -289,10 +289,7 @@ class RandLANet(nn.Module):
             f = dec(torch.cat([enc[-j - 2], f_interp], dim=-1), momentum)
         f = self.fc2(self.fc1(f, momentum), momentum)
         if self.training:
-            if dropout_mask is None:
-                dropout_mask = torch.rand(
-                    f.shape, generator=generator, device=f.device) >= DROPOUT
-            f = torch.where(dropout_mask, f / (1.0 - DROPOUT), torch.zeros_like(f))
+            f = dropout(f, DROPOUT, dropout_mask, generator)
         logits = self.fc(f).float()
         if collect_pos:
             return logits, tuple(pos_out)

@@ -1,12 +1,14 @@
-"""Weighted ensembles of segmentation models (port of
-``pointsecguard_tpu/models/registry.py:99-162``).
+"""The model table and weighted ensembles (port of
+``pointsecguard_tpu/models/registry.py:17-67,99-162``).
 
-The ensemble is the capability the ares fork ships as
+``create(name, **kwargs)`` builds a model by the JAX table's name: the
+segmentation victims and the classifiers (the part-segmentation nets are
+not ported yet). The ensemble is the capability the ares fork ships as
 `ares/model/ensemble.py:9-25` (EnsembleModel) and
 `ares/loss/cross_entropy.py:22-38` (EnsembleCrossEntropyLoss): N model
 closures combined into one ``outputs_fn`` that the attack engines attack
-end to end. The JAX module's model table (``register`` / ``create`` /
-``load_model_from_path``) is read by no ported path and is left out.
+end to end. ``load_model_from_path`` is read by no ported path and is
+left out.
 """
 
 from __future__ import annotations
@@ -14,6 +16,38 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+
+def _table() -> dict[str, Callable]:
+    from pointsecguard_tpu_torch.models import (
+        DenseDeepGCN,
+        PointNet2ClsMSG,
+        PointNet2ClsSSG,
+        PointNet2SemSegMSG,
+        PointNet2SemSegSSG,
+        PointNetCls,
+        PointNetSemSeg,
+        RandLANet,
+    )
+
+    return {
+        "pointnet_sem_seg": PointNetSemSeg,
+        "pointnet_cls": PointNetCls,
+        "pointnet2_sem_seg": PointNet2SemSegSSG,
+        "pointnet2_sem_seg_msg": PointNet2SemSegMSG,
+        "pointnet2_cls_ssg": PointNet2ClsSSG,
+        "pointnet2_cls_msg": PointNet2ClsMSG,
+        "randla": RandLANet,
+        "resgcn": DenseDeepGCN,
+    }
+
+
+def create(name: str, **kwargs):
+    """A model of the table by name."""
+    table = _table()
+    if name not in table:
+        raise KeyError(f"unknown model '{name}'; known: {sorted(table)}")
+    return table[name](**kwargs)
 
 
 def ensemble_outputs(outputs: list[torch.Tensor], *, from_log_probs: bool = False

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
-from pointsecguard_tpu_torch.models.common import BatchNorm
+from pointsecguard_tpu_torch.models.common import BatchNorm, dropout
 
 
 class BasicConv(nn.Module):
@@ -158,10 +158,7 @@ class DenseDeepGCN(nn.Module):
         x = torch.cat([fusion.expand(-1, h.shape[1], -1), h], dim=-1)
         x = self.pred[1](self.pred[0](x))
         if self.training and self.dropout:
-            if dropout_mask is None:
-                dropout_mask = torch.rand(x.shape, generator=generator,
-                                          device=x.device) >= self.dropout
-            x = torch.where(dropout_mask, x / (1.0 - self.dropout), torch.zeros_like(x))
+            x = dropout(x, self.dropout, dropout_mask, generator)
         logits = self.cls(x).float()
         if collect_graphs:
             return logits, tuple(graphs_out)

@@ -1,9 +1,13 @@
 """Point-cloud ops of the port (the JAX package's ``ops`` slice that the
-PointNet++ SSG, RandLA-Net and ResGCN paths run)."""
+PointNet++, RandLA-Net and ResGCN paths run)."""
 
 from pointsecguard_tpu_torch.ops.distance import square_distance
 from pointsecguard_tpu_torch.ops.gather import gather_points
-from pointsecguard_tpu_torch.ops.grouping import group_relative, sample_and_group
+from pointsecguard_tpu_torch.ops.grouping import (
+    group_relative,
+    sample_and_group,
+    sample_and_group_all,
+)
 from pointsecguard_tpu_torch.ops.interpolate import (
     apply_three_nn,
     nearest_upsample,
@@ -36,6 +40,7 @@ __all__ = [
     "random_sample_pool",
     "repeat_pad_k",
     "sample_and_group",
+    "sample_and_group_all",
     "square_distance",
     "three_nn_plan",
 ]

@@ -1,5 +1,5 @@
 """Sample-and-group for set abstraction (port of
-``pointsecguard_tpu/ops/grouping.py:20-76``)."""
+``pointsecguard_tpu/ops/grouping.py``)."""
 
 from __future__ import annotations
 
@@ -53,3 +53,16 @@ def group_relative(
         parts, offsets = parts[::-1], offsets[::-1]
     both = gather_points(torch.cat(parts, dim=-1), idx)
     return both - torch.cat(offsets, dim=-1)[:, :, None, :]
+
+
+def sample_and_group_all(
+    xyz: torch.Tensor, feats: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One global group (`pointnet_util.py:146-163`): new_xyz zeros
+    [B, 1, 3] and grouped [B, 1, N, 3 (+D)]. As in the reference, the
+    coordinates are not centred."""
+    new_xyz = xyz.new_zeros((xyz.shape[0], 1, xyz.shape[2]))
+    grouped = xyz[:, None]
+    if feats is not None:
+        grouped = torch.cat([grouped, feats[:, None]], dim=-1)
+    return new_xyz, grouped

@@ -1,8 +1,9 @@
 """Training loops behind ``cli.train`` (port of
-``pointsecguard_tpu/train/loops.py:71-611``): the PointNet family
+``pointsecguard_tpu/train/loops.py:71-815``): the PointNet family
 (``--model pointnet2|pointnet2_msg|pointnet``) and ResGCN-28 (``--model
 resgcn``) on the host block sampler, RandLA-Net on the spatially-regular
-sampler.
+sampler, and the ModelNet classifiers (``--model
+pointnet2_cls|pointnet2_cls_msg|pointnet_cls``, ``train_cls``).
 
 The PointNet family follows the reference script
 `train_semseg.py:148-265`: z-rotation augmentation, weighted NLL
@@ -158,6 +159,106 @@ def _epoch_losses(losses: list) -> tuple[float, int, int]:
     n_batches = int(losses_np.size)
     mean_loss = float(losses_np[finite].sum()) / max(n_batches - nan_batches, 1)
     return mean_loss, n_batches, nan_batches
+
+
+def cls_lr(epoch: int, *, base: float = 0.001) -> float:
+    """The upstream classification schedule: ×0.7 every 20 epochs."""
+    return base * (0.7 ** (epoch // 20))
+
+
+def train_cls(args, device: torch.device):
+    """Train the classifier ``args.model`` (pointnet2_cls,
+    pointnet2_cls_msg or pointnet_cls) on the ModelNet tree under
+    ``args.data_root``; returns ``(state, best instance accuracy)``
+    (JAX `train/loops.py:684-815`). Adam at ``args.learning_rate`` (0 →
+    1e-3) with weight decay 1e-4 and ×0.7 every 20 epochs, NLL (PointNet:
+    plus its aux loss), the random dropout, scale and shift of each batch,
+    BatchNorm keep 0.9 (torch's 0.1, not annealed); the instance accuracy
+    on the test split every ``args.eval_every`` epochs and after the last,
+    each saved as a checkpoint with that accuracy as its metric. ``args``
+    carries ``cli.train``'s flags (npoint: 0 → 1024, batch_size: 0 → 24,
+    num_category, no_normals)."""
+    from pointsecguard_tpu_torch.data import augment
+    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
+    from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
+    from pointsecguard_tpu_torch.train.object_eval import evaluate_cls
+    from pointsecguard_tpu_torch.train.trainer import (
+        TrainState,
+        cls_model,
+        make_logp_step,
+        make_train_step,
+    )
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
+
+    npoint = args.npoint or 1024
+    use_normals = not args.no_normals
+    train_ds, test_ds = (ModelNetDataset(args.data_root, split, num_point=npoint,
+                                         num_category=args.num_category,
+                                         use_normals=use_normals)
+                         for split in ("train", "test"))
+    batch_size = args.batch_size or 24
+    depth = getattr(args, "prefetch", 2)
+    rng = np.random.default_rng(args.seed)
+    # the JAX loop shapes its initial state on one batch: spent here too
+    next(iter(train_ds.batches(rng, batch_size)))
+    model, family = cls_model(args.model, train_ds.num_classes, use_normals)
+    init_parameters(model, torch.Generator().manual_seed(args.seed))
+    state = TrainState(model.to(device))
+    step_fn = make_train_step(model, weighted_nll_loss, family=family)
+    weights = torch.ones(train_ds.num_classes, device=device)
+    ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
+    resumed = ckpt.restore_latest()
+    start_epoch = 0
+    if resumed:
+        state.load_payload(resumed)
+        start_epoch = resumed["epoch"]
+        log.info("resumed from epoch %d", start_epoch)
+
+    logp_fn = make_logp_step(model, device, family)
+    # FPS starts and dropout masks of every step, drawn on the device
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    events = EventLog(f"{args.log_dir}/events.jsonl")
+    tb = SummaryLogger(f"{args.log_dir}/tb")
+    put = make_batch_put(device, depth)
+    best_acc = 0.0
+    for epoch in range(start_epoch, args.epochs):
+        lr = cls_lr(epoch, base=args.learning_rate or 0.001)
+        t0 = time.time()
+
+        def _augmented():  # on the prefetch thread, which alone reads the RNG
+            for pts, labels in train_ds.batches(rng, batch_size):
+                pts = augment.random_point_dropout(pts, rng)
+                pts[:, :, :3] = augment.random_scale_point_cloud(pts[:, :, :3], rng)
+                pts[:, :, :3] = augment.shift_point_cloud(pts[:, :, :3], rng)
+                yield pts, labels
+
+        losses = []
+        for batch in prefetch(_augmented(), put, depth=depth):
+            pts, labels = wait_batch(batch)
+            # torch's BatchNorm fraction 0.1: the upstream driver does not anneal it
+            losses.append(step_fn(state, pts, labels, weights, lr, 0.1, gen))
+        mean_loss, n_batches, nan_batches = _epoch_losses(losses)
+        seconds = time.time() - t0
+        log.info("epoch %d lr %.2g loss %.4f (%.1fs, %d batches, %d skipped)",
+                 epoch, lr, mean_loss, seconds, n_batches, nan_batches)
+        events.write("epoch", epoch=epoch, lr=lr, loss=mean_loss, batches=n_batches,
+                     nan_batches=nan_batches, seconds=seconds)
+        tb.scalars(epoch, loss=mean_loss, learning_rate=lr)
+        if (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1:
+            inst_acc, class_acc, _ = evaluate_cls(logp_fn, test_ds, batch_size=batch_size)
+            log.info("epoch %d eval instance acc %.4f class acc %.4f",
+                     epoch, inst_acc, class_acc)
+            events.write("eval", epoch=epoch, instance_accuracy=inst_acc,
+                         class_accuracy=class_acc)
+            tb.scalars(epoch, instance_accuracy=inst_acc, class_accuracy=class_acc)
+            best_acc = max(best_acc, inst_acc)
+            ckpt.save(epoch + 1, state.payload(), miou=inst_acc)
+    events.close()
+    tb.close()
+    log.info("best instance accuracy %.4f", best_acc)
+    return state, best_acc
 
 
 def train_randla(args, device: torch.device):

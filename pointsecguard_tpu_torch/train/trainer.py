@@ -1,10 +1,10 @@
-"""Training step of the segmentation models (port of
+"""Training step of the segmentation models and the classifiers (port of
 ``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
 
-One step is: the family's neighbour plan (PointNet++ SSG and MSG:
-train-mode geometry with random FPS starts; RandLA-Net: the kNN pyramid;
-ResGCN: none, its graphs are built inside the forward; PointNet: none,
-it has no neighbourhoods), train-mode forward, loss (with PointNet's
+One step is: the family's neighbour plan (PointNet++ SSG and MSG, and
+their classifiers: train-mode geometry with random FPS starts; RandLA-Net:
+the kNN pyramid; ResGCN: none, its graphs are built inside the forward;
+PointNet: none, it has no neighbourhoods), train-mode forward, loss (with PointNet's
 feature-transform term), backward, Adam update and the BatchNorm running
 statistics. A ``Family`` says how a model family is called, as the JAX
 step's ``model_args`` / ``output_head`` do. The lr and the BatchNorm
@@ -30,12 +30,17 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch.configs import RandlaConfig
+from pointsecguard_tpu_torch.models import registry
 from pointsecguard_tpu_torch.models.pointnet import PointNetSemSeg, pointnet_aux_loss
 from pointsecguard_tpu_torch.models.pointnet2 import (
     PointNet2SemSegMSG,
     PointNet2SemSegSSG,
     build_geometry,
     build_geometry_msg,
+)
+from pointsecguard_tpu_torch.models.pointnet2_cls import (
+    build_geometry_cls,
+    build_geometry_cls_msg,
 )
 from pointsecguard_tpu_torch.models.randlanet import build_pyramid
 
@@ -94,6 +99,52 @@ POINTNET_MODELS = {
     "pointnet2_msg": (PointNet2SemSegMSG, POINTNET2_MSG),
     "pointnet": (PointNetSemSeg, POINTNET),
 }
+
+
+def _pointnet2_cls_apply(model, points, plan, bn_momentum=None, *, generator=None,
+                        dropout_mask=None):
+    keep = 0.9 if bn_momentum is None else 1.0 - bn_momentum
+    return model(points, geometry=plan, momentum=keep, generator=generator,
+                 dropout_masks=dropout_mask)
+
+
+# the classifiers: the plan is the two SA levels' geometry (training: one
+# random FPS start per cloud and level, two draws of [B], then the head's
+# two dropout masks); the head is the log-probabilities [B, K]
+POINTNET2_CLS = Family(
+    plan=lambda points, generator=None, start_idx=None: build_geometry_cls(
+        points[..., :3], generator=generator, start_idx=start_idx),
+    apply=_pointnet2_cls_apply, head=lambda out: out[0])
+POINTNET2_CLS_MSG = POINTNET2_CLS._replace(
+    plan=lambda points, generator=None, start_idx=None: build_geometry_cls_msg(
+        points[..., :3], generator=generator, start_idx=start_idx))
+
+
+def _pointnet_cls_apply(model, points, plan, bn_momentum=None, *, generator=None,
+                        dropout_mask=None):
+    keep = 0.9 if bn_momentum is None else 1.0 - bn_momentum
+    return model(points, momentum=keep, generator=generator, dropout_mask=dropout_mask)
+
+
+POINTNET_CLS = Family(plan=lambda points, generator=None, start_idx=None: None,
+                      apply=_pointnet_cls_apply, head=lambda out: out[0],
+                      aux_loss=pointnet_aux_loss)
+# the classifiers by their ``--model`` name: the registry's name and the family
+CLS_MODELS = {
+    "pointnet2_cls": ("pointnet2_cls_ssg", POINTNET2_CLS),
+    "pointnet2_cls_msg": ("pointnet2_cls_msg", POINTNET2_CLS_MSG),
+    "pointnet_cls": ("pointnet_cls", POINTNET_CLS),
+}
+
+
+def cls_model(name: str, num_classes: int, use_normals: bool = True):
+    """(model, family) of the classifier ``--model name`` (the JAX
+    ``_cls_partseg_model``'s cls half, `train/loops.py:613-671`): the
+    loss is NLL, PointNet's plus 0.001 times the feature-transform
+    regularizer (its family's ``aux_loss``)."""
+    registered, family = CLS_MODELS[name]
+    return registry.create(registered, num_classes=num_classes,
+                           normal_channel=use_normals), family
 
 
 def randla_family(cfg: RandlaConfig | None = None) -> Family:
@@ -252,6 +303,20 @@ def make_train_step(
         return loss.detach()
 
     return train_step
+
+
+def make_logp_step(model: nn.Module, device: torch.device, family: Family) -> Callable:
+    """``logp(points [B, N, C] numpy) → [B, K] numpy``: a classifier's
+    evaluation-mode log-probabilities (FPS from index 0), for
+    ``evaluate_cls``."""
+
+    @torch.no_grad()
+    def logp(points: np.ndarray) -> np.ndarray:
+        model.eval()
+        pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
+        return family.head(family.apply(model, pts, family.plan(pts))).cpu().numpy()
+
+    return logp
 
 
 def make_eval_step(model: nn.Module, device: torch.device,

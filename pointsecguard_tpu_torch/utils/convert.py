@@ -4,6 +4,10 @@ Weights cross as numpy arrays keyed by flax paths, flattened with "/":
 ``params/SetAbstraction_0/PointMLP_0/PointConv_0/Dense_0/kernel``,
 ``batch_stats/.../BatchNorm_0/mean`` … (134 leaves for PointNet++ SSG,
 206 for MSG, 102 for PointNet, 276 for RandLA-Net, 188 for ResGCN-28).
+The classifiers (``cls_from_jax_variables`` / ``cls_to_jax_variables``:
+PointNet++ SSG and MSG, PointNet) map their levels as the segmentation
+nets do and their head ``_ClsHead_0/Dense_j`` → ``head.fc.j`` (PointNet's
+top-level ``Dense_j`` → ``fc.j``).
 PointNet++ SSG
 (``from_jax_variables``) follows the flax auto-names the JAX importer writes
 (`pointsecguard_tpu/utils/importers.py:83-118`):
@@ -318,6 +322,97 @@ def pointnet2_msg_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, t
 def pointnet2_msg_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Inverse of ``pointnet2_msg_from_jax_variables``."""
     return _inverse_mapped(state_dict, pointnet2_msg_module_map())
+
+
+def _cls_head(m: dict, flax: str, port: str) -> None:
+    """The classifiers' head: ``Dense_0`` / ``BatchNorm_0``, ``Dense_1`` /
+    ``BatchNorm_1`` and ``Dense_2`` (flax) → ``fc.j`` / ``bns.j`` and ``cls``."""
+    for k in range(2):
+        m[f"{flax}Dense_{k}"] = f"{port}fc.{k}"
+        m[f"{flax}BatchNorm_{k}"] = f"{port}bns.{k}"
+    m[f"{flax}Dense_2"] = f"{port}cls"
+
+
+def pointnet2_cls_module_map(msg: bool = False) -> dict[str, str]:
+    """flax module path → ``PointNet2ClsSSG`` (``msg``: ``PointNet2ClsMSG``)
+    module path (`pointsecguard_tpu/models/pointnet2_cls.py:30-104`): the
+    two set-abstraction levels (SSG: ``SetAbstraction_0..1``; MSG:
+    ``SetAbstractionMSG_0..1``, one ``PointMLP_j`` a radius), the group-all
+    ``SetAbstraction`` (SSG ``_2``, MSG ``_0``) and ``_ClsHead_0``."""
+    from pointsecguard_tpu_torch.models.pointnet2_cls import (
+        CLS_MSG_MLPS,
+        CLS_SSG_MLPS,
+        GROUP_ALL_MLP,
+    )
+
+    m: dict[str, str] = {}
+    if msg:
+        for i, mlps in enumerate(CLS_MSG_MLPS):
+            for j, mlp in enumerate(mlps):
+                for k in range(len(mlp)):
+                    _conv(m, f"SetAbstractionMSG_{i}/PointMLP_{j}/PointConv_{k}",
+                          f"sa.{i}.mlps.{j}.convs.{k}")
+        group_all = "SetAbstraction_0"
+    else:
+        for i, mlp in enumerate(CLS_SSG_MLPS):
+            for k in range(len(mlp)):
+                _conv(m, f"SetAbstraction_{i}/PointMLP_0/PointConv_{k}", f"sa.{i}.mlp.convs.{k}")
+        group_all = "SetAbstraction_2"
+    for k in range(len(GROUP_ALL_MLP)):
+        _conv(m, f"{group_all}/PointMLP_0/PointConv_{k}", f"sa.2.mlp.convs.{k}")
+    _cls_head(m, "_ClsHead_0/", "head.")
+    return m
+
+
+def pointnet_cls_module_map() -> dict[str, str]:
+    """flax module path → ``PointNetCls`` module path
+    (`pointsecguard_tpu/models/pointnet.py:106-125`): the encoder as in
+    ``pointnet_module_map``, then the head's ``Dense_0..2`` and
+    ``BatchNorm_0..1``."""
+    m = {k: v for k, v in pointnet_module_map().items()
+         if k.startswith("PointNetEncoder_0/")}
+    _cls_head(m, "", "")
+    return m
+
+
+def _cls_model(name: str, flat: dict):
+    """The port classifier that ``flat`` fills: its class count from the
+    last Dense, its input width (normals or not) from the first layer."""
+    from pointsecguard_tpu_torch.models import PointNet2ClsMSG, PointNet2ClsSSG, PointNetCls
+
+    if name == "pointnet_cls":
+        k = flat["params/Dense_2/kernel"].shape[1]
+        first = "params/PointNetEncoder_0/STN_0/PointConv_0/Dense_0/kernel"
+        return PointNetCls(num_classes=k, normal_channel=flat[first].shape[0] == 6)
+    k = flat["params/_ClsHead_0/Dense_2/kernel"].shape[1]
+    first = ("params/SetAbstractionMSG_0/PointMLP_0/PointConv_0/Dense_0/kernel"
+             if name == "pointnet2_cls_msg"
+             else "params/SetAbstraction_0/PointMLP_0/PointConv_0/Dense_0/kernel")
+    cls = PointNet2ClsMSG if name == "pointnet2_cls_msg" else PointNet2ClsSSG
+    return cls(num_classes=k, normal_channel=flat[first].shape[0] == 6)
+
+
+def _cls_map(name: str) -> dict[str, str]:
+    if name not in ("pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg"):
+        raise ValueError(f"unknown classifier {name!r}")
+    if name == "pointnet_cls":
+        return pointnet_cls_module_map()
+    return pointnet2_cls_module_map(msg=name == "pointnet2_cls_msg")
+
+
+def cls_from_jax_variables(name: str, flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax variables of a classifier (``name``: pointnet_cls,
+    pointnet2_cls or pointnet2_cls_msg) → the port's state dict, params and
+    BatchNorm statistics. Raises ValueError on a missing or unconsumed
+    leaf."""
+    modules = _cls_map(name)
+    return _filled(flat, modules, _cls_model(name, flat))
+
+
+def cls_to_jax_variables(name: str, state_dict: dict[str, torch.Tensor]
+                         ) -> dict[str, np.ndarray]:
+    """Inverse of ``cls_from_jax_variables``."""
+    return _inverse_mapped(state_dict, _cls_map(name))
 
 
 def pointnet_module_map() -> dict[str, str]:

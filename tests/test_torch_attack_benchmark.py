@@ -70,15 +70,17 @@ def test_load_attack_gives_the_jax_fields(name):
 
 
 def test_registry_names_and_the_three_refused():
-    assert set(tbench.ATTACKS) == {"fgsm", "bim", "pgd", "mim", "cw", "nes", "spsa", "nattack"}
-    assert set(jbench.ATTACKS) == set(tbench.ATTACKS) | set(tbench.NOT_PORTED)
+    """All eleven names; the three one-decision attacks, once refused, take
+    their configs and refuse only the goals JAX refuses."""
+    assert set(tbench.ATTACKS) == set(jbench.ATTACKS) == {
+        "fgsm", "bim", "pgd", "mim", "cw", "nes", "spsa", "nattack", "deepfool", "boundary",
+        "evolutionary"}
     assert dataclasses.asdict(tbench.load_attack("mim", {"eps": 0.1, "alpha": 0.02,
                                                          "iters": 5}))["momentum"] == 1.0
     for name in ("deepfool", "boundary", "evolutionary"):
-        with pytest.raises(ValueError, match=f"{name}: not ported yet \\(needs --task cls"):
-            tbench.load_attack(name, {})
-        with pytest.raises(ValueError, match="not ported yet"):
-            tbench.AttackBenchmark(name, _make)
+        assert type(tbench.load_attack(name, {})).__name__ == jbench.ATTACKS[name].__name__
+        with pytest.raises(ValueError, match="goal"):
+            tbench.AttackBenchmark(name, _make, goal="tm", target=1)
 
 
 def test_distortion_binsearch_probes_match_jax():

@@ -178,18 +178,57 @@ def test_randla_and_resgcn_branches(tmp_path, monkeypatch, capsys):
     assert acc.shape == (4 * 128,) and (dist > 0).all()
 
 
+# the classification task and the one-decision attacks, once refused, are
+# ported (tests/test_torch_cls_cli.py runs them): their flags are parsed and
+# pass the refusals and the JAX CLI's task checks; --devices and --precision
+# bfloat16 stay refused, on either task
+_CLS = ["--task", "cls", "--model", "pointnet2_cls"]
+
+
 @pytest.mark.parametrize("flags", [
-    ["--task", "cls"], ["--model", "pointnet2_cls"], ["--model", "pointnet_cls", "--task", "cls"],
-    ["--model", "pointnet2_cls_msg"], ["--attack_name", "deepfool"],
-    ["--attack_name", "boundary", "--mode", "distortion"],
-    ["--attack_name", "evolutionary", "--goal", "t"],
-    ["--mode", "worstcase", "--attack_names", "pgd,deepfool"],
+    [*_CLS, "--devices", "2"], [*_CLS, "--precision", "bfloat16"],
+    ["--model", "pointnet_cls", "--task", "cls", "-d", "4"],
     ["--devices", "2"], ["--precision", "bfloat16"], ["--resgcn_blocks", "3"],
-    ["--overshoot", "0.5"], ["--init_tries", "3"], ["--spherical_step", "0.2"],
-    ["--source_step", "0.2"], ["--num_category", "10"], ["--no_normals"],
 ])
 def test_unported_flags_are_refused(flags, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
+        bench_cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags,name,value", [
+    (_CLS, "task", "cls"),
+    (["--task", "cls", "--model", "pointnet_cls"], "model", "pointnet_cls"),
+    (["--task", "cls", "--model", "pointnet2_cls_msg"], "model", "pointnet2_cls_msg"),
+    ([*_CLS, "--attack_name", "deepfool"], "attack_name", "deepfool"),
+    ([*_CLS, "--attack_name", "boundary", "--mode", "distortion"], "attack_name", "boundary"),
+    ([*_CLS, "--attack_name", "evolutionary", "--goal", "t"], "attack_name", "evolutionary"),
+    ([*_CLS, "--mode", "worstcase", "--attack_names", "pgd,deepfool"], "attack_names",
+     "pgd,deepfool"),
+    ([*_CLS, "--overshoot", "0.5"], "overshoot", 0.5),
+    ([*_CLS, "--init_tries", "3"], "init_tries", 3),
+    ([*_CLS, "--spherical_step", "0.2"], "spherical_step", 0.2),
+    ([*_CLS, "--source_step", "0.2"], "source_step", 0.2),
+    ([*_CLS, "--num_category", "10"], "num_category", 10),
+    ([*_CLS, "--no_normals"], "no_normals", True),
+], ids=lambda v: " ".join(v) if isinstance(v, list) else None)
+def test_cls_flags_are_taken(flags, name, value):
+    args = bench_cli._parser().parse_args(flags)
+    bench_cli._refuse_unported(args)
+    bench_cli._check_task(args)
+    assert getattr(args, name) == value
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--task", "cls"], "pointnet2 is a semseg model; pass --task semseg"),
+    (["--model", "pointnet2_cls"], "pointnet2_cls is a classification model; pass --task cls"),
+    (["--attack_name", "deepfool"], "deepfool need one decision per shape"),
+    (["--mode", "worstcase", "--attack_names", "pgd,boundary"],
+     "boundary need one decision per shape"),
+    ([*_CLS, "--attack_name", "deepfool", "--goal", "t"], "untargeted by construction"),
+    ([*_CLS, "--attack_name", "evolutionary", "--goal", "tm"], "meaningless"),
+])
+def test_task_checks_stop_the_run(flags, message, tmp_path):
+    with pytest.raises(SystemExit, match=message):
         bench_cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
 
 

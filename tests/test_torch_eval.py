@@ -211,7 +211,7 @@ def test_cli_eval_reports_the_jax_clis_class_iou(fixture_eval):
 
 def test_padded_batches_cover_every_block_once():
     from pointsecguard_tpu.train.object_eval import _padded_batches as jax_padded
-    from pointsecguard_tpu_torch.cli.eval import _padded_batches
+    from pointsecguard_tpu_torch.train.object_eval import _padded_batches
 
     for n, b in ((10, 4), (8, 4), (3, 8), (1, 1)):
         got, want = list(_padded_batches(n, b)), list(jax_padded(n, b))
