@@ -125,7 +125,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     reference's distance; the attentive backward with dW at the step's
     shapes against plain, timed.
 24. Training through ``cli.train.main --model randla`` at full width: batch
-    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 100 steps
+    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 70 steps
     and 4 validation clouds, one more epoch on resume; every loss finite,
     no skipped batch, the last epoch's loss below the first's, exactly 10
     kNN launches per optimizer step and per validation cloud, no epoch
@@ -150,7 +150,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     kernel and ``torch.topk``, equal and timed (a kernel phase), printed
     as a record of its own on a ``{"selection": [...]}`` line, not in the
     kernel records: ``bottom_k`` never launches on this route.
-28. ResGCN card vs CPU on two blocks: every block's graph rebuilt on the
+28. ResGCN card vs CPU on one block: every block's graph rebuilt on the
     CPU from the card's features equal to the card's except in near-tie
     rows; on the card's graphs, logits and colour gradient of the card no
     further from a float64 evaluation than twice the CPU's float32, and
@@ -296,7 +296,7 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     ball queries take the stable sort, as JAX's ``lax.top_k`` route: timed
     beside the bottom-k kernel and ``torch.topk`` on the ``selection`` line.
 57. Card vs CPU for each classifier at 40 classes, calibrated seeded
-    weights, 16 × 1024 × 6 shapes: log-probabilities and the xyz gradient
+    weights, 8 × 1024 × 6 shapes: log-probabilities and the xyz gradient
     through the moving geometry (the card's indices, centres regathered
     from the leaf), in float32 and float64, against the CPU's float64.
 58. ``cli.train`` (24 a batch, 12 epochs, an eval every 4) and ``cli.eval``
@@ -320,6 +320,37 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     backwards an iteration) on the SSG with phase 57's 40-class weights,
     16 shapes: ms a batch, iterations, forwards, backwards, launches, and
     one iteration's ms by CUDA events with 40 and with 4 backwards.
+60. The kernels at the part-seg nets' shapes (a kernel phase) on a synthetic
+    ShapeNetPart of 2500-point shapes (3 categories; 21 train, 1 val and 3
+    test shapes each; the loader draws 2048 with replacement): FPS of one
+    attack geometry ([8, 2048] → 512, [8, 512] → 128 from index 0) and of
+    one train geometry ([16, 2048], random starts); the k = 32 ball query
+    on [8, 512, 2048]; the 3-NN hops l0 ← l1 ([8, 2048, 512]) and l1 ← l2
+    ([8, 512, 128]) at k = 3; SOR's self-kNN [8, 2048, 3], k = 11. Each
+    equal to plain and the geometry's indices (and 3-NN weights) to the
+    calls'; card, eager, plain ms, bound, share, ``torch.topk``. The k = 64
+    / 128 ball queries (SSG's second level, MSG's) take the stable sort:
+    timed on the ``selection`` line.
+61. Card vs CPU for each part-seg net, seeded weights carried through the
+    flax layout (``utils/convert.py``), 4 × 2048 × 6 test shapes: the
+    geometry built on both (FPS equal, groups and 3-NN indices in
+    agreement), then on the card's indices with the centres and the 3-NN
+    weights recomputed from the leaf (the moving geometry) the
+    log-probabilities and the xyz gradient of the NB loss, in float32 and
+    float64, against the CPU's float64; the 3-NN weights' share of the
+    card's gradient (against the same plan with the weights detached) must
+    not be zero.
+62. ``cli.train`` (16 a batch, 4 steps an epoch, 10 epochs, an eval every
+    5) and ``cli.eval`` for each part-seg net: instance mIoU at or above
+    ``PS_MIOU_FLOOR``, the trainer's best figure; one geometry's launches
+    (2 FPS, 3 bottom-k) a step and an eval batch; ms a step.
+63. ``cli.attack_object`` on the trained nets, one batch of 8 a run: NB
+    ``--control`` on each (54 forwards: 108 FPS and 162 bottom-k launches
+    for SSG and MSG, none for PointNet; the adversarial mIoU below clean),
+    then on the SSG tar_NB ``--origin 47 --target 49`` (only the Table's
+    part-47 points move), NU cut to 10 steps and NB ``--defense sor`` (a
+    kNN a forward): ms a batch, forwards, launches, mIoU clean /
+    adversarial / control.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -336,8 +367,8 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 35 and
-56 and exits 1.
+``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56
+and 60 and exits 1. Every phase prints its seconds (``phase N: … s``).
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -390,12 +421,14 @@ TRAIN_LR = 0.003
 # 2/13 is twice the chance of 13 classes
 EVAL_ACC_FLOOR = 0.3
 # RandLA training: the config's batch of 6 × 40960 points on the train
-# cloud prepared at 0.04 m, 100 steps and 4 validation clouds an epoch, 3
+# cloud prepared at 0.04 m, 70 steps and 4 validation clouds an epoch, 3
 # epochs and one more on resume, the config's lr 1e-2. BatchNorm keeps
 # 0.99 of its running statistics a step, so after 30 steps they are still
 # 74 % the initial ones and evaluation-mode accuracy stays near chance
-# (0.21 on the Area-5 cloud); after 400, 2 %
-RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 100, 4
+# (0.21 on the Area-5 cloud); after 280, 6 %. (100 steps an epoch until
+# the part-seg phases came: validation accuracy 0.78 after 200 steps and
+# eval 0.9885 after 400 on an H100, against the floor of 0.3)
+RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 70, 4
 RANDLA_TRAIN_EPOCHS = 3
 # the card-vs-CPU step: the CPU's plain pyramid of 2 × 40960 points takes
 # ~100 s on 8 cores (the stable sort of 40960-wide rows), of 2 × 16384 ~15 s
@@ -834,6 +867,7 @@ def phase_msg_kernels(dev, records) -> None:
     times as in ``phase_kernels`` (a kernel phase)."""
     from pointsecguard_tpu_torch.models import build_geometry_msg
     from pointsecguard_tpu_torch.ops.cuda import bottomk, bounds, fps
+    from pointsecguard_tpu_torch.ops.interpolate import inverse_distance_weights
 
     gen = torch.Generator(device=dev).manual_seed(7)
     sizes = (NUM_POINT, 1024, 256, 64)
@@ -869,8 +903,7 @@ def phase_msg_kernels(dev, records) -> None:
                 if not torch.equal(torch.where(g == n, g[..., :1], g), want):
                     raise AssertionError(f"build_geometry_msg groups != the kernel's ({j})")
             else:  # a 3-NN plan: indices and the weights of kernel and plain
-                recip = [1.0 / (v + 1e-8) for v in (gv, wv)]
-                w_k, w_p = (r / torch.sum(r, dim=-1, keepdim=True) for r in recip)
+                w_k, w_p = (inverse_distance_weights(v) for v in (gv, wv))
                 idx, w = geo["fp"][j - 8]
                 if not (torch.equal(w_k, w_p) and torch.equal(gi, idx) and torch.equal(w_k, w)):
                     raise AssertionError(f"3-NN plan differs kernel vs plain ({j - 8})")
@@ -2876,8 +2909,10 @@ def phase_resgcn_kernels(dev, records, data: str) -> dict:
 
 
 def phase_resgcn_reference(dev) -> dict:
-    """28. Card vs CPU, full-width ResGCN-28 with seeded weights on two
-    blocks: every block's graph built on the CPU from the card's input
+    """28. Card vs CPU, full-width ResGCN-28 with seeded weights on one
+    4096-point block (two until the part-seg phases came; the CPU's float64
+    run of the 24 large-k graphs is most of the phase): every block's
+    graph built on the CPU from the card's input
     features equal to the card's, except in near-tie rows. On the card's
     graphs (``graphs=``), the logits and the colour gradient (of the
     summed log-probability of random labels) of the card, of the CPU in
@@ -2894,7 +2929,7 @@ def phase_resgcn_reference(dev) -> dict:
 
     blocks = train_blocks(dev, 8)
     sd = resgcn_state_dict(1, blocks)
-    pts = blocks[[0, 5]].contiguous()
+    pts = blocks[[0]].contiguous()
     model = resgcn_model(sd, dev)
     inputs, graphs = block_inputs(model, pts)
     differ, bad, total = 0, 0, 0
@@ -4678,7 +4713,8 @@ def cls_state_dict(model: str, seed: int, dev) -> dict:
 
 def phase_cls_reference(dev, model: str) -> dict:
     """57. Card vs CPU for a classifier at 40 classes, calibrated seeded
-    weights, on 16 × 1024 × 6 fixture shapes: the geometry built on both
+    weights, on 8 × 1024 × 6 fixture shapes (16 until the part-seg phases
+    came; the CPU's float64 runs are most of the phase): the geometry built on both
     (FPS equal, group indices in agreement), then, on the card's indices
     with the centres regathered from the leaf (the coordinate attacks'
     moving geometry), the log-probabilities and the xyz gradient of the
@@ -4690,7 +4726,7 @@ def phase_cls_reference(dev, model: str) -> dict:
     net, _ = cls_model(model, 40)
     net.load_state_dict(cls_state_dict(model, 1, dev))
     net.eval()
-    pts = cls_shapes(dev)
+    pts = cls_shapes(dev, CLS_BATCH // 2)
     build = getattr(net, "build_geometry", None)
     geo, agree = None, [1.0]
     if build is not None:
@@ -4731,7 +4767,7 @@ def phase_cls_reference(dev, model: str) -> dict:
            "pred_spread": int(torch.unique(ref_lp.argmax(1)).numel())}
     print(f"{model} card vs CPU: " + json.dumps(res))
     bound32, bound64 = CLS_REFERENCE_BOUNDS[model]
-    ok = (torch.isfinite(out["card"][0]).all() and out["card"][0].shape == (CLS_BATCH, 40)
+    ok = (torch.isfinite(out["card"][0]).all() and out["card"][0].shape == (len(pts), 40)
           and err["card64"] <= bound64["log_probs"] and gerr["card64"] <= bound64["grad"]
           and err["card"] <= bound32["log_probs"] and gerr["card"] <= bound32["grad"]
           and res["pred_spread"] > 1)
@@ -5041,6 +5077,483 @@ def run_cls_phases(dev, records) -> None:
     print(f"phase 59: {time.perf_counter() - t0:.1f} s")
 
 
+# ShapeNetPart part segmentation (phases 60-63): a synthetic ShapeNetPart of
+# 2500-point shapes in three categories (the loader draws 2048 a shape with
+# replacement), the three part-seg nets at full width (50 parts, the
+# 16-category one-hot, normals): 21 train, 1 val and 3 test shapes a category
+PS_POINTS, PS_BATCH, PS_TRAIN_BATCH = 2048, 8, 16
+PS_FILE_POINTS, PS_TRAIN_PER_CLASS, PS_VAL_PER_CLASS, PS_TEST_PER_CLASS = 2500, 21, 1, 3
+PS_MODELS = ("pointnet2_part_seg", "pointnet2_part_seg_msg", "pointnet_part_seg")
+PS_TRAIN_EPOCHS, PS_EVAL_EVERY, PS_TRAIN_LR = 10, 5, 0.003
+# instance mIoU the trained nets must reach on the 9 test shapes, set before
+# the first run: the argmax over a category's 2 or 3 parts scores ~0.24 at
+# random, and the JAX CLI test holds its fixture to 0.25
+PS_MIOU_FLOOR = 0.4
+# kernel launches of one part-seg forward: two FPS levels, the k = 32 ball
+# query (MSG: its first radius; k = 64 and 128 take the stable sort) and
+# the two 3-NN hops
+PS_LAUNCHES = {"pointnet2_part_seg": {"fps": 2, "bottom_k": 3},
+               "pointnet2_part_seg_msg": {"fps": 2, "bottom_k": 3},
+               "pointnet_part_seg": {"fps": 0, "bottom_k": 0}}
+PS_STATE_FLOATS = {"pointnet2_part_seg": 1_419_762, "pointnet2_part_seg_msg": 1_751_494,
+                   "pointnet_part_seg": 8_357_755}
+PS_NU_STEPS = 10  # the NU run cuts C&W's 200 steps to this
+# phase 61's bounds against the CPU's float64, in float32 and in float64:
+# log-probabilities over the largest, the xyz gradient in relative L2.
+# Set before the first run on the card. Both packages compute d² for the
+# 3-NN weights in float32 (the float64 model rounds a float64 cross term
+# once), and a dense point that is a centre has d² ≈ 0 up to that rounding
+# beside the weights' 1e-8: the float32 model's log-probabilities sat
+# 6.4e-5 from float64 and its gradient 3.8e-3 on the CPU at 8 × 512 points
+# (7.9e-6 on a plan with the weights held fixed)
+PS_REFERENCE_BOUNDS = ({"log_probs": 1e-3, "grad": 2e-2}, {"log_probs": 2e-6, "grad": 1e-5})
+
+
+def partseg_data() -> str:
+    """The synthetic ShapeNetPart of phases 60-63, written once."""
+    from pointsecguard_tpu_torch.data.shapenet_part import make_synthetic_shapenetpart
+
+    root = os.path.join(WORK, "shapenetpart")
+    if not os.path.exists(os.path.join(root, "synsetoffset2category.txt")):
+        make_synthetic_shapenetpart(root, points_per_shape=PS_FILE_POINTS,
+                                    train_per_class=PS_TRAIN_PER_CLASS,
+                                    val_per_class=PS_VAL_PER_CLASS,
+                                    test_per_class=PS_TEST_PER_CLASS, seed=0)
+    return root
+
+
+def partseg_batch(dev, n: int = PS_BATCH, split: str = "test"):
+    """(points [n, 2048, 6], one-hot [n, 16], part labels [n, 2048]) on
+    ``dev``: the first ``n`` shapes of ``split`` as evaluation loads them
+    (test), or resampled from a seeded generator (trainval)."""
+    from pointsecguard_tpu_torch.data.shapenet_part import ShapeNetPartDataset
+
+    ds = ShapeNetPartDataset(partseg_data(), split, num_point=PS_POINTS)
+    rng = None if split == "test" else np.random.default_rng(1)
+    loaded = [ds.load(i, rng) for i in range(n)]
+    pts = torch.from_numpy(np.stack([l[0] for l in loaded])).to(dev)
+    onehot = torch.from_numpy(np.eye(16, dtype=np.float32)[[l[1] for l in loaded]]).to(dev)
+    seg = torch.from_numpy(np.stack([l[2] for l in loaded]).astype(np.int64)).to(dev)
+    return pts, onehot, seg
+
+
+def kernel_row(name: str, unit: str, kern, plain, work, calls: int, library=None) -> dict:
+    """A kernel's record at one shape: card and eager ms of ``kern()``,
+    plain ms, bound, share and the library call's ms (``library()``)."""
+    rec = {"unit": unit, "ms": device_ms(kern), "eager_ms": cuda_ms(kern, reps=20),
+           "plain_ms": cuda_ms(plain, reps=5), "bound_ms": work.bound_ms,
+           "bound_by": work.bound_by,
+           "library_ms": None if library is None else device_ms(library),
+           "calls_per_batch": calls}
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    print(f"{name}: kernel {rec['ms']:.4f} ms on the card ({rec['eager_ms']:.4f} ms eager), "
+          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+          f"share {rec['share']:.3f}), library {rec['library_ms']} ms per {unit}")
+    return rec
+
+
+def phase_partseg_kernels(dev, records) -> dict:
+    """60. The kernels at the part-seg nets' shapes (a kernel phase): FPS of
+    one attack geometry ([8, 2048] → 512, [8, 512] → 128 from index 0) and
+    of one train geometry ([16, 2048], random starts); the k = 32 ball
+    query on [8, 512, 2048] (SSG's, and MSG's first radius); the 3-NN hops
+    l0 ← l1 ([8, 2048, 512]) and l1 ← l2 ([8, 512, 128]) at k = 3; SOR's
+    self-kNN of [8, 2048, 3] at k = 11. Each equal to its plain version,
+    the geometry's indices equal to the calls'; card, eager and plain ms,
+    bound, share and ``torch.topk``'s ms for bottom-k. The ball queries of
+    k = 64 and 128 (SSG's second level, MSG's) take the stable sort: timed
+    beside the bottom-k kernel and ``torch.topk`` as a ``selection`` record."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.models.pointnet2_cls import (
+        PARTSEG_MSG_SPEC, PARTSEG_SSG_SPEC, build_geometry_partseg, build_geometry_partseg_msg,
+    )
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bounds, fps, knn
+    from pointsecguard_tpu_torch.ops.selection import KERNEL_MAX_K
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xyz = partseg_batch(dev)[0][..., :3].contiguous()
+    train_xyz = partseg_batch(dev, PS_TRAIN_BATCH, "trainval")[0][..., :3].contiguous()
+
+    def equal_bottom_k(vals, k, what):
+        gv, gi = bottomk.bottom_k(vals, k)
+        wv, wi = bottomk.bottom_k_plain(vals, k)
+        if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+            raise AssertionError(f"bottom_k kernel != plain at {what} {tuple(vals.shape)} k={k}")
+        if not torch.equal(topk_library(vals, k)[0], gv):
+            raise AssertionError(f"torch.topk values != bottom_k at {what}")
+        return gv, gi
+
+    for key, x, random_starts in (("partseg_attack", xyz, False),
+                                  ("partseg_train_step", train_xyz, True)):
+        b = x.shape[0]
+        starts = [torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+                  if random_starts else torch.zeros(b, dtype=torch.int32, device=dev)
+                  for n in (x.shape[1], PARTSEG_SSG_SPEC[0][0])]
+        fps_in, bq_in = cls_geometry_inputs(x, PARTSEG_SSG_SPEC, starts)
+        geo = build_geometry_partseg(x, start_idx=starts)
+        for li, (cur, npoint, st) in enumerate(fps_in):
+            got = fps.fps(cur, npoint, st)
+            if not torch.equal(got, fps.fps_plain(cur, npoint, st)):
+                raise AssertionError(f"fps kernel != plain at {tuple(cur.shape)}->{npoint}")
+            if not torch.equal(got, geo["fps"][li]):
+                raise AssertionError(f"{key}: the geometry's FPS != the kernel's, level {li}")
+        work = bounds.total(bounds.fps(c.shape[0], c.shape[1], n) for c, n, _ in fps_in)
+        records["fps"][key] = kernel_row(
+            f"fps ({key})", f"one part-seg geometry of [{b}, {PS_POINTS}]"
+            + (", random starts" if random_starts else ""),
+            lambda: [fps.fps(c, n, st) for c, n, st in fps_in],
+            lambda: [fps.fps_plain(c, n, st) for c, n, st in fps_in], work, len(fps_in))
+        if random_starts:
+            continue
+        vals, k = bq_in[0]
+        # the ball query's values are the indices (N outside the radius)
+        g = equal_bottom_k(vals, k, "the ball query")[0].to(torch.int32)
+        n = vals.shape[-1]
+        if not torch.equal(torch.where(g == n, g[..., :1], g), geo["sa"][0][1]):
+            raise AssertionError("the geometry's ball-query groups != the kernel's")
+        records["bottom_k"]["partseg_ball_query"] = kernel_row(
+            "bottom_k (part-seg ball query)", f"the k = {k} ball query of [{b}, 512, {n}]",
+            lambda: bottomk.bottom_k(vals, k), lambda: bottomk.bottom_k_plain(vals, k),
+            bounds.bottom_k(b * 512, n, k), 1, lambda: topk_library(vals, k))
+        l1, l2 = geo["sa"][0][0], geo["sa"][1][0]
+        for hop, (dst, src), (want_idx, want_w) in (("l0", (x, l1), geo["fp"][1]),
+                                                    ("l1", (l1, l2), geo["fp"][0])):
+            d = ops.square_distance(dst, src)
+            if not torch.equal(equal_bottom_k(d, 3, f"3-NN {hop}")[1], want_idx):
+                raise AssertionError(f"the geometry's 3-NN {hop} indices != the kernel's")
+            if not torch.equal(ops.three_nn_weights(dst, src, want_idx), want_w):
+                raise AssertionError(f"the geometry's 3-NN {hop} weights != the recomputed")
+            rows, width = dst.shape[0] * dst.shape[1], d.shape[-1]
+            records["bottom_k"][f"partseg_three_nn_{hop}"] = kernel_row(
+                f"bottom_k (part-seg 3-NN {hop})",
+                f"the 3-NN of {hop} ← {'l1' if hop == 'l0' else 'l2'}, "
+                f"[{b}, {dst.shape[1]}, {width}] k = 3",
+                lambda d=d: bottomk.bottom_k(d, 3), lambda d=d: bottomk.bottom_k_plain(d, 3),
+                bounds.bottom_k(rows, width, 3), 1, lambda d=d: topk_library(d, 3))
+    torch.cuda.synchronize()
+    # MSG: its first radius's k = 32 groups on the kernel, the rest sorted
+    starts = [torch.zeros(PS_BATCH, dtype=torch.int32, device=dev)] * 2
+    msg_geo = build_geometry_partseg_msg(xyz)
+    sort_rows = []
+    for spec, geo_sa, what in ((PARTSEG_SSG_SPEC, None, "ssg"),
+                               (PARTSEG_MSG_SPEC, msg_geo["sa"], "msg")):
+        _, bq_in = cls_geometry_inputs(xyz, spec, starts)
+        for j, (vals, k) in enumerate(bq_in):
+            if k <= KERNEL_MAX_K:
+                g = equal_bottom_k(vals, k, f"{what} ball query")[0].to(torch.int32)
+                n = vals.shape[-1]
+                if geo_sa is not None and not torch.equal(torch.where(g == n, g[..., :1], g),
+                                                          geo_sa[0][1][0]):
+                    raise AssertionError("MSG's first groups != the kernel's")
+                continue
+            vs, i_s = bottomk.bottom_k_plain(vals, k)
+            vb, i_b = bottomk.bottom_k(vals, k)
+            if not (torch.equal(i_b, i_s) and torch.equal(vb, vs)
+                    and torch.equal(topk_library(vals, k)[0], vs)):
+                raise AssertionError(f"large-k ball query k={k}: bottom_k or torch.topk != "
+                                     "the sort")
+            sort_rows.append({
+                "geometry": what, "shape": list(vals.shape), "k": k,
+                "sort_ms": device_ms(lambda: bottomk.bottom_k_plain(vals, k), reps=5),
+                "bottom_k_ms": device_ms(lambda: bottomk.bottom_k(vals, k), reps=5),
+                "topk_ms": device_ms(lambda: topk_library(vals, k), reps=5),
+                "bottom_k_bound_ms": bounds.bottom_k(
+                    vals.numel() // vals.shape[-1], vals.shape[-1], k).bound_ms})
+    # SOR's self-kNN: k + 1 = 11 neighbours of each of [8, 2048] points
+    gv, gi = knn.knn(xyz, xyz, 11)
+    wv, wi = knn.knn_plain(xyz, xyz, 11)
+    if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+        raise AssertionError("knn kernel != plain at SOR's [8, 2048, 3] k=11")
+    records["knn"]["partseg_sor"] = kernel_row(
+        "knn (part-seg SOR)", f"SOR's self-kNN of [{PS_BATCH}, {PS_POINTS}, 3], k = 11",
+        lambda: knn.knn(xyz, xyz, 11), lambda: knn.knn_plain(xyz, xyz, 11),
+        bounds.knn(PS_BATCH, PS_POINTS, PS_POINTS, 3, 11), 1)
+    sums = {key: sum(r[key] for r in sort_rows) for key in ("sort_ms", "bottom_k_ms", "topk_ms")}
+    print("part-seg large-k ball queries (k = 64, 128) a forward pair (SSG + MSG): "
+          + json.dumps(sums) + "; per call: " + json.dumps(sort_rows))
+    return {"name": "partseg_large_k_selection",
+            "route": "torch.sort (stable): bottom_k_plain, not a kernel of the port",
+            "replaces": "pointsecguard_tpu/ops/selection.py:138-151 (lax.top_k, not a "
+                        "Pallas kernel)",
+            "timed_beside": ["bottom_k kernel", "torch.topk"],
+            "per_forward_pair": sums, "per_call": sort_rows}
+
+
+def partseg_state_dict(model: str, seed: int, dev) -> dict:
+    """Full-width weights of a part-seg net from ``init_parameters`` of a
+    seeded generator (the flax initialisers), BatchNorm statistics from one
+    train-mode forward over the 8 test shapes (keep fraction 0), carried
+    through the flax layout and back (``utils/convert.py``, the way the JAX
+    package's weights arrive)."""
+    from pointsecguard_tpu_torch.models import init_parameters
+    from pointsecguard_tpu_torch.train.trainer import cls_model
+    from pointsecguard_tpu_torch.utils.convert import (
+        cls_from_jax_variables,
+        cls_to_jax_variables,
+    )
+
+    net, family = cls_model(model, 50)
+    init_parameters(net, torch.Generator().manual_seed(seed))
+    n = sum(t.numel() for t in net.state_dict().values())
+    if n != PS_STATE_FLOATS[model]:
+        raise AssertionError(f"{model} holds {n} floats, want {PS_STATE_FLOATS[model]}")
+    net.to(dev).train()
+    pts, onehot, _ = partseg_batch(dev)
+    packed = torch.cat([pts, onehot[:, None].expand(-1, PS_POINTS, -1)], -1)
+    with torch.no_grad():
+        family.apply(net, packed, family.plan(packed), 1.0,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    return cls_from_jax_variables(model, cls_to_jax_variables(model, net.state_dict()))
+
+
+def pinned_moving_plan(plan: dict, xyz: torch.Tensor, detach_weights: bool = False) -> dict:
+    """The moving geometry on ``plan``'s indices (FPS, groups, 3-NN): the
+    centres regathered from ``xyz`` and the 3-NN weights recomputed from
+    them (``three_nn_weights``), both carrying ``xyz``'s gradient, unless
+    ``detach_weights``. Pinning the indices holds both devices to one
+    function where their roundings could break a near-tie apart."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.models.pointnet2_cls import regather
+
+    geo = regather(plan, xyz)
+    l1, l2 = geo["sa"][0][0], geo["sa"][1][0]
+    fp = []
+    for (idx, _), (dst, src) in zip(plan["fp"], ((l1, l2), (xyz, l1))):
+        w = ops.three_nn_weights(dst, src, idx)
+        fp.append((idx, w.detach() if detach_weights else w))
+    return {**geo, "fp": tuple(fp)}
+
+
+def phase_partseg_reference(dev, model: str) -> dict:
+    """61. Card vs CPU for a part-seg net, seeded weights through the flax
+    layout, on 4 test shapes of 2048 points (the CPU's float64 runs are
+    most of the phase: 29.0 s at 8 on an H100's host): the geometry built on both
+    (FPS equal, groups and 3-NN indices in agreement), then, on the card's
+    indices with the centres and 3-NN weights recomputed from the leaf (the
+    moving geometry), the log-probabilities and the xyz gradient of the NB
+    loss (the mean NLL of the part labels) on the card and on the CPU, in
+    float32 and float64, against the CPU's float64. The 3-NN weights' share
+    of the card's gradient: its distance from the gradient on the same
+    plan with the weights detached, which must not be zero."""
+    from pointsecguard_tpu_torch.train.trainer import cls_model
+
+    net, _ = cls_model(model, 50)
+    net.load_state_dict(partseg_state_dict(model, 1, dev))
+    net.eval()
+    pts, onehot, seg = partseg_batch(dev, PS_BATCH // 2)
+    build = getattr(net, "build_geometry", None)
+    plan, agree = None, {}
+    if build is not None:
+        plan = build(pts[..., :3])
+        plan_cpu = build(pts[..., :3].cpu())
+        for li in range(2):
+            if not torch.equal(plan["fps"][li].cpu(), plan_cpu["fps"][li]):
+                raise AssertionError(f"{model}: FPS differs card vs CPU at level {li}")
+        groups = [(a.cpu() == b).float().mean().item()
+                  for (_, g), (_, c) in zip(plan["sa"], plan_cpu["sa"])
+                  for a, b in zip(g if isinstance(g, tuple) else (g,),
+                                  c if isinstance(c, tuple) else (c,))]
+        nn3 = [(a[0].cpu() == b[0]).float().mean().item()
+               for a, b in zip(plan["fp"], plan_cpu["fp"])]
+        agree = {"group_agreement_min": min(groups), "three_nn_agreement_min": min(nn3)}
+        if min(groups + nn3) < 0.999:
+            raise AssertionError(f"{model}: card/CPU index agreement {agree} < 0.999")
+    out = {}
+    cpu = torch.device("cpu")
+
+    def run(device, dtype, detach_weights=False):
+        m = net.to(device=device, dtype=dtype)
+        p = pts.to(device=device, dtype=dtype).clone().requires_grad_(True)
+        oh = onehot.to(device=device, dtype=dtype)
+        if plan is None:
+            lp = m(p, oh)[0]
+        else:
+            lp = m(p, oh, geometry=pinned_moving_plan(_to_device(plan, device, dtype), p[..., :3],
+                                                      detach_weights))[0]
+        (-torch.gather(lp, -1, seg.to(device)[..., None]).mean()).backward()
+        return lp.detach().double().cpu(), p.grad[..., :3].double().cpu()
+
+    for name, device, dtype in (("card", dev, torch.float32), ("card64", dev, torch.float64),
+                                ("cpu", cpu, torch.float32), ("float64", cpu, torch.float64)):
+        out[name] = run(device, dtype)
+    ref_lp, ref_grad = out["float64"]
+    scale = ref_lp.abs().max().item()
+    err = {n: (out[n][0] - ref_lp).abs().max().item() / scale for n in ("card", "card64", "cpu")}
+    gerr = {n: _rel_l2(out[n][1], ref_grad) for n in ("card", "card64", "cpu")}
+    res = {**agree, "largest_log_prob": scale,
+           "log_probs_card_vs_cpu_over_largest":
+               (out["card"][0] - out["cpu"][0]).abs().max().item() / scale,
+           "log_probs_vs_cpu_float64_over_largest": err,
+           "xyz_grad_card_vs_cpu_rel_l2": _rel_l2(out["card"][1], out["cpu"][1]),
+           "xyz_grad_vs_cpu_float64_rel_l2": gerr,
+           "pred_spread": int(torch.unique(ref_lp.argmax(-1)).numel())}
+    if plan is not None:
+        res["three_nn_weight_share_rel_l2"] = _rel_l2(run(dev, torch.float32, True)[1],
+                                                      out["card"][1])
+    print(f"{model} card vs CPU: " + json.dumps(res))
+    bound32, bound64 = PS_REFERENCE_BOUNDS
+    ok = (torch.isfinite(out["card"][0]).all() and out["card"][0].shape == (len(pts), PS_POINTS, 50)
+          and err["card64"] <= bound64["log_probs"] and gerr["card64"] <= bound64["grad"]
+          and err["card"] <= bound32["log_probs"] and gerr["card"] <= bound32["grad"]
+          and res["pred_spread"] > 1)
+    if not ok:
+        raise AssertionError(f"the card's {model} disagrees with the CPU's")
+    if plan is not None and not res["three_nn_weight_share_rel_l2"] > 1e-3:
+        raise AssertionError(f"{model}: the 3-NN weights carry no share of the xyz gradient")
+    return res
+
+
+def _partseg_counts_check(model: str, counts: dict, forwards: int, what: str,
+                          knn_per_forward: int = 0) -> None:
+    """Exactly ``PS_LAUNCHES[model]`` FPS and bottom-k launches a forward,
+    ``forwards`` forwards, and ``knn_per_forward`` kNN each."""
+    want = {k: n * forwards for k, n in PS_LAUNCHES[model].items()}
+    want["knn"] = knn_per_forward * forwards
+    got = {k: counts[k] for k in want}
+    if got != want or forwards <= 0:
+        raise AssertionError(f"{model} {what}: launches {counts}, want {want} "
+                             f"({forwards} forwards)")
+
+
+def phase_partseg_train_eval(dev, records, model: str) -> tuple[str, dict]:
+    """62. ``cli.train`` of a part-seg net at full width on the fixture (16 a
+    batch, 4 steps an epoch, ``PS_TRAIN_EPOCHS`` epochs, an eval every
+    ``PS_EVAL_EVERY`` and after the last, lr 3e-3), then ``cli.eval`` (the
+    trainer's best figures, instance mIoU at or above ``PS_MIOU_FLOOR``):
+    one geometry's launches a train step and an eval batch, ms a step."""
+    from pointsecguard_tpu_torch.cli import eval as cli_eval
+    from pointsecguard_tpu_torch.cli import train as cli_train
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    data = partseg_data()
+    log = os.path.join(WORK, f"partseg_log_{model}")
+    steps = 3 * (PS_TRAIN_PER_CLASS + PS_VAL_PER_CLASS) // PS_TRAIN_BATCH
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, best = cli_train.main(["--model", model, "--data_root", data, "--log_dir", log,
+                              "--batch_size", str(PS_TRAIN_BATCH), "--epochs",
+                              str(PS_TRAIN_EPOCHS), "--eval_every", str(PS_EVAL_EVERY),
+                              "--learning_rate", str(PS_TRAIN_LR)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    events = read_events(log)
+    epochs = [e for e in events if e["event"] == "epoch"]
+    evals = [e for e in events if e["event"] == "eval"]
+    if [e["epoch"] for e in epochs] != list(range(PS_TRAIN_EPOCHS)) or any(
+            e["batches"] != steps or e["nan_batches"] or not math.isfinite(e["loss"])
+            for e in epochs):
+        raise AssertionError(f"{model} train epochs: {epochs}")
+    test_batches = -(-3 * PS_TEST_PER_CLASS // PS_TRAIN_BATCH)
+    _partseg_counts_check(model, counts, steps * PS_TRAIN_EPOCHS + len(evals) * test_batches,
+                          "train")
+    warm = epochs[1:]
+    stats = {"steps": steps * PS_TRAIN_EPOCHS, "epoch_loss": [e["loss"] for e in epochs],
+             "eval_instance_miou": [e["instance_miou"] for e in evals], "best": best,
+             "main_wall_s": wall, "launches": counts,
+             "ms_per_step_host_clock": 1e3 * sum(e["seconds"] for e in warm)
+             / sum(e["batches"] for e in warm)}
+    kernels.reset_launch_counts()
+    m = cli_eval.main(["--model", model, "--data_root", data, "--log_dir", log])
+    eval_counts = kernels.launch_counts()
+    _partseg_counts_check(model, eval_counts, test_batches, "eval")
+    stats.update(eval_cli={k: v for k, v in m.items() if k != "category_miou"},
+                 eval_launches=eval_counts)
+    print(f"{model} train + eval: " + json.dumps(stats))
+    if not epochs[-1]["loss"] < epochs[0]["loss"]:
+        raise AssertionError(f"{model}: the loss did not fall")
+    if abs(m["instance_miou"] - best) > 1e-9:
+        raise AssertionError(f"{model}: cli.eval {m['instance_miou']} != the trainer's best "
+                             f"{best}")
+    if m["instance_miou"] < PS_MIOU_FLOOR:
+        raise AssertionError(f"{model}: instance mIoU {m['instance_miou']} under "
+                             f"{PS_MIOU_FLOOR}")
+    for name, per in PS_LAUNCHES[model].items():
+        if per:
+            records[name]["launches_by_path"][f"{model} train"] = counts[name]
+            records[name]["launches_by_path"][f"{model} eval"] = eval_counts[name]
+            records[name]["calls_per_batch"][f"{model} train step"] = per
+            records[name]["calls_per_batch"][f"{model} eval batch"] = per
+    return log, stats
+
+
+# (model, path name, flags): the attack_object runs of phase 63, each on one
+# batch of 8 test shapes
+PS_ATTACKS = tuple((m, "nb --control", ["--attack", "nb", "--control"]) for m in PS_MODELS) + (
+    ("pointnet2_part_seg", "tar_nb --origin --target",
+     ["--attack", "tar_nb", "--origin", "47", "--target", "49"]),
+    ("pointnet2_part_seg", "nu", ["--attack", "nu", "--steps", str(PS_NU_STEPS)]),
+    ("pointnet2_part_seg", "nb --defense sor", ["--attack", "nb", "--defense", "sor"]),
+)
+
+
+def phase_partseg_attacks(records, logs: dict) -> dict:
+    """63. ``cli.attack_object`` on the trained part-seg nets, one batch of
+    8 test shapes a run: NB ``--control`` on each, then on the SSG tar_NB
+    from the Table's part 47 to its part 49 (only part-47 points move), NU
+    cut to ``PS_NU_STEPS`` steps and NB ``--defense sor``. ms a batch,
+    forwards, the launches of each kernel by path (the geometry moves with
+    the points: 2 FPS and 3 bottom-k a forward, SOR one kNN more), mIoU
+    clean / adversarial / control."""
+    from pointsecguard_tpu_torch import models
+    from pointsecguard_tpu_torch.cli import attack_object as cli
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    classes = {"pointnet2_part_seg": models.PointNet2PartSegSSG,
+               "pointnet2_part_seg_msg": models.PointNet2PartSegMSG,
+               "pointnet_part_seg": models.PointNetPartSeg}
+    runs = {}
+    for model, path, flags in PS_ATTACKS:
+        forwards, real = [0], classes[model].forward
+
+        def forward(self, *a, _real=real, **k):
+            forwards[0] += 1
+            return _real(self, *a, **k)
+
+        classes[model].forward = forward
+        kernels.reset_launch_counts()
+        try:
+            out = cli.main(["--model", model, "--data_root", partseg_data(), "--log_dir",
+                            logs[model], "--max_shapes", str(PS_BATCH), *flags])
+            torch.cuda.synchronize()
+        finally:
+            classes[model].forward = real
+        counts = kernels.launch_counts()
+        stats = {"ms_per_batch": out["batch_ms"], "forwards": forwards[0],
+                 "clean_miou": out["clean_miou"], "adv_miou": out["adv_miou"],
+                 "rand_miou": out["rand_miou"], "l2_mean": out["l2_mean"], "launches": counts}
+        print(f"{model} {path}: " + json.dumps(stats))
+        _partseg_counts_check(model, counts, forwards[0], path, int("sor" in path))
+        if path == "nb --control" and forwards[0] != 54:
+            raise AssertionError(f"{model} {path}: {forwards[0]} forwards, want 54 (clean, 50 "
+                                 "steps, the engine's last, adversarial, control)")
+        if not all(math.isfinite(v) for v in (out["clean_miou"], out["adv_miou"],
+                                             out["l2_mean"])) or not out["l2_mean"] > 0:
+            raise AssertionError(f"{model} {path}: a non-finite or null result")
+        if path.startswith("nb") and not out["adv_miou"] < out["clean_miou"]:
+            raise AssertionError(f"{model} {path}: adversarial mIoU not below clean")
+        for name in ("fps", "bottom_k", "knn"):
+            if counts[name]:
+                records[name]["launches_by_path"][f"{model} {path}"] = counts[name]
+                records[name]["calls_per_batch"][f"{model} {path}"] = counts[name]
+        runs[f"{model} {path}"] = stats
+    return runs
+
+
+def run_partseg_phases(dev, records) -> None:
+    """Phases 61-63 (60 runs with the kernel phases)."""
+    t0 = time.perf_counter()
+    for model in PS_MODELS:
+        phase_partseg_reference(dev, model)
+    print(f"phase 61: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    logs = {model: phase_partseg_train_eval(dev, records, model)[0] for model in PS_MODELS}
+    print(f"phase 62: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_partseg_attacks(records, logs)
+    print(f"phase 63: {time.perf_counter() - t0:.1f} s")
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -5079,7 +5592,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 35 and 56); the last line then "
+                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56 and 60); the last line then "
                              "carries \"ok\": false, "
                              "because the slices were not driven")
     args = parser.parse_args(argv)
@@ -5142,73 +5655,73 @@ def main(argv=None) -> int:
     }
     from pointsecguard_tpu_torch.data import make_synthetic_rooms
 
+    def timed(label, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    t0 = time.perf_counter()
     data = os.path.join(WORK, "data")
     make_synthetic_rooms(data, points_per_room=ROOM_POINTS, seed=0)
     prep = prepare_randla(data)
-    phase_kernels(dev, records)
-    phase_attentive_kernels(dev, records)
+    print(f"phases 6-7 set-up (synthetic rooms, RandLA preparation): "
+          f"{time.perf_counter() - t0:.1f} s")
+    timed(3, phase_kernels, dev, records)
+    timed(8, phase_attentive_kernels, dev, records)
     feats = randla_batch(prep, dev)
     xyz = feats[..., :3].contiguous()
-    phase_randla_kernels(dev, records, xyz)
-    phase_routes(records, xyz)
-    t0 = time.perf_counter()
-    phase_resample_knn(dev, records, xyz)
-    print(f"phase 42: {time.perf_counter() - t0:.1f} s")
+    timed(4, phase_randla_kernels, dev, records, xyz)
+    timed(5, phase_routes, records, xyz)
+    timed(42, phase_resample_knn, dev, records, xyz)
     del xyz
-    phase_train_kernels(dev, records)
-    train_feats, train_labels = phase_randla_train_knn(dev, records, prep)
-    phase_bottom_k_vjp(dev)
-    selection = phase_resgcn_kernels(dev, records, data)
-    t0 = time.perf_counter()
-    phase_msg_kernels(dev, records)
-    print(f"phase 35: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    cls_selection = phase_cls_kernels(dev, records)
-    print(f"phase 56: {time.perf_counter() - t0:.1f} s")
+    timed(14, phase_train_kernels, dev, records)
+    train_feats, train_labels = timed(20, phase_randla_train_knn, dev, records, prep)
+    timed(21, phase_bottom_k_vjp, dev)
+    selection = timed(27, phase_resgcn_kernels, dev, records, data)
+    timed(35, phase_msg_kernels, dev, records)
+    cls_selection = timed(56, phase_cls_kernels, dev, records)
+    partseg_selection = timed(60, phase_partseg_kernels, dev, records)
+    selections = [selection, cls_selection, partseg_selection]
+    print(f"kernel phases: the run so far {time.perf_counter() - started:.1f} s")
     if args.kernels_only:
-        print(json.dumps({"selection": [selection, cls_selection]}))
+        print(json.dumps({"selection": selections}))
         print(json.dumps({"kernels": list(records.values())}))
         print(card)
         print(json.dumps({"ok": False, "kernels_only": True}))
         return 1
-    phase_slice(dev, records, data)
-    phase_reference(dev)
-    phase_pointnet2_nu(data, records)
-    sd = randla_state_dict(0, dev, feats)
-    phase_fused_model(dev, feats, sd)
+    timed(6, phase_slice, dev, records, data)
+    timed("6 (card vs CPU)", phase_reference, dev)
+    timed(12, phase_pointnet2_nu, data, records)
+    sd = timed("9 (seeded RandLA weights)", randla_state_dict, 0, dev, feats)
+    timed(9, phase_fused_model, dev, feats, sd)
     del feats
-    phase_randla(dev, records, prep, sd)
-    phase_randla_nu(prep, records)
-    phase_randla_reference(dev, prep)
-    phase_trained_fixture(dev)
-    phase_train_step(dev)
-    train_data, train_log, _ = phase_train(dev, records)
-    phase_eval(train_data, train_log)
-    phase_attack_trained(train_data, train_log)
-    t0 = time.perf_counter()
-    phase_protocol_blocks(train_data, train_log, records)
-    t1 = time.perf_counter()
-    phase_defense_reference(dev)
-    print(f"phases 43-44: {t1 - t0:.1f} + {time.perf_counter() - t1:.1f} s")
-    phase_randla_train_step(dev, prep)
-    phase_fused_train(dev, records, train_feats, train_labels)
+    timed("7 and 10", phase_randla, dev, records, prep, sd)
+    timed(11, phase_randla_nu, prep, records)
+    timed(13, phase_randla_reference, dev, prep)
+    timed(15, phase_trained_fixture, dev)
+    timed(16, phase_train_step, dev)
+    train_data, train_log, _ = timed(17, phase_train, dev, records)
+    timed(18, phase_eval, train_data, train_log)
+    timed(19, phase_attack_trained, train_data, train_log)
+    timed(43, phase_protocol_blocks, train_data, train_log, records)
+    timed(44, phase_defense_reference, dev)
+    timed(22, phase_randla_train_step, dev, prep)
+    timed(23, phase_fused_train, dev, records, train_feats, train_labels)
     del train_feats, train_labels
-    randla_log, _ = phase_randla_train(dev, records, prep)
-    phase_randla_eval(prep, randla_log, records)
-    phase_randla_attack_trained(prep, randla_log)
-    t0 = time.perf_counter()
-    phase_randla_protocol(prep, randla_log, records)
-    print(f"phase 45: {time.perf_counter() - t0:.1f} s")
-    phase_resgcn_reference(dev)
-    resgcn_dynamic = phase_resgcn_nb(dev, records, data)
-    t0 = time.perf_counter()
-    phase_resgcn_fixed(data, records, resgcn_dynamic)
-    print(f"phase 46: {time.perf_counter() - t0:.1f} s")
-    phase_resgcn_nu(dev, records, data)
-    phase_resgcn_train_step(dev)
-    resgcn_data, resgcn_log, _ = phase_resgcn_train(dev, records)
-    phase_resgcn_eval(resgcn_data, resgcn_log, records)
-    phase_resgcn_attack_trained(resgcn_data, resgcn_log)
+    randla_log, _ = timed(24, phase_randla_train, dev, records, prep)
+    timed(25, phase_randla_eval, prep, randla_log, records)
+    timed(26, phase_randla_attack_trained, prep, randla_log)
+    timed(45, phase_randla_protocol, prep, randla_log, records)
+    timed(28, phase_resgcn_reference, dev)
+    resgcn_dynamic = timed(29, phase_resgcn_nb, dev, records, data)
+    timed(46, phase_resgcn_fixed, data, records, resgcn_dynamic)
+    timed(30, phase_resgcn_nu, dev, records, data)
+    timed(31, phase_resgcn_train_step, dev)
+    resgcn_data, resgcn_log, _ = timed(32, phase_resgcn_train, dev, records)
+    timed(33, phase_resgcn_eval, resgcn_data, resgcn_log, records)
+    timed(34, phase_resgcn_attack_trained, resgcn_data, resgcn_log)
+    print(f"phases 1-35 and 42-46: the run so far {time.perf_counter() - started:.1f} s")
     phases_36_41 = time.perf_counter()
     block_logs = {"pointnet2": train_log}
     for model in BLOCK_MODELS:
@@ -5254,6 +5767,10 @@ def main(argv=None) -> int:
     run_cls_phases(dev, records)
     print(f"phases 57-59: {time.perf_counter() - phases_57_59:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_61_63 = time.perf_counter()
+    run_partseg_phases(dev, records)
+    print(f"phases 61-63: {time.perf_counter() - phases_61_63:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -5262,7 +5779,9 @@ def main(argv=None) -> int:
                       "pointnet2_msg train", "pointnet2 nb --ensemble", "pointnet2 benchmark",
                       "pointnet2_cls train", "pointnet2_cls eval", "pointnet2_cls_msg train",
                       "pointnet2_cls_msg eval", "pointnet2_cls benchmark",
-                      *(f"pointnet2_cls {path}" for path, _, _ in CLS_ATTACKS)}
+                      *(f"pointnet2_cls {path}" for path, _, _ in CLS_ATTACKS),
+                      *(f"{m} {what}" for m in PS_MODELS[:2] for what in ("train", "eval")),
+                      *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg")}
     for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval",
@@ -5273,7 +5792,8 @@ def main(argv=None) -> int:
                                  "randla semantic3d train", "randla semantic3d eval",
                                  "randla semantic3d nb", "randla semantickitti train",
                                  "randla semantickitti eval",
-                                 "pointnet2_cls nb --defense sor"})):
+                                 "pointnet2_cls nb --defense sor",
+                                 "pointnet2_part_seg nb --defense sor"})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")
@@ -5281,14 +5801,17 @@ def main(argv=None) -> int:
     for r in records.values():
         if not r["launches"] > 0:
             raise AssertionError(f"kernel {r['name']} never launched on its main path")
-    print(json.dumps({"selection": [selection, cls_selection]}))
+    print(json.dumps({"selection": selections}))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "msg_attack",
                               "msg_train_step", "resgcn_forward", "resample",
                               "semantic3d_pyramid", "semantickitti_pyramid",
                               "semantic3d_pass", "cls_attack", "cls_msg_attack",
-                              "cls_train_step", "sor", "launches_by_path")
+                              "cls_train_step", "sor", "partseg_attack",
+                              "partseg_train_step", "partseg_ball_query",
+                              "partseg_three_nn_l0", "partseg_three_nn_l1", "partseg_sor",
+                              "launches_by_path")
             if k in r}}
         for r in records.values()]}))
     print(card)

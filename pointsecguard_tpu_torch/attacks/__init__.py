@@ -17,6 +17,7 @@ import dataclasses
 from pointsecguard_tpu_torch.attacks.benchmark import (
     ATTACKS,
     AttackBenchmark,
+    cw_coefficient_binsearch,
     distortion_binsearch,
     iteration_curve,
     load_attack,
@@ -131,6 +132,7 @@ __all__ = [
     "boundary_attack",
     "cw_color_attack",
     "deepfool_attack",
+    "cw_coefficient_binsearch",
     "distortion_binsearch",
     "equal_norm_color_noise",
     "evolutionary_attack",

@@ -1,7 +1,7 @@
 """The ares attack benchmark layer (port of
 ``pointsecguard_tpu/attacks/benchmark.py``): the registry, batched attack
 evaluation with ares' five result arrays, minimal-distortion binary
-search, per-iteration curves and the worst case over several attacks
+search, the C&W coefficient search, per-iteration curves and the worst case over several attacks
 (`RandLA-Net/ares/ares/benchmark/{attack,distortion,iteration}.py`).
 
 Every harness takes a per-batch closure factory, ``make_outputs_fn(points)
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Callable
 
 import numpy as np
@@ -232,6 +233,76 @@ def distortion_binsearch(
             lo = mid
     details["epsilon"] = hi
     return hi, details
+
+
+def cw_coefficient_binsearch(
+    make_outputs_fn: MakeOutputs,
+    points: torch.Tensor,
+    labels: torch.Tensor,
+    base_cfg: CWConfig,
+    *,
+    mask: torch.Tensor | None = None,
+    success_sr: float = 0.9,
+    search_steps: int = 5,
+    binsearch_steps: int = 6,
+    coeff_fields: tuple[str, ...] = ("smooth_coeff", "l2_coeff"),
+) -> tuple[float, dict]:
+    """Largest distortion-penalty coefficient c at which a targeted C&W run
+    reaches a success rate above ``success_sr`` (JAX
+    `attacks/benchmark.py:212-285`): the C&W analogue of the distortion
+    search (`distortion.py:8-370` searches ε; C&W's budget knob is the c
+    that multiplies the smooth + L2 penalty, `NU_target_test_semseg.py:181`).
+
+    c is the value of ``coeff_fields[0]``; a probe at c scales every field
+    of ``coeff_fields`` by the same factor c / c0, c0 the budget's own, so
+    that their ratio holds. (JAX sets every field to c, so ``l2_coeff``
+    loses its own value wherever it differs from the first.) The search
+    probes down from c0 by quarters (success gets easier as the penalty
+    shrinks; c = 0 is unbounded distortion), then bisects in log space.
+
+    Returns (c_threshold, details): the largest probed c that succeeded;
+    c0 if the budget itself succeeds, 0 if only c = 0 does, nan if none.
+    ``details["probes"]`` records each probe's c, sr, acc, mean L2 and mean
+    exit step (rounded as JAX's)."""
+    c0 = float(getattr(base_cfg, coeff_fields[0]))
+    if c0 <= 0:
+        raise ValueError(f"{coeff_fields[0]} = {c0}: no coefficient to scale")
+    base = {f: float(getattr(base_cfg, f)) for f in coeff_fields}
+    outputs_fn = make_outputs_fn(points)
+    details: dict = {"probes": []}
+
+    def probe(c: float) -> bool:
+        # c · (v / c0): exactly c for every field equal to c0
+        cfg = _replace_if_field(base_cfg, **{f: c * (v / c0) for f, v in base.items()})
+        res = cw_color_attack(outputs_fn, points, labels, cfg, mask=mask)
+        sr = float(res.success_rate)
+        details["probes"].append({
+            "c": float(c), "sr": round(sr, 4), "acc": round(float(res.acc), 4),
+            "l2_mean": round(float(res.l2_dist.mean()), 3),
+            "steps_mean": None if res.steps_b is None
+            else round(float(res.steps_b.float().mean()), 1)})
+        return sr > success_sr
+
+    def done(c: float) -> tuple[float, dict]:
+        details["c_threshold"] = c
+        return c, details
+
+    if probe(c0):
+        return done(c0)  # the budget already succeeds
+    hi_fail = lo = c0
+    for _ in range(search_steps):
+        hi_fail, lo = lo, lo / 4.0
+        if probe(lo):
+            break
+    else:
+        return done(0.0 if probe(0.0) else float("nan"))
+    for _ in range(binsearch_steps):  # log-space bisection on [lo (success), hi_fail]
+        mid = math.exp(0.5 * (math.log(lo) + math.log(hi_fail)))
+        if probe(mid):
+            lo = mid
+        else:
+            hi_fail = mid
+    return done(lo)
 
 
 def iteration_curve(

@@ -1,20 +1,30 @@
-"""Attacks on the ModelNet classifiers in the coordinate domain (port of
-``pointsecguard_tpu/cli/attack_object.py:40-393``, its classification half):
+"""Attacks on the object-task models in the coordinate domain: the
+ModelNet classifiers and the ShapeNetPart part-seg nets (port of
+``pointsecguard_tpu/cli/attack_object.py``):
 
   python -m pointsecguard_tpu_torch.cli.attack_object --model pointnet2_cls \
       --data_root data/modelnet40_normal_resampled --log_dir log/cls --attack nb
+  python -m pointsecguard_tpu_torch.cli.attack_object --model pointnet2_part_seg \
+      --data_root data/shapenetcore_partanno_segmentation_benchmark_v0_normal \
+      --log_dir log/partseg --attack tar_nb --origin 12 --target 13
 
 The PGD and C&W engines of ``cli.attack`` with the perturbation domain
 moved from the colours to the coordinates: channels (0, 3), no clip (the
 shapes are normalised into the unit sphere, so C&W's tanh box is (−1, 1));
 the normals, when given, do not move. The classifier's [B, K]
 log-probabilities are wrapped as [B, 1, K] one-point clouds, so the
-per-point engines score one prediction per shape.
+per-point engines score one prediction per shape; a part-seg net is
+per-point as the segmentation victims are, its category one-hot riding
+with every forward (2048 points and batch 8 by default). Under
+``tar_nb`` / ``tar_nu`` with ``--origin`` ≥ 0 only the points of part
+``--origin`` move (``make_target_labels``, the semantic-segmentation
+targeted protocol on part labels).
 
 By default the geometry (FPS and ball query on the FPS and bottom-k
 kernels) is built again in every forward of the attack: the points move,
 and the neighbourhoods with them, and the centres carry their gradient
-(``models.pointnet2_cls.moving_geometry``). ``--fixed_geometry`` freezes it
+(``models.pointnet2_cls.moving_geometry``; a part-seg net's 3-NN weights
+too, ``moving_geometry_partseg``). ``--fixed_geometry`` freezes it
 at the clean shape instead (faster; the neighbourhoods then stop following
 the points). ``--defense sor|srs`` deploys statistical outlier removal
 (kNN kernel, k + 1 neighbours) or random subsampling; every reported
@@ -22,12 +32,14 @@ prediction (clean, adversarial, control) is the deployed defense's, and
 the attacker differentiates through it (with ``--eot K``, the mean over K
 fixed SRS draws). ``--control`` adds the equal-norm random control.
 
-Per shape one TSV row ``idx, label, clean_pred, adv_pred, l2[, rand_pred]``
-in ``<log_dir>/<model>_<attack>_object.tsv``, and the JAX driver's summary
-line. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path by
-request. Accepted by name and stopped with "not ported yet": the
-part-segmentation models (``--model *_part_seg*``, and ``--origin`` with
-them), ``--devices`` other than 1 and ``--precision bfloat16``.
+Per shape one TSV row in ``<log_dir>/<model>_<attack>_object.tsv``
+(classifiers: ``idx, label, clean_pred, adv_pred, l2[, rand_pred]``;
+part-seg: ``idx, category, clean_miou, adv_miou, l2[, rand_miou]``, the
+mIoU over the category's parts, a row that a defense replaced scored
+against its own label), and the JAX CLI's summary line. It runs on the
+GPU; ``--device cpu`` runs the plain PyTorch path by request. Accepted by
+name and stopped with "not ported yet": ``--devices`` other than 1 and
+``--precision bfloat16``.
 """
 
 from __future__ import annotations
@@ -37,10 +49,9 @@ import logging
 import os
 import time
 
-from pointsecguard_tpu_torch.cli.train import CLS_MODELS
+from pointsecguard_tpu_torch.cli.train import CLS_MODELS, PART_SEG_MODELS
 
-PART_SEG_MODELS = ("pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg")
-_UNPORTED_DEFAULTS = {"devices": 1, "precision": "float32", "origin": -1}
+_UNPORTED_DEFAULTS = {"devices": 1, "precision": "float32"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -49,8 +60,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--attack", default="nb", choices=["nb", "nu", "tar_nb", "tar_nu", "random"])
     ap.add_argument("--data_root", default="data/modelnet40_normal_resampled")
     ap.add_argument("--log_dir", default="log/run")
-    ap.add_argument("--num_point", type=int, default=0, help="0 = 1024 a shape")
-    ap.add_argument("--batch_size", type=int, default=0, help="0 = 16")
+    ap.add_argument("--num_point", type=int, default=0,
+                    help="0 = 1024 a ModelNet shape, 2048 a ShapeNetPart shape")
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="0 = 16 (classifiers), 8 (part-seg nets)")
     ap.add_argument("--num_category", type=int, default=40)
     ap.add_argument("--no_normals", action="store_true")
     ap.add_argument("--max_shapes", type=int, default=0, help="0 = all")
@@ -66,7 +79,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kappa", type=float, default=0.0)
     ap.add_argument("--smooth", type=float, default=0.0,
                     help="C&W kNN smoothness coefficient on the moved points")
-    ap.add_argument("--target", type=int, default=0, help="the target class")
+    ap.add_argument("--target", type=int, default=0,
+                    help="the target class (part-seg: the target part)")
     ap.add_argument("--noise_norm", type=float, default=1.0,
                     help="--attack random: per-shape L2 of the noise")
     ap.add_argument("--control", action="store_true",
@@ -87,16 +101,20 @@ def _parser() -> argparse.ArgumentParser:
                          "runs the plain PyTorch path")
     ap.add_argument("--devices", "-d", type=int, default=1)
     ap.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
-    ap.add_argument("--origin", type=int, default=-1, help="part-seg only")
+    ap.add_argument("--origin", type=int, default=-1,
+                    help="part-seg tar_*: only the points of this part move "
+                         "(-1: every point)")
     return ap
 
 
 def _refuse_unported(args) -> None:
-    refused = [f"--model {args.model} (part segmentation)"] if args.model in PART_SEG_MODELS \
-        else []
-    refused += [f"--{name} {getattr(args, name)}"
-                for name, default in _UNPORTED_DEFAULTS.items()
-                if getattr(args, name) != default]
+    refused = [f"--{name} {getattr(args, name)}"
+               for name, default in _UNPORTED_DEFAULTS.items()
+               if getattr(args, name) != default]
+    if args.origin >= 0 and args.model in CLS_MODELS:
+        refused.append(f"--origin {args.origin} (with --model {args.model}: part-seg only)")
+    if args.num_category != 40 and args.model in PART_SEG_MODELS:
+        refused.append(f"--num_category {args.num_category} (with --model {args.model})")
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 
@@ -162,20 +180,34 @@ def main(argv=None):
         PGDConfig,
         cw_color_attack,
         equal_norm_color_noise,
+        make_target_labels,
         pgd_color_attack,
     )
-    from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
-    from pointsecguard_tpu_torch.train.object_eval import _padded_batches
+    from pointsecguard_tpu_torch.train.object_eval import _padded_batches, shape_part_ious
     from pointsecguard_tpu_torch.train.trainer import cls_model
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(args.device)
     use_normals = not args.no_normals
-    B = args.batch_size or 16
-    dataset = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
-                              num_category=args.num_category, use_normals=use_normals)
-    num_classes = dataset.num_classes
+    part = args.model in PART_SEG_MODELS
+    B = args.batch_size or (8 if part else 16)
+    if part:
+        from pointsecguard_tpu_torch.data.shapenet_part import (
+            NUM_OBJECT_CLASSES,
+            NUM_PART_CLASSES,
+            ShapeNetPartDataset,
+        )
+
+        dataset = ShapeNetPartDataset(args.data_root, "test", num_point=args.num_point or 2048,
+                                      use_normals=use_normals)
+        num_classes = NUM_PART_CLASSES
+    else:
+        from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
+
+        dataset = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
+                                  num_category=args.num_category, use_normals=use_normals)
+        num_classes = dataset.num_classes
     model, _ = cls_model(args.model, num_classes, use_normals)
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
@@ -183,13 +215,14 @@ def main(argv=None):
     if args.fixed_geometry and build is None:
         log.info("%s has no point-group geometry; --fixed_geometry is a no-op", args.model)
 
-    def make_outputs_fn(pts):
-        """[B, 1, K] log-probabilities; the geometry fixed at ``pts`` with
-        --fixed_geometry, else built in every forward."""
-        if args.model == "pointnet_cls":
-            return lambda p: model(p)[0][:, None, :]
-        geo = build(pts[..., :3]) if args.fixed_geometry else None
-        return lambda p: model(p, geometry=geo)[0][:, None, :]
+    def make_outputs_fn(pts, one_hot=None):
+        """Part-seg: [B, N, 50] log-probabilities of ``one_hot``'s
+        categories; classifiers: [B, 1, K]. The geometry fixed at ``pts``
+        with --fixed_geometry, else built in every forward."""
+        kw = {"geometry": build(pts[..., :3])} if args.fixed_geometry and build else {}
+        if part:
+            return lambda p: model(p, one_hot, **kw)[0]
+        return lambda p: model(p, **kw)[0][:, None, :]
 
     eval_wrap, attack_wrap = defense_wrapper(args) or (lambda f: f, lambda f: f)
     cfg = attack_config(args, num_classes)
@@ -197,77 +230,110 @@ def main(argv=None):
         # the attack is the equal-norm noise itself
         log.info("--control is a no-op with --attack random; ignoring")
         args.control = False
+    targeted = args.attack.startswith("tar_")
     xyz = {"channels": (0, 3), "clip": None, "centered": True}
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    def predict(f, p):
-        with torch.no_grad():
-            return torch.argmax(f(p), dim=-1)[:, 0]
-
-    def run(pts, labels):
-        """(clean, adversarial, control predictions, per-shape L2): every
-        prediction under the deployed defense, the attack through
-        ``attack_wrap``."""
-        f = make_outputs_fn(pts)  # --fixed_geometry: built once a batch
+    def run(pts, labels, one_hot=None):
+        """(clean, adversarial, control outputs, per-shape L2): every output
+        under the deployed defense (no gradient), the attack through
+        ``attack_wrap``. ``labels`` [B, N] (part-seg) or [B, 1]; under
+        tar_* with --origin ≥ 0 only the part's points move."""
+        f = make_outputs_fn(pts, one_hot)  # --fixed_geometry: built once a batch
         f_eval, f_att = eval_wrap(f), attack_wrap(f)
-        clean = predict(f_eval, pts)
+        mask = None
+        if part and targeted and args.origin >= 0:
+            _, mask = make_target_labels(labels, args.origin, args.target)
+        with torch.no_grad():
+            clean = f_eval(pts)
         if cfg is None:
             l2 = torch.full((len(pts),), args.noise_norm, device=device)
-            adv = equal_norm_color_noise(pts, l2, generator=gen, **xyz)
-        elif isinstance(cfg, PGDConfig):
-            res = pgd_color_attack(f_att, pts, labels[:, None], cfg)
-            adv, l2 = res.points_adv, res.l2_dist
+            adv = equal_norm_color_noise(pts, l2, mask=mask, generator=gen, **xyz)
         else:
-            res = cw_color_attack(f_att, pts, labels[:, None], cfg)
+            attack = pgd_color_attack if isinstance(cfg, PGDConfig) else cw_color_attack
+            res = attack(f_att, pts, labels, cfg, mask=mask)
             adv, l2 = res.points_adv, res.l2_dist
-        rand = clean
-        if args.control:
-            rand = predict(f_eval, equal_norm_color_noise(pts, l2, generator=gen, **xyz))
-        return clean, predict(f_eval, adv), rand, l2
+        with torch.no_grad():
+            rand = clean
+            if args.control:
+                rand = f_eval(equal_norm_color_noise(pts, l2, mask=mask, generator=gen, **xyz))
+            return clean, f_eval(adv), rand, l2
 
     os.makedirs(args.log_dir, exist_ok=True)
     tsv_path = os.path.join(args.log_dir, f"{args.model}_{args.attack}_object.tsv")
     n = min(len(dataset), args.max_shapes) if args.max_shapes else len(dataset)
-    labels_all = np.asarray(dataset.labels, np.int64)[:n]
-    clean, advp, randp = (np.zeros(n, np.int64) for _ in range(3))
-    l2s = np.zeros(n, np.float64)
+    if part:
+        columns = ("category", "clean_miou", "adv_miou", "l2", "rand_miou")
+    else:
+        columns = ("label", "clean_pred", "adv_pred", "l2", "rand_pred")
+    scores = {c: np.zeros(n, np.float64 if part or c == "l2" else np.int64)
+              for c in columns[1:]}
     batch_ms = []
     with open(tsv_path, "w") as tsv:
-        tsv.write("idx\tlabel\tclean_pred\tadv_pred\tl2"
-                  + ("\trand_pred" if args.control else "") + "\n")
+        tsv.write("\t".join(("idx",) + columns[:4 + args.control]) + "\n")
         for idx, n_valid in _padded_batches(n, B):
-            pts = torch.from_numpy(np.stack([dataset.load(int(i))[0] for i in idx])).to(device)
-            labs = labels_all[idx]
+            loaded = [dataset.load(int(i)) for i in idx]
+            pts = torch.from_numpy(np.stack([l[0] for l in loaded])).to(device)
+            if part:
+                seg = np.stack([l[2] for l in loaded]).astype(np.int64)
+                labels = torch.from_numpy(seg).to(device)
+                one_hot = torch.from_numpy(np.eye(NUM_OBJECT_CLASSES, dtype=np.float32)[
+                    [l[1] for l in loaded]]).to(device)
+            else:
+                labs = np.array([l[1] for l in loaded], np.int64)
+                labels, one_hot = torch.from_numpy(labs).to(device)[:, None], None
             t0 = time.perf_counter()
-            out = run(pts, torch.from_numpy(labs).to(device))
+            out = run(pts, labels, one_hot)
+            if not part:  # the predictions, on the card
+                out = (*(torch.argmax(o, dim=-1)[:, 0] for o in out[:3]), out[3])
             # one read of the batch's results
-            cp, ap, rp, l2 = (t.cpu().numpy() for t in out)
+            clean, adv, rand, l2 = (t.cpu().numpy() for t in out)
             batch_ms.append(1e3 * (time.perf_counter() - t0))
-            take = idx[:n_valid]
-            clean[take], advp[take], randp[take], l2s[take] = (
-                cp[:n_valid], ap[:n_valid], rp[:n_valid], l2[:n_valid])
             for j in range(n_valid):
-                row = f"{take[j]}\t{labs[j]}\t{cp[j]}\t{ap[j]}\t{l2[j]:.6f}"
-                tsv.write(row + (f"\t{rp[j]}" if args.control else "") + "\n")
-    clean_acc = float((clean == labels_all).mean())
-    adv_acc = float((advp == labels_all).mean())
-    msg = (f"DATASET clean acc {clean_acc:.4f} | adv acc {adv_acc:.4f} "
-           f"| mean L2 {l2s.mean():.4f}")
-    if args.attack.startswith("tar_"):
-        # shapes whose label is the target would "succeed" with no effort
-        eligible = labels_all != args.target
-        sr = float((advp[eligible] == args.target).mean()) if eligible.any() else 0.0
-        msg += f" | target success {sr:.4f} ({int(eligible.sum())} eligible)"
-    rand_acc = float((randp == labels_all).mean())
-    if args.control:
-        msg += f" | rand-noise acc {rand_acc:.4f}"
+                i = int(idx[j])
+                if part:
+                    cat = dataset.categories[i]
+                    mc, ma, mr = (float(np.mean(shape_part_ious(o[j], seg[j], cat)))
+                                  for o in (clean, adv, rand))
+                    values = (mc, ma, l2[j], mr)
+                    cells = [cat, f"{mc:.4f}", f"{ma:.4f}", f"{l2[j]:.6f}", f"{mr:.4f}"]
+                else:
+                    values = (clean[j], adv[j], l2[j], rand[j])
+                    cells = [str(v) for v in (labs[j], clean[j], adv[j])]
+                    cells += [f"{l2[j]:.6f}", str(rand[j])]
+                for c, v in zip(columns[1:], values):
+                    scores[c][i] = v
+                tsv.write("\t".join([str(i), *cells[:4 + args.control]]) + "\n")
+    l2_mean = float(scores["l2"].mean())
+    if part:
+        result = {"clean_miou": float(scores["clean_miou"].mean()),
+                  "adv_miou": float(scores["adv_miou"].mean()),
+                  "rand_miou": float(scores["rand_miou"].mean()) if args.control else None}
+        msg = (f"DATASET clean instance mIoU {result['clean_miou']:.4f} | adv instance mIoU "
+               f"{result['adv_miou']:.4f} | mean L2 {l2_mean:.4f}")
+        if args.control:
+            msg += f" | rand-noise mIoU {result['rand_miou']:.4f}"
+    else:
+        labels_all = np.asarray(dataset.labels, np.int64)[:n]
+        result = {k: float((scores[c] == labels_all).mean()) for k, c in (
+            ("clean_acc", "clean_pred"), ("adv_acc", "adv_pred"), ("rand_acc", "rand_pred"))}
+        msg = (f"DATASET clean acc {result['clean_acc']:.4f} | adv acc {result['adv_acc']:.4f} "
+               f"| mean L2 {l2_mean:.4f}")
+        if targeted:
+            # shapes whose label is the target would "succeed" with no effort
+            eligible = labels_all != args.target
+            sr = (float((scores["adv_pred"][eligible] == args.target).mean())
+                  if eligible.any() else 0.0)
+            msg += f" | target success {sr:.4f} ({int(eligible.sum())} eligible)"
+        if args.control:
+            msg += f" | rand-noise acc {result['rand_acc']:.4f}"
+        else:
+            result["rand_acc"] = None
     log.info(msg)
     log.info("%d batches of %d, ms a batch: %s", len(batch_ms), B,
              " ".join(f"{t:.1f}" for t in batch_ms))
     log.info("per-shape TSV: %s", tsv_path)
-    return {"tsv": tsv_path, "clean_acc": clean_acc, "adv_acc": adv_acc,
-            "rand_acc": rand_acc if args.control else None, "l2_mean": float(l2s.mean()),
-            "batch_ms": batch_ms}
+    return {"tsv": tsv_path, **result, "l2_mean": l2_mean, "batch_ms": batch_ms}
 
 
 if __name__ == "__main__":

@@ -9,6 +9,9 @@
       --randla_dir data/randla_input_0.040 --log_dir log/randla [--num_clouds 200]
   python -m pointsecguard_tpu_torch.cli.eval --model pointnet2_cls \
       --data_root data/modelnet40_normal_resampled --log_dir log/cls [--num_votes 3]
+  python -m pointsecguard_tpu_torch.cli.eval --model pointnet2_part_seg \
+      --data_root data/shapenetcore_partanno_segmentation_benchmark_v0_normal \
+      --log_dir log/partseg
 
 Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet`` with
 ``--num_votes``, ``--num_point`` (0 → 4096), ``--batch_size`` (0 → 16),
@@ -24,7 +27,10 @@ s3dis|semantickitti|semantic3d``, ``--randla_dir``, ``--randla_points``
 ``pointnet2_cls_msg`` and ``pointnet_cls`` (ModelNet instance and class
 accuracy, ``_eval_cls``) with ``--data_root``, ``--num_category``,
 ``--no_normals``, ``--num_point`` (0 → 1024), ``--batch_size`` (0 → 16),
-``--num_votes`` and ``--seed``. ``--visual`` writes the
+``--num_votes`` and ``--seed``; ``--model pointnet2_part_seg``,
+``pointnet2_part_seg_msg`` and ``pointnet_part_seg`` (ShapeNetPart instance
+and class mIoU, ``_eval_partseg``) with ``--data_root``, ``--no_normals``,
+``--num_point`` (0 → 2048) and ``--batch_size`` (0 → 16). ``--visual`` writes the
 per-room (per-cloud) prediction and ground-truth label clouds and an HTML
 viewer under ``<log_dir>/visual`` for every model. The
 checkpoint is the port's own (``<log_dir>/checkpoints/``: the best one,
@@ -39,7 +45,7 @@ import argparse
 import logging
 import os
 
-from pointsecguard_tpu_torch.cli.train import CLS_MODELS, cls_refusals
+from pointsecguard_tpu_torch.cli.train import CLS_MODELS, PART_SEG_MODELS, cls_refusals
 from pointsecguard_tpu_torch.configs import (
     add_resgcn_arguments,
     resgcn_overrides,
@@ -49,7 +55,8 @@ from pointsecguard_tpu_torch.configs import (
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
-PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS)
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS,
+                 *PART_SEG_MODELS)
 _UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1, "precision": "float32"}
 _UNPORTED_SWITCHES = ("resgcn_fast",)
 
@@ -66,14 +73,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log_dir", default="log/run")
     ap.add_argument("--test_area", type=int, default=5)
     ap.add_argument("--num_point", type=int, default=0,
-                    help="points per sample (0 = 4096 a block, 1024 a ModelNet shape)")
+                    help="points per sample (0 = 4096 a block, 1024 a ModelNet shape, "
+                         "2048 a ShapeNetPart shape)")
     ap.add_argument("--batch_size", type=int, default=0,
-                    help="0 = 16 (the PointNet family, resgcn, the classifiers), "
+                    help="0 = 16 (the PointNet family, resgcn, the object tasks), "
                          "the config's val_batch_size 1 (randla)")
     ap.add_argument("--num_category", type=int, default=40,
                     help="classifiers: ModelNet10 or ModelNet40 lists")
     ap.add_argument("--no_normals", action="store_true",
-                    help="classifiers: xyz only (no normal channels)")
+                    help="classifiers and part-seg nets: xyz only (no normal channels)")
     ap.add_argument("--num_votes", type=int, default=5)
     ap.add_argument("--randla_dir", default="data/randla_input_0.040",
                     help="randla: the prepared tree (cli.prepare)")
@@ -301,6 +309,45 @@ def _eval_cls(args, log):
     return inst_acc, class_acc
 
 
+def _eval_partseg(args, log):
+    """ShapeNetPart part segmentation (``pointsecguard_tpu/cli/eval.py:
+    318-355``): the test split through ``evaluate_partseg`` (each shape's
+    rows in file order, the argmax over its category's parts); logs each
+    category's mIoU, then the instance and class mIoU and the accuracy, and
+    returns the metrics dict."""
+    import numpy as np
+
+    from pointsecguard_tpu_torch.data.shapenet_part import (
+        NUM_OBJECT_CLASSES,
+        NUM_PART_CLASSES,
+        ShapeNetPartDataset,
+    )
+    from pointsecguard_tpu_torch.train.object_eval import evaluate_partseg
+    from pointsecguard_tpu_torch.train.trainer import cls_model, make_logp_step
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+
+    device = resolve_device(args.device)
+    use_normals = not args.no_normals
+    ds = ShapeNetPartDataset(args.data_root, "test", num_point=args.num_point or 2048,
+                             use_normals=use_normals)
+    model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals)
+    model.load_state_dict(load_checkpoint(args.log_dir))
+    model.to(device).eval().requires_grad_(False)
+    logp = make_logp_step(model, device, family)
+
+    def predict(pts, onehot):  # the one-hot rides as 16 trailing channels
+        return logp(np.concatenate(
+            [pts, np.broadcast_to(onehot[:, None], (*pts.shape[:2], NUM_OBJECT_CLASSES))], 2))
+
+    metrics = evaluate_partseg(predict, ds, batch_size=args.batch_size)
+    for cat, miou in metrics["category_miou"].items():
+        log.info("%12s: %.4f", cat, miou)
+    log.info("PARTSEG instance mIoU %.4f  class mIoU %.4f  acc %.4f",
+             metrics["instance_miou"], metrics["class_avg_miou"], metrics["accuracy"])
+    return metrics
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
@@ -308,13 +355,13 @@ def main(argv=None):
     log = logging.getLogger("eval")
     if args.model == "randla":
         return _eval_randla(args, log)
-    if args.model in CLS_MODELS:
+    if args.model in CLS_MODELS + PART_SEG_MODELS:
         if args.visual or args.adv_set:
             raise SystemExit(
-                "--visual and --adv_set cover the segmentation models; a "
-                "classifier has no scene to render and no saved block set")
+                "--visual and --adv_set cover the segmentation models; an "
+                "object-task model has no scene to render and no saved block set")
         args.batch_size = args.batch_size or 16
-        return _eval_cls(args, log)
+        return _eval_cls(args, log) if args.model in CLS_MODELS else _eval_partseg(args, log)
 
     import numpy as np
 

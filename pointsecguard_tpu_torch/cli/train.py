@@ -11,6 +11,9 @@
       --data_root data/stanford_indoor3d --log_dir log/resgcn [--epochs 32]
   python -m pointsecguard_tpu_torch.cli.train --model pointnet2_cls \
       --data_root data/modelnet40_normal_resampled --log_dir log/cls
+  python -m pointsecguard_tpu_torch.cli.train --model pointnet2_part_seg \
+      --data_root data/shapenetcore_partanno_segmentation_benchmark_v0_normal \
+      --log_dir log/partseg
 
 Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet``
 (PointNet++ SSG and MSG, PointNet on S3DIS blocks through the host
@@ -36,7 +39,11 @@ and ``pointnet_cls`` (the ModelNet classifiers, ``train_cls``) with
 ``--data_root`` (a ModelNet tree), ``--num_category``, ``--no_normals``,
 ``--npoint`` (0 → 1024), ``--batch_size`` (0 → 24), ``--learning_rate``
 (0 → 1e-3), ``--eval_every``, ``--log_dir``, ``--epochs``, ``--seed`` and
-``--prefetch``. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
+``--prefetch``; ``--model pointnet2_part_seg``, ``pointnet2_part_seg_msg``
+and ``pointnet_part_seg`` (the ShapeNetPart part-seg nets,
+``train_partseg``) with ``--data_root`` (a ShapeNetPart tree),
+``--no_normals``, ``--npoint`` (0 → 2048), ``--batch_size`` (0 → 16) and
+the classifiers' other flags. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
 by request. Every other flag of the JAX CLI is accepted by name and stops
 the run with "not ported yet" instead of being ignored.
 """
@@ -53,10 +60,13 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 CLS_MODELS = ("pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg")
-PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS)
-# the classifiers' data flags: taken with a classifier, refused with any
-# other model (the JAX CLI would ignore them there)
+PART_SEG_MODELS = ("pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg")
+PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS,
+                 *PART_SEG_MODELS)
+# the object tasks' data flags with the models that read them: refused with
+# any other model (the JAX CLI would ignore them there)
 CLS_DEFAULTS = {"num_category": 40, "no_normals": False}
+_FLAG_MODELS = {"num_category": CLS_MODELS, "no_normals": CLS_MODELS + PART_SEG_MODELS}
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
 _UNPORTED_DEFAULTS = {
@@ -76,13 +86,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=32)
     ap.add_argument("--batch_size", type=int, default=0,
                     help="0 = 32 (pointnet2, pointnet2_msg, pointnet), the "
-                         "config's 6 (randla), 8 (resgcn), 24 (the classifiers)")
+                         "config's 6 (randla), 8 (resgcn), 24 (the classifiers), "
+                         "16 (the part-seg nets)")
     ap.add_argument("--npoint", type=int, default=0,
-                    help="points per sample (0 = 4096 a block, 1024 a ModelNet shape)")
+                    help="points per sample (0 = 4096 a block, 1024 a ModelNet shape, "
+                         "2048 a ShapeNetPart shape)")
     ap.add_argument("--num_category", type=int, default=40,
                     help="classifiers: ModelNet10 or ModelNet40 lists")
     ap.add_argument("--no_normals", action="store_true",
-                    help="classifiers: xyz only (no normal channels)")
+                    help="classifiers and part-seg nets: xyz only (no normal channels)")
     ap.add_argument("--min_block_points", type=int, default=1024,
                     help="block sampler: accept training blocks with more "
                          "than this many raw points (`S3DISDataLoader.py:52-60`)")
@@ -136,13 +148,12 @@ def _refuse_unported(args) -> None:
 
 
 def cls_refusals(args) -> list[str]:
-    """The classifiers' data flags away from their defaults with another
-    model."""
-    if args.model in CLS_MODELS:
-        return []
+    """The object tasks' data flags away from their defaults with a model
+    that does not read them."""
     return [f"--{name}" + ("" if isinstance(d, bool) else f" {getattr(args, name)}")
             + f" (with --model {args.model})"
-            for name, d in CLS_DEFAULTS.items() if getattr(args, name) != d]
+            for name, d in CLS_DEFAULTS.items()
+            if getattr(args, name) != d and args.model not in _FLAG_MODELS[name]]
 
 
 def main(argv=None):
@@ -151,6 +162,7 @@ def main(argv=None):
 
     from pointsecguard_tpu_torch.train.loops import (
         train_cls,
+        train_partseg,
         train_pointnet_family,
         train_randla,
         train_resgcn,
@@ -174,6 +186,8 @@ def main(argv=None):
         result = train_resgcn(args, device)
     elif args.model in CLS_MODELS:
         result = train_cls(args, device)  # npoint 0 → the loop's 1024
+    elif args.model in PART_SEG_MODELS:
+        result = train_partseg(args, device)  # npoint 0 → the loop's 2048
     else:
         args.npoint = args.npoint or 4096
         result = train_pointnet_family(args, device)

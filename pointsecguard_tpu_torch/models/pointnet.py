@@ -1,11 +1,12 @@
-"""PointNet semantic segmentation and classification (port of
-``pointsecguard_tpu/models/pointnet.py:18-137``).
+"""PointNet semantic segmentation, classification and part segmentation
+(port of ``pointsecguard_tpu/models/pointnet.py``).
 
 The reference's `PointNet/models/pointnet.py` (STN3d `:10-45`, STNkd
 `:48-85`, PointNetEncoder `:88-132`, regularizer `:135-141`) and its
-`pointnet_sem_seg.py` and `pointnet_cls.py` heads, channels-last: the per-point convs are
-``PointConv`` (a Linear over the trailing axis), the 3 × 3 and 64 × 64
-alignments batched matrix products. PointNet builds no neighbourhood, so
+`pointnet_sem_seg.py`, `pointnet_cls.py` and `pointnet_part_seg.py`
+heads, channels-last: the per-point convs are ``PointConv`` (a Linear over
+the trailing axis), the 3 × 3, 64 × 64 and 128 × 128 alignments batched
+matrix products. PointNet builds no neighbourhood, so
 its path launches none of the port's kernels.
 """
 
@@ -127,6 +128,52 @@ class PointNetCls(nn.Module):
             x = dropout(x, 0.4, dropout_mask, generator)
         x = torch.relu(self.bns[1](x, momentum))
         return torch.log_softmax(self.cls(x).float(), dim=-1), trans_feat
+
+
+class PointNetPartSeg(nn.Module):
+    """PointNet part segmentation (`pointnet_part_seg.py:9-85`): the STN3d
+    matrix turns the xyz of the first 6 input channels (3 with
+    ``normal_channel=False``), then five per-point stages 64, 128, 128
+    (the 128 × 128 feature STN reads the third), 512 and 2048 (no
+    activation); the max over the points with the 16-way one-hot, tiled,
+    and every stage's output make a 4944-wide skip, then 256 → 256 → 128
+    → ``part_num``. Returns (log-probabilities [B, N, part_num], the feature
+    transform for ``feature_transform_regularizer``)."""
+
+    def __init__(self, part_num: int = 50, normal_channel: bool = True):
+        super().__init__()
+        self.in_features = 6 if normal_channel else 3
+        self.stn = STN(3, self.in_features)
+        widths = (self.in_features, 64, 128, 128, 512, 2048)
+        self.convs = nn.ModuleList(
+            PointConv(a, b, act="relu" if b != 2048 else "none")
+            for a, b in zip(widths[:-1], widths[1:]))
+        self.fstn = STN(128, 128)
+        self.head = nn.ModuleList([PointConv(2048 + 16 + sum(widths[1:]), 256),
+                                   PointConv(256, 256), PointConv(256, 128)])
+        self.cls = nn.Linear(128, part_num)
+
+    def forward(self, points: torch.Tensor, cls_label: torch.Tensor, momentum: float = 0.9):
+        x = points[..., : self.in_features]
+        trans = self.stn(x, momentum)
+        xyz = torch.bmm(x[..., :3], trans)
+        x = torch.cat([xyz, x[..., 3:]], dim=-1) if x.shape[-1] > 3 else xyz
+        outs = []
+        for j, conv in enumerate(self.convs):
+            if j == 3:  # the feature transform of the third stage's output
+                trans_feat = self.fstn(outs[2], momentum)
+                x = torch.bmm(outs[2], trans_feat)
+            x = conv(x, momentum)
+            outs.append(x)
+        # amax: the max over a shape's repeated points splits its gradient
+        # over the ties, as jnp.max does
+        global_feat = torch.cat([torch.amax(outs[4], dim=1),
+                                 cls_label.to(points.dtype)], dim=-1)
+        expand = global_feat[:, None, :].expand(-1, points.shape[1], -1)
+        h = torch.cat([expand, *outs], dim=-1)
+        for conv in self.head:
+            h = conv(h, momentum)
+        return torch.log_softmax(self.cls(h).float(), dim=-1), trans_feat
 
 
 def pointnet_aux_loss(out) -> torch.Tensor:

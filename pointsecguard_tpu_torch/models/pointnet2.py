@@ -159,14 +159,19 @@ class SetAbstractionMSG(nn.Module):
 
 class FeaturePropagation(nn.Module):
     """Feature propagation (`pointnet_util.py:270-320`) over a planned
-    3-NN interpolation."""
+    3-NN interpolation. From a single point (``feats2`` [B, 1, D], the
+    part-seg nets' group-all level) it broadcasts to the ``feats1`` points
+    and takes no plan."""
 
     def __init__(self, in_features: int, mlp: Sequence[int]):
         super().__init__()
         self.mlp = PointMLP(in_features, mlp)
 
     def forward(self, feats1, feats2, plan, momentum: float = 0.9):
-        interpolated = ops.apply_three_nn(feats2, *plan)
+        if feats2.shape[1] == 1:
+            interpolated = feats2.expand(-1, feats1.shape[1], -1)
+        else:
+            interpolated = ops.apply_three_nn(feats2, *plan)
         x = interpolated if feats1 is None else torch.cat(
             [feats1, interpolated], dim=-1
         )

@@ -2,8 +2,8 @@
 ``pointsecguard_tpu/models/registry.py:17-67,99-162``).
 
 ``create(name, **kwargs)`` builds a model by the JAX table's name: the
-segmentation victims and the classifiers (the part-segmentation nets are
-not ported yet). The ensemble is the capability the ares fork ships as
+segmentation victims, the classifiers and the part-segmentation nets.
+The ensemble is the capability the ares fork ships as
 `ares/model/ensemble.py:9-25` (EnsembleModel) and
 `ares/loss/cross_entropy.py:22-38` (EnsembleCrossEntropyLoss): N model
 closures combined into one ``outputs_fn`` that the attack engines attack
@@ -23,9 +23,12 @@ def _table() -> dict[str, Callable]:
         DenseDeepGCN,
         PointNet2ClsMSG,
         PointNet2ClsSSG,
+        PointNet2PartSegMSG,
+        PointNet2PartSegSSG,
         PointNet2SemSegMSG,
         PointNet2SemSegSSG,
         PointNetCls,
+        PointNetPartSeg,
         PointNetSemSeg,
         RandLANet,
     )
@@ -33,10 +36,13 @@ def _table() -> dict[str, Callable]:
     return {
         "pointnet_sem_seg": PointNetSemSeg,
         "pointnet_cls": PointNetCls,
+        "pointnet_part_seg": PointNetPartSeg,
         "pointnet2_sem_seg": PointNet2SemSegSSG,
         "pointnet2_sem_seg_msg": PointNet2SemSegMSG,
         "pointnet2_cls_ssg": PointNet2ClsSSG,
         "pointnet2_cls_msg": PointNet2ClsMSG,
+        "pointnet2_part_seg_ssg": PointNet2PartSegSSG,
+        "pointnet2_part_seg_msg": PointNet2PartSegMSG,
         "randla": RandLANet,
         "resgcn": DenseDeepGCN,
     }

@@ -12,6 +12,7 @@ from pointsecguard_tpu_torch.ops.interpolate import (
     apply_three_nn,
     nearest_upsample,
     three_nn_plan,
+    three_nn_weights,
 )
 from pointsecguard_tpu_torch.ops.neighbors import (
     ball_query,
@@ -43,4 +44,5 @@ __all__ = [
     "sample_and_group_all",
     "square_distance",
     "three_nn_plan",
+    "three_nn_weights",
 ]

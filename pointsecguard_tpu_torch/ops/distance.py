@@ -20,11 +20,13 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     Returns:
       [B, N, M] float32, associated as ``(|s|² − 2·s·dᵀ) + |d|²`` exactly
       as the JAX reference does, so radius tests and near-ties decide the
-      same way.
+      same way. Float64 inputs take the cross term in float64, rounded
+      once, as JAX's einsum with a float32 ``preferred_element_type`` does
+      under ``jax.enable_x64``; the squared norms are float32 either way.
     """
+    cross = torch.bmm(src, dst.transpose(1, 2)).float()
     src = src.float()
     dst = dst.float()
-    cross = torch.bmm(src, dst.transpose(1, 2))
     return (_sum_sq(src)[:, :, None] - 2.0 * cross) + _sum_sq(dst)[:, None, :]
 
 

@@ -21,13 +21,32 @@ def three_nn_plan(
       xyz_src: [B, S, 3] source (sparse) positions.
 
     Returns:
-      (idx [B, N, 3] int32, weight [B, N, 3] float32).
+      (idx [B, N, 3] int32, weight [B, N, 3] in the inputs' dtype).
+
+    The three distances are gathered from ``d`` at the selected indices:
+    the selection runs in float32, so a float64 ``d`` keeps its own values
+    (as JAX's ``lax.top_k`` route does), and the weights carry the
+    coordinates' gradient through both point sets.
     """
     d = square_distance(xyz_dst, xyz_src)  # [B, N, S]
-    dists, idx = bottom_k_indices(d, 3)
-    recip = 1.0 / (dists + 1e-8)
-    weight = recip / torch.sum(recip, dim=-1, keepdim=True)
-    return idx, weight
+    _, idx = bottom_k_indices(d.detach(), 3)
+    return idx, inverse_distance_weights(torch.gather(d, -1, idx.long()))
+
+
+def three_nn_weights(xyz_dst: torch.Tensor, xyz_src: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """``three_nn_plan``'s weights at given indices ([B, N, 3]): the plan's
+    weight half, differentiable in both point sets."""
+    return inverse_distance_weights(
+        torch.gather(square_distance(xyz_dst, xyz_src), -1, idx.long()))
+
+
+def inverse_distance_weights(dists: torch.Tensor) -> torch.Tensor:
+    """[..., 3] squared distances → weights ∝ 1 / (d² + 1e-8), normalised."""
+    shifted = dists + 1e-8
+    # (1/a) / Σ as 1 / (a · Σ): the form XLA's simplifier gives the JAX
+    # package's formula, so the weights round as JAX's do
+    return 1.0 / (shifted * torch.sum(1.0 / shifted, dim=-1, keepdim=True))
 
 
 def apply_three_nn(

@@ -1,9 +1,12 @@
 """Training loops behind ``cli.train`` (port of
-``pointsecguard_tpu/train/loops.py:71-815``): the PointNet family
+``pointsecguard_tpu/train/loops.py:71-971``): the PointNet family
 (``--model pointnet2|pointnet2_msg|pointnet``) and ResGCN-28 (``--model
 resgcn``) on the host block sampler, RandLA-Net on the spatially-regular
-sampler, and the ModelNet classifiers (``--model
-pointnet2_cls|pointnet2_cls_msg|pointnet_cls``, ``train_cls``).
+sampler, the ModelNet classifiers (``--model
+pointnet2_cls|pointnet2_cls_msg|pointnet_cls``, ``train_cls``) and the
+ShapeNetPart part-seg nets (``--model
+pointnet2_part_seg|pointnet2_part_seg_msg|pointnet_part_seg``,
+``train_partseg``).
 
 The PointNet family follows the reference script
 `train_semseg.py:148-265`: z-rotation augmentation, weighted NLL
@@ -259,6 +262,124 @@ def train_cls(args, device: torch.device):
     tb.close()
     log.info("best instance accuracy %.4f", best_acc)
     return state, best_acc
+
+
+def partseg_lr(epoch: int, *, base: float = 0.001) -> float:
+    """The upstream part-seg schedule: ×0.5 every 20 epochs, floor 1e-5."""
+    return max(base * (0.5 ** (epoch // 20)), 1e-5)
+
+
+def train_partseg(args, device: torch.device):
+    """Train the part-seg net ``args.model`` (pointnet2_part_seg,
+    pointnet2_part_seg_msg or pointnet_part_seg) on the ShapeNetPart tree
+    under ``args.data_root``; returns ``(state, best instance mIoU)`` (JAX
+    `train/loops.py:818-971`). The train and val splits, each shape
+    resampled to ``npoint`` points with replacement, the random scale and
+    shift of each batch; NLL over the 50 parts (PointNet: plus its aux
+    loss), Adam at ``args.learning_rate`` (0 → 1e-3) with weight decay 1e-4
+    and ×0.5 every 20 epochs, the BatchNorm momentum annealed ×0.5 every 20
+    epochs (floor 0.01); the instance mIoU on the test split every
+    ``args.eval_every`` epochs and after the last, each saved as a
+    checkpoint with it as its metric. The category one-hot rides as 16
+    trailing channels of the points (``trainer._unpack``). ``args`` carries
+    ``cli.train``'s flags (npoint: 0 → 2048, batch_size: 0 → 16,
+    no_normals)."""
+    from pointsecguard_tpu_torch.data import augment
+    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.shapenet_part import (
+        NUM_OBJECT_CLASSES,
+        NUM_PART_CLASSES,
+        ShapeNetPartDataset,
+    )
+    from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
+    from pointsecguard_tpu_torch.train.object_eval import evaluate_partseg
+    from pointsecguard_tpu_torch.train.schedules import pointnet2_bn_momentum
+    from pointsecguard_tpu_torch.train.trainer import (
+        TrainState,
+        cls_model,
+        make_logp_step,
+        make_train_step,
+    )
+    from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
+    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
+
+    npoint = args.npoint or 2048
+    use_normals = not args.no_normals
+    train_ds, test_ds = (ShapeNetPartDataset(args.data_root, split, num_point=npoint,
+                                             use_normals=use_normals)
+                         for split in ("trainval", "test"))
+    batch_size = args.batch_size or 16
+    depth = getattr(args, "prefetch", 2)
+    eye = np.eye(NUM_OBJECT_CLASSES, dtype=np.float32)
+
+    def pack(pts, onehot):
+        return np.concatenate(
+            [pts, np.broadcast_to(onehot[:, None], (*pts.shape[:2], NUM_OBJECT_CLASSES))], axis=2)
+
+    def packed(batches):
+        for pts, cls, seg in batches:
+            yield pack(pts, eye[cls]), seg
+
+    rng = np.random.default_rng(args.seed)
+    # the JAX loop shapes its initial state on one batch: spent here too
+    next(packed(train_ds.batches(rng, batch_size)))
+    model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals)
+    init_parameters(model, torch.Generator().manual_seed(args.seed))
+    state = TrainState(model.to(device))
+    step_fn = make_train_step(model, weighted_nll_loss, family=family)
+    weights = torch.ones(NUM_PART_CLASSES, device=device)
+    ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
+    resumed = ckpt.restore_latest()
+    start_epoch = 0
+    if resumed:
+        state.load_payload(resumed)
+        start_epoch = resumed["epoch"]
+        log.info("resumed from epoch %d", start_epoch)
+
+    logp_fn = make_logp_step(model, device, family)
+    # FPS starts and dropout masks of every step, drawn on the device
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    events = EventLog(f"{args.log_dir}/events.jsonl")
+    tb = SummaryLogger(f"{args.log_dir}/tb")
+    put = make_batch_put(device, depth)
+    best_miou = 0.0
+    for epoch in range(start_epoch, args.epochs):
+        lr = partseg_lr(epoch, base=args.learning_rate or 0.001)
+        bn_m = pointnet2_bn_momentum(epoch, step_size=20)
+        t0 = time.time()
+
+        def _augmented():  # on the prefetch thread, which alone reads the RNG
+            for pts, seg in packed(train_ds.batches(rng, batch_size)):
+                pts[:, :, :3] = augment.random_scale_point_cloud(pts[:, :, :3], rng)
+                pts[:, :, :3] = augment.shift_point_cloud(pts[:, :, :3], rng)
+                yield pts, seg
+
+        losses = []
+        for batch in prefetch(_augmented(), put, depth=depth):
+            pts, seg = wait_batch(batch)
+            losses.append(step_fn(state, pts, seg, weights, lr, bn_m, gen))
+        mean_loss, n_batches, nan_batches = _epoch_losses(losses)
+        seconds = time.time() - t0
+        log.info("epoch %d lr %.2g loss %.4f (%.1fs, %d batches, %d skipped)",
+                 epoch, lr, mean_loss, seconds, n_batches, nan_batches)
+        events.write("epoch", epoch=epoch, lr=lr, bn_momentum=bn_m, loss=mean_loss,
+                     batches=n_batches, nan_batches=nan_batches, seconds=seconds)
+        tb.scalars(epoch, loss=mean_loss, learning_rate=lr)
+        if (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1:
+            metrics = evaluate_partseg(lambda p, oh: logp_fn(pack(p, oh)), test_ds,
+                                       batch_size=batch_size)
+            log.info("epoch %d eval instance mIoU %.4f class mIoU %.4f acc %.4f", epoch,
+                     metrics["instance_miou"], metrics["class_avg_miou"], metrics["accuracy"])
+            events.write("eval", epoch=epoch, **{k: v for k, v in metrics.items()
+                                                 if k != "category_miou"})
+            tb.scalars(epoch, instance_miou=metrics["instance_miou"],
+                       accuracy=metrics["accuracy"])
+            best_miou = max(best_miou, metrics["instance_miou"])
+            ckpt.save(epoch + 1, state.payload(), miou=metrics["instance_miou"])
+    events.close()
+    tb.close()
+    log.info("best instance mIoU %.4f", best_miou)
+    return state, best_miou
 
 
 def train_randla(args, device: torch.device):

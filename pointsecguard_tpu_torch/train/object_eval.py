@@ -1,7 +1,8 @@
-"""Evaluation of the classifiers (port of
-``pointsecguard_tpu/train/object_eval.py:21-69``): instance and mean
-per-class accuracy on ModelNet, the standard protocol the reference's
-classifiers were trained with upstream.
+"""Evaluation of the object-task models (port of
+``pointsecguard_tpu/train/object_eval.py:21-130``): instance and mean
+per-class accuracy of the classifiers on ModelNet, and the instance and
+class-averaged part mIoU of the part-segmentation nets on ShapeNetPart,
+the standard protocols the reference's models were trained with upstream.
 
 Batches have a fixed size: the tail is filled up with shape 0, and the
 filling is left out of the metrics.
@@ -10,6 +11,8 @@ filling is left out of the metrics.
 from __future__ import annotations
 
 import numpy as np
+
+from pointsecguard_tpu_torch.data.shapenet_part import SEG_CLASSES
 
 
 def _padded_batches(n: int, batch_size: int):
@@ -54,3 +57,53 @@ def evaluate_cls(
     class_accs = [float((preds[labels == c] == c).mean())
                   for c in range(dataset.num_classes) if (labels == c).any()]
     return inst_acc, float(np.mean(class_accs)) if class_accs else 0.0, preds
+
+
+def _restricted_argmax(logp: np.ndarray, category: str) -> np.ndarray:
+    """[N] part predictions of one shape, the argmax over its category's
+    parts only (the upstream protocol)."""
+    parts = SEG_CLASSES[category]
+    return np.array(parts)[np.asarray(logp)[:, parts].argmax(axis=-1)]
+
+
+def shape_part_ious(logp: np.ndarray, seg: np.ndarray, category: str) -> list[float]:
+    """Per-part IoUs of one shape ([N, 50] log-probabilities, [N] labels):
+    the argmax restricted to the category's parts; a part absent from both
+    the labels and the prediction scores IoU 1."""
+    pred = _restricted_argmax(logp, category)
+    ious = []
+    for p in SEG_CLASSES[category]:
+        inter = ((seg == p) & (pred == p)).sum()
+        union = ((seg == p) | (pred == p)).sum()
+        ious.append(1.0 if union == 0 else float(inter) / float(union))
+    return ious
+
+
+def evaluate_partseg(predict_logp, dataset, *, batch_size: int = 8,
+                     num_object_classes: int = 16) -> dict:
+    """→ {"instance_miou", "class_avg_miou", "accuracy", "category_miou":
+    {category: mIoU}}.
+
+    ``predict_logp(points [B, N, C], one-hot [B, 16]) → [B, N, 50]``
+    log-probabilities (numpy or a CPU tensor). Each shape's points are its
+    file's rows in order, repeated to fill up (``dataset.load(i)``), the
+    analogue of the upstream fixed-seed test pass."""
+    shape_miou: dict[str, list[float]] = {}
+    correct = total = 0
+    for idx, n_valid in _padded_batches(len(dataset), batch_size):
+        loaded = [dataset.load(i) for i in idx]
+        pts = np.stack([l[0] for l in loaded])
+        onehot = np.eye(num_object_classes, dtype=np.float32)[[l[1] for l in loaded]]
+        logp = np.asarray(predict_logp(pts, onehot))
+        for j in range(n_valid):
+            cat, seg = dataset.categories[idx[j]], loaded[j][2]
+            shape_miou.setdefault(cat, []).append(
+                float(np.mean(shape_part_ious(logp[j], seg, cat))))
+            correct += int((_restricted_argmax(logp[j], cat) == seg).sum())
+            total += seg.size
+    cat_miou = {c: float(np.mean(v)) for c, v in sorted(shape_miou.items())}
+    all_shapes = [m for v in shape_miou.values() for m in v]
+    return {"instance_miou": float(np.mean(all_shapes)) if all_shapes else 0.0,
+            "class_avg_miou": float(np.mean(list(cat_miou.values()))) if cat_miou else 0.0,
+            "accuracy": correct / total if total else 0.0,
+            "category_miou": cat_miou}

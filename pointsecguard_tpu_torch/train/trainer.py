@@ -1,10 +1,11 @@
-"""Training step of the segmentation models and the classifiers (port of
+"""Training step of the segmentation and object-task models (port of
 ``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
 
-One step is: the family's neighbour plan (PointNet++ SSG and MSG, and
-their classifiers: train-mode geometry with random FPS starts; RandLA-Net:
-the kNN pyramid; ResGCN: none, its graphs are built inside the forward;
-PointNet: none, it has no neighbourhoods), train-mode forward, loss (with PointNet's
+One step is: the family's neighbour plan (PointNet++ SSG and MSG, their
+classifiers and part-seg nets: train-mode geometry with random FPS
+starts; RandLA-Net: the kNN pyramid; ResGCN: none, its graphs are built
+inside the forward; PointNet: none, it has no neighbourhoods), train-mode
+forward, loss (with PointNet's
 feature-transform term), backward, Adam update and the BatchNorm running
 statistics. A ``Family`` says how a model family is called, as the JAX
 step's ``model_args`` / ``output_head`` do. The lr and the BatchNorm
@@ -39,8 +40,11 @@ from pointsecguard_tpu_torch.models.pointnet2 import (
     build_geometry_msg,
 )
 from pointsecguard_tpu_torch.models.pointnet2_cls import (
+    NUM_OBJECT_CLASSES,
     build_geometry_cls,
     build_geometry_cls_msg,
+    build_geometry_partseg,
+    build_geometry_partseg_msg,
 )
 from pointsecguard_tpu_torch.models.randlanet import build_pyramid
 
@@ -137,14 +141,62 @@ CLS_MODELS = {
 }
 
 
+def _unpack(points):
+    """A part-seg batch's points [B, N, C + 16] → (points [B, N, C], the
+    category one-hot [B, 16]): the one-hot rides as 16 constant trailing
+    channels, as in the JAX loop (`train/loops.py:875-885`), so that the
+    step's (points, labels) contract and the plan's ``points[..., :3]``
+    hold."""
+    return points[..., :-NUM_OBJECT_CLASSES], points[:, 0, -NUM_OBJECT_CLASSES:]
+
+
+def _partseg_apply(model, points, plan, bn_momentum=None, *, generator=None,
+                   dropout_mask=None):
+    keep = 0.9 if bn_momentum is None else 1.0 - bn_momentum
+    return model(*_unpack(points), geometry=plan, momentum=keep, generator=generator,
+                 dropout_mask=dropout_mask)
+
+
+# the PointNet++ part-seg nets: the plan is the two SA levels and the two
+# 3-NN hops (training: one random FPS start per shape and level, two draws
+# of [B], then the head's dropout mask [B, N, 128]); the head the per-point
+# log-probabilities [B, N, 50]
+POINTNET2_PARTSEG = Family(
+    plan=lambda points, generator=None, start_idx=None: build_geometry_partseg(
+        points[..., :3], generator=generator, start_idx=start_idx),
+    apply=_partseg_apply, head=lambda out: out[0])
+POINTNET2_PARTSEG_MSG = POINTNET2_PARTSEG._replace(
+    plan=lambda points, generator=None, start_idx=None: build_geometry_partseg_msg(
+        points[..., :3], generator=generator, start_idx=start_idx))
+
+
+def _pointnet_partseg_apply(model, points, plan, bn_momentum=None, **kw):
+    # no neighbourhood and no dropout: the plan and the draws go unread
+    return model(*_unpack(points), momentum=0.9 if bn_momentum is None else 1.0 - bn_momentum)
+
+
+POINTNET_PARTSEG = Family(plan=lambda points, generator=None, start_idx=None: None,
+                          apply=_pointnet_partseg_apply, head=lambda out: out[0],
+                          aux_loss=pointnet_aux_loss)
+# the part-seg nets by their ``--model`` name: the registry's name and the family
+PARTSEG_MODELS = {
+    "pointnet2_part_seg": ("pointnet2_part_seg_ssg", POINTNET2_PARTSEG),
+    "pointnet2_part_seg_msg": ("pointnet2_part_seg_msg", POINTNET2_PARTSEG_MSG),
+    "pointnet_part_seg": ("pointnet_part_seg", POINTNET_PARTSEG),
+}
+
+
 def cls_model(name: str, num_classes: int, use_normals: bool = True):
-    """(model, family) of the classifier ``--model name`` (the JAX
-    ``_cls_partseg_model``'s cls half, `train/loops.py:613-671`): the
-    loss is NLL, PointNet's plus 0.001 times the feature-transform
-    regularizer (its family's ``aux_loss``)."""
-    registered, family = CLS_MODELS[name]
-    return registry.create(registered, num_classes=num_classes,
-                           normal_channel=use_normals), family
+    """(model, family) of the object-task model ``--model name``, a
+    classifier or a part-seg net (the JAX ``_cls_partseg_model``,
+    `train/loops.py:613-671`): the loss is NLL, PointNet's plus 0.001 times
+    the feature-transform regularizer (its family's ``aux_loss``). A
+    part-seg family's points carry the category one-hot as 16 trailing
+    channels (``_unpack``)."""
+    registered, family = {**CLS_MODELS, **PARTSEG_MODELS}[name]
+    # PointNetPartSeg keeps the reference's name for its width
+    width = {"part_num" if name == "pointnet_part_seg" else "num_classes": num_classes}
+    return registry.create(registered, normal_channel=use_normals, **width), family
 
 
 def randla_family(cfg: RandlaConfig | None = None) -> Family:
@@ -308,7 +360,8 @@ def make_train_step(
 def make_logp_step(model: nn.Module, device: torch.device, family: Family) -> Callable:
     """``logp(points [B, N, C] numpy) → [B, K] numpy``: a classifier's
     evaluation-mode log-probabilities (FPS from index 0), for
-    ``evaluate_cls``."""
+    ``evaluate_cls``; a part-seg net's [B, N, 50] from points that carry
+    the one-hot (``_unpack``)."""
 
     @torch.no_grad()
     def logp(points: np.ndarray) -> np.ndarray:

@@ -7,7 +7,9 @@ Weights cross as numpy arrays keyed by flax paths, flattened with "/":
 The classifiers (``cls_from_jax_variables`` / ``cls_to_jax_variables``:
 PointNet++ SSG and MSG, PointNet) map their levels as the segmentation
 nets do and their head ``_ClsHead_0/Dense_j`` → ``head.fc.j`` (PointNet's
-top-level ``Dense_j`` → ``fc.j``).
+top-level ``Dense_j`` → ``fc.j``); the same two functions map the
+part-seg nets (``pointnet2_partseg_module_map``,
+``pointnet_partseg_module_map``).
 PointNet++ SSG
 (``from_jax_variables``) follows the flax auto-names the JAX importer writes
 (`pointsecguard_tpu/utils/importers.py:83-118`):
@@ -375,11 +377,90 @@ def pointnet_cls_module_map() -> dict[str, str]:
     return m
 
 
-def _cls_model(name: str, flat: dict):
-    """The port classifier that ``flat`` fills: its class count from the
-    last Dense, its input width (normals or not) from the first layer."""
-    from pointsecguard_tpu_torch.models import PointNet2ClsMSG, PointNet2ClsSSG, PointNetCls
+def pointnet2_partseg_module_map(msg: bool = False) -> dict[str, str]:
+    """flax module path → ``PointNet2PartSegSSG`` (``msg``:
+    ``PointNet2PartSegMSG``) module path
+    (`pointsecguard_tpu/models/pointnet2_cls.py:106-206`): the two levels as
+    in ``pointnet2_cls_module_map``, the group-all level, the three
+    ``FeaturePropagation`` hops, the head's ``PointMLP_0`` and ``Dense_0``."""
+    from pointsecguard_tpu_torch.models.pointnet2_cls import (
+        CLS_SSG_MLPS,
+        GROUP_ALL_MLP,
+        PARTSEG_MSG_FP_MLPS,
+        PARTSEG_MSG_MLPS,
+        PARTSEG_SSG_FP_MLPS,
+    )
 
+    m: dict[str, str] = {"Dense_0": "cls"}
+    if msg:
+        for i, mlps in enumerate(PARTSEG_MSG_MLPS):
+            for j, mlp in enumerate(mlps):
+                for k in range(len(mlp)):
+                    _conv(m, f"SetAbstractionMSG_{i}/PointMLP_{j}/PointConv_{k}",
+                          f"sa.{i}.mlps.{j}.convs.{k}")
+        group_all, fp_mlps = "SetAbstraction_0", PARTSEG_MSG_FP_MLPS
+    else:
+        for i, mlp in enumerate(CLS_SSG_MLPS):
+            for k in range(len(mlp)):
+                _conv(m, f"SetAbstraction_{i}/PointMLP_0/PointConv_{k}", f"sa.{i}.mlp.convs.{k}")
+        group_all, fp_mlps = "SetAbstraction_2", PARTSEG_SSG_FP_MLPS
+    for k in range(len(GROUP_ALL_MLP)):
+        _conv(m, f"{group_all}/PointMLP_0/PointConv_{k}", f"sa.2.mlp.convs.{k}")
+    for i, mlp in enumerate(fp_mlps):
+        for k in range(len(mlp)):
+            _conv(m, f"FeaturePropagation_{i}/PointMLP_0/PointConv_{k}", f"fp.{i}.mlp.convs.{k}")
+    _conv(m, "PointMLP_0/PointConv_0", "head.convs.0")
+    return m
+
+
+def pointnet_partseg_module_map() -> dict[str, str]:
+    """flax module path → ``PointNetPartSeg`` module path
+    (`pointsecguard_tpu/models/pointnet.py:140-179`): ``STN_0`` (the input
+    transform) and ``STN_1`` (the 128 × 128 one) as in
+    ``pointnet_module_map``, the five stages ``PointConv_0..4``, the head's
+    ``PointConv_5..7`` and ``Dense_0``."""
+    m = {"Dense_0": "cls"}
+    for flax, port in (("STN_0", "stn"), ("STN_1", "fstn")):
+        for k in range(3):
+            _conv(m, f"{flax}/PointConv_{k}", f"{port}.convs.{k}")
+        for k in range(2):
+            m[f"{flax}/Dense_{k}"] = f"{port}.fc.{k}"
+            m[f"{flax}/BatchNorm_{k}"] = f"{port}.bns.{k}"
+        m[f"{flax}/Dense_2"] = f"{port}.out"
+    for k in range(5):
+        _conv(m, f"PointConv_{k}", f"convs.{k}")
+    for k in range(3):
+        _conv(m, f"PointConv_{5 + k}", f"head.{k}")
+    return m
+
+
+_PARTSEG_FIRST = {
+    "pointnet2_part_seg": "SetAbstraction_0/PointMLP_0/PointConv_0/Dense_0",
+    "pointnet2_part_seg_msg": "SetAbstractionMSG_0/PointMLP_0/PointConv_0/Dense_0",
+    "pointnet_part_seg": "STN_0/PointConv_0/Dense_0",
+}
+
+
+def _cls_model(name: str, flat: dict):
+    """The port model that ``flat`` fills: its class count from the last
+    Dense, its input width (normals or not) from the first layer (a part-seg
+    PointNet++ groups 3 relative coordinates beside its 3 or 6 inputs)."""
+    from pointsecguard_tpu_torch.models import (
+        PointNet2ClsMSG,
+        PointNet2ClsSSG,
+        PointNet2PartSegMSG,
+        PointNet2PartSegSSG,
+        PointNetCls,
+        PointNetPartSeg,
+    )
+
+    if name in _PARTSEG_FIRST:
+        k = flat["params/Dense_0/kernel"].shape[1]
+        width = flat[f"params/{_PARTSEG_FIRST[name]}/kernel"].shape[0]
+        if name == "pointnet_part_seg":
+            return PointNetPartSeg(part_num=k, normal_channel=width == 6)
+        cls = PointNet2PartSegMSG if name == "pointnet2_part_seg_msg" else PointNet2PartSegSSG
+        return cls(num_classes=k, normal_channel=width == 9)
     if name == "pointnet_cls":
         k = flat["params/Dense_2/kernel"].shape[1]
         first = "params/PointNetEncoder_0/STN_0/PointConv_0/Dense_0/kernel"
@@ -393,18 +474,23 @@ def _cls_model(name: str, flat: dict):
 
 
 def _cls_map(name: str) -> dict[str, str]:
+    if name == "pointnet_part_seg":
+        return pointnet_partseg_module_map()
+    if name in _PARTSEG_FIRST:
+        return pointnet2_partseg_module_map(msg=name == "pointnet2_part_seg_msg")
     if name not in ("pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg"):
-        raise ValueError(f"unknown classifier {name!r}")
+        raise ValueError(f"unknown object-task model {name!r}")
     if name == "pointnet_cls":
         return pointnet_cls_module_map()
     return pointnet2_cls_module_map(msg=name == "pointnet2_cls_msg")
 
 
 def cls_from_jax_variables(name: str, flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat flax variables of a classifier (``name``: pointnet_cls,
-    pointnet2_cls or pointnet2_cls_msg) → the port's state dict, params and
-    BatchNorm statistics. Raises ValueError on a missing or unconsumed
-    leaf."""
+    """Flat flax variables of an object-task model (``name``: a classifier,
+    pointnet_cls, pointnet2_cls or pointnet2_cls_msg, or a part-seg net,
+    pointnet_part_seg, pointnet2_part_seg or pointnet2_part_seg_msg) → the
+    port's state dict, params and BatchNorm statistics. Raises ValueError
+    on a missing or unconsumed leaf."""
     modules = _cls_map(name)
     return _filled(flat, modules, _cls_model(name, flat))
 

@@ -26,7 +26,7 @@ def _jax_model(p):
 
 
 def _torch_model(p):
-    return torch.tanh(p @ torch.from_numpy(_W1)) @ torch.from_numpy(_W2)
+    return torch.tanh(p @ torch.from_numpy(_W1).to(p.dtype)) @ torch.from_numpy(_W2).to(p.dtype)
 
 
 def _make(points):  # the port's per-batch factory: this model has no plan
@@ -226,3 +226,67 @@ def test_attack_benchmark_runs_nes_from_its_generator():
     acc, acc_adv, total, succ, dist = runs[0]
     assert acc_adv.mean() < acc.mean() and (dist > 0).all()
     np.testing.assert_array_equal(succ, total & ~acc_adv)
+
+
+def _binsearch_runs(monkeypatch, smooth, l2):
+    """(JAX's, the port's) cw_coefficient_binsearch on one batch of the
+    small model (targeted C&W, class 11 → 7, only class-11 points move;
+    success above a rate of 0.2, which this model reaches on them), each
+    with the coefficients its C&W probes ran at."""
+    from pointsecguard_tpu.attacks import make_target_labels as jax_target_labels
+    from pointsecguard_tpu.attacks.cw import CWConfig as JaxCW
+    from pointsecguard_tpu_torch.attacks.cw import CWConfig
+
+    pts, labels = _batches(1)[0]
+    kw = dict(steps=60, lr=0.1, smooth_coeff=smooth, l2_coeff=l2, smooth_k=5, targeted=True,
+              target=7)
+    seen = {"jax": [], "port": []}
+    for name, mod in (("jax", jbench), ("port", tbench)):
+        engine = mod.cw_color_attack
+
+        def recording(*a, _engine=engine, _seen=seen[name], **k):
+            _seen.append((a[3].smooth_coeff, a[3].l2_coeff))
+            return _engine(*a, **k)
+
+        monkeypatch.setattr(mod, "cw_color_attack", recording)
+    # in float64 on both sides: the probes near the threshold sit within
+    # float32 rounding of the success rate's steps
+    with jax.enable_x64(True):
+        jlabels = jnp.asarray(labels, jnp.int64)
+        _, jmask = jax_target_labels(jlabels, 11, 7)
+        want = jbench.cw_coefficient_binsearch(
+            _jax_model, jnp.asarray(pts, jnp.float64), jlabels, JaxCW(**kw), mask=jmask,
+            success_sr=0.2)
+    tl = torch.from_numpy(labels).long()
+    got = tbench.cw_coefficient_binsearch(_make, torch.from_numpy(pts).double(), tl,
+                                          CWConfig(**kw), mask=tl == 11, success_sr=0.2)
+    return want, got, seen
+
+
+def test_cw_coefficient_binsearch_matches_jax_on_equal_coefficients(monkeypatch):
+    """smooth_coeff == l2_coeff: JAX's probe sequence (c, success rate,
+    accuracy, mean L2), its threshold and its coefficients. The budget
+    c = 10 fails, the search finds a finite c below it."""
+    (cj, dj), (ct, dt), seen = _binsearch_runs(monkeypatch, 10.0, 10.0)
+    assert ct == cj and 0 < ct < 10
+    assert [p["c"] for p in dt["probes"]] == [p["c"] for p in dj["probes"]]
+    for p, q in zip(dt["probes"], dj["probes"]):
+        assert (p["sr"], p["acc"]) == (q["sr"], q["acc"])
+        # rounded to 3 decimals on both sides: one unit apart at most
+        assert abs(p["l2_mean"] - q["l2_mean"]) <= 1e-3 + 1e-12
+    assert dt["probes"][0]["sr"] <= 0.2 and max(p["sr"] for p in dt["probes"]) > 0.2
+    assert seen["port"] == seen["jax"] == [(p["c"], p["c"]) for p in dj["probes"]]
+
+
+def test_cw_coefficient_binsearch_keeps_the_coefficients_ratio(monkeypatch):
+    """smooth_coeff = 4 · l2_coeff: every port probe scales both by c / c0
+    (their ratio stays 4), where JAX sets both to c (its ``l2_coeff`` loses
+    its own value: ROADMAP Queue 3)."""
+    _, (ct, dt), seen = _binsearch_runs(monkeypatch, 10.0, 2.5)
+    cs = [p["c"] for p in dt["probes"]]
+    assert seen["port"] == [(c, c * 0.25) for c in cs]
+    assert len(seen["jax"]) > 1 and all(s == l2 for s, l2 in seen["jax"])
+    assert cs[0] == 10.0 and len(cs) > 1
+    with pytest.raises(ValueError, match="no coefficient to scale"):
+        tbench.cw_coefficient_binsearch(_make, torch.zeros(1, 4, 9), torch.zeros(1, 4).long(),
+                                        tbench.CWConfig(smooth_coeff=0.0))

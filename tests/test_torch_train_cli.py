@@ -162,7 +162,9 @@ _TRAIN_REFUSED = [
     # the classifiers are ported; bfloat16, which their run would take, is not
     pytest.param(["--model", "pointnet2_cls", "--precision", "bfloat16"],
                  id="--model pointnet2_cls"),
-    ["--model", "pointnet2_part_seg"],
+    # the part-seg nets are ported; several devices, which their run would take, are not
+    pytest.param(["--model", "pointnet2_part_seg", "--devices", "2"],
+                 id="--model pointnet2_part_seg"),
     ["--steps_per_call", "4"], ["--device_sampler"], ["--device_sampler_exact"],
     ["--adv_train", "nb"], ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
     ["--adv_iters", "3"], ["--adv_rand_init", "0.1"], ["--precision", "bfloat16"],
@@ -178,7 +180,8 @@ _EVAL_REFUSED = [
     # resgcn is ported; its subsample dilation (--resgcn_fast) is not
     pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
     pytest.param(["--model", "pointnet_cls", "--devices", "2"], id="--model pointnet_cls"),
-    ["--model", "pointnet_part_seg"],
+    pytest.param(["--model", "pointnet_part_seg", "--precision", "bfloat16"],
+                 id="--model pointnet_part_seg"),
     # --save_preds is RandLA's (PLYs of reprojected clouds)
     ["--save_preds", "out"], ["--devices", "2"], ["--shard_points", "2"],
     ["--precision", "bfloat16"], ["--num_category", "10"], ["--no_normals"],
