@@ -351,6 +351,26 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     part-47 points move), NU cut to 10 steps and NB ``--defense sor`` (a
     kNN a forward): ms a batch, forwards, launches, mIoU clean /
     adversarial / control.
+64. The device block sampler (``cli.train --device_sampler``) on the card
+    against its CPU version on the card's draws, on phase 17's rooms and
+    on one room of 2,500,096 points, with and without replacement and the
+    z-rotation: labels equal, features within 1e-6; ms a batch of 32 ×
+    4096 with and without ``--device_sampler_exact``, bytes staged.
+65. PointNet++ SSG through ``cli.train`` at 32 × 4096, 2 epochs on the
+    host sampler and 2 with ``--device_sampler --steps_per_call 4``: the
+    same steps, one geometry's launches a step, the device run's eval
+    mIoU in the host run's range; blocks/s, ms a step by CUDA events, the
+    host's share.
+66. ``cli.train --adv_train nb`` (5 iterations): SSG at 32 × 4096 (8 FPS
+    and 16 bottom-k launches a step: the step's plan and one hoisted
+    evaluation plan) and RandLA at 6 × 40960 (20 kNN a step); ms a step
+    with the attack and without.
+67. ResGCN-28 at 8 × 4096: ``cli.train --remat`` (4 kNN a step), then one
+    step with and one without remat from the same state: peak memory, ms,
+    and loss, gradients, statistics and parameters equal within the
+    stated tolerances.
+68. ``cli.train --profile``: the first epoch's Chrome trace names the FPS
+    and bottom-k kernels, 4 and 8 a step.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -5554,6 +5574,396 @@ def run_partseg_phases(dev, records) -> None:
     print(f"phase 63: {time.perf_counter() - t0:.1f} s")
 
 
+# --- phases 64-68: the training extras ------------------------------------------------
+
+DS_ROOM_POINTS = 2_500_096  # the largest S3DIS room's count: the widest sampler window
+DS_CHECK_BLOCKS = 8  # card vs CPU on the large room: a batch of 8
+# phase 65's eval mIoU range: the device-sampled run's within this much of
+# the host run's, or within half the host run's figure if that is larger
+DS_MIOU_SLACK = 0.1
+DS_EPOCHS = 2  # phase 65's epochs a run (13 steps each)
+ADV_ITERS, ADV_RANDLA_STEPS = 5, 4
+REMAT_LR = 1e-3
+
+
+def _record_path(records, kernel: str, path: str, launches: int, step: str | None = None,
+                 per: int | None = None) -> None:
+    records[kernel].setdefault("launches_by_path", {})[path] = launches
+    if step is not None:
+        records[kernel].setdefault("calls_per_batch", {})[step] = per
+
+
+def _train_cli(argv: list) -> tuple:
+    """``cli.train.main(argv)`` with the launch counters reset before it:
+    (result, launch counts, peak device memory in GB, wall s)."""
+    from pointsecguard_tpu_torch.cli import train as cli
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    return (out, kernels.launch_counts(), torch.cuda.max_memory_allocated() / 1e9,
+            time.perf_counter() - t0)
+
+
+def _epoch_figures(log: str, batch: int, steps: int) -> dict:
+    """The epochs of ``log``'s events: ``steps`` steps each, every loss finite,
+    none skipped; ms a step and blocks (clouds) a second on the host's clock
+    (an epoch's line is written before its eval, so its seconds are training
+    alone)."""
+    epochs = [e for e in read_events(log) if e["event"] == "epoch"]
+    if (not epochs or any(e["nan_batches"] or e["batches"] != steps
+                          or not math.isfinite(e["loss"]) for e in epochs)):
+        raise AssertionError(f"{log}: want {steps} steps an epoch, finite, none skipped: "
+                             f"{epochs}")
+    host_ms = 1e3 * sum(e["seconds"] for e in epochs) / sum(e["batches"] for e in epochs)
+    evals = [e for e in read_events(log) if e["event"] == "eval"]
+    return {"epoch_loss": [e["loss"] for e in epochs], "steps": steps * len(epochs),
+            "ms_per_step_host_clock": host_ms, "blocks_per_s": 1e3 * batch / host_ms,
+            "ms_per_step_host_clock_by_epoch": [1e3 * e["seconds"] / e["batches"]
+                                                for e in epochs],
+            "eval_miou": [e["miou"] for e in evals]}
+
+
+def phase_device_sampler(dev, train_data: str) -> dict:
+    """64. The device sampler on the card against its CPU version on the
+    card's draws: on phase 17's four rooms (a batch of 32) and on one
+    synthetic room of 2,500,096 points (the largest S3DIS room's window, 8
+    blocks), with and without replacement and the z-rotation: labels
+    equal, features within 1e-6 (CUDA divides by a scalar through its
+    reciprocal: a unit in the last place). ms a batch of
+    32 × 4096 on the card by CUDA events, with and without
+    ``--device_sampler_exact``, and the bytes staged."""
+    from pointsecguard_tpu_torch.data import RoomSet, make_synthetic_rooms
+    from pointsecguard_tpu_torch.data import device_sampler as ds
+
+    big = os.path.join(WORK, "device_sampler_room")
+    t0 = time.perf_counter()
+    make_synthetic_rooms(big, points_per_room=DS_ROOM_POINTS, seed=0)
+    out = {"large_room_setup_s": time.perf_counter() - t0}
+    for name, root, check in (("rooms", train_data, TRAIN_BATCH),
+                              ("large_room", big, DS_CHECK_BLOCKS)):
+        rooms = RoomSet.load(root, "train", 5)
+        t0 = time.perf_counter()
+        staged, num_max = ds.stage_rooms(rooms, dev)
+        torch.cuda.synchronize()
+        rec = {"rooms": len(rooms.names), "points": int(staged.count.sum()),
+               "num_max": num_max, "staged_bytes": staged.nbytes,
+               "stage_s": time.perf_counter() - t0}
+        cpu_staged = ds.StagedRooms(*(t.cpu() for t in staged))
+        for exact in (False, True):
+            for augment in (False, True):
+                sample = ds.make_device_block_sampler(
+                    batch_size=check, num_point=NUM_POINT, num_max=num_max,
+                    augment_z=augment, replacement=not exact)
+                draws = sample.draw(staged, torch.Generator(device=dev).manual_seed(7))
+                f, lab = sample(staged, draws=draws)
+                t0 = time.perf_counter()
+                fc, lc = sample(cpu_staged, draws=ds.BlockDraws(
+                    *(None if t is None else t.cpu() for t in draws)))
+                err = (f.cpu() - fc).abs().max().item()
+                key = "exact" if exact else "replacement"
+                rec[f"{key}{'_rotated' if augment else ''}_max_abs_err"] = err
+                rec[f"{key}{'_rotated' if augment else ''}_cpu_s"] = time.perf_counter() - t0
+                if not torch.equal(lab.cpu(), lc) or err > 1e-6:
+                    raise AssertionError(f"device sampler, {name}, {key}, rotation {augment}: "
+                                         f"card vs CPU {err}")
+            timed = ds.make_device_block_sampler(batch_size=TRAIN_BATCH, num_point=NUM_POINT,
+                                                 num_max=num_max, replacement=not exact)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            rec["ms_per_batch_exact" if exact else "ms_per_batch"] = cuda_ms(
+                lambda: timed(staged, gen), reps=5)
+        out[name] = rec
+        del staged, cpu_staged
+    print("device sampler (a batch of 32 x 4096): " + json.dumps(out))
+    return out
+
+
+def phase_device_sampler_train(dev, records, train_data: str) -> dict:
+    """65. PointNet++ SSG through ``cli.train`` at 32 × 4096 on phase 17's
+    rooms: ``DS_EPOCHS`` epochs on the host sampler, then as many with
+    ``--device_sampler --steps_per_call 4``, an eval after the last. The
+    same step count (13 an epoch),
+    every loss finite, one geometry's launches (4 FPS, 8 bottom-k) a step
+    and an eval batch; the device run's eval mIoU within
+    ``DS_MIOU_SLACK`` of the host run's (or half of it). Blocks/s on the
+    host's clock, ms a step by CUDA events (the host path's step on a
+    batch on the card; the device path's sample + step), their ratio the
+    host's share."""
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler, WholeSceneBlocks
+    from pointsecguard_tpu_torch.data import device_sampler as ds
+    from pointsecguard_tpu_torch.models import weighted_nll_loss
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS, TrainState, make_train_step
+
+    rooms = RoomSet.load(train_data, "train", 5)
+    steps = -(-len(S3DISBlockSampler(rooms, num_point=NUM_POINT)) // TRAIN_BATCH)
+    test_blocks = WholeSceneBlocks(RoomSet.load(train_data, "test", 5), block_points=NUM_POINT
+                                   ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+    eval_batches = -(-test_blocks // TRAIN_BATCH)
+    out = {}
+    for name, extra in (("host", []), ("device", ["--device_sampler", "--steps_per_call", "4"])):
+        log = os.path.join(WORK, f"ds_train_{name}")
+        _, counts, peak, wall = _train_cli([
+            "--model", "pointnet2", "--data_root", train_data, "--log_dir", log,
+            "--npoint", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH),
+            "--epochs", str(DS_EPOCHS), "--eval_every", str(DS_EPOCHS),
+            "--learning_rate", str(TRAIN_LR), *extra])
+        check_geometry_launches("pointnet2", counts, DS_EPOCHS * steps + eval_batches,
+                                f"train {' '.join(extra) or '(host sampler)'}")
+        out[name] = {**_epoch_figures(log, TRAIN_BATCH, steps), "peak_device_memory_gb": peak,
+                     "main_wall_s": wall, "launches": counts}
+        if name == "device":
+            for kernel, per in GEOMETRY_LAUNCHES["pointnet2"].items():
+                _record_path(records, kernel, "pointnet2 train --device_sampler", counts[kernel],
+                             "pointnet2 device-sampled train step", per)
+
+    # the step alone by CUDA events: host path on a batch on the card,
+    # device path sampling its own
+    net = POINTNET_MODELS["pointnet2"][0]()
+    state = TrainState(net.to(dev))
+    step = make_train_step(net, weighted_nll_loss, family=POINTNET_MODELS["pointnet2"][1])
+    weights = torch.from_numpy(np.asarray(rooms.label_weights, np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pts, labels = next(iter(S3DISBlockSampler(rooms, num_point=NUM_POINT).batches(
+        np.random.default_rng(1), TRAIN_BATCH)))
+    pts, labels = torch.from_numpy(pts).to(dev), torch.from_numpy(labels).to(dev)
+    staged, num_max = ds.stage_rooms(rooms, dev)
+    sample = ds.make_device_block_sampler(batch_size=TRAIN_BATCH, num_point=NUM_POINT,
+                                          num_max=num_max)
+    sampled = ds.make_sampled_multi_train_step(step, sample)
+    host_step_ms = cuda_ms(lambda: step(state, pts, labels, weights, 1e-4, 0.1, gen), reps=5)
+    device_step_ms = cuda_ms(lambda: sampled(state, staged, weights, 1e-4, 0.1, 1, gen), reps=5)
+    out["host"].update(ms_per_step_cuda_events=host_step_ms,
+                       host_share=1 - host_step_ms / out["host"]["ms_per_step_host_clock"])
+    out["device"].update(ms_per_step_cuda_events=device_step_ms,
+                         host_share=1 - device_step_ms / out["device"]["ms_per_step_host_clock"])
+    out["blocks_per_s_ratio"] = out["device"]["blocks_per_s"] / out["host"]["blocks_per_s"]
+    print("pointnet2 train, host vs device sampler: " + json.dumps(out))
+    host_miou, dev_miou = out["host"]["eval_miou"][-1], out["device"]["eval_miou"][-1]
+    if abs(dev_miou - host_miou) > max(DS_MIOU_SLACK, 0.5 * host_miou):
+        raise AssertionError(f"device-sampled eval mIoU {dev_miou} out of the host run's "
+                             f"range ({host_miou})")
+    return out
+
+
+def phase_adv_train(dev, records, train_data: str, prep: str) -> dict:
+    """66. ``--adv_train nb`` through ``cli.train``: PointNet++ SSG at 32 ×
+    4096 (one epoch on phase 17's rooms, ``--adv_iters 5``) and RandLA S3DIS
+    at 6 × 40960 (4 steps, one validation cloud). Launches a step: the
+    step's train-mode plan and ONE evaluation-mode plan for the attack
+    (SSG 8 FPS and 16 bottom-k, RandLA 20 kNN), not one per iteration;
+    every loss finite. ms a step by CUDA events with the attack and
+    without; the crafted batch within the ε-ball and moved."""
+    from pointsecguard_tpu_torch.attacks.pgd import PGDConfig
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler, WholeSceneBlocks
+    from pointsecguard_tpu_torch.models import RandLANet, weighted_nll_loss, weighted_softmax_ce_loss
+    from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS, TrainState, make_adv_train_fn, make_train_step, randla_family,
+    )
+
+    out = {}
+    rooms = RoomSet.load(train_data, "train", 5)
+    steps = -(-len(S3DISBlockSampler(rooms, num_point=NUM_POINT)) // TRAIN_BATCH)
+    test_blocks = WholeSceneBlocks(RoomSet.load(train_data, "test", 5), block_points=NUM_POINT
+                                   ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+    eval_batches = -(-test_blocks // TRAIN_BATCH)
+    log = os.path.join(WORK, "adv_train_pointnet2")
+    _, counts, peak, wall = _train_cli([
+        "--model", "pointnet2", "--data_root", train_data, "--log_dir", log,
+        "--npoint", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+        "--learning_rate", str(TRAIN_LR), "--adv_train", "nb", "--adv_iters", str(ADV_ITERS)])
+    want = {"fps": 8 * steps + 4 * eval_batches, "bottom_k": 16 * steps + 8 * eval_batches}
+    if {k: counts[k] for k in want} != want or any(counts[k] for k in counts if k not in want):
+        raise AssertionError(f"adversarial SSG training launches {counts}, want {want}")
+    out["pointnet2"] = {**_epoch_figures(log, TRAIN_BATCH, steps), "launches": counts,
+                        "fps_per_step": 8, "bottom_k_per_step": 16,
+                        "peak_device_memory_gb": peak, "main_wall_s": wall}
+    for kernel, per in (("fps", 8), ("bottom_k", 16)):
+        _record_path(records, kernel, "pointnet2 train --adv_train nb", counts[kernel],
+                     "pointnet2 adversarial train step", per)
+
+    rlog = os.path.join(WORK, "adv_train_randla")
+    _, counts, peak, wall = _train_cli([
+        "--model", "randla", "--randla_dir", prep, "--log_dir", rlog,
+        "--randla_points", str(RANDLA_POINTS), "--batch_size", str(RANDLA_TRAIN_BATCH),
+        "--steps_per_epoch", str(ADV_RANDLA_STEPS), "--val_steps", "1", "--epochs", "1",
+        "--adv_train", "nb", "--adv_iters", str(ADV_ITERS)])
+    want = {"knn": 20 * ADV_RANDLA_STEPS + 10}
+    if counts["knn"] != want["knn"] or any(counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"adversarial RandLA training launches {counts}, want {want}")
+    out["randla"] = {**_epoch_figures(rlog, RANDLA_TRAIN_BATCH, ADV_RANDLA_STEPS),
+                     "launches": counts, "knn_per_step": 20, "peak_device_memory_gb": peak,
+                     "main_wall_s": wall}
+    _record_path(records, "knn", "randla train --adv_train nb", counts["knn"],
+                 "randla adversarial train step", 20)
+
+    # a step with the attack and without, by CUDA events, on one batch
+    cfg = PGDConfig(eps=0.1, alpha=0.05, iters=ADV_ITERS)
+    pts, labels = next(iter(S3DISBlockSampler(rooms, num_point=NUM_POINT).batches(
+        np.random.default_rng(1), TRAIN_BATCH)))
+    batches = {"pointnet2": (torch.from_numpy(pts).to(dev), torch.from_numpy(labels).to(dev)),
+               "randla": randla_train_batch(prep, dev, RANDLA_TRAIN_BATCH, RANDLA_POINTS, 3)}
+    for name in ("pointnet2", "randla"):
+        if name == "pointnet2":
+            net, family = POINTNET_MODELS["pointnet2"][0](), POINTNET_MODELS["pointnet2"][1]
+            loss_fn, wd, weights, bn = weighted_nll_loss, 1e-4, torch.ones(13, device=dev), 0.1
+        else:
+            net, family = RandLANet(), randla_family()
+            loss_fn, wd, weights, bn = weighted_softmax_ce_loss, 0.0, torch.ones(13, device=dev), None
+        state = TrainState(net.to(dev))
+        adv = make_adv_train_fn(net, family, cfg)
+        x, y = batches[name]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        crafted = adv(x, y, gen)
+        delta = (crafted - x)[..., 3:6].abs().max().item()
+        if not 0 < delta <= cfg.eps + 1e-6 or not torch.equal(crafted[..., :3], x[..., :3]):
+            raise AssertionError(f"{name}: the crafted batch moved {delta}")
+        ms = {}
+        for what, hook in (("clean", None), ("adv", adv)):
+            step = make_train_step(net, loss_fn, weight_decay=wd, family=family, adv_fn=hook)
+            ms[what] = cuda_ms(lambda: step(state, x, y, weights, 1e-5, bn, gen), reps=3,
+                               warmup=1)
+        out[name].update(ms_per_step_cuda_events=ms["adv"],
+                         clean_ms_per_step_cuda_events=ms["clean"],
+                         adv_over_clean=ms["adv"] / ms["clean"], crafted_max_abs_delta=delta)
+    print("--adv_train nb: " + json.dumps(out))
+    return out
+
+
+def phase_remat(dev, records, resgcn_data: str) -> dict:
+    """67. ResGCN-28 at 8 × 4096 with and without ``--remat``: two epochs of
+    ``cli.train --model resgcn --remat`` on phase 32's room (4 kNN launches a
+    step, every loss finite; the first epoch pays the path's first steps,
+    the second reads the steady state); then one step of the full-width model from
+    the same state on one batch each way: peak device memory
+    (``max_memory_allocated``) and ms a step by CUDA events, and the two
+    steps' loss (within 1e-6 relative), gradients (relative L2 1e-5),
+    BatchNorm statistics (1e-5 of the largest) and parameters (all but
+    0.1 % of them within 1e-6: Adam's first step moves a parameter by
+    ±lr whatever its gradient's size, so a gradient that rounds to the
+    other sign puts that one parameter 2 · lr apart) equal."""
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, init_parameters
+    from pointsecguard_tpu_torch.models.resgcn import ce_loss
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step, resgcn_family
+
+    rooms = RoomSet.load(resgcn_data, "train", 5)
+    sampler = S3DISBlockSampler(rooms, num_point=NUM_POINT)
+    steps = -(-len(sampler) // RESGCN_BATCH)
+    log = os.path.join(WORK, "remat_train")
+    _, counts, peak, wall = _train_cli([
+        "--model", "resgcn", "--data_root", resgcn_data, "--log_dir", log,
+        "--npoint", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH), "--epochs", "2",
+        "--remat"])
+    if counts["knn"] != 8 * steps or any(counts[k] for k in counts if k != "knn"):
+        raise AssertionError(f"resgcn --remat launches {counts}, want knn 4 × {2 * steps}")
+    out = {"cli": {**_epoch_figures(log, RESGCN_BATCH, steps), "launches": counts,
+                   "peak_device_memory_gb": peak, "main_wall_s": wall}}
+    _record_path(records, "knn", "resgcn train --remat", counts["knn"],
+                 "resgcn remat train step", 4)
+
+    pts, labels = next(iter(sampler.batches(np.random.default_rng(1), RESGCN_BATCH)))
+    pts, labels = torch.from_numpy(pts).to(dev), torch.from_numpy(labels).long().to(dev)
+    init = DenseDeepGCN()
+    init_parameters(init, torch.Generator().manual_seed(3), scale=2.0)
+    sd = init.state_dict()
+    got = {}
+    for remat in (False, True):
+        model = DenseDeepGCN(remat=remat)
+        model.load_state_dict(sd)
+        state = TrainState(model.to(dev))
+        step = make_train_step(model, ce_loss, weight_decay=0.0, family=resgcn_family())
+        before = (state.params.clone(), state.mu.clone(), state.nu.clone(),
+                  state.count.clone(), state.stats.clone())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = step(state, pts, labels, None, REMAT_LR, None)
+        torch.cuda.synchronize()
+        rec = {"loss": loss.item(), "grads": state.grads.clone(), "params": state.params.clone(),
+               "stats": state.stats.clone(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_above_state_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        rec["ms"] = cuda_ms(lambda: step(state, pts, labels, None, 1e-7, None), reps=3,
+                            warmup=1)
+        for t, b in zip((state.params, state.mu, state.nu, state.count, state.stats), before):
+            t.copy_(b)
+        got[remat] = rec
+        del model, state, step
+    a, b = got[False], got[True]
+    diff = (a["params"] - b["params"]).abs()
+    res = {
+        "peak_gb": a["peak_gb"], "peak_gb_remat": b["peak_gb"],
+        "peak_above_state_gb": a["peak_above_state_gb"],
+        "peak_above_state_gb_remat": b["peak_above_state_gb"],
+        "ms_per_step": a["ms"], "ms_per_step_remat": b["ms"],
+        "loss": a["loss"], "loss_rel": abs(a["loss"] - b["loss"]) / abs(a["loss"]),
+        "grad_rel_l2": _rel_l2(b["grads"].cpu(), a["grads"].cpu()),
+        "stats_max_abs": (a["stats"] - b["stats"]).abs().max().item(),
+        "stats_max": a["stats"].abs().max().item(),
+        "params_max_abs": diff.max().item(),
+        "params_share_over_1e-6": (diff > 1e-6).float().mean().item(),
+    }
+    out["step"] = res
+    print("resgcn --remat: " + json.dumps(out))
+    ok = (math.isfinite(a["loss"]) and res["loss_rel"] <= 1e-6 and res["grad_rel_l2"] <= 1e-5
+          and res["stats_max_abs"] <= 1e-5 * res["stats_max"]
+          and res["params_share_over_1e-6"] <= 1e-3
+          and res["peak_above_state_gb_remat"] < res["peak_above_state_gb"])
+    if not ok:
+        raise AssertionError("ResGCN's step with --remat disagrees with the step without it, "
+                             "or keeps no less memory")
+    return out
+
+
+def phase_profile(records, resgcn_data: str) -> dict:
+    """68. ``cli.train --model pointnet2 --profile DIR`` at 32 × 4096 on
+    phase 32's one room (one epoch of 4 steps and an eval): the trace of
+    the first epoch's training names the FPS and bottom-k kernels, as many
+    of each as the counters counted in the steps (4 and 8 a step)."""
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler
+
+    steps = -(-len(S3DISBlockSampler(RoomSet.load(resgcn_data, "train", 5),
+                                     num_point=NUM_POINT)) // TRAIN_BATCH)
+    trace = os.path.join(WORK, "profile_trace")
+    log = os.path.join(WORK, "profile_log")
+    _, counts, _, wall = _train_cli([
+        "--model", "pointnet2", "--data_root", resgcn_data, "--log_dir", log,
+        "--npoint", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+        "--eval_every", "99", "--profile", trace])
+    path = os.path.join(trace, "epoch_0.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {"fps": sum("fps_kernel" in n for n in kernels),
+             "bottom_k": sum("bottom_k_" in n and "chunked" not in n for n in kernels)}
+    out = {"trace_bytes": os.path.getsize(path), "events": len(events),
+           "kernel_events": len(kernels), "named": named, "steps": steps,
+           "launches": counts, "main_wall_s": wall}
+    print("--profile: " + json.dumps(out))
+    if named != {"fps": 4 * steps, "bottom_k": 8 * steps}:
+        raise AssertionError(f"the trace names {named}, want 4 and 8 a step over {steps} steps")
+    for kernel in ("fps", "bottom_k"):
+        _record_path(records, kernel, "pointnet2 train --profile", counts[kernel])
+    return out
+
+
+def run_training_extras_phases(dev, records, train_data: str, prep: str,
+                               resgcn_data: str) -> None:
+    for number, phase in (
+            (64, lambda: phase_device_sampler(dev, train_data)),
+            (65, lambda: phase_device_sampler_train(dev, records, train_data)),
+            (66, lambda: phase_adv_train(dev, records, train_data, prep)),
+            (67, lambda: phase_remat(dev, records, resgcn_data)),
+            (68, lambda: phase_profile(records, resgcn_data))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -5771,6 +6181,10 @@ def main(argv=None) -> int:
     run_partseg_phases(dev, records)
     print(f"phases 61-63: {time.perf_counter() - phases_61_63:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_64_68 = time.perf_counter()
+    run_training_extras_phases(dev, records, train_data, prep, resgcn_data)
+    print(f"phases 64-68: {time.perf_counter() - phases_64_68:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -5781,7 +6195,9 @@ def main(argv=None) -> int:
                       "pointnet2_cls_msg eval", "pointnet2_cls benchmark",
                       *(f"pointnet2_cls {path}" for path, _, _ in CLS_ATTACKS),
                       *(f"{m} {what}" for m in PS_MODELS[:2] for what in ("train", "eval")),
-                      *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg")}
+                      *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg"),
+                      "pointnet2 train --device_sampler", "pointnet2 train --adv_train nb",
+                      "pointnet2 train --profile"}
     for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval",
@@ -5793,7 +6209,8 @@ def main(argv=None) -> int:
                                  "randla semantic3d nb", "randla semantickitti train",
                                  "randla semantickitti eval",
                                  "pointnet2_cls nb --defense sor",
-                                 "pointnet2_part_seg nb --defense sor"})):
+                                 "pointnet2_part_seg nb --defense sor",
+                                 "randla train --adv_train nb", "resgcn train --remat"})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")

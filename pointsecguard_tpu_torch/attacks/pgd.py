@@ -68,7 +68,8 @@ def pgd_color_attack(
     generator: torch.Generator | None = None,
     trajectory: bool = False,
     valid_rows: int | None = None,
-) -> AttackResult | tuple[AttackResult, dict]:
+    evaluate: bool = True,
+) -> AttackResult | tuple[AttackResult, dict] | torch.Tensor:
     """Run the attack on a batch.
 
     Args:
@@ -89,6 +90,9 @@ def pgd_color_attack(
       valid_rows: the trajectory pools its accuracy and success rate over
         the first ``valid_rows`` clouds (a caller's padded rows excluded;
         default all).
+      evaluate: False returns the adversarial points [B, N, C] alone,
+        without the final forward that scores them (adversarial training
+        reads nothing else, as JAX `train/trainer.py:306-310` does).
     """
     lo, hi = cfg.channels
     points = points.detach()
@@ -208,6 +212,8 @@ def pgd_color_attack(
                 traj["l2"].append(torch.linalg.norm((color - color0).reshape(B, -1), dim=1))
         steps = i + 1
 
+    if not evaluate:
+        return with_color(snap).detach()
     with torch.no_grad():
         adv = with_color(snap)
         outputs = outputs_fn(adv)

@@ -43,9 +43,16 @@ and ``pointnet_cls`` (the ModelNet classifiers, ``train_cls``) with
 and ``pointnet_part_seg`` (the ShapeNetPart part-seg nets,
 ``train_partseg``) with ``--data_root`` (a ShapeNetPart tree),
 ``--no_normals``, ``--npoint`` (0 → 2048), ``--batch_size`` (0 → 16) and
-the classifiers' other flags. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
-by request. Every other flag of the JAX CLI is accepted by name and stops
-the run with "not ported yet" instead of being ignored.
+the classifiers' other flags. The training extras: ``--steps_per_call``
+(every model), ``--device_sampler`` and ``--device_sampler_exact`` (the
+PointNet family and resgcn), ``--adv_train nb`` with ``--adv_eps``,
+``--adv_alpha``, ``--adv_iters`` and ``--adv_rand_init`` (the PointNet
+family, resgcn, randla on s3dis or semantic3d), ``--remat`` (resgcn) and
+``--profile DIR`` (the PointNet family). It runs on the GPU; ``--device
+cpu`` runs the plain PyTorch path by request. Every other flag of the JAX
+CLI, and an extra with a model that does not read it (which the JAX CLI
+would ignore), is accepted by name and stops the run with "not ported
+yet" instead of being ignored.
 """
 
 from __future__ import annotations
@@ -61,20 +68,25 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 CLS_MODELS = ("pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg")
 PART_SEG_MODELS = ("pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg")
-PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS,
-                 *PART_SEG_MODELS)
+POINTNET_FAMILY = ("pointnet2", "pointnet2_msg", "pointnet")
+PORTED_MODELS = (*POINTNET_FAMILY, "randla", "resgcn", *CLS_MODELS, *PART_SEG_MODELS)
 # the object tasks' data flags with the models that read them: refused with
 # any other model (the JAX CLI would ignore them there)
 CLS_DEFAULTS = {"num_category": 40, "no_normals": False}
 _FLAG_MODELS = {"num_category": CLS_MODELS, "no_normals": CLS_MODELS + PART_SEG_MODELS}
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
-_UNPORTED_DEFAULTS = {
-    "precision": "float32", "steps_per_call": 1,
-    "profile": None, "devices": 1, "shard_points": 1, "adv_train": "none",
-    "adv_eps": 0.1, "adv_alpha": 0.05, "adv_iters": 5, "adv_rand_init": 0.0,
+_UNPORTED_DEFAULTS = {"precision": "float32", "devices": 1, "shard_points": 1}
+# the training extras that not every loop reads, with the models whose
+# loops read them (JAX `train/loops.py`; --steps_per_call is read by every
+# loop); the adv_* budget is read under --adv_train nb
+_ADV_BUDGET = ("adv_eps", "adv_alpha", "adv_iters", "adv_rand_init")
+_EXTRA_MODELS = {
+    "profile": POINTNET_FAMILY,
+    "adv_train": (*POINTNET_FAMILY, "resgcn", "randla"),
+    "remat": ("resgcn",), "device_sampler": (*POINTNET_FAMILY, "resgcn"),
+    "device_sampler_exact": (*POINTNET_FAMILY, "resgcn"),
 }
-_UNPORTED_SWITCHES = ("remat", "device_sampler", "device_sampler_exact")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -128,10 +140,29 @@ def _parser() -> argparse.ArgumentParser:
     add_resgcn_arguments(ap)
     for name, default in _UNPORTED_DEFAULTS.items():
         flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
-        kind = type(default) if default is not None else str
-        ap.add_argument(*flags, type=kind, default=default)
-    for name in _UNPORTED_SWITCHES:
-        ap.add_argument(f"--{name}", action="store_true")
+        ap.add_argument(*flags, type=type(default), default=default)
+    ap.add_argument("--steps_per_call", type=int, default=1,
+                    help="optimizer steps a call, on batches stacked that deep")
+    ap.add_argument("--device_sampler", action="store_true",
+                    help="pointnet family, resgcn: stage the rooms on the device and "
+                         "draw the training blocks there (data/device_sampler.py)")
+    ap.add_argument("--device_sampler_exact", action="store_true",
+                    help="with --device_sampler: draw a block's points without "
+                         "replacement where it holds enough (Gumbel top-k)")
+    ap.add_argument("--adv_train", default="none",
+                    help="nb: train on batches crafted by the NB colour attack against "
+                         "the current parameters (pointnet family, resgcn, randla "
+                         "s3dis / semantic3d)")
+    ap.add_argument("--adv_eps", type=float, default=0.1, help="--adv_train: L-inf budget")
+    ap.add_argument("--adv_alpha", type=float, default=0.05, help="--adv_train: step size")
+    ap.add_argument("--adv_iters", type=int, default=5, help="--adv_train: PGD iterations")
+    ap.add_argument("--adv_rand_init", type=float, default=0.0,
+                    help="--adv_train: uniform random start inside the ball (0 = clean)")
+    ap.add_argument("--remat", action="store_true",
+                    help="resgcn: recompute each backbone block in the backward")
+    ap.add_argument("--profile", default=None,
+                    help="pointnet family: a torch.profiler trace of the first epoch's "
+                         "training, written under this directory")
     return ap
 
 
@@ -140,11 +171,41 @@ def _refuse_unported(args) -> None:
     refused += [f"--{name} {getattr(args, name)}"
                 for name, default in _UNPORTED_DEFAULTS.items()
                 if getattr(args, name) != default]
-    refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
+    refused += extra_refusals(args)
     refused += cls_refusals(args)
     refused += resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
+
+
+def extra_refusals(args) -> list[str]:
+    """The training extras with a model (or a dataset, or without the flag)
+    that does not read them, and ``--adv_train`` values other than nb."""
+    defaults = _parser()
+
+    def flag(name):
+        value = getattr(args, name)
+        return f"--{name}" if isinstance(value, bool) else f"--{name} {value}"
+
+    def given(name):
+        return getattr(args, name) != defaults.get_default(name)
+
+    refused = [f"{flag(name)} (with --model {args.model})"
+               for name, models in _EXTRA_MODELS.items()
+               if given(name) and args.model not in models]
+    if args.adv_train not in ("none", "nb"):
+        refused.append(f"--adv_train {args.adv_train}")
+    elif (args.adv_train == "nb" and args.model == "randla"
+          and args.randla_dataset == "semantickitti"):
+        # JAX `train/loops.py:359-368`: the attack perturbs colours
+        refused.append("--adv_train nb (with --randla_dataset semantickitti: xyz-only "
+                       "features)")
+    if args.adv_train == "none":
+        refused += [f"{flag(name)} (without --adv_train nb)" for name in _ADV_BUDGET
+                    if given(name)]
+    if args.device_sampler_exact and not args.device_sampler:
+        refused.append("--device_sampler_exact (without --device_sampler)")
+    return refused
 
 
 def cls_refusals(args) -> list[str]:

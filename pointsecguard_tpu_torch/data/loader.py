@@ -1,8 +1,9 @@
 """Host input pipeline of the trainer (port of
-``pointsecguard_tpu/data/loader.py:32-108``): one background thread runs
+``pointsecguard_tpu/data/loader.py:32-132``): one background thread runs
 the numpy sampler, the augmentation and the copy to the device, and
 stages ready batches in a bounded queue, so the host pipeline overlaps
-the device's step instead of alternating with it.
+the device's step instead of alternating with it; ``stack_batches``
+groups them ``--steps_per_call`` deep.
 """
 
 from __future__ import annotations
@@ -91,6 +92,26 @@ def prefetch(
         t.join(timeout=5.0)
 
 
+def stack_batches(iterable: Iterable[tuple], k: int) -> Iterator[tuple]:
+    """Group consecutive batch tuples into stacks of ``k`` along a new
+    leading axis: ``k`` tuples of arrays ``[B, ...]`` → one tuple of
+    arrays ``[k, B, ...]`` (JAX `data/loader.py:111-132`). The epoch's
+    tail (fewer than ``k`` items) comes one item at a time as
+    ``[1, B, ...]`` stacks, so a consumer sees two stack depths only."""
+    if k <= 1:
+        for item in iterable:
+            yield tuple(np.asarray(x)[None] for x in item)
+        return
+    buf: list[tuple] = []
+    for item in iterable:
+        buf.append(item)
+        if len(buf) == k:
+            yield tuple(np.stack(xs) for xs in zip(*buf))
+            buf = []
+    for item in buf:
+        yield tuple(np.asarray(x)[None] for x in item)
+
+
 def make_batch_put(device: torch.device, depth: int = 2) -> Callable:
     """``(points, labels) numpy → tensors on device``, for ``prefetch``'s
     transform. On a CUDA device the arrays are staged through a ring of
@@ -98,7 +119,9 @@ def make_batch_put(device: torch.device, depth: int = 2) -> Callable:
     thread; the returned tensors carry the event of their copy, which
     ``wait_batch`` makes the consumer's stream wait for. A ring slot is
     reused only after its copy has finished: the queue holds at most
-    ``depth`` batches, the consumer one and the worker one."""
+    ``depth`` batches, the consumer one and the worker one. A slot takes
+    new buffers when the arrays' shapes change (a ``stack_batches``
+    tail)."""
     if device.type != "cuda":
         def put_cpu(item):
             pts, labels = item
@@ -118,11 +141,14 @@ def make_batch_put(device: torch.device, depth: int = 2) -> Callable:
         i = turn[0] % slots
         turn[0] += 1
         if len(ring) <= i:
-            ring.append((torch.empty(pts.shape, dtype=torch.float32).pin_memory(),
-                         torch.empty(labels.shape, dtype=torch.int64).pin_memory(),
-                         torch.cuda.Event()))
+            ring.append(None)
+        if ring[i] is not None:
+            ring[i][2].synchronize()  # the slot's previous copy has left the buffer
+        if ring[i] is None or ring[i][0].shape != pts.shape or ring[i][1].shape != labels.shape:
+            ring[i] = (torch.empty(pts.shape, dtype=torch.float32).pin_memory(),
+                       torch.empty(labels.shape, dtype=torch.int64).pin_memory(),
+                       torch.cuda.Event())
         host_p, host_l, done = ring[i]
-        done.synchronize()  # the slot's previous copy has left the buffer
         host_p.copy_(torch.from_numpy(pts))
         host_l.copy_(torch.from_numpy(labels))
         with torch.cuda.stream(stream):

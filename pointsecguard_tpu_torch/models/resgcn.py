@@ -21,11 +21,21 @@ is ``torch.amax``, which splits the gradient over tied maxima as
 the forward would build, and ``collect_graphs=True`` returns them beside
 the logits: two devices can then be held against each other on one
 graph.
+
+``remat=True`` (``cli.train --remat``, JAX's ``nn.remat`` around each
+backbone ``DynConv``, `pointsecguard_tpu/models/resgcn.py:196-251`) keeps
+only each block's input and graph for the backward, which recomputes the
+block's edge features and EdgeConv. The graph (the kNN and the stochastic
+dilation's draw) is built outside the recomputed function, so the
+recompute draws nothing; the recompute's BatchNorm statistics update is
+undone, so the running statistics move once, as without remat. The state
+dict is the same with and without it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
@@ -87,15 +97,41 @@ class DynConv(nn.Module):
         self.conv = _GRAPH_CONVS[conv](in_channels, out_channels)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
-        """→ (output [B, N, out], the graph [B, N, k] it used)."""
+                generator: torch.Generator | None = None, remat: bool = False):
+        """→ (output [B, N, out], the graph [B, N, k] it used). ``remat``
+        recomputes the convolution over the graph in the backward."""
         if idx is None:
             idx = ops.dense_knn_graph(x, self.k * self.dilation)
             # the random subset is drawn only where it can be taken
             idx = ops.dilate_neighbors(idx, self.dilation, generator=generator,
                                        stochastic=self.training and self.epsilon > 0,
                                        epsilon=self.epsilon)
+        if remat and torch.is_grad_enabled():
+            return self._recomputed_conv(x, idx), idx
         return self.conv(x, idx), idx
+
+    def _recomputed_conv(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        calls = []
+        stats = [b for b in self.conv.buffers()]
+
+        def run(x, idx):
+            if not calls:  # the forward: the statistics move here
+                calls.append(1)
+                return self.conv(x, idx)
+            # the backward's recompute: same batch statistics, so the same
+            # output; the running statistics are put back as they were
+            # (also when the recompute stops early, past its last saved
+            # tensor)
+            kept = [b.clone() for b in stats]
+            try:
+                return self.conv(x, idx)
+            finally:
+                with torch.no_grad():
+                    for b, k in zip(stats, kept):
+                        b.copy_(k)
+
+        return torch.utils.checkpoint.checkpoint(run, x, idx, use_reentrant=False,
+                                                 preserve_rng_state=False)
 
 
 class DenseDeepGCN(nn.Module):
@@ -108,13 +144,15 @@ class DenseDeepGCN(nn.Module):
     from ``generator`` (on the model's device), or the dropout mask given
     as ``dropout_mask``. The JAX module's ``act``, ``norm``, ``use_bias``
     and ``res_scale`` keep their defaults (ReLU, BatchNorm, biases, 1):
-    no ported path sets them.
+    no ported path sets them. ``remat`` recomputes each backbone block in
+    the backward (module docstring).
     """
 
     def __init__(self, num_classes: int = 13, in_channels: int = 9, n_blocks: int = 28,
                  n_filters: int = 64, k: int = 16, block: str = "res", conv: str = "edge",
-                 epsilon: float = 0.0, dropout: float = 0.0):
+                 epsilon: float = 0.0, dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if block not in ("res", "dense", "plain") or conv not in _GRAPH_CONVS:
             raise NotImplementedError(f"block:{block} conv:{conv} is not supported")
         self.k, self.block, self.dropout = k, block, dropout
@@ -142,7 +180,8 @@ class DenseDeepGCN(nn.Module):
         graphs_out = [head_idx]
         feats = [self.head(points, head_idx)]
         for i, blk in enumerate(self.backbone):
-            body, idx = blk(feats[-1], None if graphs is None else graphs[1 + i], generator)
+            body, idx = blk(feats[-1], None if graphs is None else graphs[1 + i], generator,
+                            self.remat)
             graphs_out.append(idx)
             # res adds the skip; dense concatenates (growing widths, which
             # the fusion's concatenation below takes again, as the

@@ -21,6 +21,15 @@ ResGCN follows `sem_seg_dense/train.py:50-95`: raw sampler blocks (no
 augmentation), plain mean cross-entropy, Adam without weight decay at a
 constant 1e-3, no evaluation in the loop.
 
+The training extras of the JAX loops: every loop takes ``--steps_per_call
+K`` (K steps a call on ``stack_batches``' stacks); the PointNet family and
+ResGCN ``--device_sampler`` (the blocks drawn on the device,
+``data.device_sampler``; ``--device_sampler_exact`` without replacement);
+the PointNet family, ResGCN and RandLA on S3DIS or Semantic3D
+``--adv_train nb`` (``trainer.make_adv_train_fn``); ResGCN ``--remat``;
+the PointNet family ``--profile DIR`` (a trace of the first epoch's
+training).
+
 The PointNet++ and RandLA loops save ``latest.pt`` after every evaluated
 epoch and ``best.pt`` when the mIoU improves; the ResGCN loop saves
 ``latest.pt`` after every epoch with −loss as its metric and no
@@ -41,14 +50,80 @@ import torch
 log = logging.getLogger(__name__)
 
 
+def _steps_per_call(args) -> int:
+    return max(getattr(args, "steps_per_call", 1) or 1, 1)
+
+
+def _maybe_adv_fn(args, model, family, **kw):
+    """``--adv_train nb`` → the step's batch-crafting hook
+    (``trainer.make_adv_train_fn`` under the ``--adv_*`` budget; JAX
+    `train/loops.py:42-68`); None without it."""
+    if (getattr(args, "adv_train", "none") or "none") == "none":
+        return None
+    from pointsecguard_tpu_torch.attacks.pgd import PGDConfig
+    from pointsecguard_tpu_torch.train.trainer import make_adv_train_fn
+
+    cfg = PGDConfig(eps=args.adv_eps, alpha=args.adv_alpha, iters=args.adv_iters,
+                    rand_init_eps=args.adv_rand_init)
+    return make_adv_train_fn(model, family, cfg, **kw)
+
+
+def _host_epoch(multi_step, state, batches, put, depth: int, spc: int, weights, lr,
+                bn_momentum, gen) -> list:
+    """One epoch of the host pipeline: ``batches`` stacked ``spc`` deep,
+    copied to the device on the prefetch thread, ``multi_step`` on each
+    stack; the device losses, one tensor a call."""
+    from pointsecguard_tpu_torch.data.loader import prefetch, stack_batches, wait_batch
+
+    losses = []
+    for batch in prefetch(stack_batches(batches, spc), put, depth=depth):
+        pts, labels = wait_batch(batch)
+        losses.append(multi_step(state, pts, labels, weights, lr, bn_momentum, gen))
+    return losses
+
+
+def _device_epoch_fn(args, rooms, n_samples: int, device, batch_size: int, num_point: int,
+                     step_fn, augment_z: bool):
+    """``--device_sampler``: the rooms staged on ``device``, and
+    ``epoch(state, weights, lr, bn_momentum, gen) → losses`` running the
+    host epoch's step count (``n_samples`` blocks, the host sampler's
+    length, in batches; ``device_sampler.epoch_calls``) in calls of
+    ``--steps_per_call`` steps of ``step_fn``, each on a batch sampled on
+    the device; None without the flag."""
+    if not getattr(args, "device_sampler", False):
+        return None
+    from pointsecguard_tpu_torch.data.device_sampler import (
+        epoch_calls,
+        make_device_block_sampler,
+        make_sampled_multi_train_step,
+        stage_rooms,
+    )
+
+    staged, num_max = stage_rooms(rooms, device)
+    sample_fn = make_device_block_sampler(
+        batch_size=batch_size, num_point=num_point, num_max=num_max,
+        min_points=getattr(args, "min_block_points", 1024), augment_z=augment_z,
+        replacement=not getattr(args, "device_sampler_exact", False))
+    log.info("device sampler: %d rooms staged, %d bytes, window %d rows",
+             len(rooms.names), staged.nbytes, num_max)
+    dstep = make_sampled_multi_train_step(step_fn, sample_fn)
+    calls = epoch_calls(n_samples, batch_size, _steps_per_call(args))
+
+    def epoch(state, weights, lr, bn_momentum, gen):
+        return [dstep(state, staged, weights, lr, bn_momentum, k, gen) for k in calls]
+
+    return epoch
+
+
 def train_pointnet_family(args, device: torch.device):
     """Train ``args.model`` (pointnet2, pointnet2_msg or pointnet) on the
     rooms under ``args.data_root``; returns ``(state, best mIoU)``. ``args`` carries
     ``cli.train``'s flags (data_root, log_dir, test_area, npoint,
     min_block_points, batch_size, learning_rate, seed, prefetch, epochs,
-    eval_every)."""
+    eval_every, steps_per_call, device_sampler[_exact], adv_train and the
+    adv_* budget, profile)."""
     from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler, augment
-    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.loader import make_batch_put
     from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
     from pointsecguard_tpu_torch.train.evaluator import evaluate_whole_scenes
     from pointsecguard_tpu_torch.train.schedules import (
@@ -59,10 +134,11 @@ def train_pointnet_family(args, device: torch.device):
         POINTNET_MODELS,
         TrainState,
         make_eval_step,
-        make_train_step,
+        make_multi_train_step,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
     from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
+    from pointsecguard_tpu_torch.utils.profiling import maybe_trace
 
     rooms = RoomSet.load(args.data_root, "train", args.test_area)
     test_rooms = RoomSet.load(args.data_root, "test", args.test_area)
@@ -84,7 +160,11 @@ def train_pointnet_family(args, device: torch.device):
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
     # PointNet's family adds 0.001 · the feature-transform regularizer
-    step_fn = make_train_step(model, weighted_nll_loss, family=family)
+    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family,
+                                       adv_fn=_maybe_adv_fn(args, model, family))
+    device_epoch = _device_epoch_fn(args, rooms, len(sampler), device, batch_size,
+                                    args.npoint, multi_step.step, augment_z=True)
+    spc = _steps_per_call(args)
     eval_fn = make_eval_step(model, device, family)
     weights = torch.from_numpy(
         np.asarray(rooms.label_weights, np.float32)).to(device)
@@ -115,10 +195,14 @@ def train_pointnet_family(args, device: torch.device):
                 pts[:, :, :3] = augment.rotate_point_cloud_z(pts[:, :, :3], rng)
                 yield pts, labels
 
-        losses = []
-        for batch in prefetch(_augmented(), put, depth=depth):
-            pts, labels = wait_batch(batch)
-            losses.append(step_fn(state, pts, labels, weights, lr, bn_m, gen))
+        # --profile: a trace of the first epoch's training
+        with maybe_trace(getattr(args, "profile", None) if epoch == start_epoch else None,
+                         device, f"epoch_{epoch}"):
+            if device_epoch is not None:
+                losses = device_epoch(state, weights, lr, bn_m, gen)
+            else:
+                losses = _host_epoch(multi_step, state, _augmented(), put, depth, spc,
+                                     weights, lr, bn_m, gen)
         # one read of the device per EPOCH: reading each step's loss would
         # make the host wait for the device and sample only in between
         mean_loss, n_batches, nan_batches = _epoch_losses(losses)
@@ -154,8 +238,8 @@ def train_pointnet_family(args, device: torch.device):
 
 def _epoch_losses(losses: list) -> tuple[float, int, int]:
     """(mean finite loss, batches, batches the NaN guard skipped) from an
-    epoch's device losses, read in one transfer."""
-    losses_np = (torch.stack(losses).cpu().numpy() if losses
+    epoch's device losses (one tensor a call), read in one transfer."""
+    losses_np = (torch.cat([loss.reshape(-1) for loss in losses]).cpu().numpy() if losses
                  else np.zeros(0, np.float32))
     finite = np.isfinite(losses_np)
     nan_batches = int((~finite).sum())
@@ -180,9 +264,9 @@ def train_cls(args, device: torch.device):
     on the test split every ``args.eval_every`` epochs and after the last,
     each saved as a checkpoint with that accuracy as its metric. ``args``
     carries ``cli.train``'s flags (npoint: 0 → 1024, batch_size: 0 → 24,
-    num_category, no_normals)."""
+    num_category, no_normals, steps_per_call)."""
     from pointsecguard_tpu_torch.data import augment
-    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.loader import make_batch_put
     from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
     from pointsecguard_tpu_torch.models import init_parameters, weighted_nll_loss
     from pointsecguard_tpu_torch.train.object_eval import evaluate_cls
@@ -190,7 +274,7 @@ def train_cls(args, device: torch.device):
         TrainState,
         cls_model,
         make_logp_step,
-        make_train_step,
+        make_multi_train_step,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
     from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
@@ -209,7 +293,7 @@ def train_cls(args, device: torch.device):
     model, family = cls_model(args.model, train_ds.num_classes, use_normals)
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
-    step_fn = make_train_step(model, weighted_nll_loss, family=family)
+    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family)
     weights = torch.ones(train_ds.num_classes, device=device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
     resumed = ckpt.restore_latest()
@@ -237,11 +321,9 @@ def train_cls(args, device: torch.device):
                 pts[:, :, :3] = augment.shift_point_cloud(pts[:, :, :3], rng)
                 yield pts, labels
 
-        losses = []
-        for batch in prefetch(_augmented(), put, depth=depth):
-            pts, labels = wait_batch(batch)
-            # torch's BatchNorm fraction 0.1: the upstream driver does not anneal it
-            losses.append(step_fn(state, pts, labels, weights, lr, 0.1, gen))
+        # torch's BatchNorm fraction 0.1: the upstream driver does not anneal it
+        losses = _host_epoch(multi_step, state, _augmented(), put, depth, _steps_per_call(args),
+                             weights, lr, 0.1, gen)
         mean_loss, n_batches, nan_batches = _epoch_losses(losses)
         seconds = time.time() - t0
         log.info("epoch %d lr %.2g loss %.4f (%.1fs, %d batches, %d skipped)",
@@ -283,9 +365,9 @@ def train_partseg(args, device: torch.device):
     checkpoint with it as its metric. The category one-hot rides as 16
     trailing channels of the points (``trainer._unpack``). ``args`` carries
     ``cli.train``'s flags (npoint: 0 → 2048, batch_size: 0 → 16,
-    no_normals)."""
+    no_normals, steps_per_call)."""
     from pointsecguard_tpu_torch.data import augment
-    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.loader import make_batch_put
     from pointsecguard_tpu_torch.data.shapenet_part import (
         NUM_OBJECT_CLASSES,
         NUM_PART_CLASSES,
@@ -298,7 +380,7 @@ def train_partseg(args, device: torch.device):
         TrainState,
         cls_model,
         make_logp_step,
-        make_train_step,
+        make_multi_train_step,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
     from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
@@ -326,7 +408,7 @@ def train_partseg(args, device: torch.device):
     model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals)
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
-    step_fn = make_train_step(model, weighted_nll_loss, family=family)
+    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family)
     weights = torch.ones(NUM_PART_CLASSES, device=device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
     resumed = ckpt.restore_latest()
@@ -354,10 +436,8 @@ def train_partseg(args, device: torch.device):
                 pts[:, :, :3] = augment.shift_point_cloud(pts[:, :, :3], rng)
                 yield pts, seg
 
-        losses = []
-        for batch in prefetch(_augmented(), put, depth=depth):
-            pts, seg = wait_batch(batch)
-            losses.append(step_fn(state, pts, seg, weights, lr, bn_m, gen))
+        losses = _host_epoch(multi_step, state, _augmented(), put, depth, _steps_per_call(args),
+                             weights, lr, bn_m, gen)
         mean_loss, n_batches, nan_batches = _epoch_losses(losses)
         seconds = time.time() - t0
         log.info("epoch %d lr %.2g loss %.4f (%.1fs, %d batches, %d skipped)",
@@ -393,11 +473,13 @@ def train_randla(args, device: torch.device):
     100 validation batches an epoch). The loss and the validation
     confusion leave the preset's ignored labels out and score in the
     reduced class space; the model takes xyz-only features (d_in 3) on
-    SemanticKITTI."""
+    SemanticKITTI. ``--steps_per_call`` and ``--adv_train nb`` (S3DIS and
+    Semantic3D: SemanticKITTI has no colours to perturb, and
+    ``cli.train`` refuses it there) as in the JAX loop."""
     from functools import partial
 
     from pointsecguard_tpu_torch.data.class_weights import get_class_weights
-    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.loader import make_batch_put
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import (
         RandLANet,
@@ -408,7 +490,7 @@ def train_randla(args, device: torch.device):
     from pointsecguard_tpu_torch.train.trainer import (
         TrainState,
         make_eval_step,
-        make_train_step,
+        make_multi_train_step,
         randla_family,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
@@ -444,7 +526,10 @@ def train_randla(args, device: torch.device):
                        label_table=torch.from_numpy(preset.label_table()).to(device))
                if preset.ignored_labels else weighted_softmax_ce_loss)
     # tf.train.AdamOptimizer has no weight decay (`RandLANet.py:127`)
-    step_fn = make_train_step(model, loss_fn, weight_decay=0.0, family=family)
+    adv_fn = _maybe_adv_fn(args, model, family, ignored_labels=preset.ignored_labels,
+                           num_classes=num_classes)
+    multi_step = make_multi_train_step(model, loss_fn, weight_decay=0.0, family=family,
+                                       adv_fn=adv_fn)
     eval_fn = make_eval_step(model, device, family)
     # the reference's weights of the preset's dataset (`helper_tool.py:245-261`)
     weights = torch.from_numpy(get_class_weights(preset.weights_key)).to(device)
@@ -469,11 +554,9 @@ def train_randla(args, device: torch.device):
             for _, feats, labels, _, _ in train_sampler.batches(batch_size, train_steps):
                 yield feats, labels
 
-        losses = []
-        for batch in prefetch(_pairs(), put, depth=depth):
-            feats, labels = wait_batch(batch)
-            # RandLA's BatchNorm keep is fixed: no momentum is passed
-            losses.append(step_fn(state, feats, labels, weights, lr, None, gen))
+        # RandLA's BatchNorm keep is fixed: no momentum is passed
+        losses = _host_epoch(multi_step, state, _pairs(), put, depth, _steps_per_call(args),
+                             weights, lr, None, gen)
         mean_loss, n_batches, nan_batches = _epoch_losses(losses)
         seconds = time.time() - t0
         log.info("epoch %d lr %.3g loss %.4f (%.1fs, %d batches, %d skipped)",
@@ -506,17 +589,19 @@ def train_resgcn(args, device: torch.device):
     ``(state, None)`` (the loop does not evaluate, as in the JAX package).
     ``args`` carries ``cli.train``'s flags (data_root, log_dir, test_area,
     npoint, min_block_points, batch_size, learning_rate, seed, prefetch,
-    epochs and the ``--resgcn_*`` overrides); 0 means the config's value
+    epochs and the ``--resgcn_*`` overrides, steps_per_call,
+    device_sampler[_exact] (no z-rotation: the host loop feeds raw blocks),
+    adv_train and the adv_* budget, remat); 0 means the config's value
     (``configs.ResgcnConfig``: 4096 points, lr 1e-3) or batch 8."""
     from pointsecguard_tpu_torch.configs import ResgcnConfig, resgcn_overrides
     from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler
-    from pointsecguard_tpu_torch.data.loader import make_batch_put, prefetch, wait_batch
+    from pointsecguard_tpu_torch.data.loader import make_batch_put
     from pointsecguard_tpu_torch.models import DenseDeepGCN, init_parameters
     from pointsecguard_tpu_torch.models.resgcn import ce_loss
     from pointsecguard_tpu_torch.train.schedules import resgcn_lr
     from pointsecguard_tpu_torch.train.trainer import (
         TrainState,
-        make_train_step,
+        make_multi_train_step,
         resgcn_family,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
@@ -535,12 +620,18 @@ def train_resgcn(args, device: torch.device):
     rng = np.random.default_rng(args.seed)
     # the JAX loop shapes its initial state on one sampler batch: spent here too
     next(iter(sampler.batches(rng, batch_size)))
-    model = DenseDeepGCN(**model_kwargs)
+    model = DenseDeepGCN(**model_kwargs, remat=getattr(args, "remat", False))
     # every BasicConv Dense takes flax's kaiming_normal (variance 2 / fan_in)
     init_parameters(model, torch.Generator().manual_seed(args.seed), scale=2.0)
     state = TrainState(model.to(device))
     # torch.optim.Adam without weight decay (`sem_seg_dense/train.py:31`)
-    step_fn = make_train_step(model, ce_loss, weight_decay=0.0, family=resgcn_family())
+    family = resgcn_family()
+    multi_step = make_multi_train_step(model, ce_loss, weight_decay=0.0, family=family,
+                                       adv_fn=_maybe_adv_fn(args, model, family))
+    device_epoch = _device_epoch_fn(args, rooms, len(sampler), device, batch_size,
+                                    args.npoint or cfg.num_point, multi_step.step,
+                                    augment_z=False)
+    spc = _steps_per_call(args)
     ones = torch.ones(13, device=device)  # the loss reads no class weights
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints", keep="latest")
     resumed = ckpt.restore_latest()
@@ -558,11 +649,12 @@ def train_resgcn(args, device: torch.device):
     for epoch in range(start_epoch, args.epochs):
         lr = resgcn_lr(epoch, base=args.learning_rate or cfg.lr)
         t0 = time.time()
-        losses = []
-        for batch in prefetch(sampler.batches(rng, batch_size), put, depth=depth):
-            pts, labels = wait_batch(batch)
-            # ResGCN's BatchNorm keep is fixed: no momentum is passed
-            losses.append(step_fn(state, pts, labels, ones, lr, None, gen))
+        # ResGCN's BatchNorm keep is fixed: no momentum is passed
+        if device_epoch is not None:
+            losses = device_epoch(state, ones, lr, None, gen)
+        else:
+            losses = _host_epoch(multi_step, state, sampler.batches(rng, batch_size), put,
+                                 depth, spc, ones, lr, None, gen)
         mean_loss, n_batches, nan_batches = _epoch_losses(losses)
         seconds = time.time() - t0
         log.info("epoch %d lr %.3g loss %.4f (%.1fs, %d batches, %d skipped)",

@@ -1,5 +1,5 @@
 """Training step of the segmentation and object-task models (port of
-``pointsecguard_tpu/train/trainer.py:31-160, 315-331``).
+``pointsecguard_tpu/train/trainer.py:31-331``).
 
 One step is: the family's neighbour plan (PointNet++ SSG and MSG, their
 classifiers and part-seg nets: train-mode geometry with random FPS
@@ -10,7 +10,9 @@ feature-transform term), backward, Adam update and the BatchNorm running
 statistics. A ``Family`` says how a model family is called, as the JAX
 step's ``model_args`` / ``output_head`` do. The lr and the BatchNorm
 momentum are call arguments, so the per-epoch annealing of the reference
-(`train_semseg.py:136-159`) needs no rebuild.
+(`train_semseg.py:136-159`) needs no rebuild. ``make_multi_train_step``
+runs K such steps a call (``--steps_per_call``), ``make_adv_train_fn``
+crafts each step's batch first (``--adv_train nb``).
 
 Nothing in a step reads the device: the loss stays a device tensor (the
 epoch loop reads all of an epoch's losses at once), and the guard that
@@ -305,6 +307,7 @@ def make_train_step(
     *,
     weight_decay: float = 1e-4,
     family: Family = POINTNET2,
+    adv_fn: Callable | None = None,
 ) -> Callable:
     """Build ``train_step(state, points, labels, class_weights, lr,
     bn_momentum, generator=None, *, start_idx=None, dropout_mask=None,
@@ -320,7 +323,10 @@ def make_train_step(
     ``weight_decay`` is the L2 term of ``adam_update`` (RandLA: 0,
     ``tf.train.AdamOptimizer`` has none). The family's ``aux_loss``
     adds to the loss before the backward (PointNet's
-    ``0.001 · feature_transform_regularizer``).
+    ``0.001 · feature_transform_regularizer``). ``adv_fn(points, labels,
+    generator) → points`` (``make_adv_train_fn``) first replaces the batch
+    by one crafted against the current parameters, drawing its random
+    start from ``generator`` before the step's own draws.
 
     NaN guard: on a non-finite loss (the sum, where there is an aux term)
     the step keeps the previous parameters, Adam moments and count, and
@@ -333,6 +339,8 @@ def make_train_step(
     def train_step(state: TrainState, points, labels, class_weights, lr,
                    bn_momentum, generator=None, *, start_idx=None,
                    dropout_mask=None, geometry=None):
+        if adv_fn is not None:
+            points = adv_fn(points, labels, generator)
         model.train()
         if geometry is None:
             geometry = family.plan(points, generator=generator, start_idx=start_idx)
@@ -355,6 +363,88 @@ def make_train_step(
         return loss.detach()
 
     return train_step
+
+
+def make_multi_train_step(model: nn.Module, loss_fn: Callable, **kw) -> Callable:
+    """``--steps_per_call K`` (JAX `train/trainer.py:192-238`): build
+    ``multi_step(state, points [K, B, ...], labels [K, B, ...],
+    class_weights, lr, bn_momentum, generator=None) → losses [K]``, K
+    steps of ``make_train_step(model, loss_fn, **kw)`` on the stacks of
+    ``data.loader.stack_batches``. The steps and their draws from
+    ``generator`` are those of K single calls, in order, each with its NaN
+    guard; the losses stay on the device. The single step it runs is its
+    ``step`` attribute, which the device-sampled epoch calls."""
+    step = make_train_step(model, loss_fn, **kw)
+
+    def multi_step(state: TrainState, points, labels, class_weights, lr, bn_momentum,
+                   generator=None):
+        return torch.stack([step(state, points[i], labels[i], class_weights, lr,
+                                 bn_momentum, generator)
+                            for i in range(points.shape[0])])
+
+    multi_step.step = step
+    return multi_step
+
+
+def make_adv_train_fn(model: nn.Module, family: Family, cfg, *,
+                      ignored_labels: tuple = (), num_classes: int | None = None) -> Callable:
+    """``--adv_train nb`` (JAX `train/trainer.py:241-312`): build
+    ``adv_fn(points, labels, generator=None) → points``, the batch crafted
+    by ``attacks.pgd.pgd_color_attack`` under ``cfg`` (a ``PGDConfig``)
+    against the model's current parameters in evaluation mode (running
+    BatchNorm statistics, none of them updated; no dropout; PointNet++'s
+    FPS from index 0, as the JAX model's forward without a ``sample``
+    RNG), then the model is back in training mode.
+
+    The attack never moves xyz, so the family's evaluation plan is built
+    once from the clean batch (PointNet++'s geometry, RandLA's
+    ``build_pyramid``), as the JAX hook hoists ``model_args``; ResGCN's
+    graphs are over features and stay inside its forward, as in JAX.
+    ``cfg.rand_init_eps`` > 0 draws the random start from ``generator``.
+
+    ``ignored_labels`` (with ``num_classes``, the valid classes) is the
+    reduced class space of Semantic3D and SemanticKITTI: raw labels are
+    mapped onto the valid classes for the attack's loss, and the ignored
+    points are masked out of the perturbation and of the loss."""
+    from pointsecguard_tpu_torch.attacks.pgd import pgd_color_attack
+    from pointsecguard_tpu_torch.data.randla import label_reduce_lut, reduce_labels
+
+    table, tables = None, {}
+    if ignored_labels:
+        if num_classes is None:
+            raise ValueError("ignored_labels requires num_classes")
+        lut = label_reduce_lut(num_classes, tuple(ignored_labels))
+        lut[list(ignored_labels)] = -1
+        table = torch.from_numpy(lut)
+
+    def adv_fn(points, labels, generator=None):
+        params = list(model.parameters())
+        wanted = [p.requires_grad for p in params]
+        model.eval()
+        for p in params:
+            p.requires_grad_(False)
+        try:
+            with torch.no_grad():
+                plan = family.plan(points)
+
+            def outputs_fn(p):
+                return family.head(family.apply(model, p, plan))
+
+            ys, mask = labels, None
+            if table is not None:
+                # copied to the labels' device once: a copy a step would
+                # make the host wait for the device
+                if labels.device not in tables:
+                    tables[labels.device] = table.to(labels.device)
+                mask, ys = reduce_labels(tables[labels.device], labels)
+            return pgd_color_attack(outputs_fn, points, ys, cfg, mask=mask,
+                                    generator=generator, evaluate=False)
+        finally:
+            for p, w in zip(params, wanted):
+                p.requires_grad_(w)
+            model.train()
+
+    return adv_fn
 
 
 def make_logp_step(model: nn.Module, device: torch.device, family: Family) -> Callable:

@@ -62,7 +62,9 @@ def prepared(tmp_path_factory):
 @pytest.fixture(scope="module")
 def trained(prepared):
     """The full-width model through ``cli.train`` for 3 epochs of 4 steps,
-    with the batches handed to the prefetch thread recorded."""
+    with the batches handed to the prefetch thread recorded (its items are
+    ``stack_batches`` stacks of ``--steps_per_call`` batches: each batch
+    of a stack is recorded)."""
     from pointsecguard_tpu_torch.data import loader
 
     seen = []
@@ -71,7 +73,7 @@ def trained(prepared):
     def spy(iterable, *a, **kw):
         def record():
             for item in iterable:
-                seen.append(item[0].copy())
+                seen.extend(batch.copy() for batch in item[0])
                 yield item
         return real(record(), *a, **kw)
 

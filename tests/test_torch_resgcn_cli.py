@@ -41,7 +41,8 @@ def _two_torch_threads():
 def trained(tmp_path_factory):
     """Synthetic rooms of 6000 points and the narrow model through
     ``cli.train`` for 2 epochs, with the batches handed to the prefetch
-    thread recorded."""
+    thread recorded (its items are ``stack_batches`` stacks of
+    ``--steps_per_call`` batches: each batch of a stack is recorded)."""
     from pointsecguard_tpu_torch.data import loader
 
     root = tmp_path_factory.mktemp("resgcn_cli")
@@ -52,7 +53,7 @@ def trained(tmp_path_factory):
     def spy(iterable, *a, **kw):
         def record():
             for item in iterable:
-                seen.append(item[0].copy())
+                seen.extend(batch.copy() for batch in item[0])
                 yield item
         return real(record(), *a, **kw)
 
@@ -231,9 +232,12 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
     (attack_cli, ["--model", "pointnet2", "--resgcn_fixed_graphs"]),
     (attack_cli, ["--model", "resgcn", "--precision", "bfloat16"]),
     (attack_cli, ["--model", "pointnet2", "--resgcn_blocks", "3"]),
-    (train_cli, ["--model", "resgcn", "--remat"]),
-    (train_cli, ["--model", "resgcn", "--device_sampler"]),
-    (train_cli, ["--model", "resgcn", "--steps_per_call", "4"]),
+    # resgcn takes --remat, --device_sampler, --steps_per_call and --adv_train
+    # nb (tests/test_torch_train_cli.py); with another model, or another
+    # value, each is refused
+    (train_cli, ["--model", "pointnet2", "--remat"]),
+    (train_cli, ["--model", "randla", "--device_sampler"]),
+    (train_cli, ["--model", "resgcn", "--profile", "trace"]),
     (train_cli, ["--model", "resgcn", "--adv_train", "pgd"]),
     (train_cli, ["--model", "resgcn", "--precision", "bfloat16"]),
     (train_cli, ["--model", "randla", "--resgcn_k", "8"]),

@@ -157,19 +157,32 @@ def test_eval_without_a_checkpoint_stops(trained, tmp_path):
 # --- flags -------------------------------------------------------------------
 
 _TRAIN_REFUSED = [
-    # resgcn is ported; --remat, which its run would take, is not
-    pytest.param(["--model", "resgcn", "--remat"], id="--model resgcn"),
+    # resgcn is ported, --remat with it too; --profile, which the JAX resgcn
+    # loop ignores, is refused with it
+    pytest.param(["--model", "resgcn", "--profile", "trace"], id="--model resgcn"),
     # the classifiers are ported; bfloat16, which their run would take, is not
     pytest.param(["--model", "pointnet2_cls", "--precision", "bfloat16"],
                  id="--model pointnet2_cls"),
     # the part-seg nets are ported; several devices, which their run would take, are not
     pytest.param(["--model", "pointnet2_part_seg", "--devices", "2"],
                  id="--model pointnet2_part_seg"),
-    ["--steps_per_call", "4"], ["--device_sampler"], ["--device_sampler_exact"],
-    ["--adv_train", "nb"], ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
+    # the training extras are ported (tests/test_torch_{multi_step,device_sampler,
+    # adv_train,remat}.py); each is refused with a model, a dataset or a flag
+    # setting that does not read it, where the JAX CLI would ignore it
+    # (--steps_per_call, read by every loop, is taken: _TRAIN_TAKEN)
+    ["--model", "pointnet2_part_seg", "--remat"],
+    pytest.param(["--model", "randla", "--device_sampler"], id="--device_sampler"),
+    ["--device_sampler_exact"],  # without --device_sampler
+    pytest.param(["--model", "pointnet2_cls", "--adv_train", "nb"], id="--adv_train nb"),
+    # the --adv_* budget without --adv_train nb
+    ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
     ["--adv_iters", "3"], ["--adv_rand_init", "0.1"], ["--precision", "bfloat16"],
     ["--devices", "2"], ["-d", "4"], ["--shard_points", "2"], ["--remat"],
-    ["--profile", "trace"],
+    pytest.param(["--model", "randla", "--profile", "trace"], id="--profile trace"),
+    ["--model", "randla", "--randla_dataset", "semantickitti", "--adv_train", "nb"],
+    ["--model", "pointnet_part_seg", "--adv_train", "nb"],
+    ["--adv_train", "pgd"], ["--model", "pointnet_cls", "--device_sampler"],
+    ["--model", "pointnet2_cls_msg", "--profile", "trace"],
     ["--resgcn_blocks", "3"],
     ["--resgcn_k", "8"], ["--resgcn_filters", "32"], ["--resgcn_block_type", "dense"],
     ["--resgcn_conv", "mr"], ["--resgcn_epsilon", "0.2"], ["--num_category", "10"],
@@ -206,6 +219,19 @@ _TRAIN_TAKEN = [
     (["--model", "resgcn", "--resgcn_blocks", "3"], "resgcn_blocks", 3),
     (["--model", "resgcn", "--resgcn_epsilon", "0.2"], "resgcn_epsilon", 0.2),
     (["--randla_dataset", "semantickitti"], "randla_dataset", "semantickitti"),
+    # the training extras, with the models that read them
+    *((["--model", m, "--steps_per_call", "4"], "steps_per_call", 4)
+      for m in ("pointnet2", "randla", "resgcn", "pointnet_cls", "pointnet2_part_seg_msg")),
+    (["--device_sampler"], "device_sampler", True),
+    (["--model", "resgcn", "--device_sampler", "--device_sampler_exact"],
+     "device_sampler_exact", True),
+    (["--model", "pointnet", "--adv_train", "nb", "--adv_eps", "0.2"], "adv_eps", 0.2),
+    (["--model", "resgcn", "--adv_train", "nb", "--adv_iters", "3"], "adv_iters", 3),
+    (["--model", "randla", "--randla_dataset", "semantic3d", "--adv_train", "nb",
+      "--adv_rand_init", "0.1"], "adv_rand_init", 0.1),
+    (["--model", "pointnet2_msg", "--adv_train", "nb", "--adv_alpha", "0.01"], "adv_alpha", 0.01),
+    (["--model", "resgcn", "--remat"], "remat", True),
+    (["--model", "pointnet2_msg", "--profile", "trace"], "profile", "trace"),
 ]
 _EVAL_TAKEN = [
     (["--model", "pointnet2_msg"], "model", "pointnet2_msg"),
