@@ -198,9 +198,10 @@ tensors, 1,895,253 and 3,541,334 floats), after phase 34:
     protocol): MSG launches 4 FPS and 12 bottom-k a batch, PointNet none
     (said on a line of its own); then NU on 8 blocks, the preset cut to
     ``BLOCK_NU_STEPS``: the geometry's launches plus one bottom-k a step.
-38. One optimizer step of 32 × 4096 card vs CPU at phase 16's tolerances
-    (MSG: pinned FPS starts and dropout mask; PointNet: the feature-
-    transform aux loss).
+38. One optimizer step of 8 × 4096 card vs CPU at phase 16's batch and
+    tolerances (MSG: pinned FPS starts and dropout mask; PointNet: the
+    feature-transform aux loss; 32 × 4096 until phases 69-71 came: the
+    CPU's half of it set the phase's time).
 39. ``cli.train.main`` at 32 × 4096 on phase 17's rooms, 2 epochs (an eval
     after the second) and one more on resume: losses finite and falling,
     one geometry's launches per step and per eval batch (PointNet none).
@@ -371,6 +372,24 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     stated tolerances.
 68. ``cli.train --profile``: the first epoch's Chrome trace names the FPS
     and bottom-k kernels, 4 and 8 a step.
+69. The eleven models at full width in bf16 (``--precision bfloat16``),
+    seeded weights (ResGCN-28: phase 32's trained ones): the same FPS,
+    bottom-k and kNN launches as float32 (the geometry stays float32), the
+    card's bf16 output (float32) against the CPU's bf16 on the card's
+    geometry within ``BF16_CARD_ULPS`` bf16 ulps and JAX's 0.05 / 0.1 where
+    they apply, and one bf16 train step keeping every parameter, gradient
+    and statistic float32.
+70. bf16 through the CLIs: ``cli.train`` of SSG (2 epochs on phase 17's
+    rooms) and ResGCN-28 (an epoch, and one with ``--remat``), each then
+    ``cli.eval``; NB through ``cli.attack`` on SSG, RandLA (reference
+    pooling) and ResGCN, through ``cli.attack_object`` on the SSG
+    classifier; ``cli.benchmark`` pgd; ``--fused_ap`` refused. Launches as
+    float32's; SSG's ms a train step and ResGCN's an NB iteration by CUDA
+    events and peak memory, float32 and bf16 on the same batch.
+71. ``cli.import_ckpt`` of reference checkpoints written here (SSG and a
+    4-block ResGCN ``.pth``, a RandLA ``.npz``), then ``cli.eval`` on the
+    card: the imported weights' log-probabilities equal to the same
+    weights through ``utils/convert.py``.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -5593,20 +5612,26 @@ def _record_path(records, kernel: str, path: str, launches: int, step: str | Non
         records[kernel].setdefault("calls_per_batch", {})[step] = per
 
 
-def _train_cli(argv: list) -> tuple:
-    """``cli.train.main(argv)`` with the launch counters reset before it:
-    (result, launch counts, peak device memory in GB, wall s)."""
-    from pointsecguard_tpu_torch.cli import train as cli
+def _cli_run(main, argv: list) -> tuple:
+    """``main(argv)`` with the launch counters reset before it: (result,
+    launch counts, peak device memory in GB, wall s)."""
     from pointsecguard_tpu_torch.ops import cuda as kernels
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = cli.main(argv)
+    out = main(argv)
     torch.cuda.synchronize()
     return (out, kernels.launch_counts(), torch.cuda.max_memory_allocated() / 1e9,
             time.perf_counter() - t0)
+
+
+def _train_cli(argv: list) -> tuple:
+    """``_cli_run`` of ``cli.train.main``."""
+    from pointsecguard_tpu_torch.cli import train as cli
+
+    return _cli_run(cli.main, argv)
 
 
 def _epoch_figures(log: str, batch: int, steps: int) -> dict:
@@ -5952,7 +5977,9 @@ def phase_profile(records, resgcn_data: str) -> dict:
 
 
 def run_training_extras_phases(dev, records, train_data: str, prep: str,
-                               resgcn_data: str) -> None:
+                               resgcn_data: str) -> dict:
+    """Phases 64-68; returns phase 65's figures."""
+    out = {}
     for number, phase in (
             (64, lambda: phase_device_sampler(dev, train_data)),
             (65, lambda: phase_device_sampler_train(dev, records, train_data)),
@@ -5960,8 +5987,626 @@ def run_training_extras_phases(dev, records, train_data: str, prep: str,
             (67, lambda: phase_remat(dev, records, resgcn_data)),
             (68, lambda: phase_profile(records, resgcn_data))):
         t0 = time.perf_counter()
-        phase()
+        out[number] = phase()
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
+    return out[65]
+
+
+# --- phases 69-71: --precision bfloat16 and cli.import_ckpt --------------------------
+
+BF16 = ["--precision", "bfloat16"]
+# phase 69's bound, the card's bf16 against the CPU's bf16 on the same
+# weights and pinned geometry: bf16 ulps of the largest centred output (the
+# log-probabilities or logits less their mean over the classes), where one
+# ulp is 2^(e − 7) at that output's binary exponent e. Measured on an H100
+# 80GB HBM3 at 700 W (PERF.md §6): the PointNet family 0.00–2.13 and RandLA
+# 2.00, the same on every run (seeded weights); bound 4, the CPU tests'
+# port-against-JAX bf16 bound (tests/test_torch_precision.py). ResGCN-28
+# runs on phase 32's trained weights, which differ from run to run (the
+# card's scatter-add order), through 28 residual blocks that carry a
+# rounding on: 2.23, 2.50 and 5.38 on three runs; bound 16, the upper end
+# of the range predicted before the first run, where the CPU's own bf16
+# sits 12–18 ulps from its float32. Every model but ResGCN-28 is also held
+# to JAX's own bf16-against-float32 limits (tests/test_precision.py), 0.05
+# on PointNet-family log-probabilities and 0.1 on RandLA's logits; ResGCN's
+# trained logits reach 8, where one bf16 ulp is 0.0625, so no bf16
+# computation can meet 0.1
+BF16_CARD_ULPS = {"resgcn": 16}
+BF16_DEFAULT_ULPS = 4
+BF16_JAX_LIMITS = {"randla": 0.1}
+BF16_LOGP_LIMIT = 0.05
+BF16_RANDLA_POINTS = 8192  # phase 69's cloud (13's size: the CPU runs it too)
+BF16_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", *CLS_MODELS, *PS_MODELS,
+               "randla", "resgcn")
+RESGCN_IMPORT_BLOCKS = 4  # phase 71's reference ResGCN
+RESGCN_BF16_NB_BLOCKS = 2  # phase 70's ResGCN NB through the CLI, one batch
+
+
+def bf16_state_dict(model: torch.nn.Module, seed: int, scale: float = 1.0) -> dict:
+    """``model``'s state from ``init_parameters`` of a seeded generator, with
+    every BatchNorm's scale in [0.5, 1.5), bias and mean in [−0.5, 0.5) and
+    variance in [0.5, 2) drawn from it too: the recipe of
+    ``tests/test_torch_precision.py``. (``calibrated_state_dict``'s
+    statistics of one forward leave channels of near-zero variance, which
+    multiply any rounding by up to 1/sqrt(ε); phase 36's docstring.)"""
+    from pointsecguard_tpu_torch.models import init_parameters
+    from pointsecguard_tpu_torch.models.common import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    init_parameters(model, gen, scale=scale)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.mean.shape[0]
+                mod.scale.copy_(torch.rand(n, generator=gen) + 0.5)
+                mod.bias.copy_(torch.rand(n, generator=gen) - 0.5)
+                mod.mean.copy_(torch.rand(n, generator=gen) - 0.5)
+                mod.var.copy_(torch.rand(n, generator=gen) * 1.5 + 0.5)
+    return model.state_dict()
+
+
+def bf16_case(name: str, dev, data: str, prep: str, resgcn_log: str):
+    """(model(dtype) → the full-width model on the CPU with the case's
+    weights, family, points on the card) of a phase-69 model. The weights
+    are seeded (``bf16_state_dict``), but ResGCN-28's are phase 32's trained
+    checkpoint: its 27 residual additions let seeded weights' logits grow
+    by orders of magnitude, where bf16's absolute error has no scale to be
+    read against."""
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, RandLANet
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.train.trainer import (
+        POINTNET_MODELS,
+        cls_model,
+        randla_family,
+        resgcn_family,
+    )
+
+    if name in POINTNET_MODELS:
+        family = POINTNET_MODELS[name][1]
+        build = lambda dt: POINTNET_MODELS[name][0](dtype=dt)  # noqa: E731
+        pts = slice_blocks(dev)[:1].contiguous()
+    elif name in CLS_MODELS:
+        family = cls_model(name, 40)[1]
+        build = lambda dt: cls_model(name, 40, dtype=dt)[0]  # noqa: E731
+        pts = cls_shapes(dev, 2)
+    elif name in PS_MODELS:
+        family = cls_model(name, 50)[1]
+        build = lambda dt: cls_model(name, 50, dtype=dt)[0]  # noqa: E731
+        p, onehot, _ = partseg_batch(dev, 2)
+        pts = torch.cat([p, onehot[:, None].expand(-1, PS_POINTS, -1)], -1)
+    elif name == "randla":
+        family = randla_family()
+        build = lambda dt: RandLANet(dtype=dt)  # noqa: E731
+        pts = randla_batch(prep, dev, BF16_RANDLA_POINTS, 1)
+    else:
+        family = resgcn_family()
+        build = lambda dt: DenseDeepGCN(dtype=dt)  # noqa: E731
+        pts, _ = resgcn_room_batch(data, 1, dev, seed=2)
+    sd = (load_checkpoint(resgcn_log) if name == "resgcn"
+          else bf16_state_dict(build(None), 2))
+
+    def model(dtype):
+        net = build(dtype)
+        net.load_state_dict(sd)
+        return net.eval()
+
+    return model, family, pts
+
+
+def _bf16_ulp(out: torch.Tensor) -> float:
+    centred = out - out.mean(dim=-1, keepdim=True)
+    return 2.0 ** (math.floor(math.log2(centred.abs().max().item())) - 7)
+
+
+def phase_bf16_models(dev, records, data: str, prep: str, resgcn_log: str) -> dict:
+    """69. The eleven models at full width in bf16 (``dtype=torch.bfloat16``,
+    ``--precision bfloat16``): seeded weights (ResGCN: phase 32's trained
+    checkpoint; ``bf16_case``), the PointNet family on 1 block of 4096 points, the
+    classifiers on 2 shapes of 1024, the part-seg nets on 2 of 2048, RandLA
+    on 1 cloud of ``BF16_RANDLA_POINTS``, ResGCN-28 on 1 block of 4096. On
+    the card: the model builds its own geometry in float32 and in bf16, each
+    with the launch counters reset, and the counts must be equal (the
+    geometry stays float32 in bf16, so the same kernels launch as often);
+    then the card's bf16 against the CPU's bf16 on the card's float32
+    geometry (ResGCN: the float32 forward's graphs): the output float32,
+    within ``BF16_CARD_ULPS`` bf16 ulps and JAX's limits (the constants'
+    comment says which apply where); and one train-mode
+    step in bf16 on the card: every parameter and its gradient float32 and
+    finite, every BatchNorm statistic float32."""
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    cpu = torch.device("cpu")
+    out, failed = {}, []
+    for name in BF16_MODELS:
+        t0 = time.perf_counter()
+        model, family, pts = bf16_case(name, dev, data, prep, resgcn_log)
+        counts = {}
+        with torch.no_grad():
+            for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+                net = model(dtype).to(dev)
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                res = family.head(family.apply(net, pts, family.plan(pts)))
+                torch.cuda.synchronize()
+                counts[label] = kernels.launch_counts()
+                if label == "float32":
+                    plan = (net(pts, collect_graphs=True)[1] if name == "resgcn"
+                            else family.plan(pts))
+                if not (res.dtype == torch.float32 and torch.isfinite(res).all()):
+                    raise AssertionError(f"{name} {label}: output {res.dtype}, or not finite")
+            card = family.head(family.apply(model(torch.bfloat16).to(dev), pts, plan)).cpu()
+            host = family.head(family.apply(model(torch.bfloat16), pts.cpu(),
+                                            _to_device(plan, cpu, torch.float32)))
+            host32 = family.head(family.apply(model(None), pts.cpu(),
+                                              _to_device(plan, cpu, torch.float32)))
+        net = model(torch.bfloat16).to(dev).train()
+        logp = torch.log_softmax(family.head(family.apply(net, pts, family.plan(pts), 0.1)), -1)
+        (-logp[..., 0].mean()).backward()
+        for key, p in net.named_parameters():
+            if p.dtype != torch.float32 or (p.grad is not None and (
+                    p.grad.dtype != torch.float32 or not torch.isfinite(p.grad).all())):
+                raise AssertionError(f"{name} bf16 step: {key} {p.dtype} / its gradient "
+                                     "not float32 and finite")
+        if any(b.dtype != torch.float32 for b in net.buffers()):
+            raise AssertionError(f"{name} bf16 step: a BatchNorm statistic left float32")
+        err = (card - host).abs().max().item()
+        ulps = err / _bf16_ulp(host)
+        limit = (None if name == "resgcn"
+                 else BF16_JAX_LIMITS.get(name, BF16_LOGP_LIMIT))
+        out[name] = {"card_vs_cpu_max_abs": err, "card_vs_cpu_bf16_ulps": ulps,
+                     "bf16_vs_float32_cpu_max_abs": (host - host32).abs().max().item(),
+                     "largest_centred": _bf16_ulp(host) * 128, "jax_limit": limit,
+                     "launches": counts["bfloat16"], "s": time.perf_counter() - t0}
+        print(f"{name} bf16: " + json.dumps(out[name]))
+        if counts["float32"] != counts["bfloat16"]:
+            failed.append(f"{name}: bf16 launches {counts['bfloat16']} != float32's "
+                          f"{counts['float32']}")
+        if (card.dtype != torch.float32 or card.shape != host.shape
+                or not (limit is None or err <= limit)):
+            failed.append(f"{name}: the card's bf16 {card.dtype} {tuple(card.shape)} is "
+                          f"{err} from the CPU's (JAX's limit {limit})")
+        bound = BF16_CARD_ULPS.get(name, BF16_DEFAULT_ULPS)
+        if not ulps <= bound:
+            failed.append(f"{name}: the card's bf16 is {ulps:.2f} bf16 ulps from the CPU's, "
+                          f"over the stated {bound}")
+        for kernel, n in counts["bfloat16"].items():
+            if n:
+                _record_path(records, kernel, f"{name} forward --precision bfloat16", n)
+        del net
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _step_ms(make_model, dev, pts, labels, loss_fn, family, weights=None) -> dict:
+    """One optimizer step of a fresh float32 and bf16 model from the same
+    weights on one batch: ms by CUDA events and peak memory above the state."""
+    from pointsecguard_tpu_torch.train.trainer import TrainState, make_train_step
+
+    got = {}
+    for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        net = make_model(dtype)
+        state = TrainState(net.to(dev))
+        step = make_train_step(net, loss_fn, family=family)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, pts, labels, weights, 1e-7, 0.1, gen)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms = cuda_ms(lambda: step(state, pts, labels, weights, 1e-7, 0.1, gen), reps=5)
+        got[label] = {"ms_per_step": ms, "peak_above_state_gb": peak}
+        del net, state, step
+    return got
+
+
+def _nb_iter_ms(net_fn, dev, pts, labels) -> dict:
+    """One NB iteration (a forward and the colour gradient of the summed
+    cross-entropy) of a float32 and a bf16 model: ms by CUDA events, peak
+    memory."""
+    from pointsecguard_tpu_torch.attacks.common import per_point_ce
+
+    got = {}
+    for label, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        net = net_fn(dtype).to(dev).requires_grad_(False)
+
+        def it():
+            x = pts.clone().requires_grad_(True)
+            loss = per_point_ce(net(x), labels).sum()
+            return torch.autograd.grad(loss, x)[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        it()
+        torch.cuda.synchronize()
+        got[label] = {"ms_per_iteration": cuda_ms(it, reps=5),
+                      "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del net
+    return got
+
+
+def phase_bf16_clis(dev, records, paths: dict, f32_train: dict) -> dict:
+    """70. ``--precision bfloat16`` through the CLIs on the card:
+    ``cli.train`` of PointNet++ SSG (32 × 4096, ``DS_EPOCHS`` epochs on
+    phase 17's rooms, an eval after the last: one geometry's launches a
+    step and an eval batch, as in float32) and of ResGCN-28 (one epoch of
+    8 × 4096 on phase 32's room, and one more run with ``--remat``: 4 kNN a
+    step), SSG's and the first ResGCN run's checkpoints then through
+    ``cli.eval --num_votes 1`` (one geometry / 4 kNN a batch); NB through
+    ``cli.attack`` on the trained SSG (8 blocks: one geometry a batch),
+    RandLA with the reference pooling (4 clouds: 10 kNN a batch) and ResGCN
+    (``RESGCN_BF16_NB_BLOCKS`` blocks: 4 kNN a forward); NB through
+    ``cli.attack_object`` on the trained SSG classifier (16 shapes: 53
+    forwards of 2 FPS and 1 bottom-k); ``cli.benchmark --attack_name pgd``
+    on the trained SSG (8 blocks: one geometry a batch); ``--fused_ap``
+    with bf16 refused by name. Beside float32 on the same data: SSG's ms a
+    train step by CUDA events and peak memory (and blocks/s on the host's
+    clock, float32's from phase 65's host run, the same rooms and flags),
+    ResGCN's ms an NB iteration by CUDA events and peak memory."""
+    from pointsecguard_tpu_torch.cli import attack as attack_cli
+    from pointsecguard_tpu_torch.cli import attack_object as object_cli
+    from pointsecguard_tpu_torch.cli import benchmark as bench_cli
+    from pointsecguard_tpu_torch.cli import eval as eval_cli
+    from pointsecguard_tpu_torch.cli import train as train_cli
+    from pointsecguard_tpu_torch.data import RoomSet, S3DISBlockSampler, WholeSceneBlocks
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, weighted_nll_loss
+    from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    train_data, resgcn_data = paths["train_data"], paths["resgcn_data"]
+
+    def eval_batches(data, batch):
+        blocks = WholeSceneBlocks(RoomSet.load(data, "test", 5), block_points=NUM_POINT
+                                  ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+        return -(-blocks // batch)
+
+    # PointNet++ SSG: cli.train, then cli.eval, in bf16
+    rooms = RoomSet.load(train_data, "train", 5)
+    steps = -(-len(S3DISBlockSampler(rooms, num_point=NUM_POINT)) // TRAIN_BATCH)
+    log = os.path.join(WORK, "bf16_train_log")
+    _, counts, peak, wall = _cli_run(train_cli.main, [
+        "--model", "pointnet2", "--data_root", train_data, "--log_dir", log,
+        "--npoint", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH),
+        "--epochs", str(DS_EPOCHS), "--eval_every", str(DS_EPOCHS),
+        "--learning_rate", str(TRAIN_LR), *BF16])
+    check_geometry_launches("pointnet2", counts,
+                            DS_EPOCHS * steps + eval_batches(train_data, TRAIN_BATCH),
+                            "train --precision bfloat16")
+    ssg = {**_epoch_figures(log, TRAIN_BATCH, steps), "peak_device_memory_gb": peak,
+           "main_wall_s": wall, "launches": counts}
+    for kernel, per in GEOMETRY_LAUNCHES["pointnet2"].items():
+        _record_path(records, kernel, "pointnet2 train --precision bfloat16", counts[kernel])
+    if any(v.dtype != torch.float32 for v in load_checkpoint(log).values()):
+        raise AssertionError("the bf16 run's checkpoint holds a tensor other than float32")
+    m, counts, _, wall = _cli_run(eval_cli.main, [
+        "--model", "pointnet2", "--data_root", train_data, "--log_dir", log,
+        "--num_point", str(NUM_POINT), "--batch_size", str(TRAIN_BATCH), "--num_votes", "1",
+        *BF16])
+    check_geometry_launches("pointnet2", counts, eval_batches(train_data, TRAIN_BATCH),
+                            "eval --precision bfloat16")
+    ssg["eval"] = {"miou": m.miou, "accuracy": m.accuracy, "wall_s": wall}
+    for kernel in GEOMETRY_LAUNCHES["pointnet2"]:
+        _record_path(records, kernel, "pointnet2 eval --precision bfloat16", counts[kernel])
+    pts, labels = next(iter(S3DISBlockSampler(rooms, num_point=NUM_POINT).batches(
+        np.random.default_rng(1), TRAIN_BATCH)))
+    pts, labels = torch.from_numpy(pts).to(dev), torch.from_numpy(labels).to(dev)
+    weights = torch.from_numpy(np.asarray(rooms.label_weights, np.float32)).to(dev)
+    sd = load_checkpoint(paths["train_log"])
+
+    def ssg_model(dtype):
+        net = POINTNET_MODELS["pointnet2"][0](dtype=dtype)
+        net.load_state_dict(sd)
+        return net
+
+    ssg["step"] = _step_ms(ssg_model, dev, pts, labels, weighted_nll_loss,
+                           POINTNET_MODELS["pointnet2"][1], weights)
+    ssg["float32_host_run"] = {k: f32_train[k] for k in ("blocks_per_s",
+                                                          "ms_per_step_host_clock",
+                                                          "peak_device_memory_gb")}
+    out["pointnet2 train"] = ssg
+    print("pointnet2 --precision bfloat16 train / eval: " + json.dumps(ssg))
+    if not (ssg["eval"]["accuracy"] >= 0.0 and math.isfinite(ssg["eval"]["miou"])):
+        raise AssertionError("bf16 SSG eval: no finite figure")
+
+    # ResGCN-28: cli.train (and --remat), each then cli.eval
+    r_steps = -(-len(S3DISBlockSampler(RoomSet.load(resgcn_data, "train", 5),
+                                       num_point=NUM_POINT)) // RESGCN_BATCH)
+    r_eval = eval_batches(resgcn_data, RESGCN_BATCH)
+    for extra in ([], ["--remat"]):
+        path = "resgcn train" + "".join(f" {e}" for e in extra) + " --precision bfloat16"
+        log = os.path.join(WORK, "bf16_resgcn_log" + "_remat" * bool(extra))
+        _, counts, peak, wall = _cli_run(train_cli.main, [
+            "--model", "resgcn", "--data_root", resgcn_data, "--log_dir", log,
+            "--npoint", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH), "--epochs", "1",
+            *extra, *BF16])
+        if counts["knn"] != 4 * r_steps or any(counts[k] for k in counts if k != "knn"):
+            raise AssertionError(f"{path}: launches {counts}, want knn 4 × {r_steps}")
+        run = {**_epoch_figures(log, RESGCN_BATCH, r_steps), "peak_device_memory_gb": peak,
+               "main_wall_s": wall, "launches": counts}
+        _record_path(records, "knn", path, counts["knn"])
+        if not extra:  # the --remat run's weights are another draw of the same step
+            m, counts, _, wall = _cli_run(eval_cli.main, [
+                "--model", "resgcn", "--data_root", resgcn_data, "--log_dir", log,
+                "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+                "--num_votes", "1", *BF16])
+            if counts["knn"] != 4 * r_eval:
+                raise AssertionError(f"resgcn eval --precision bfloat16: launches {counts}, "
+                                     f"want knn 4 × {r_eval}")
+            run["eval"] = {"miou": m.miou, "accuracy": m.accuracy, "wall_s": wall}
+            _record_path(records, "knn", "resgcn eval --precision bfloat16", counts["knn"])
+        out[path] = run
+        print(f"{path}: " + json.dumps(run))
+
+    # NB: SSG, RandLA (reference pooling), ResGCN; float32's launches: one
+    # geometry a batch, one pyramid (10 kNN) a batch, 4 kNN a forward (the
+    # clean one, one an iteration, PGD's last and the adversarial one)
+    attacks = {}
+    for model, log, flags in (
+            ("pointnet2", paths["train_log"],
+             ["--data_root", train_data, "--num_point", str(NUM_POINT), "--batch_size",
+              str(BATCH), "--max_blocks", str(BATCH)]),
+            ("randla", paths["randla_log"],
+             ["--randla_dir", paths["prep"], "--num_clouds", str(RANDLA_BATCH),
+              "--batch_size", str(RANDLA_BATCH)]),
+            ("resgcn", paths["resgcn_log"],
+             ["--data_root", resgcn_data, "--num_point", str(NUM_POINT), "--batch_size",
+              str(RESGCN_BF16_NB_BLOCKS), "--max_blocks", str(RESGCN_BF16_NB_BLOCKS)])):
+        (clean_m, adv_m), counts, peak, wall = _cli_run(attack_cli.main, [
+            "--model", model, "--attack", "nb", "--log_dir", log, *flags, *BF16])
+        rows = read_tsv(os.path.join(log, f"{model}_nb_area5.tsv"))
+        steps = max(int(float(r["steps"])) for r in rows)
+        want = {"pointnet2": GEOMETRY_LAUNCHES["pointnet2"], "randla": {"knn": 10},
+                "resgcn": {"knn": 4 * (steps + 3)}}[model]
+        run = {"rows": len(rows),
+               "clean_acc": float(np.mean([float(r["clean_acc"]) for r in rows])),
+               "adv_acc": float(np.mean([float(r["adv_acc"]) for r in rows])),
+               "ms_per_row": float(1e3 * np.mean([float(r["time_s"]) for r in rows])),
+               "peak_device_memory_gb": peak, "main_wall_s": wall, "launches": counts}
+        attacks[model] = run
+        print(f"{model} nb --precision bfloat16: " + json.dumps(run))
+        if {k: counts[k] for k in want} != want or any(
+                counts[k] for k in counts if k not in want):
+            raise AssertionError(f"{model} NB bf16: launches {counts}, want {want} (float32's)")
+        if not (math.isfinite(run["adv_acc"]) and run["adv_acc"] <= run["clean_acc"]):
+            raise AssertionError(f"{model} NB bf16: adversarial accuracy not below clean")
+        for kernel, n in want.items():
+            _record_path(records, kernel, f"{model} nb --precision bfloat16", counts[kernel])
+    out["nb"] = attacks
+    net_sd = load_checkpoint(paths["resgcn_log"])
+
+    def resgcn_net(dtype):
+        net = DenseDeepGCN(dtype=dtype)
+        net.load_state_dict(net_sd)
+        return net.eval()
+
+    blocks, blabels = resgcn_room_batch(resgcn_data, RESGCN_BATCH, dev)
+    out["resgcn nb iteration"] = _nb_iter_ms(resgcn_net, dev, blocks, blabels)
+    print("resgcn NB iteration, float32 vs bfloat16: " + json.dumps(out["resgcn nb iteration"]))
+
+    # cli.attack_object NB on the trained SSG classifier, one batch of 16
+    res, counts, _, wall = _cli_run(object_cli.main, [
+        "--model", "pointnet2_cls", "--data_root", cls_data(), "--log_dir",
+        os.path.join(WORK, "cls_log_pointnet2_cls"), "--attack", "nb",
+        "--batch_size", str(CLS_BATCH), "--max_shapes", str(CLS_BATCH), *BF16])
+    _cls_counts_check("pointnet2_cls", counts, 53, "nb --precision bfloat16")
+    out["pointnet2_cls nb"] = {"clean_acc": res["clean_acc"], "adv_acc": res["adv_acc"],
+                               "ms_per_batch": res["batch_ms"], "launches": counts,
+                               "main_wall_s": wall}
+    print("pointnet2_cls nb --precision bfloat16: " + json.dumps(out["pointnet2_cls nb"]))
+    for kernel in ("fps", "bottom_k"):
+        _record_path(records, kernel, "pointnet2_cls nb --precision bfloat16", counts[kernel])
+
+    # cli.benchmark: one attack on the trained SSG
+    (acc, acc_adv, total, succ, dist), counts, _, wall = _cli_run(bench_cli.main, [
+        "--model", "pointnet2", "--data_root", train_data, "--log_dir", paths["train_log"],
+        "--num_point", str(NUM_POINT), "--batch_size", str(BATCH), "--max_blocks", str(BATCH),
+        "--attack_name", "pgd", "--iters", "10", *BF16])
+    check_geometry_launches("pointnet2", counts, 1, "benchmark pgd --precision bfloat16")
+    out["pointnet2 benchmark pgd"] = {"acc": float(np.mean(acc)),
+                                      "adv_acc": float(np.mean(acc_adv)),
+                                      "dist_mean": float(np.mean(dist)), "wall_s": wall}
+    print("pointnet2 benchmark pgd --precision bfloat16: "
+          + json.dumps(out["pointnet2 benchmark pgd"]))
+    if not np.isfinite(dist).all():
+        raise AssertionError("benchmark pgd bf16: a non-finite distance")
+    for kernel in ("fps", "bottom_k"):
+        _record_path(records, kernel, "pointnet2 benchmark --precision bfloat16", counts[kernel])
+
+    # the fused attentive kernel is float32 only: refused by name
+    try:
+        attack_cli.main(["--model", "randla", "--attack", "nb", "--fused_ap",
+                         "--log_dir", paths["randla_log"], *BF16])
+    except SystemExit as e:
+        if "--fused_ap with --precision bfloat16" not in str(e):
+            raise AssertionError(f"--fused_ap with bf16: refused as '{e}'") from e
+        print(f"--fused_ap --precision bfloat16 refused: {e}")
+    else:
+        raise AssertionError("--fused_ap with --precision bfloat16 ran")
+    return out
+
+
+def _reference_modules():
+    """Reference-schema torch modules (the checkpoints ``cli.import_ckpt``
+    reads) for PointNet++ SSG semseg and ResGCN of ``RESGCN_IMPORT_BLOCKS``
+    blocks: Conv 1×1 + BatchNorm stacks under the reference's names, the
+    BatchNorm parameters and statistics drawn from a seed."""
+    from torch import nn
+
+    def mlp(cin, outs, conv=nn.Conv2d, bn=nn.BatchNorm2d):
+        m = nn.Module()
+        m.mlp_convs, m.mlp_bns = nn.ModuleList(), nn.ModuleList()
+        for o in outs:
+            m.mlp_convs.append(conv(cin, o, 1))
+            m.mlp_bns.append(bn(o))
+            cin = o
+        return m
+
+    torch.manual_seed(0)
+    ssg = nn.Module()
+    for k, (cin, outs) in enumerate(((12, (32, 32, 64)), (67, (64, 64, 128)),
+                                     (131, (128, 128, 256)), (259, (256, 256, 512)))):
+        setattr(ssg, f"sa{k + 1}", mlp(cin, outs))
+    for name, cin, outs in (("fp4", 768, (256, 256)), ("fp3", 384, (256, 256)),
+                            ("fp2", 320, (256, 128)), ("fp1", 128, (128, 128, 128))):
+        setattr(ssg, name, mlp(cin, outs, nn.Conv1d, nn.BatchNorm1d))
+    ssg.conv1, ssg.bn1 = nn.Conv1d(128, 128, 1), nn.BatchNorm1d(128)
+    ssg.conv2 = nn.Conv1d(128, 13, 1)
+
+    def basic(cin, cout, norm=True):
+        return nn.Sequential(nn.Conv2d(cin, cout, 1), *([nn.ReLU(), nn.BatchNorm2d(cout)]
+                                                        if norm else []))
+
+    def gconv(cin, cout):
+        g = nn.Module()
+        g.gconv = nn.Module()
+        g.gconv.nn = basic(2 * cin, cout)
+        return g
+
+    c, nb = 64, RESGCN_IMPORT_BLOCKS
+    resgcn = nn.Module()
+    resgcn.head = gconv(9, c)
+    body = []
+    for _ in range(nb - 1):
+        blk = nn.Module()
+        blk.body = gconv(c, c)
+        body.append(blk)
+    resgcn.backbone = nn.Sequential(*body)
+    resgcn.fusion_block = basic(c * nb, 1024)
+    resgcn.prediction = nn.Sequential(basic(c * nb + 1024, 512), basic(512, 256), nn.Dropout(),
+                                      basic(256, 13, norm=False))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in (*ssg.modules(), *resgcn.modules()):
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.5, 0.5, generator=gen)
+    return ssg.state_dict(), {"module." + k: v for k, v in resgcn.state_dict().items()}
+
+
+def _randla_reference_arrays(seed: int = 3) -> dict:
+    """A full-width RandLA TF1 snapshot as ``{tf_variable_name: array}``
+    (the fork's schema, ``utils/importers.py:map_randla_vars``): S3DIS's
+    6 inputs, 13 classes, d_out (16, 64, 128, 256, 512); Linear weights
+    uniform in ±1/sqrt(fan_in), BatchNorm scale in [0.5, 1.5), statistics
+    in [−0.5, 0.5) and [0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    names = {}
+
+    def w(shape, fan_in):
+        return (rng.uniform(-1, 1, shape) / math.sqrt(fan_in)).astype(np.float32)
+
+    def bn(scope, c):
+        pre = f"{scope}/" if scope else ""
+        for leaf, lo, hi in (("gamma", 0.5, 1.5), ("beta", -0.5, 0.5),
+                             ("moving_mean", -0.5, 0.5), ("moving_variance", 0.5, 2.0)):
+            names[f"{pre}batch_normalization/{leaf}"] = rng.uniform(lo, hi, c).astype(np.float32)
+
+    def conv(scope, cin, cout, with_bn=True, transpose=False):
+        names[f"{scope}/weights"] = w((1, 1, cout, cin) if transpose else (1, 1, cin, cout), cin)
+        names[f"{scope}/biases"] = w((cout,), cin)
+        if with_bn:
+            bn(scope, cout)
+
+    names["fc0/kernel"], names["fc0/bias"] = w((6, 8), 6), w((8,), 6)
+    bn("", 8)
+    f_in, d_out = 8, (16, 64, 128, 256, 512)
+    for i, d in enumerate(d_out):
+        e = f"Encoder_layer_{i}"
+        conv(f"{e}mlp1", f_in, d // 2)
+        conv(f"{e}LFAmlp1", 10, d // 2)
+        names[f"{e}LFAatt_pooling_1fc/kernel"] = w((d, d), d)
+        conv(f"{e}LFAatt_pooling_1mlp", d, d // 2)
+        conv(f"{e}LFAmlp2", d // 2, d // 2)
+        names[f"{e}LFAatt_pooling_2fc/kernel"] = w((d, d), d)
+        conv(f"{e}LFAatt_pooling_2mlp", d, d)
+        conv(f"{e}mlp2", d, 2 * d)
+        conv(f"{e}shortcut", f_in, 2 * d)
+        f_in = 2 * d
+    enc = [2 * d_out[0]] + [2 * d for d in d_out]
+    conv("decoder_0", enc[-1], enc[-1])
+    f = enc[-1]
+    for j in range(len(d_out)):
+        conv(f"Decoder_layer_{j}", enc[-j - 2] + f, enc[-j - 2], transpose=True)
+        f = enc[-j - 2]
+    conv("fc1", f, 64)
+    conv("fc2", 64, 32)
+    conv("fc", 32, 13, with_bn=False)
+    return names
+
+
+def phase_import(dev, paths: dict) -> dict:
+    """71. ``cli.import_ckpt`` then ``cli.eval`` on the card: reference
+    checkpoints written here (PointNet++ SSG semseg and ResGCN of
+    ``RESGCN_IMPORT_BLOCKS`` blocks as ``.pth`` state dicts under the
+    reference's names, RandLA as a ``.npz`` of TF variables) go through
+    ``cli.import_ckpt``; the checkpoint it writes, restored on the card,
+    gives log-probabilities (logits) equal to those of the same weights
+    carried in this process through ``utils/importers.py`` and
+    ``utils/convert.py``, on one batch; then ``cli.eval`` (no ``--device``:
+    the card) restores it and evaluates (SSG and ResGCN on phase 17's and
+    32's Area-5 room, RandLA on 4 clouds of phase 7's preparation)."""
+    from pointsecguard_tpu_torch.cli import eval as eval_cli
+    from pointsecguard_tpu_torch.cli import import_ckpt
+    from pointsecguard_tpu_torch.models import DenseDeepGCN, PointNet2SemSegSSG, RandLANet
+    from pointsecguard_tpu_torch.models import build_pyramid
+    from pointsecguard_tpu_torch.utils import importers
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    root = os.path.join(WORK, "import")
+    os.makedirs(root, exist_ok=True)
+    ssg_sd, resgcn_sd = _reference_modules()
+    torch.save({"model_state_dict": ssg_sd, "epoch": 7, "best_iou": 0.5},
+               os.path.join(root, "best_model.pth"))
+    torch.save({"state_dict": resgcn_sd, "epoch": 3}, os.path.join(root, "ckpt_best.pth"))
+    arrays = _randla_reference_arrays()
+    np.savez(os.path.join(root, "snap.npz"), **arrays)
+    blocks, _ = resgcn_room_batch(paths["resgcn_data"], 2, dev)
+    feats = randla_batch(paths["prep"], dev, RANDLA_POINTS, 1)
+    out = {}
+    for model, ckpt, raw, extra, build, run, eval_flags in (
+            ("pointnet2", "best_model.pth", {"model_state_dict": ssg_sd}, [],
+             lambda: PointNet2SemSegSSG(), lambda net: net(blocks)[0],
+             ["--data_root", paths["train_data"], "--num_point", str(NUM_POINT)]),
+            ("resgcn", "ckpt_best.pth", {"state_dict": resgcn_sd},
+             ["--resgcn_blocks", str(RESGCN_IMPORT_BLOCKS)],
+             lambda: DenseDeepGCN(n_blocks=RESGCN_IMPORT_BLOCKS),
+             lambda net: torch.log_softmax(net(blocks), -1),
+             ["--data_root", paths["resgcn_data"], "--num_point", str(NUM_POINT),
+              "--resgcn_blocks", str(RESGCN_IMPORT_BLOCKS)]),
+            ("randla", "snap.npz", arrays, [], lambda: RandLANet(),
+             lambda net: torch.log_softmax(net(feats, build_pyramid(feats[..., :3])), -1),
+             ["--randla_dir", paths["prep"], "--num_clouds", str(RANDLA_BATCH)])):
+        t0 = time.perf_counter()
+        log = os.path.join(root, f"{model}_log")
+        import_ckpt.main(["--model", model, "--ckpt", os.path.join(root, ckpt),
+                          "--log_dir", log, *extra])
+        t_import = time.perf_counter() - t0
+        want_sd = importers.state_dict_from_variables(model, importers.reference_variables(
+            model, raw, resgcn_blocks=RESGCN_IMPORT_BLOCKS))
+        lps = []
+        for sd in (load_checkpoint(log), want_sd):
+            net = build()
+            net.load_state_dict(sd)
+            with torch.no_grad():
+                lps.append(run(net.to(dev).eval()))
+        (m, counts, _, wall) = _cli_run(eval_cli.main, [
+            "--model", model, "--log_dir", log, "--batch_size", "8" if model != "randla"
+            else str(RANDLA_BATCH), "--num_votes", "1", *eval_flags])
+        out[model] = {"import_s": t_import, "log_probs_equal": torch.equal(*lps),
+                      "largest_log_prob": lps[0].abs().max().item(),
+                      "eval_miou": m.miou, "eval_accuracy": m.accuracy, "eval_wall_s": wall,
+                      "eval_launches": counts}
+        print(f"{model} cli.import_ckpt -> cli.eval: " + json.dumps(out[model]))
+        if not (torch.equal(*lps) and torch.isfinite(lps[0]).all()):
+            raise AssertionError(f"{model}: the imported checkpoint's log-probabilities differ "
+                                 "from the same weights through utils/convert.py")
+        if not (0.0 <= m.accuracy <= 1.0 and math.isfinite(m.miou)):
+            raise AssertionError(f"{model}: cli.eval of the import gives no figure")
+    return out
 
 
 def ptxas_functions(log: str) -> dict:
@@ -6140,7 +6785,7 @@ def main(argv=None) -> int:
         phase_slice(dev, records, data, model)
         phase_pointnet2_nu(data, records, model)
         t1 = time.perf_counter()
-        phase_train_step(dev, model, TRAIN_BATCH)
+        phase_train_step(dev, model)
         t2 = time.perf_counter()
         _, log, _ = phase_train(dev, records, model, BLOCK_TRAIN_EPOCHS, data=train_data)
         block_logs[model] = log
@@ -6182,8 +6827,20 @@ def main(argv=None) -> int:
     print(f"phases 61-63: {time.perf_counter() - phases_61_63:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
     phases_64_68 = time.perf_counter()
-    run_training_extras_phases(dev, records, train_data, prep, resgcn_data)
+    ds_train = run_training_extras_phases(dev, records, train_data, prep, resgcn_data)
     print(f"phases 64-68: {time.perf_counter() - phases_64_68:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_69_71 = time.perf_counter()
+    paths = {"train_data": train_data, "train_log": train_log, "prep": prep,
+             "randla_log": randla_log, "resgcn_data": resgcn_data, "resgcn_log": resgcn_log}
+    for number, phase in (
+            (69, lambda: phase_bf16_models(dev, records, data, prep, resgcn_log)),
+            (70, lambda: phase_bf16_clis(dev, records, paths, ds_train["host"])),
+            (71, lambda: phase_import(dev, paths))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
+    print(f"phases 69-71: {time.perf_counter() - phases_69_71:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -6197,7 +6854,12 @@ def main(argv=None) -> int:
                       *(f"{m} {what}" for m in PS_MODELS[:2] for what in ("train", "eval")),
                       *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg"),
                       "pointnet2 train --device_sampler", "pointnet2 train --adv_train nb",
-                      "pointnet2 train --profile"}
+                      "pointnet2 train --profile",
+                      *(f"{m} forward --precision bfloat16" for m in
+                        ("pointnet2", "pointnet2_msg", *CLS_MODELS[:2], *PS_MODELS[:2])),
+                      *(f"{path} --precision bfloat16" for path in
+                        ("pointnet2 train", "pointnet2 eval", "pointnet2 nb",
+                         "pointnet2_cls nb", "pointnet2 benchmark"))}
     for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval",
@@ -6210,7 +6872,11 @@ def main(argv=None) -> int:
                                  "randla semantickitti eval",
                                  "pointnet2_cls nb --defense sor",
                                  "pointnet2_part_seg nb --defense sor",
-                                 "randla train --adv_train nb", "resgcn train --remat"})):
+                                 "randla train --adv_train nb", "resgcn train --remat",
+                                 *(f"{path} --precision bfloat16" for path in
+                                   ("randla forward", "resgcn forward", "resgcn train",
+                                    "resgcn train --remat", "resgcn eval", "randla nb",
+                                    "resgcn nb"))})):
         by_path = records[name]["launches_by_path"]
         if set(by_path) != paths or min(by_path.values()) <= 0:
             raise AssertionError(f"kernel {name} missed a main path: {by_path}")

@@ -39,17 +39,20 @@ BLOCK_FAMILY = ("pointnet2", "pointnet2_msg", "pointnet", "resgcn")
 def load_block_model(name, log_dir, args, device):
     """(model, family) of a block model with the port checkpoint of
     ``log_dir``, on ``device`` for inference only: the attacks need input
-    gradients, never parameter ones. ResGCN takes the ``--resgcn_*`` flags."""
+    gradients, never parameter ones. ResGCN takes the ``--resgcn_*`` flags;
+    every model, an ensemble member too, takes ``--precision``."""
     from pointsecguard_tpu_torch.configs import resgcn_overrides
     from pointsecguard_tpu_torch.models import DenseDeepGCN
     from pointsecguard_tpu_torch.train.trainer import POINTNET_MODELS, resgcn_family
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
+    dtype = model_dtype(getattr(args, "precision", "float32"))
     if name == "resgcn":
-        model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
+        model, family = DenseDeepGCN(**resgcn_overrides(args), dtype=dtype), resgcn_family()
     else:
         model_cls, family = POINTNET_MODELS[name]
-        model = model_cls()
+        model = model_cls(dtype=dtype)
     model.load_state_dict(load_checkpoint(log_dir))
     model.to(device).eval().requires_grad_(False)
     return model, family

@@ -68,7 +68,7 @@ def run_randla(args, log):
     from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
-    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
     preset = randla_dataset_preset(args.randla_dataset)
     if not preset.has_colors:
@@ -100,7 +100,8 @@ def run_randla(args, log):
                                   np.random.default_rng(args.seed),
                                   test_area=args.test_area)
     model = RandLANet(num_classes=K, d_out=cfg.d_out,
-                      ap_impl="fused" if args.fused_ap else "reference")
+                      ap_impl="fused" if args.fused_ap else "reference",
+                      dtype=model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     # inference only: the attack needs input gradients, never parameter ones
     model.to(device).eval().requires_grad_(False)

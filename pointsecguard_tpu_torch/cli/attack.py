@@ -30,11 +30,14 @@ evaluate the dynamic model), and ``--ensemble MODEL:LOG_DIR[:WEIGHT]``
 (a weighted ensemble victim: every metric evaluates the softmax mixture,
 the attack differentiates the mode's objective). The checkpoint is the port's own
 (``<log_dir>/checkpoints/``: ``best.pt``, else ``latest.pt``, see
-``utils/checkpoint.py``). It runs on the GPU; ``--device cpu`` runs the
-plain PyTorch path by request. Every other flag of the JAX CLI
-(``--resgcn_fast``, ``--devices``,
-``--shard_points``, ``--precision``) is accepted by name and stops the run
-with "not ported yet" instead of being ignored.
+``utils/checkpoint.py``). ``--precision bfloat16`` runs every model's
+Linear products in bf16, ensemble members included; the fused attentive
+kernel is float32 only, so ``--fused_ap`` with it stops the run (the JAX
+model quietly takes the reference pooling there). It runs on the GPU;
+``--device cpu`` runs the plain PyTorch path by request. Every other flag
+of the JAX CLI (``--resgcn_fast``, ``--devices``, ``--shard_points``) is
+accepted by name and stops the run with "not ported yet" instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -42,7 +45,11 @@ from __future__ import annotations
 import argparse
 import logging
 
-from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusals
+from pointsecguard_tpu_torch.configs import (
+    add_precision_argument,
+    add_resgcn_arguments,
+    resgcn_refusals,
+)
 
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
@@ -128,7 +135,7 @@ def _parser() -> argparse.ArgumentParser:
     # flags whose only ported value is the default
     ap.add_argument("--devices", "-d", type=int, default=1)
     ap.add_argument("--shard_points", type=int, default=1)
-    ap.add_argument("--precision", default="float32")
+    add_precision_argument(ap)
     ap.add_argument("--ensemble", action="append", default=[],
                     metavar="MODEL:LOG_DIR[:WEIGHT]",
                     help="add this block model (pointnet2 / pointnet2_msg / pointnet / "
@@ -150,12 +157,15 @@ def _refuse_unported(args) -> None:
     refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
     if args.attack not in PORTED_ATTACKS:
         refused.append(f"--attack {args.attack}")
-    for flag, ported in (("devices", 1), ("shard_points", 1), ("precision", "float32")):
+    for flag, ported in (("devices", 1), ("shard_points", 1)):
         if getattr(args, flag) != ported:
             refused.append(f"--{flag} {getattr(args, flag)}")
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")
+    if args.fused_ap and args.precision != "float32":
+        refused.append(f"--fused_ap with --precision {args.precision} (the fused "
+                       "attentive kernel is float32 only)")
     if args.resgcn_fixed_graphs and args.model != "resgcn":
         refused.append(f"--resgcn_fixed_graphs with --model {args.model}")
     refused += resgcn_refusals(args)

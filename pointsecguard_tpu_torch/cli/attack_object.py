@@ -36,10 +36,10 @@ Per shape one TSV row in ``<log_dir>/<model>_<attack>_object.tsv``
 (classifiers: ``idx, label, clean_pred, adv_pred, l2[, rand_pred]``;
 part-seg: ``idx, category, clean_miou, adv_miou, l2[, rand_miou]``, the
 mIoU over the category's parts, a row that a defense replaced scored
-against its own label), and the JAX CLI's summary line. It runs on the
+against its own label), and the JAX CLI's summary line. ``--precision
+bfloat16`` runs the model's Linear products in bf16. It runs on the
 GPU; ``--device cpu`` runs the plain PyTorch path by request. Accepted by
-name and stopped with "not ported yet": ``--devices`` other than 1 and
-``--precision bfloat16``.
+name and stopped with "not ported yet": ``--devices`` other than 1.
 """
 
 from __future__ import annotations
@@ -50,8 +50,9 @@ import os
 import time
 
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS, PART_SEG_MODELS
+from pointsecguard_tpu_torch.configs import add_precision_argument
 
-_UNPORTED_DEFAULTS = {"devices": 1, "precision": "float32"}
+_UNPORTED_DEFAULTS = {"devices": 1}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -100,7 +101,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) needs a card and raises without one; cpu "
                          "runs the plain PyTorch path")
     ap.add_argument("--devices", "-d", type=int, default=1)
-    ap.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
+    add_precision_argument(ap)
     ap.add_argument("--origin", type=int, default=-1,
                     help="part-seg tar_*: only the points of this part move "
                          "(-1: every point)")
@@ -186,7 +187,7 @@ def main(argv=None):
     from pointsecguard_tpu_torch.train.object_eval import _padded_batches, shape_part_ious
     from pointsecguard_tpu_torch.train.trainer import cls_model
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
     device = resolve_device(args.device)
     use_normals = not args.no_normals
@@ -208,7 +209,7 @@ def main(argv=None):
         dataset = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
                                   num_category=args.num_category, use_normals=use_normals)
         num_classes = dataset.num_classes
-    model, _ = cls_model(args.model, num_classes, use_normals)
+    model, _ = cls_model(args.model, num_classes, use_normals, model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     build = getattr(model, "build_geometry", None)

@@ -26,9 +26,10 @@ clip, C&W's box (−1, 1)), one prediction per shape ([B, 1, K] outputs),
 the geometry built again in every forward. The registry holds all eleven
 names; deepfool, boundary and evolutionary (``--overshoot``,
 ``--init_tries``, ``--spherical_step``, ``--source_step``) need ``--task
-cls``. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
+cls``. ``--precision bfloat16`` runs the victim's Linear products in
+bf16. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
 by request. Accepted by name and refused with "not ported yet":
-``--devices`` other than 1 and ``--precision bfloat16``.
+``--devices`` other than 1.
 """
 
 from __future__ import annotations
@@ -38,10 +39,11 @@ import logging
 import os
 
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS
+from pointsecguard_tpu_torch.configs import add_precision_argument
 
-# JAX CLI flags of the paths not ported yet (several chips, bfloat16):
-# only their defaults
-_UNPORTED_DEFAULTS = {"devices": 1, "precision": "float32"}
+# JAX CLI flags of the paths not ported yet (several chips): only their
+# defaults
+_UNPORTED_DEFAULTS = {"devices": 1}
 
 
 def _check_batch_coverage(log, n: int, batch_size: int, unit: str) -> None:
@@ -129,6 +131,7 @@ def _parser() -> argparse.ArgumentParser:
     for name, default in _UNPORTED_DEFAULTS.items():
         flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
         ap.add_argument(*flags, type=type(default), default=default)
+    add_precision_argument(ap)
     ap.add_argument("--output", default="",
                     help="prediction mode: .npz output path (default "
                          "<log_dir>/predictions.npz)")
@@ -185,8 +188,10 @@ def _victim(args, device, log):
 
     from pointsecguard_tpu_torch.cli._attack_blocks import load_block_model, member_factory
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
     B = args.batch_size
+    dtype = model_dtype(args.precision)
     if args.task == "cls":
         from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
         from pointsecguard_tpu_torch.train.trainer import cls_model
@@ -195,7 +200,7 @@ def _victim(args, device, log):
         dataset = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
                                   num_category=args.num_category, use_normals=use_normals)
         K = dataset.num_classes
-        model, _ = cls_model(args.model, K, use_normals)
+        model, _ = cls_model(args.model, K, use_normals, dtype)
         model.load_state_dict(load_checkpoint(args.log_dir))
         model.to(device).eval().requires_grad_(False)
         n_shapes = min(len(dataset), args.max_blocks) if args.max_blocks else len(dataset)
@@ -224,7 +229,7 @@ def _victim(args, device, log):
         sampler = preset.make_sampler(args.randla_dir, "test", npoint,
                                       np.random.default_rng(args.seed),
                                       test_area=args.test_area)
-        model = RandLANet(num_classes=13, d_out=rcfg.d_out)
+        model = RandLANet(num_classes=13, d_out=rcfg.d_out, dtype=dtype)
         model.load_state_dict(load_checkpoint(args.log_dir))
         model.to(device).eval().requires_grad_(False)
         family = randla_family(rcfg)

@@ -32,7 +32,8 @@ accuracy, ``_eval_cls``) with ``--data_root``, ``--num_category``,
 and class mIoU, ``_eval_partseg``) with ``--data_root``, ``--no_normals``,
 ``--num_point`` (0 → 2048) and ``--batch_size`` (0 → 16). ``--visual`` writes the
 per-room (per-cloud) prediction and ground-truth label clouds and an HTML
-viewer under ``<log_dir>/visual`` for every model. The
+viewer under ``<log_dir>/visual`` for every model. ``--precision
+bfloat16`` (every model) runs the Linear products in bf16. The
 checkpoint is the port's own (``<log_dir>/checkpoints/``: the best one,
 else the latest). It runs on the GPU; ``--device cpu`` runs the plain
 PyTorch path by request. Every other flag of the JAX CLI is accepted by
@@ -47,6 +48,7 @@ import os
 
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS, PART_SEG_MODELS, cls_refusals
 from pointsecguard_tpu_torch.configs import (
+    add_precision_argument,
     add_resgcn_arguments,
     resgcn_overrides,
     resgcn_refusals,
@@ -57,7 +59,7 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS,
                  *PART_SEG_MODELS)
-_UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1, "precision": "float32"}
+_UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1}
 _UNPORTED_SWITCHES = ("resgcn_fast",)
 
 
@@ -107,6 +109,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
+    add_precision_argument(ap)
     add_resgcn_arguments(ap)
     for name, default in _UNPORTED_DEFAULTS.items():
         flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
@@ -182,7 +185,7 @@ def _eval_randla(args, log):
     from pointsecguard_tpu_torch.train.trainer import randla_family
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
-    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
     preset = randla_dataset_preset(args.randla_dataset)
     cfg, K = preset.cfg, preset.num_classes
@@ -194,7 +197,8 @@ def _eval_randla(args, log):
 
     device = resolve_device(args.device)
     B = args.batch_size or cfg.val_batch_size
-    model = RandLANet(num_classes=K, d_out=cfg.d_out, d_in=6 if preset.has_colors else 3)
+    model = RandLANet(num_classes=K, d_out=cfg.d_out, d_in=6 if preset.has_colors else 3,
+                      dtype=model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     family = randla_family(cfg)
@@ -291,13 +295,14 @@ def _eval_cls(args, log):
     from pointsecguard_tpu_torch.train.object_eval import evaluate_cls
     from pointsecguard_tpu_torch.train.trainer import cls_model, make_logp_step
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
     device = resolve_device(args.device)
     use_normals = not args.no_normals
     ds = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
                          num_category=args.num_category, use_normals=use_normals)
-    model, family = cls_model(args.model, ds.num_classes, use_normals)
+    model, family = cls_model(args.model, ds.num_classes, use_normals,
+                              model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     inst_acc, class_acc, _ = evaluate_cls(make_logp_step(model, device, family), ds,
@@ -325,13 +330,14 @@ def _eval_partseg(args, log):
     from pointsecguard_tpu_torch.train.object_eval import evaluate_partseg
     from pointsecguard_tpu_torch.train.trainer import cls_model, make_logp_step
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
     device = resolve_device(args.device)
     use_normals = not args.no_normals
     ds = ShapeNetPartDataset(args.data_root, "test", num_point=args.num_point or 2048,
                              use_normals=use_normals)
-    model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals)
+    model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals,
+                              model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     logp = make_logp_step(model, device, family)
@@ -374,7 +380,7 @@ def main(argv=None):
         resgcn_family,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
     device = resolve_device(args.device)
     args.batch_size = args.batch_size or 16
@@ -382,11 +388,12 @@ def main(argv=None):
 
     # ResGCN: block evaluation of the dense GCN (`ResGCN/sem_seg_dense/
     # test.py:40-66`); whole-scene voting at num_votes=1 is the same pass
+    dtype = model_dtype(args.precision)
     if args.model == "resgcn":
-        model, family = DenseDeepGCN(**resgcn_overrides(args)), resgcn_family()
+        model, family = DenseDeepGCN(**resgcn_overrides(args), dtype=dtype), resgcn_family()
     else:
         model_cls, family = POINTNET_MODELS[args.model]
-        model = model_cls()
+        model = model_cls(dtype=dtype)
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
     predict = make_eval_step(model, device, family)

@@ -48,7 +48,9 @@ the classifiers' other flags. The training extras: ``--steps_per_call``
 PointNet family and resgcn), ``--adv_train nb`` with ``--adv_eps``,
 ``--adv_alpha``, ``--adv_iters`` and ``--adv_rand_init`` (the PointNet
 family, resgcn, randla on s3dis or semantic3d), ``--remat`` (resgcn) and
-``--profile DIR`` (the PointNet family). It runs on the GPU; ``--device
+``--profile DIR`` (the PointNet family). ``--precision bfloat16`` (every
+model) runs the Linear products in bf16 with float32 parameters. It runs on
+the GPU; ``--device
 cpu`` runs the plain PyTorch path by request. Every other flag of the JAX
 CLI, and an extra with a model that does not read it (which the JAX CLI
 would ignore), is accepted by name and stops the run with "not ported
@@ -61,7 +63,11 @@ import argparse
 import logging
 import time
 
-from pointsecguard_tpu_torch.configs import add_resgcn_arguments, resgcn_refusals
+from pointsecguard_tpu_torch.configs import (
+    add_precision_argument,
+    add_resgcn_arguments,
+    resgcn_refusals,
+)
 
 _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_cls", "pointnet2_cls", "pointnet2_cls_msg",
@@ -76,7 +82,7 @@ CLS_DEFAULTS = {"num_category": 40, "no_normals": False}
 _FLAG_MODELS = {"num_category": CLS_MODELS, "no_normals": CLS_MODELS + PART_SEG_MODELS}
 # JAX CLI flags this port does not implement yet, with the one value
 # (the JAX default) that is accepted
-_UNPORTED_DEFAULTS = {"precision": "float32", "devices": 1, "shard_points": 1}
+_UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1}
 # the training extras that not every loop reads, with the models whose
 # loops read them (JAX `train/loops.py`; --steps_per_call is read by every
 # loop); the adv_* budget is read under --adv_train nb
@@ -137,6 +143,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
+    add_precision_argument(ap)
     add_resgcn_arguments(ap)
     for name, default in _UNPORTED_DEFAULTS.items():
         flags = [f"--{name}"] + (["-d"] if name == "devices" else [])

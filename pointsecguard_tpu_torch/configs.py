@@ -128,3 +128,12 @@ def add_resgcn_arguments(ap) -> None:
     ap.add_argument("--resgcn_epsilon", type=float, default=0.0,
                     help="resgcn stochastic-dilation epsilon in training "
                          "(OptInit --epsilon; the reference enables it with 0.2)")
+
+
+def add_precision_argument(ap) -> None:
+    """``--precision`` of the five CLIs that take it (the JAX CLIs' name,
+    choices and default); ``utils.runtime.model_dtype`` reads it."""
+    ap.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
+                    help="bfloat16: every Linear product in bf16; parameters, "
+                         "BatchNorm statistics, softmaxes, logits, losses and the "
+                         "neighbour search stay float32")

@@ -2,6 +2,13 @@
 
 A 1×1 convolution over points is a Linear over the trailing feature axis
 (channels-last [B, ..., C] everywhere, as in the JAX package).
+
+Mixed precision: every module takes a ``dtype``. ``None`` keeps the
+float32 path (the inputs' own dtype, so float64 runs stay float64);
+``torch.bfloat16`` runs every Linear in bf16 through ``linear`` while
+the parameters stay float32. BatchNorm statistics, softmaxes, logits,
+losses and all neighbour search stay float32, so the neighbourhoods are
+the same in both precisions and only the MLP arithmetic is rounded.
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+        # statistics in float32 at least (bf16 ones would corrupt the
+        # running statistics); the output in the caller's dtype
+        out_dtype = x.dtype
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = torch.mean(x, dim=axes)
@@ -45,7 +56,20 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         # written as the JAX package writes it: reciprocal of the sqrt
         inv = torch.reciprocal(torch.sqrt(var + self.epsilon))
-        return (x - mean) * inv * self.scale + self.bias
+        return ((x - mean) * inv * self.scale + self.bias).to(out_dtype)
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype | None = None
+           ) -> torch.Tensor:
+    """``layer(x)``, or with a ``dtype`` flax's mixed-precision Dense: x,
+    the weight and the bias cast to ``dtype``, the product rounded to it,
+    then the bias added in it. Two steps, not one ``F.linear``: cuBLAS
+    would add the bias inside the GEMM in float32 and round once, where
+    JAX rounds twice."""
+    if dtype is None:
+        return layer(x)
+    y = torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
@@ -72,24 +96,26 @@ class PointConv(nn.Module):
     or "none"; the defaults keep PointNet++'s module and numbers."""
 
     def __init__(self, in_features: int, features: int, *, act: str = "relu",
-                 bn_epsilon: float = 1e-5):
+                 bn_epsilon: float = 1e-5, dtype: torch.dtype | None = None):
         super().__init__()
         self.act = _ACTS[act]
+        self.dtype = dtype
         self.dense = nn.Linear(in_features, features)
         self.bn = BatchNorm(features, epsilon=bn_epsilon)
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
-        return self.act(self.bn(self.dense(x), momentum))
+        return self.act(self.bn(linear(x, self.dense, self.dtype), momentum))
 
 
 class PointMLP(nn.Module):
     """Stack of PointConv layers (a shared per-point MLP)."""
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int], *,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         widths = (in_features, *features)
         self.convs = nn.ModuleList(
-            PointConv(a, b) for a, b in zip(widths[:-1], widths[1:])
+            PointConv(a, b, dtype=dtype) for a, b in zip(widths[:-1], widths[1:])
         )
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:

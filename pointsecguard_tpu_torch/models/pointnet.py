@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, dropout
+from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, dropout, linear
 
 
 class STN(nn.Module):
@@ -24,11 +24,12 @@ class STN(nn.Module):
     point 64 → 128 → 1024, the max over N, then 512 → 256 with BatchNorm
     on [B, C] and k·k, plus the identity."""
 
-    def __init__(self, k: int, in_features: int):
+    def __init__(self, k: int, in_features: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.k = k
-        self.convs = nn.ModuleList([PointConv(in_features, 64), PointConv(64, 128),
-                                    PointConv(128, 1024)])
+        self.k, self.dtype = k, dtype
+        self.convs = nn.ModuleList([PointConv(in_features, 64, dtype=dtype),
+                                    PointConv(64, 128, dtype=dtype),
+                                    PointConv(128, 1024, dtype=dtype)])
         self.fc = nn.ModuleList([nn.Linear(1024, 512), nn.Linear(512, 256)])
         self.bns = nn.ModuleList([BatchNorm(512), BatchNorm(256)])
         self.out = nn.Linear(256, k * k)
@@ -38,8 +39,10 @@ class STN(nn.Module):
             x = conv(x, momentum)
         h = torch.amax(x, dim=1)  # [B, 1024]
         for fc, bn in zip(self.fc, self.bns):
-            h = torch.relu(bn(fc(h), momentum))
-        h = self.out(h)
+            h = torch.relu(bn(linear(h, fc, self.dtype), momentum))
+        # the alignment matrix in float32 at least (small and sensitive)
+        h = linear(h, self.out, self.dtype)
+        h = h.to(torch.promote_types(h.dtype, torch.float32))
         iden = torch.eye(self.k, dtype=h.dtype, device=h.device).reshape(1, -1)
         return (h + iden).reshape(-1, self.k, self.k)
 
@@ -52,14 +55,15 @@ class PointNetEncoder(nn.Module):
     feature matrix), or with ``global_feat`` the [B, 1024] max in place of
     the per-point features (the classifier's)."""
 
-    def __init__(self, in_features: int = 6, *, global_feat: bool = False):
+    def __init__(self, in_features: int = 6, *, global_feat: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.global_feat = global_feat
-        self.stn = STN(3, in_features)
-        self.conv1 = PointConv(in_features, 64)
-        self.fstn = STN(64, 64)
-        self.conv2 = PointConv(64, 128)
-        self.conv3 = PointConv(128, 1024, act="none")
+        self.stn = STN(3, in_features, dtype)
+        self.conv1 = PointConv(in_features, 64, dtype=dtype)
+        self.fstn = STN(64, 64, dtype)
+        self.conv2 = PointConv(64, 128, dtype=dtype)
+        self.conv3 = PointConv(128, 1024, act="none", dtype=dtype)
 
     def forward(self, x: torch.Tensor, momentum: float = 0.9):
         trans = self.stn(x, momentum)
@@ -67,7 +71,7 @@ class PointNetEncoder(nn.Module):
         x = torch.cat([xyz, x[..., 3:]], dim=-1) if x.shape[-1] > 3 else xyz
         x = self.conv1(x, momentum)
         trans_feat = self.fstn(x, momentum)
-        point_feat = torch.bmm(x, trans_feat)
+        point_feat = _bmm(x, trans_feat)
         x = self.conv3(self.conv2(point_feat, momentum), momentum)
         # amax: the max of a cloud of repeated points splits its gradient
         # over the ties, as jnp.max does
@@ -86,18 +90,20 @@ class PointNetSemSeg(nn.Module):
     (log-probabilities [B, N, num_classes], the 64 × 64 feature transform
     that ``feature_transform_regularizer`` reads)."""
 
-    def __init__(self, num_classes: int = 13):
+    def __init__(self, num_classes: int = 13, dtype: torch.dtype | None = None):
         super().__init__()
-        self.feat = PointNetEncoder(6)
-        self.convs = nn.ModuleList([PointConv(1088, 512), PointConv(512, 256),
-                                    PointConv(256, 128)])
+        self.dtype = dtype
+        self.feat = PointNetEncoder(6, dtype=dtype)
+        self.convs = nn.ModuleList([PointConv(1088, 512, dtype=dtype),
+                                    PointConv(512, 256, dtype=dtype),
+                                    PointConv(256, 128, dtype=dtype)])
         self.cls = nn.Linear(128, num_classes)
 
     def forward(self, points: torch.Tensor, momentum: float = 0.9):
         x, _, trans_feat = self.feat(points[..., :6], momentum)
         for conv in self.convs:
             x = conv(x, momentum)
-        logits = self.cls(x).float()
+        logits = linear(x, self.cls, self.dtype).float()
         return torch.log_softmax(logits, dim=-1), trans_feat
 
 
@@ -108,10 +114,12 @@ class PointNetCls(nn.Module):
     ReLU, Linear K, in the reference's order (the BatchNorm after the
     dropout). Returns (log-probabilities [B, K], the feature transform)."""
 
-    def __init__(self, num_classes: int = 40, normal_channel: bool = True):
+    def __init__(self, num_classes: int = 40, normal_channel: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.in_features = 6 if normal_channel else 3
-        self.feat = PointNetEncoder(self.in_features, global_feat=True)
+        self.dtype = dtype
+        self.feat = PointNetEncoder(self.in_features, global_feat=True, dtype=dtype)
         self.fc = nn.ModuleList([nn.Linear(1024, 512), nn.Linear(512, 256)])
         self.bns = nn.ModuleList([BatchNorm(512), BatchNorm(256)])
         self.cls = nn.Linear(256, num_classes)
@@ -122,12 +130,12 @@ class PointNetCls(nn.Module):
         """In training mode the dropout keeps ``dropout_mask`` [B, 256] or
         draws it from ``generator``."""
         x, _, trans_feat = self.feat(points[..., : self.in_features], momentum)
-        x = torch.relu(self.bns[0](self.fc[0](x), momentum))
-        x = self.fc[1](x)
+        x = torch.relu(self.bns[0](linear(x, self.fc[0], self.dtype), momentum))
+        x = linear(x, self.fc[1], self.dtype)
         if self.training:
             x = dropout(x, 0.4, dropout_mask, generator)
         x = torch.relu(self.bns[1](x, momentum))
-        return torch.log_softmax(self.cls(x).float(), dim=-1), trans_feat
+        return torch.log_softmax(linear(x, self.cls, self.dtype).float(), dim=-1), trans_feat
 
 
 class PointNetPartSeg(nn.Module):
@@ -140,17 +148,20 @@ class PointNetPartSeg(nn.Module):
     → ``part_num``. Returns (log-probabilities [B, N, part_num], the feature
     transform for ``feature_transform_regularizer``)."""
 
-    def __init__(self, part_num: int = 50, normal_channel: bool = True):
+    def __init__(self, part_num: int = 50, normal_channel: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.in_features = 6 if normal_channel else 3
-        self.stn = STN(3, self.in_features)
+        self.dtype = dtype
+        self.stn = STN(3, self.in_features, dtype)
         widths = (self.in_features, 64, 128, 128, 512, 2048)
         self.convs = nn.ModuleList(
-            PointConv(a, b, act="relu" if b != 2048 else "none")
+            PointConv(a, b, act="relu" if b != 2048 else "none", dtype=dtype)
             for a, b in zip(widths[:-1], widths[1:]))
-        self.fstn = STN(128, 128)
-        self.head = nn.ModuleList([PointConv(2048 + 16 + sum(widths[1:]), 256),
-                                   PointConv(256, 256), PointConv(256, 128)])
+        self.fstn = STN(128, 128, dtype)
+        self.head = nn.ModuleList([PointConv(2048 + 16 + sum(widths[1:]), 256, dtype=dtype),
+                                   PointConv(256, 256, dtype=dtype),
+                                   PointConv(256, 128, dtype=dtype)])
         self.cls = nn.Linear(128, part_num)
 
     def forward(self, points: torch.Tensor, cls_label: torch.Tensor, momentum: float = 0.9):
@@ -162,7 +173,7 @@ class PointNetPartSeg(nn.Module):
         for j, conv in enumerate(self.convs):
             if j == 3:  # the feature transform of the third stage's output
                 trans_feat = self.fstn(outs[2], momentum)
-                x = torch.bmm(outs[2], trans_feat)
+                x = _bmm(outs[2], trans_feat)
             x = conv(x, momentum)
             outs.append(x)
         # amax: the max over a shape's repeated points splits its gradient
@@ -173,7 +184,14 @@ class PointNetPartSeg(nn.Module):
         h = torch.cat([expand, *outs], dim=-1)
         for conv in self.head:
             h = conv(h, momentum)
-        return torch.log_softmax(self.cls(h).float(), dim=-1), trans_feat
+        return torch.log_softmax(linear(h, self.cls, self.dtype).float(), dim=-1), trans_feat
+
+
+def _bmm(x: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """x @ trans in their promoted dtype, as ``jnp.einsum`` takes a bf16
+    feature and the float32 alignment matrix."""
+    dt = torch.promote_types(x.dtype, trans.dtype)
+    return torch.bmm(x.to(dt), trans.to(dt))
 
 
 def pointnet_aux_loss(out) -> torch.Tensor:

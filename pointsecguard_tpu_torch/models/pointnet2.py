@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
-from pointsecguard_tpu_torch.models.common import PointMLP, dropout
+from pointsecguard_tpu_torch.models.common import PointMLP, dropout, linear
 
 # SSG architecture spec (`pointnet2_sem_seg.py:9-16`)
 SSG_NPOINTS = (1024, 256, 64, 16)
@@ -121,10 +121,11 @@ class SetAbstraction(nn.Module):
     point, [xyz | feats] not centred (``ops.sample_and_group_all``), and
     no plan."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int], *, group_all: bool = False):
+    def __init__(self, in_features: int, mlp: Sequence[int], *, group_all: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.group_all = group_all
-        self.mlp = PointMLP(3 + in_features, mlp)
+        self.mlp = PointMLP(3 + in_features, mlp, dtype=dtype)
 
     def forward(self, xyz, feats, plan, momentum: float = 0.9):
         if self.group_all:
@@ -143,9 +144,10 @@ class SetAbstractionMSG(nn.Module):
     over a planned geometry: per radius grouped [feats | rel-xyz], its own
     shared MLP and the max over the group; the scales concatenated."""
 
-    def __init__(self, in_features: int, mlps: Sequence[Sequence[int]]):
+    def __init__(self, in_features: int, mlps: Sequence[Sequence[int]], *,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.mlps = nn.ModuleList(PointMLP(in_features + 3, mlp) for mlp in mlps)
+        self.mlps = nn.ModuleList(PointMLP(in_features + 3, mlp, dtype=dtype) for mlp in mlps)
 
     def forward(self, xyz, feats, plan, momentum: float = 0.9):
         new_xyz, idx_list = plan
@@ -163,9 +165,10 @@ class FeaturePropagation(nn.Module):
     part-seg nets' group-all level) it broadcasts to the ``feats1`` points
     and takes no plan."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int]):
+    def __init__(self, in_features: int, mlp: Sequence[int], *,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.mlp = PointMLP(in_features, mlp)
+        self.mlp = PointMLP(in_features, mlp, dtype=dtype)
 
     def forward(self, feats1, feats2, plan, momentum: float = 0.9):
         if feats2.shape[1] == 1:
@@ -182,17 +185,19 @@ class _PointNet2SemSeg(nn.Module):
     """The four SA levels ``sa`` (feature widths l0..l4 in ``widths``), then
     the FP stack, the head and the classifier that SSG and MSG share."""
 
-    def __init__(self, sa: Sequence[nn.Module], widths: Sequence[int], num_classes: int):
+    def __init__(self, sa: Sequence[nn.Module], widths: Sequence[int], num_classes: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.sa = nn.ModuleList(sa)
         fp = []
         up = widths[4]
         for j, mlp in enumerate(SSG_FP_MLPS):  # l3←l4, l2←l3, l1←l2, l0←l1
             skip = widths[3 - j] if j < 3 else 0  # l0 passes no features
-            fp.append(FeaturePropagation(skip + up, mlp))
+            fp.append(FeaturePropagation(skip + up, mlp, dtype=dtype))
             up = mlp[-1]
         self.fp = nn.ModuleList(fp)
-        self.head = PointMLP(up, (128,))
+        self.head = PointMLP(up, (128,), dtype=dtype)
         self.cls = nn.Linear(128, num_classes)
 
     def forward(self, points: torch.Tensor, geometry: dict | None = None,
@@ -219,7 +224,8 @@ class _PointNet2SemSeg(nn.Module):
         x = self.head(up, momentum)
         if self.training:
             x = dropout(x, DROPOUT, dropout_mask, generator)
-        logits = self.cls(x).float()
+        # the logits and the log-softmax always in float32
+        logits = linear(x, self.cls, self.dtype).float()
         return torch.log_softmax(logits, dim=-1), feats[4]
 
 
@@ -235,10 +241,11 @@ class PointNet2SemSegSSG(_PointNet2SemSeg):
 
     build_geometry = staticmethod(build_geometry)
 
-    def __init__(self, num_classes: int = 13, in_features: int = 9):
+    def __init__(self, num_classes: int = 13, in_features: int = 9,
+                 dtype: torch.dtype | None = None):
         widths = [in_features] + [m[-1] for m in SSG_SA_MLPS]  # l0..l4
-        super().__init__([SetAbstraction(widths[i], SSG_SA_MLPS[i]) for i in range(4)],
-                         widths, num_classes)
+        super().__init__([SetAbstraction(widths[i], SSG_SA_MLPS[i], dtype=dtype)
+                          for i in range(4)], widths, num_classes, dtype)
 
 
 class PointNet2SemSegMSG(_PointNet2SemSeg):
@@ -248,12 +255,13 @@ class PointNet2SemSegMSG(_PointNet2SemSeg):
 
     build_geometry = staticmethod(build_geometry_msg)
 
-    def __init__(self, num_classes: int = 13, in_features: int = 9):
+    def __init__(self, num_classes: int = 13, in_features: int = 9,
+                 dtype: torch.dtype | None = None):
         widths = [in_features]  # l0..l4: the scales' widths summed
         for mlps in MSG_SA_MLPS:
             widths.append(sum(m[-1] for m in mlps))
-        super().__init__([SetAbstractionMSG(widths[i], MSG_SA_MLPS[i]) for i in range(4)],
-                         widths, num_classes)
+        super().__init__([SetAbstractionMSG(widths[i], MSG_SA_MLPS[i], dtype=dtype)
+                          for i in range(4)], widths, num_classes, dtype)
 
 
 def weighted_nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
-from pointsecguard_tpu_torch.models.common import BatchNorm, PointMLP, dropout
+from pointsecguard_tpu_torch.models.common import BatchNorm, PointMLP, dropout, linear
 from pointsecguard_tpu_torch.models.pointnet2 import (
     FeaturePropagation,
     SetAbstraction,
@@ -155,8 +155,10 @@ class ClsHead(nn.Module):
     """1024 → 512 → 256 → K: Linear, BatchNorm, ReLU and dropout (0.4,
     then ``drop2``) twice, then the log-softmax of the logits."""
 
-    def __init__(self, num_classes: int, drop2: float = 0.4):
+    def __init__(self, num_classes: int, drop2: float = 0.4,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.fc = nn.ModuleList([nn.Linear(1024, 512), nn.Linear(512, 256)])
         self.bns = nn.ModuleList([BatchNorm(512), BatchNorm(256)])
         self.rates = (0.4, drop2)
@@ -164,11 +166,11 @@ class ClsHead(nn.Module):
 
     def forward(self, x, momentum: float = 0.9, generator=None, dropout_masks=None):
         for j, (fc, bn, rate) in enumerate(zip(self.fc, self.bns, self.rates)):
-            x = torch.relu(bn(fc(x), momentum))
+            x = torch.relu(bn(linear(x, fc, self.dtype), momentum))
             if self.training:
                 x = dropout(x, rate, None if dropout_masks is None else dropout_masks[j],
                             generator)
-        return torch.log_softmax(self.cls(x).float(), dim=-1)
+        return torch.log_softmax(linear(x, self.cls, self.dtype).float(), dim=-1)
 
 
 class _PointNet2Cls(nn.Module):
@@ -176,12 +178,12 @@ class _PointNet2Cls(nn.Module):
     head, which SSG and MSG share."""
 
     def __init__(self, levels: Sequence[nn.Module], width: int, num_classes: int,
-                 drop2: float, normal_channel: bool):
+                 drop2: float, normal_channel: bool, dtype: torch.dtype | None):
         super().__init__()
         self.normal_channel = normal_channel
         self.sa = nn.ModuleList([*levels, SetAbstraction(width, GROUP_ALL_MLP,
-                                                         group_all=True)])
-        self.head = ClsHead(num_classes, drop2)
+                                                         group_all=True, dtype=dtype)])
+        self.head = ClsHead(num_classes, drop2, dtype)
 
     def forward(self, points: torch.Tensor, geometry: dict | None = None,
                 momentum: float = 0.9, *, generator: torch.Generator | None = None,
@@ -206,13 +208,14 @@ class PointNet2ClsSSG(_PointNet2Cls):
 
     build_geometry = staticmethod(build_geometry_cls)
 
-    def __init__(self, num_classes: int = 40, normal_channel: bool = True):
+    def __init__(self, num_classes: int = 40, normal_channel: bool = True,
+                 dtype: torch.dtype | None = None):
         width = 3 if normal_channel else 0
         levels = []
         for mlp in CLS_SSG_MLPS:
-            levels.append(SetAbstraction(width, mlp))
+            levels.append(SetAbstraction(width, mlp, dtype=dtype))
             width = mlp[-1]
-        super().__init__(levels, width, num_classes, 0.4, normal_channel)
+        super().__init__(levels, width, num_classes, 0.4, normal_channel, dtype)
 
 
 class PointNet2ClsMSG(_PointNet2Cls):
@@ -222,13 +225,14 @@ class PointNet2ClsMSG(_PointNet2Cls):
 
     build_geometry = staticmethod(build_geometry_cls_msg)
 
-    def __init__(self, num_classes: int = 40, normal_channel: bool = True):
+    def __init__(self, num_classes: int = 40, normal_channel: bool = True,
+                 dtype: torch.dtype | None = None):
         width = 3 if normal_channel else 0
         levels = []
         for mlps in CLS_MSG_MLPS:
-            levels.append(SetAbstractionMSG(width, mlps))
+            levels.append(SetAbstractionMSG(width, mlps, dtype=dtype))
             width = sum(m[-1] for m in mlps)
-        super().__init__(levels, width, num_classes, 0.5, normal_channel)
+        super().__init__(levels, width, num_classes, 0.5, normal_channel, dtype)
 
 
 class _PointNet2PartSeg(nn.Module):
@@ -237,19 +241,21 @@ class _PointNet2PartSeg(nn.Module):
     128 → dropout 0.5 → ``num_classes``; SSG and MSG share it."""
 
     def __init__(self, levels: Sequence[nn.Module], widths: Sequence[int],
-                 fp_mlps: Sequence[Sequence[int]], num_classes: int, in_channels: int):
+                 fp_mlps: Sequence[Sequence[int]], num_classes: int, in_channels: int,
+                 dtype: torch.dtype | None):
         super().__init__()
+        self.dtype = dtype
         self.sa = nn.ModuleList([*levels, SetAbstraction(widths[2], GROUP_ALL_MLP,
-                                                         group_all=True)])
+                                                         group_all=True, dtype=dtype)])
         # skip widths of the hops l2 ← l3, l1 ← l2, l0 ← l1; l0's is the
         # one-hot, the xyz and the whole input
         skips = (widths[2], widths[1], NUM_OBJECT_CLASSES + 3 + in_channels)
         fp, up = [], GROUP_ALL_MLP[-1]
         for skip, mlp in zip(skips, fp_mlps):
-            fp.append(FeaturePropagation(skip + up, mlp))
+            fp.append(FeaturePropagation(skip + up, mlp, dtype=dtype))
             up = mlp[-1]
         self.fp = nn.ModuleList(fp)
-        self.head = PointMLP(up, (128,))
+        self.head = PointMLP(up, (128,), dtype=dtype)
         self.cls = nn.Linear(128, num_classes)
 
     def forward(self, points: torch.Tensor, cls_label: torch.Tensor,
@@ -279,7 +285,7 @@ class _PointNet2PartSeg(nn.Module):
         x = self.head(up, momentum)
         if self.training:
             x = dropout(x, 0.5, dropout_mask, generator)
-        return torch.log_softmax(self.cls(x).float(), dim=-1), feats[3]
+        return torch.log_softmax(linear(x, self.cls, self.dtype).float(), dim=-1), feats[3]
 
 
 class PointNet2PartSegSSG(_PointNet2PartSeg):
@@ -290,13 +296,14 @@ class PointNet2PartSegSSG(_PointNet2PartSeg):
     build_geometry = staticmethod(build_geometry_partseg)
     build_sa = staticmethod(build_geometry_cls)
 
-    def __init__(self, num_classes: int = NUM_PART_CLASSES, normal_channel: bool = False):
+    def __init__(self, num_classes: int = NUM_PART_CLASSES, normal_channel: bool = False,
+                 dtype: torch.dtype | None = None):
         c = 6 if normal_channel else 3
         widths, levels = [c], []
         for mlp in CLS_SSG_MLPS:
-            levels.append(SetAbstraction(widths[-1], mlp))
+            levels.append(SetAbstraction(widths[-1], mlp, dtype=dtype))
             widths.append(mlp[-1])
-        super().__init__(levels, widths, PARTSEG_SSG_FP_MLPS, num_classes, c)
+        super().__init__(levels, widths, PARTSEG_SSG_FP_MLPS, num_classes, c, dtype)
 
 
 class PointNet2PartSegMSG(_PointNet2PartSeg):
@@ -308,10 +315,11 @@ class PointNet2PartSegMSG(_PointNet2PartSeg):
     build_geometry = staticmethod(build_geometry_partseg_msg)
     build_sa = staticmethod(lambda xyz: _geometry(xyz, PARTSEG_MSG_SPEC, None, None))
 
-    def __init__(self, num_classes: int = NUM_PART_CLASSES, normal_channel: bool = False):
+    def __init__(self, num_classes: int = NUM_PART_CLASSES, normal_channel: bool = False,
+                 dtype: torch.dtype | None = None):
         c = 6 if normal_channel else 3
         widths, levels = [c], []
         for mlps in PARTSEG_MSG_MLPS:
-            levels.append(SetAbstractionMSG(widths[-1], mlps))
+            levels.append(SetAbstractionMSG(widths[-1], mlps, dtype=dtype))
             widths.append(sum(m[-1] for m in mlps))
-        super().__init__(levels, widths, PARTSEG_MSG_FP_MLPS, num_classes, c)
+        super().__init__(levels, widths, PARTSEG_MSG_FP_MLPS, num_classes, c, dtype)

@@ -33,7 +33,13 @@ from torch import nn
 
 from pointsecguard_tpu_torch import ops
 from pointsecguard_tpu_torch.data.randla import reduce_labels
-from pointsecguard_tpu_torch.models.common import BatchNorm, PointConv, dropout, leaky_relu
+from pointsecguard_tpu_torch.models.common import (
+    BatchNorm,
+    PointConv,
+    dropout,
+    leaky_relu,
+    linear,
+)
 from pointsecguard_tpu_torch.ops.attentive import fused_supported
 from pointsecguard_tpu_torch.ops.cuda.attentive import attentive_pool_fused
 
@@ -44,10 +50,11 @@ BN_MOM = 0.99
 DROPOUT = 0.5  # on the head's 32 features, the JAX model's rate
 
 
-def _conv(in_features: int, features: int, act: str = "leaky_relu") -> PointConv:
+def _conv(in_features: int, features: int, act: str = "leaky_relu",
+          dtype: torch.dtype | None = None) -> PointConv:
     # every conv of the RandLA graph ends in leaky_relu(0.2) except the
     # act-free mlp2 / shortcut (`helper_tf_util.py:169,249`)
-    return PointConv(in_features, features, act=act, bn_epsilon=BN_EPS)
+    return PointConv(in_features, features, act=act, bn_epsilon=BN_EPS, dtype=dtype)
 
 
 @torch.no_grad()
@@ -103,14 +110,16 @@ class AttentivePooling(nn.Module):
     Dense weight as its [d, d] projection in x·W layout.
     """
 
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.fc = nn.Linear(d_in, d_in, bias=False)
-        self.mlp = _conv(d_in, d_out)
+        self.mlp = _conv(d_in, d_out, dtype=dtype)
 
     def forward(self, feature_set: torch.Tensor, momentum: float = BN_MOM):
-        # feature_set: [B, N, K, d]
-        scores = torch.softmax(self.fc(feature_set).float(), dim=2)
+        # feature_set: [B, N, K, d]; the softmax and the weighted sum in
+        # float32 whatever the convs' dtype
+        scores = torch.softmax(linear(feature_set, self.fc, self.dtype).float(), dim=2)
         agg = torch.sum(feature_set * scores, dim=2)  # [B, N, d]
         return self.mlp(agg, momentum)
 
@@ -133,13 +142,14 @@ class LocalFeatureAggregation(nn.Module):
     re-transposes no position encoding.
     """
 
-    def __init__(self, d_in: int, d_out: int, ap_impl: str = "reference"):
+    def __init__(self, d_in: int, d_out: int, ap_impl: str = "reference",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.d_in, self.d_out, self.ap_impl = d_in, d_out, ap_impl
-        self.mlp1 = _conv(10, d_in)
-        self.att_pooling_1 = AttentivePooling(2 * d_in, d_out // 2)
-        self.mlp2 = _conv(d_in, d_out // 2)
-        self.att_pooling_2 = AttentivePooling(d_out, d_out)
+        self.mlp1 = _conv(10, d_in, dtype=dtype)
+        self.att_pooling_1 = AttentivePooling(2 * d_in, d_out // 2, dtype)
+        self.mlp2 = _conv(d_in, d_out // 2, dtype=dtype)
+        self.att_pooling_2 = AttentivePooling(d_out, d_out, dtype)
 
     def fused(self, k: int) -> bool:
         """The JAX package's rule (`randlanet.py:221-230`): fused where
@@ -204,12 +214,13 @@ def _k_major_rows(rows: torch.Tensor, kidx: torch.Tensor) -> torch.Tensor:
 class DilatedResBlock(nn.Module):
     """Dilated residual block (`RandLANet.py:323-330`)."""
 
-    def __init__(self, d_in: int, d_out: int, ap_impl: str = "reference"):
+    def __init__(self, d_in: int, d_out: int, ap_impl: str = "reference",
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.mlp1 = _conv(d_in, d_out // 2)
-        self.lfa = LocalFeatureAggregation(d_out // 2, d_out, ap_impl)
-        self.mlp2 = _conv(d_out, 2 * d_out, act="none")
-        self.shortcut = _conv(d_in, 2 * d_out, act="none")
+        self.mlp1 = _conv(d_in, d_out // 2, dtype=dtype)
+        self.lfa = LocalFeatureAggregation(d_out // 2, d_out, ap_impl, dtype)
+        self.mlp2 = _conv(d_out, 2 * d_out, act="none", dtype=dtype)
+        self.shortcut = _conv(d_in, 2 * d_out, act="none", dtype=dtype)
 
     def forward(self, feature, xyz, neigh_idx, *, pos=None, collect_pos=False,
                 momentum: float = BN_MOM):
@@ -234,31 +245,38 @@ class RandLANet(nn.Module):
     encodings, which a later call takes as ``pos_plan``. ``momentum`` is
     BatchNorm's keep fraction in train mode (the reference's 0.99).
     ``ap_impl``: "reference" (the unfused composition) or "fused" (the
-    fused attentive-pooling kernel where the JAX package fuses).
+    fused attentive-pooling kernel where the JAX package fuses). The fused
+    kernel is float32 only: with a bf16 ``dtype`` "fused" raises, where the
+    JAX model quietly takes the reference composition
+    (`pointsecguard_tpu/models/randlanet.py:223`).
     """
 
     def __init__(self, num_classes: int = 13, d_out: Sequence[int] = (16, 64, 128, 256, 512),
-                 d_in: int = 6, ap_impl: str = "reference"):
+                 d_in: int = 6, ap_impl: str = "reference", dtype: torch.dtype | None = None):
         super().__init__()
         if ap_impl not in ("reference", "fused"):
             raise ValueError(f"unknown ap_impl={ap_impl!r}: want 'reference' or 'fused'")
+        if ap_impl == "fused" and dtype is not None:
+            raise ValueError(f"ap_impl='fused' runs the float32 attentive kernel: "
+                             f"not with dtype={dtype}")
+        self.dtype = dtype
         self.fc0 = nn.Linear(d_in, 8)
         self.bn0 = BatchNorm(8, epsilon=BN_EPS)
         widths = [8] + [2 * d for d in d_out]  # block inputs / outputs
         self.blocks = nn.ModuleList(
-            DilatedResBlock(widths[i], d_out[i], ap_impl) for i in range(len(d_out))
+            DilatedResBlock(widths[i], d_out[i], ap_impl, dtype) for i in range(len(d_out))
         )
-        self.decoder_0 = _conv(widths[-1], widths[-1])
+        self.decoder_0 = _conv(widths[-1], widths[-1], dtype=dtype)
         # decoder j joins encoder output -j-2 with the upsampled features
         enc = [widths[1]] + widths[1:]  # channels of enc[0..num_layers]
         dec, up = [], widths[-1]
         for j in range(len(d_out)):
             skip = enc[-j - 2]
-            dec.append(_conv(skip + up, skip))
+            dec.append(_conv(skip + up, skip, dtype=dtype))
             up = skip
         self.decoders = nn.ModuleList(dec)
-        self.fc1 = _conv(up, 64)
-        self.fc2 = _conv(64, 32)
+        self.fc1 = _conv(up, 64, dtype=dtype)
+        self.fc2 = _conv(64, 32, dtype=dtype)
         self.fc = nn.Linear(32, num_classes)
 
     def forward(self, features: torch.Tensor, pyramid: dict, *, pos_plan=None,
@@ -270,7 +288,7 @@ class RandLANet(nn.Module):
         mask from ``generator`` (on the model's device; torch's default
         generator without one). Evaluation mode applies none."""
         xyz, neigh_idx = pyramid["xyz"], pyramid["neigh_idx"]
-        f = leaky_relu(self.bn0(self.fc0(features), momentum))
+        f = leaky_relu(self.bn0(linear(features, self.fc0, self.dtype), momentum))
         enc, pos_out = [], []
         for i, block in enumerate(self.blocks):
             f_enc = block(f, xyz[i], neigh_idx[i],
@@ -290,7 +308,8 @@ class RandLANet(nn.Module):
         f = self.fc2(self.fc1(f, momentum), momentum)
         if self.training:
             f = dropout(f, DROPOUT, dropout_mask, generator)
-        logits = self.fc(f).float()
+        # the logits always in float32
+        logits = linear(f, self.fc, self.dtype).float()
         if collect_pos:
             return logits, tuple(pos_out)
         return logits

@@ -39,30 +39,33 @@ import torch.utils.checkpoint
 from torch import nn
 
 from pointsecguard_tpu_torch import ops
-from pointsecguard_tpu_torch.models.common import BatchNorm, dropout
+from pointsecguard_tpu_torch.models.common import BatchNorm, dropout, linear
 
 
 class BasicConv(nn.Module):
     """Linear → ReLU → BatchNorm (`torch_nn.py:55-79` ordering; BatchNorm
     at ε 1e-5 and keep 0.9), or the Linear alone for the classifier."""
 
-    def __init__(self, in_features: int, features: int, *, norm_act: bool = True):
+    def __init__(self, in_features: int, features: int, *, norm_act: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.dense = nn.Linear(in_features, features)
         self.bn = BatchNorm(features) if norm_act else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dense(x)
+        x = linear(x, self.dense, self.dtype)
         return x if self.bn is None else self.bn(torch.relu(x))
 
 
 class EdgeConv(nn.Module):
     """EdgeConv (`torch_vertex.py:23-35`): max over neighbours of
-    BasicConv([x_i, x_j − x_i])."""
+    BasicConv([x_i, x_j − x_i]); x_j − x_i in x's dtype (bf16 between
+    blocks under a bf16 ``dtype``)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.nn = BasicConv(2 * in_channels, out_channels)
+        self.nn = BasicConv(2 * in_channels, out_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, edge_idx: torch.Tensor) -> torch.Tensor:
         x_j = ops.gather_points(x, edge_idx)  # [B, N, K, C]
@@ -73,9 +76,9 @@ class EdgeConv(nn.Module):
 class MRConv(nn.Module):
     """Max-relative graph conv (`torch_vertex.py:8-20`)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.nn = BasicConv(2 * in_channels, out_channels)
+        self.nn = BasicConv(2 * in_channels, out_channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, edge_idx: torch.Tensor) -> torch.Tensor:
         x_j = ops.gather_points(x, edge_idx)
@@ -91,10 +94,10 @@ class DynConv(nn.Module):
     of the current features, then the graph conv over it."""
 
     def __init__(self, in_channels: int, out_channels: int, *, k: int, dilation: int,
-                 conv: str, epsilon: float):
+                 conv: str, epsilon: float, dtype: torch.dtype | None = None):
         super().__init__()
         self.k, self.dilation, self.epsilon = k, dilation, epsilon
-        self.conv = _GRAPH_CONVS[conv](in_channels, out_channels)
+        self.conv = _GRAPH_CONVS[conv](in_channels, out_channels, dtype)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, remat: bool = False):
@@ -145,32 +148,36 @@ class DenseDeepGCN(nn.Module):
     as ``dropout_mask``. The JAX module's ``act``, ``norm``, ``use_bias``
     and ``res_scale`` keep their defaults (ReLU, BatchNorm, biases, 1):
     no ported path sets them. ``remat`` recomputes each backbone block in
-    the backward (module docstring).
+    the backward (module docstring). ``dtype`` as in ``models/common.py``:
+    the graphs are built on float32 features either way
+    (``ops.dense_knn_graph``).
     """
 
     def __init__(self, num_classes: int = 13, in_channels: int = 9, n_blocks: int = 28,
                  n_filters: int = 64, k: int = 16, block: str = "res", conv: str = "edge",
-                 epsilon: float = 0.0, dropout: float = 0.0, remat: bool = False):
+                 epsilon: float = 0.0, dropout: float = 0.0, remat: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.remat = remat
         if block not in ("res", "dense", "plain") or conv not in _GRAPH_CONVS:
             raise NotImplementedError(f"block:{block} conv:{conv} is not supported")
         self.k, self.block, self.dropout = k, block, dropout
-        self.head = _GRAPH_CONVS[conv](in_channels, n_filters)
+        self.head = _GRAPH_CONVS[conv](in_channels, n_filters, dtype)
         width, widths = n_filters, [n_filters]
         blocks = []
         for i in range(n_blocks - 1):
             dilation = 1 if block == "plain" else 1 + i
             blocks.append(DynConv(width, n_filters, k=k, dilation=dilation, conv=conv,
-                                  epsilon=epsilon))
+                                  epsilon=epsilon, dtype=dtype))
             if block == "dense":
                 width += n_filters
             widths.append(width)
         self.backbone = nn.ModuleList(blocks)
         fused = sum(widths)  # the concatenation of every block's output
-        self.fusion = BasicConv(fused, 1024)
-        self.pred = nn.ModuleList([BasicConv(1024 + fused, 512), BasicConv(512, 256)])
-        self.cls = BasicConv(256, num_classes, norm_act=False)
+        self.fusion = BasicConv(fused, 1024, dtype=dtype)
+        self.pred = nn.ModuleList([BasicConv(1024 + fused, 512, dtype=dtype),
+                                   BasicConv(512, 256, dtype=dtype)])
+        self.cls = BasicConv(256, num_classes, norm_act=False, dtype=dtype)
 
     def forward(self, points: torch.Tensor, *, graphs=None, collect_graphs: bool = False,
                 generator: torch.Generator | None = None,
@@ -198,7 +205,7 @@ class DenseDeepGCN(nn.Module):
         x = self.pred[1](self.pred[0](x))
         if self.training and self.dropout:
             x = dropout(x, self.dropout, dropout_mask, generator)
-        logits = self.cls(x).float()
+        logits = self.cls(x).float()  # always float32
         if collect_graphs:
             return logits, tuple(graphs_out)
         return logits

@@ -50,6 +50,13 @@ import torch
 log = logging.getLogger(__name__)
 
 
+def _dtype(args) -> torch.dtype | None:
+    """The models' ``dtype`` of ``--precision`` (JAX `train/loops.py:122-124`)."""
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
+
+    return model_dtype(getattr(args, "precision", "float32"))
+
+
 def _steps_per_call(args) -> int:
     return max(getattr(args, "steps_per_call", 1) or 1, 1)
 
@@ -156,7 +163,7 @@ def train_pointnet_family(args, device: torch.device):
     # batches from the same seed
     next(iter(sampler.batches(rng, batch_size)))
     model_cls, family = POINTNET_MODELS[args.model]
-    model = model_cls()
+    model = model_cls(dtype=_dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
     # PointNet's family adds 0.001 · the feature-transform regularizer
@@ -290,7 +297,7 @@ def train_cls(args, device: torch.device):
     rng = np.random.default_rng(args.seed)
     # the JAX loop shapes its initial state on one batch: spent here too
     next(iter(train_ds.batches(rng, batch_size)))
-    model, family = cls_model(args.model, train_ds.num_classes, use_normals)
+    model, family = cls_model(args.model, train_ds.num_classes, use_normals, _dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
     multi_step = make_multi_train_step(model, weighted_nll_loss, family=family)
@@ -405,7 +412,7 @@ def train_partseg(args, device: torch.device):
     rng = np.random.default_rng(args.seed)
     # the JAX loop shapes its initial state on one batch: spent here too
     next(packed(train_ds.batches(rng, batch_size)))
-    model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals)
+    model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals, _dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
     multi_step = make_multi_train_step(model, weighted_nll_loss, family=family)
@@ -517,7 +524,7 @@ def train_randla(args, device: torch.device):
     # too and both loops then train on the same clouds
     next(iter(train_sampler.batches(batch_size, 1)))
     model = RandLANet(num_classes=num_classes, d_out=cfg.d_out,
-                      d_in=6 if preset.has_colors else 3)
+                      d_in=6 if preset.has_colors else 3, dtype=_dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
     family = randla_family(cfg)
@@ -620,7 +627,8 @@ def train_resgcn(args, device: torch.device):
     rng = np.random.default_rng(args.seed)
     # the JAX loop shapes its initial state on one sampler batch: spent here too
     next(iter(sampler.batches(rng, batch_size)))
-    model = DenseDeepGCN(**model_kwargs, remat=getattr(args, "remat", False))
+    model = DenseDeepGCN(**model_kwargs, remat=getattr(args, "remat", False),
+                         dtype=_dtype(args))
     # every BasicConv Dense takes flax's kaiming_normal (variance 2 / fan_in)
     init_parameters(model, torch.Generator().manual_seed(args.seed), scale=2.0)
     state = TrainState(model.to(device))

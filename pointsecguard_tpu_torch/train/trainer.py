@@ -188,17 +188,19 @@ PARTSEG_MODELS = {
 }
 
 
-def cls_model(name: str, num_classes: int, use_normals: bool = True):
+def cls_model(name: str, num_classes: int, use_normals: bool = True,
+              dtype: torch.dtype | None = None):
     """(model, family) of the object-task model ``--model name``, a
     classifier or a part-seg net (the JAX ``_cls_partseg_model``,
     `train/loops.py:613-671`): the loss is NLL, PointNet's plus 0.001 times
     the feature-transform regularizer (its family's ``aux_loss``). A
     part-seg family's points carry the category one-hot as 16 trailing
-    channels (``_unpack``)."""
+    channels (``_unpack``). ``dtype``: the model's (``models/common.py``)."""
     registered, family = {**CLS_MODELS, **PARTSEG_MODELS}[name]
     # PointNetPartSeg keeps the reference's name for its width
     width = {"part_num" if name == "pointnet_part_seg" else "num_classes": num_classes}
-    return registry.create(registered, normal_channel=use_normals, **width), family
+    return (registry.create(registered, normal_channel=use_normals, dtype=dtype, **width),
+            family)
 
 
 def randla_family(cfg: RandlaConfig | None = None) -> Family:

@@ -12,12 +12,26 @@ from __future__ import annotations
 import torch
 
 
+PRECISIONS = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def model_dtype(precision: str) -> torch.dtype | None:
+    """``--precision`` → the models' ``dtype``: None (float32) or
+    ``torch.bfloat16`` (the Linear products in bf16; ``models/common.py``)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} ({' | '.join(PRECISIONS)})")
+    return PRECISIONS[precision]
+
+
 def set_float32_modes() -> None:
     """Full float32 matmuls and convolutions: TF32 keeps ~3 decimal
     digits and would move distances and logits away from the reference
-    (the JAX package contracts at Precision.HIGHEST)."""
+    (the JAX package contracts at Precision.HIGHEST). The bf16 products of
+    ``--precision bfloat16`` accumulate in float32, as JAX's do: cuBLAS
+    may otherwise reduce them in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def require_cuda() -> torch.device:

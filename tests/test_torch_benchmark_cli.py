@@ -180,19 +180,30 @@ def test_randla_and_resgcn_branches(tmp_path, monkeypatch, capsys):
 
 # the classification task and the one-decision attacks, once refused, are
 # ported (tests/test_torch_cls_cli.py runs them): their flags are parsed and
-# pass the refusals and the JAX CLI's task checks; --devices and --precision
-# bfloat16 stay refused, on either task
+# pass the refusals and the JAX CLI's task checks; --devices stays refused,
+# on either task
 _CLS = ["--task", "cls", "--model", "pointnet2_cls"]
 
 
 @pytest.mark.parametrize("flags", [
-    [*_CLS, "--devices", "2"], [*_CLS, "--precision", "bfloat16"],
+    [*_CLS, "--devices", "2"],
     ["--model", "pointnet_cls", "--task", "cls", "-d", "4"],
-    ["--devices", "2"], ["--precision", "bfloat16"], ["--resgcn_blocks", "3"],
+    ["--devices", "2"], ["--resgcn_blocks", "3"],
 ])
 def test_unported_flags_are_refused(flags, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
         bench_cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags", [[*_CLS, "--precision", "bfloat16"],
+                                   ["--precision", "bfloat16"]])
+def test_precision_bfloat16_is_taken(flags):
+    """``--precision bfloat16``, once refused, is ported on either task
+    (tests/test_torch_precision_cli.py runs it)."""
+    args = bench_cli._parser().parse_args(flags)
+    bench_cli._refuse_unported(args)
+    bench_cli._check_task(args)
+    assert args.precision == "bfloat16"
 
 
 @pytest.mark.parametrize("flags,name,value", [

@@ -213,26 +213,35 @@ def test_benchmark_cls_modes(trained, flags, tmp_path):
 
 @pytest.mark.parametrize("cli,flags", [
     (attack_cli, ["--model", "pointnet2_part_seg", "--devices", "2"]),
-    (attack_cli, ["--model", "pointnet_part_seg", "--precision", "bfloat16"]),
     (attack_cli, ["--model", "pointnet2_part_seg_msg", "--num_category", "10"]),
     (attack_cli, ["--origin", "3"]),
     (attack_cli, ["--devices", "2"]),
-    (attack_cli, ["--precision", "bfloat16"]),
     (train_cli, ["--model", "pointnet2_part_seg_msg", "--devices", "2"]),
     (train_cli, ["--model", "pointnet_cls", "--devices", "2"]),
-    (train_cli, ["--model", "pointnet2_cls_msg", "--precision", "bfloat16"]),
     (train_cli, ["--model", "pointnet2", "--no_normals"]),
-    (eval_cli, ["--model", "pointnet2_part_seg", "--precision", "bfloat16"]),
-    (eval_cli, ["--model", "pointnet2_cls", "--precision", "bfloat16"]),
     (eval_cli, ["--model", "resgcn", "--num_category", "10"]),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_refused_flags_and_part_seg_models(cli, flags, tmp_path):
-    """What stays refused: ``--devices`` and ``--precision bfloat16`` (the
-    part-seg nets included, which are ported), ``--origin`` with a
-    classifier, and the object tasks' data flags with models that do not
-    read them."""
+    """What stays refused: ``--devices`` (the part-seg nets included, which
+    are ported), ``--origin`` with a classifier, and the object tasks' data
+    flags with models that do not read them."""
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("cli,flags", [
+    (attack_cli, ["--model", "pointnet_part_seg", "--precision", "bfloat16"]),
+    (attack_cli, ["--precision", "bfloat16"]),
+    (train_cli, ["--model", "pointnet2_cls_msg", "--precision", "bfloat16"]),
+    (eval_cli, ["--model", "pointnet2_part_seg", "--precision", "bfloat16"]),
+    (eval_cli, ["--model", "pointnet2_cls", "--precision", "bfloat16"]),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_precision_bfloat16_is_taken(cli, flags):
+    """``--precision bfloat16``, once refused, is ported for the object
+    tasks (tests/test_torch_precision_cli.py runs it)."""
+    args = cli._parser().parse_args(flags)
+    cli._refuse_unported(args)
+    assert args.precision == "bfloat16"
 
 
 def test_every_flag_of_the_jax_attack_object_cli_is_accepted():

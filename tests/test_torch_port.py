@@ -153,7 +153,7 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py;
     # --randla_dataset semantic3d too (test_randla_dataset_is_taken)
     ["--model", "randla", "--shard_points", "4"], ["--devices", "4"],
-    ["--devices", "2"], ["--shard_points", "2"], ["--precision", "bfloat16"],
+    ["--devices", "2"], ["--shard_points", "2"],
     # resgcn is ported: its subsample dilation is not, and the frozen-graph
     # surrogate is resgcn's alone
     ["--model", "resgcn", "--resgcn_fast"], ["--model", "pointnet", "--resgcn_fixed_graphs"],
@@ -164,6 +164,15 @@ def test_unported_flags_are_refused(flags):
     refusal = "xyz-only" if "semantickitti" in flags else "not ported yet"
     with pytest.raises(SystemExit, match=refusal):
         tcli.main(flags)
+
+
+@pytest.mark.parametrize("model", ["pointnet2", "randla"])
+def test_precision_bfloat16_is_taken(model):
+    """``--precision bfloat16`` is parsed and refused by nothing
+    (tests/test_torch_precision_cli.py attacks in bf16)."""
+    args = tcli._parser().parse_args(["--model", model, "--precision", "bfloat16"])
+    tcli._refuse_unported(args)
+    assert args.precision == "bfloat16"
 
 
 def test_randla_dataset_is_taken():

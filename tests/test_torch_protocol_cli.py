@@ -167,7 +167,7 @@ def test_eot_needs_a_randomized_defense(ssg_run):
     # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py
     ["--devices", "4"], ["--model", "randla", "--resgcn_fast"], ["--resgcn_fast"],
     ["--model", "resgcn", "--resgcn_fast"], ["--devices", "2"], ["--shard_points", "2"],
-    ["--precision", "bfloat16"], ["--resgcn_fixed_graphs"],
+    ["--resgcn_fixed_graphs"],
 ])
 def test_flags_still_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -182,6 +182,7 @@ def test_flags_still_refused(flags):
     (["--defense_quality", "10"], "defense_quality", 10),
     (["--defense_sigma", "0.1"], "defense_sigma", 0.1), (["--defense_bits", "3"], "defense_bits", 3),
     (["--model", "resgcn", "--resgcn_fixed_graphs"], "resgcn_fixed_graphs", True),
+    (["--precision", "bfloat16"], "precision", "bfloat16"),
 ])
 def test_protocol_flags_are_taken(flags, attr, value):
     args = attack_cli._parser().parse_args(flags)

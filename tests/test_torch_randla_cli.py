@@ -187,13 +187,29 @@ def test_cli_tar_nu_fused_on_cpu_gates_clouds(cli_runs, monkeypatch):
 @pytest.mark.parametrize("flags", [
     # --randla_dataset semantic3d is ported: tests/test_torch_randla_presets_cli.py
     ["--model", "pointnet2", "--fused_ap"], ["--resgcn_fast"],
-    ["--shard_points", "2"], ["--precision", "bfloat16"],
+    ["--shard_points", "2"],
+    # the fused attentive kernel is float32 only
+    ["--fused_ap", "--precision", "bfloat16"],
     # --ensemble is refused with RandLA in the JAX driver's words: tests/test_torch_ensemble.py
     ["--devices", "2"],
 ])
 def test_unported_randla_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         tcli.main(["--model", "randla", "--device", "cpu"] + flags)
+
+
+def test_randla_precision_bfloat16_is_taken():
+    """RandLA's ``--precision bfloat16`` is parsed and refused by nothing
+    without ``--fused_ap`` (tests/test_torch_precision_cli.py runs it)."""
+    args = tcli._parser().parse_args(["--model", "randla", "--precision", "bfloat16"])
+    tcli._refuse_unported(args)
+    assert args.precision == "bfloat16"
+
+
+def test_fused_ap_refusal_names_the_precision():
+    with pytest.raises(SystemExit, match=r"--fused_ap with --precision bfloat16"):
+        tcli.main(["--model", "randla", "--device", "cpu", "--fused_ap",
+                   "--precision", "bfloat16"])
 
 
 def test_randla_targeted_needs_batch_one(prepared):

@@ -230,7 +230,6 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
 @pytest.mark.parametrize("cli,argv", [
     (attack_cli, ["--model", "resgcn", "--resgcn_fast"]),
     (attack_cli, ["--model", "pointnet2", "--resgcn_fixed_graphs"]),
-    (attack_cli, ["--model", "resgcn", "--precision", "bfloat16"]),
     (attack_cli, ["--model", "pointnet2", "--resgcn_blocks", "3"]),
     # resgcn takes --remat, --device_sampler, --steps_per_call and --adv_train
     # nb (tests/test_torch_train_cli.py); with another model, or another
@@ -239,7 +238,6 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
     (train_cli, ["--model", "randla", "--device_sampler"]),
     (train_cli, ["--model", "resgcn", "--profile", "trace"]),
     (train_cli, ["--model", "resgcn", "--adv_train", "pgd"]),
-    (train_cli, ["--model", "resgcn", "--precision", "bfloat16"]),
     (train_cli, ["--model", "randla", "--resgcn_k", "8"]),
     (eval_cli, ["--model", "resgcn", "--resgcn_fast"]),
     (eval_cli, ["--model", "pointnet2", "--resgcn_conv", "mr"]),
@@ -247,3 +245,13 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
 def test_unported_flags_are_refused_by_name(cli, argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli", [attack_cli, train_cli, eval_cli],
+                         ids=["attack", "train", "eval"])
+def test_precision_bfloat16_is_taken(cli):
+    """ResGCN's ``--precision bfloat16``, once refused, is ported
+    (tests/test_torch_precision_cli.py runs it)."""
+    args = cli._parser().parse_args(["--model", "resgcn", "--precision", "bfloat16"])
+    cli._refuse_unported(args)
+    assert args.precision == "bfloat16"

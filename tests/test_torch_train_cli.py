@@ -160,8 +160,8 @@ _TRAIN_REFUSED = [
     # resgcn is ported, --remat with it too; --profile, which the JAX resgcn
     # loop ignores, is refused with it
     pytest.param(["--model", "resgcn", "--profile", "trace"], id="--model resgcn"),
-    # the classifiers are ported; bfloat16, which their run would take, is not
-    pytest.param(["--model", "pointnet2_cls", "--precision", "bfloat16"],
+    # the classifiers are ported; several devices, which their run would take, are not
+    pytest.param(["--model", "pointnet2_cls", "--devices", "2"],
                  id="--model pointnet2_cls"),
     # the part-seg nets are ported; several devices, which their run would take, are not
     pytest.param(["--model", "pointnet2_part_seg", "--devices", "2"],
@@ -176,7 +176,7 @@ _TRAIN_REFUSED = [
     pytest.param(["--model", "pointnet2_cls", "--adv_train", "nb"], id="--adv_train nb"),
     # the --adv_* budget without --adv_train nb
     ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
-    ["--adv_iters", "3"], ["--adv_rand_init", "0.1"], ["--precision", "bfloat16"],
+    ["--adv_iters", "3"], ["--adv_rand_init", "0.1"],
     ["--devices", "2"], ["-d", "4"], ["--shard_points", "2"], ["--remat"],
     pytest.param(["--model", "randla", "--profile", "trace"], id="--profile trace"),
     ["--model", "randla", "--randla_dataset", "semantickitti", "--adv_train", "nb"],
@@ -193,11 +193,11 @@ _EVAL_REFUSED = [
     # resgcn is ported; its subsample dilation (--resgcn_fast) is not
     pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
     pytest.param(["--model", "pointnet_cls", "--devices", "2"], id="--model pointnet_cls"),
-    pytest.param(["--model", "pointnet_part_seg", "--precision", "bfloat16"],
+    pytest.param(["--model", "pointnet_part_seg", "--shard_points", "2"],
                  id="--model pointnet_part_seg"),
     # --save_preds is RandLA's (PLYs of reprojected clouds)
     ["--save_preds", "out"], ["--devices", "2"], ["--shard_points", "2"],
-    ["--precision", "bfloat16"], ["--num_category", "10"], ["--no_normals"],
+    ["--num_category", "10"], ["--no_normals"],
     ["--resgcn_blocks", "3"], ["--resgcn_k", "8"], ["--resgcn_filters", "32"],
     ["--resgcn_block_type", "plain"], ["--resgcn_conv", "edge"],
     ["--resgcn_epsilon", "0.2"], ["--resgcn_fast"],
@@ -232,6 +232,9 @@ _TRAIN_TAKEN = [
     (["--model", "pointnet2_msg", "--adv_train", "nb", "--adv_alpha", "0.01"], "adv_alpha", 0.01),
     (["--model", "resgcn", "--remat"], "remat", True),
     (["--model", "pointnet2_msg", "--profile", "trace"], "profile", "trace"),
+    # --precision bfloat16, with every model (tests/test_torch_precision_cli.py)
+    (["--precision", "bfloat16"], "precision", "bfloat16"),
+    (["--model", "pointnet2_cls", "--precision", "bfloat16"], "precision", "bfloat16"),
 ]
 _EVAL_TAKEN = [
     (["--model", "pointnet2_msg"], "model", "pointnet2_msg"),
@@ -246,6 +249,8 @@ _EVAL_TAKEN = [
     (["--visual"], "visual", True),
     (["--model", "randla", "--save_preds", "out"], "save_preds", "out"),
     (["--randla_dataset", "semantic3d"], "randla_dataset", "semantic3d"),
+    (["--precision", "bfloat16"], "precision", "bfloat16"),
+    (["--model", "pointnet_part_seg", "--precision", "bfloat16"], "precision", "bfloat16"),
 ]
 
 
