@@ -125,7 +125,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     reference's distance; the attentive backward with dW at the step's
     shapes against plain, timed.
 24. Training through ``cli.train.main --model randla`` at full width: batch
-    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 70 steps
+    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 50 steps
     and 4 validation clouds, one more epoch on resume; every loss finite,
     no skipped batch, the last epoch's loss below the first's, exactly 10
     kNN launches per optimizer step and per validation cloud, no epoch
@@ -390,6 +390,25 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     4-block ResGCN ``.pth``, a RandLA ``.npz``), then ``cli.eval`` on the
     card: the imported weights' log-probabilities equal to the same
     weights through ``utils/convert.py``.
+72. ``torch.library.opcheck`` of the six ``psg::`` custom ops on the card,
+    one slice shape each (a kernel phase, run after 60).
+73. ``cli.export --check`` (its ``main``, as ``python -m
+    pointsecguard_tpu_torch.cli.export`` runs it) of the eleven models at
+    full width and their task's default points from the checkpoints
+    trained above (SSG 17, RandLA 24, ResGCN 32, MSG and PointNet 39, the
+    classifiers 58, the part-seg nets 62), SSG also with ``--precision
+    bfloat16``, RandLA and ResGCN also at 8192 and 1024 points for the CPU
+    leg; four processes share the jobs. The live model's launches of one
+    forward (SSG 4 FPS + 8 bottom-k, MSG 4 + 12, the classifiers 2 + 1 /
+    2 + 3, the part-seg nets 2 + 3, RandLA 10 kNN, ResGCN-28 4, the
+    PointNets none, said on a line of their own), its ms a forward, its
+    outputs on the card and the CPU.
+74. Every artifact reloaded in a fresh ``python -c`` process that imports
+    no model code: on the card the live forward's launches and outputs
+    (within 1e-5), and in a second process on the CPU (RandLA and ResGCN
+    at their cut points; 4 threads, as the live model's CPU run) the live
+    model's CPU outputs; load seconds, ms a forward beside the live
+    model's.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -406,8 +425,8 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56
-and 60 and exits 1. Every phase prints its seconds (``phase N: … s``).
+``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56,
+60 and 72 and exits 1. Every phase prints its seconds (``phase N: … s``).
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -460,14 +479,15 @@ TRAIN_LR = 0.003
 # 2/13 is twice the chance of 13 classes
 EVAL_ACC_FLOOR = 0.3
 # RandLA training: the config's batch of 6 × 40960 points on the train
-# cloud prepared at 0.04 m, 70 steps and 4 validation clouds an epoch, 3
+# cloud prepared at 0.04 m, 50 steps and 4 validation clouds an epoch, 3
 # epochs and one more on resume, the config's lr 1e-2. BatchNorm keeps
 # 0.99 of its running statistics a step, so after 30 steps they are still
 # 74 % the initial ones and evaluation-mode accuracy stays near chance
-# (0.21 on the Area-5 cloud); after 280, 6 %. (100 steps an epoch until
+# (0.21 on the Area-5 cloud); after 200, 13 %. (100 steps an epoch until
 # the part-seg phases came: validation accuracy 0.78 after 200 steps and
-# eval 0.9885 after 400 on an H100, against the floor of 0.3)
-RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 70, 4
+# eval 0.9885 after 400 on an H100, against the floor of 0.3; 70 until the
+# export phases came: 0.8531 after 210)
+RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 50, 4
 RANDLA_TRAIN_EPOCHS = 3
 # the card-vs-CPU step: the CPU's plain pyramid of 2 × 40960 points takes
 # ~100 s on 8 cores (the stable sort of 40960-wide rows), of 2 × 16384 ~15 s
@@ -5095,8 +5115,8 @@ def phase_cls_deepfool_k40(dev) -> dict:
     return stats
 
 
-def run_cls_phases(dev, records) -> None:
-    """Phases 57-59 (56 runs with the kernel phases)."""
+def run_cls_phases(dev, records) -> dict:
+    """Phases 57-59 (56 runs with the kernel phases); the trained logs."""
     t0 = time.perf_counter()
     for model in CLS_MODELS:
         phase_cls_reference(dev, model)
@@ -5114,6 +5134,7 @@ def run_cls_phases(dev, records) -> None:
     phase_cls_benchmark(records, log_xyz)
     phase_cls_deepfool_k40(dev)
     print(f"phase 59: {time.perf_counter() - t0:.1f} s")
+    return logs
 
 
 # ShapeNetPart part segmentation (phases 60-63): a synthetic ShapeNetPart of
@@ -5579,8 +5600,8 @@ def phase_partseg_attacks(records, logs: dict) -> dict:
     return runs
 
 
-def run_partseg_phases(dev, records) -> None:
-    """Phases 61-63 (60 runs with the kernel phases)."""
+def run_partseg_phases(dev, records) -> dict:
+    """Phases 61-63 (60 runs with the kernel phases); the trained logs."""
     t0 = time.perf_counter()
     for model in PS_MODELS:
         phase_partseg_reference(dev, model)
@@ -5591,6 +5612,7 @@ def run_partseg_phases(dev, records) -> None:
     t0 = time.perf_counter()
     phase_partseg_attacks(records, logs)
     print(f"phase 63: {time.perf_counter() - t0:.1f} s")
+    return logs
 
 
 # --- phases 64-68: the training extras ------------------------------------------------
@@ -6609,6 +6631,300 @@ def phase_import(dev, paths: dict) -> dict:
     return out
 
 
+# --- phases 72-74: the kernels as custom ops, cli.export ----------------------------
+
+# the launches of one evaluation forward a model's artifact must repeat
+EXPORT_LAUNCHES = {**{m: {k: v for k, v in c.items() if v} for m, c in
+                      {**GEOMETRY_LAUNCHES, **CLS_LAUNCHES, **PS_LAUNCHES}.items()},
+                   "randla": {"knn": 10}, "resgcn": {"knn": 4}}
+EXPORT_ATOL = 1e-5  # the round-trip tolerance of both packages' cli.export --check
+# the CPU legs of RandLA and ResGCN-28 run artifacts exported again at
+# fewer points (RandLA at phase 13's cloud): at full size the plain kNN
+# pyramid of 40960 points takes the CPU tens of seconds a forward, and
+# ResGCN's 24 stable sorts of [4096, 4096] some 15 s
+EXPORT_CPU_CUTS = {"randla": ["--randla_points", "8192"], "resgcn": ["--num_point", "1024"]}
+EXPORT_WORKERS = 4  # processes that share the exports (tracing is host work),
+# each with 2 CPU threads (``EXPORT_THREADS``): 8 cores on the card's host
+EXPORT_THREADS = "2"
+# the CPU leg's threads, the live model's and the artifact's alike: a CPU
+# reduction's order, and so its last bits, follows the thread count
+EXPORT_CPU_THREADS = 4
+
+
+def phase_opcheck(dev) -> dict:
+    """72. ``torch.library.opcheck`` of the six ``psg::`` ops on the card, at
+    one slice shape each (schema, autograd registration, fake against the
+    kernel, AOT dispatch); the three ops with a gradient on inputs that
+    require one. The CUDA implementations run here, so the launch counters
+    move; no path reads them from this phase."""
+    from pointsecguard_tpu_torch.ops import cuda as kernels  # noqa: F401  (psg::*)
+
+    gen = torch.Generator(device=dev).manual_seed(72)
+
+    def rand(*shape, grad=False):
+        return torch.rand(shape, generator=gen, device=dev).requires_grad_(grad)
+
+    K, M = 16, RANDLA_BATCH * RANDLA_POINTS
+    cases = {
+        "fps": ((rand(BATCH, NUM_POINT, 3), 1024,
+                 torch.zeros(BATCH, dtype=torch.int32, device=dev)),
+                "SSG's first FPS, [8, 4096] -> 1024"),
+        "bottom_k": ((rand(BATCH, 1024, NUM_POINT, grad=True), 32),
+                     "SSG's first ball query, [8, 1024, 4096] k = 32"),
+        "bottom_k_chunked": ((rand(1, 4096, RANDLA_POINTS, grad=True), 16),
+                             "a tiled 40960-wide block, [1, 4096, 40960] k = 16"),
+        "knn": ((*(2 * (rand(RANDLA_BATCH, RANDLA_POINTS, 3),)), 16),
+                "RandLA's first self-search, [4, 40960, 3] k = 16"),
+        "attentive_fwd": ((rand(K, M, 8, grad=True), rand(K, M, 8, grad=True),
+                           rand(16, 16, grad=True)), "[16, 163840, 8]"),
+        "attentive_bwd": ((rand(K, M, 8), rand(K, M, 8), rand(16, 16), rand(M, 8),
+                           rand(M, 8), True), "[16, 163840, 8] with dW"),
+    }
+    out = {}
+    for name, (args, shape) in cases.items():
+        t0 = time.perf_counter()
+        result = torch.library.opcheck(getattr(torch.ops.psg, name).default, args)
+        torch.cuda.synchronize()
+        out[name] = {"shape": shape, "s": time.perf_counter() - t0, **result}
+        if any(v != "SUCCESS" for v in result.values()):
+            raise AssertionError(f"opcheck psg::{name}: {result}")
+    print("opcheck: " + json.dumps(out))
+    return out
+
+
+def _export_argv(model: str, log: str, out: str, flags=()) -> list:
+    return ["--model", model, "--log_dir", log, "--output", out, "--check", *flags]
+
+
+def _live_forward(model_name: str, log: str, dev, flags=()):
+    """(model, example inputs, call) as ``cli.export`` serves them, with
+    the log's checkpoint restored, on ``dev``."""
+    from pointsecguard_tpu_torch.cli import export as export_cli
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
+
+    args = export_cli._parser().parse_args(_export_argv(model_name, log, "-", flags))
+    model, example, call = export_cli.served_model(args, model_dtype(args.precision))
+    model.load_state_dict(load_checkpoint(log))
+    return model.to(dev).eval().requires_grad_(False), example, call
+
+
+def _run_processes(jobs: list, workers: int, timeout: float, **env_extra) -> list:
+    """Run ``jobs`` ([(argv, log path)]) as subprocesses, ``workers`` at a
+    time, each writing its output to its log; (return code, wall s) of each,
+    in order. Every process is waited for (one past ``timeout`` is killed)."""
+    results, running, queue = [None] * len(jobs), {}, list(enumerate(jobs))
+    env = {**os.environ, **env_extra, "PYTHONPATH": os.pathsep.join(
+        [REPO, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    while queue or running:
+        while queue and len(running) < workers:
+            k, (argv, log) = queue.pop(0)
+            with open(log, "w") as out:
+                proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, cwd=REPO,
+                                        env=env)
+            running[k] = (proc, time.perf_counter())
+        for k, (proc, t0) in list(running.items()):
+            if proc.poll() is None and time.perf_counter() - t0 > timeout:
+                proc.kill()
+            if proc.poll() is not None:
+                results[k] = (proc.wait(), time.perf_counter() - t0)
+                del running[k]
+        time.sleep(0.2)
+    return results
+
+
+def phase_export(dev, records, logs: dict) -> dict:
+    """73. ``python -m pointsecguard_tpu_torch.cli.export --check`` (on the
+    card) of the eleven models at full width and their task's default
+    points, batch 1, from the checkpoints the earlier phases trained
+    (``logs``: model → (log dir, flags)), of SSG again with ``--precision
+    bfloat16`` and of RandLA and ResGCN again at ``EXPORT_CPU_CUTS``' points
+    for the CPU leg of phase 74: ``cli.export.main`` in ``EXPORT_WORKERS``
+    processes that share the jobs (seconds of each under that sharing).
+    Then, alone on the card, the live model restored as the CLI restores
+    it, on the CLI's own probe: its launches of one forward
+    (``EXPORT_LAUNCHES``), its ms a forward and its outputs on the card and
+    on the CPU, saved beside each artifact for phase 74."""
+    from pointsecguard_tpu_torch.cli import export as export_cli
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    root = os.path.join(WORK, "export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cases = [(m, m, log, flags) for m, (log, flags) in logs.items()]
+    cases += [("pointnet2 --precision bfloat16", "pointnet2", logs["pointnet2"][0],
+               ["--precision", "bfloat16"])]
+    cases += [(f"{m} {cut[-1]}", m, logs[m][0], cut) for m, cut in EXPORT_CPU_CUTS.items()]
+    cases = [(label, model, log, [*flags, "--platforms", "cuda,cpu"],
+              os.path.join(root, f"art{i}")) for i, (label, model, log, flags) in enumerate(cases)]
+    # the jobs dealt round the workers, the longest traces (ResGCN, RandLA,
+    # MSG: the most nodes) first
+    order = sorted(cases, key=lambda c: -["resgcn", "randla", "pointnet2_msg",
+                                           "pointnet2_part_seg_msg"].count(c[1]))
+    shares = [order[w::EXPORT_WORKERS] for w in range(EXPORT_WORKERS)]
+    logs_w = [os.path.join(root, f"worker{w}.log") for w in range(EXPORT_WORKERS)]
+    runs = _run_processes(
+        [([sys.executable, "-c", _EXPORT_SCRIPT, json.dumps(
+            [(label, _export_argv(model, log, art, flags))
+             for label, model, log, flags, art in share])], log_w)
+         for share, log_w in zip(shares, logs_w)], EXPORT_WORKERS, timeout=900,
+        OMP_NUM_THREADS=EXPORT_THREADS)
+    seconds = {}
+    for share, log_w, (code, _) in zip(shares, logs_w, runs):
+        with open(log_w) as f:
+            text = f.read()
+        done = [json.loads(line.split(" ", 1)[1]) for line in text.splitlines()
+                if line.startswith("EXPORTED ")]
+        if code != 0 or len(done) != len(share) or \
+                text.count("round-trip check OK") != len(share):
+            raise AssertionError(f"cli.export --check of {[c[0] for c in share]} exited "
+                                 f"{code}:\n{text[-4000:]}")
+        seconds.update({d["label"]: d["s"] for d in done})
+    out = {}
+    for label, model, log, flags, art in cases:
+        net, example, call = _live_forward(model, log, dev, flags)
+        probes = export_cli.probes(example)
+        cuda_in = [p.to(dev) for p in probes]
+        with torch.no_grad():
+            call(net, *cuda_in)  # warm
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            live = call(net, *cuda_in)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            ms = cuda_ms(lambda: call(net, *cuda_in), reps=5)
+            cpu_leg = model not in EXPORT_CPU_CUTS or EXPORT_CPU_CUTS[model][0] in flags
+            threads = torch.get_num_threads()
+            torch.set_num_threads(EXPORT_CPU_THREADS)
+            t0 = time.perf_counter()
+            live_cpu = call(net.cpu(), *probes) if cpu_leg else None
+            cpu_s = time.perf_counter() - t0
+            torch.set_num_threads(threads)
+        np.savez(os.path.join(art, "live.npz"),
+                 **{f"in{j}": p.numpy() for j, p in enumerate(probes)},
+                 cuda=live.float().cpu().numpy(),
+                 **({"cpu": live_cpu.float().numpy()} if cpu_leg else {}))
+        out[label] = {"artifact": art, "export_s": seconds[label], "live_ms": ms,
+                      "live_cpu_s": cpu_s if cpu_leg else None, "live_launches": counts,
+                      "cpu_leg": cpu_leg,
+                      "forward_pt2_mb": os.path.getsize(os.path.join(art, "forward.pt2")) / 1e6}
+        print(f"{label} cli.export --check: " + json.dumps(out[label]))
+        want = EXPORT_LAUNCHES[model]
+        if counts != want:
+            raise AssertionError(f"{label}: the live forward launched {counts}, want {want}")
+    print("export launches of one forward: " + json.dumps(
+        {label: r["live_launches"] for label, r in out.items()}))
+    return out
+
+
+_EXPORT_SCRIPT = r"""
+import json, sys, time
+from pointsecguard_tpu_torch.cli import export
+for label, argv in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    export.main(argv)
+    print("EXPORTED " + json.dumps({"label": label, "s": time.perf_counter() - t0}), flush=True)
+"""
+
+_RELOAD_SCRIPT = r"""
+import json, sys, time
+import numpy as np, torch
+from pointsecguard_tpu_torch.ops import cuda as kernels
+from pointsecguard_tpu_torch.utils.export import load_artifact
+
+device, jobs = sys.argv[1], json.loads(sys.argv[2])
+if device == "cpu":
+    torch.set_num_threads(int(sys.argv[3]))  # the live model's CPU threads
+
+def card_ms(fn, reps=5):
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(); fn(); b.record(); b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+out = {}
+for label, art in jobs:
+    live = np.load(art + "/live.npz")
+    inputs = [torch.from_numpy(live[k]).to(device) for k in sorted(live.files)
+              if k.startswith("in")]
+    t0 = time.perf_counter()
+    forward, meta = load_artifact(art, device)
+    rec = {"load_s": time.perf_counter() - t0, "precision": meta["precision"]}
+    if device == "cuda":
+        forward(*inputs)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = forward(*inputs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        rec["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        rec["ms"] = card_ms(lambda: forward(*inputs))
+    else:
+        rec["forward_s"] = time.perf_counter() - t0
+    rec["max_abs_err"] = float(np.abs(got.float().cpu().numpy() - live[device]).max())
+    out[label] = rec
+out["modules"] = sorted(m for m in sys.modules if m.startswith("pointsecguard_tpu"))
+print(json.dumps(out))
+"""
+
+
+def phase_reload(records, exported: dict) -> dict:
+    """74. The artifacts of phase 73 reloaded in fresh ``python -c``
+    processes that import no model code (``load_artifact`` only; checked on
+    their ``sys.modules``): one on the card, where each artifact repeats the
+    live forward's launches (``EXPORT_LAUNCHES``) and its outputs within
+    ``EXPORT_ATOL``, and one beside it on the CPU (``EXPORT_CPU_THREADS``
+    threads, as the live model's CPU run; RandLA's 8192-point artifact),
+    within ``EXPORT_ATOL`` of the live model's CPU outputs. Load seconds and ms a forward beside the live model's."""
+    legs = {"cuda": [(label, r["artifact"]) for label, r in exported.items()],
+            "cpu": [(label, r["artifact"]) for label, r in exported.items() if r["cpu_leg"]]}
+    logs = {dev: os.path.join(WORK, "export", f"reload_{dev}.log") for dev in legs}
+    runs = _run_processes([([sys.executable, "-c", _RELOAD_SCRIPT, dev, json.dumps(jobs),
+                             str(EXPORT_CPU_THREADS)], logs[dev])
+                           for dev, jobs in legs.items()], 2, timeout=900)
+    got = {}
+    for (dev, _), (code, wall) in zip(legs.items(), runs):
+        with open(logs[dev]) as f:
+            text = f.read()
+        if code != 0:
+            raise AssertionError(f"the {dev} reload process exited {code}:\n{text[-6000:]}")
+        got[dev] = json.loads(text.strip().splitlines()[-1])
+        modules = got[dev].pop("modules")
+        print(f"reload process ({dev}): {wall:.1f} s, modules {modules}")
+        if any(m.startswith(("pointsecguard_tpu_torch.models", "pointsecguard_tpu."))
+               for m in modules) or "pointsecguard_tpu_torch.utils.export" not in modules:
+            raise AssertionError(f"the {dev} reload process imported {modules}")
+    out = {}
+    for label, live in exported.items():
+        card, cpu = got["cuda"][label], got["cpu"].get(label)
+        out[label] = {"export_s": live["export_s"], "load_s": card["load_s"],
+                      "ms": card["ms"], "live_ms": live["live_ms"],
+                      "ms_ratio": card["ms"] / live["live_ms"],
+                      "launches": card["launches"], "max_abs_err": card["max_abs_err"],
+                      **({"cpu_load_s": cpu["load_s"], "cpu_forward_s": cpu["forward_s"],
+                          "live_cpu_forward_s": live["live_cpu_s"],
+                          "cpu_max_abs_err": cpu["max_abs_err"]} if cpu else {})}
+        print(f"{label} reloaded: " + json.dumps(out[label]))
+        if card["launches"] != live["live_launches"]:
+            raise AssertionError(f"{label}: the artifact launched {card['launches']}, "
+                                 f"the live forward {live['live_launches']}")
+        errs = [card["max_abs_err"]] + ([cpu["max_abs_err"]] if live["cpu_leg"] else [])
+        if live["cpu_leg"] != (cpu is not None) or not all(
+                math.isfinite(e) and e <= EXPORT_ATOL for e in errs):
+            raise AssertionError(f"{label}: artifact against the live model {errs} "
+                                 f"over {EXPORT_ATOL}")
+    print("artifact launches of one forward (card): " + json.dumps(
+        {label: r["launches"] for label, r in out.items()}))
+    for name, path in (("fps", "pointnet2 export"), ("bottom_k", "pointnet2 export"),
+                       ("knn", "randla export")):
+        records[name]["launches_by_path"][path] = out[path.split()[0]]["launches"][name]
+    return out
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -6647,9 +6963,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56 and 60); the last line then "
-                             "carries \"ok\": false, "
-                             "because the slices were not driven")
+                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56, 60 and 72); the last line "
+                             "then carries \"ok\": false, because the slices were not driven")
     args = parser.parse_args(argv)
     import pointsecguard_tpu_torch
     from pointsecguard_tpu_torch.ops.cuda import build
@@ -6737,6 +7052,7 @@ def main(argv=None) -> int:
     timed(35, phase_msg_kernels, dev, records)
     cls_selection = timed(56, phase_cls_kernels, dev, records)
     partseg_selection = timed(60, phase_partseg_kernels, dev, records)
+    timed(72, phase_opcheck, dev)
     selections = [selection, cls_selection, partseg_selection]
     print(f"kernel phases: the run so far {time.perf_counter() - started:.1f} s")
     if args.kernels_only:
@@ -6819,11 +7135,11 @@ def main(argv=None) -> int:
     print(f"phases 52-55: {time.perf_counter() - phases_52_55:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
     phases_57_59 = time.perf_counter()
-    run_cls_phases(dev, records)
+    cls_logs = run_cls_phases(dev, records)
     print(f"phases 57-59: {time.perf_counter() - phases_57_59:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
     phases_61_63 = time.perf_counter()
-    run_partseg_phases(dev, records)
+    partseg_logs = run_partseg_phases(dev, records)
     print(f"phases 61-63: {time.perf_counter() - phases_61_63:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
     phases_64_68 = time.perf_counter()
@@ -6842,6 +7158,18 @@ def main(argv=None) -> int:
         print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
     print(f"phases 69-71: {time.perf_counter() - phases_69_71:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_73_74 = time.perf_counter()
+    # every model from the checkpoint an earlier phase trained; the
+    # classifiers on the synthetic ModelNet's 4 classes
+    export_logs = {"pointnet2": (train_log, []), "randla": (randla_log, []),
+                   "resgcn": (resgcn_log, []),
+                   **{m: (block_logs[m], []) for m in BLOCK_MODELS},
+                   **{m: (cls_logs[m], ["--num_category", "4"]) for m in CLS_MODELS},
+                   **{m: (partseg_logs[m], []) for m in PS_MODELS}}
+    exported = timed(73, phase_export, dev, records, export_logs)
+    timed(74, phase_reload, records, exported)
+    print(f"phases 73-74: {time.perf_counter() - phases_73_74:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -6854,7 +7182,7 @@ def main(argv=None) -> int:
                       *(f"{m} {what}" for m in PS_MODELS[:2] for what in ("train", "eval")),
                       *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg"),
                       "pointnet2 train --device_sampler", "pointnet2 train --adv_train nb",
-                      "pointnet2 train --profile",
+                      "pointnet2 train --profile", "pointnet2 export",
                       *(f"{m} forward --precision bfloat16" for m in
                         ("pointnet2", "pointnet2_msg", *CLS_MODELS[:2], *PS_MODELS[:2])),
                       *(f"{path} --precision bfloat16" for path in
@@ -6873,6 +7201,7 @@ def main(argv=None) -> int:
                                  "pointnet2_cls nb --defense sor",
                                  "pointnet2_part_seg nb --defense sor",
                                  "randla train --adv_train nb", "resgcn train --remat",
+                                 "randla export",
                                  *(f"{path} --precision bfloat16" for path in
                                    ("randla forward", "resgcn forward", "resgcn train",
                                     "resgcn train --remat", "resgcn eval", "randla nb",

@@ -6,9 +6,8 @@ One forward an iteration, then one ``torch.autograd.grad`` per class with
 the graph retained: the gradient of a class's batch-summed logit is each
 sample's own, because an evaluation-mode forward treats the samples
 independently (BatchNorm reads its running statistics). The JAX engine
-vmaps one VJP over the classes; the port's kernels are bound as
-``autograd.Function``s that ``torch.func`` cannot enter, so the K
-backwards run one after another. The loop reads ``done.all()`` once an
+vmaps one VJP over the classes; the port's kernels are custom ops with no
+``torch.func.vmap`` rule, so the K backwards run one after another. The loop reads ``done.all()`` once an
 iteration, where JAX's ``while_loop`` exits when every sample is across.
 
 It needs one decision per shape (outputs [B, 1, K]): the classification

@@ -2,15 +2,18 @@
 
 ``fps`` (kernel A), ``bottomk`` (kernel B), ``bottomk_chunked`` (wide
 rows), ``knn`` and ``attentive`` (fused attentive pooling, forward and
-backward) each hold a wrapper that launches the kernel for a CUDA tensor,
-the plain PyTorch version a CPU tensor goes to, and a launch counter;
-``build`` compiles ``csrc/`` on first use. Importing this package builds
-nothing and imports no CUDA.
+backward) each hold a wrapper with its argument checks, the plain PyTorch
+version a CPU tensor goes to, and a launch counter; ``library`` binds the
+kernels as the custom ops ``torch.ops.psg.*``, through which every
+wrapper calls them, and ``build`` compiles ``csrc/`` on first use.
+Importing this package registers the ops, builds nothing and imports no
+CUDA.
 """
 
 from __future__ import annotations
 
 from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, bottomk_chunked, fps, knn
+from pointsecguard_tpu_torch.ops.cuda import library  # noqa: F401  (registers psg::*)
 
 # counter name → (module, attribute holding its count)
 KERNELS = {"fps": (fps, "launches"), "bottom_k": (bottomk, "launches"),

@@ -10,9 +10,11 @@ Bounds: float32 rows, 1 ≤ k ≤ N ≤ 8192.
 
 Contract (both versions): the k smallest values ascending and their
 int32 indices, ties to the first occurrence — a stable sort cut to k,
-which is ``lax.top_k`` of the negated row. ``bottom_k`` launches the
-kernel for a CUDA tensor and raises when the kernel cannot take it; only
-a CPU tensor goes to ``bottom_k_plain``.
+which is ``lax.top_k`` of the negated row. ``bottom_k`` calls the custom
+op ``psg::bottom_k`` (``library.py``): the dispatcher launches the kernel
+for a CUDA tensor, which raises when the kernel cannot take it; only a
+CPU tensor goes to ``bottom_k_plain``. The values carry the gradient of a
+gather at the indices (the op's ``register_autograd``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 MAX_N = 8192
-launches = 0  # kernel launches by ``bottom_k``; never counts the plain version
+launches = 0  # kernel launches by ``psg::bottom_k``; never the plain version or a trace
 
 
 def bottom_k_plain(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -43,25 +45,6 @@ def check_kernel_args(vals: torch.Tensor, k: int) -> None:
 
 def bottom_k(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """k smallest along the last axis of [..., N] float32 (see module doc)."""
-    if vals.device.type == "cpu":
-        return bottom_k_plain(vals, k)
-    if vals.device.type != "cuda":
+    if vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bottom_k: unsupported device {vals.device}")
-    check_kernel_args(vals, k)
-    N = vals.shape[-1]
-    from pointsecguard_tpu_torch.ops.cuda import build
-
-    lib = build.load_library()
-    build.require_sm90(vals.device)
-    vals = vals.contiguous()
-    lead = vals.shape[:-1]
-    rows = vals.numel() // N
-    out_v = torch.empty((*lead, k), dtype=torch.float32, device=vals.device)
-    out_i = torch.empty((*lead, k), dtype=torch.int32, device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    code = lib.psg_bottom_k(vals.data_ptr(), out_v.data_ptr(),
-                            out_i.data_ptr(), rows, N, k, stream)
-    build.check(code, "psg_bottom_k")
-    global launches
-    launches += 1
-    return out_v, out_i
+    return torch.ops.psg.bottom_k(vals, k)

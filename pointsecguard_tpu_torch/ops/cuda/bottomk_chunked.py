@@ -10,28 +10,23 @@ k ≤ N ≤ 2²².
 
 Contract (both versions): the k smallest values ascending and their int32
 indices, ties to the first occurrence — a stable sort cut to k, as
-``bottomk.bottom_k`` for narrow rows. ``bottom_k_chunked`` launches the
-kernel for a CUDA tensor and raises when the kernel cannot take it; only
-a CPU tensor goes to ``bottom_k_plain``.
+``bottomk.bottom_k`` for narrow rows. ``bottom_k_chunked`` calls the
+custom op ``psg::bottom_k_chunked`` (``library.py``): the dispatcher
+launches the kernel for a CUDA tensor, which raises when the kernel cannot
+take it; only a CPU tensor goes to ``bottomk.bottom_k_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointsecguard_tpu_torch.ops.cuda.bottomk import bottom_k_plain
-
 MAX_N = 1 << 22
 MAX_K = 48
-launches = 0  # kernel launches by ``bottom_k_chunked``; never the plain version
+launches = 0  # kernel launches by ``psg::bottom_k_chunked``; never the plain version
 
 
-def bottom_k_chunked(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """k smallest along the last axis of [..., N] float32 (see module doc)."""
-    if vals.device.type == "cpu":
-        return bottom_k_plain(vals, k)
-    if vals.device.type != "cuda":
-        raise ValueError(f"bottom_k_chunked: unsupported device {vals.device}")
+def check_kernel_args(vals: torch.Tensor, k: int) -> None:
+    """Raise on what the kernel does not take (dtype, rank, N, k)."""
     if vals.dtype != torch.float32 or vals.dim() < 1:
         raise ValueError(f"bottom_k_chunked: want float32 [..., N], got {vals.dtype}")
     N = vals.shape[-1]
@@ -39,19 +34,10 @@ def bottom_k_chunked(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Te
         raise ValueError(f"bottom_k_chunked: N={N} outside the kernel's 1..{MAX_N}")
     if not 1 <= k <= min(N, MAX_K):
         raise ValueError(f"bottom_k_chunked: k={k} outside 1..min(N={N}, {MAX_K})")
-    from pointsecguard_tpu_torch.ops.cuda import build
 
-    lib = build.load_library()
-    build.require_sm90(vals.device)
-    vals = vals.contiguous()
-    lead = vals.shape[:-1]
-    rows = vals.numel() // N
-    out_v = torch.empty((*lead, k), dtype=torch.float32, device=vals.device)
-    out_i = torch.empty((*lead, k), dtype=torch.int32, device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    code = lib.psg_bottom_k_chunked(vals.data_ptr(), out_v.data_ptr(),
-                                    out_i.data_ptr(), rows, N, k, stream)
-    build.check(code, "psg_bottom_k_chunked")
-    global launches
-    launches += 1
-    return out_v, out_i
+
+def bottom_k_chunked(vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k smallest along the last axis of [..., N] float32 (see module doc)."""
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bottom_k_chunked: unsupported device {vals.device}")
+    return torch.ops.psg.bottom_k_chunked(vals, k)

@@ -12,8 +12,10 @@ every warp reducing the per-warp partials itself, and the next centroid
 read from a copy of the cloud in shared memory. Bounds: float32
 [B, N, 3], 1 ≤ N ≤ 8192, npoint ≥ 1, start [B] on the same device.
 
-``fps`` checks its arguments first, on any device; then it launches the
-kernel for a CUDA tensor, and only a CPU tensor goes to ``fps_plain``.
+``fps`` checks its arguments first, on any device, then calls the custom
+op ``psg::fps`` (``library.py``): the dispatcher launches the kernel for a
+CUDA tensor, and only a CPU tensor goes to ``fps_plain``. The indices
+carry no gradient (JAX's ``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 MAX_N = 8192
-launches = 0  # kernel launches by ``fps``; never counts the plain version
+launches = 0  # kernel launches by ``psg::fps``; never the plain version or a trace
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
@@ -46,7 +48,7 @@ def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tens
     return out
 
 
-def _check(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> None:
+def check_args(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> None:
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"fps: want float32 [B, N, 3], got {xyz.dtype} "
                          f"{tuple(xyz.shape)}")
@@ -61,25 +63,7 @@ def _check(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> None:
 
 def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
     """Farthest point sampling → [B, npoint] int32 (see module doc)."""
-    _check(xyz, npoint, start)
-    if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint, start)
-    if xyz.device.type != "cuda":
+    check_args(xyz, npoint, start)
+    if xyz.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fps: unsupported device {xyz.device}")
-    B, N, _ = xyz.shape
-    from pointsecguard_tpu_torch.ops.cuda import build
-
-    lib = build.load_library()
-    build.require_sm90(xyz.device)
-    xyz = xyz.contiguous()
-    # a start outside [0, N) is not read: the kernel writes -1 for that
-    # cloud (checking here would cost a device-to-host sync per call)
-    start = start.to(torch.int32).contiguous()
-    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    code = lib.psg_fps(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
-                       B, N, npoint, stream)
-    build.check(code, "psg_fps")
-    global launches
-    launches += 1
-    return out
+    return torch.ops.psg.fps(xyz.detach(), npoint, start)

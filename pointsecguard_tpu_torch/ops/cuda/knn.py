@@ -31,8 +31,10 @@ followed by a stable sort cut to k. The kernels round each distance as
 (small kernels of the same file compute them into the working space the
 wrapper allocates), the cross term as the fused multiply-add chain a
 float32 GEMM accumulates, in coordinate order, with no TF32 or tensor
-core. ``knn`` launches the kernel for a CUDA tensor and raises when the
-kernel cannot take it; only a CPU tensor goes to ``knn_plain``.
+core. ``knn`` calls the custom op ``psg::knn`` (``library.py``): the
+dispatcher launches the kernel for a CUDA tensor, which raises when the
+kernel cannot take it; only a CPU tensor goes to ``knn_plain``. Neither
+carries a gradient (JAX's ``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from pointsecguard_tpu_torch.ops.distance import square_distance
 MAX_K = 48
 MAX_D = 4096  # the kernels' widest D (csrc/knn.cu kMaxD); the plain version takes any
 PLAIN_TILE = 4096  # query rows per distance block of the plain version
-launches = 0  # kernel launches by ``knn``; never counts the plain version
+launches = 0  # kernel launches by ``psg::knn``; never the plain version or a trace
 
 
 def knn_plain(
@@ -62,7 +64,7 @@ def knn_plain(
     return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
 
 
-def _check(query: torch.Tensor, points: torch.Tensor, k: int) -> None:
+def check_args(query: torch.Tensor, points: torch.Tensor, k: int) -> None:
     if query.dim() != 3 or points.dim() != 3 or query.shape[0] != points.shape[0] \
             or query.shape[2] != points.shape[2]:
         raise ValueError(f"knn: want query [B, S, D] and points [B, N, D], got "
@@ -72,40 +74,22 @@ def _check(query: torch.Tensor, points: torch.Tensor, k: int) -> None:
         raise ValueError(f"knn: k={k} outside 1..min(N={N}, {MAX_K})")
 
 
-def knn(query: torch.Tensor, points: torch.Tensor, k: int):
-    """k nearest ``points`` of each query (see module doc)."""
-    _check(query, points, k)
-    if query.device.type == "cpu" and points.device.type == "cpu":
-        return knn_plain(query.float(), points.float(), k)
-    if query.device.type != "cuda" or points.device != query.device:
-        raise ValueError(f"knn: unsupported devices {query.device}, {points.device}")
+def check_kernel_args(query: torch.Tensor, points: torch.Tensor, k: int) -> None:
+    """Raise on what the kernels do not take (``check_args``, then dtype,
+    B, D)."""
+    check_args(query, points, k)
     if query.dtype != torch.float32 or points.dtype != torch.float32:
         raise ValueError(f"knn: want float32, got {query.dtype}, {points.dtype}")
-    B, S, D = query.shape
-    N = points.shape[1]
+    B, _, D = query.shape
     if B > 65535:
         raise ValueError(f"knn: B={B} above the kernel's grid limit 65535")
     if D > MAX_D:
         raise ValueError(f"knn: D={D} above the kernel's limit {MAX_D}")
-    from pointsecguard_tpu_torch.ops.cuda import build
 
-    lib = build.load_library()
-    build.require_sm90(query.device)
-    # the pyramid's neighbour search passes one tensor twice: it is then
-    # packed once
-    points = points.contiguous()
-    query = points if query is points else query.contiguous()
-    out_v = torch.empty((B, S, k), dtype=torch.float32, device=query.device)
-    out_i = torch.empty((B, S, k), dtype=torch.int32, device=query.device)
-    # working space: queries and points packed as (x, y, z, |x|²) for
-    # D = 3, |q|² and |p|² for any other D; small kernels of csrc/knn.cu
-    # fill it, rounding as ``_sum_sq`` does
-    scratch = torch.empty((B * S + B * N) * (4 if D == 3 else 1), dtype=torch.float32,
-                          device=query.device)
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    code = lib.psg_knn(query.data_ptr(), points.data_ptr(), out_v.data_ptr(),
-                       out_i.data_ptr(), scratch.data_ptr(), B, S, N, D, k, stream)
-    build.check(code, "psg_knn")
-    global launches
-    launches += 1
-    return out_v, out_i
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int):
+    """k nearest ``points`` of each query (see module doc)."""
+    check_args(query, points, k)
+    if query.device != points.device or query.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"knn: unsupported devices {query.device}, {points.device}")
+    return torch.ops.psg.knn(query.detach(), points.detach(), k)

@@ -10,10 +10,10 @@ stable sort, as JAX sends it to ``lax.top_k``. The opt-in JAX strategies
 (approx, twostage, iterative) are not ported.
 
 The values carry a gradient on every route, the JAX package's
-``_pallas_bottom_k_diff`` (`selection.py:75-124`): the kernels return
-plain tensors, so the selection is one ``autograd.Function`` whose
-backward scatters the values' cotangent into a zero row at the returned
-indices. 3-NN interpolation weights differentiate through those values
+``_pallas_bottom_k_diff`` (`selection.py:75-124`): the two kernels' custom
+ops scatter the values' cotangent into a zero row at the returned indices
+(``ops/cuda/library.py``), and the stable sort carries the same gradient
+itself. 3-NN interpolation weights differentiate through those values
 under coordinate attacks.
 """
 
@@ -36,26 +36,6 @@ def _select(work: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return bottom_k(work, k)
 
 
-class _BottomK(torch.autograd.Function):
-    """The route's values and indices; d(values)/d(vals) is the VJP of a
-    gather at the indices (``_pallas_bottom_k_bwd``): the indices of a
-    row are distinct, so the scatter's add is a set."""
-
-    @staticmethod
-    def forward(ctx, work, k):
-        v, i = _select(work, k)
-        ctx.save_for_backward(i)
-        ctx.width = work.shape[-1]
-        ctx.mark_non_differentiable(i)
-        return v, i
-
-    @staticmethod
-    def backward(ctx, dv, _di):
-        (i,) = ctx.saved_tensors
-        dvals = dv.new_zeros((*dv.shape[:-1], ctx.width))
-        return dvals.scatter_(-1, i.long(), dv), None
-
-
 def bottom_k_indices(
     vals: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -69,5 +49,5 @@ def bottom_k_indices(
     Returns:
       (values [..., k] in ``vals.dtype``, indices [..., k] int32), ascending.
     """
-    v, i = _BottomK.apply(vals.float(), k)
+    v, i = _select(vals.float(), k)
     return v.to(vals.dtype), i
