@@ -116,7 +116,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     the 3-NN inputs of one ``build_geometry`` of [8, 4096] and on rows of
     9000 gives the kernels' own values and indices and the CPU's gradient,
     bit for bit; the 3-NN weights' gradient card vs CPU (a kernel phase).
-22. One RandLA optimizer step, card vs CPU, at full width on 2 × 16384
+22. One RandLA optimizer step, card vs CPU, at full width on 2 × 8192
     points: pyramid indices equal at every level; loss, gradients, Adam
     moments, parameters and BatchNorm statistics within the tolerances
     stated in ``phase_randla_train_step``.
@@ -409,6 +409,32 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     at their cut points; 4 threads, as the live model's CPU run) the live
     model's CPU outputs; load seconds, ms a forward beside the live
     model's.
+75. ``knn_points_sharded`` at RandLA's pyramid shapes (a sampler batch of
+    [4, 40960] clouds), the points axis over 2 and over 4 ranks of the
+    card (gloo; NCCL takes one rank a card): every level bit-equal to the
+    one-process ``psg::knn`` pyramid, 10 launches a rank, each on its query
+    shard; card ms of the top level's self-kNN on a rank's query shard
+    ([4, 20480] and [4, 10240] against the 40960 candidates) beside the
+    whole cloud's, with bound and plain ms (``sharded_query``).
+76. The port's ``dryrun_multichip`` (``parallel/dryrun.py``) on 2 × 2
+    ranks of the card: a PointNet++ SSG and a narrow ResGCN train step
+    (float32 and float64), a RandLA forward + backward with the points
+    sharded and its pyramid, an NB attack, a device-sampler multi-step and
+    whole-scene voting eval, each held to its one-process run: indices
+    equal, loss within rtol 1e-6, gradient within atol 1e-5 (float64; in
+    float32 the BatchNorm networks amplify the ranks' summation order,
+    which is recorded), parameters equal on every rank.
+77. The slice at full width through the CLI bodies on ranks of the card
+    (``cli.train._train``, ``cli.attack._attack``; ``--devices 2`` itself
+    wants two cards): SSG ``cli.train`` 32 × 4096, one epoch and its eval,
+    data-parallel over 2 ranks, held to the one-process run (lr
+    ``DP_TRAIN_LR``, see ``phase_parallel``); RandLA NB on 4 × 40960
+    clouds with ``--devices 2 --shard_points 2``, its TSV equal to the
+    one-process run's on phase 7's checkpoint (both under deterministic
+    algorithms), ``time_s`` aside.
+78. An NCCL group at ``torch.cuda.device_count()`` ranks, one card each:
+    an all-reduce and ``knn_points_sharded`` through it; with one card the
+    line says that NCCL across cards was not run.
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -491,7 +517,9 @@ RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 50, 4
 RANDLA_TRAIN_EPOCHS = 3
 # the card-vs-CPU step: the CPU's plain pyramid of 2 × 40960 points takes
 # ~100 s on 8 cores (the stable sort of 40960-wide rows), of 2 × 16384 ~15 s
-RANDLA_STEP_POINTS = 16384
+# (the whole phase 16.6 s on an H100 host), so 2 × 8192 since the
+# several-rank phases came
+RANDLA_STEP_POINTS = 8192
 # whole-cloud accuracy the trained RandLA checkpoint must reach on the
 # Area-5 cloud, set before the first run: PointNet++'s floor
 RANDLA_EVAL_ACC_FLOOR = 0.3
@@ -2459,8 +2487,8 @@ def _noise_only(key: str) -> bool:
 
 def phase_randla_train_step(dev, prep: str) -> dict:
     """One optimizer step of the full-width RandLA-Net from the same
-    weights (flax-style initialisation), sampler batch (2 × 16384 points
-    of the train cloud) and dropout mask, on the card (kernels) and on the
+    weights (flax-style initialisation), sampler batch (2 ×
+    ``RANDLA_STEP_POINTS`` points of the train cloud) and dropout mask, on the card (kernels) and on the
     CPU (plain versions). Pyramid indices equal at every level; the step
     runs on both devices on the card's pyramid. Tolerances as in
     ``phase_train_step``: loss 1e-4 relative; the gradient and Adam's
@@ -3669,7 +3697,13 @@ def phase_resgcn_fixed(data: str, records, dynamic: dict) -> dict:
 
 # phases 47-51: the ensemble victim and the ares benchmark layer
 BENCH_BLOCKS = 8  # one batch of 8 × 4096 blocks per cli.benchmark call
-SCORE_BUDGET = {"nes": 16, "spsa": 16}  # --samples at --iters 10 (nattack: its own 100 × 16)
+# --samples of phase 48's score-based attacks at --iters SCORE_ITERS
+# (nattack: its own 100 × 16). At 16 × 10 NES left one training run's SSG
+# (phase 17) at accuracy 0.9416 over its clean 0.9406, and the phase's
+# check (adversarial accuracy at most clean) failed; at 32 × 20 NES took
+# another run's from 0.9637 to 0.9578, SPSA to 0.9540 (an H100 80GB HBM3
+# at 700 W)
+SCORE_BUDGET, SCORE_ITERS = {"nes": 32, "spsa": 32}, 20
 BENCH_CW_STEPS = 200
 # phase 50's NES / SPSA budget and MIM's iterations
 REFERENCE_SAMPLES, REFERENCE_ITERS, REFERENCE_MIM_ITERS = 4, 3, 10
@@ -3765,7 +3799,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
     """48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch
     of 8 × 4096 a call: ``--mode prediction``, then ``--mode attack`` with
     fgsm, bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples
-    16 --iters 10``) and nattack (its own 100 × 16): ms a batch, forwards a
+    32 --iters 20``, ``SCORE_BUDGET``) and nattack (its own 100 × 16): ms a batch, forwards a
     batch, queries per second for the score-based three (forwards × blocks
     / wall), adversarial accuracy and success rate. 4 FPS and 8 bottom-k
     launches a batch whatever the query count (C&W adds one bottom-k a
@@ -3785,7 +3819,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
         if name == "cw":
             flags += ["--cw_steps", str(BENCH_CW_STEPS)]
         if name in SCORE_BUDGET:
-            flags += ["--samples", str(SCORE_BUDGET[name]), "--iters", "10"]
+            flags += ["--samples", str(SCORE_BUDGET[name]), "--iters", str(SCORE_ITERS)]
         r = _bench_cli(_bench_argv(data, log, *flags), PointNet2SemSegSSG)
         acc, acc_adv, tot, succ, dist = r["out"]
         counts = r["launches"]
@@ -3796,8 +3830,8 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
         if name in ("nes", "spsa", "nattack"):
             stats["queries_per_s"] = r["forwards"] * BENCH_BLOCKS / r["harness_s"]
         # the clean forward, the queries and the final forward
-        want_forwards = {"nes": 2 + 2 * SCORE_BUDGET.get("nes", 0) * 10,
-                         "spsa": 2 + 2 * SCORE_BUDGET.get("spsa", 0) * 10,
+        want_forwards = {"nes": 2 + 2 * SCORE_BUDGET.get("nes", 0) * SCORE_ITERS,
+                         "spsa": 2 + 2 * SCORE_BUDGET.get("spsa", 0) * SCORE_ITERS,
                          "nattack": 2 + 16 * NAttackConfig(eps=0.0).iters}.get(name)
         print(f"benchmark {name}: " + json.dumps(stats))
         if want_forwards is not None and r["forwards"] != want_forwards:
@@ -6643,12 +6677,17 @@ EXPORT_ATOL = 1e-5  # the round-trip tolerance of both packages' cli.export --ch
 # pyramid of 40960 points takes the CPU tens of seconds a forward, and
 # ResGCN's 24 stable sorts of [4096, 4096] some 15 s
 EXPORT_CPU_CUTS = {"randla": ["--randla_points", "8192"], "resgcn": ["--num_point", "1024"]}
-EXPORT_WORKERS = 4  # processes that share the exports (tracing is host work),
-# each with 2 CPU threads (``EXPORT_THREADS``): 8 cores on the card's host
+EXPORT_WORKERS = 6  # processes that share the exports (tracing is host work),
+# each with 2 CPU threads (``EXPORT_THREADS``): 8 cores on the card's host;
+# six, one for each long trace (4 until the several-rank phases came: 83.4
+# s on an H100 host, the four long traces' workers the last to finish)
 EXPORT_THREADS = "2"
 # the CPU leg's threads, the live model's and the artifact's alike: a CPU
 # reduction's order, and so its last bits, follows the thread count
 EXPORT_CPU_THREADS = 4
+# phase 74's processes a leg (card, CPU): one a leg until the several-rank
+# phases came, 50.5 and 51.9 s on an H100 host, nearly all of it loads
+RELOAD_SPLIT = 2
 
 
 def phase_opcheck(dev) -> dict:
@@ -6875,26 +6914,30 @@ print(json.dumps(out))
 def phase_reload(records, exported: dict) -> dict:
     """74. The artifacts of phase 73 reloaded in fresh ``python -c``
     processes that import no model code (``load_artifact`` only; checked on
-    their ``sys.modules``): one on the card, where each artifact repeats the
+    their ``sys.modules``), ``RELOAD_SPLIT`` a leg: on the card, where each artifact repeats the
     live forward's launches (``EXPORT_LAUNCHES``) and its outputs within
-    ``EXPORT_ATOL``, and one beside it on the CPU (``EXPORT_CPU_THREADS``
+    ``EXPORT_ATOL``, and beside them on the CPU (``EXPORT_CPU_THREADS``
     threads, as the live model's CPU run; RandLA's 8192-point artifact),
     within ``EXPORT_ATOL`` of the live model's CPU outputs. Load seconds and ms a forward beside the live model's."""
-    legs = {"cuda": [(label, r["artifact"]) for label, r in exported.items()],
-            "cpu": [(label, r["artifact"]) for label, r in exported.items() if r["cpu_leg"]]}
-    logs = {dev: os.path.join(WORK, "export", f"reload_{dev}.log") for dev in legs}
+    # each leg in RELOAD_SPLIT processes, all at once (the loads are host work)
+    legs = [(dev, part, jobs[part::RELOAD_SPLIT]) for dev, jobs in (
+        ("cuda", [(label, r["artifact"]) for label, r in exported.items()]),
+        ("cpu", [(label, r["artifact"]) for label, r in exported.items() if r["cpu_leg"]]))
+        for part in range(RELOAD_SPLIT)]
+    logs = [os.path.join(WORK, "export", f"reload_{dev}_{part}.log") for dev, part, _ in legs]
     runs = _run_processes([([sys.executable, "-c", _RELOAD_SCRIPT, dev, json.dumps(jobs),
-                             str(EXPORT_CPU_THREADS)], logs[dev])
-                           for dev, jobs in legs.items()], 2, timeout=900)
-    got = {}
-    for (dev, _), (code, wall) in zip(legs.items(), runs):
-        with open(logs[dev]) as f:
+                             str(EXPORT_CPU_THREADS)], log)
+                           for (dev, _, jobs), log in zip(legs, logs)], len(legs), timeout=900)
+    got = {"cuda": {}, "cpu": {}}
+    for (dev, part, _), log, (code, wall) in zip(legs, logs, runs):
+        with open(log) as f:
             text = f.read()
         if code != 0:
             raise AssertionError(f"the {dev} reload process exited {code}:\n{text[-6000:]}")
-        got[dev] = json.loads(text.strip().splitlines()[-1])
-        modules = got[dev].pop("modules")
-        print(f"reload process ({dev}): {wall:.1f} s, modules {modules}")
+        result = json.loads(text.strip().splitlines()[-1])
+        modules = result.pop("modules")
+        got[dev].update(result)
+        print(f"reload process ({dev}, {part}): {wall:.1f} s, modules {modules}")
         if any(m.startswith(("pointsecguard_tpu_torch.models", "pointsecguard_tpu."))
                for m in modules) or "pointsecguard_tpu_torch.utils.export" not in modules:
             raise AssertionError(f"the {dev} reload process imported {modules}")
@@ -6923,6 +6966,260 @@ def phase_reload(records, exported: dict) -> dict:
                        ("knn", "randla export")):
         records[name]["launches_by_path"][path] = out[path.split()[0]]["launches"][name]
     return out
+
+
+# --- several ranks (phases 75-78) ----------------------------------------------
+#
+# The card's machine has one card, so the ranks of phases 75-77 share
+# cuda:0 under gloo (NCCL takes one rank a card); phase 78 runs NCCL at
+# the machine's card count. Every rank is a process of its own: ``spawn``
+# starts it, and it runs a program of ``parallel/dryrun.py``.
+SP_RANKS = (2, 4)  # phase 75's points ranks
+# phase 77 (see phase_parallel): the SSG schedule's floor, and the bounds
+# the DP run is held to against one process
+DP_TRAIN_LR, DP_LOSS_RTOL, DP_EVAL_ATOL = 1e-5, 1e-5, 1e-3
+
+
+def _gloo_mesh(n: int, points: int = 1):
+    from pointsecguard_tpu_torch.parallel import make_mesh
+
+    return make_mesh(["cuda:0"] * n, points_axis=points, backend="gloo")
+
+
+def _check_pyramid(res: dict, one: dict, n: int, shape) -> None:
+    """A rank's points-sharded pyramid against the one-process pyramid."""
+    for f in ("neigh_idx", "sub_idx", "interp_idx"):
+        for lvl, (got, want) in enumerate(zip(res[f], one[f])):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{n} ranks: {f} level {lvl} differs from the "
+                                     "one-process pyramid")
+    if res["launches"] != 10 or list(res["query_shape"]) != list(shape):
+        raise AssertionError(f"{n} ranks: {res['launches']} kNN launches on "
+                             f"{res['query_shape']}, want 10 on {shape}")
+
+
+def _train_events(log: str) -> tuple:
+    events = read_events(log)
+    return ([e for e in events if e["event"] == "epoch"],
+            [e for e in events if e["event"] == "eval"])
+
+
+def phase_parallel(dev, records, prep: str, train_data: str) -> dict:
+    """Phases 75–77. The one-process runs come first, in this process; then
+    two starts of ranks on the card carry every multi-rank program: four
+    ranks as 2 × 2 (phase 75's 1 × 4 pyramid on a points view of them,
+    phase 76's dry run) and two as 1 × 2 (phase 75's 1 × 2 pyramid, phase
+    77's RandLA NB with ``--shard_points 2`` and, on a data view of the
+    same ranks, its SSG ``cli.train --devices 2``). Each phase prints its
+    seconds: its one-process runs and its programs on the ranks (the
+    slowest rank); the two start-ups print theirs.
+
+    75. ``knn_points_sharded`` at RandLA's pyramid shapes: the pyramid of
+        one sampler batch of [4, 40960] clouds built with the points axis
+        over 2 and over 4 ranks, every level's index tables bit-equal to the
+        one-process ``psg::knn`` pyramid, 10 launches a rank, each on its
+        query shard; the card ms of the top level's self-kNN on a rank's
+        query shard beside the whole cloud's, with its bound and its plain
+        version's time (``sharded_query``).
+    76. ``parallel.dryrun``'s six programs on 2 × 2 ranks held to their
+        one-process runs (``check_dryrun``).
+    77. The slice at full width through the CLI bodies
+        (``parallel.dryrun.cli_program``: ``cli.train._train`` and
+        ``cli.attack._attack``, as ``--devices N`` starts them one card
+        each). SSG ``cli.train`` at 32 × 4096, one epoch (13 steps) and its
+        eval, data-parallel over 2 ranks, against the one-process run of
+        the same arguments: the epoch loss within ``DP_LOSS_RTOL``, the
+        eval accuracy and mIoU within ``DP_EVAL_ATOL``, 4 FPS and 8 bottom-k
+        launches a rank a step and eval batch. The lr is ``DP_TRAIN_LR``
+        (the floor of the SSG schedule): Adam turns the gradients' rounding
+        (the ranks sum in another order, and the random-initialised network
+        amplifies it; ``parallel/dryrun.py``) into ±lr steps, which at the
+        training lr would part the two runs whatever the code, and the
+        eval's argmax of a net this far from trained sits near ties that
+        the ranks' half-size GEMMs round apart. RandLA NB on 4 × 40960
+        clouds with ``--devices 2 --shard_points 2`` against the one-process
+        run of the same clouds and checkpoint (phase 7's, the reference
+        pooling), both under ``torch.use_deterministic_algorithms``: the TSV
+        equal, ``time_s`` aside; 10 kNN launches a rank a batch."""
+    from pointsecguard_tpu_torch.ops.cuda import bounds, knn
+    from pointsecguard_tpu_torch.parallel import spawn
+    from pointsecguard_tpu_torch.parallel import dryrun
+
+    seconds = {75: 0.0, 76: 0.0, 77: 0.0}
+    # the one-process runs
+    t0 = time.perf_counter()
+    xyz = randla_batch(prep, dev)[..., :3].contiguous()
+    xyz_np = xyz.cpu().numpy()
+    B, N, _ = xyz_np.shape
+    one = dryrun.pyramid_timing_program(None, xyz_np)
+    if one["launches"] != 10:
+        raise AssertionError(f"one-process pyramid: {one['launches']} kNN launches, want 10")
+    plain = {n: cuda_ms(lambda: knn.knn_plain(xyz[:, : N // n].contiguous(), xyz, 16),
+                        reps=1, warmup=0) for n in (1, *SP_RANKS)}
+    seconds[75] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inp = dryrun.dryrun_inputs(2, 4)
+    one_dry = dryrun.dryrun_programs(None, inp, "cuda")
+    seconds[76] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log1, log2 = (os.path.join(WORK, f"dp_train_{n}") for n in (1, 2))
+    train_argv = ["--model", "pointnet2", "--data_root", train_data, "--npoint",
+                  str(NUM_POINT), "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+                  "--learning_rate", str(DP_TRAIN_LR)]
+    _, counts1 = dryrun.cli_program(None, "train", train_argv + ["--log_dir", log1])
+    # RandLA NB, one process and ranks alike under deterministic algorithms:
+    # the gathers' backward otherwise adds with atomics, in an order that
+    # moves PGD's sign steps from one run to the next on one process too
+    ref_log, sp_log = (os.path.join(WORK, d) for d in ("randla_dp_ref_log", "randla_sp_log"))
+    for d in (ref_log, sp_log):
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(os.path.join(WORK, "randla_log", "checkpoints"),
+                        os.path.join(d, "checkpoints"))
+    attack_argv = ["--model", "randla", "--attack", "nb", "--randla_dir", prep,
+                   "--num_clouds", str(RANDLA_CLOUDS), "--batch_size", str(RANDLA_BATCH)]
+    dryrun.cli_program(None, "attack", attack_argv + ["--log_dir", ref_log], True)
+    attack_argv += ["--log_dir", sp_log, "--devices", "2", "--shard_points", "2"]
+    seconds[77] += time.perf_counter() - t0
+
+    # the ranks share the card with this process: its cached blocks go first
+    torch.cuda.empty_cache()
+    # four ranks, 2 × 2
+    t0 = time.perf_counter()
+    ranks4 = spawn(dryrun.timed_programs, _gloo_mesh(4, 2),
+                   ([("pyramid_timing_program", (xyz_np,), {"view": "points"}),
+                     ("dryrun_programs", (inp, "cuda"), {})],))
+    start4 = time.perf_counter() - t0 - max(sum(t for _, t in r) for r in ranks4)
+    seconds[75] += max(r[0][1] for r in ranks4)
+    seconds[76] += max(r[1][1] for r in ranks4)
+    # two ranks, 1 × 2
+    t0 = time.perf_counter()
+    ranks2 = spawn(dryrun.timed_programs, _gloo_mesh(2, 2),
+                   ([("pyramid_timing_program", (xyz_np,), {}),
+                     ("cli_program", ("attack", attack_argv, True), {}),
+                     ("cli_program", ("train", train_argv + ["--log_dir", log2,
+                                                             "--devices", "2"]),
+                      {"view": "data"})],))
+    start2 = time.perf_counter() - t0 - max(sum(t for _, t in r) for r in ranks2)
+    seconds[75] += max(r[0][1] for r in ranks2)
+    seconds[77] += max(r[1][1] + r[2][1] for r in ranks2)
+
+    # 75
+    t0 = time.perf_counter()
+    rows = [{"ranks": 1, "query": [B, N, 3], "points": [B, N, 3], "ms": one["device_ms"],
+             "bound_ms": bounds.knn(B, N, N, 3, 16).bound_ms,
+             "bound_by": bounds.knn(B, N, N, 3, 16).bound_by, "plain_ms": plain[1],
+             "launches_per_rank": one["launches"]}]
+    for n, res in ((2, [r[0][0] for r in ranks2]), (4, [r[0][0] for r in ranks4])):
+        for r in res:
+            _check_pyramid(r, one, n, [B, N // n, 3])
+        work = bounds.knn(B, N // n, N, 3, 16)
+        row = {"ranks": n, "query": [B, N // n, 3], "points": [B, N, 3],
+               "ms": [r["device_ms"] for r in res], "bound_ms": work.bound_ms,
+               "bound_by": work.bound_by, "plain_ms": plain[n],
+               "launches_per_rank": [r["launches"] for r in res]}
+        rows.append(row)
+        _record_path(records, "knn", f"randla pyramid --shard_points {n}",
+                     sum(r["launches"] for r in res))
+        print(f"knn_points_sharded, {n} ranks of cuda:0 (gloo): every level bit-equal to "
+              f"the one-process pyramid; per rank {row['launches_per_rank']} psg::knn "
+              f"launches on [{B}, {N // n}, 3] query shards, the top level "
+              f"{[round(m, 4) for m in row['ms']]} ms a rank against {one['device_ms']:.4f} "
+              f"ms whole (bound {work.bound_ms:.4f} ms, plain {plain[n]:.1f} ms)")
+    records["knn"]["sharded_query"] = rows
+    seconds[75] += time.perf_counter() - t0
+
+    # 76
+    t0 = time.perf_counter()
+    diffs = dryrun.check_dryrun([r[1][0] for r in ranks4], one_dry, 2)
+    print("dryrun_multichip, 2 x 2 ranks of cuda:0 (gloo): " + json.dumps(
+        {"ssg_loss": float(one_dry["ssg_float32"][0][0]),
+         "resgcn_loss": float(one_dry["resgcn_float32"][0][0]), "diffs": diffs}))
+    seconds[76] += time.perf_counter() - t0
+
+    # 77
+    t0 = time.perf_counter()
+    (ep1, va1), (ep2, va2) = _train_events(log1), _train_events(log2)
+    if len(ep2) != 1 or ep2[0]["batches"] != ep1[0]["batches"] or ep2[0]["nan_batches"]:
+        raise AssertionError(f"--devices 2 epochs: {ep2}")
+    if abs(ep2[0]["loss"] - ep1[0]["loss"]) > DP_LOSS_RTOL * abs(ep1[0]["loss"]):
+        raise AssertionError(f"--devices 2 epoch loss {ep2[0]['loss']} against one "
+                             f"process's {ep1[0]['loss']}")
+    if len(va2) != len(va1) or any(abs(a[k] - b[k]) > DP_EVAL_ATOL for a, b in zip(va1, va2)
+                                   for k in ("accuracy", "miou")):
+        raise AssertionError(f"--devices 2 eval {va2} against one process's {va1}")
+    steps = ep1[0]["batches"]
+    eval_batches = (counts1["fps"] - 4 * steps) // 4
+    train_counts = [r[2][0][1] for r in ranks2]
+    for r, counts in enumerate(train_counts):
+        for name, per in (("fps", 4), ("bottom_k", 8)):
+            if counts[name] != per * (steps + eval_batches):
+                raise AssertionError(f"rank {r}: {counts[name]} {name} launches, want {per} a "
+                                     f"step and eval batch ({steps} + {eval_batches})")
+    for name in ("fps", "bottom_k"):
+        _record_path(records, name, "pointnet2 train --devices 2",
+                     sum(c[name] for c in train_counts))
+    out = {"train": {"steps": steps, "eval_batches": eval_batches,
+                     "loss": [ep1[0]["loss"], ep2[0]["loss"]],
+                     "eval": [[(e["accuracy"], e["miou"]) for e in va] for va in (va1, va2)],
+                     "rank_s": [r[2][1] for r in ranks2],
+                     "launches_per_rank": train_counts}}
+    print("cli.train._train --devices 2 (2 ranks of cuda:0, gloo, a data view) against one "
+          "process: " + json.dumps(out["train"]))
+    want, got = (read_tsv(os.path.join(d, "randla_nb_area5.tsv")) for d in (ref_log, sp_log))
+    strip = lambda rows: [{k: v for k, v in r.items() if k != "time_s"} for r in rows]
+    if strip(got) != strip(want) or len(got) != RANDLA_CLOUDS:
+        raise AssertionError("randla nb --devices 2 --shard_points 2: the TSV differs from "
+                             f"the one-process run's:\n{got}\n{want}")
+    batches = RANDLA_CLOUDS // RANDLA_BATCH
+    attack_counts = [r[1][0][1] for r in ranks2]
+    for r, counts in enumerate(attack_counts):
+        if counts["knn"] != 10 * batches:
+            raise AssertionError(f"rank {r}: {counts['knn']} kNN launches, want 10 a batch")
+    _record_path(records, "knn", "randla nb --devices 2 --shard_points 2",
+                 sum(c["knn"] for c in attack_counts))
+    out["randla_nb"] = {"rows": len(got), "rank_s": [r[1][1] for r in ranks2],
+                        "ms_per_cloud": [1e3 * float(r["time_s"]) for r in got],
+                        "ms_per_cloud_one_process": [1e3 * float(r["time_s"]) for r in want],
+                        "launches_per_rank": attack_counts}
+    print("cli.attack._attack --model randla --devices 2 --shard_points 2 (2 ranks of "
+          "cuda:0, gloo): TSV equal to the one-process run's, time_s aside; "
+          + json.dumps(out["randla_nb"]))
+    seconds[77] += time.perf_counter() - t0
+    print(f"rank start-ups: 4 ranks {start4:.1f} s, 2 ranks {start2:.1f} s")
+    for number, sec in seconds.items():
+        print(f"phase {number}: {sec:.1f} s")
+    return {"rows": rows, "diffs": diffs, **out}
+
+
+def phase_nccl(dev, records, prep: str) -> dict:
+    """An NCCL group at ``world_size = torch.cuda.device_count()`` ranks,
+    one card each: one all-reduce and ``knn_points_sharded`` over the
+    group on the top level of a RandLA batch, its indices against the
+    one-process kNN."""
+    from pointsecguard_tpu_torch.ops.cuda import knn
+    from pointsecguard_tpu_torch.parallel import make_mesh, spawn
+    from pointsecguard_tpu_torch.parallel import dryrun
+
+    n = torch.cuda.device_count()
+    xyz = randla_batch(prep, dev)[..., :3].contiguous()
+    _, want = knn.knn(xyz, xyz, 16)
+    want = want.cpu().numpy()
+    # one rank runs in this process (parallel.spawn)
+    ranks = spawn(dryrun.collective_program,
+                  make_mesh([f"cuda:{i}" for i in range(n)], points_axis=n, backend="nccl"),
+                  (xyz.cpu().numpy(),))
+    shard = xyz.shape[1] // n
+    for r, (ids, _, idx, launches) in enumerate(ranks):
+        if not np.all(ids == sum(range(n))):
+            raise AssertionError(f"NCCL all-reduce on rank {r}: {ids}")
+        if not np.array_equal(idx, want[:, r * shard : (r + 1) * shard]) or launches != 1:
+            raise AssertionError(f"NCCL knn_points_sharded on rank {r} differs "
+                                 f"({launches} launches)")
+    _record_path(records, "knn", "knn_points_sharded nccl", sum(r[3] for r in ranks))
+    note = ("" if n > 1 else "; NCCL across cards not run: this machine has one card")
+    print(f"NCCL group of {n} rank(s), one card each: all-reduce and knn_points_sharded "
+          f"on [{xyz.shape[0]}, {xyz.shape[1]}, 3] equal to one process{note}")
+    return {"ranks": n}
 
 
 def ptxas_functions(log: str) -> dict:
@@ -7170,6 +7467,11 @@ def main(argv=None) -> int:
     timed(74, phase_reload, records, exported)
     print(f"phases 73-74: {time.perf_counter() - phases_73_74:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_75_78 = time.perf_counter()
+    phase_parallel(dev, records, prep, train_data)
+    timed(78, phase_nccl, dev, records, prep)
+    print(f"phases 75-78: {time.perf_counter() - phases_75_78:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -7183,6 +7485,7 @@ def main(argv=None) -> int:
                       *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg"),
                       "pointnet2 train --device_sampler", "pointnet2 train --adv_train nb",
                       "pointnet2 train --profile", "pointnet2 export",
+                      "pointnet2 train --devices 2",
                       *(f"{m} forward --precision bfloat16" for m in
                         ("pointnet2", "pointnet2_msg", *CLS_MODELS[:2], *PS_MODELS[:2])),
                       *(f"{path} --precision bfloat16" for path in
@@ -7202,6 +7505,9 @@ def main(argv=None) -> int:
                                  "pointnet2_part_seg nb --defense sor",
                                  "randla train --adv_train nb", "resgcn train --remat",
                                  "randla export",
+                                 *(f"randla pyramid --shard_points {n}" for n in SP_RANKS),
+                                 "randla nb --devices 2 --shard_points 2",
+                                 "knn_points_sharded nccl",
                                  *(f"{path} --precision bfloat16" for path in
                                    ("randla forward", "resgcn forward", "resgcn train",
                                     "resgcn train --remat", "resgcn eval", "randla nb",
@@ -7223,7 +7529,7 @@ def main(argv=None) -> int:
                               "cls_train_step", "sor", "partseg_attack",
                               "partseg_train_step", "partseg_ball_query",
                               "partseg_three_nn_l0", "partseg_three_nn_l1", "partseg_sor",
-                              "launches_by_path")
+                              "sharded_query", "launches_by_path")
             if k in r}}
         for r in records.values()]}))
     print(card)

@@ -26,6 +26,7 @@ import torch
 from pointsecguard_tpu_torch.attacks.common import COLOR_SLICE, set_color
 from pointsecguard_tpu_torch.ops import knn
 from pointsecguard_tpu_torch.ops.cuda import knn as knn_kernel
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
 
 def randomized_defense_wraps(
@@ -85,7 +86,8 @@ def seeded_draws(sample: Callable[[tuple, torch.Generator], torch.Tensor],
         else:
             gen = torch.Generator().manual_seed(seed)
             s = int(torch.randint(0, 2**62, (j,), generator=gen)[-1])
-        return sample(shape, torch.Generator().manual_seed(s))
+        gen = torch.Generator().manual_seed(s)
+        return batch_draw(lambda full: sample(full, gen), shape)
 
     return draw
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
+
 
 
 def equal_norm_color_noise(
@@ -51,7 +53,8 @@ def equal_norm_color_noise(
     if noise is None:
         if generator is None:
             raise ValueError("equal_norm_color_noise needs noise= or generator=")
-        noise = torch.rand(color0.shape, generator=generator, device=generator.device)
+        noise = batch_draw(lambda shape: torch.rand(shape, generator=generator,
+                                                    device=generator.device), color0.shape)
         if centered:
             noise = 2.0 * noise - 1.0
     noise = noise.to(device=points.device, dtype=points.dtype)

@@ -33,6 +33,7 @@ from pointsecguard_tpu_torch.attacks.common import (
     point_accuracy,
     pooled_accuracy,
 )
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,12 +155,12 @@ def pgd_color_attack(
         if generator is None:
             raise ValueError("rand_init_eps > 0 requires a generator")
         if cfg.step_norm == "linf":
-            noise = torch.rand(color0.shape, generator=generator,
-                               device=generator.device)
+            noise = batch_draw(lambda shape: torch.rand(
+                shape, generator=generator, device=generator.device), color0.shape)
             noise = (2 * noise - 1) * cfg.rand_init_eps
         else:
-            g = torch.randn(color0.shape, generator=generator,
-                            device=generator.device)
+            g = batch_draw(lambda shape: torch.randn(
+                shape, generator=generator, device=generator.device), color0.shape)
             noise = cfg.rand_init_eps * unit_l2(g)
         color = project(color0 + noise.to(color0.device))
 

@@ -26,6 +26,15 @@ adversarial colours are gathered on the device and read once a room);
 graphs of the clean input. ``--ensemble`` adds block models to the victim
 (``ensemble_closures``): every reported prediction is the weighted softmax
 mixture's, and each PointNet++ member builds its geometry once a batch.
+
+On a rank of ``--devices N`` (``ctx``) every batch is split by rows: the
+rank builds its closures on its rows and attacks them with no collective
+inside the attack loop (each cloud's early exit is its own, as at batch
+1), then the per-cloud predictions, distances, step counts and, where
+written, adversarial points are gathered into the whole batch on every
+rank, so that the votes and rows below are the one-process run's; rank 0
+writes the TSV, ``--save_adv`` and ``--visual``. Random draws are made for
+the whole batch and sliced (``utils.runtime.batch_draw``).
 """
 
 from __future__ import annotations
@@ -120,7 +129,7 @@ def ensemble_closures(args, device, make_closures, log):
     return closures
 
 
-def run_blocks(args, log):
+def run_blocks(args, log, ctx=None):
     import numpy as np
     import torch
 
@@ -134,12 +143,13 @@ def run_blocks(args, log):
     )
     from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper, write_room_visuals
     from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
+    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put
     from pointsecguard_tpu_torch.train.evaluator import add_votes
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
     parse_ensemble(args.ensemble)  # a malformed spec stops before any checkpoint work
-    device = resolve_device(args.device)
+    device = ctx.device if ctx is not None else resolve_device(args.device)
     # the JAX driver's model table (`_attack_blocks.py:51-98`): every model
     # of the PointNet family takes the "pointnet2" presets
     resgcn = args.model == "resgcn"
@@ -174,6 +184,12 @@ def run_blocks(args, log):
 
     rooms = RoomSet.load(args.data_root, "test", args.test_area)
     B = args.batch_size
+    rows = make_batch_put(ctx, batch_size=B)  # this rank's rows of a host batch
+    writes = is_main(ctx)  # rank 0 writes the run's files
+
+    def whole(t):  # the ranks' rows of a device result → the whole batch, on the host
+        return gather_rows(t, ctx).cpu().numpy()
+
     targeted = args.attack.startswith("tar_")
     # ResGCN's targeted protocol gates clouds one by one (batch 1)
     resgcn_gates = resgcn and targeted
@@ -198,7 +214,7 @@ def run_blocks(args, log):
     if args.log_steps and attack_cfg is not None:
         steps_tsv = open(tsv_path.replace(".tsv", "_steps.tsv"), "w")
         steps_tsv.write("room\tblock\titer\tacc\tsr\tl2\n")
-    with open(tsv_path, "w") as tsv:
+    with open(tsv_path if writes else os.devnull, "w") as tsv:
         header = "room\tblock\tclean_acc\tadv_acc\tl2\tsr\tother_acc\tsteps\ttime_s"
         if args.control:
             header += "\trand_acc"
@@ -217,7 +233,7 @@ def run_blocks(args, log):
             adv_pool = np.zeros((len(labels_room), 13))
             # --visual: the room's adversarial colours, gathered on the device
             room_colors = (torch.from_numpy(rooms.points[room_idx][:, 3:6] / 255.0).to(device)
-                           if args.visual else None)
+                           if args.visual and writes else None)
             nb = data.shape[0]
             for start in range(0, nb, B):
                 valid = min(B, nb - start)  # keep the room tail; pad the batch
@@ -228,8 +244,8 @@ def run_blocks(args, log):
                     reps = [1] * (valid - 1) + [B - valid + 1]
                     pts_np = np.repeat(pts_np, reps, axis=0)
                     labs_np = np.repeat(labs_np, reps, axis=0)
-                pts = torch.from_numpy(pts_np).to(device)
-                labs = torch.from_numpy(labs_np).to(device).long()
+                pts = torch.from_numpy(np.ascontiguousarray(rows(pts_np))).to(device)
+                labs = torch.from_numpy(np.ascontiguousarray(rows(labs_np))).to(device).long()
                 outputs_fn, attack_fn = make_closures(pts, attack_cfg is not None)
                 f_eval = eval_wrap(outputs_fn) if eval_wrap else outputs_fn
 
@@ -238,9 +254,12 @@ def run_blocks(args, log):
                     return torch.argmax(f_eval(p), dim=-1)
 
                 clean_pred_d = None
-                if targeted:
-                    _, mask = make_target_labels(labs, args.origin, args.target)
-                    mask_np = mask.cpu().numpy()[:valid]
+                if targeted:  # the gates read the whole batch's mask
+                    _, mask_all = make_target_labels(torch.from_numpy(labs_np).long(),
+                                                     args.origin, args.target)
+                    mask = torch.from_numpy(np.ascontiguousarray(rows(mask_all.numpy())))
+                    mask = mask.to(device)
+                    mask_np = mask_all.numpy()[:valid]
                     if resgcn_gates:
                         # `attacks.py:204-205`: skip clouds with ≤ 500 origin points
                         if int(mask_np.sum()) <= 500:
@@ -248,7 +267,7 @@ def run_blocks(args, log):
                             continue
                         # `attacks.py:206-207`: skip if masked clean accuracy < 0.5
                         clean_pred_d = predict(pts)
-                        cp = clean_pred_d.cpu().numpy()[:valid]
+                        cp = whole(clean_pred_d)[:valid]
                         if (cp[mask_np] == labs_np[:valid][mask_np]).mean() < 0.5:
                             gate_skips["accuracy"] += 1
                             continue
@@ -268,8 +287,8 @@ def run_blocks(args, log):
                 traj = rand_pred_d = None
                 if attack_cfg is None:  # --attack random
                     adv_pts = equal_norm_color_noise(
-                        pts, torch.full((B,), args.noise_norm, device=device), mask=mask,
-                        generator=gen)
+                        pts, torch.full((pts.shape[0],), args.noise_norm, device=device),
+                        mask=mask, generator=gen)
                     steps_row = np.zeros(valid, np.int64)
                     l2_b = np.full(valid, float(args.noise_norm))
                 else:
@@ -285,13 +304,15 @@ def run_blocks(args, log):
                         # L2 (`NUattack.py:236-254`), under the deployed defense
                         rand_pred_d = predict(equal_norm_color_noise(
                             pts, res.l2_dist, mask=mask, generator=gen))
-                    steps_row = res.steps_b.cpu().numpy()[:valid]
-                    l2_b = res.l2_dist.cpu().numpy()[:valid]
+                    steps_row = whole(res.steps_b)[:valid]
+                    l2_b = whole(res.l2_dist)[:valid]
                 # scored under the deployed defense, never the attack's closure
                 adv_pred_d = predict(adv_pts)
-                clean_pred = clean_pred_d.cpu().numpy()[:valid]
-                adv_pred = adv_pred_d.cpu().numpy()[:valid]
-                rand_pred = None if rand_pred_d is None else rand_pred_d.cpu().numpy()[:valid]
+                clean_pred = whole(clean_pred_d)[:valid]
+                adv_pred = whole(adv_pred_d)[:valid]
+                rand_pred = None if rand_pred_d is None else whole(rand_pred_d)[:valid]
+                if args.save_adv or args.visual:
+                    adv_pts = gather_rows(adv_pts, ctx)
                 if targeted:
                     # the protocol's success rate from the deployed predictions
                     sr_b = np.array([
@@ -301,7 +322,7 @@ def run_blocks(args, log):
                     ])
                 else:
                     sr_b = np.zeros(valid)
-                if args.save_adv:
+                if args.save_adv and writes:
                     adv_saved.append(adv_pts.cpu().numpy()[:valid][keep].astype(np.float32))
                     adv_saved_labels.append(labs_np[:valid][keep].astype(np.int32))
                 pi = pidx[start : start + valid]
@@ -358,7 +379,7 @@ def run_blocks(args, log):
                     break
             clean_room = np.argmax(clean_pool, 1)
             adv_room = np.argmax(adv_pool, 1)
-            if room_colors is not None:
+            if room_colors is not None:  # rank 0 only
                 write_room_visuals(os.path.join(args.log_dir, "visual"), room_name,
                                    args.attack, rooms.points[room_idx],
                                    room_colors.cpu().numpy(), adv_room, labels_room)
@@ -385,7 +406,7 @@ def run_blocks(args, log):
         clean_m.miou, clean_m.accuracy, adv_m.miou, adv_m.accuracy,
     )
     log.info("per-block TSV: %s", tsv_path)
-    if args.save_adv and adv_saved:
+    if args.save_adv and adv_saved:  # rank 0 only
         adv_path = os.path.join(
             args.log_dir,
             f"{args.model}_{args.attack}_adv_area{args.test_area}.npz",

@@ -27,6 +27,13 @@ the valid classes only: raw labels are reduced to them, ignored points are
 masked out of the attack objective (so their colours never move), of the
 random noise and of every metric, and ``--origin`` / ``--target`` stay raw
 dataset labels. ``--save_adv`` keeps the raw labels.
+
+On a rank of ``--devices N`` (``ctx``) each batch is split by rows as in
+the block driver, the per-cloud results gathered and written by rank 0.
+With ``--shard_points P`` the ranks of a points group attack the same
+clouds whole, and only the pyramid's kNN is divided among them
+(``build_pyramid(sp=...)``: each rank's query shard, the index tables
+all-gathered), before the attack loop, which so holds no collective.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ def _write_cloud_visuals(vis_dir, cloud, attack, xyz, feats, adv_feats, adv_pred
                        title=f"cloud {cloud} {attack} adversarial")
 
 
-def run_randla(args, log):
+def run_randla(args, log, ctx=None):
     import numpy as np
     import torch
 
@@ -66,6 +73,7 @@ def run_randla(args, log):
     from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
+    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
@@ -95,7 +103,17 @@ def run_randla(args, log):
     # the attack's labels live in the valid class space
     target_v = (int(preset.reduce(np.asarray(args.target))[1]) if (targeted and ignored)
                 else args.target)
-    device = resolve_device(args.device)
+    device = ctx.device if ctx is not None else resolve_device(args.device)
+    rows = make_batch_put(ctx, batch_size=B)  # this rank's rows of a host batch
+    writes = is_main(ctx)  # rank 0 writes the run's files
+    sp = ctx if args.shard_points > 1 else None
+
+    def whole(t):  # the ranks' rows of a device result → the whole batch, on the host
+        return gather_rows(t, ctx).cpu().numpy()
+
+    def local(x):  # this rank's rows of a host array, on the device
+        return torch.from_numpy(np.ascontiguousarray(rows(x))).to(device)
+
     sampler = preset.make_sampler(args.randla_dir, "test", num_points,
                                   np.random.default_rng(args.seed),
                                   test_area=args.test_area)
@@ -128,36 +146,37 @@ def run_randla(args, log):
     os.makedirs(args.log_dir, exist_ok=True)
     tsv_path = os.path.join(args.log_dir, f"randla_{args.attack}_area{args.test_area}.tsv")
     steps_tsv = None
-    if args.log_steps and attack_cfg is not None:
+    if args.log_steps and attack_cfg is not None:  # one process only (cli.attack)
         steps_tsv = open(tsv_path.replace(".tsv", "_steps.tsv"), "w")
         steps_tsv.write("cloud\titer\tacc\tsr\tl2\n")
     clean_cm = np.zeros((K, K))
     adv_cm = np.zeros((K, K))
     n_done = 0
     adv_saved, adv_saved_labels = [], []
-    with open(tsv_path, "w") as tsv:
+    with open(tsv_path if writes else os.devnull, "w") as tsv:
         header = "cloud\tclean_acc\tadv_acc\tl2\tsr\tsteps\ttime_s"
         tsv.write(header + ("\trand_acc" if args.control else "") + "\n")
         for xyz, feats, labels, _, cloud_idx in sampler.batches(B, -(-args.num_clouds // B)):
-            feats_t = torch.from_numpy(feats).to(device)
+            feats_t = local(feats)
             # ignored points leave the objective and every score below
             valid_np, labels_v = preset.reduce(labels)
-            labels_t = torch.from_numpy(labels_v).to(device).long()
+            labels_t = local(labels_v).long()
             if targeted:
                 # the origin mask reads the raw labels (a validated origin
-                # is never ignored)
-                _, mask = make_target_labels(torch.from_numpy(labels).to(device),
-                                             args.origin, args.target)
+                # is never ignored); the gate reads the whole batch
+                _, mask = make_target_labels(torch.from_numpy(labels), args.origin,
+                                             args.target)
                 if int(mask.sum()) < 500:  # `tester_S3DIS.py:253-258`
                     continue
+                mask = local(mask.numpy())
             elif ignored:
-                mask = torch.from_numpy(valid_np).to(device)
+                mask = local(valid_np)
             else:
                 mask = None
             t0 = time.time()
             with torch.no_grad():
                 pyr = build_pyramid(feats_t[..., :3], num_layers=cfg.num_layers,
-                                    k=cfg.k_n, sub_ratios=cfg.sub_sampling_ratio)
+                                    k=cfg.k_n, sub_ratios=cfg.sub_sampling_ratio, sp=sp)
                 # position encodings depend only on xyz + parameters: computed
                 # once here; without a defense this forward's logits are the
                 # clean prediction
@@ -177,8 +196,8 @@ def run_randla(args, log):
             traj = rand_pred_d = None
             if attack_cfg is None:  # --attack random
                 adv_t = equal_norm_color_noise(
-                    feats_t, torch.full((B,), args.noise_norm, device=device), mask=mask,
-                    generator=gen)
+                    feats_t, torch.full((feats_t.shape[0],), args.noise_norm, device=device),
+                    mask=mask, generator=gen)
                 l2_np = np.full(B, float(args.noise_norm))
                 steps_row = np.zeros(B, np.int64)
                 sr_global = 0.0
@@ -197,17 +216,18 @@ def run_randla(args, log):
                     # (`NUattack.py:236-254`), under the deployed defense
                     rand_pred_d = predict(equal_norm_color_noise(
                         feats_t, res.l2_dist, mask=mask, generator=gen))
-                l2_np = res.l2_dist.cpu().numpy()
-                steps_row = res.steps_b.cpu().numpy()
+                l2_np = whole(res.l2_dist)
+                steps_row = whole(res.steps_b)
+                # targeted runs are one cloud a batch, so no rank splits one
                 sr_global = float(res.success_rate)
             # scored under the deployed defense, never the attack's closure
-            adv_pred = predict(adv_t).cpu().numpy()
-            clean_pred = clean_pred_d.cpu().numpy()
-            rand_pred = None if rand_pred_d is None else rand_pred_d.cpu().numpy()
+            adv_pred = whole(predict(adv_t))
+            clean_pred = whole(clean_pred_d)
+            rand_pred = None if rand_pred_d is None else whole(rand_pred_d)
             traj_np = None if traj is None else {k: v.cpu().numpy() for k, v in traj.items()}
-            mask_np = None if mask is None else mask.cpu().numpy()
-            adv_np = adv_t.cpu().numpy() if (args.save_adv or args.visual) else None
-            if args.save_adv:
+            mask_np = None if mask is None else whole(mask)
+            adv_np = whole(adv_t) if (args.save_adv or args.visual) else None
+            if args.save_adv and writes:
                 adv_saved.append(adv_np.astype(np.float32))
                 adv_saved_labels.append(labels.astype(np.int32))
             dt = time.time() - t0
@@ -229,7 +249,7 @@ def run_randla(args, log):
                     row += f"\t{float((rand_pred[b][vb] == yb).mean()):.4f}"
                 tsv.write(row + "\n")
             tsv.flush()
-            if args.visual:
+            if args.visual and writes:
                 for b in range(B):
                     # gt in the predictions' reduced class space; ignored
                     # points take the palette's slot K
@@ -257,7 +277,7 @@ def run_randla(args, log):
     log.info("RANDLA %s: clean mIoU %.4f acc %.4f | adv mIoU %.4f acc %.4f (%d clouds)",
              args.attack, cm.miou, cm.accuracy, am.miou, am.accuracy, n_done)
     log.info("per-cloud TSV: %s", tsv_path)
-    if args.save_adv and adv_saved:
+    if args.save_adv and adv_saved:  # rank 0 only
         adv_path = os.path.join(args.log_dir,
                                 f"randla_{args.attack}_adv_area{args.test_area}.npz")
         np.savez_compressed(adv_path, points=np.concatenate(adv_saved, axis=0),

@@ -34,10 +34,17 @@ the attack differentiates the mode's objective). The checkpoint is the port's ow
 Linear products in bf16, ensemble members included; the fused attentive
 kernel is float32 only, so ``--fused_ap`` with it stops the run (the JAX
 model quietly takes the reference pooling there). It runs on the GPU;
-``--device cpu`` runs the plain PyTorch path by request. Every other flag
-of the JAX CLI (``--resgcn_fast``, ``--devices``, ``--shard_points``) is
-accepted by name and stops the run with "not ported yet" instead of being
-ignored.
+``--device cpu`` runs the plain PyTorch path by request. ``--devices N``
+attacks data-parallel on N ranks, each attacking its rows of every batch
+with no collective inside the attack loop (per-cloud early exits stay per
+rank), the per-cloud results gathered and written by rank 0;
+``--shard_points P`` splits RandLA's pyramid kNN over P of them
+(``parallel/``). ``--fused_ap`` with ``--shard_points`` stops the run (the
+JAX driver quietly takes the reference pooling there), and so does
+``--log_steps`` with ``--devices``: its trajectory pools over the whole
+batch, which the ranks would have to reduce in every step. Every other
+flag of the JAX CLI (``--resgcn_fast``) is accepted by name and stops the
+run with "not ported yet" instead of being ignored.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import argparse
 import logging
 
 from pointsecguard_tpu_torch.configs import (
+    add_parallel_arguments,
     add_precision_argument,
     add_resgcn_arguments,
     resgcn_refusals,
@@ -132,9 +140,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="resgcn: the attacker differentiates a surrogate whose "
                          "graphs are frozen at the clean input; every metric "
                          "evaluates the dynamic model")
-    # flags whose only ported value is the default
-    ap.add_argument("--devices", "-d", type=int, default=1)
-    ap.add_argument("--shard_points", type=int, default=1)
+    add_parallel_arguments(ap)
     add_precision_argument(ap)
     ap.add_argument("--ensemble", action="append", default=[],
                     metavar="MODEL:LOG_DIR[:WEIGHT]",
@@ -157,9 +163,13 @@ def _refuse_unported(args) -> None:
     refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
     if args.attack not in PORTED_ATTACKS:
         refused.append(f"--attack {args.attack}")
-    for flag, ported in (("devices", 1), ("shard_points", 1)):
-        if getattr(args, flag) != ported:
-            refused.append(f"--{flag} {getattr(args, flag)}")
+    if args.fused_ap and args.shard_points > 1:
+        refused.append(f"--fused_ap with --shard_points {args.shard_points} (the fused "
+                       "attentive kernel runs on whole clouds only; the JAX driver takes "
+                       "the reference pooling there)")
+    if args.log_steps and args.devices > 1:
+        refused.append(f"--log_steps with --devices {args.devices} (a trajectory pooled "
+                       "over the ranks' clouds)")
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")
@@ -175,18 +185,29 @@ def _refuse_unported(args) -> None:
 
 
 def main(argv=None):
+    """Parse, refuse, and attack on one device or on the ranks of
+    ``--devices`` (``parallel.run_cli``); returns rank 0's metrics."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
-    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
+    if args.model == "randla" and args.ensemble:
+        raise SystemExit("--ensemble is a block-family feature "
+                         "(members share the [B,N,9] block input; "
+                         "RandLA clouds have a different contract)")
+    from pointsecguard_tpu_torch.parallel import run_cli
+
+    return run_cli(_attack, args, device=args.device)
+
+
+def _attack(args, ctx=None):
+    from pointsecguard_tpu_torch.parallel import is_main
+
+    logging.basicConfig(level=logging.INFO if is_main(ctx) else logging.WARNING,
+                        format="%(message)s", force=True)
     log = logging.getLogger("attack")
     if args.model == "randla":
-        if args.ensemble:
-            raise SystemExit("--ensemble is a block-family feature "
-                             "(members share the [B,N,9] block input; "
-                             "RandLA clouds have a different contract)")
         from pointsecguard_tpu_torch.cli._attack_randla import run_randla
 
-        return run_randla(args, log)
+        return run_randla(args, log, ctx)
     # unlike the JAX CLI, resgcn's auto value is not capped at 1: that cap
     # works around a TPU compiler failure at batch 8
     if args.batch_size == 0:
@@ -198,7 +219,7 @@ def main(argv=None):
                          "(per-cloud skip gates, `attacks.py:204-207`)")
     from pointsecguard_tpu_torch.cli._attack_blocks import run_blocks
 
-    return run_blocks(args, log)
+    return run_blocks(args, log, ctx)
 
 
 if __name__ == "__main__":

@@ -38,8 +38,10 @@ part-seg: ``idx, category, clean_miou, adv_miou, l2[, rand_miou]``, the
 mIoU over the category's parts, a row that a defense replaced scored
 against its own label), and the JAX CLI's summary line. ``--precision
 bfloat16`` runs the model's Linear products in bf16. It runs on the
-GPU; ``--device cpu`` runs the plain PyTorch path by request. Accepted by
-name and stopped with "not ported yet": ``--devices`` other than 1.
+GPU; ``--device cpu`` runs the plain PyTorch path by request.
+``--devices N`` attacks data-parallel on N ranks (``parallel/``; no points
+axis, as in JAX): each rank attacks its rows of every batch, the results
+are gathered and rank 0 writes the TSV.
 """
 
 from __future__ import annotations
@@ -50,9 +52,7 @@ import os
 import time
 
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS, PART_SEG_MODELS
-from pointsecguard_tpu_torch.configs import add_precision_argument
-
-_UNPORTED_DEFAULTS = {"devices": 1}
+from pointsecguard_tpu_torch.configs import add_parallel_arguments, add_precision_argument
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -100,7 +100,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without one; cpu "
                          "runs the plain PyTorch path")
-    ap.add_argument("--devices", "-d", type=int, default=1)
+    add_parallel_arguments(ap, shard_points=False)
     add_precision_argument(ap)
     ap.add_argument("--origin", type=int, default=-1,
                     help="part-seg tar_*: only the points of this part move "
@@ -109,9 +109,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    refused = [f"--{name} {getattr(args, name)}"
-               for name, default in _UNPORTED_DEFAULTS.items()
-               if getattr(args, name) != default]
+    refused = []
     if args.origin >= 0 and args.model in CLS_MODELS:
         refused.append(f"--origin {args.origin} (with --model {args.model}: part-seg only)")
     if args.num_category != 40 and args.model in PART_SEG_MODELS:
@@ -169,9 +167,20 @@ def attack_config(args, num_classes: int):
 
 
 def main(argv=None):
+    """Parse, refuse, and attack on one device or on the ranks of
+    ``--devices`` (``parallel.run_cli``); returns rank 0's summary."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
-    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
+    from pointsecguard_tpu_torch.parallel import run_cli
+
+    return run_cli(_attack_object, args, device=args.device)
+
+
+def _attack_object(args, ctx=None):
+    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put
+
+    logging.basicConfig(level=logging.INFO if is_main(ctx) else logging.WARNING,
+                        format="%(message)s", force=True)
     log = logging.getLogger("attack_object")
 
     import numpy as np
@@ -189,10 +198,11 @@ def main(argv=None):
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
 
-    device = resolve_device(args.device)
+    device = ctx.device if ctx is not None else resolve_device(args.device)
     use_normals = not args.no_normals
     part = args.model in PART_SEG_MODELS
     B = args.batch_size or (8 if part else 16)
+    rows = make_batch_put(ctx, batch_size=B, device=device)  # this rank's rows
     if part:
         from pointsecguard_tpu_torch.data.shapenet_part import (
             NUM_OBJECT_CLASSES,
@@ -270,25 +280,25 @@ def main(argv=None):
     scores = {c: np.zeros(n, np.float64 if part or c == "l2" else np.int64)
               for c in columns[1:]}
     batch_ms = []
-    with open(tsv_path, "w") as tsv:
+    with open(tsv_path if is_main(ctx) else os.devnull, "w") as tsv:
         tsv.write("\t".join(("idx",) + columns[:4 + args.control]) + "\n")
         for idx, n_valid in _padded_batches(n, B):
             loaded = [dataset.load(int(i)) for i in idx]
-            pts = torch.from_numpy(np.stack([l[0] for l in loaded])).to(device)
+            pts = rows(np.stack([l[0] for l in loaded]))
             if part:
                 seg = np.stack([l[2] for l in loaded]).astype(np.int64)
-                labels = torch.from_numpy(seg).to(device)
-                one_hot = torch.from_numpy(np.eye(NUM_OBJECT_CLASSES, dtype=np.float32)[
-                    [l[1] for l in loaded]]).to(device)
+                labels = rows(seg)
+                one_hot = rows(np.eye(NUM_OBJECT_CLASSES, dtype=np.float32)[
+                    [l[1] for l in loaded]])
             else:
                 labs = np.array([l[1] for l in loaded], np.int64)
-                labels, one_hot = torch.from_numpy(labs).to(device)[:, None], None
+                labels, one_hot = rows(labs[:, None]), None  # [b, 1]: the rank's rows
             t0 = time.perf_counter()
             out = run(pts, labels, one_hot)
             if not part:  # the predictions, on the card
                 out = (*(torch.argmax(o, dim=-1)[:, 0] for o in out[:3]), out[3])
-            # one read of the batch's results
-            clean, adv, rand, l2 = (t.cpu().numpy() for t in out)
+            # one read of the batch's results, the ranks' rows gathered
+            clean, adv, rand, l2 = (gather_rows(t, ctx).cpu().numpy() for t in out)
             batch_ms.append(1e3 * (time.perf_counter() - t0))
             for j in range(n_valid):
                 i = int(idx[j])

@@ -29,7 +29,10 @@ names; deepfool, boundary and evolutionary (``--overshoot``,
 cls``. ``--precision bfloat16`` runs the victim's Linear products in
 bf16. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
 by request. Accepted by name and refused with "not ported yet":
-``--devices`` other than 1.
+``--devices`` other than 1 (the other CLIs take it, ``parallel/``): the
+sweeps decide each probe on the whole batch's pooled accuracy, and the
+score-based attacks draw their noise along a samples axis that the ranks'
+batch slices (``utils.runtime.batch_draw``) do not cover.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import os
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS
 from pointsecguard_tpu_torch.configs import add_precision_argument
 
-# JAX CLI flags of the paths not ported yet (several chips): only their
+# JAX CLI flags of the paths not ported yet (several ranks): only their
 # defaults
 _UNPORTED_DEFAULTS = {"devices": 1}
 

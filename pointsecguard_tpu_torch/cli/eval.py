@@ -36,8 +36,13 @@ viewer under ``<log_dir>/visual`` for every model. ``--precision
 bfloat16`` (every model) runs the Linear products in bf16. The
 checkpoint is the port's own (``<log_dir>/checkpoints/``: the best one,
 else the latest). It runs on the GPU; ``--device cpu`` runs the plain
-PyTorch path by request. Every other flag of the JAX CLI is accepted by
-name and stops the run with "not ported yet".
+PyTorch path by request. ``--devices N`` evaluates data-parallel on N
+ranks and ``--shard_points P`` (the segmentation models) splits RandLA's
+pyramid kNN over P of them (``parallel/``): each rank predicts its rows of
+every batch (the tail padded to the ranks' shape), the predictions are
+gathered, and rank 0 pools the votes and writes the outputs. Every other
+flag of the JAX CLI is accepted by name and stops the run with "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import os
 
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS, PART_SEG_MODELS, cls_refusals
 from pointsecguard_tpu_torch.configs import (
+    add_parallel_arguments,
     add_precision_argument,
     add_resgcn_arguments,
     resgcn_overrides,
@@ -59,7 +65,6 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS,
                  *PART_SEG_MODELS)
-_UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1}
 _UNPORTED_SWITCHES = ("resgcn_fast",)
 
 
@@ -111,20 +116,18 @@ def _parser() -> argparse.ArgumentParser:
                          "one; cpu runs the plain PyTorch path")
     add_precision_argument(ap)
     add_resgcn_arguments(ap)
-    for name, default in _UNPORTED_DEFAULTS.items():
-        flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
-        kind = type(default) if default is not None else str
-        ap.add_argument(*flags, type=kind, default=default)
+    add_parallel_arguments(ap)
     for name in _UNPORTED_SWITCHES:
         ap.add_argument(f"--{name}", action="store_true")
     return ap
 
 
 def _refuse_unported(args) -> None:
+    if args.shard_points > 1 and args.model in CLS_MODELS + PART_SEG_MODELS:
+        # JAX `cli/eval.py:124-128`
+        raise SystemExit("--shard_points covers the semseg families "
+                         "(pointnet/pointnet2[_msg]/randla/resgcn)")
     refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
-    refused += [f"--{name} {getattr(args, name)}"
-                for name, default in _UNPORTED_DEFAULTS.items()
-                if getattr(args, name) != default]
     refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
     if args.save_preds and args.model != "randla":
         refused.append(f"--save_preds with --model {args.model} (randla only)")
@@ -160,7 +163,14 @@ def _adv_set_metrics(predict, path: str, batch_size: int, num_classes: int,
     return len(pts_all), metrics_from_confusion(cm)
 
 
-def _eval_randla(args, log):
+def _device(args, ctx):
+    """The rank's device, or ``--device`` resolved without ranks."""
+    from pointsecguard_tpu_torch.utils.runtime import resolve_device
+
+    return ctx.device if ctx is not None else resolve_device(args.device)
+
+
+def _eval_randla(args, log, ctx=None):
     """RandLA whole-cloud evaluation (``pointsecguard_tpu/cli/eval.py:358-575``):
     the evaluation-mode softmax of ``--num_clouds`` spatially-regular
     samples is voted into one float64 pool per sub-cloud at the sampler's
@@ -184,8 +194,9 @@ def _eval_randla(args, log):
     from pointsecguard_tpu_torch.models import RandLANet
     from pointsecguard_tpu_torch.train.trainer import randla_family
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointsecguard_tpu_torch.parallel import dp_map, is_main
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
-    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
     preset = randla_dataset_preset(args.randla_dataset)
     cfg, K = preset.cfg, preset.num_classes
@@ -195,18 +206,20 @@ def _eval_randla(args, log):
         valid, y = preset.reduce(np.asarray(raw_labels).reshape(-1))
         return y[valid], np.asarray(preds).reshape(-1)[valid]
 
-    device = resolve_device(args.device)
+    device = _device(args, ctx)
     B = args.batch_size or cfg.val_batch_size
     model = RandLANet(num_classes=K, d_out=cfg.d_out, d_in=6 if preset.has_colors else 3,
                       dtype=model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
-    family = randla_family(cfg)
+    family = randla_family(cfg, sp=ctx if args.shard_points > 1 else None)
 
     @torch.no_grad()
-    def probs_fn(feats: np.ndarray) -> np.ndarray:
+    def probs(feats: np.ndarray) -> np.ndarray:
         f = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device)
         return torch.softmax(family.apply(model, f, family.plan(f)), dim=-1).cpu().numpy()
+
+    probs_fn = dp_map(probs, ctx)
 
     if args.adv_set:
         n, m = _adv_set_metrics(lambda f: np.argmax(probs_fn(f), axis=-1), args.adv_set,
@@ -227,7 +240,8 @@ def _eval_randla(args, log):
             np.add.at(pools[int(cloud_idx[b])], idx[b], probs[b])
 
     cm = np.zeros((K, K), np.float64)
-    if args.save_preds:
+    writes = is_main(ctx)  # rank 0 writes the outputs
+    if args.save_preds and writes:
         os.makedirs(args.save_preds, exist_ok=True)
     n_scored = 0
     for ci, cloud in enumerate(sampler.clouds):
@@ -245,7 +259,7 @@ def _eval_randla(args, log):
             full_labels = np.asarray(full_labels, np.int64).reshape(-1)
             if len(proj_idx) == len(full_labels):
                 y, p = full_labels, sub_pred[proj_idx]
-                if args.save_preds:
+                if args.save_preds and writes:
                     write_ply(os.path.join(args.save_preds, cloud.name + ".ply"),
                               [p.astype(np.int32)], ["pred"])
             else:
@@ -257,7 +271,7 @@ def _eval_randla(args, log):
                             "sub-cloud resolution", cloud.name, len(proj_idx),
                             len(full_labels))
         np.add.at(cm, _reduced(y, p), 1.0)
-        if args.visual:
+        if args.visual and writes:
             # per-cloud pred / gt label clouds + HTML at the sub-cloud
             # resolution; gt in the predictions' reduced class space, the
             # ignored points in the palette's slot K
@@ -283,7 +297,7 @@ def _eval_randla(args, log):
     return m
 
 
-def _eval_cls(args, log):
+def _eval_cls(args, log, ctx=None):
     """ModelNet classification (``pointsecguard_tpu/cli/eval.py:244-316``,
     ``_restore_object_state`` and ``_eval_cls``): the test split through
     ``evaluate_cls`` with ``--num_votes`` votes pooled in softmax space
@@ -294,10 +308,11 @@ def _eval_cls(args, log):
     from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
     from pointsecguard_tpu_torch.train.object_eval import evaluate_cls
     from pointsecguard_tpu_torch.train.trainer import cls_model, make_logp_step
+    from pointsecguard_tpu_torch.parallel import dp_map
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
-    device = resolve_device(args.device)
+    device = _device(args, ctx)
     use_normals = not args.no_normals
     ds = ModelNetDataset(args.data_root, "test", num_point=args.num_point or 1024,
                          num_category=args.num_category, use_normals=use_normals)
@@ -305,7 +320,8 @@ def _eval_cls(args, log):
                               model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
-    inst_acc, class_acc, _ = evaluate_cls(make_logp_step(model, device, family), ds,
+    inst_acc, class_acc, _ = evaluate_cls(dp_map(make_logp_step(model, device, family), ctx),
+                                          ds,
                                           batch_size=args.batch_size,
                                           num_votes=args.num_votes,
                                           rng=np.random.default_rng(args.seed))
@@ -314,7 +330,7 @@ def _eval_cls(args, log):
     return inst_acc, class_acc
 
 
-def _eval_partseg(args, log):
+def _eval_partseg(args, log, ctx=None):
     """ShapeNetPart part segmentation (``pointsecguard_tpu/cli/eval.py:
     318-355``): the test split through ``evaluate_partseg`` (each shape's
     rows in file order, the argmax over its category's parts); logs each
@@ -329,10 +345,11 @@ def _eval_partseg(args, log):
     )
     from pointsecguard_tpu_torch.train.object_eval import evaluate_partseg
     from pointsecguard_tpu_torch.train.trainer import cls_model, make_logp_step
+    from pointsecguard_tpu_torch.parallel import dp_map
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
-    device = resolve_device(args.device)
+    device = _device(args, ctx)
     use_normals = not args.no_normals
     ds = ShapeNetPartDataset(args.data_root, "test", num_point=args.num_point or 2048,
                              use_normals=use_normals)
@@ -340,7 +357,7 @@ def _eval_partseg(args, log):
                               model_dtype(args.precision))
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
-    logp = make_logp_step(model, device, family)
+    logp = dp_map(make_logp_step(model, device, family), ctx)
 
     def predict(pts, onehot):  # the one-hot rides as 16 trailing channels
         return logp(np.concatenate(
@@ -355,19 +372,31 @@ def _eval_partseg(args, log):
 
 
 def main(argv=None):
+    """Parse, refuse, and evaluate on one device or on the ranks of
+    ``--devices`` (``parallel.run_cli``); returns rank 0's metrics."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
-    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
+    from pointsecguard_tpu_torch.parallel import run_cli
+
+    return run_cli(_eval, args, device=args.device)
+
+
+def _eval(args, ctx=None):
+    from pointsecguard_tpu_torch.parallel import dp_map, is_main
+
+    logging.basicConfig(level=logging.INFO if is_main(ctx) else logging.WARNING,
+                        format="%(message)s", force=True)
     log = logging.getLogger("eval")
     if args.model == "randla":
-        return _eval_randla(args, log)
+        return _eval_randla(args, log, ctx)
     if args.model in CLS_MODELS + PART_SEG_MODELS:
         if args.visual or args.adv_set:
             raise SystemExit(
                 "--visual and --adv_set cover the segmentation models; an "
                 "object-task model has no scene to render and no saved block set")
         args.batch_size = args.batch_size or 16
-        return _eval_cls(args, log) if args.model in CLS_MODELS else _eval_partseg(args, log)
+        return (_eval_cls(args, log, ctx) if args.model in CLS_MODELS
+                else _eval_partseg(args, log, ctx))
 
     import numpy as np
 
@@ -380,9 +409,9 @@ def main(argv=None):
         resgcn_family,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
-    from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
+    from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
-    device = resolve_device(args.device)
+    device = _device(args, ctx)
     args.batch_size = args.batch_size or 16
     args.num_point = args.num_point or 4096
 
@@ -396,7 +425,7 @@ def main(argv=None):
         model = model_cls(dtype=dtype)
     model.load_state_dict(load_checkpoint(args.log_dir))
     model.to(device).eval().requires_grad_(False)
-    predict = make_eval_step(model, device, family)
+    predict = dp_map(make_eval_step(model, device, family), ctx)
 
     if args.adv_set:
         n, m = _adv_set_metrics(predict, args.adv_set, args.batch_size, 13)
@@ -411,7 +440,8 @@ def main(argv=None):
     total, per_room = evaluate_whole_scenes(
         predict, rooms, batch_size=args.batch_size, num_votes=args.num_votes,
         block_points=args.num_point, rng=np.random.default_rng(args.seed),
-        visual_dir=os.path.join(args.log_dir, "visual") if args.visual else None,
+        visual_dir=(os.path.join(args.log_dir, "visual") if args.visual and is_main(ctx)
+                    else None),
     )
     for name, m in zip(rooms.names, per_room):
         log.info("%s: mIoU %.4f acc %.4f", name, m.miou, m.accuracy)

@@ -51,10 +51,15 @@ family, resgcn, randla on s3dis or semantic3d), ``--remat`` (resgcn) and
 ``--profile DIR`` (the PointNet family). ``--precision bfloat16`` (every
 model) runs the Linear products in bf16 with float32 parameters. It runs on
 the GPU; ``--device
-cpu`` runs the plain PyTorch path by request. Every other flag of the JAX
-CLI, and an extra with a model that does not read it (which the JAX CLI
-would ignore), is accepted by name and stops the run with "not ported
-yet" instead of being ignored.
+cpu`` runs the plain PyTorch path by request. ``--devices N`` trains
+data-parallel on N ranks (``parallel/``: one card each over NCCL, or N
+processes over gloo with ``--device cpu``), ``--shard_points P`` (the
+semseg families) splits each cloud's points over P of them, and the run
+computes what ``--devices 1`` computes on the whole batch;
+``--device_sampler`` takes ``--devices`` but not ``--shard_points``, as in
+JAX. An extra with a model that does not read it (which the JAX CLI would
+ignore) is accepted by name and stops the run with "not ported yet"
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import logging
 import time
 
 from pointsecguard_tpu_torch.configs import (
+    add_parallel_arguments,
     add_precision_argument,
     add_resgcn_arguments,
     resgcn_refusals,
@@ -80,9 +86,6 @@ PORTED_MODELS = (*POINTNET_FAMILY, "randla", "resgcn", *CLS_MODELS, *PART_SEG_MO
 # any other model (the JAX CLI would ignore them there)
 CLS_DEFAULTS = {"num_category": 40, "no_normals": False}
 _FLAG_MODELS = {"num_category": CLS_MODELS, "no_normals": CLS_MODELS + PART_SEG_MODELS}
-# JAX CLI flags this port does not implement yet, with the one value
-# (the JAX default) that is accepted
-_UNPORTED_DEFAULTS = {"devices": 1, "shard_points": 1}
 # the training extras that not every loop reads, with the models whose
 # loops read them (JAX `train/loops.py`; --steps_per_call is read by every
 # loop); the adv_* budget is read under --adv_train nb
@@ -145,9 +148,7 @@ def _parser() -> argparse.ArgumentParser:
                          "one; cpu runs the plain PyTorch path")
     add_precision_argument(ap)
     add_resgcn_arguments(ap)
-    for name, default in _UNPORTED_DEFAULTS.items():
-        flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
-        ap.add_argument(*flags, type=type(default), default=default)
+    add_parallel_arguments(ap)
     ap.add_argument("--steps_per_call", type=int, default=1,
                     help="optimizer steps a call, on batches stacked that deep")
     ap.add_argument("--device_sampler", action="store_true",
@@ -174,10 +175,15 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
+    if args.shard_points > 1 and args.model in CLS_MODELS + PART_SEG_MODELS:
+        # JAX `cli/train.py:185-191`
+        raise SystemExit("--shard_points covers the semseg families "
+                         "(pointnet/pointnet2[_msg]/randla/resgcn)")
+    if args.device_sampler and args.shard_points > 1:
+        # JAX `train/loops.py:148-152`
+        raise SystemExit("--device_sampler composes with --devices (DP) but not "
+                         "--shard_points; use the host pipeline for SP")
     refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
-    refused += [f"--{name} {getattr(args, name)}"
-                for name, default in _UNPORTED_DEFAULTS.items()
-                if getattr(args, name) != default]
     refused += extra_refusals(args)
     refused += cls_refusals(args)
     refused += resgcn_refusals(args)
@@ -225,9 +231,20 @@ def cls_refusals(args) -> list[str]:
 
 
 def main(argv=None):
+    """Parse, refuse, and train on one device or on the ranks of
+    ``--devices`` (``parallel.run_cli``); returns the loop's result (rank
+    0's best metric, its state only without ranks)."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    from pointsecguard_tpu_torch.parallel import run_cli
 
+    return run_cli(_train, args, device=args.device)
+
+
+def _train(args, ctx=None):
+    """One process's training: the whole run, or rank ``ctx.rank`` of it
+    (only rank 0 writes the log file)."""
+    from pointsecguard_tpu_torch.parallel import is_main
     from pointsecguard_tpu_torch.train.loops import (
         train_cls,
         train_partseg,
@@ -237,28 +254,26 @@ def main(argv=None):
     )
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
-    device = resolve_device(args.device)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(message)s",
-        force=True,
-        handlers=[
-            logging.StreamHandler(),
-            logging.FileHandler(f"{args.log_dir.rstrip('/')}.train.log", delay=True),
-        ],
-    )
+    device = ctx.device if ctx is not None else resolve_device(args.device)
+    handlers = [logging.StreamHandler()]
+    if is_main(ctx):
+        handlers.append(
+            logging.FileHandler(f"{args.log_dir.rstrip('/')}.train.log", delay=True))
+    logging.basicConfig(level=logging.INFO if is_main(ctx) else logging.WARNING,
+                        format="%(asctime)s %(message)s", force=True, handlers=handlers)
     t0 = time.time()
+    rank = {} if ctx is None else {"ctx": ctx}  # a loop's ctx, under --devices
     if args.model == "randla":
-        result = train_randla(args, device)
+        result = train_randla(args, device, **rank)
     elif args.model == "resgcn":
-        result = train_resgcn(args, device)
+        result = train_resgcn(args, device, **rank)
     elif args.model in CLS_MODELS:
-        result = train_cls(args, device)  # npoint 0 → the loop's 1024
+        result = train_cls(args, device, **rank)  # npoint 0 → the loop's 1024
     elif args.model in PART_SEG_MODELS:
-        result = train_partseg(args, device)  # npoint 0 → the loop's 2048
+        result = train_partseg(args, device, **rank)  # npoint 0 → the loop's 2048
     else:
         args.npoint = args.npoint or 4096
-        result = train_pointnet_family(args, device)
+        result = train_pointnet_family(args, device, **rank)
     logging.info("total wall time %.1f s", time.time() - t0)
     return result
 

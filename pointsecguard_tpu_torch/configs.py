@@ -137,3 +137,16 @@ def add_precision_argument(ap) -> None:
                     help="bfloat16: every Linear product in bf16; parameters, "
                          "BatchNorm statistics, softmaxes, logits, losses and the "
                          "neighbour search stay float32")
+
+
+def add_parallel_arguments(ap, *, shard_points: bool = True) -> None:
+    """``--devices`` / ``-d`` and, where the JAX CLI has it,
+    ``--shard_points`` (``parallel.data_parallel_mesh`` reads them)."""
+    ap.add_argument("--devices", "-d", type=int, default=1,
+                    help="data-parallel ranks: one card each (NCCL), or processes "
+                         "over gloo with --device cpu")
+    if shard_points:
+        ap.add_argument("--shard_points", type=int, default=1,
+                        help="split each cloud's points axis over this many of the "
+                             "--devices ranks (the kNN of the RandLA pyramid is "
+                             "divided; every other layer sees the whole cloud)")

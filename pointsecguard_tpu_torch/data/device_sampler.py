@@ -232,17 +232,28 @@ def make_device_block_sampler(
     return sample
 
 
-def make_sampled_multi_train_step(step_fn: Callable, sample_fn: Callable) -> Callable:
+def make_sampled_multi_train_step(step_fn: Callable, sample_fn: Callable,
+                                  ctx=None) -> Callable:
     """``multi_step(state, staged, class_weights, lr, bn_momentum, k,
     generator) → losses [k]`` (JAX `device_sampler.py:260-323`): k steps of
     ``step_fn`` (a ``make_train_step``), each on a batch it samples with
-    ``sample_fn`` from ``generator`` first, then the step's own draws."""
+    ``sample_fn`` from ``generator`` first, then the step's own draws.
+    ``ctx``: a rank of a data-parallel run (``--devices N``), whose
+    generator is seeded as every other rank's: ``sample_fn`` draws the
+    global batch and the rank keeps its rows, so the ranks' slices make up
+    the one-process batch."""
+
+    def rows(t):
+        if ctx is None or ctx.data_size == 1:
+            return t
+        b = t.shape[0] // ctx.data_size
+        return t[ctx.data_rank * b : (ctx.data_rank + 1) * b]
 
     def multi_step(state, staged: StagedRooms, class_weights, lr, bn_momentum, k: int,
                    generator: torch.Generator):
         losses = []
         for _ in range(k):
-            pts, labels = sample_fn(staged, generator)
+            pts, labels = (rows(t) for t in sample_fn(staged, generator))
             losses.append(step_fn(state, pts, labels, class_weights, lr, bn_momentum,
                                   generator))
         return torch.stack(losses)

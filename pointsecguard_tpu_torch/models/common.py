@@ -17,7 +17,10 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
 
 class BatchNorm(nn.Module):
@@ -28,11 +31,20 @@ class BatchNorm(nn.Module):
     per-epoch momentum annealing needs no module rebuild. Buffers
     ``mean``/``var`` and parameters ``scale``/``bias`` carry the JAX
     package's leaf names.
+
+    ``group`` (set by ``parallel.sync_batchnorm``): the process group of a
+    data-parallel run's data axis. In training the statistics are then
+    those of the global batch, as GSPMD takes them: the per-channel sum and
+    the sum of squared deviations from the global mean are all-reduced over
+    the group (with autograd), over a count of every rank's equal slice.
+    The running variance stays unbiased over that count. Evaluation reads
+    the running statistics, as without a group.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
         self.epsilon = epsilon
+        self.group = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -45,9 +57,12 @@ class BatchNorm(nn.Module):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.var(x, dim=axes, unbiased=False)
             n = x.numel() // x.shape[-1]
+            if self.group is None:
+                mean = torch.mean(x, dim=axes)
+                var = torch.var(x, dim=axes, unbiased=False)
+            else:
+                mean, var, n = _global_moments(x, axes, n, self.group)
             with torch.no_grad():  # torch stores the unbiased variance
                 unbiased = var * (n / max(n - 1, 1))
                 self.mean.mul_(momentum).add_((1.0 - momentum) * mean)
@@ -57,6 +72,19 @@ class BatchNorm(nn.Module):
         # written as the JAX package writes it: reciprocal of the sqrt
         inv = torch.reciprocal(torch.sqrt(var + self.epsilon))
         return ((x - mean) * inv * self.scale + self.bias).to(out_dtype)
+
+
+def _global_moments(x: torch.Tensor, axes: tuple, n: int, group):
+    """(mean, biased variance, count) over ``axes`` of the global batch
+    whose equal slices the ranks of ``group`` hold: two passes, as
+    ``torch.var`` takes them, each an all-reduce with autograd."""
+    from pointsecguard_tpu_torch.parallel.spmd_ops import all_reduce
+
+    n = n * dist.get_world_size(group)
+    mean = all_reduce(torch.sum(x, dim=axes), group=group) / n
+    dev = x - mean
+    var = all_reduce(torch.sum(dev * dev, dim=axes), group=group) / n
+    return mean, var, n
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype | None = None
@@ -76,9 +104,11 @@ def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout keeping the entries where ``mask`` is true, or
     where a draw of ``generator`` (on ``x``'s device; torch's default
-    generator without one) is ≥ ``rate``."""
+    generator without one) is ≥ ``rate``; a rank of a data-parallel run
+    keeps its rows of the global batch's draw (``batch_draw``)."""
     if mask is None:
-        mask = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+        mask = batch_draw(lambda shape: torch.rand(shape, generator=generator,
+                                                   device=x.device), x.shape) >= rate
     return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -64,6 +64,7 @@ def build_pyramid(
     num_layers: int = 5,
     k: int = 16,
     sub_ratios: Sequence[int] = (4, 4, 4, 4, 2),
+    sp=None,
 ) -> dict:
     """The RandLA input pyramid (`main_S3DIS.py:188-214`): at each level
     the k-NN self-neighbours; the first N/r points (of an already shuffled
@@ -73,19 +74,38 @@ def build_pyramid(
     [S, N] distance matrix, so no level needs the query tiling of the
     JAX package's XLA route (``knn_tile``).
 
+    ``sp``: the ``parallel.RankContext`` of a run whose points axis is
+    sharded (``--shard_points``): each level's self-kNN and 1-NN upsample
+    run through ``parallel.knn_points_sharded``, the kNN kernel on this
+    rank's query shard, and the index tables are all-gathered over the
+    points group so that the forward sees whole levels. A level whose sizes
+    do not divide the points axis takes the plain op. Bit-identical to the
+    unsharded pyramid.
+
     Returns:
       dict with tuple-of-levels fields: xyz, neigh_idx, sub_idx, interp_idx.
     """
+    from pointsecguard_tpu_torch.parallel.spmd_ops import (
+        all_gather,
+        knn_points_sharded,
+        sp_shapes_ok,
+    )
+
+    def knn_idx(query, pts, kk):
+        if sp_shapes_ok(sp, query, pts):
+            _, idx = knn_points_sharded(query, pts, kk, sp)
+            return all_gather(idx, sp.points_group, dim=1)
+        return ops.knn(query, pts, kk)[1]
+
     xyzs, neighs, subs, interps = [], [], [], []
     cur = xyz
     for i in range(num_layers):
         n = cur.shape[1]
         # tiny clouds (tests, deep levels): repeat the neighbour list
-        _, neigh = ops.knn(cur, cur, min(k, n))
-        neigh = ops.repeat_pad_k(neigh, k)
+        neigh = ops.repeat_pad_k(knn_idx(cur, cur, min(k, n)), k)
         sub_n = n // sub_ratios[i]
         sub_xyz = cur[:, :sub_n, :]
-        _, interp = ops.knn(cur, sub_xyz, 1)
+        interp = knn_idx(cur, sub_xyz, 1)
         xyzs.append(cur)
         neighs.append(neigh)
         subs.append(neigh[:, :sub_n, :])  # kNN rows of the kept points

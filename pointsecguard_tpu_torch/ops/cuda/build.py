@@ -7,6 +7,9 @@ the library is built at the first kernel launch (or by an explicit
 ``load_library()``), into ``<repo>/build/kernels/`` — a directory that
 ``.gitignore`` lists — under a name that carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
+Processes that load it at once (the ranks of ``--devices N``) build it
+once: the build runs under an exclusive ``flock`` of ``build/kernels/
+build.lock``, which the system releases if its holder dies.
 
 Each C entry point takes pointers and the stream as ``void*``, sizes as
 ``int``, launches on that stream without synchronising, and returns
@@ -16,6 +19,7 @@ Each C entry point takes pointers and the stream as ``void*``, sizes as
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -114,7 +118,11 @@ def load_library() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not path.exists():
-            _build(path)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "build.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+                if not path.exists():
+                    _build(path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -7,6 +7,7 @@ import torch
 
 from pointsecguard_tpu_torch.ops.cuda.fps import fps
 from pointsecguard_tpu_torch.ops.gather import gather_points
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
 
 def farthest_point_sample(
@@ -28,17 +29,18 @@ def farthest_point_sample(
       start_idx: optional [B] initial indices. Default 0.
       generator: if given, the start index is drawn uniformly from it (the
         reference's ``torch.randint`` seeding) and ``start_idx`` is not
-        read: the generator wins, as the key does in the JAX package.
+        read: the generator wins, as the key does in the JAX package. A
+        rank of a data-parallel run keeps its rows of the global batch's
+        draw (``utils.runtime.batch_draw``).
 
     Returns:
       [B, npoint] int32 indices of the selected points.
     """
     B, N, _ = xyz.shape
     if generator is not None:
-        start = torch.randint(
-            0, N, (B,), generator=generator, device=generator.device,
-            dtype=torch.int32,
-        ).to(xyz.device)
+        start = batch_draw(lambda shape: torch.randint(
+            0, N, shape, generator=generator, device=generator.device,
+            dtype=torch.int32), (B,)).to(xyz.device)
     elif start_idx is not None:
         start = start_idx.to(device=xyz.device, dtype=torch.int32)
     else:

@@ -30,6 +30,17 @@ the PointNet family, ResGCN and RandLA on S3DIS or Semantic3D
 the PointNet family ``--profile DIR`` (a trace of the first epoch's
 training).
 
+Every loop takes ``ctx``, the ``parallel.RankContext`` of a rank of
+``--devices N`` (the PointNet family, RandLA and ResGCN also with
+``--shard_points P``; the classifiers and part-seg nets data-parallel
+only, as in JAX): every rank runs the host sampler from the same seed and
+keeps its part of each global batch (``parallel.make_stacked_batch_put``),
+the step is the data-parallel one of ``trainer.make_train_step``, random
+draws are made for the global batch and sliced (``utils.runtime.batch_draw``),
+evaluation runs each rank on its rows and gathers the predictions
+(``parallel.dp_map``), and only rank 0 writes ``events.jsonl``, the
+TensorBoard summaries and the checkpoints, from which every rank resumes.
+
 The PointNet++ and RandLA loops save ``latest.pt`` after every evaluated
 epoch and ``best.pt`` when the mIoU improves; the ResGCN loop saves
 ``latest.pt`` after every epoch with −loss as its metric and no
@@ -46,6 +57,8 @@ import time
 
 import numpy as np
 import torch
+
+from pointsecguard_tpu_torch.parallel import dp_map, is_main
 
 log = logging.getLogger(__name__)
 
@@ -75,6 +88,54 @@ def _maybe_adv_fn(args, model, family, **kw):
     return make_adv_train_fn(model, family, cfg, **kw)
 
 
+class _Silent:
+    """The event log and summaries of a rank other than 0: writes nothing."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+    scalars = close = write
+
+
+def _writers(args, ctx):
+    """(events.jsonl log, TensorBoard summaries) of ``args.log_dir`` on the
+    rank that writes the run's files; silent ones elsewhere."""
+    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
+
+    if not is_main(ctx):
+        return _Silent(), _Silent()
+    return EventLog(f"{args.log_dir}/events.jsonl"), SummaryLogger(f"{args.log_dir}/tb")
+
+
+def _rank_setup(args, ctx, state, put, batch_size: int):
+    """A rank's start: rank 0's initial state broadcast to every rank, and
+    the loader's ``put`` of the rank's part of each stacked host batch (its
+    rows, under ``--shard_points`` also its points shard). ``put`` as it
+    is without a mesh."""
+    if ctx is None:
+        return put
+    from pointsecguard_tpu_torch.parallel import make_stacked_batch_put, replicate
+
+    replicate(ctx, [state.params, state.stats])
+    cut = make_stacked_batch_put(ctx, batch_size=batch_size,
+                                 shard_points=getattr(args, "shard_points", 1) > 1)
+
+    def rank_put(item):
+        pts, labels = item
+        if np.ndim(labels) == 2:  # the classifiers' [K, B]: a leaf JAX replicates,
+            labels = cut(labels[..., None])[..., 0]  # but a rank holds its rows
+        else:
+            labels = cut(labels)
+        return put((np.ascontiguousarray(cut(pts)), np.ascontiguousarray(labels)))
+
+    return rank_put
+
+
+def _save(ctx, ckpt, epoch: int, state, metric: float) -> None:
+    if is_main(ctx):
+        ckpt.save(epoch, state.payload(), miou=metric)
+
+
 def _host_epoch(multi_step, state, batches, put, depth: int, spc: int, weights, lr,
                 bn_momentum, gen) -> list:
     """One epoch of the host pipeline: ``batches`` stacked ``spc`` deep,
@@ -90,7 +151,7 @@ def _host_epoch(multi_step, state, batches, put, depth: int, spc: int, weights, 
 
 
 def _device_epoch_fn(args, rooms, n_samples: int, device, batch_size: int, num_point: int,
-                     step_fn, augment_z: bool):
+                     step_fn, augment_z: bool, ctx=None):
     """``--device_sampler``: the rooms staged on ``device``, and
     ``epoch(state, weights, lr, bn_momentum, gen) → losses`` running the
     host epoch's step count (``n_samples`` blocks, the host sampler's
@@ -113,7 +174,7 @@ def _device_epoch_fn(args, rooms, n_samples: int, device, batch_size: int, num_p
         replacement=not getattr(args, "device_sampler_exact", False))
     log.info("device sampler: %d rooms staged, %d bytes, window %d rows",
              len(rooms.names), staged.nbytes, num_max)
-    dstep = make_sampled_multi_train_step(step_fn, sample_fn)
+    dstep = make_sampled_multi_train_step(step_fn, sample_fn, ctx)
     calls = epoch_calls(n_samples, batch_size, _steps_per_call(args))
 
     def epoch(state, weights, lr, bn_momentum, gen):
@@ -122,7 +183,7 @@ def _device_epoch_fn(args, rooms, n_samples: int, device, batch_size: int, num_p
     return epoch
 
 
-def train_pointnet_family(args, device: torch.device):
+def train_pointnet_family(args, device: torch.device, ctx=None):
     """Train ``args.model`` (pointnet2, pointnet2_msg or pointnet) on the
     rooms under ``args.data_root``; returns ``(state, best mIoU)``. ``args`` carries
     ``cli.train``'s flags (data_root, log_dir, test_area, npoint,
@@ -144,7 +205,6 @@ def train_pointnet_family(args, device: torch.device):
         make_multi_train_step,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
-    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
     from pointsecguard_tpu_torch.utils.profiling import maybe_trace
 
     rooms = RoomSet.load(args.data_root, "train", args.test_area)
@@ -168,11 +228,11 @@ def train_pointnet_family(args, device: torch.device):
     state = TrainState(model.to(device))
     # PointNet's family adds 0.001 · the feature-transform regularizer
     multi_step = make_multi_train_step(model, weighted_nll_loss, family=family,
-                                       adv_fn=_maybe_adv_fn(args, model, family))
+                                       adv_fn=_maybe_adv_fn(args, model, family), ctx=ctx)
     device_epoch = _device_epoch_fn(args, rooms, len(sampler), device, batch_size,
-                                    args.npoint, multi_step.step, augment_z=True)
+                                    args.npoint, multi_step.step, augment_z=True, ctx=ctx)
     spc = _steps_per_call(args)
-    eval_fn = make_eval_step(model, device, family)
+    eval_fn = dp_map(make_eval_step(model, device, family), ctx)
     weights = torch.from_numpy(
         np.asarray(rooms.label_weights, np.float32)).to(device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
@@ -186,9 +246,8 @@ def train_pointnet_family(args, device: torch.device):
     # FPS starts and dropout masks of every step (PointNet++), drawn on
     # the device
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    events = EventLog(f"{args.log_dir}/events.jsonl")
-    tb = SummaryLogger(f"{args.log_dir}/tb")
-    put = make_batch_put(device, depth)
+    events, tb = _writers(args, ctx)
+    put = _rank_setup(args, ctx, state, make_batch_put(device, depth), batch_size)
     best_miou = 0.0
     for epoch in range(start_epoch, args.epochs):
         lr = pointnet2_lr(epoch, base=base_lr)
@@ -203,7 +262,9 @@ def train_pointnet_family(args, device: torch.device):
                 yield pts, labels
 
         # --profile: a trace of the first epoch's training
-        with maybe_trace(getattr(args, "profile", None) if epoch == start_epoch else None,
+        # (rank 0's alone under --devices)
+        with maybe_trace(getattr(args, "profile", None)
+                         if epoch == start_epoch and is_main(ctx) else None,
                          device, f"epoch_{epoch}"):
             if device_epoch is not None:
                 losses = device_epoch(state, weights, lr, bn_m, gen)
@@ -236,7 +297,7 @@ def train_pointnet_family(args, device: torch.device):
                          accuracy=float(total.accuracy))
             tb.scalars(epoch, miou=miou, accuracy=float(total.accuracy))
             best_miou = max(best_miou, miou)
-            ckpt.save(epoch + 1, state.payload(), miou=miou)
+            _save(ctx, ckpt, epoch + 1, state, miou)
     events.close()
     tb.close()
     log.info("best mIoU %.4f", best_miou)
@@ -260,7 +321,7 @@ def cls_lr(epoch: int, *, base: float = 0.001) -> float:
     return base * (0.7 ** (epoch // 20))
 
 
-def train_cls(args, device: torch.device):
+def train_cls(args, device: torch.device, ctx=None):
     """Train the classifier ``args.model`` (pointnet2_cls,
     pointnet2_cls_msg or pointnet_cls) on the ModelNet tree under
     ``args.data_root``; returns ``(state, best instance accuracy)``
@@ -284,7 +345,6 @@ def train_cls(args, device: torch.device):
         make_multi_train_step,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
-    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
 
     npoint = args.npoint or 1024
     use_normals = not args.no_normals
@@ -300,7 +360,7 @@ def train_cls(args, device: torch.device):
     model, family = cls_model(args.model, train_ds.num_classes, use_normals, _dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
-    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family)
+    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family, ctx=ctx)
     weights = torch.ones(train_ds.num_classes, device=device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
     resumed = ckpt.restore_latest()
@@ -310,12 +370,11 @@ def train_cls(args, device: torch.device):
         start_epoch = resumed["epoch"]
         log.info("resumed from epoch %d", start_epoch)
 
-    logp_fn = make_logp_step(model, device, family)
+    logp_fn = dp_map(make_logp_step(model, device, family), ctx)
     # FPS starts and dropout masks of every step, drawn on the device
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    events = EventLog(f"{args.log_dir}/events.jsonl")
-    tb = SummaryLogger(f"{args.log_dir}/tb")
-    put = make_batch_put(device, depth)
+    events, tb = _writers(args, ctx)
+    put = _rank_setup(args, ctx, state, make_batch_put(device, depth), batch_size)
     best_acc = 0.0
     for epoch in range(start_epoch, args.epochs):
         lr = cls_lr(epoch, base=args.learning_rate or 0.001)
@@ -346,7 +405,7 @@ def train_cls(args, device: torch.device):
                          class_accuracy=class_acc)
             tb.scalars(epoch, instance_accuracy=inst_acc, class_accuracy=class_acc)
             best_acc = max(best_acc, inst_acc)
-            ckpt.save(epoch + 1, state.payload(), miou=inst_acc)
+            _save(ctx, ckpt, epoch + 1, state, inst_acc)
     events.close()
     tb.close()
     log.info("best instance accuracy %.4f", best_acc)
@@ -358,7 +417,7 @@ def partseg_lr(epoch: int, *, base: float = 0.001) -> float:
     return max(base * (0.5 ** (epoch // 20)), 1e-5)
 
 
-def train_partseg(args, device: torch.device):
+def train_partseg(args, device: torch.device, ctx=None):
     """Train the part-seg net ``args.model`` (pointnet2_part_seg,
     pointnet2_part_seg_msg or pointnet_part_seg) on the ShapeNetPart tree
     under ``args.data_root``; returns ``(state, best instance mIoU)`` (JAX
@@ -390,7 +449,6 @@ def train_partseg(args, device: torch.device):
         make_multi_train_step,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
-    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
 
     npoint = args.npoint or 2048
     use_normals = not args.no_normals
@@ -415,7 +473,7 @@ def train_partseg(args, device: torch.device):
     model, family = cls_model(args.model, NUM_PART_CLASSES, use_normals, _dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
-    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family)
+    multi_step = make_multi_train_step(model, weighted_nll_loss, family=family, ctx=ctx)
     weights = torch.ones(NUM_PART_CLASSES, device=device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
     resumed = ckpt.restore_latest()
@@ -425,12 +483,11 @@ def train_partseg(args, device: torch.device):
         start_epoch = resumed["epoch"]
         log.info("resumed from epoch %d", start_epoch)
 
-    logp_fn = make_logp_step(model, device, family)
+    logp_fn = dp_map(make_logp_step(model, device, family), ctx)
     # FPS starts and dropout masks of every step, drawn on the device
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    events = EventLog(f"{args.log_dir}/events.jsonl")
-    tb = SummaryLogger(f"{args.log_dir}/tb")
-    put = make_batch_put(device, depth)
+    events, tb = _writers(args, ctx)
+    put = _rank_setup(args, ctx, state, make_batch_put(device, depth), batch_size)
     best_miou = 0.0
     for epoch in range(start_epoch, args.epochs):
         lr = partseg_lr(epoch, base=args.learning_rate or 0.001)
@@ -462,14 +519,14 @@ def train_partseg(args, device: torch.device):
             tb.scalars(epoch, instance_miou=metrics["instance_miou"],
                        accuracy=metrics["accuracy"])
             best_miou = max(best_miou, metrics["instance_miou"])
-            ckpt.save(epoch + 1, state.payload(), miou=metrics["instance_miou"])
+            _save(ctx, ckpt, epoch + 1, state, metrics["instance_miou"])
     events.close()
     tb.close()
     log.info("best instance mIoU %.4f", best_miou)
     return state, best_miou
 
 
-def train_randla(args, device: torch.device):
+def train_randla(args, device: torch.device, ctx=None):
     """Train RandLA-Net on the clouds prepared under ``args.randla_dir``
     (``cli.prepare``) for the ``--randla_dataset`` preset; returns
     ``(state, best mIoU)``. ``args`` carries ``cli.train``'s flags
@@ -501,7 +558,6 @@ def train_randla(args, device: torch.device):
         randla_family,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
-    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
 
     preset = randla_dataset_preset(args.randla_dataset)
@@ -527,7 +583,7 @@ def train_randla(args, device: torch.device):
                       d_in=6 if preset.has_colors else 3, dtype=_dtype(args))
     init_parameters(model, torch.Generator().manual_seed(args.seed))
     state = TrainState(model.to(device))
-    family = randla_family(cfg)
+    family = randla_family(cfg, sp=ctx if getattr(args, "shard_points", 1) > 1 else None)
     # the label table goes to the device once, so that no step waits on a copy
     loss_fn = (partial(weighted_softmax_ce_loss,
                        label_table=torch.from_numpy(preset.label_table()).to(device))
@@ -536,8 +592,8 @@ def train_randla(args, device: torch.device):
     adv_fn = _maybe_adv_fn(args, model, family, ignored_labels=preset.ignored_labels,
                            num_classes=num_classes)
     multi_step = make_multi_train_step(model, loss_fn, weight_decay=0.0, family=family,
-                                       adv_fn=adv_fn)
-    eval_fn = make_eval_step(model, device, family)
+                                       adv_fn=adv_fn, ctx=ctx)
+    eval_fn = dp_map(make_eval_step(model, device, family), ctx)
     # the reference's weights of the preset's dataset (`helper_tool.py:245-261`)
     weights = torch.from_numpy(get_class_weights(preset.weights_key)).to(device)
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints")
@@ -549,9 +605,8 @@ def train_randla(args, device: torch.device):
         log.info("resumed from epoch %d", start_epoch)
 
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)  # dropout masks
-    events = EventLog(f"{args.log_dir}/events.jsonl")
-    tb = SummaryLogger(f"{args.log_dir}/tb")
-    put = make_batch_put(device, depth)
+    events, tb = _writers(args, ctx)
+    put = _rank_setup(args, ctx, state, make_batch_put(device, depth), batch_size)
     best_miou = 0.0
     for epoch in range(start_epoch, args.epochs):
         lr = randla_lr(epoch, base=base_lr, decay=cfg.lr_decay)
@@ -584,14 +639,14 @@ def train_randla(args, device: torch.device):
         events.write("eval", epoch=epoch, miou=m.miou, accuracy=m.accuracy)
         tb.scalars(epoch, miou=m.miou, accuracy=m.accuracy)
         best_miou = max(best_miou, m.miou)
-        ckpt.save(epoch + 1, state.payload(), miou=m.miou)
+        _save(ctx, ckpt, epoch + 1, state, m.miou)
     events.close()
     tb.close()
     log.info("best mIoU %.4f", best_miou)
     return state, best_miou
 
 
-def train_resgcn(args, device: torch.device):
+def train_resgcn(args, device: torch.device, ctx=None):
     """Train ResGCN-28 on the rooms under ``args.data_root``; returns
     ``(state, None)`` (the loop does not evaluate, as in the JAX package).
     ``args`` carries ``cli.train``'s flags (data_root, log_dir, test_area,
@@ -612,7 +667,6 @@ def train_resgcn(args, device: torch.device):
         resgcn_family,
     )
     from pointsecguard_tpu_torch.utils.checkpoint import CheckpointManager
-    from pointsecguard_tpu_torch.utils.logging import EventLog, SummaryLogger
 
     cfg = ResgcnConfig()
     rooms = RoomSet.load(args.data_root, "train", args.test_area)
@@ -635,10 +689,10 @@ def train_resgcn(args, device: torch.device):
     # torch.optim.Adam without weight decay (`sem_seg_dense/train.py:31`)
     family = resgcn_family()
     multi_step = make_multi_train_step(model, ce_loss, weight_decay=0.0, family=family,
-                                       adv_fn=_maybe_adv_fn(args, model, family))
+                                       adv_fn=_maybe_adv_fn(args, model, family), ctx=ctx)
     device_epoch = _device_epoch_fn(args, rooms, len(sampler), device, batch_size,
                                     args.npoint or cfg.num_point, multi_step.step,
-                                    augment_z=False)
+                                    augment_z=False, ctx=ctx)
     spc = _steps_per_call(args)
     ones = torch.ones(13, device=device)  # the loss reads no class weights
     ckpt = CheckpointManager(f"{args.log_dir}/checkpoints", keep="latest")
@@ -651,9 +705,8 @@ def train_resgcn(args, device: torch.device):
 
     # stochastic dilation (epsilon > 0) and dropout draws of every step
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    events = EventLog(f"{args.log_dir}/events.jsonl")
-    tb = SummaryLogger(f"{args.log_dir}/tb")
-    put = make_batch_put(device, depth)
+    events, tb = _writers(args, ctx)
+    put = _rank_setup(args, ctx, state, make_batch_put(device, depth), batch_size)
     for epoch in range(start_epoch, args.epochs):
         lr = resgcn_lr(epoch, base=args.learning_rate or cfg.lr)
         t0 = time.time()
@@ -670,7 +723,7 @@ def train_resgcn(args, device: torch.device):
         events.write("epoch", epoch=epoch, lr=lr, loss=mean_loss,
                      nan_batches=nan_batches, batches=n_batches, seconds=seconds)
         tb.scalars(epoch, loss=mean_loss, learning_rate=lr)
-        ckpt.save(epoch + 1, state.payload(), miou=-mean_loss)
+        _save(ctx, ckpt, epoch + 1, state, -mean_loss)
     events.close()
     tb.close()
     return state, None

@@ -203,16 +203,18 @@ def cls_model(name: str, num_classes: int, use_normals: bool = True,
             family)
 
 
-def randla_family(cfg: RandlaConfig | None = None) -> Family:
+def randla_family(cfg: RandlaConfig | None = None, sp=None) -> Family:
     """RandLA-Net: the plan is ``build_pyramid`` of the config's depth,
     the head the logits. Its BatchNorm keep fraction is fixed at 0.99, as
     the JAX model's (`pointsecguard_tpu/models/randlanet.py:321-328`
-    drops the trainer's momentum), so ``apply`` reads no ``bn_momentum``."""
+    drops the trainer's momentum), so ``apply`` reads no ``bn_momentum``.
+    ``sp``: the rank context of a ``--shard_points`` run, whose pyramid
+    runs the points-sharded kNN (``build_pyramid(sp=...)``)."""
     cfg = cfg or RandlaConfig()
 
     def plan(points, generator=None, start_idx=None):
         return build_pyramid(points[..., :3], num_layers=cfg.num_layers, k=cfg.k_n,
-                             sub_ratios=cfg.sub_sampling_ratio)
+                             sub_ratios=cfg.sub_sampling_ratio, sp=sp)
 
     def apply(model, points, pyramid, bn_momentum=None, **kw):
         return model(points, pyramid, **kw)
@@ -310,6 +312,7 @@ def make_train_step(
     weight_decay: float = 1e-4,
     family: Family = POINTNET2,
     adv_fn: Callable | None = None,
+    ctx=None,
 ) -> Callable:
     """Build ``train_step(state, points, labels, class_weights, lr,
     bn_momentum, generator=None, *, start_idx=None, dropout_mask=None,
@@ -336,11 +339,48 @@ def make_train_step(
     RandLA's NaN catch that ended the run, `RandLANet.py:237-247`). The
     returned loss still reports the bad value, so that the epoch loop can
     count it.
+
+    ``ctx`` (a ``parallel.RankContext``): one rank of a data-parallel step.
+    ``points`` and ``labels`` are the rank's rows of the global batch (and
+    under ``--shard_points`` its shard of their points axis, which is
+    all-gathered over the points group first: the whole clouds run on every
+    rank of the group). The head — under ``--shard_points`` the rank's
+    points shard of it — and the labels are gathered into the global batch
+    (``parallel.gather_for_loss``), so that every rank computes the one
+    global loss, whose class-weight sum or point count is the global one,
+    and its backward reaches the rank's parameters through its own rows
+    only; the gradient is then summed over the ranks before the update.
+    BatchNorm takes global statistics (``parallel.sync_batchnorm``). So
+    every rank applies the same update to the same parameters, and the
+    step equals the one-process step on the whole batch.
     """
+    from pointsecguard_tpu_torch.parallel.spmd_ops import (
+        all_gather,
+        all_reduce_sum,
+        gather_for_loss,
+        points_shard,
+        sync_batchnorm,
+    )
+
+    sp = ctx is not None and ctx.points_size > 1
+    if ctx is not None:
+        sync_batchnorm(model, ctx)
+
+    def global_loss(out, labels, class_weights):
+        # without a ctx every gather is the tensor itself: the one-process loss
+        head = gather_for_loss(points_shard(family.head(out), ctx) if sp else family.head(out),
+                               ctx, per_point=sp)
+        loss = loss_fn(head, gather_for_loss(labels, ctx), class_weights)
+        if family.aux_loss is not None:  # per-sample outputs, replicated over points
+            loss = loss + family.aux_loss((head, *(gather_for_loss(o, ctx) for o in out[1:])))
+        return loss
 
     def train_step(state: TrainState, points, labels, class_weights, lr,
                    bn_momentum, generator=None, *, start_idx=None,
                    dropout_mask=None, geometry=None):
+        if sp:
+            points = all_gather(points, ctx.points_group, dim=1)
+            labels = all_gather(labels, ctx.points_group, dim=1)
         if adv_fn is not None:
             points = adv_fn(points, labels, generator)
         model.train()
@@ -351,10 +391,9 @@ def make_train_step(
         state.grads.zero_()
         out = family.apply(model, points, geometry, bn_momentum,
                            generator=generator, dropout_mask=dropout_mask)
-        loss = loss_fn(family.head(out), labels, class_weights)
-        if family.aux_loss is not None:
-            loss = loss + family.aux_loss(out)
+        loss = global_loss(out, labels, class_weights)
         loss.backward()
+        all_reduce_sum(state.grads, ctx)
         adam_update(state, lr, weight_decay=weight_decay)
         ok = torch.isfinite(loss.detach())
         with torch.no_grad():

@@ -5,6 +5,12 @@ decides so: it raises when there is no card and never picks the CPU
 quietly. The CPU runs only where a caller names it (``--device cpu`` in
 the CLI, the CPU tests), and then every kernel wrapper takes its plain
 PyTorch version because its tensors lie on the CPU.
+
+A rank of a data-parallel run (``parallel/mesh.py``) also records here
+which slice of the global batch it holds (``set_data_slice``). The batch's
+random draws (FPS starts, dropout masks, the attacks' random starts and
+noise) go through ``batch_draw``, which then draws for the global batch and
+keeps the rank's rows, so that N ranks draw what one process draws.
 """
 
 from __future__ import annotations
@@ -34,22 +40,46 @@ def set_float32_modes() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def require_cuda() -> torch.device:
-    """The first CUDA device, or RuntimeError when there is none."""
+def require_cuda(index: int = 0) -> torch.device:
+    """CUDA device ``index`` (the first by default), or RuntimeError when
+    there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on an NVIDIA GPU "
             "(pass --device cpu to run the plain PyTorch path explicitly)"
         )
     set_float32_modes()
-    return torch.device("cuda", 0)
+    return torch.device("cuda", index)
 
 
-def resolve_device(name: str) -> torch.device:
-    """``"cuda"`` → ``require_cuda()``; ``"cpu"`` → the CPU, by request."""
+def resolve_device(name: str, index: int = 0) -> torch.device:
+    """``"cuda"`` → ``require_cuda(index)``; ``"cpu"`` → the CPU, by request."""
     if name == "cuda":
-        return require_cuda()
+        return require_cuda(index)
     if name == "cpu":
         set_float32_modes()
         return torch.device("cpu")
     raise ValueError(f"unknown device {name!r} (cuda | cpu)")
+
+
+# (rank along the data axis, size of the data axis) of this process
+_data_slice = (0, 1)
+
+
+def set_data_slice(rank: int, size: int) -> None:
+    """Record that this process holds rows ``rank`` of ``size`` equal
+    slices of every global batch (``parallel.mesh.init_rank``)."""
+    global _data_slice
+    _data_slice = (rank, size)
+
+
+def batch_draw(draw, shape) -> torch.Tensor:
+    """``draw(shape)`` for a tensor whose leading axis is this process's
+    slice of the batch: the draw is made for the global batch (the leading
+    axis times the data size) and the rank's rows are kept, so the values
+    do not depend on how many ranks share the batch."""
+    rank, size = _data_slice
+    if size == 1:
+        return draw(tuple(shape))
+    b = shape[0]
+    return draw((b * size, *shape[1:]))[rank * b : (rank + 1) * b]

@@ -212,19 +212,20 @@ def test_benchmark_cls_modes(trained, flags, tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags", [
-    (attack_cli, ["--model", "pointnet2_part_seg", "--devices", "2"]),
+    (attack_cli, ["--model", "pointnet2_part_seg", "--devices", "2", "--num_category", "10"]),
     (attack_cli, ["--model", "pointnet2_part_seg_msg", "--num_category", "10"]),
     (attack_cli, ["--origin", "3"]),
-    (attack_cli, ["--devices", "2"]),
-    (train_cli, ["--model", "pointnet2_part_seg_msg", "--devices", "2"]),
-    (train_cli, ["--model", "pointnet_cls", "--devices", "2"]),
+    (attack_cli, ["--devices", "2", "--origin", "3"]),
+    (train_cli, ["--model", "pointnet2_part_seg_msg", "--devices", "2", "--remat"]),
+    (train_cli, ["--model", "pointnet_cls", "--devices", "2", "--device_sampler"]),
     (train_cli, ["--model", "pointnet2", "--no_normals"]),
     (eval_cli, ["--model", "resgcn", "--num_category", "10"]),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_refused_flags_and_part_seg_models(cli, flags, tmp_path):
-    """What stays refused: ``--devices`` (the part-seg nets included, which
-    are ported), ``--origin`` with a classifier, and the object tasks' data
-    flags with models that do not read them."""
+    """What stays refused: ``--origin`` with a classifier, the object tasks'
+    data flags with models that do not read them, and the training extras
+    that their loops do not read — with ``--devices`` too, which the object
+    tasks take (tests/test_torch_parallel_*.py)."""
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
 

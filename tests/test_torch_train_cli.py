@@ -160,11 +160,13 @@ _TRAIN_REFUSED = [
     # resgcn is ported, --remat with it too; --profile, which the JAX resgcn
     # loop ignores, is refused with it
     pytest.param(["--model", "resgcn", "--profile", "trace"], id="--model resgcn"),
-    # the classifiers are ported; several devices, which their run would take, are not
-    pytest.param(["--model", "pointnet2_cls", "--devices", "2"],
+    # the classifiers are ported, with several devices too; --remat, which
+    # their loop does not read, is not
+    pytest.param(["--model", "pointnet2_cls", "--devices", "2", "--remat"],
                  id="--model pointnet2_cls"),
-    # the part-seg nets are ported; several devices, which their run would take, are not
-    pytest.param(["--model", "pointnet2_part_seg", "--devices", "2"],
+    # the part-seg nets are ported, with several devices too; --profile,
+    # which their loop does not read, is not
+    pytest.param(["--model", "pointnet2_part_seg", "--devices", "2", "--profile", "trace"],
                  id="--model pointnet2_part_seg"),
     # the training extras are ported (tests/test_torch_{multi_step,device_sampler,
     # adv_train,remat}.py); each is refused with a model, a dataset or a flag
@@ -177,7 +179,14 @@ _TRAIN_REFUSED = [
     # the --adv_* budget without --adv_train nb
     ["--adv_eps", "0.2"], ["--adv_alpha", "0.01"],
     ["--adv_iters", "3"], ["--adv_rand_init", "0.1"],
-    ["--devices", "2"], ["-d", "4"], ["--shard_points", "2"], ["--remat"],
+    # --devices and --shard_points are ported (tests/test_torch_parallel_*.py):
+    # the extras their models do not read stay refused with them
+    pytest.param(["--devices", "2", "--model", "randla", "--device_sampler"],
+                 id="--devices 2"),
+    pytest.param(["-d", "4", "--model", "pointnet_cls", "--device_sampler"], id="-d 4"),
+    pytest.param(["--shard_points", "2", "--devices", "2", "--device_sampler_exact"],
+                 id="--shard_points 2"),
+    ["--remat"],
     pytest.param(["--model", "randla", "--profile", "trace"], id="--profile trace"),
     ["--model", "randla", "--randla_dataset", "semantickitti", "--adv_train", "nb"],
     ["--model", "pointnet_part_seg", "--adv_train", "nb"],
@@ -192,11 +201,18 @@ _TRAIN_REFUSED = [
 _EVAL_REFUSED = [
     # resgcn is ported; its subsample dilation (--resgcn_fast) is not
     pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
-    pytest.param(["--model", "pointnet_cls", "--devices", "2"], id="--model pointnet_cls"),
-    pytest.param(["--model", "pointnet_part_seg", "--shard_points", "2"],
+    # the object tasks take --devices (tests/test_torch_parallel_*.py);
+    # --save_preds, RandLA's, is refused with them, and --shard_points in the
+    # JAX CLI's words (tests/test_torch_parallel_mesh.py)
+    pytest.param(["--model", "pointnet_cls", "--devices", "2", "--save_preds", "out"],
+                 id="--model pointnet_cls"),
+    pytest.param(["--model", "pointnet_part_seg", "--devices", "2", "--resgcn_fast"],
                  id="--model pointnet_part_seg"),
     # --save_preds is RandLA's (PLYs of reprojected clouds)
-    ["--save_preds", "out"], ["--devices", "2"], ["--shard_points", "2"],
+    ["--save_preds", "out"],
+    pytest.param(["--devices", "2", "--resgcn_fast"], id="--devices 2"),
+    pytest.param(["--shard_points", "2", "--devices", "2", "--save_preds", "out"],
+                 id="--shard_points 2"),
     ["--num_category", "10"], ["--no_normals"],
     ["--resgcn_blocks", "3"], ["--resgcn_k", "8"], ["--resgcn_filters", "32"],
     ["--resgcn_block_type", "plain"], ["--resgcn_conv", "edge"],
