@@ -125,7 +125,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     reference's distance; the attentive backward with dW at the step's
     shapes against plain, timed.
 24. Training through ``cli.train.main --model randla`` at full width: batch
-    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 50 steps
+    6 × 40960 on the train cloud prepared at 0.04 m, 3 epochs of 40 steps
     and 4 validation clouds, one more epoch on resume; every loss finite,
     no skipped batch, the last epoch's loss below the first's, exactly 10
     kNN launches per optimizer step and per validation cloud, no epoch
@@ -150,13 +150,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     kernel and ``torch.topk``, equal and timed (a kernel phase), printed
     as a record of its own on a ``{"selection": [...]}`` line, not in the
     kernel records: ``bottom_k`` never launches on this route.
-28. ResGCN card vs CPU on one block: every block's graph rebuilt on the
+28. ResGCN card vs CPU on 2048 points of one block: every block's graph rebuilt on the
     CPU from the card's features equal to the card's except in near-tie
     rows; on the card's graphs, logits and colour gradient of the card no
     further from a float64 evaluation than twice the CPU's float32, and
     card vs CPU logits within 4e-4 of the largest.
 29. ResGCN NB through ``cli.attack.main --model resgcn`` on a random-weight
-    checkpoint, 8 blocks at batch 8, 50 iterations: 4 kNN launches per
+    checkpoint, 4 blocks at batch 4, 50 iterations: 4 kNN launches per
     forward, adversarial accuracy below clean, ms/block, peak memory.
 30. ResGCN NU through the C&W engine on one batch, the preset cut to
     ``RESGCN_NU_STEPS`` steps: one ``bottom_k`` launch a step, 4 kNN a
@@ -215,8 +215,9 @@ Phases 42-46 drive the attack CLIs' protocol flags:
     run after 5): the self-kNN over xyz of [8, 4096, 3] and [4, 40960, 3]
     at k = 8, equal to plain, card, eager and plain ms, bound and share
     (the ``resample`` entry of the knn record).
-43. On the trained SSG of phase 17, two batches of 8 blocks each (ms a
-    block of the second) through ``cli.attack.main``: NB without flags,
+43. On the trained SSG of phase 17, ``PROTOCOL_BATCHES`` batches of 8
+    blocks each (ms a block of the last) through ``cli.attack.main``: NB
+    without flags,
     NB ``--control --log_steps`` (adversarial accuracy below
     ``rand_acc``), NB ``--control --log_steps --defense resample --eot 2
     --visual`` (exactly 25 kNN launches a batch: the deployed defense's
@@ -241,14 +242,14 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
 
 47. ``cli.attack --attack nb`` on the trained SSG (phase 17) with ``--ensemble
     pointnet2_msg:<MSG log> --ensemble pointnet:<PointNet log>:0.5`` (phase
-    39's logs), two batches of 8 × 4096 under ``--ensemble_mode probs`` and
+    39's logs), ``PROTOCOL_BATCHES`` batches of 8 × 4096 under ``--ensemble_mode probs`` and
     ``log_probs``: exactly 8 FPS (4 SSG + 4 MSG) and 20 bottom-k (8 + 12)
     launches a batch, ms a block beside NB alone; a self-ensemble's clean
     accuracy equal to the single model's.
 48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch of 8 ×
     4096 a call: ``--mode prediction``, then ``--mode attack`` with fgsm,
-    bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples 16
-    --iters 10``) and nattack (its own 100 × 16): ms and forwards a batch,
+    bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples 32``
+    and ``16``, ``--iters 20``) and nattack (16 × ``NATTACK_ITERS``): ms and forwards a batch,
     queries per second of the score-based three, adversarial accuracy and
     success; 4 FPS and 8 bottom-k launches a batch whatever the query
     count (C&W: one more bottom-k a step).
@@ -300,7 +301,7 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     weights, 8 × 1024 × 6 shapes: log-probabilities and the xyz gradient
     through the moving geometry (the card's indices, centres regathered
     from the leaf), in float32 and float64, against the CPU's float64.
-58. ``cli.train`` (24 a batch, 12 epochs, an eval every 4) and ``cli.eval``
+58. ``cli.train`` (24 a batch, 8 epochs, an eval every 4) and ``cli.eval``
     for each classifier (instance accuracy ≥ ``CLS_EVAL_ACC_FLOOR``, the
     trainer's figure; one geometry's launches a step and an eval batch),
     then ``cli.attack_object`` on the trained SSG: NB and NB
@@ -435,6 +436,26 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
 78. An NCCL group at ``torch.cuda.device_count()`` ranks, one card each:
     an all-reduce and ``knn_points_sharded`` through it; with one card the
     line says that NCCL across cards was not run.
+79. (a kernel phase, after 27) ``--resgcn_fast``: a full-width ResGCN-28
+    forward in subsample mode launches ``psg::knn`` 28 times and makes no
+    large-k selection; its 26 subsample graphs ([8, 4096, 64] queries
+    against the stride-d candidates, d = 2 … 27, 2048 down to 152 rows, k
+    = 16) each equal to ``knn_plain`` but in near-tie rows, with card,
+    eager and plain ms, bound and share; a forward's ms in both modes.
+80. (after 34) ``cli.attack --model resgcn --resgcn_fast --attack nb`` and
+    ``cli.eval --resgcn_fast`` on the trained ResGCN-28: 28 kNN launches a
+    forward, adversarial accuracy below clean, ms per NB iteration beside
+    the exact mode's; one forward's graphs and logits card against CPU.
+81. (with 75–77, on the first two of their four ranks) ``cli.benchmark
+    --devices 2`` on the trained SSG in the modes prediction, attack (pgd,
+    nes), distortion and worstcase, and ``cli.attack --control --log_steps
+    --devices 2``, each held to the one-process run of phases 48, 49 or 43
+    (``result_gap`` within ``DP_BENCH_POINTS`` / ``DP_BENCH_FLOAT``: the
+    ranks' half-size GEMMs round apart on the card).
+
+Phases 75–77 and 81 run on one start of four gloo ranks of the card: the
+four-rank programs first, then the two-rank ones on ranks 0 and 1 while
+ranks 2 and 3 wait (``parallel.dryrun.programs``).
 
 Every kernel's time is given twice: ``ms`` is its time on the card alone
 (``device_ms``: the launches are queued behind a spin kernel, so the
@@ -451,8 +472,8 @@ the launch counters of the slice phases.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
-``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56,
-60 and 72 and exits 1. Every phase prints its seconds (``phase N: … s``).
+``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 79, 35,
+56, 60 and 72 and exits 1. Every phase prints its seconds (``phase N: … s``).
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -466,6 +487,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -505,15 +527,16 @@ TRAIN_LR = 0.003
 # 2/13 is twice the chance of 13 classes
 EVAL_ACC_FLOOR = 0.3
 # RandLA training: the config's batch of 6 × 40960 points on the train
-# cloud prepared at 0.04 m, 50 steps and 4 validation clouds an epoch, 3
+# cloud prepared at 0.04 m, 40 steps and 4 validation clouds an epoch, 3
 # epochs and one more on resume, the config's lr 1e-2. BatchNorm keeps
 # 0.99 of its running statistics a step, so after 30 steps they are still
 # 74 % the initial ones and evaluation-mode accuracy stays near chance
 # (0.21 on the Area-5 cloud); after 200, 13 %. (100 steps an epoch until
 # the part-seg phases came: validation accuracy 0.78 after 200 steps and
 # eval 0.9885 after 400 on an H100, against the floor of 0.3; 70 until the
-# export phases came: 0.8531 after 210)
-RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 50, 4
+# export phases came: 0.8531 after 210; 50 until --resgcn_fast's phases
+# came: 0.9367 after 200)
+RANDLA_TRAIN_BATCH, RANDLA_TRAIN_STEPS, RANDLA_VAL_STEPS = 6, 40, 4
 RANDLA_TRAIN_EPOCHS = 3
 # the card-vs-CPU step: the CPU's plain pyramid of 2 × 40960 points takes
 # ~100 s on 8 cores (the stable sort of 40960-wide rows), of 2 × 16384 ~15 s
@@ -532,7 +555,11 @@ ATT_TRAIN_SHAPES = ((16, RANDLA_TRAIN_BATCH * RANDLA_POINTS, 8),
 
 # ResGCN-28 at full width: 28 blocks, 64 filters, k = 16, 188 tensors
 RESGCN_STATE_FLOATS = 3_651_469
-RESGCN_BATCH, RESGCN_BLOCKS, RESGCN_TAR_BLOCKS = 8, 8, 2
+# RESGCN_BLOCKS: the NB runs of phases 29, 34, 46 and 80 attack one batch
+# of 4 blocks (8 until the script's wall neared its limit; the kernel
+# phases keep the batch of 8)
+RESGCN_BATCH, RESGCN_BLOCKS, RESGCN_TAR_BLOCKS = 8, 4, 2
+RESGCN_REFERENCE_POINTS = 2048  # phase 28's card-vs-CPU cloud
 RESGCN_NU_STEPS = 10  # the NU phase cuts the preset's 1000 C&W steps to this
 # training: one train room at 25k points/m² (97 sampler blocks, 13 steps an
 # epoch at 8 × 4096), the config's constant lr 1e-3, 3 epochs and one more
@@ -2872,9 +2899,11 @@ def block_inputs(model, points: torch.Tensor) -> tuple[dict, tuple]:
     return inputs, graphs
 
 
-def near_tie_check(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor):
-    """Rows of a kNN graph of ``x`` [B, N, D] where ``got`` and ``want``
-    differ, and how many of them differ by more than a near-tie. A row's
+def near_tie_check(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor,
+                   points: torch.Tensor | None = None):
+    """Rows of a kNN graph of the queries ``x`` [B, N, D] among ``points``
+    [B, M, D] (``x`` itself by default) where ``got`` and ``want`` differ,
+    and how many of them differ by more than a near-tie. A row's
     difference is a near-tie when ``got`` holds no index twice and the
     distances (the plain version's ``square_distance``, on ``x``'s device)
     of ``got``'s neighbours equal those of ``want``'s position by position
@@ -2884,6 +2913,7 @@ def near_tie_check(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor):
     differ by more than a near-tie)."""
     from pointsecguard_tpu_torch.ops.distance import square_distance
 
+    points = x if points is None else points
     got = got.to(want.device)
     rows = (got != want).any(-1).nonzero()
     bad = 0
@@ -2893,8 +2923,8 @@ def near_tie_check(x: torch.Tensor, got: torch.Tensor, want: torch.Tensor):
         g, w = got[b, s].to(x.device).long(), want[b, s].to(x.device).long()
         b, s = b.to(x.device), s.to(x.device)
         q = x[b, s][:, None, :]
-        d = square_distance(q, x[b])[:, 0]  # [m, N]
-        p2 = (x[b[:, None], torch.cat([g, w], 1)] ** 2).sum(-1).amax(-1)
+        d = square_distance(q, points[b])[:, 0]  # [m, M]
+        p2 = (points[b[:, None], torch.cat([g, w], 1)] ** 2).sum(-1).amax(-1)
         scale = (q[:, 0] ** 2).sum(-1) + p2
         apart = (d.gather(1, g) - d.gather(1, w)).abs().amax(-1) > 4 * eps * scale
         srt = g.sort(-1).values
@@ -2995,10 +3025,119 @@ def phase_resgcn_kernels(dev, records, data: str) -> dict:
             "per_forward": sums, "per_k": large}
 
 
+RESGCN_FAST = {"dilated_mode": "subsample", "knn_strategy": "approx"}  # --resgcn_fast
+RESGCN_FAST_LAUNCHES = 28  # psg::knn a forward: the head, DynConv_0 and 26 subsample graphs
+
+
+def resgcn_fast_model(sd: dict, dev):
+    from pointsecguard_tpu_torch.models import DenseDeepGCN
+
+    model = DenseDeepGCN(**RESGCN_FAST)
+    model.load_state_dict(sd)
+    return model.to(dev).eval()
+
+
+def fast_forward_launches(model, points: torch.Tensor) -> tuple[dict, list]:
+    """The launch counts of one no-grad forward of ``model`` and the k of
+    every large-k selection it made (``ops.selection``'s stable sort, the
+    route of k > 48: none in subsample mode)."""
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops import selection
+
+    sorts, real = [], selection.bottom_k_plain
+    selection.bottom_k_plain = lambda v, k: sorts.append(k) or real(v, k)
+    try:
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            model(points)
+        torch.cuda.synchronize()
+        return kernels.launch_counts(), sorts
+    finally:
+        selection.bottom_k_plain = real
+
+
+def phase_resgcn_fast_kernels(dev, records, data: str) -> dict:
+    """79. ``--resgcn_fast``'s graphs on the kNN kernel: one forward of the
+    full-width ResGCN-28 in subsample mode (phase 27's seeded weights and
+    8 blocks) launches ``psg::knn`` 28 times and no other kernel, and makes
+    no large-k selection; each of its 26 subsample graphs (DynConv_{d-1}
+    for d = 2 … 27: the block's [8, 4096, 64] input features against
+    the stride-d candidates [8, ⌈4096/d⌉, 64], k = 16: 2048 down to 152
+    rows, most of them no multiple of the kernel's 64-point tile) against
+    ``knn_plain`` on the same inputs, equal but in near-tie rows, and equal
+    to the model's own graph; card, eager and plain ms, bound and share of
+    each and of their sum; a no-grad forward's card ms in both modes."""
+    from pointsecguard_tpu_torch.ops.cuda import bounds, knn
+
+    blocks, _ = resgcn_room_batch(data, RESGCN_BATCH, dev)
+    sd = resgcn_state_dict(0, blocks)
+    fast, exact = resgcn_fast_model(sd, dev), resgcn_model(sd, dev)
+    counts, sorts = fast_forward_launches(fast, blocks)
+    if counts["knn"] != RESGCN_FAST_LAUNCHES or sorts or \
+            any(v for k, v in counts.items() if k != "knn"):
+        raise AssertionError(f"a --resgcn_fast forward launched {counts} and sorted at k = "
+                             f"{sorts}; want {RESGCN_FAST_LAUNCHES} knn and no sort")
+    inputs, graphs = block_inputs(fast, blocks)
+    B, N, _ = blocks.shape
+    rows, total = [], bounds.Work()
+    for i in range(1, len(fast.backbone)):
+        d = 1 + i
+        x = inputs[i].contiguous()
+        cand = x[:, ::d].contiguous()
+        got, want = knn.knn(x, cand, fast.k), knn.knn_plain(x, cand, fast.k)
+        torch.cuda.synchronize()
+        differ, bad = near_tie_check(x, got[1], want[1], cand)
+        if bad or not torch.equal(got[1] * d, graphs[1 + i]):
+            raise AssertionError(f"knn DynConv_{i} subsample d={d} {tuple(cand.shape)}: {bad} "
+                                 f"of {differ} rows apart from plain not near-ties, or the "
+                                 "model's graph is another")
+        if not differ and not torch.equal(got[0], want[0]):
+            raise AssertionError(f"knn DynConv_{i} subsample: equal indices, other distances")
+        work = bounds.knn(B, N, cand.shape[1], x.shape[2], fast.k)
+        total = total + work
+        rec = {"call": f"DynConv_{i}", "d": d, "query": list(x.shape),
+               "points": list(cand.shape), "k": fast.k,
+               "ms": device_ms(lambda: knn.knn(x, cand, fast.k), reps=5),
+               "eager_ms": cuda_ms(lambda: knn.knn(x, cand, fast.k), reps=10),
+               "plain_ms": cuda_ms(lambda: knn.knn_plain(x, cand, fast.k), reps=2),
+               "bound_ms": work.bound_ms, "bound_by": work.bound_by,
+               "rows_differ": differ}
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        rows.append(rec)
+    forward_ms = {name: cuda_ms(lambda m=m: fast_forward(m, blocks), reps=3)
+                  for name, m in (("exact", exact), ("fast", fast))}
+    out = {"unit": f"26 subsample graphs of one ResGCN-28 --resgcn_fast forward of "
+                   f"[{B}, {N}] (DynConv_1 … _26, d = 2 … 27, k = {fast.k})",
+           "ms": sum(r["ms"] for r in rows), "eager_ms": sum(r["eager_ms"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": total.bound_ms,
+           "bound_by": total.bound_by, "launches_per_forward": counts["knn"],
+           "large_k_sorts_per_forward": len(sorts), "forward_ms": forward_ms, "calls": rows}
+    out["share"] = out["bound_ms"] / out["ms"]
+    records["knn"]["resgcn_fast_forward"] = out
+    print("resgcn --resgcn_fast knn, per call (d, candidates, card / eager / plain ms, bound, "
+          "share): " + json.dumps([(r["d"], r["points"][1], round(r["ms"], 4),
+                                    round(r["eager_ms"], 4), round(r["plain_ms"], 3),
+                                    round(r["bound_ms"], 4), round(r["share"], 3))
+                                   for r in rows]))
+    print(f"resgcn --resgcn_fast: {counts['knn']} psg::knn launches and {len(sorts)} large-k "
+          f"sorts a forward; the 26 subsample graphs {out['ms']:.4f} ms on the card "
+          f"({out['eager_ms']:.4f} eager, plain {out['plain_ms']:.3f}), bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}), share {out['share']:.3f}; "
+          f"{sum(r['rows_differ'] for r in rows)} rows differ from plain, all near-ties; a "
+          f"no-grad forward {forward_ms['fast']:.3f} ms against {forward_ms['exact']:.3f} exact")
+    return out
+
+
+def fast_forward(model, points: torch.Tensor):
+    with torch.no_grad():
+        return model(points)
+
+
 def phase_resgcn_reference(dev) -> dict:
-    """28. Card vs CPU, full-width ResGCN-28 with seeded weights on one
-    4096-point block (two until the part-seg phases came; the CPU's float64
-    run of the 24 large-k graphs is most of the phase): every block's
+    """28. Card vs CPU, full-width ResGCN-28 with seeded weights on the
+    first 2048 points of one block (two 4096-point blocks until the
+    part-seg phases came, one until the script's wall neared its limit; the
+    CPU's float64 run of the 24 large-k graphs is most of the phase): every block's
     graph built on the CPU from the card's input
     features equal to the card's, except in near-tie rows. On the card's
     graphs (``graphs=``), the logits and the colour gradient (of the
@@ -3016,7 +3155,7 @@ def phase_resgcn_reference(dev) -> dict:
 
     blocks = train_blocks(dev, 8)
     sd = resgcn_state_dict(1, blocks)
-    pts = blocks[[0]].contiguous()
+    pts = blocks[[0], :RESGCN_REFERENCE_POINTS].contiguous()
     model = resgcn_model(sd, dev)
     inputs, graphs = block_inputs(model, pts)
     differ, bad, total = 0, 0, 0
@@ -3060,8 +3199,9 @@ def phase_resgcn_reference(dev) -> dict:
 
 def phase_resgcn_nb(dev, records, data: str) -> dict:
     """29. NB through ``cli.attack.main --model resgcn`` on a random-weight
-    checkpoint (BatchNorm statistics from one forward), 8 blocks of the
-    Area-5 room at batch 8, the preset's 50 iterations: exactly 4 kNN
+    checkpoint (BatchNorm statistics from one forward over 8 blocks),
+    ``RESGCN_BLOCKS`` blocks of the Area-5 room in one batch, the
+    preset's 50 iterations: exactly 4 kNN
     launches per forward the CLI runs (the clean forward, one per
     iteration, PGD's last and the adversarial prediction's), finite
     output, adversarial accuracy below clean; ms/block, peak memory."""
@@ -3073,7 +3213,7 @@ def phase_resgcn_nb(dev, records, data: str) -> dict:
     log = os.path.join(WORK, "resgcn_log")
     save_checkpoint(log, resgcn_state_dict(0, blocks))
     argv = ["--model", "resgcn", "--attack", "nb", "--data_root", data, "--log_dir", log,
-            "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+            "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BLOCKS),
             "--max_blocks", str(RESGCN_BLOCKS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3310,11 +3450,9 @@ def phase_resgcn_eval(data: str, log: str, records) -> dict:
     checkpoint at the default batch of 16: accuracy on the Area-5 room at
     or above ``RESGCN_EVAL_ACC_FLOOR``, 4 kNN launches a batch."""
     from pointsecguard_tpu_torch.cli import eval as cli
-    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
     from pointsecguard_tpu_torch.ops import cuda as kernels
 
-    n_blocks = WholeSceneBlocks(RoomSet.load(data, "test", 5), block_points=NUM_POINT
-                                ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+    n_blocks = room_block_count(data)
     batches = -(-n_blocks // 16)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3350,7 +3488,7 @@ def phase_resgcn_attack_trained(data: str, log: str) -> dict:
     base = ["--model", "resgcn", "--data_root", data, "--log_dir", log,
             "--num_point", str(NUM_POINT)]
     clean_m, adv_m = attack.main(base + ["--attack", "nb", "--save_adv", "--batch_size",
-                                         str(RESGCN_BATCH), "--max_blocks", str(RESGCN_BLOCKS)])
+                                         str(RESGCN_BLOCKS), "--max_blocks", str(RESGCN_BLOCKS)])
     rows = read_tsv(os.path.join(log, "resgcn_nb_area5.tsv"))
     clean = float(np.mean([float(r["clean_acc"]) for r in rows]))
     adv = float(np.mean([float(r["adv_acc"]) for r in rows]))
@@ -3395,9 +3533,108 @@ def phase_resgcn_attack_trained(data: str, log: str) -> dict:
     return stats
 
 
+def phase_resgcn_fast(dev, records, data: str, log: str, exact: dict) -> dict:
+    """80. ``--resgcn_fast`` through the CLIs on the trained ResGCN-28
+    (phase 32's checkpoint, in a log of its own): ``cli.attack --attack nb``
+    on ``RESGCN_BLOCKS`` blocks in one batch, 28 kNN launches a forward (the clean forward,
+    the 50 iterations, PGD's last and the adversarial prediction) and no
+    other kernel, adversarial accuracy below clean, ms a block and per NB
+    iteration beside phase 34's exact run (``exact``); ``cli.eval
+    --num_votes 1``, 28 kNN launches a batch, accuracy beside phase 33's.
+    Then one block's forward card against CPU: every graph the CPU builds
+    from the card's block inputs equal to the card's but in near-tie rows,
+    and the logits on the card's graphs within 4e-4 of the largest (phase
+    28's bound)."""
+    from pointsecguard_tpu_torch import ops
+    from pointsecguard_tpu_torch.cli import attack, eval as cli_eval
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
+
+    fast_log = os.path.join(WORK, "resgcn_fast_log")
+    shutil.rmtree(fast_log, ignore_errors=True)
+    shutil.copytree(os.path.join(log, "checkpoints"), os.path.join(fast_log, "checkpoints"))
+    base = ["--model", "resgcn", "--resgcn_fast", "--data_root", data, "--log_dir", fast_log,
+            "--num_point", str(NUM_POINT)]
+    kernels.reset_launch_counts()
+    clean_m, adv_m = attack.main(base + ["--attack", "nb", "--batch_size", str(RESGCN_BLOCKS),
+                                         "--max_blocks", str(RESGCN_BLOCKS)])
+    torch.cuda.synchronize()
+    nb_counts = kernels.launch_counts()
+    rows = read_tsv(os.path.join(fast_log, "resgcn_nb_area5.tsv"))
+    S = max(int(r["steps"]) for r in rows)
+    ms_block = float(np.mean([1e3 * float(r["time_s"]) for r in rows]))
+    clean = float(np.mean([float(r["clean_acc"]) for r in rows]))
+    adv = float(np.mean([float(r["adv_acc"]) for r in rows]))
+    if len(rows) != RESGCN_BLOCKS or not all(math.isfinite(v) for v in (clean, adv, ms_block)) \
+            or not adv < clean:
+        raise AssertionError(f"resgcn --resgcn_fast nb: {len(rows)} rows, clean {clean}, "
+                             f"adv {adv}")
+    if nb_counts["knn"] != RESGCN_FAST_LAUNCHES * (S + 3) or \
+            any(v for k, v in nb_counts.items() if k != "knn"):
+        raise AssertionError(f"resgcn --resgcn_fast nb launches {nb_counts} over {S} "
+                             f"iterations, want knn {RESGCN_FAST_LAUNCHES} × ({S} + 3)")
+    n_blocks = room_block_count(data)
+    kernels.reset_launch_counts()
+    m = cli_eval.main(base + ["--num_votes", "1"])
+    torch.cuda.synchronize()
+    eval_counts = kernels.launch_counts()
+    if not math.isfinite(m.miou) or eval_counts["knn"] != RESGCN_FAST_LAUNCHES * -(-n_blocks // 16):
+        raise AssertionError(f"resgcn --resgcn_fast eval: {m}, launches {eval_counts}")
+    _record_path(records, "knn", "resgcn nb --resgcn_fast", nb_counts["knn"],
+                 "resgcn --resgcn_fast forward", RESGCN_FAST_LAUNCHES)
+    _record_path(records, "knn", "resgcn eval --resgcn_fast", eval_counts["knn"])
+
+    # one block, card against CPU
+    pts, _ = resgcn_room_batch(data, 1, dev)
+    sd = load_checkpoint(fast_log)
+    card = resgcn_fast_model(sd, dev)
+    cpu = resgcn_fast_model(sd, torch.device("cpu"))
+    inputs, graphs = block_inputs(card, pts)
+    want = [ops.dense_knn_graph(pts[..., :3].cpu(), card.k)] + [
+        cpu.backbone[i](inputs[i].cpu())[1] for i in range(len(card.backbone))]
+    feats = [pts[..., :3]] + [inputs[i] for i in range(len(card.backbone))]
+    differ = bad = 0
+    for x, g, w in zip(feats, graphs, want):
+        d, b = near_tie_check(x.cpu(), g.cpu(), w)
+        differ, bad = differ + d, bad + b
+    with torch.no_grad():
+        on_card = card(pts, graphs=graphs).cpu()
+        on_cpu = cpu(pts.cpu(), graphs=tuple(g.cpu() for g in graphs))
+    scale = on_cpu.abs().max().item()
+    logits_err = (on_card - on_cpu).abs().max().item() / scale
+    ms_iter = {"fast": ms_block * RESGCN_BLOCKS / S,
+               "exact": exact["ms_per_block"] * RESGCN_BLOCKS / S}
+    stats = {"nb": {"blocks": len(rows), "iters": S, "clean_acc": clean, "adv_acc": adv,
+                    "ms_per_block": ms_block, "ms_per_block_exact": exact["ms_per_block"],
+                    "ms_per_nb_iteration": ms_iter, "launches": nb_counts,
+                    "clean_miou": clean_m.miou, "adv_miou": adv_m.miou},
+             "eval": {"accuracy": m.accuracy, "miou": m.miou, "launches": eval_counts},
+             "card_vs_cpu": {"graph_rows": sum(g.shape[1] for g in graphs),
+                             "rows_differ": differ, "rows_not_near_tie": bad,
+                             "logits_over_largest": logits_err}}
+    print("resgcn --resgcn_fast on the trained checkpoint: " + json.dumps(stats))
+    print(f"resgcn NB ms per iteration (batch {RESGCN_BLOCKS}, fwd + bwd): --resgcn_fast "
+          f"{ms_iter['fast']:.2f} against exact {ms_iter['exact']:.2f}")
+    if bad or not logits_err <= 4e-4 or not torch.isfinite(on_card).all():
+        raise AssertionError("the card's --resgcn_fast ResGCN disagrees with the CPU's")
+    return stats
+
+
+def room_block_count(data: str) -> int:
+    """The Area-5 room's count of 4096-point blocks (cli.eval's)."""
+    from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
+
+    return WholeSceneBlocks(RoomSet.load(data, "test", 5), block_points=NUM_POINT
+                            ).room_blocks(0, np.random.default_rng(0))[0].shape[0]
+
+
 # --- the attack CLIs' protocol flags (phases 42-46) -----------------------
 
-PROTOCOL_BATCHES = 2  # of 8 blocks: the second batch's time is the warm one
+# batches of 8 blocks a protocol run (2 until the script's wall neared its
+# limit, the second timed warm; the SSG is warm from phases 17-19 by then)
+PROTOCOL_BATCHES = 1
+STEPS_FLAGS = ["--attack", "nb", "--control", "--log_steps"]  # phase 43's, again in 81
+STEPS_TSV = os.path.join(WORK, "one_process_steps.tsv")  # its _steps.tsv, for phase 81
 RESAMPLE_K = 8  # --defense_knn's default: the resample defense's self-kNN
 
 
@@ -3470,8 +3707,8 @@ def _protocol_run(data: str, log: str, flags: list, model: str = "pointnet2") ->
 
 def phase_protocol_blocks(data: str, log: str, records) -> list[dict]:
     """43. The protocol flags on the trained full-width SSG (phase 17's
-    checkpoint), two batches of 8 × 4096 blocks each (ms a block of the
-    second), through ``cli.attack.main``: NB without flags (the yardstick), NB ``--control
+    checkpoint), ``PROTOCOL_BATCHES`` batches of 8 × 4096 blocks each (ms a
+    block of the last), through ``cli.attack.main``: NB without flags (the yardstick), NB ``--control
     --log_steps`` (the attack must beat its equal-norm control, as
     ``tools/run_demo.py``'s verdict requires), NB ``--control --log_steps
     --defense resample --eot 2 --visual`` (exactly 2 + 2 × 11 + 1 = 25 kNN
@@ -3481,7 +3718,7 @@ def phase_protocol_blocks(data: str, log: str, records) -> list[dict]:
     ``jitter`` and ``jpeg`` (no kNN), and ``--attack random``."""
     runs = []
     for flags in (["--attack", "nb"],
-                  ["--attack", "nb", "--control", "--log_steps"],
+                  STEPS_FLAGS,
                   ["--attack", "nb", "--control", "--log_steps", "--defense", "resample",
                    "--eot", "2", "--visual"],
                   ["--attack", "nb", "--defense", "bit_depth"],
@@ -3500,6 +3737,8 @@ def phase_protocol_blocks(data: str, log: str, records) -> list[dict]:
             if len(steps) != 10 * n or stats["steps"] != 10:
                 raise AssertionError(f"{flags}: {len(steps)} steps rows, want {10 * n}")
             stats["steps_rows"] = len(steps)
+            if flags == STEPS_FLAGS:  # phase 81's one-process run
+                shutil.copy(os.path.join(log, "pointnet2_nb_area5_steps.tsv"), STEPS_TSV)
         if "--visual" in flags:
             vis = sorted(os.listdir(os.path.join(log, "visual")))
             if len(vis) != 6:
@@ -3666,7 +3905,7 @@ def phase_resgcn_fixed(data: str, records, dynamic: dict) -> dict:
 
     log = os.path.join(WORK, "resgcn_log")
     argv = ["--model", "resgcn", "--attack", "nb", "--data_root", data, "--log_dir", log,
-            "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BATCH),
+            "--num_point", str(NUM_POINT), "--batch_size", str(RESGCN_BLOCKS),
             "--max_blocks", str(RESGCN_BLOCKS), "--resgcn_fixed_graphs"]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3698,12 +3937,14 @@ def phase_resgcn_fixed(data: str, records, dynamic: dict) -> dict:
 # phases 47-51: the ensemble victim and the ares benchmark layer
 BENCH_BLOCKS = 8  # one batch of 8 × 4096 blocks per cli.benchmark call
 # --samples of phase 48's score-based attacks at --iters SCORE_ITERS
-# (nattack: its own 100 × 16). At 16 × 10 NES left one training run's SSG
+# (nattack: NATTACK_ITERS × 16). At 16 × 10 NES left one training run's SSG
 # (phase 17) at accuracy 0.9416 over its clean 0.9406, and the phase's
 # check (adversarial accuracy at most clean) failed; at 32 × 20 NES took
 # another run's from 0.9637 to 0.9578, SPSA to 0.9540 (an H100 80GB HBM3
 # at 700 W)
-SCORE_BUDGET, SCORE_ITERS = {"nes": 32, "spsa": 32}, 20
+# (SPSA 16 × 20 and NAttack 50 × 16 since the script's wall neared its limit)
+SCORE_BUDGET, SCORE_ITERS = {"nes": 32, "spsa": 16}, 20
+NATTACK_ITERS = 50  # phase 48's NAttack iterations (its own default 100)
 BENCH_CW_STEPS = 200
 # phase 50's NES / SPSA budget and MIM's iterations
 REFERENCE_SAMPLES, REFERENCE_ITERS, REFERENCE_MIM_ITERS = 4, 3, 10
@@ -3712,7 +3953,7 @@ REFERENCE_SAMPLES, REFERENCE_ITERS, REFERENCE_MIM_ITERS = 4, 3, 10
 def phase_ensemble(data: str, logs: dict, records) -> dict:
     """47. ``cli.attack --attack nb`` on the trained SSG (phase 17) with
     ``--ensemble pointnet2_msg:<MSG log> --ensemble pointnet:<PointNet
-    log>:0.5`` (phases 39), two batches of 8 × 4096 under ``--ensemble_mode
+    log>:0.5`` (phases 39), ``PROTOCOL_BATCHES`` batches of 8 × 4096 under ``--ensemble_mode
     probs`` and then ``log_probs``: exactly 4 + 4 FPS and 8 + 12 bottom-k
     launches a batch (each PointNet++ member's geometry once a batch, shared
     by the eval and attack closures), ms a block beside NB alone; then a
@@ -3799,7 +4040,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
     """48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch
     of 8 × 4096 a call: ``--mode prediction``, then ``--mode attack`` with
     fgsm, bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples
-    32 --iters 20``, ``SCORE_BUDGET``) and nattack (its own 100 × 16): ms a batch, forwards a
+    32`` and ``16 --iters 20``, ``SCORE_BUDGET``) and nattack (16 × ``NATTACK_ITERS``): ms a batch, forwards a
     batch, queries per second for the score-based three (forwards × blocks
     / wall), adversarial accuracy and success rate. 4 FPS and 8 bottom-k
     launches a batch whatever the query count (C&W adds one bottom-k a
@@ -3811,6 +4052,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
     ys, _, preds = pred["out"]
     runs = {"prediction": {"main_wall_s": pred["main_wall_s"], "forwards": pred["forwards"],
                            "acc": float((preds == ys).mean()), "launches": pred["launches"]}}
+    outputs = {"prediction": pred["out"]}  # for phase 81
     if pred["forwards"] != 1 or (pred["launches"]["fps"], pred["launches"]["bottom_k"]) != (4, 8):
         raise AssertionError(f"prediction: {pred['forwards']} forwards, {pred['launches']}")
     total = {"fps": 4, "bottom_k": 8}
@@ -3820,6 +4062,8 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
             flags += ["--cw_steps", str(BENCH_CW_STEPS)]
         if name in SCORE_BUDGET:
             flags += ["--samples", str(SCORE_BUDGET[name]), "--iters", str(SCORE_ITERS)]
+        if name == "nattack":
+            flags += ["--iters", str(NATTACK_ITERS)]
         r = _bench_cli(_bench_argv(data, log, *flags), PointNet2SemSegSSG)
         acc, acc_adv, tot, succ, dist = r["out"]
         counts = r["launches"]
@@ -3832,7 +4076,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
         # the clean forward, the queries and the final forward
         want_forwards = {"nes": 2 + 2 * SCORE_BUDGET.get("nes", 0) * SCORE_ITERS,
                          "spsa": 2 + 2 * SCORE_BUDGET.get("spsa", 0) * SCORE_ITERS,
-                         "nattack": 2 + 16 * NAttackConfig(eps=0.0).iters}.get(name)
+                         "nattack": 2 + NAttackConfig(eps=0.0).samples * NATTACK_ITERS}.get(name)
         print(f"benchmark {name}: " + json.dumps(stats))
         if want_forwards is not None and r["forwards"] != want_forwards:
             raise AssertionError(f"{name}: {r['forwards']} forwards, want {want_forwards}")
@@ -3845,6 +4089,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
         if not stats["adv_acc"] <= stats["acc"]:
             raise AssertionError(f"{name}: adversarial accuracy above clean")
         runs[name] = stats
+        outputs[name] = r["out"]
         if name != "cw":
             for k in total:
                 total[k] += counts[k]
@@ -3856,7 +4101,7 @@ def phase_benchmark_registry(data: str, log: str, records) -> dict:
         {k: round(v["ms_per_batch"], 3) for k, v in runs.items() if "ms_per_batch" in v}))
     print("benchmark queries/s: " + json.dumps(
         {k: round(v["queries_per_s"], 1) for k, v in runs.items() if "queries_per_s" in v}))
-    return runs
+    return outputs
 
 
 def phase_benchmark_sweeps(data: str, log: str) -> dict:
@@ -3895,12 +4140,13 @@ def phase_benchmark_sweeps(data: str, log: str) -> dict:
     robust, per_attack, combined = r["out"]
     out["worstcase"] = {"robust_acc": robust, "per_attack": per_attack,
                         "s": time.perf_counter() - t0, "launches": r["launches"]}
+    outputs = {"distortion": (eps, details), "worstcase": r["out"]}
     if (r["launches"]["fps"], r["launches"]["bottom_k"]) != (8, 16):
         raise AssertionError(f"worstcase launches {r['launches']}, want fps 8, bottom_k 16")
     if not robust <= 1.0 - max(v["succ_rate"] for v in per_attack.values()) + 1e-12:
         raise AssertionError(f"worstcase: robust accuracy {robust} above an attack's")
     print("benchmark sweeps: " + json.dumps(out))
-    return out
+    return outputs
 
 
 def phase_score_reference(dev, log: str) -> dict:
@@ -4555,7 +4801,9 @@ def phase_semantickitti(dev, records, preps: dict) -> dict:
 CLS_POINTS, CLS_BATCH, CLS_TRAIN_BATCH = 1024, 16, 24
 CLS_FILE_POINTS, CLS_TRAIN_PER_CLASS, CLS_TEST_PER_CLASS = 2048, 24, 8
 CLS_MODELS = ("pointnet2_cls", "pointnet2_cls_msg", "pointnet_cls")
-CLS_TRAIN_EPOCHS, CLS_EVAL_EVERY, CLS_TRAIN_LR = 12, 4, 0.003
+# (12 epochs until the script's wall neared its limit: instance accuracy
+# 1.0 from the eval after epoch 8 on)
+CLS_TRAIN_EPOCHS, CLS_EVAL_EVERY, CLS_TRAIN_LR = 8, 4, 0.003
 # instance accuracy the trained classifiers must reach on the 32 test
 # shapes of the 4-class fixture, set before the first run: twice chance
 CLS_EVAL_ACC_FLOOR = 0.5
@@ -5157,7 +5405,7 @@ def run_cls_phases(dev, records) -> dict:
     print(f"phase 57: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     logs = {model: phase_cls_train_eval(dev, records, model)[0] for model in CLS_MODELS}
-    # xyz alone is the harder task: at the classifiers' 12 epochs and lr
+    # xyz alone is the harder task: at 12 epochs and lr
     # 3e-3 its loss swung 0.006 – 0.24 and eval reached 0.34 on an H100;
     # 24 epochs at the JAX CLI's default lr 1e-3 here
     log_xyz, _ = phase_cls_train_eval(dev, records, "pointnet2_cls", normals=False,
@@ -6980,6 +7228,62 @@ SP_RANKS = (2, 4)  # phase 75's points ranks
 DP_TRAIN_LR, DP_LOSS_RTOL, DP_EVAL_ATOL = 1e-5, 1e-5, 1e-3
 
 
+# phase 81: what the two ranks' cli.benchmark and --log_steps runs may part
+# from one process's on the card, where each rank's GEMMs are half the size
+# and round apart: the share of per-point (per-sample) integer and boolean
+# outcomes that differ, and the largest difference of a float (relative
+# above 1, absolute below)
+DP_BENCH_POINTS, DP_BENCH_FLOAT = 0.02, 0.05
+# phase 81's cli.benchmark runs: the flags of phase 48's or 49's run
+DP_BENCH_RUNS = {
+    "prediction": ["--mode", "prediction"],
+    "pgd": ["--mode", "attack", "--attack_name", "pgd"],
+    "nes": ["--mode", "attack", "--attack_name", "nes", "--samples", str(SCORE_BUDGET["nes"]),
+            "--iters", str(SCORE_ITERS)],
+    "distortion": ["--mode", "distortion", "--attack_name", "pgd"],
+    "worstcase": ["--mode", "worstcase", "--attack_names", "pgd,nes"]}
+
+
+def result_gap(got, want) -> dict:
+    """How far two nested results of one harness lie apart, over every
+    leaf of their dicts, lists and tuples: ``points``, the largest share of
+    the integer and boolean entries of a leaf that differ; ``float``, the
+    largest |a − b| / max(|b|, 1) of a float entry (equal infinities
+    equal); ``shape``, whether the two differ in structure or length."""
+    gap = {"points": 0.0, "float": 0.0, "shape": False}
+
+    def walk(g, w):
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or sorted(g) != sorted(w):
+                gap["shape"] = True
+                return
+            for k in w:
+                walk(g[k], w[k])
+        elif isinstance(w, (list, tuple)) and not all(
+                isinstance(v, (int, float, bool, np.generic)) for v in w):
+            if not isinstance(g, (list, tuple)) or len(g) != len(w):
+                gap["shape"] = True
+                return
+            for a, b in zip(g, w):
+                walk(a, b)
+        elif w is None or isinstance(w, str):
+            gap["shape"] |= g != w
+        else:
+            a, b = np.asarray(g), np.asarray(w)
+            if a.shape != b.shape:
+                gap["shape"] = True
+            elif b.size and b.dtype.kind in "biu":
+                gap["points"] = max(gap["points"], float((a != b).mean()))
+            elif b.size:
+                same = (a == b) | (np.isnan(a) & np.isnan(b))
+                with np.errstate(invalid="ignore"):
+                    d = np.where(same, 0.0, np.abs(a - b) / np.maximum(np.abs(b), 1.0))
+                gap["float"] = max(gap["float"], float(np.nan_to_num(d, nan=np.inf).max()))
+
+    walk(got, want)
+    return gap
+
+
 def _gloo_mesh(n: int, points: int = 1):
     from pointsecguard_tpu_torch.parallel import make_mesh
 
@@ -7004,15 +7308,19 @@ def _train_events(log: str) -> tuple:
             [e for e in events if e["event"] == "eval"])
 
 
-def phase_parallel(dev, records, prep: str, train_data: str) -> dict:
-    """Phases 75–77. The one-process runs come first, in this process; then
-    two starts of ranks on the card carry every multi-rank program: four
-    ranks as 2 × 2 (phase 75's 1 × 4 pyramid on a points view of them,
-    phase 76's dry run) and two as 1 × 2 (phase 75's 1 × 2 pyramid, phase
-    77's RandLA NB with ``--shard_points 2`` and, on a data view of the
-    same ranks, its SSG ``cli.train --devices 2``). Each phase prints its
-    seconds: its one-process runs and its programs on the ranks (the
-    slowest rank); the two start-ups print theirs.
+def phase_parallel(dev, records, prep: str, train_data: str, train_log: str,
+                   one_process: dict) -> dict:
+    """Phases 75–77 and 81. The one-process runs come first, in this
+    process (phase 81's were made by phases 43, 48 and 49: ``one_process``)
+    while one start of four ranks on the card gets ready (they wait for
+    ``ranks_go`` before they run anything on it); then these ranks carry every
+    multi-rank program: as 2 × 2 phase 75's 1 × 4 pyramid (on a points view of them)
+    and phase 76's dry run, then on the first two ranks alone
+    (``dryrun.programs``' ``ranks``; the other two wait) phase 75's 1 × 2
+    pyramid, phase 77's RandLA NB with ``--shard_points 2`` and, on a data
+    view of the two, its SSG ``cli.train --devices 2`` and phase 81's runs.
+    Each phase prints its seconds: its one-process runs and its programs on
+    the ranks (the slowest rank); the start-up prints its own.
 
     75. ``knn_points_sharded`` at RandLA's pyramid shapes: the pyramid of
         one sampler batch of [4, 40960] clouds built with the points axis
@@ -7040,36 +7348,35 @@ def phase_parallel(dev, records, prep: str, train_data: str) -> dict:
         clouds with ``--devices 2 --shard_points 2`` against the one-process
         run of the same clouds and checkpoint (phase 7's, the reference
         pooling), both under ``torch.use_deterministic_algorithms``: the TSV
-        equal, ``time_s`` aside; 10 kNN launches a rank a batch."""
+        equal, ``time_s`` aside; 10 kNN launches a rank a batch.
+    81. ``cli.benchmark --devices 2`` (``cli.benchmark._benchmark`` on the
+        data view) on the trained SSG, one batch of 8 × 4096, each run
+        with phase 48's or 49's arguments and held to its one-process
+        result there (``result_gap``: at most ``DP_BENCH_POINTS`` of the
+        per-point outcomes differ, floats within ``DP_BENCH_FLOAT``):
+        ``--mode prediction`` (ys equal), ``attack`` pgd and nes, ``distortion``
+        pgd and ``worstcase`` pgd,nes; 4 FPS and 8 bottom-k launches a rank
+        and batch, whatever the queries (8 and 16 for the worst case). And
+        ``cli.attack --attack nb --control --log_steps --devices 2`` on two
+        batches, held to phase 43's run of the same flags: the
+        ``_steps.tsv`` rank 0 writes has its rows, acc and sr within
+        ``DP_BENCH_FLOAT``, l2 within ``DP_BENCH_FLOAT`` relative."""
     from pointsecguard_tpu_torch.ops.cuda import bounds, knn
     from pointsecguard_tpu_torch.parallel import spawn
     from pointsecguard_tpu_torch.parallel import dryrun
 
-    seconds = {75: 0.0, 76: 0.0, 77: 0.0}
-    # the one-process runs
-    t0 = time.perf_counter()
+    seconds = {75: 0.0, 76: 0.0, 77: 0.0, 81: 0.0}
+    # the ranks' inputs first: the ranks start up (imports, CUDA, groups)
+    # while this process makes the one-process runs, and wait for a file
+    # before they touch the card
     xyz = randla_batch(prep, dev)[..., :3].contiguous()
     xyz_np = xyz.cpu().numpy()
     B, N, _ = xyz_np.shape
-    one = dryrun.pyramid_timing_program(None, xyz_np)
-    if one["launches"] != 10:
-        raise AssertionError(f"one-process pyramid: {one['launches']} kNN launches, want 10")
-    plain = {n: cuda_ms(lambda: knn.knn_plain(xyz[:, : N // n].contiguous(), xyz, 16),
-                        reps=1, warmup=0) for n in (1, *SP_RANKS)}
-    seconds[75] += time.perf_counter() - t0
-    t0 = time.perf_counter()
     inp = dryrun.dryrun_inputs(2, 4)
-    one_dry = dryrun.dryrun_programs(None, inp, "cuda")
-    seconds[76] += time.perf_counter() - t0
-    t0 = time.perf_counter()
     log1, log2 = (os.path.join(WORK, f"dp_train_{n}") for n in (1, 2))
     train_argv = ["--model", "pointnet2", "--data_root", train_data, "--npoint",
                   str(NUM_POINT), "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
                   "--learning_rate", str(DP_TRAIN_LR)]
-    _, counts1 = dryrun.cli_program(None, "train", train_argv + ["--log_dir", log1])
-    # RandLA NB, one process and ranks alike under deterministic algorithms:
-    # the gathers' backward otherwise adds with atomics, in an order that
-    # moves PGD's sign steps from one run to the next on one process too
     ref_log, sp_log = (os.path.join(WORK, d) for d in ("randla_dp_ref_log", "randla_sp_log"))
     for d in (ref_log, sp_log):
         shutil.rmtree(d, ignore_errors=True)
@@ -7077,31 +7384,80 @@ def phase_parallel(dev, records, prep: str, train_data: str) -> dict:
                         os.path.join(d, "checkpoints"))
     attack_argv = ["--model", "randla", "--attack", "nb", "--randla_dir", prep,
                    "--num_clouds", str(RANDLA_CLOUDS), "--batch_size", str(RANDLA_BATCH)]
-    dryrun.cli_program(None, "attack", attack_argv + ["--log_dir", ref_log], True)
-    attack_argv += ["--log_dir", sp_log, "--devices", "2", "--shard_points", "2"]
-    seconds[77] += time.perf_counter() - t0
+    # phase 81's arguments: phase 48's and 49's runs, and phase 43's
+    # --control --log_steps in a log of its own
+    steps_log = os.path.join(WORK, "dp_steps_log")
+    shutil.rmtree(steps_log, ignore_errors=True)
+    shutil.copytree(os.path.join(train_log, "checkpoints"), os.path.join(steps_log, "checkpoints"))
+    two = ["--devices", "2"]
+    bench_argv = {name: _bench_argv(train_data, train_log, *flags, *two)
+                  for name, flags in DP_BENCH_RUNS.items()}
+    bench_argv["prediction"] += ["--output", os.path.join(WORK, "dp_predictions.npz")]
+    steps_argv = ["--model", "pointnet2", "--data_root", train_data, "--log_dir", steps_log,
+                  "--num_point", str(NUM_POINT), "--batch_size", str(BATCH), "--max_blocks",
+                  str(PROTOCOL_BATCHES * BATCH), *STEPS_FLAGS, *two]
+    go = os.path.join(WORK, "ranks_go")
+    # four ranks, 2 × 2; then the first two alone
+    pair = {"ranks": 2}
+    data_pair = {"ranks": 2, "view": "data"}
+    calls = [("wait_program", (go,), {}),
+             ("pyramid_timing_program", (xyz_np,), {"view": "points"}),
+             ("dryrun_programs", (inp, "cuda"), {}),
+             ("pyramid_timing_program", (xyz_np,), pair),
+             ("cli_program", ("attack", attack_argv + ["--log_dir", sp_log, *two,
+                                                       "--shard_points", "2"], True), pair),
+             ("cli_program", ("train", train_argv + ["--log_dir", log2, *two]), data_pair),
+             *(("cli_program", ("benchmark", argv), data_pair) for argv in bench_argv.values()),
+             ("cli_program", ("attack", steps_argv), data_pair)]
+    box: dict = {}
 
-    # the ranks share the card with this process: its cached blocks go first
-    torch.cuda.empty_cache()
-    # four ranks, 2 × 2
-    t0 = time.perf_counter()
-    ranks4 = spawn(dryrun.timed_programs, _gloo_mesh(4, 2),
-                   ([("pyramid_timing_program", (xyz_np,), {"view": "points"}),
-                     ("dryrun_programs", (inp, "cuda"), {})],))
-    start4 = time.perf_counter() - t0 - max(sum(t for _, t in r) for r in ranks4)
-    seconds[75] += max(r[0][1] for r in ranks4)
+    def run_ranks():
+        try:
+            box["ranks"] = spawn(dryrun.timed_programs, _gloo_mesh(4, 2), (calls,))
+        except BaseException as e:  # raised again below, in this thread
+            box["error"] = e
+
+    spawned = time.perf_counter()
+    ranks_thread = threading.Thread(target=run_ranks)
+    ranks_thread.start()
+    try:
+        # the one-process runs
+        t0 = time.perf_counter()
+        one = dryrun.pyramid_timing_program(None, xyz_np)
+        if one["launches"] != 10:
+            raise AssertionError(f"one-process pyramid: {one['launches']} kNN launches, "
+                                 "want 10")
+        plain = {n: cuda_ms(lambda: knn.knn_plain(xyz[:, : N // n].contiguous(), xyz, 16),
+                            reps=1, warmup=0) for n in (1, *SP_RANKS)}
+        seconds[75] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one_dry = dryrun.dryrun_programs(None, inp, "cuda")
+        seconds[76] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, counts1 = dryrun.cli_program(None, "train", train_argv + ["--log_dir", log1])
+        # RandLA NB, one process and ranks alike under deterministic
+        # algorithms: the gathers' backward otherwise adds with atomics, in
+        # an order that moves PGD's sign steps from one run to the next on
+        # one process too
+        dryrun.cli_program(None, "attack", attack_argv + ["--log_dir", ref_log], True)
+        seconds[77] += time.perf_counter() - t0
+    finally:
+        # the ranks share the card with this process: its cached blocks go
+        # first
+        torch.cuda.empty_cache()
+        open(go, "w").close()
+        ranks_thread.join()
+    if "error" in box:
+        raise box["error"]
+    wall = time.perf_counter() - spawned
+    ranks = [r[1:] for r in box["ranks"]]
+    waited = max(r[0][0] for r in box["ranks"])
+    start = wall - waited - max(sum(t for _, t in r) for r in ranks)
+    ranks4, ranks2 = ranks, [r[2:] for r in ranks[:2]]
+    seconds[75] += max(r[0][1] for r in ranks4) + max(r[0][1] for r in ranks2)
     seconds[76] += max(r[1][1] for r in ranks4)
-    # two ranks, 1 × 2
-    t0 = time.perf_counter()
-    ranks2 = spawn(dryrun.timed_programs, _gloo_mesh(2, 2),
-                   ([("pyramid_timing_program", (xyz_np,), {}),
-                     ("cli_program", ("attack", attack_argv, True), {}),
-                     ("cli_program", ("train", train_argv + ["--log_dir", log2,
-                                                             "--devices", "2"]),
-                      {"view": "data"})],))
-    start2 = time.perf_counter() - t0 - max(sum(t for _, t in r) for r in ranks2)
-    seconds[75] += max(r[0][1] for r in ranks2)
     seconds[77] += max(r[1][1] + r[2][1] for r in ranks2)
+    seconds[81] += max(sum(t for _, t in r[3:]) for r in ranks2)
 
     # 75
     t0 = time.perf_counter()
@@ -7185,7 +7541,59 @@ def phase_parallel(dev, records, prep: str, train_data: str) -> dict:
           "cuda:0, gloo): TSV equal to the one-process run's, time_s aside; "
           + json.dumps(out["randla_nb"]))
     seconds[77] += time.perf_counter() - t0
-    print(f"rank start-ups: 4 ranks {start4:.1f} s, 2 ranks {start2:.1f} s")
+
+    # 81
+    t0 = time.perf_counter()
+    gaps, bench_counts = {}, {"fps": 0, "bottom_k": 0}
+    for i, name in enumerate(bench_argv):
+        for r, rank in enumerate(ranks2):
+            (result, counts), _ = rank[3 + i]
+            per = 2 if name == "worstcase" else 1
+            if (counts["fps"], counts["bottom_k"], counts["knn"]) != (4 * per, 8 * per, 0):
+                raise AssertionError(f"benchmark {name} --devices 2, rank {r}: launches "
+                                     f"{counts}, want fps {4 * per} and bottom_k {8 * per}")
+            for k in bench_counts:
+                bench_counts[k] += counts[k]
+            gap = result_gap(result, one_process["benchmark"][name])
+            gaps.setdefault(name, []).append(gap)
+            if gap["shape"] or gap["points"] > DP_BENCH_POINTS or gap["float"] > DP_BENCH_FLOAT:
+                raise AssertionError(f"benchmark {name} --devices 2, rank {r}: {gap} from the "
+                                     f"one-process run (bounds {DP_BENCH_POINTS}, "
+                                     f"{DP_BENCH_FLOAT})")
+    ys_one = one_process["benchmark"]["prediction"][0]
+    with np.load(os.path.join(WORK, "dp_predictions.npz")) as f:
+        if not np.array_equal(f["ys"], ys_one):
+            raise AssertionError("benchmark prediction --devices 2: rank 0's ys differ")
+    for k, v in bench_counts.items():
+        _record_path(records, k, "pointnet2 benchmark --devices 2", v)
+    steps_counts = [r[8][0][1] for r in ranks2]
+    for r, counts in enumerate(steps_counts):
+        if (counts["fps"], counts["bottom_k"]) != (4 * PROTOCOL_BATCHES, 8 * PROTOCOL_BATCHES):
+            raise AssertionError(f"nb --log_steps --devices 2, rank {r}: launches {counts}")
+    for k in ("fps", "bottom_k"):
+        _record_path(records, k, "pointnet2 nb --log_steps --devices 2",
+                     sum(c[k] for c in steps_counts))
+    got = read_tsv(os.path.join(steps_log, "pointnet2_nb_area5_steps.tsv"))
+    want = read_tsv(one_process["steps_tsv"])
+    steps_gap = {c: max((abs(float(a[c]) - float(b[c])) / max(abs(float(b[c])), 1.0)
+                         for a, b in zip(got, want)), default=0.0) for c in ("acc", "sr", "l2")}
+    if len(got) != len(want) or len(got) != 10 * PROTOCOL_BATCHES or \
+            [(a["block"], a["iter"]) for a in got] != [(b["block"], b["iter"]) for b in want] \
+            or max(steps_gap.values()) > DP_BENCH_FLOAT:
+        raise AssertionError(f"nb --log_steps --devices 2: {len(got)} steps rows against "
+                             f"{len(want)}, gaps {steps_gap}")
+    out["benchmark"] = {"gaps": gaps, "rank_s": {
+        name: [r[3 + i][1] for r in ranks2] for i, name in enumerate(bench_argv)},
+        "launches": bench_counts}
+    out["log_steps"] = {"rows": len(got), "gaps": steps_gap, "rank_s": [r[8][1] for r in ranks2],
+                        "launches_per_rank": steps_counts}
+    print("cli.benchmark._benchmark --devices 2 (2 ranks of cuda:0, gloo, a data view) "
+          "against phases 48-49's one-process runs: " + json.dumps(out["benchmark"]))
+    print("cli.attack._attack nb --control --log_steps --devices 2 against phase 43's run: "
+          + json.dumps(out["log_steps"]))
+    seconds[81] += time.perf_counter() - t0
+    print(f"rank start-up and teardown: 4 ranks, once, {start:.1f} s beside this process's "
+          f"one-process runs, for which the ranks then waited {waited:.1f} s")
     for number, sec in seconds.items():
         print(f"phase {number}: {sec:.1f} s")
     return {"rows": rows, "diffs": diffs, **out}
@@ -7260,7 +7668,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 35, 56, 60 and 72); the last line "
+                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 79, 35, 56, 60 and 72); the last line "
                              "then carries \"ok\": false, because the slices were not driven")
     args = parser.parse_args(argv)
     import pointsecguard_tpu_torch
@@ -7346,6 +7754,7 @@ def main(argv=None) -> int:
     train_feats, train_labels = timed(20, phase_randla_train_knn, dev, records, prep)
     timed(21, phase_bottom_k_vjp, dev)
     selection = timed(27, phase_resgcn_kernels, dev, records, data)
+    timed(79, phase_resgcn_fast_kernels, dev, records, data)
     timed(35, phase_msg_kernels, dev, records)
     cls_selection = timed(56, phase_cls_kernels, dev, records)
     partseg_selection = timed(60, phase_partseg_kernels, dev, records)
@@ -7388,7 +7797,8 @@ def main(argv=None) -> int:
     timed(31, phase_resgcn_train_step, dev)
     resgcn_data, resgcn_log, _ = timed(32, phase_resgcn_train, dev, records)
     timed(33, phase_resgcn_eval, resgcn_data, resgcn_log, records)
-    timed(34, phase_resgcn_attack_trained, resgcn_data, resgcn_log)
+    resgcn_exact = timed(34, phase_resgcn_attack_trained, resgcn_data, resgcn_log)
+    timed(80, phase_resgcn_fast, dev, records, resgcn_data, resgcn_log, resgcn_exact)
     print(f"phases 1-35 and 42-46: the run so far {time.perf_counter() - started:.1f} s")
     phases_36_41 = time.perf_counter()
     block_logs = {"pointnet2": train_log}
@@ -7409,10 +7819,11 @@ def main(argv=None) -> int:
     print(f"phases 36-41: {time.perf_counter() - phases_36_41:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
     phases_47_51 = time.perf_counter()
+    bench = {}
     for number, phase in (
             (47, lambda: phase_ensemble(train_data, block_logs, records)),
-            (48, lambda: phase_benchmark_registry(train_data, train_log, records)),
-            (49, lambda: phase_benchmark_sweeps(train_data, train_log)),
+            (48, lambda: bench.update(phase_benchmark_registry(train_data, train_log, records))),
+            (49, lambda: bench.update(phase_benchmark_sweeps(train_data, train_log))),
             (50, lambda: phase_score_reference(dev, train_log)),
             (51, lambda: phase_benchmark_victims(data, prep, randla_log,
                                                  os.path.join(WORK, "resgcn_log"), records))):
@@ -7467,10 +7878,11 @@ def main(argv=None) -> int:
     timed(74, phase_reload, records, exported)
     print(f"phases 73-74: {time.perf_counter() - phases_73_74:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
-    phases_75_78 = time.perf_counter()
-    phase_parallel(dev, records, prep, train_data)
+    phases_75_81 = time.perf_counter()
+    phase_parallel(dev, records, prep, train_data, train_log,
+                   {"benchmark": bench, "steps_tsv": STEPS_TSV})
     timed(78, phase_nccl, dev, records, prep)
-    print(f"phases 75-78: {time.perf_counter() - phases_75_78:.1f} s; "
+    print(f"phases 75-78 and 81: {time.perf_counter() - phases_75_81:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -7485,7 +7897,8 @@ def main(argv=None) -> int:
                       *(f"{m} {path}" for m, path, _ in PS_ATTACKS if m != "pointnet_part_seg"),
                       "pointnet2 train --device_sampler", "pointnet2 train --adv_train nb",
                       "pointnet2 train --profile", "pointnet2 export",
-                      "pointnet2 train --devices 2",
+                      "pointnet2 train --devices 2", "pointnet2 benchmark --devices 2",
+                      "pointnet2 nb --log_steps --devices 2",
                       *(f"{m} forward --precision bfloat16" for m in
                         ("pointnet2", "pointnet2_msg", *CLS_MODELS[:2], *PS_MODELS[:2])),
                       *(f"{path} --precision bfloat16" for path in
@@ -7497,6 +7910,7 @@ def main(argv=None) -> int:
                                  "pointnet2 nb --defense resample",
                                  "randla nb --defense resample",
                                  "resgcn nb --resgcn_fixed_graphs",
+                                 "resgcn nb --resgcn_fast", "resgcn eval --resgcn_fast",
                                  "randla benchmark", "resgcn benchmark",
                                  "randla semantic3d train", "randla semantic3d eval",
                                  "randla semantic3d nb", "randla semantickitti train",
@@ -7523,7 +7937,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("cw_step", "ns_per_step", "train_step", "msg_attack",
-                              "msg_train_step", "resgcn_forward", "resample",
+                              "msg_train_step", "resgcn_forward", "resgcn_fast_forward",
+                              "resample",
                               "semantic3d_pyramid", "semantickitti_pyramid",
                               "semantic3d_pass", "cls_attack", "cls_msg_attack",
                               "cls_train_step", "sor", "partseg_attack",

@@ -37,7 +37,6 @@ from pointsecguard_tpu_torch.attacks.common import (
     make_target_labels,
     per_point_ce,
     per_sample_accuracy,
-    point_accuracy,
 )
 from pointsecguard_tpu_torch.attacks.cw import CWConfig, cw_color_attack
 from pointsecguard_tpu_torch.attacks.decision import (
@@ -145,7 +144,6 @@ __all__ = [
     "per_point_ce",
     "per_sample_accuracy",
     "pgd_color_attack",
-    "point_accuracy",
     "random_color_jitter",
     "random_color_resample",
     "randomized_defense_wraps",

@@ -45,7 +45,7 @@ from pointsecguard_tpu_torch.attacks.blackbox import (
     nes_attack,
     spsa_attack,
 )
-from pointsecguard_tpu_torch.attacks.common import make_target_labels
+from pointsecguard_tpu_torch.attacks.common import make_target_labels, pooled_rate
 from pointsecguard_tpu_torch.attacks.cw import CWConfig, cw_color_attack
 from pointsecguard_tpu_torch.attacks.decision import (
     BoundaryConfig,
@@ -55,6 +55,8 @@ from pointsecguard_tpu_torch.attacks.decision import (
 )
 from pointsecguard_tpu_torch.attacks.deepfool import DeepFoolConfig, deepfool_attack
 from pointsecguard_tpu_torch.attacks.pgd import PGDConfig, pgd_color_attack
+from pointsecguard_tpu_torch.parallel.mesh import RankContext
+from pointsecguard_tpu_torch.parallel.spmd_ops import gather_rows, sum_rows
 
 MakeOutputs = Callable[[torch.Tensor], Callable[[torch.Tensor], torch.Tensor]]
 
@@ -121,6 +123,19 @@ def run_registered_attack(
     return pgd_color_attack(outputs_fn, points, labels, cfg, mask=mask, generator=generator)
 
 
+def _rates(res, ctx: RankContext | None) -> tuple[float, float]:
+    """The attack's accuracy and success rate over the whole batch: its
+    (hits, points) counts summed over the ranks (``res.acc`` and
+    ``res.success_rate`` in one process)."""
+    acc, sr = pooled_rate(sum_rows(res.counts, ctx)).tolist()
+    return acc, sr
+
+
+def _whole(t: torch.Tensor, ctx: RankContext | None) -> np.ndarray:
+    """The ranks' rows of ``t`` as the whole batch, on the host."""
+    return gather_rows(t, ctx).cpu().numpy()
+
+
 def _replace_if_field(cfg, **updates):
     """``dataclasses.replace`` restricted to the fields ``cfg`` declares."""
     fields = {f.name for f in dataclasses.fields(cfg)}
@@ -155,6 +170,7 @@ def distortion_binsearch(
     mask: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     success_criterion: str = "auto",
+    ctx: RankContext | None = None,
 ) -> tuple[float, dict]:
     """Minimal ε at which the attack succeeds, by exponential search then
     bisection (`distortion.py` protocol), for the ε-bounded configs
@@ -168,7 +184,7 @@ def distortion_binsearch(
     rate > 0.9 (targeted); ``success_criterion="acc"`` forces the accuracy
     test for a targeted drive scored untargeted (goal 'tm'). α scales with
     ε (α = ε·α₀/ε₀). Returns (epsilon, details), details recording every
-    probe.
+    probe. ``ctx``: this rank's rows of the batch (module docstring).
     """
     if success_criterion not in ("auto", "acc", "sr"):
         raise ValueError(f"unknown success_criterion {success_criterion!r}")
@@ -182,11 +198,11 @@ def distortion_binsearch(
                 "AttackBenchmark (--mode attack)")
         res = run_registered_attack(outputs_fn, points, labels, base_cfg, mask=mask,
                                     generator=replay())
-        lab = labels.cpu().numpy()
+        lab = _whole(labels, ctx)
         with torch.no_grad():
-            clean_pred = torch.argmax(outputs_fn(points), dim=-1).cpu().numpy()
+            clean_pred = _whole(torch.argmax(outputs_fn(points), dim=-1), ctx)
         batch_axes = tuple(range(1, lab.ndim))
-        adv_pred = res.adv_pred.cpu().numpy()
+        adv_pred = _whole(res.adv_pred, ctx)
         clean_acc = (clean_pred == lab).mean(axis=batch_axes)
         if targeted:
             tgt = base_cfg.target
@@ -198,7 +214,7 @@ def distortion_binsearch(
             # classifiers, exactly the clean-correct ones)
             eligible = clean_acc >= success_acc
             succ = eligible & ((adv_pred == lab).mean(axis=batch_axes) < success_acc)
-        dists = res.l2_dist.cpu().numpy()
+        dists = _whole(res.l2_dist, ctx)
         details = {"optimized": True, "dist": dists.tolist(), "success": succ.tolist(),
                    "eligible": eligible.tolist(), "clean_acc": clean_acc.tolist()}
         return (float(dists[succ].mean()) if succ.any() else float("inf")), details
@@ -210,9 +226,9 @@ def distortion_binsearch(
         cfg = dataclasses.replace(base_cfg, eps=float(eps), alpha=float(eps) * alpha_ratio)
         res = run_registered_attack(outputs_fn, points, labels, cfg, mask=mask,
                                     generator=replay())
-        ok = float(res.success_rate) > 0.9 if use_sr else float(res.acc) < success_acc
-        details["probes"].append({"eps": float(eps), "acc": float(res.acc),
-                                  "sr": float(res.success_rate), "success": ok})
+        acc, sr = _rates(res, ctx)
+        ok = sr > 0.9 if use_sr else acc < success_acc
+        details["probes"].append({"eps": float(eps), "acc": acc, "sr": sr, "success": ok})
         return ok
 
     hi = init_hi if init_hi is not None else base_cfg.eps
@@ -246,6 +262,7 @@ def cw_coefficient_binsearch(
     search_steps: int = 5,
     binsearch_steps: int = 6,
     coeff_fields: tuple[str, ...] = ("smooth_coeff", "l2_coeff"),
+    ctx: RankContext | None = None,
 ) -> tuple[float, dict]:
     """Largest distortion-penalty coefficient c at which a targeted C&W run
     reaches a success rate above ``success_sr`` (JAX
@@ -263,7 +280,7 @@ def cw_coefficient_binsearch(
     Returns (c_threshold, details): the largest probed c that succeeded;
     c0 if the budget itself succeeds, 0 if only c = 0 does, nan if none.
     ``details["probes"]`` records each probe's c, sr, acc, mean L2 and mean
-    exit step (rounded as JAX's)."""
+    exit step (rounded as JAX's), over the whole batch on ``ctx``'s ranks."""
     c0 = float(getattr(base_cfg, coeff_fields[0]))
     if c0 <= 0:
         raise ValueError(f"{coeff_fields[0]} = {c0}: no coefficient to scale")
@@ -275,12 +292,11 @@ def cw_coefficient_binsearch(
         # c · (v / c0): exactly c for every field equal to c0
         cfg = _replace_if_field(base_cfg, **{f: c * (v / c0) for f, v in base.items()})
         res = cw_color_attack(outputs_fn, points, labels, cfg, mask=mask)
-        sr = float(res.success_rate)
+        acc, sr = _rates(res, ctx)
         details["probes"].append({
-            "c": float(c), "sr": round(sr, 4), "acc": round(float(res.acc), 4),
-            "l2_mean": round(float(res.l2_dist.mean()), 3),
-            "steps_mean": None if res.steps_b is None
-            else round(float(res.steps_b.float().mean()), 1)})
+            "c": float(c), "sr": round(sr, 4), "acc": round(acc, 4),
+            "l2_mean": round(float(gather_rows(res.l2_dist, ctx).mean()), 3),
+            "steps_mean": round(float(gather_rows(res.steps_b, ctx).float().mean()), 1)})
         return sr > success_sr
 
     def done(c: float) -> tuple[float, dict]:
@@ -314,10 +330,12 @@ def iteration_curve(
     mask: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     num_probes: int = 10,
+    ctx: RankContext | None = None,
 ) -> list[dict]:
     """Accuracy / success rate / mean L2 after k iterations for k along the
     budget (`iteration.py` protocol: the attack re-runs for every probe).
-    Any iteration-bounded config (C&W counts ``steps`` and is rejected)."""
+    Any iteration-bounded config (C&W counts ``steps`` and is rejected);
+    ``ctx`` as in ``distortion_binsearch``."""
     if not hasattr(cfg, "iters"):
         raise ValueError(f"{type(cfg).__name__} has no iteration budget to sweep")
     outputs_fn = make_outputs_fn(points)
@@ -328,8 +346,9 @@ def iteration_curve(
         sub = _replace_if_field(cfg, iters=iters, early_exit_sr=0.0)
         res = run_registered_attack(outputs_fn, points, labels, sub, mask=mask,
                                     generator=replay())
-        probes.append({"iters": iters, "acc": float(res.acc), "sr": float(res.success_rate),
-                       "l2": float(torch.mean(res.l2_dist))})
+        acc, sr = _rates(res, ctx)
+        probes.append({"iters": iters, "acc": acc, "sr": sr,
+                       "l2": float(torch.mean(gather_rows(res.l2_dist, ctx)))})
     return probes
 
 
@@ -364,6 +383,7 @@ def worst_case_run(
     target: int | None = None,
     generator: torch.Generator | None = None,
     logger: logging.Logger | None = None,
+    ctx: RankContext | None = None,
     **kwargs,
 ):
     """AutoAttack-style worst case (Croce & Hein 2020): run several registry
@@ -373,7 +393,8 @@ def worst_case_run(
 
     Returns ``(robust_acc, per_attack, combined)``: ``per_attack`` maps
     each name to its summary, ``combined`` holds the union arrays
-    (``total``, ``succ``, ``dist``)."""
+    (``total``, ``succ``, ``dist``); on ``ctx``'s ranks, of the whole
+    batches (``AttackBenchmark.run`` gathers them)."""
     batches = list(batches)
     replay = _Replay(generator)
     per_attack: dict = {}
@@ -381,7 +402,7 @@ def worst_case_run(
     for name in attack_names:
         bench = AttackBenchmark(name, make_outputs_fn, goal=goal,
                                 distance_metric=distance_metric, origin=origin,
-                                target=target, **kwargs)
+                                target=target, ctx=ctx, **kwargs)
         acc, acc_adv, total, succ, dist = bench.run(batches, generator=replay())
         succ_rate = succ.sum() / max(total.sum(), 1)
         per_attack[name] = {"acc": float(acc.mean()), "adv_acc": float(acc_adv.mean()),
@@ -417,7 +438,9 @@ class AttackBenchmark:
     the target. ``'tm'`` drives the attack with the target labels and the
     targeted direction as ``'t'`` does (`bim.py:80-82,144`); only its
     scoring is untargeted. Points are scored one by one, the reference's
-    segmentation accounting (`NB_nontarget_test_semseg.py:210-214`).
+    segmentation accounting (`NB_nontarget_test_semseg.py:210-214`). On
+    ``ctx``'s ranks every batch holds the rank's rows, and the arrays are
+    gathered into the whole batch's, in order, on every rank.
     """
 
     def __init__(
@@ -429,6 +452,7 @@ class AttackBenchmark:
         distance_metric: str = "l_2",
         origin: int | None = None,
         target: int | None = None,
+        ctx: RankContext | None = None,
         **kwargs,
     ):
         if goal not in ("ut", "tm", "t"):
@@ -458,17 +482,22 @@ class AttackBenchmark:
         self.goal = goal
         self.distance_metric = distance_metric
         self.origin, self.target = origin, target
+        self.ctx = ctx
         # targeted decision attacks: one example the model predicts as the
         # target seeds every sample's start (`gen_starting_points`'s
         # per-label cache, `benchmark/utils.py:72-84`)
         self._start_example: torch.Tensor | None = None
 
     def _harvest_start(self, points, clean_pred):
-        """Keep the first example predicted as the target; that example
-        broadcast over the batch, or None before one is seen."""
-        hits = (clean_pred == self.target).reshape(len(points), -1).any(dim=1)
-        if self._start_example is None and bool(hits.any()):
-            self._start_example = points[int(torch.argmax(hits.int()))].clone()
+        """Keep the first example of the whole batch predicted as the
+        target; that example broadcast over the rank's rows, or None before
+        one is seen."""
+        if self._start_example is None:
+            whole = gather_rows(points, self.ctx)
+            hits = (gather_rows(clean_pred, self.ctx) == self.target)
+            hits = hits.reshape(len(whole), -1).any(dim=1)
+            if bool(hits.any()):
+                self._start_example = whole[int(torch.argmax(hits.int()))].clone()
         if self._start_example is None:
             return None
         return self._start_example.to(points.device).expand(len(points), -1, -1)
@@ -509,15 +538,18 @@ class AttackBenchmark:
             generator = _generator(points, generator)
             res = run_registered_attack(outputs_fn, points, ys_attack, self.cfg, mask=mask,
                                         generator=generator, start=start)
-            accs = (clean_pred == labels).cpu().numpy().ravel()
-            accs_adv = (res.adv_pred == labels).cpu().numpy().ravel()
+            lab, clean, adv = (_whole(t, self.ctx).ravel()
+                               for t in (labels, clean_pred, res.adv_pred))
+            accs = clean == lab
+            accs_adv = adv == lab
             if self.goal == "t":
-                totals = (clean_pred != self.target).cpu().numpy().ravel()
-                succs = totals & (res.adv_pred == self.target).cpu().numpy().ravel()
+                totals = clean != self.target
+                succs = totals & (adv == self.target)
             else:
                 totals = accs
                 succs = totals & ~accs_adv
-            diff = (res.points_adv - points).reshape(len(points), -1).cpu().numpy()
+            diff = _whole(res.points_adv - points, self.ctx)
+            diff = diff.reshape(len(diff), -1)
             if self.distance_metric == "l_2":
                 dists = np.linalg.norm(diff, axis=1)
             else:

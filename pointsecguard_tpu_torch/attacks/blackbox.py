@@ -18,6 +18,9 @@ JAX package completes them, and this is its port.
   the draw of query pair (population member) ``s`` of iteration ``it``:
   NES a standard normal of the colours' shape, SPSA a float32 Rademacher,
   NAttack a standard normal. The tests feed JAX's own draws through it.
+  A generator's draw is made for the global batch and the rank keeps its
+  rows (``utils.runtime.batch_draw``), so that data-parallel ranks draw
+  what one process draws.
 
 All three share the PGD engine's perturbation domain and metric
 conventions (``attacks/pgd.py``): channel slice, optional clip box,
@@ -37,6 +40,7 @@ from pointsecguard_tpu_torch.attacks.common import (
     hinge_logit_loss,
     per_point_ce,
 )
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
 Noise = Callable[[int, int], torch.Tensor]
 
@@ -134,13 +138,14 @@ def _query_setup(points, labels, cfg, mask, outputs_fn):
     return color0, m, adv_of, per_cloud_loss, direction
 
 
-def _draws(name, generator, noise, sample):
-    """``noise`` itself, or a hook drawing from ``generator``."""
+def _draws(name, generator, noise, sample, shape):
+    """``noise`` itself, or a hook drawing ``sample(generator, shape)``
+    for the global batch and keeping this rank's rows of ``shape``."""
     if noise is not None:
         return noise
     if generator is None:
         raise ValueError(f"{name} requires a generator or noise=")
-    return lambda it, s: sample(generator)
+    return lambda it, s: batch_draw(lambda full: sample(generator, full), shape)
 
 
 def _score_attack(outputs_fn, points, labels, cfg, *, draw, fd_radius, step_fn, opt,
@@ -191,8 +196,8 @@ def nes_attack(
     """NES: Gaussian antithetic gradient estimate + PGD sign steps."""
     lo, hi = cfg.channels
     shape, dtype = points.shape[:-1] + (hi - lo,), points.dtype
-    draw = _draws("nes_attack", generator, noise, lambda g: torch.randn(
-        shape, generator=g, device=g.device, dtype=dtype))
+    draw = _draws("nes_attack", generator, noise, lambda g, full: torch.randn(
+        full, generator=g, device=g.device, dtype=dtype), shape)
     return _score_attack(
         outputs_fn, points, labels, cfg, draw=draw, fd_radius=cfg.sigma,
         step_fn=lambda g, opt, it: (cfg.alpha * torch.sign(g), opt), opt=None, mask=mask)
@@ -212,8 +217,9 @@ def spsa_attack(
     bias corrections in float32, as the JAX step takes them)."""
     lo, hi = cfg.channels
     shape = points.shape[:-1] + (hi - lo,)
-    draw = _draws("spsa_attack", generator, noise, lambda g: (
-        2 * torch.randint(0, 2, shape, generator=g, device=g.device) - 1).to(torch.float32))
+    draw = _draws("spsa_attack", generator, noise, lambda g, full: (
+        2 * torch.randint(0, 2, full, generator=g, device=g.device) - 1).to(torch.float32),
+        shape)
     b1 = torch.tensor(cfg.adam_b1, dtype=torch.float32)
     b2 = torch.tensor(cfg.adam_b2, dtype=torch.float32)
 
@@ -251,8 +257,8 @@ def nattack(
     points = points.detach()
     lo_ch, hi_ch = cfg.channels
     shape, dtype = points.shape[:-1] + (hi_ch - lo_ch,), points.dtype
-    draw = _draws("nattack", generator, noise, lambda g: torch.randn(
-        shape, generator=g, device=g.device, dtype=dtype))
+    draw = _draws("nattack", generator, noise, lambda g, full: torch.randn(
+        full, generator=g, device=g.device, dtype=dtype), shape)
     color0, m, adv_of, per_cloud_loss, direction = _query_setup(
         points, labels, cfg, mask, outputs_fn)
     lo, hi = cfg.clip if cfg.clip is not None else (None, None)

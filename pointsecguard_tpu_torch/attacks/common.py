@@ -34,6 +34,10 @@ class AttackResult(NamedTuple):
     # [B] int32 per-sample exit iteration (each sample behaves as it would
     # alone at batch size 1); equals ``steps`` for fixed-length runs
     steps_b: torch.Tensor | None = None
+    # [2, 2] float32 (hits, points) behind ``acc`` and ``success_rate``
+    # (``pooled_counts``): summed over data-parallel ranks, they give the
+    # whole batch's figures
+    counts: torch.Tensor | None = None
 
 
 def per_point_ce(outputs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -122,17 +126,6 @@ def color_smoothness(adv_color: torch.Tensor, ref_color: torch.Tensor, k: int) -
     return _ColorSmoothness.apply(adv_color, ref_color, k)
 
 
-def point_accuracy(
-    outputs: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None
-) -> torch.Tensor:
-    """Overall (or masked) point accuracy."""
-    correct = (torch.argmax(outputs, dim=-1) == labels).float()
-    if mask is None:
-        return torch.mean(correct)
-    m = mask.float()
-    return torch.sum(correct * m) / torch.clamp(torch.sum(m), min=1.0)
-
-
 def per_sample_accuracy(
     pred: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -144,21 +137,56 @@ def per_sample_accuracy(
     return torch.sum(correct * m, dim=1) / torch.clamp(torch.sum(m, dim=1), min=1.0)
 
 
-def pooled_accuracy(
+def pooled_counts(
     pred: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
     rows: int | None = None,
 ) -> torch.Tensor:
-    """Point accuracy pooled over the (masked) points of the first ``rows``
-    clouds → [] (all clouds when None): the trajectory's per-step figure.
-    The JAX engines take the mean of per-cloud means over every row, a
-    caller's padded copies included (`attacks/pgd.py:251-253`,
-    `attacks/cw.py:263-265`); the two agree at batch 1 and on equal masks
-    without padding."""
+    """(hits, points) [2] float32 of the (masked) points of the first
+    ``rows`` clouds (all clouds when None); ``pooled_rate`` of it is their
+    pooled accuracy, a trajectory's per-step figure. The JAX engines take
+    the mean of per-cloud means over every row, a caller's padded copies
+    included (`attacks/pgd.py:251-253`, `attacks/cw.py:263-265`); the two
+    agree at batch 1 and on equal masks without padding. Counts add over
+    the ranks that split a batch."""
     correct = (pred[:rows] == labels[:rows]).float()
     if mask is None:
-        return torch.mean(correct)
+        return torch.stack([correct.sum(), correct.new_tensor(float(correct.numel()))])
     m = mask[:rows].float()
-    return torch.sum(correct * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.stack([torch.sum(correct * m), torch.sum(m)])
+
+
+def pooled_rate(counts: torch.Tensor) -> torch.Tensor:
+    """hits / max(points, 1) along the last axis of (hits, points) counts."""
+    return counts[..., 0] / torch.clamp(counts[..., 1], min=1.0)
+
+
+def result_counts(pred: torch.Tensor, labels: torch.Tensor, *, targeted: bool, target: int,
+                  mask: torch.Tensor | None, sr_mask: torch.Tensor | None) -> torch.Tensor:
+    """``AttackResult.counts``: the accuracy's (hits, points) over the
+    points of ``mask`` (every point when targeted), and the success rate's
+    of ``pred == target`` over ``sr_mask`` (zeros: no success rate)."""
+    acc = pooled_counts(pred, labels, None if targeted else mask)
+    sr = (pooled_counts(pred, torch.full_like(labels, target), sr_mask)
+          if targeted and sr_mask is not None else torch.zeros_like(acc))
+    return torch.stack([acc, sr])
+
+
+def trajectory_rates(steps: list, ranks_sum=None) -> torch.Tensor:
+    """The per-step (hits, points) counts of a trajectory, stacked [steps,
+    2] and summed over the ranks by ``ranks_sum`` where given (one
+    collective after the loop) → the per-step rates [steps]."""
+    counts = torch.stack(steps)
+    return pooled_rate(counts if ranks_sum is None else ranks_sum(counts))
+
+
+def all_done(done: torch.Tensor, ranks_sum=None) -> bool:
+    """Whether every cloud's early exit has fired, on every rank where
+    ``ranks_sum`` sums over the ranks that split the batch (so that they
+    run the same iterations, and a collective after the loop finds all of
+    them). One read back to the host."""
+    if ranks_sum is None:
+        return bool(done.all())
+    return int(ranks_sum((~done).sum().reshape(1))[0]) == 0
 
 
 @torch.no_grad()
@@ -173,14 +201,12 @@ def finish_attack_result(
     lo, hi = channels
     outputs = outputs_fn(adv)
     adv_pred = torch.argmax(outputs, dim=-1)
-    acc = point_accuracy(outputs, labels, None if targeted else mask)
-    if targeted and mask is not None:
-        sr = point_accuracy(outputs, torch.full_like(labels, target), mask)
-    else:
-        sr = torch.zeros((), device=points.device)
+    counts = result_counts(adv_pred, labels, targeted=targeted, target=target, mask=mask,
+                           sr_mask=mask)
+    acc, sr = pooled_rate(counts)
     diff = (adv[..., lo:hi] - points[..., lo:hi]).reshape(points.shape[0], -1)
     return AttackResult(adv, torch.tensor(steps, dtype=torch.int32), acc, sr,
-                        torch.linalg.norm(diff, dim=1), adv_pred)
+                        torch.linalg.norm(diff, dim=1), adv_pred, counts=counts)
 
 
 def make_target_labels(

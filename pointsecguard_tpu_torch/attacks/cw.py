@@ -21,6 +21,9 @@ semantics (``steps`` is the number of iterations executed).
 ``trajectory=True`` (``--log_steps``) runs exactly ``cfg.steps`` steps with
 no early exit and no read, and also returns the per-step accuracy, success
 rate and per-cloud L2, kept on the device until the caller reads them.
+``ranks_sum`` (a rank of a data-parallel run) sums the trajectory's
+per-step counts over the ranks after the loop and makes the ranks agree
+on the early exit, as in ``attacks/pgd.py``.
 """
 
 from __future__ import annotations
@@ -32,11 +35,15 @@ import torch
 
 from pointsecguard_tpu_torch.attacks.common import (
     AttackResult,
+    all_done,
     color_smoothness,
     cw_f_prob,
     cw_f_targeted,
     per_sample_accuracy,
-    pooled_accuracy,
+    pooled_counts,
+    pooled_rate,
+    result_counts,
+    trajectory_rates,
 )
 
 _TANH_BOUND = 1.0 - 1e-6  # ares `_scale_to_tanh` clamp (`NUattack.py:115-119`)
@@ -96,6 +103,7 @@ def cw_color_attack(
     mask: torch.Tensor | None = None,
     trajectory: bool = False,
     valid_rows: int | None = None,
+    ranks_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> AttackResult | tuple[AttackResult, dict]:
     """Run the C&W colour attack on a batch.
 
@@ -111,10 +119,12 @@ def cw_color_attack(
       trajectory: no early exit, exactly ``cfg.steps`` steps, and return
         ``(result, traj)`` with ``traj`` = {"acc": [steps], "sr": [steps],
         "l2": [steps, B]} (JAX `attacks/cw.py:260-270`): each step's
-        accuracy and success rate (``pooled_accuracy``) and the L2 of the
+        accuracy and success rate (``pooled_counts``) and the L2 of the
         colour it evaluated.
       valid_rows: the trajectory pools over the first ``valid_rows`` clouds
         (a caller's padded rows excluded; default all).
+      ranks_sum: the sum of a tensor over the ranks that split the batch
+        (``pgd_color_attack``'s).
     """
     lo, hi = cfg.channels
     points = points.detach()
@@ -185,7 +195,7 @@ def cw_color_attack(
     t, lr = 0, cfg.lr
     traj = {"acc": [], "sr": [], "l2": []}
     i = 0
-    while i < cfg.steps and (trajectory or not bool(done.all())):
+    while i < cfg.steps and (trajectory or not all_done(done, ranks_sum)):
         leaf = w.detach().requires_grad_(True)
         cost, outputs = cost_fn(leaf)
         (g,) = torch.autograd.grad(cost, leaf)
@@ -203,11 +213,11 @@ def cw_color_attack(
             steps_b = torch.where(done, steps_b, torch.full_like(steps_b, i + 1))
             if trajectory:
                 if cfg.targeted:
-                    traj["acc"].append(pooled_accuracy(pred, labels, None, valid_rows))
-                    traj["sr"].append(pooled_accuracy(pred, target_labels, mask, valid_rows))
+                    traj["acc"].append(pooled_counts(pred, labels, None, valid_rows))
+                    traj["sr"].append(pooled_counts(pred, target_labels, mask, valid_rows))
                 else:
-                    traj["acc"].append(pooled_accuracy(pred, labels, mask, valid_rows))
-                    traj["sr"].append(torch.zeros((), device=dev))
+                    traj["acc"].append(pooled_counts(pred, labels, mask, valid_rows))
+                    traj["sr"].append(torch.zeros(2, device=dev))
                 traj["l2"].append(torch.linalg.norm((snap - color0).reshape(B, -1), dim=1))
             else:
                 done = done | success
@@ -225,21 +235,16 @@ def cw_color_attack(
         adv = with_color(snap)
         l2 = torch.linalg.norm((snap - color0).reshape(B, -1), dim=1)
         # batch metrics from each sample's exit prediction, as B=1 runs
-        # would report them
-        correct = (pred_snap == labels).float()
-        if cfg.targeted:
-            acc = torch.mean(correct)
-            hit = (pred_snap == cfg.target).float()
-            mm_ = m[..., 0] if m is not None else torch.ones_like(hit)
-            sr = torch.sum(hit * mm_) / torch.clamp(torch.sum(mm_), min=1.0)
-        else:
-            if m is None:
-                acc = torch.mean(correct)
-            else:
-                acc = torch.sum(correct * m[..., 0]) / torch.clamp(torch.sum(m[..., 0]), min=1.0)
-            sr = torch.zeros((), device=dev)
+        # would report them; the success rate over the mask, or every
+        # point without one
+        counts = result_counts(
+            pred_snap, labels, targeted=cfg.targeted, target=cfg.target, mask=mask,
+            sr_mask=mask if mask is not None else torch.ones_like(labels, dtype=torch.bool))
+        acc, sr = pooled_rate(counts)
     result = AttackResult(adv, torch.tensor(i, dtype=torch.int32), acc, sr, l2,
-                          pred_snap, steps_b)
+                          pred_snap, steps_b, counts)
     if trajectory:
-        return result, {k: torch.stack(v) for k, v in traj.items()}
+        return result, {"acc": trajectory_rates(traj["acc"], ranks_sum),
+                        "sr": trajectory_rates(traj["sr"], ranks_sum),
+                        "l2": torch.stack(traj["l2"])}
     return result

@@ -14,7 +14,9 @@ target, passed as ``start=`` (``AttackBenchmark`` harvests them).
 Draws: ``noise(kind, i)`` gives them (``"init"``: the ``i``-th random
 search draw, uniform in the box or in ±``init_scale`` around the clean
 input; ``"step"``: the ``i``-th iteration's standard normal), so that the
-CPU tests can feed ``jax.random``'s; else they come from ``generator``.
+CPU tests can feed ``jax.random``'s; else they come from ``generator``,
+drawn for the global batch of which a data-parallel rank keeps its rows
+(``utils.runtime.batch_draw``).
 Both attacks run a fixed number of iterations, as the JAX loops do.
 """
 
@@ -27,6 +29,7 @@ import torch
 
 from pointsecguard_tpu_torch.attacks.common import AttackResult, finish_attack_result
 from pointsecguard_tpu_torch.attacks.deepfool import check_one_decision
+from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
 Noise = Callable[[str, int], torch.Tensor]
 
@@ -78,12 +81,13 @@ def _draws(cfg, color0: torch.Tensor, noise: Noise | None,
     lo, hi = cfg.clip if cfg.clip is not None else (-cfg.init_scale, cfg.init_scale)
 
     def draw(kind, i):
+        sample = torch.rand if kind == "init" else torch.randn
+        u = batch_draw(lambda full: sample(full, generator=generator, device=generator.device),
+                       color0.shape).to(color0)
         if kind == "init":
-            u = torch.rand(color0.shape, generator=generator, device=generator.device)
-            u = lo + (hi - lo) * u.to(color0)
+            u = lo + (hi - lo) * u
             return u if cfg.clip is not None else color0 + u
-        return torch.randn(color0.shape, generator=generator,
-                           device=generator.device).to(color0)
+        return u
 
     return draw
 

@@ -16,6 +16,9 @@ step is taken on the accumulator of L1-normalised gradients (JAX
 `attacks/pgd.py:155-178`). ``trajectory=True`` (``--log_steps``)
 turns early exit off, runs exactly ``cfg.iters`` steps and also returns
 the per-step accuracy, success rate and per-cloud L2, kept on the device.
+On a rank of a data-parallel run, ``ranks_sum`` sums the trajectory's
+per-step counts over the ranks once after the loop, and makes the ranks
+agree on the early exit every iteration.
 """
 
 from __future__ import annotations
@@ -27,11 +30,14 @@ import torch
 
 from pointsecguard_tpu_torch.attacks.common import (
     AttackResult,
+    all_done,
     hinge_logit_loss,
     per_point_ce,
     per_sample_accuracy,
-    point_accuracy,
-    pooled_accuracy,
+    pooled_counts,
+    pooled_rate,
+    result_counts,
+    trajectory_rates,
 )
 from pointsecguard_tpu_torch.utils.runtime import batch_draw
 
@@ -70,6 +76,7 @@ def pgd_color_attack(
     trajectory: bool = False,
     valid_rows: int | None = None,
     evaluate: bool = True,
+    ranks_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> AttackResult | tuple[AttackResult, dict] | torch.Tensor:
     """Run the attack on a batch.
 
@@ -87,13 +94,17 @@ def pgd_color_attack(
         ``(result, traj)`` with ``traj`` = {"acc": [iters], "sr": [iters],
         "l2": [iters, B]} (JAX `attacks/pgd.py:243-256`): each step's
         accuracy and success rate of the evaluation before its update
-        (``pooled_accuracy``), and the L2 after it.
+        (``pooled_counts``), and the L2 after it.
       valid_rows: the trajectory pools its accuracy and success rate over
         the first ``valid_rows`` clouds (a caller's padded rows excluded;
         default all).
       evaluate: False returns the adversarial points [B, N, C] alone,
         without the final forward that scores them (adversarial training
         reads nothing else, as JAX `train/trainer.py:306-310` does).
+      ranks_sum: on a rank that holds some rows of the batch, the sum of a
+        tensor over the ranks (``parallel.sum_rows``): the trajectory's
+        accuracy and success rate are then the whole batch's, and the
+        early exit waits for every rank's clouds.
     """
     lo, hi = cfg.channels
     points = points.detach()
@@ -178,7 +189,7 @@ def pgd_color_attack(
     g_acc = torch.zeros_like(color) if cfg.momentum > 0 else None
     steps = 0
     for i in range(cfg.iters):
-        if track_exit and bool(done.all()):
+        if track_exit and all_done(done, ranks_sum):
             break
         leaf = color.detach().requires_grad_(True)
         loss, outputs = attack_loss(leaf)
@@ -203,13 +214,13 @@ def pgd_color_attack(
                 done = done | (sr_b > cfg.early_exit_sr)
             if trajectory:
                 pred = torch.argmax(outputs, dim=-1)
-                traj["acc"].append(pooled_accuracy(
+                traj["acc"].append(pooled_counts(
                     pred, labels, None if cfg.targeted else mask, valid_rows))
                 traj["sr"].append(
-                    pooled_accuracy(pred, torch.full_like(labels, cfg.target), mask,
-                                    valid_rows)
+                    pooled_counts(pred, torch.full_like(labels, cfg.target), mask,
+                                  valid_rows)
                     if cfg.targeted and mask is not None
-                    else torch.zeros((), device=points.device))
+                    else torch.zeros(2, device=points.device))
                 traj["l2"].append(torch.linalg.norm((color - color0).reshape(B, -1), dim=1))
         steps = i + 1
 
@@ -219,16 +230,16 @@ def pgd_color_attack(
         adv = with_color(snap)
         outputs = outputs_fn(adv)
         adv_pred = torch.argmax(outputs, dim=-1)
-        acc = point_accuracy(outputs, labels, None if cfg.targeted else mask)
-        if cfg.targeted and mask is not None:
-            sr = point_accuracy(outputs, torch.full_like(labels, cfg.target), mask)
-        else:
-            sr = torch.zeros((), device=points.device)
+        counts = result_counts(adv_pred, labels, targeted=cfg.targeted, target=cfg.target,
+                               mask=mask, sr_mask=mask)
+        acc, sr = pooled_rate(counts)
         l2 = torch.linalg.norm((snap - color0).reshape(B, -1), dim=1)
     result = AttackResult(
         adv, torch.tensor(steps, dtype=torch.int32), acc, sr, l2, adv_pred,
-        steps_b,
+        steps_b, counts,
     )
     if trajectory:
-        return result, {k: torch.stack(v) for k, v in traj.items()}
+        return result, {"acc": trajectory_rates(traj["acc"], ranks_sum),
+                        "sr": trajectory_rates(traj["sr"], ranks_sum),
+                        "l2": torch.stack(traj["l2"])}
     return result

@@ -28,12 +28,14 @@ graphs of the clean input. ``--ensemble`` adds block models to the victim
 mixture's, and each PointNet++ member builds its geometry once a batch.
 
 On a rank of ``--devices N`` (``ctx``) every batch is split by rows: the
-rank builds its closures on its rows and attacks them with no collective
-inside the attack loop (each cloud's early exit is its own, as at batch
-1), then the per-cloud predictions, distances, step counts and, where
-written, adversarial points are gathered into the whole batch on every
-rank, so that the votes and rows below are the one-process run's; rank 0
-writes the TSV, ``--save_adv`` and ``--visual``. Random draws are made for
+rank builds its closures on its rows and attacks them (each cloud's early
+exit is its own, as at batch 1; the ranks agree each step on whether all
+have fired, and ``--log_steps`` sums the trajectory's per-step counts over
+the ranks once after the loop), then the per-cloud predictions,
+distances, step counts, trajectories and, where written, adversarial
+points are gathered into the whole batch on every rank, so that the votes
+and rows below are the one-process run's; rank 0 writes the TSV, the
+``_steps.tsv``, ``--save_adv`` and ``--visual``. Random draws are made for
 the whole batch and sliced (``utils.runtime.batch_draw``).
 """
 
@@ -143,7 +145,7 @@ def run_blocks(args, log, ctx=None):
     )
     from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper, write_room_visuals
     from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
-    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put
+    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put, sum_rows
     from pointsecguard_tpu_torch.train.evaluator import add_votes
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
@@ -190,6 +192,11 @@ def run_blocks(args, log, ctx=None):
     def whole(t):  # the ranks' rows of a device result → the whole batch, on the host
         return gather_rows(t, ctx).cpu().numpy()
 
+    # the engines' sum over the ranks, and this rank's first row of a batch
+    ranks_sum = None if ctx is None else (lambda t: sum_rows(t, ctx))
+    rank_rows = B // (1 if ctx is None else ctx.data_size)
+    first_row = 0 if ctx is None else ctx.data_rank * rank_rows
+
     targeted = args.attack.startswith("tar_")
     # ResGCN's targeted protocol gates clouds one by one (batch 1)
     resgcn_gates = resgcn and targeted
@@ -211,7 +218,7 @@ def run_blocks(args, log, ctx=None):
         args.log_dir, f"{args.model}_{args.attack}_area{args.test_area}.tsv"
     )
     steps_tsv = None
-    if args.log_steps and attack_cfg is not None:
+    if args.log_steps and attack_cfg is not None and writes:
         steps_tsv = open(tsv_path.replace(".tsv", "_steps.tsv"), "w")
         steps_tsv.write("room\tblock\titer\tacc\tsr\tl2\n")
     with open(tsv_path if writes else os.devnull, "w") as tsv:
@@ -295,8 +302,11 @@ def run_blocks(args, log, ctx=None):
                     f_atk = attack_wrap(attack_fn) if attack_wrap else attack_fn
                     engine = pgd_color_attack if isinstance(attack_cfg, PGDConfig) \
                         else cw_color_attack
+                    # the trajectory pools this rank's real (unpadded) rows
                     res = engine(f_atk, pts, labs, attack_cfg, mask=mask,
-                                 trajectory=args.log_steps, valid_rows=valid)
+                                 trajectory=args.log_steps,
+                                 valid_rows=min(max(valid - first_row, 0), rank_rows),
+                                 ranks_sum=ranks_sum)
                     res, traj = res if args.log_steps else (res, None)
                     adv_pts = res.points_adv
                     if args.control:
@@ -335,8 +345,10 @@ def run_blocks(args, log, ctx=None):
                     adv_c = adv_pts[:valid][torch.from_numpy(keep).to(device)][..., 3:6]
                     room_colors[torch.from_numpy(flat[last]).to(device)] = \
                         adv_c.reshape(-1, 3)[torch.from_numpy(last).to(device)].to(room_colors)
-                traj_np = (None if traj is None
-                           else {k: v.cpu().numpy() for k, v in traj.items()})
+                # the per-cloud L2 of each step, [steps, B] over the ranks
+                traj_np = (None if traj is None else
+                           {"acc": traj["acc"].cpu().numpy(), "sr": traj["sr"].cpu().numpy(),
+                            "l2": whole(traj["l2"].T.contiguous()).T})
                 dt = time.time() - t0
 
                 lab_np = labs_np[:valid]

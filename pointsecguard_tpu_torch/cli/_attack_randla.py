@@ -29,11 +29,13 @@ random noise and of every metric, and ``--origin`` / ``--target`` stay raw
 dataset labels. ``--save_adv`` keeps the raw labels.
 
 On a rank of ``--devices N`` (``ctx``) each batch is split by rows as in
-the block driver, the per-cloud results gathered and written by rank 0.
+the block driver (``--log_steps`` too: the trajectory's counts summed
+over the ranks, its per-cloud L2 gathered), the per-cloud results
+gathered and written by rank 0.
 With ``--shard_points P`` the ranks of a points group attack the same
 clouds whole, and only the pyramid's kNN is divided among them
 (``build_pyramid(sp=...)``: each rank's query shard, the index tables
-all-gathered), before the attack loop, which so holds no collective.
+all-gathered), before the attack loop, which so holds no collective of the points group.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ def run_randla(args, log, ctx=None):
     from pointsecguard_tpu_torch.cli._attack_common import defense_wrapper
     from pointsecguard_tpu_torch.data.randla import randla_dataset_preset
     from pointsecguard_tpu_torch.models import RandLANet, build_pyramid
-    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put
+    from pointsecguard_tpu_torch.parallel import gather_rows, is_main, make_batch_put, sum_rows
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.metrics import metrics_from_confusion
     from pointsecguard_tpu_torch.utils.runtime import model_dtype, resolve_device
@@ -114,6 +116,8 @@ def run_randla(args, log, ctx=None):
     def local(x):  # this rank's rows of a host array, on the device
         return torch.from_numpy(np.ascontiguousarray(rows(x))).to(device)
 
+    ranks_sum = None if ctx is None else (lambda t: sum_rows(t, ctx))
+
     sampler = preset.make_sampler(args.randla_dir, "test", num_points,
                                   np.random.default_rng(args.seed),
                                   test_area=args.test_area)
@@ -146,7 +150,7 @@ def run_randla(args, log, ctx=None):
     os.makedirs(args.log_dir, exist_ok=True)
     tsv_path = os.path.join(args.log_dir, f"randla_{args.attack}_area{args.test_area}.tsv")
     steps_tsv = None
-    if args.log_steps and attack_cfg is not None:  # one process only (cli.attack)
+    if args.log_steps and attack_cfg is not None and writes:
         steps_tsv = open(tsv_path.replace(".tsv", "_steps.tsv"), "w")
         steps_tsv.write("cloud\titer\tacc\tsr\tl2\n")
     clean_cm = np.zeros((K, K))
@@ -205,10 +209,11 @@ def run_randla(args, log, ctx=None):
                 f_atk = attack_wrap(outputs_fn) if attack_wrap else outputs_fn
                 if isinstance(attack_cfg, PGDConfig):
                     res = pgd_color_attack(f_atk, feats_t, labels_t, attack_cfg, mask=mask,
-                                           generator=gen, trajectory=args.log_steps)
+                                           generator=gen, trajectory=args.log_steps,
+                                           ranks_sum=ranks_sum)
                 else:
                     res = cw_color_attack(f_atk, feats_t, labels_t, attack_cfg, mask=mask,
-                                          trajectory=args.log_steps)
+                                          trajectory=args.log_steps, ranks_sum=ranks_sum)
                 res, traj = res if args.log_steps else (res, None)
                 adv_t = res.points_adv
                 if args.control:
@@ -224,7 +229,9 @@ def run_randla(args, log, ctx=None):
             adv_pred = whole(predict(adv_t))
             clean_pred = whole(clean_pred_d)
             rand_pred = None if rand_pred_d is None else whole(rand_pred_d)
-            traj_np = None if traj is None else {k: v.cpu().numpy() for k, v in traj.items()}
+            traj_np = (None if traj is None else
+                       {"acc": traj["acc"].cpu().numpy(), "sr": traj["sr"].cpu().numpy(),
+                        "l2": whole(traj["l2"].T.contiguous()).T})
             mask_np = None if mask is None else whole(mask)
             adv_np = whole(adv_t) if (args.save_adv or args.visual) else None
             if args.save_adv and writes:

@@ -25,7 +25,8 @@ trajectories to ``*_steps.tsv``, no early exit), ``--visual``
 ``--eot`` (every reported prediction under the deployed defense; the
 attacker differentiates the EoT mean), and ``--resgcn_fixed_graphs``
 (ResGCN's attacker on graphs frozen at the clean input; the metrics
-evaluate the dynamic model), and ``--ensemble MODEL:LOG_DIR[:WEIGHT]``
+evaluate the dynamic model), ``--resgcn_fast`` (ResGCN's subsample
+dilation, ``models/resgcn.py``: 28 kNN-kernel graphs a forward), and ``--ensemble MODEL:LOG_DIR[:WEIGHT]``
 (repeatable; block models only) with ``--ensemble_mode probs|log_probs``
 (a weighted ensemble victim: every metric evaluates the softmax mixture,
 the attack differentiates the mode's objective). The checkpoint is the port's own
@@ -35,16 +36,15 @@ Linear products in bf16, ensemble members included; the fused attentive
 kernel is float32 only, so ``--fused_ap`` with it stops the run (the JAX
 model quietly takes the reference pooling there). It runs on the GPU;
 ``--device cpu`` runs the plain PyTorch path by request. ``--devices N``
-attacks data-parallel on N ranks, each attacking its rows of every batch
-with no collective inside the attack loop (per-cloud early exits stay per
-rank), the per-cloud results gathered and written by rank 0;
+attacks data-parallel on N ranks, each attacking its rows of every batch,
+the per-cloud results gathered and written by rank 0; the attack loop
+holds a collective only under ``--log_steps`` (the trajectory's per-step
+counts, summed over the ranks once after the loop) and with an early
+exit under ``--devices`` (the ranks agree on it every step);
 ``--shard_points P`` splits RandLA's pyramid kNN over P of them
-(``parallel/``). ``--fused_ap`` with ``--shard_points`` stops the run (the
-JAX driver quietly takes the reference pooling there), and so does
-``--log_steps`` with ``--devices``: its trajectory pools over the whole
-batch, which the ranks would have to reduce in every step. Every other
-flag of the JAX CLI (``--resgcn_fast``) is accepted by name and stops the
-run with "not ported yet" instead of being ignored.
+(``parallel/``). ``--fused_ap`` with ``--shard_points`` stops the run with
+"not ported yet" (the JAX driver quietly takes the reference pooling
+there).
 """
 
 from __future__ import annotations
@@ -63,8 +63,6 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "resgcn", "randla"]
 _ATTACKS = ["nb", "nu", "tar_nb", "tar_nu", "random"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn")
 PORTED_ATTACKS = ("nb", "nu", "tar_nb", "tar_nu", "random")
-# JAX CLI flags this port does not implement yet
-_UNPORTED_SWITCHES = ("--resgcn_fast",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -153,9 +151,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="the attacked ensemble objective: 'probs' = CE of the softmax "
                          "mixture; 'log_probs' = the weighted per-model CE direction of "
                          "ares `loss/cross_entropy.py:22-38` plus the mixture normaliser")
-    add_resgcn_arguments(ap)
-    for flag in _UNPORTED_SWITCHES:
-        ap.add_argument(flag, action="store_true")
+    add_resgcn_arguments(ap, fast_help="resgcn: dilated_mode=subsample + approx kNN "
+                                       "(documented deviation, PARITY.md)")
     return ap
 
 
@@ -167,9 +164,6 @@ def _refuse_unported(args) -> None:
         refused.append(f"--fused_ap with --shard_points {args.shard_points} (the fused "
                        "attentive kernel runs on whole clouds only; the JAX driver takes "
                        "the reference pooling there)")
-    if args.log_steps and args.devices > 1:
-        refused.append(f"--log_steps with --devices {args.devices} (a trajectory pooled "
-                       "over the ranks' clouds)")
     if args.fused_ap and args.model != "randla":
         refused.append(f"--fused_ap with --model {args.model} (RandLA-Net's "
                        "attentive pooling: --model randla only)")
@@ -179,7 +173,6 @@ def _refuse_unported(args) -> None:
     if args.resgcn_fixed_graphs and args.model != "resgcn":
         refused.append(f"--resgcn_fixed_graphs with --model {args.model}")
     refused += resgcn_refusals(args)
-    refused += [f for f in _UNPORTED_SWITCHES if getattr(args, f[2:])]
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 

@@ -28,11 +28,12 @@ names; deepfool, boundary and evolutionary (``--overshoot``,
 ``--init_tries``, ``--spherical_step``, ``--source_step``) need ``--task
 cls``. ``--precision bfloat16`` runs the victim's Linear products in
 bf16. It runs on the GPU; ``--device cpu`` runs the plain PyTorch path
-by request. Accepted by name and refused with "not ported yet":
-``--devices`` other than 1 (the other CLIs take it, ``parallel/``): the
-sweeps decide each probe on the whole batch's pooled accuracy, and the
-score-based attacks draw their noise along a samples axis that the ranks'
-batch slices (``utils.runtime.batch_draw``) do not cover.
+by request. ``--devices N`` benchmarks data-parallel on N ranks
+(``parallel/``; JAX's mesh over the batch): every rank draws the same
+global batch (blocks, RandLA clouds or ModelNet shapes) and keeps its
+rows, the harness gathers and pools what one process would return
+(``attacks/benchmark.py``), and rank 0 alone logs and writes
+``predictions.npz``. ``--batch_size`` must divide by ``--devices``.
 """
 
 from __future__ import annotations
@@ -42,11 +43,7 @@ import logging
 import os
 
 from pointsecguard_tpu_torch.cli.train import CLS_MODELS
-from pointsecguard_tpu_torch.configs import add_precision_argument
-
-# JAX CLI flags of the paths not ported yet (several ranks): only their
-# defaults
-_UNPORTED_DEFAULTS = {"devices": 1}
+from pointsecguard_tpu_torch.configs import add_parallel_arguments, add_precision_argument
 
 
 def _check_batch_coverage(log, n: int, batch_size: int, unit: str) -> None:
@@ -131,9 +128,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) needs a card and raises without one; cpu runs "
                          "the plain PyTorch path")
-    for name, default in _UNPORTED_DEFAULTS.items():
-        flags = [f"--{name}"] + (["-d"] if name == "devices" else [])
-        ap.add_argument(*flags, type=type(default), default=default)
+    add_parallel_arguments(ap, shard_points=False)
     add_precision_argument(ap)
     ap.add_argument("--output", default="",
                     help="prediction mode: .npz output path (default "
@@ -144,10 +139,7 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     from pointsecguard_tpu_torch.configs import resgcn_refusals
 
-    refused = [f"--{name} {getattr(args, name)}"
-               for name, default in _UNPORTED_DEFAULTS.items()
-               if getattr(args, name) != default]
-    refused += resgcn_refusals(args)
+    refused = resgcn_refusals(args)
     if refused:
         raise SystemExit("not ported yet: " + ", ".join(refused))
 
@@ -179,21 +171,23 @@ def _check_task(args) -> None:
                              "drive, untargeted scoring) is meaningless — use ut or t")
 
 
-def _victim(args, device, log):
+def _victim(args, device, log, ctx=None):
     """(make_outputs_fn, batches, num_classes, domain): the checkpoint's
     model as a per-batch closure factory (semseg: its plan built once a
     batch, xyz never moves; cls: the geometry in every forward, the
-    coordinates move), a generator of (points, labels) device batches, and
-    the configs' perturbation domain (empty: the engines' colour
-    defaults)."""
+    coordinates move), a generator of (points, labels) device batches (on
+    a rank of ``ctx``, its rows of each global batch), and the configs'
+    perturbation domain (empty: the engines' colour defaults)."""
     import numpy as np
     import torch
 
     from pointsecguard_tpu_torch.cli._attack_blocks import load_block_model, member_factory
+    from pointsecguard_tpu_torch.parallel import make_batch_put
     from pointsecguard_tpu_torch.utils.checkpoint import load_checkpoint
     from pointsecguard_tpu_torch.utils.runtime import model_dtype
 
     B = args.batch_size
+    put = make_batch_put(ctx, batch_size=B, device=device)  # the rank's rows, on the device
     dtype = model_dtype(args.precision)
     if args.task == "cls":
         from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset
@@ -212,8 +206,7 @@ def _victim(args, device, log):
         def batches():
             for s in range(0, n_shapes - B + 1, B):
                 pts = np.stack([dataset.load(i)[0] for i in range(s, s + B)])
-                labs = dataset.labels[s:s + B].astype(np.int64)[:, None]
-                yield torch.from_numpy(pts).to(device), torch.from_numpy(labs).to(device)
+                yield put(pts), put(dataset.labels[s:s + B].astype(np.int64)[:, None])
 
         # [B, K] log-probabilities as [B, 1, K] one-point clouds
         make = lambda pts: (lambda p: model(p)[0][:, None, :])
@@ -248,8 +241,7 @@ def _victim(args, device, log):
 
         def batches():
             for _, feats, labels, _, _ in sampler.batches(B, n_clouds // B):
-                yield (torch.from_numpy(feats).to(device),
-                       torch.from_numpy(labels.astype(np.int64)).to(device))
+                yield put(feats), put(labels.astype(np.int64))
     else:
         from pointsecguard_tpu_torch.data import RoomSet, WholeSceneBlocks
 
@@ -263,19 +255,23 @@ def _victim(args, device, log):
 
         def batches():
             for s in range(0, len(feats) - B + 1, B):
-                yield (torch.from_numpy(feats[s:s + B]).to(device),
-                       torch.from_numpy(labs[s:s + B].astype(np.int64)).to(device))
+                yield put(feats[s:s + B]), put(labs[s:s + B].astype(np.int64))
 
     return member_factory(model, family), batches, 13, {}
 
 
 def main(argv=None):
+    """Parse, check, and benchmark on one device or on the ranks of
+    ``--devices`` (``parallel.run_cli``); returns rank 0's result."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     _check_task(args)
-    logging.basicConfig(level=logging.INFO, format="%(message)s", force=True)
-    log = logging.getLogger("benchmark")
+    from pointsecguard_tpu_torch.parallel import run_cli
 
+    return run_cli(_benchmark, args, device=args.device)
+
+
+def _benchmark(args, ctx=None):
     import numpy as np
     import torch
 
@@ -288,11 +284,15 @@ def main(argv=None):
         worst_case_run,
     )
     from pointsecguard_tpu_torch.attacks.common import make_target_labels
+    from pointsecguard_tpu_torch.parallel import gather_rows, is_main
     from pointsecguard_tpu_torch.utils.runtime import resolve_device
 
-    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO if is_main(ctx) else logging.WARNING,
+                        format="%(message)s", force=True)
+    log = logging.getLogger("benchmark")
+    device = ctx.device if ctx is not None else resolve_device(args.device)
     B = args.batch_size
-    make_outputs_fn, batches, num_classes, domain = _victim(args, device, log)
+    make_outputs_fn, batches, num_classes, domain = _victim(args, device, log, ctx)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     if args.mode == "prediction":
@@ -301,9 +301,9 @@ def main(argv=None):
         ys, preds = [], []
         for i_batch, (pts, labels) in enumerate(batches()):
             with torch.no_grad():
-                pred = torch.argmax(make_outputs_fn(pts)(pts), dim=-1).cpu().numpy()
-            pred = pred.astype(np.int32)
-            lab = labels.cpu().numpy().astype(np.int32)
+                pred = torch.argmax(make_outputs_fn(pts)(pts), dim=-1)
+            pred = gather_rows(pred, ctx).cpu().numpy().astype(np.int32)
+            lab = gather_rows(labels, ctx).cpu().numpy().astype(np.int32)
             ys.append(lab)
             preds.append(pred)
             log.info("n=%d..%d acc=%3f", i_batch * B, i_batch * B + B - 1,
@@ -313,7 +313,8 @@ def main(argv=None):
         # the fixed target-label vector of the targeted drives (`target.py:29`)
         ys_target = np.full_like(ys, args.target)
         out_path = args.output or os.path.join(args.log_dir, "predictions.npz")
-        np.savez(out_path, ys=ys, ys_target=ys_target, predictions=preds)
+        if is_main(ctx):
+            np.savez(out_path, ys=ys, ys_target=ys_target, predictions=preds)
         log.info("acc=%3f", (preds == ys).mean())
         log.info("saved %s", out_path)
         return ys, ys_target, preds
@@ -349,9 +350,9 @@ def main(argv=None):
             return worst_case_run(
                 names, make_outputs_fn, batches(), goal=args.goal,
                 distance_metric=args.distance, origin=args.origin, target=args.target,
-                generator=generator, logger=log, **kwargs)
+                generator=generator, logger=log, ctx=ctx, **kwargs)
         bench = AttackBenchmark(args.attack_name, make_outputs_fn, goal=args.goal,
-                                distance_metric=args.distance, **kwargs)
+                                distance_metric=args.distance, ctx=ctx, **kwargs)
         acc, acc_adv, total, succ, dist = bench.run(batches(), logger=log,
                                                     generator=generator)
         log.info("TOTAL acc=%.4f adv_acc=%.4f succ=%.4f dist_mean=%.4f (%d pts)",
@@ -379,7 +380,8 @@ def main(argv=None):
     if args.mode == "distortion":
         eps, details = distortion_binsearch(
             make_outputs_fn, pts, ys, cfg, success_acc=1.0 / num_classes, mask=mask,
-            success_criterion="acc" if args.goal == "tm" else "auto", generator=generator)
+            success_criterion="acc" if args.goal == "tm" else "auto", generator=generator,
+            ctx=ctx)
         if details.get("optimized"):
             # minimisation attack: the achieved per-sample distortion
             for d, s in zip(details["dist"], details["success"]):
@@ -392,7 +394,8 @@ def main(argv=None):
             log.info("MINIMAL EPSILON %.5f", eps)
         return eps, details
 
-    probes = iteration_curve(make_outputs_fn, pts, ys, cfg, mask=mask, generator=generator)
+    probes = iteration_curve(make_outputs_fn, pts, ys, cfg, mask=mask, generator=generator,
+                             ctx=ctx)
     for p in probes:
         log.info("iters=%d acc=%.4f sr=%.4f l2=%.4f", p["iters"], p["acc"], p["sr"], p["l2"])
     return probes

@@ -17,7 +17,8 @@ Ported: ``--model pointnet2``, ``pointnet2_msg`` and ``pointnet`` with
 ``--num_votes``, ``--num_point`` (0 → 4096), ``--batch_size`` (0 → 16),
 ``--seed`` and ``--adv_set`` (a saved adversarial set from
 ``cli.attack --save_adv``), and so ``--model resgcn`` with the
-``--resgcn_*`` model flags; ``--model randla``
+``--resgcn_*`` model flags and ``--resgcn_fast`` (the subsample dilation,
+``models/resgcn.py``); ``--model randla``
 (whole-cloud voting, ``_eval_randla``) with ``--randla_dataset
 s3dis|semantickitti|semantic3d``, ``--randla_dir``, ``--randla_points``
 (0 → the preset's 40960, 45056 or 65536), ``--num_clouds``,
@@ -40,9 +41,9 @@ PyTorch path by request. ``--devices N`` evaluates data-parallel on N
 ranks and ``--shard_points P`` (the segmentation models) splits RandLA's
 pyramid kNN over P of them (``parallel/``): each rank predicts its rows of
 every batch (the tail padded to the ranks' shape), the predictions are
-gathered, and rank 0 pools the votes and writes the outputs. Every other
-flag of the JAX CLI is accepted by name and stops the run with "not ported
-yet".
+gathered, and rank 0 pools the votes and writes the outputs. A flag with
+a model that does not read it (``--save_preds`` but with randla,
+``--resgcn_*`` but with resgcn) stops the run with "not ported yet".
 """
 
 from __future__ import annotations
@@ -65,7 +66,6 @@ _MODELS = ["pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn",
            "pointnet_part_seg", "pointnet2_part_seg", "pointnet2_part_seg_msg"]
 PORTED_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", "randla", "resgcn", *CLS_MODELS,
                  *PART_SEG_MODELS)
-_UNPORTED_SWITCHES = ("resgcn_fast",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -115,10 +115,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) needs a card and raises without "
                          "one; cpu runs the plain PyTorch path")
     add_precision_argument(ap)
-    add_resgcn_arguments(ap)
+    add_resgcn_arguments(ap, fast_help="resgcn: dilated_mode=subsample + approx kNN")
     add_parallel_arguments(ap)
-    for name in _UNPORTED_SWITCHES:
-        ap.add_argument(f"--{name}", action="store_true")
     return ap
 
 
@@ -128,7 +126,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--shard_points covers the semseg families "
                          "(pointnet/pointnet2[_msg]/randla/resgcn)")
     refused = [f"--model {args.model}"] if args.model not in PORTED_MODELS else []
-    refused += [f"--{name}" for name in _UNPORTED_SWITCHES if getattr(args, name)]
     if args.save_preds and args.model != "randla":
         refused.append(f"--save_preds with --model {args.model} (randla only)")
     refused += cls_refusals(args)

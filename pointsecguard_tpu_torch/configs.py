@@ -91,9 +91,9 @@ def resgcn_overrides(args) -> dict:
     --n_filters, --kernel_size/k, --block, --conv, --epsilon/stochastic).
     0 / "" / None means "use the config default"; shared by cli.{train,
     eval, attack} so that a non-default model trains, evaluates and is
-    attacked with one flag set. ``--resgcn_fast`` (the JAX package's
-    subsample dilation and approximate kNN) is not ported: the CLIs refuse
-    it by name."""
+    attacked with one flag set. ``--resgcn_fast`` (``cli.attack`` and
+    ``cli.eval``, as in JAX `configs.py:153-154`) sets the subsample
+    dilation and the "approx" kNN, which is exact here."""
     ov = {}
     for flag, key in (("resgcn_blocks", "n_blocks"), ("resgcn_k", "k"),
                       ("resgcn_filters", "n_filters"), ("resgcn_block_type", "block"),
@@ -101,6 +101,8 @@ def resgcn_overrides(args) -> dict:
         value = getattr(args, flag, None)
         if value:
             ov[key] = value
+    if getattr(args, "resgcn_fast", False):
+        ov.update(dilated_mode="subsample", knn_strategy="approx")
     return ov
 
 
@@ -112,9 +114,11 @@ def resgcn_refusals(args) -> list[str]:
     return []
 
 
-def add_resgcn_arguments(ap) -> None:
-    """The ``--resgcn_*`` model flags of the three CLIs (the JAX CLIs'
-    names, types and defaults); ``resgcn_overrides`` reads them."""
+def add_resgcn_arguments(ap, *, fast_help: str | None = None) -> None:
+    """The ``--resgcn_*`` model flags of the CLIs (the JAX CLIs' names,
+    types and defaults); ``resgcn_overrides`` reads them. ``fast_help``:
+    also ``--resgcn_fast`` with this help, where the JAX CLI has it
+    (``cli.attack``, ``cli.eval``)."""
     ap.add_argument("--resgcn_blocks", type=int, default=0,
                     help="resgcn depth (0 = the config's 28; must match the checkpoint)")
     ap.add_argument("--resgcn_k", type=int, default=0,
@@ -128,6 +132,8 @@ def add_resgcn_arguments(ap) -> None:
     ap.add_argument("--resgcn_epsilon", type=float, default=0.0,
                     help="resgcn stochastic-dilation epsilon in training "
                          "(OptInit --epsilon; the reference enables it with 0.2)")
+    if fast_help is not None:
+        ap.add_argument("--resgcn_fast", action="store_true", help=fast_help)
 
 
 def add_precision_argument(ap) -> None:

@@ -17,6 +17,13 @@ trainer's momentum; the kNN graph includes the point itself; dilation is
 is ``torch.amax``, which splits the gradient over tied maxima as
 ``jnp.max`` does.
 
+``dilated_mode="subsample"`` (``--resgcn_fast``, with ``knn_strategy=
+"approx"``; JAX `models/resgcn.py:131-141`) replaces a block's exact
+dilation, every d-th of its k·d nearest, by the k nearest among the
+stride-d candidates ``x[:, ::d]``: 26 more k = 16 searches on the kNN
+kernel, 28 a forward, and no large-k sort. It is a documented deviation
+from the reference (PARITY.md), adds no parameter and draws nothing.
+
 ``graphs=`` (the head's graph, then one per block) replaces the graphs
 the forward would build, and ``collect_graphs=True`` returns them beside
 the logits: two devices can then be held against each other on one
@@ -94,16 +101,20 @@ class DynConv(nn.Module):
     of the current features, then the graph conv over it."""
 
     def __init__(self, in_channels: int, out_channels: int, *, k: int, dilation: int,
-                 conv: str, epsilon: float, dtype: torch.dtype | None = None):
+                 conv: str, epsilon: float, knn_strategy: str = "auto",
+                 dilated_mode: str = "exact", dtype: torch.dtype | None = None):
         super().__init__()
         self.k, self.dilation, self.epsilon = k, dilation, epsilon
+        self.knn_strategy, self.dilated_mode = knn_strategy, dilated_mode
         self.conv = _GRAPH_CONVS[conv](in_channels, out_channels, dtype)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, remat: bool = False):
         """→ (output [B, N, out], the graph [B, N, k] it used). ``remat``
         recomputes the convolution over the graph in the backward."""
-        if idx is None:
+        if idx is None and self.dilated_mode == "subsample" and self.dilation > 1:
+            idx = self._subsample_graph(x)
+        elif idx is None:
             idx = ops.dense_knn_graph(x, self.k * self.dilation)
             # the random subset is drawn only where it can be taken
             idx = ops.dilate_neighbors(idx, self.dilation, generator=generator,
@@ -112,6 +123,17 @@ class DynConv(nn.Module):
         if remat and torch.is_grad_enabled():
             return self._recomputed_conv(x, idx), idx
         return self.conv(x, idx), idx
+
+    def _subsample_graph(self, x: torch.Tensor) -> torch.Tensor:
+        """The k nearest of each point among the stride-d candidates, as
+        indices into the whole cloud; a cloud of fewer than k candidates
+        repeats its list to width k. Built from ``x.detach()``, as
+        ``ops.dense_knn_graph`` builds its graph."""
+        x = x.detach()
+        cand = x[:, :: self.dilation].contiguous()
+        k_eff = min(self.k, cand.shape[1])
+        _, idx = ops.knn(x, cand, k_eff, strategy=self.knn_strategy)
+        return ops.repeat_pad_k(idx, self.k) * self.dilation
 
     def _recomputed_conv(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         calls = []
@@ -147,7 +169,9 @@ class DenseDeepGCN(nn.Module):
     from ``generator`` (on the model's device), or the dropout mask given
     as ``dropout_mask``. The JAX module's ``act``, ``norm``, ``use_bias``
     and ``res_scale`` keep their defaults (ReLU, BatchNorm, biases, 1):
-    no ported path sets them. ``remat`` recomputes each backbone block in
+    no ported path sets them. ``dilated_mode`` ("exact" | "subsample")
+    and ``knn_strategy`` (``ops.knn``'s, for the subsample graphs) as in
+    the module docstring. ``remat`` recomputes each backbone block in
     the backward (module docstring). ``dtype`` as in ``models/common.py``:
     the graphs are built on float32 features either way
     (``ops.dense_knn_graph``).
@@ -155,12 +179,15 @@ class DenseDeepGCN(nn.Module):
 
     def __init__(self, num_classes: int = 13, in_channels: int = 9, n_blocks: int = 28,
                  n_filters: int = 64, k: int = 16, block: str = "res", conv: str = "edge",
-                 epsilon: float = 0.0, dropout: float = 0.0, remat: bool = False,
+                 epsilon: float = 0.0, dropout: float = 0.0, knn_strategy: str = "auto",
+                 dilated_mode: str = "exact", remat: bool = False,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.remat = remat
         if block not in ("res", "dense", "plain") or conv not in _GRAPH_CONVS:
             raise NotImplementedError(f"block:{block} conv:{conv} is not supported")
+        if dilated_mode not in ("exact", "subsample"):
+            raise ValueError(f"dilated_mode {dilated_mode!r} (exact | subsample)")
         self.k, self.block, self.dropout = k, block, dropout
         self.head = _GRAPH_CONVS[conv](in_channels, n_filters, dtype)
         width, widths = n_filters, [n_filters]
@@ -168,7 +195,8 @@ class DenseDeepGCN(nn.Module):
         for i in range(n_blocks - 1):
             dilation = 1 if block == "plain" else 1 + i
             blocks.append(DynConv(width, n_filters, k=k, dilation=dilation, conv=conv,
-                                  epsilon=epsilon, dtype=dtype))
+                                  epsilon=epsilon, knn_strategy=knn_strategy,
+                                  dilated_mode=dilated_mode, dtype=dtype))
             if block == "dense":
                 width += n_filters
             widths.append(width)

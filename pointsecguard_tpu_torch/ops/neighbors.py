@@ -11,6 +11,10 @@ from pointsecguard_tpu_torch.ops.cuda import knn as knn_kernel
 from pointsecguard_tpu_torch.ops.distance import square_distance
 from pointsecguard_tpu_torch.ops.selection import bottom_k_indices
 
+# JAX's names of its exact selections (``ops/selection.py``): all take the
+# exact selection of ``bottom_k_indices`` here
+_EXACT_SELECTIONS = ("pallas", "topk", "iterative", "twostage")
+
 
 def knn(
     query: torch.Tensor,
@@ -29,26 +33,31 @@ def knn(
       tile: on the "pallas" route, the query rows per distance block,
         bounding the [B, tile, N] working set (the fused kernel never
         writes that matrix and ignores it).
-      strategy: "auto" or "fused" — the fused kNN kernel
+      strategy: "auto" or "fused": the fused kNN kernel
         (``ops/cuda/knn.py``; its plain version for a CPU tensor);
-        "pallas" — ``square_distance`` then exact kernel selection
+        "approx": the same kernel (JAX's ``lax.approx_max_k``, which on
+        the CPU returns ``lax.top_k``'s indices; here it is exact
+        everywhere), above the kernel's k through the exact selection;
+        "pallas": ``square_distance`` then exact kernel selection
         (``bottom_k_indices``: wide rows go to the wide-row kernel), the
-        JAX package's name for that route. The JAX opt-in strategies
-        (approx, iterative, twostage, topk) are not ported.
+        JAX package's name for that route, and so are JAX's exact
+        selections "topk", "iterative" and "twostage".
 
     Returns:
       (sq_dists [B, S, k] float32, idx [B, S, k] int32), nearest first,
-      ties to the first occurrence; both routes give the same result.
+      ties to the first occurrence; every route gives the same result.
     """
     # selection runs in float32 whatever the model dtype (bf16 distances
     # would flip near-tie neighbours)
     query = query.float()
     points = points.float()
+    if strategy == "approx":
+        strategy = "auto" if k <= knn_kernel.MAX_K else "pallas"
     if strategy in ("auto", "fused"):
         return knn_kernel.knn(query, points, k)
-    if strategy != "pallas":
-        raise ValueError(f"knn: strategy {strategy!r} not ported yet "
-                         "(auto | fused | pallas)")
+    if strategy not in _EXACT_SELECTIONS:
+        raise ValueError(f"knn: unknown strategy {strategy!r} (auto | fused | approx | "
+                         + " | ".join(_EXACT_SELECTIONS) + ")")
     if tile is None or tile >= query.shape[1]:
         return bottom_k_indices(square_distance(query, points), k)
     parts = [bottom_k_indices(square_distance(query[:, s : s + tile], points), k)

@@ -6,8 +6,9 @@ Results are ascending with first-occurrence tie-breaking, identical to
 (``ops/cuda/bottomk.py``) and wider rows to the wide-row kernel
 (``ops/cuda/bottomk_chunked.py``, the port of ``bottom_k_pallas_chunked``);
 each takes its plain version only for a CPU tensor. Larger k takes the
-stable sort, as JAX sends it to ``lax.top_k``. The opt-in JAX strategies
-(approx, twostage, iterative) are not ported.
+stable sort, as JAX sends it to ``lax.top_k``. JAX's opt-in strategies
+are exact selections (twostage, iterative) or, on the CPU, exact in fact
+(approx): ``ops.knn`` takes their names onto these routes.
 
 The values carry a gradient on every route, the JAX package's
 ``_pallas_bottom_k_diff`` (`selection.py:75-124`): the two kernels' custom

@@ -25,6 +25,7 @@ from pointsecguard_tpu_torch.parallel.spmd_ops import (
     knn_points_sharded,
     points_sharded_forward,
     sp_shapes_ok,
+    sum_rows,
     sync_batchnorm,
 )
 
@@ -47,5 +48,6 @@ __all__ = [
     "shard_batch",
     "sp_shapes_ok",
     "spawn",
+    "sum_rows",
     "sync_batchnorm",
 ]

@@ -27,13 +27,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from pointsecguard_tpu_torch.parallel.mesh import (
+    TIMEOUT,
     Mesh,
     RankContext,
     flat_view,
@@ -69,7 +72,7 @@ def _whole_rows(ctx, t: torch.Tensor) -> np.ndarray:
 def _sum(ctx, value: torch.Tensor) -> float:
     value = value.detach().clone()
     if ctx is not None and ctx.world_size > 1:
-        dist.all_reduce(value)
+        dist.all_reduce(value, group=ctx.group)
     return float(value)
 
 
@@ -464,11 +467,11 @@ def pyramid_timing_program(ctx, xyz: np.ndarray, k: int = 16, device: str = "cud
     out["query_shape"] = tuple(q.shape)
     for r in range(1 if ctx is None else ctx.world_size):
         if ctx is not None:
-            dist.barrier()
+            dist.barrier(group=ctx.group)
         if ctx is None or r == ctx.rank:
             out["device_ms"] = _device_ms(lambda: ops.knn(q, x, k))
     if ctx is not None:
-        dist.barrier()
+        dist.barrier(group=ctx.group)
     return out
 
 
@@ -487,8 +490,10 @@ def cli_program(ctx, cli: str, argv: list, deterministic: bool = False):
     mod = importlib.import_module(f"pointsecguard_tpu_torch.cli.{cli}")
     args = mod._parser().parse_args(argv)
     mod._refuse_unported(args)
+    if cli == "benchmark":
+        mod._check_task(args)
     body = {"train": "_train", "eval": "_eval", "attack": "_attack",
-            "attack_object": "_attack_object"}[cli]
+            "attack_object": "_attack_object", "benchmark": "_benchmark"}[cli]
     if ctx is not None and ctx.device.type == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -512,29 +517,61 @@ def collective_program(ctx, xyz: np.ndarray, k: int = 16):
 
     x = torch.from_numpy(xyz).to(ctx.device)
     ids = torch.full((4,), float(ctx.rank), device=ctx.device)
-    dist.all_reduce(ids)
+    dist.all_reduce(ids, group=ctx.group)
     knn_kernel.launches = 0
     d, i = knn_points_sharded(x, x, k, ctx)
     return ids.cpu().numpy(), d.cpu().numpy(), i.cpu().numpy(), knn_kernel.launches
+
+
+WAIT = 1800  # seconds a rank outside a program of fewer ranks may wait for the others
+
+
+def wait_program(ctx, path: str, timeout: float = WAIT) -> float:
+    """Wait until the file ``path`` exists, the caller's go-ahead, for up to
+    ``timeout`` seconds; → the seconds waited. As the first program, it
+    lets the ranks start up while the caller still works on the card."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
 
 
 def programs(ctx, calls: list, *, timed: bool = False) -> list:
     """Several programs of this module in one start of the ranks: each
     ``(name, args, kwargs)`` of ``calls`` is ``name(ctx, *args, **kwargs)``,
     in order; a ``kwargs["view"]`` of ``"data"`` or ``"points"`` runs it on
-    ``flat_view(ctx, view)``. Returns their results, with ``timed`` each as
-    (result, seconds on this rank's clock)."""
+    ``flat_view(ctx, view)``, and a ``kwargs["ranks"]`` n on the first n
+    ranks alone, as a mesh of their own (the view's axis, "points" by
+    default): the other ranks skip it (its result None) and wait for the
+    rest at the end, for up to ``WAIT`` seconds, so calls of fewer ranks
+    must come after every call of all of them. Returns their results, with ``timed``
+    each as (result, seconds on this rank's clock)."""
+    sizes = sorted({c[2]["ranks"] for c in calls if c[2].get("ranks")}) if ctx else []
+    # every rank creates every group, in one order
+    groups = {n: dist.new_group(list(range(n)), timeout=timedelta(seconds=TIMEOUT))
+              for n in sizes}
+    done = dist.new_group(timeout=timedelta(seconds=WAIT)) if sizes else None
     out = []
     for name, args, kwargs in calls:
         kwargs = dict(kwargs)
-        view = kwargs.pop("view", None)
+        view, ranks = kwargs.pop("view", None), kwargs.pop("ranks", None)
+        if ctx is not None and ranks is not None and ctx.rank >= ranks:
+            out.append((None, 0.0) if timed else None)
+            continue
         t0 = time.perf_counter()
-        with contextlib.nullcontext(ctx) if view is None or ctx is None \
-                else flat_view(ctx, view) as c:
+        if ctx is None or (view is None and ranks is None):
+            scope = contextlib.nullcontext(ctx)
+        else:
+            scope = flat_view(ctx, view or "points", ranks=ranks, group=groups.get(ranks))
+        with scope as c:
             result = globals()[name](c, *args, **kwargs)
         out.append((result, time.perf_counter() - t0) if timed else result)
         if ctx is not None and ctx.device.type == "cuda":
             torch.cuda.empty_cache()  # ranks sharing a card hand back their cached blocks
+    if done is not None:
+        dist.barrier(group=done)
     return out
 
 

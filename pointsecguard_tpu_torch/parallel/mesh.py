@@ -26,6 +26,8 @@ import contextlib
 import dataclasses
 import os
 import socket
+import sys
+import traceback
 from datetime import timedelta
 from typing import Callable, NamedTuple
 
@@ -101,13 +103,17 @@ def data_parallel_mesh(n_devices: int, shard_points: int = 1, *,
 @dataclasses.dataclass
 class RankContext:
     """One rank of a mesh: its global rank, device and groups (None where
-    the axis has size 1: no collective is needed there)."""
+    the axis has size 1: no collective is needed there). ``group`` holds
+    every rank of the mesh: None for the default group of all processes,
+    a group of its own for a mesh of fewer ranks (``flat_view``'s
+    ``ranks``)."""
 
     rank: int
     mesh: Mesh
     device: torch.device
     data_group: object = None
     points_group: object = None
+    group: object = None
 
     @property
     def world_size(self) -> int:
@@ -170,17 +176,23 @@ def init_rank(rank: int, mesh: Mesh, init_method: str) -> RankContext:
 
 
 @contextlib.contextmanager
-def flat_view(ctx: RankContext, axis: str):
+def flat_view(ctx: RankContext, axis: str, *, ranks: int | None = None, group=None):
     """``ctx``'s ranks seen as a 1-D mesh over the world group: all along
     the data axis (``"data"``, as JAX's ``data_parallel_mesh(n)``) or all
     along the points axis (``"points"``); the rank's data slice is the
     view's inside the block. Lets one start of the ranks run programs of
-    several layouts."""
-    world = dist.group.WORLD if ctx.world_size > 1 else None
-    points = ctx.world_size if axis == "points" else 1
-    view = RankContext(ctx.rank, ctx.mesh._replace(points=points), ctx.device,
-                       data_group=world if axis == "data" else None,
-                       points_group=world if axis == "points" else None)
+    several layouts. With ``ranks`` n: the first n ranks only, over
+    ``group``, the group of those ranks that every rank created (a rank
+    past them must not enter the block)."""
+    n = ranks or ctx.world_size
+    if ctx.rank >= n:
+        raise ValueError(f"rank {ctx.rank} is not one of the view's {n} ranks")
+    world = group if ranks else (dist.group.WORLD if ctx.world_size > 1 else None)
+    points = n if axis == "points" else 1
+    view = RankContext(ctx.rank, ctx.mesh._replace(devices=ctx.mesh.devices[:n], points=points),
+                       ctx.device, data_group=world if axis == "data" else None,
+                       points_group=world if axis == "points" else None,
+                       group=group if ranks else ctx.group)
     set_data_slice(view.data_rank, view.data_size)
     try:
         yield view
@@ -218,6 +230,11 @@ def _rank_main(rank, fn, mesh, init_method, args, queue, threads):
         result = fn(ctx, *args)
         queue.put((rank, _portable(result)))
         dist.barrier()  # no rank tears the store down under another
+    except BaseException:
+        # the spawner reports the first rank it sees fail, which may be one
+        # that a failed peer left waiting: each rank says what it met
+        print(f"rank {rank}:\n{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -362,6 +379,6 @@ def replicate(ctx: RankContext | None, tensors):
              if isinstance(tensors, torch.nn.Module) else list(tensors))
     with torch.no_grad():
         for t in items:
-            dist.broadcast(t.data, src=0)
+            dist.broadcast(t.data, src=0, group=ctx.group)
     return tensors
 

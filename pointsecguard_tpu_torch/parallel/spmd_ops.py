@@ -28,7 +28,9 @@ Everything else that GSPMD derived is written out here:
   shard of the per-point output.
 - ``dp_map``: a host predict function over a batch, each rank taking its
   rows, the outputs gathered back on every rank; ``gather_rows`` the same
-  for device tensors (the attack drivers' per-cloud results).
+  for device tensors (the attack drivers' per-cloud results, the
+  benchmark harness's per-point arrays), and ``sum_rows`` the sum over
+  the data slices (pooled counts: a trajectory's steps, a sweep's probe).
 
 The pointwise layers are not split along the points axis: under
 ``--shard_points`` every rank of a points group runs the whole cloud's
@@ -209,6 +211,17 @@ def gather_rows(t: torch.Tensor, ctx: RankContext | None) -> torch.Tensor:
     return _gather(t, ctx.data_group, 0)
 
 
+def sum_rows(t: torch.Tensor, ctx: RankContext | None) -> torch.Tensor:
+    """The sum of the data slices' ``t`` over the data group, on every
+    rank, without autograd (a new tensor); ``t`` itself without a data
+    axis."""
+    if ctx is None or ctx.data_group is None:
+        return t
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=ctx.data_group)
+    return t
+
+
 def dp_map(fn: Callable, ctx: RankContext | None) -> Callable:
     """``fn(batch numpy [B, ...]) → numpy [B, ...]`` run data-parallel: the
     batch is padded to a multiple of the data axis by repeating its last
@@ -232,9 +245,10 @@ def dp_map(fn: Callable, ctx: RankContext | None) -> Callable:
 
 
 def all_reduce_sum(t: torch.Tensor, ctx: RankContext | None) -> torch.Tensor:
-    """Sum ``t`` over every rank in place (the data-parallel gradient)."""
+    """Sum ``t`` over every rank of the mesh in place (the data-parallel
+    gradient)."""
     if ctx is not None and ctx.world_size > 1:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=ctx.group)
     return t
 
 

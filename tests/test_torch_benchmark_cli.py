@@ -180,19 +180,32 @@ def test_randla_and_resgcn_branches(tmp_path, monkeypatch, capsys):
 
 # the classification task and the one-decision attacks, once refused, are
 # ported (tests/test_torch_cls_cli.py runs them): their flags are parsed and
-# pass the refusals and the JAX CLI's task checks; --devices stays refused,
-# on either task
+# pass the refusals and the JAX CLI's task checks; so is --devices, on either
+# task (tests/test_torch_parallel_benchmark.py runs it). What stays refused
+# is a --resgcn_* flag with a model that does not read it
 _CLS = ["--task", "cls", "--model", "pointnet2_cls"]
+
+
+@pytest.mark.parametrize("flags", [
+    [*_CLS, "--resgcn_epsilon", "0.2"],
+    ["--model", "pointnet_cls", "--task", "cls", "--resgcn_conv", "mr"],
+    ["--model", "randla", "--resgcn_k", "8"], ["--resgcn_blocks", "3"],
+])
+def test_unported_flags_are_refused(flags, tmp_path):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        bench_cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
 
 
 @pytest.mark.parametrize("flags", [
     [*_CLS, "--devices", "2"],
     ["--model", "pointnet_cls", "--task", "cls", "-d", "4"],
-    ["--devices", "2"], ["--resgcn_blocks", "3"],
+    ["--devices", "2"],
 ])
-def test_unported_flags_are_refused(flags, tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        bench_cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
+def test_devices_is_taken(flags):
+    args = bench_cli._parser().parse_args(flags)
+    bench_cli._refuse_unported(args)
+    bench_cli._check_task(args)
+    assert args.devices in (2, 4)
 
 
 @pytest.mark.parametrize("flags", [[*_CLS, "--precision", "bfloat16"],

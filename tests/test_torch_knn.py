@@ -213,9 +213,15 @@ def test_wide_rows_route_to_the_chunked_kernel_and_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("strategy", ["approx", "iterative", "twostage", "topk"])
 def test_knn_refuses_unported_strategies(strategy):
+    """JAX's opt-in strategies, once refused, are taken (exact, as JAX's are
+    on the CPU; tests/test_torch_resgcn_fast.py holds them to JAX's): the
+    result of "auto"; a name JAX does not have is refused."""
     pts = _t(_cloud("uniform", 1, 64, 0))
-    with pytest.raises(ValueError, match="not ported"):
-        tops.knn(pts, pts, 4, strategy=strategy)
+    want = tops.knn(pts, pts, 4)
+    got = tops.knn(pts, pts, 4, strategy=strategy)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    with pytest.raises(ValueError, match="unknown strategy"):
+        tops.knn(pts, pts, 4, strategy=strategy + "_x")
 
 
 @pytest.mark.parametrize("N,k", [(64, 49), (8, 9), (8, 0)])

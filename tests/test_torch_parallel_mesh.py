@@ -260,10 +260,8 @@ _SEMSEG_ONLY = "--shard_points covers the semseg families"
      "--device_sampler composes with --devices"),
     (attack_cli, ["--model", "randla", "--fused_ap", "--devices", "2", "--shard_points", "2"],
      "not ported yet: --fused_ap with --shard_points 2"),
-    (attack_cli, ["--log_steps", "--devices", "2"],
-     "not ported yet: --log_steps with --devices 2"),
 ], ids=["train cls", "train part_seg", "eval cls", "train device_sampler",
-        "attack fused_ap", "attack log_steps"])
+        "attack fused_ap"])
 def test_refused_by_name(cli, flags, match, tmp_path):
     with pytest.raises(SystemExit, match=re.escape(match)):
         cli.main(["--device", "cpu", "--log_dir", str(tmp_path), *flags])
@@ -286,7 +284,9 @@ def test_mesh_errors_reach_the_caller(cli, tmp_path):
     (train_cli, ["--model", "pointnet2_cls", "-d", "4"]),
     (eval_cli, ["--model", "randla", "--devices", "4", "--shard_points", "2"]),
     (attack_cli, ["--model", "randla", "--devices", "2", "--shard_points", "2"]),
-], ids=["train sp", "train cls", "eval randla", "attack randla"])
+    # once refused: tests/test_torch_parallel_benchmark.py runs it
+    (attack_cli, ["--log_steps", "--devices", "2"]),
+], ids=["train sp", "train cls", "eval randla", "attack randla", "attack log_steps"])
 def test_devices_and_shard_points_are_taken(cli, flags):
     args = cli._parser().parse_args(flags)
     cli._refuse_unported(args)

@@ -152,16 +152,16 @@ def test_cli_tar_nb_on_cpu(tiny_run, monkeypatch):
     ["--model", "randla", "--randla_dataset", "semantickitti"],
     # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py;
     # --randla_dataset semantic3d too (test_randla_dataset_is_taken)
-    # --devices / --shard_points are ported (tests/test_torch_parallel_*.py):
-    # what stays refused with them is the fused attentive kernel under
-    # --shard_points, --log_steps under --devices, and --resgcn_fast
+    # --devices / --shard_points are ported (tests/test_torch_parallel_*.py),
+    # --log_steps with them too: what stays refused with them is the fused
+    # attentive kernel under --shard_points, and --resgcn_fast but with resgcn
     ["--model", "randla", "--shard_points", "4", "--devices", "4", "--fused_ap"],
     ["--devices", "4", "--resgcn_fast"],
-    ["--devices", "2", "--log_steps"],
+    ["--devices", "2", "--model", "randla", "--resgcn_k", "8"],
     ["--shard_points", "2", "--devices", "2", "--model", "pointnet2_msg", "--fused_ap"],
-    # resgcn is ported: its subsample dilation is not, and the frozen-graph
-    # surrogate is resgcn's alone
-    ["--model", "resgcn", "--resgcn_fast"], ["--model", "pointnet", "--resgcn_fixed_graphs"],
+    # resgcn is ported with --resgcn_fast (tests/test_torch_resgcn_fast.py);
+    # the subsample dilation and the frozen-graph surrogate are resgcn's alone
+    ["--model", "pointnet2", "--resgcn_fast"], ["--model", "pointnet", "--resgcn_fixed_graphs"],
     # RandLA's fused attentive pooling is not MSG's
     ["--model", "pointnet2_msg", "--fused_ap"],
 ])

@@ -165,11 +165,13 @@ def test_eot_needs_a_randomized_defense(ssg_run):
 
 @pytest.mark.parametrize("flags", [
     # --ensemble / --ensemble_mode are ported: tests/test_torch_ensemble.py;
-    # --devices / --shard_points too (tests/test_torch_parallel_*.py), except
-    # with --log_steps and with --fused_ap
-    ["--devices", "4", "--log_steps"], ["--model", "randla", "--resgcn_fast"],
-    ["--resgcn_fast"], ["--model", "resgcn", "--resgcn_fast"],
-    ["--devices", "2", "--log_steps", "--control"],
+    # --devices / --shard_points too (tests/test_torch_parallel_*.py), with
+    # --log_steps (tests/test_torch_parallel_benchmark.py), except with
+    # --fused_ap; --resgcn_fast with resgcn (tests/test_torch_resgcn_fast.py)
+    ["--devices", "4", "--log_steps", "--model", "pointnet", "--resgcn_fast"],
+    ["--model", "randla", "--resgcn_fast"],
+    ["--resgcn_fast"], ["--model", "pointnet2_msg", "--resgcn_fast"],
+    ["--devices", "2", "--log_steps", "--control", "--resgcn_k", "8"],
     ["--shard_points", "2", "--devices", "2", "--model", "randla", "--fused_ap"],
     ["--resgcn_fixed_graphs"],
 ])

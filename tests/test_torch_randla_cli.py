@@ -188,13 +188,13 @@ def test_cli_tar_nu_fused_on_cpu_gates_clouds(cli_runs, monkeypatch):
     # --randla_dataset semantic3d is ported: tests/test_torch_randla_presets_cli.py
     ["--model", "pointnet2", "--fused_ap"], ["--resgcn_fast"],
     # --shard_points and --devices are ported (tests/test_torch_parallel_*.py);
-    # the fused attentive kernel runs on whole clouds only, and --log_steps
-    # pools its trajectory over the whole batch
+    # the fused attentive kernel runs on whole clouds only
     ["--shard_points", "2", "--devices", "2", "--fused_ap"],
     # the fused attentive kernel is float32 only
     ["--fused_ap", "--precision", "bfloat16"],
-    # --ensemble is refused with RandLA in the JAX driver's words: tests/test_torch_ensemble.py
-    ["--devices", "2", "--log_steps"],
+    # --ensemble is refused with RandLA in the JAX driver's words: tests/test_torch_ensemble.py;
+    # --log_steps with --devices is ported (tests/test_torch_parallel_benchmark.py)
+    ["--devices", "2", "--log_steps", "--resgcn_k", "8"],
 ])
 def test_unported_randla_flags_are_refused(flags):
     with pytest.raises(SystemExit, match="not ported yet"):

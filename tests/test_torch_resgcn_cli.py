@@ -228,7 +228,9 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("cli,argv", [
-    (attack_cli, ["--model", "resgcn", "--resgcn_fast"]),
+    # --resgcn_fast is ported (tests/test_torch_resgcn_fast.py): with
+    # another model it is refused as the other --resgcn_* flags are
+    (attack_cli, ["--model", "randla", "--resgcn_fast"]),
     (attack_cli, ["--model", "pointnet2", "--resgcn_fixed_graphs"]),
     (attack_cli, ["--model", "pointnet2", "--resgcn_blocks", "3"]),
     # resgcn takes --remat, --device_sampler, --steps_per_call and --adv_train
@@ -239,7 +241,7 @@ def test_targeted_runs_take_batch_1_before_any_checkpoint(tmp_path):
     (train_cli, ["--model", "resgcn", "--profile", "trace"]),
     (train_cli, ["--model", "resgcn", "--adv_train", "pgd"]),
     (train_cli, ["--model", "randla", "--resgcn_k", "8"]),
-    (eval_cli, ["--model", "resgcn", "--resgcn_fast"]),
+    (eval_cli, ["--model", "pointnet2_msg", "--resgcn_fast"]),
     (eval_cli, ["--model", "pointnet2", "--resgcn_conv", "mr"]),
 ])
 def test_unported_flags_are_refused_by_name(cli, argv):

@@ -199,8 +199,9 @@ _TRAIN_REFUSED = [
 ]
 
 _EVAL_REFUSED = [
-    # resgcn is ported; its subsample dilation (--resgcn_fast) is not
-    pytest.param(["--model", "resgcn", "--resgcn_fast"], id="--model resgcn"),
+    # resgcn is ported, its subsample dilation (--resgcn_fast) too
+    # (tests/test_torch_resgcn_fast.py); --save_preds is RandLA's
+    pytest.param(["--model", "resgcn", "--save_preds", "out"], id="--model resgcn"),
     # the object tasks take --devices (tests/test_torch_parallel_*.py);
     # --save_preds, RandLA's, is refused with them, and --shard_points in the
     # JAX CLI's words (tests/test_torch_parallel_mesh.py)
@@ -253,6 +254,7 @@ _TRAIN_TAKEN = [
     (["--model", "pointnet2_cls", "--precision", "bfloat16"], "precision", "bfloat16"),
 ]
 _EVAL_TAKEN = [
+    (["--model", "resgcn", "--resgcn_fast"], "resgcn_fast", True),
     (["--model", "pointnet2_msg"], "model", "pointnet2_msg"),
     (["--model", "pointnet"], "model", "pointnet"),
     (["--model", "randla"], "model", "randla"),
