@@ -164,7 +164,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 31. One ResGCN optimizer step card vs CPU on two blocks, on the card's
     train-mode graphs, at ``phase_train_step``'s tolerances.
 32. ``cli.train.main --model resgcn`` at 8 × 4096 on one synthetic train
-    room (13 steps an epoch), 3 epochs and one more on resume: losses
+    room (13 steps an epoch), 2 epochs and one more on resume: losses
     finite and falling, 4 kNN launches a step, no epoch repeated; ms per
     step (host clock, CUDA events), blocks/s, host share, peak memory.
 33. ``cli.eval.main --model resgcn --num_votes 1`` on that checkpoint:
@@ -248,7 +248,7 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     accuracy equal to the single model's.
 48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch of 8 ×
     4096 a call: ``--mode prediction``, then ``--mode attack`` with fgsm,
-    bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples 32``
+    bim, pgd, mim, cw (``--cw_steps 100``), nes and spsa (``--samples 32``
     and ``16``, ``--iters 20``) and nattack (16 × ``NATTACK_ITERS``): ms and forwards a batch,
     queries per second of the score-based three, adversarial accuracy and
     success; 4 FPS and 8 bottom-k launches a batch whatever the query
@@ -452,6 +452,30 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
     --devices 2``, each held to the one-process run of phases 48, 49 or 43
     (``result_gap`` within ``DP_BENCH_POINTS`` / ``DP_BENCH_FLOAT``: the
     ranks' half-size GEMMs round apart on the card).
+82. FPS above 8192 points. (A kernel phase, after 72) ``psg::fps`` against
+    ``fps_plain`` on the card, indices equal, at [16, 10000] → 512 (a
+    ModelNet 10k classifier's first level), [8, 16384] → 1024 (a
+    16,384-point block's), N = 8192 and 8193 (the seam between the
+    register kernel and the streaming one) and [2, 131072] → 256, with
+    card, eager, bound, share and plain ms; the streaming kernel's edges
+    (identical and rounded points, npoint > N, start at N − 1, N = 2²², a
+    start outside the cloud) and N = 2²² + 1 refused. (After 63) NB
+    through ``cli.attack_object --num_point 10000`` on one batch of 16
+    shapes written at 10,000 points, with phase 58's SSG classifier: the
+    first forward's FPS indices and groups equal card vs CPU; the wide-row bottom-k
+    at its ball query [16, 512, 10000] k = 32 equal to plain and timed
+    beside ``torch.topk``; 106 FPS (53 streaming) and 53 wide-row
+    bottom-k launches a batch; adversarial accuracy at most clean and
+    every shape moved (L2 > 0); ms a batch.
+83. The sparse GCN library (``models/gcn_sparse.py``) on one 4096-point
+    block of phase 17's rooms: ``knn_edge_index`` over xyz and over 64
+    features (2 ``psg::knn`` launches, edges equal to ``knn_plain``'s but
+    in near-tie rows); every conv of JAX's ``test_forward_shapes`` list
+    and both blocks at width 64 on the xyz graph, forward and backward in
+    training mode, card against CPU (``GCN_*_TOL``); 10 steps each of the
+    port's ``radam`` and ``adamw`` with ``smooth_cross_entropy`` on a
+    small stack of the library's layers: the loss falls, the first step
+    within ``GCN_PARAM_TOL`` of the CPU's, ms a step.
 
 Phases 75–77 and 81 run on one start of four gloo ranks of the card: the
 four-rank programs first, then the two-rank ones on ranks 0 and 1 while
@@ -473,7 +497,7 @@ the launch counters of the slice phases.
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
 ``--kernels_only`` stops after phases 3, 4, 5, 42, 8, 14, 20, 21, 27, 79, 35,
-56, 60 and 72 and exits 1. Every phase prints its seconds (``phase N: … s``).
+56, 60, 72 and 82 (its kernel part) and exits 1. Every phase prints its seconds (``phase N: … s``).
 Work files go to ``build/chip_smoke/``.
 """
 
@@ -562,9 +586,9 @@ RESGCN_BATCH, RESGCN_BLOCKS, RESGCN_TAR_BLOCKS = 8, 4, 2
 RESGCN_REFERENCE_POINTS = 2048  # phase 28's card-vs-CPU cloud
 RESGCN_NU_STEPS = 10  # the NU phase cuts the preset's 1000 C&W steps to this
 # training: one train room at 25k points/m² (97 sampler blocks, 13 steps an
-# epoch at 8 × 4096), the config's constant lr 1e-3, 3 epochs and one more
-# on resume
-RESGCN_TRAIN_EPOCHS = 3
+# epoch at 8 × 4096), the config's constant lr 1e-3, RESGCN_TRAIN_EPOCHS
+# epochs and one more on resume
+RESGCN_TRAIN_EPOCHS = 2  # 3 until phases 82-83 came
 # whole-scene accuracy the trained checkpoint must reach on the Area-5
 # room, set before the first run: PointNet++'s floor
 RESGCN_EVAL_ACC_FLOOR = 0.3
@@ -756,7 +780,7 @@ def phase_kernels(dev, records):
             raise AssertionError(f"bottom_k kernel != plain at {tuple(vals.shape)} k={k}")
     print(f"bottom_k: {len(edge_cases)} edge cases (descending, constant, ±inf, "
           "N off 4 and 128, k = 1, 48, 129, N = 8192 = k) equal to plain")
-    for call in (lambda: fps.fps(torch.zeros((1, 8193, 3), device=dev), 4, start[:1]),
+    for call in (lambda: fps.fps(torch.zeros((1, fps.MAX_N + 1, 3), device=dev), 4, start[:1]),
                  lambda: bottomk.bottom_k(torch.zeros((1, 8, 8193), device=dev), 4)):
         try:
             call()
@@ -764,7 +788,7 @@ def phase_kernels(dev, records):
             continue
         raise AssertionError("a kernel took a shape past its limit")
     print("contract edges: N at 8192, npoint > N, k == N, N = 1 equal to plain; "
-          "N = 8193 refused")
+          "FPS N = 2^22 + 1 and bottom-k N = 8193 refused")
 
     # times at the slice's shapes: all launches of one build_geometry
     def run_fps(f):
@@ -1575,8 +1599,9 @@ def phase_routes(records, xyz) -> None:
     if counts["bottom_k_chunked"] != RANDLA_POINTS // 4096:
         raise AssertionError(f"tiled route launches: {counts}")
     records["bottom_k_chunked"]["launches"] = counts["bottom_k_chunked"]
-    records["bottom_k_chunked"]["calls_per_batch"] = {
-        "tiled kNN of one 40960² level": counts["bottom_k_chunked"]}
+    _record_path(records, "bottom_k_chunked", "knn tiled route 40960^2",
+                 counts["bottom_k_chunked"], "tiled kNN of one 40960² level",
+                 counts["bottom_k_chunked"])
     print(f"routes: fused and tiled kNN indices identical at {tuple(xyz.shape)} k=16; "
           f"launches on the tiled route {counts}")
 
@@ -3944,8 +3969,8 @@ BENCH_BLOCKS = 8  # one batch of 8 × 4096 blocks per cli.benchmark call
 # at 700 W)
 # (SPSA 16 × 20 and NAttack 50 × 16 since the script's wall neared its limit)
 SCORE_BUDGET, SCORE_ITERS = {"nes": 32, "spsa": 16}, 20
-NATTACK_ITERS = 50  # phase 48's NAttack iterations (its own default 100)
-BENCH_CW_STEPS = 200
+NATTACK_ITERS = 25  # phase 48's NAttack iterations (its own default 100; 50 until phases 82-83)
+BENCH_CW_STEPS = 100  # 200 until phases 82-83 came
 # phase 50's NES / SPSA budget and MIM's iterations
 REFERENCE_SAMPLES, REFERENCE_ITERS, REFERENCE_MIM_ITERS = 4, 3, 10
 
@@ -4039,7 +4064,7 @@ def _bench_argv(data: str, log: str, *flags, model: str = "pointnet2") -> list:
 def phase_benchmark_registry(data: str, log: str, records) -> dict:
     """48. ``cli.benchmark --model pointnet2`` on the trained SSG, one batch
     of 8 × 4096 a call: ``--mode prediction``, then ``--mode attack`` with
-    fgsm, bim, pgd, mim, cw (``--cw_steps 200``), nes and spsa (``--samples
+    fgsm, bim, pgd, mim, cw (``--cw_steps 100``), nes and spsa (``--samples
     32`` and ``16 --iters 20``, ``SCORE_BUDGET``) and nattack (16 × ``NATTACK_ITERS``): ms a batch, forwards a
     batch, queries per second for the score-based three (forwards × blocks
     / wall), adversarial accuracy and success rate. 4 FPS and 8 bottom-k
@@ -6323,7 +6348,7 @@ BF16_RANDLA_POINTS = 8192  # phase 69's cloud (13's size: the CPU runs it too)
 BF16_MODELS = ("pointnet2", "pointnet2_msg", "pointnet", *CLS_MODELS, *PS_MODELS,
                "randla", "resgcn")
 RESGCN_IMPORT_BLOCKS = 4  # phase 71's reference ResGCN
-RESGCN_BF16_NB_BLOCKS = 2  # phase 70's ResGCN NB through the CLI, one batch
+RESGCN_BF16_NB_BLOCKS = 1  # phase 70's ResGCN NB through the CLI, one batch (2 until phases 82-83)
 
 
 def bf16_state_dict(model: torch.nn.Module, seed: int, scale: float = 1.0) -> dict:
@@ -7630,6 +7655,386 @@ def phase_nccl(dev, records, prep: str) -> dict:
     return {"ranks": n}
 
 
+# FPS above 8192 points (phase 82): (B, N, npoint, start, streams, what).
+# The first two are the first levels of a ModelNet classifier at 10,000
+# points and of a 16,384-point block; 8192 / 8193 the seam between the
+# register kernel and the streaming one (``streams``: the kernel the
+# contract gives that N)
+FPS_LARGE_SHAPES = (
+    (16, 10000, 512, "zero", True, "a ModelNet 10k classifier's first level"),
+    (8, 16384, 1024, "random", True, "a 16,384-point block's first level"),
+    (2, 8192, 256, "random", False, "the seam: the register kernel's last N"),
+    (2, 8193, 256, "random", True, "the seam: the streaming kernel's first N"),
+    (2, 131072, 256, "random", True, "a wide cloud"),
+)
+# phase 82's NB: one batch of 16 test shapes written at 10,000 points
+CLS_10K_POINTS, CLS_10K_PER_CLASS = 10_000, 4
+CLS_10K_PATH = "pointnet2_cls nb --num_point 10000"
+
+
+def phase_fps_large_kernels(dev, records) -> dict:
+    """82 (kernels). ``psg::fps`` above 8192 points (the streaming kernel)
+    against ``fps_plain`` on the card, indices equal, at
+    ``FPS_LARGE_SHAPES`` (N = 8192 takes the register kernel, 8193 and
+    above the streaming one: its launch counter says which ran), with card,
+    eager, bound, share and plain ms a call; then the streaming kernel's
+    edges: identical points (every step a tie of all N), rounded
+    coordinates (ties across warps), npoint > N (wrap onto index 0), the
+    start at N − 1, N = 2²² (the ceiling), a start outside the cloud (−1);
+    N = 2²² + 1 refused."""
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import bounds, fps
+
+    gen = torch.Generator(device=dev).manual_seed(82)
+    rows = {}
+    for b, n, npoint, kind, streams, what in FPS_LARGE_SHAPES:
+        cloud = torch.rand((b, n, 3), generator=gen, device=dev)
+        start = (torch.zeros(b, dtype=torch.int32, device=dev) if kind == "zero" else
+                 torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32))
+        before = kernels.launch_counts()["fps_stream"]
+        got = fps.fps(cloud, npoint, start)
+        want = fps.fps_plain(cloud, npoint, start)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fps kernel != plain at [{b}, {n}] -> {npoint}")
+        streamed = kernels.launch_counts()["fps_stream"] - before
+        if streamed != int(streams):
+            raise AssertionError(f"fps [{b}, {n}]: {streamed} streaming launches")
+        key = f"[{b}, {n}] -> {npoint}"
+        rec = kernel_row(f"fps {key} ({what})", f"one call of [{b}, {n}] -> {npoint}",
+                         lambda: fps.fps(cloud, npoint, start),
+                         lambda: fps.fps_plain(cloud, npoint, start),
+                         bounds.fps(b, n, npoint), calls=1)
+        rec.update(kernel="fps_stream_kernel" if streamed else "fps_kernel",
+                   ns_per_step=1e6 * rec["ms"] / (npoint - 1), max_abs_err=0)
+        print(f"  fps {key}: indices equal, {rec['kernel']}, "
+              f"{rec['ns_per_step']:.0f} ns per step on the card")
+        rows[key] = rec
+    edges = [(10000, 64, 5, "same"), (12345, 300, 0, "rounded"), (8193, 8200, 17, "rand"),
+             (9000, 128, 8999, "rand"), (1 << 22, 16, 3, "rand")]
+    for n, npoint, s, kind in edges:
+        cloud = torch.rand((2, n, 3), generator=gen, device=dev)
+        if kind == "same":
+            cloud = cloud[:, :1].expand(2, n, 3).contiguous()
+        elif kind == "rounded":
+            cloud = torch.round(cloud * 4) / 4
+        st = torch.full((2,), s, dtype=torch.int32, device=dev)
+        got = fps.fps(cloud, npoint, st)
+        if not torch.equal(got, fps.fps_plain(cloud, npoint, st)):
+            raise AssertionError(f"fps kernel != plain at N={n} npoint={npoint} ({kind})")
+        if npoint > n and not (got[:, n:] == 0).all():
+            raise AssertionError("fps: npoint > N must wrap onto index 0")
+    outside = torch.tensor([9000, -1], dtype=torch.int32, device=dev)
+    if not (fps.fps(cloud[:, :9000].contiguous(), 8, outside) == -1).all():
+        raise AssertionError("fps: a start outside [0, N) must give -1")
+    try:
+        fps.fps(torch.zeros((1, fps.MAX_N + 1, 3), device=dev), 4, outside[:1])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fps took N past its ceiling")
+    print(f"fps streaming kernel: {len(edges)} edge cases (identical and rounded points, "
+          f"npoint > N, start at N - 1, N = 2^22) equal to plain; a start outside the cloud "
+          f"gives -1; N = 2^22 + 1 refused")
+    main = rows[f"[{FPS_LARGE_SHAPES[0][0]}, {FPS_LARGE_SHAPES[0][1]}] -> "
+                f"{FPS_LARGE_SHAPES[0][2]}"]
+    records["fps_stream"].update(
+        {k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")},
+        max_abs_err=0, ns_per_step=main["ns_per_step"], shapes=rows)
+    return rows
+
+
+def phase_cls_10k(dev, records, log: str) -> dict:
+    """82 (NB at 10,000 points). ``cli.attack_object --model pointnet2_cls
+    --num_point 10000`` NB on a synthetic ModelNet written at 10,000 points
+    a shape (one batch of 16), with phase 58's trained SSG classifier: the
+    first forward's FPS indices and ball-query groups (``build_geometry_cls``
+    from index 0) equal on the card and on the CPU; the wide-row bottom-k at its ball query
+    ([16, 512, 10000] k = 32) equal to plain and timed beside
+    ``torch.topk``; then the CLI run: 53 forwards of 2 FPS (one streaming)
+    and 1 wide-row bottom-k a batch (the second ball query, k = 64, takes
+    the stable sort), adversarial accuracy at most clean, every shape's L2
+    above 0, the batch's ms."""
+    from pointsecguard_tpu_torch.cli import attack_object as cli
+    from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset, make_synthetic_modelnet
+    from pointsecguard_tpu_torch.models import build_geometry_cls
+    from pointsecguard_tpu_torch.models.pointnet2_cls import CLS_SSG_SPEC
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, fps
+
+    root = os.path.join(WORK, "modelnet_10k")
+    make_synthetic_modelnet(root, points_per_shape=CLS_10K_POINTS, train_per_class=1,
+                            test_per_class=CLS_10K_PER_CLASS, seed=1)
+    ds = ModelNetDataset(root, "test", num_point=CLS_10K_POINTS)
+    xyz = torch.from_numpy(np.stack([ds.load(i)[0][:, :3] for i in range(len(ds))]))
+    shapes = xyz.shape[0]
+    card = build_geometry_cls(xyz.to(dev))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    cpu = build_geometry_cls(xyz)
+    torch.set_num_threads(threads)
+    for level, (a, b) in enumerate(zip(card["fps"], cpu["fps"])):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"10k geometry: FPS level {level} differs card vs CPU")
+    for level, ((_, a), (_, b)) in enumerate(zip(card["sa"], cpu["sa"])):
+        if not torch.equal(a.cpu(), b):
+            rows_apart = int((a.cpu() != b).any(-1).sum())
+            raise AssertionError(f"10k geometry: level {level}'s groups differ card vs CPU "
+                                 f"in {rows_apart} rows")
+    print(f"[{shapes}, {CLS_10K_POINTS}] build_geometry_cls: FPS indices and groups of both "
+          f"levels equal card vs CPU")
+    starts = [torch.zeros(shapes, dtype=torch.int32, device=dev)] * 2
+    _, bq_in = cls_geometry_inputs(xyz.to(dev), CLS_SSG_SPEC, starts)
+    vals, k = bq_in[0]
+    got, want = bottomk_chunked.bottom_k_chunked(vals, k), bottomk.bottom_k_plain(vals, k)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"bottom_k_chunked != plain at {tuple(vals.shape)} k={k}")
+    rows = vals.numel() // vals.shape[-1]
+    chunked = kernel_row(f"bottom_k_chunked {tuple(vals.shape)} k={k}",
+                         f"the ball query of one 10k-point classifier forward, "
+                         f"{list(vals.shape)} k={k}",
+                         lambda: bottomk_chunked.bottom_k_chunked(vals, k),
+                         lambda: bottomk.bottom_k_plain(vals, k),
+                         bounds.bottom_k_chunked(rows, vals.shape[-1], k), calls=1,
+                         library=lambda: topk_library(vals, k))
+    chunked["max_abs_err"] = 0.0
+    records["bottom_k_chunked"]["cls_10k_ball_query"] = chunked
+
+    kernels.reset_launch_counts()
+    out = cli.main(["--model", "pointnet2_cls", "--data_root", root, "--log_dir", log,
+                    "--num_point", str(CLS_10K_POINTS), "--batch_size", str(shapes),
+                    "--max_shapes", str(shapes), "--attack", "nb"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    streamed = counts["fps_stream"]
+    stats = {"shapes": shapes, "ms_per_batch": out["batch_ms"], "clean_acc": out["clean_acc"],
+             "adv_acc": out["adv_acc"], "l2_mean": out["l2_mean"], "launches": counts,
+             "fps_stream_launches": streamed}
+    print(f"{CLS_10K_PATH}: " + json.dumps(stats))
+    forwards = 53
+    want = {"fps": 2 * forwards, "bottom_k": 0, "bottom_k_chunked": forwards, "knn": 0}
+    if {k: counts[k] for k in want} != want or streamed != forwards:
+        raise AssertionError(f"{CLS_10K_PATH}: launches {counts}, {streamed} streaming; "
+                             f"want {want} and {forwards}")
+    if not all(math.isfinite(v) for v in (out["clean_acc"], out["adv_acc"], out["l2_mean"])):
+        raise AssertionError(f"{CLS_10K_PATH}: a non-finite result")
+    if not out["adv_acc"] <= out["clean_acc"]:
+        raise AssertionError(f"{CLS_10K_PATH}: adversarial accuracy above clean")
+    # the attack moved every shape (the trained SSG may hold its accuracy)
+    l2 = [float(row["l2"]) for row in read_tsv(out["tsv"])]
+    if len(l2) != shapes or not all(v > 0 for v in l2):
+        raise AssertionError(f"{CLS_10K_PATH}: per-shape L2 {l2}: a shape left unperturbed")
+    _record_path(records, "fps", CLS_10K_PATH, counts["fps"], f"{CLS_10K_PATH} batch",
+                 counts["fps"])
+    _record_path(records, "fps_stream", CLS_10K_PATH, streamed, f"{CLS_10K_PATH} batch",
+                 streamed)
+    _record_path(records, "bottom_k_chunked", CLS_10K_PATH, counts["bottom_k_chunked"],
+                 f"{CLS_10K_PATH} batch", counts["bottom_k_chunked"])
+    return stats
+
+
+# phase 83: the sparse GCN library (models/gcn_sparse.py) on one block
+GCN_K, GCN_WIDTH, GCN_BLOCKS, GCN_STEPS = 16, 64, 4, 10
+# card vs CPU on the same state dict: in float32 the outputs within 1e-4 of
+# the largest magnitude (set before the first run on the card) and the
+# input gradient within 1e-4 relative L2 (set from three runs on an H100,
+# which read 1.2e-6 to 1.7e-6 at most over the eleven layers: about 60
+# times that, a float32 fault of the gradient on the card above 0.01 %
+# fails); in float64 on both devices the gradient within 1e-9
+GCN_FORWARD_TOL, GCN_GRAD_TOL, GCN_GRAD64_TOL = 1e-4, 1e-4, 1e-9
+# the first optimizer step's parameters card vs CPU within GCN_PARAM_TOL:
+# everywhere for radam (its first step is the momentum alone, lr·g); for
+# adamw, whose first step is lr·g / (|g| + eps), about lr·sign(g), where |g|
+# is clear of rounding noise (above a fifth of its tensor's largest entry),
+# as phases 16, 22 and 31 compare Adam's move (set after the first run on
+# an H100: one entry's sign, and so its move, differed by 2·lr)
+GCN_PARAM_TOL = 1e-5
+GCN_LR = {"radam": 1e-2, "adamw": 1e-3}
+
+
+def gcn_layers(width: int) -> dict:
+    """JAX's ``test_forward_shapes`` configurations and both blocks, at
+    ``width`` in and out (GAT: 8 heads of width / 8)."""
+    from pointsecguard_tpu_torch.models import gcn_sparse as g
+
+    return {
+        "GENConv": lambda: g.GENConv(width, width),
+        "GENConv powermean learn_p": lambda: g.GENConv(width, width, aggr="powermean",
+                                                       learn_p=True),
+        "GENConv msg_norm learn_t": lambda: g.GENConv(width, width, msg_norm=True,
+                                                      learn_t=True),
+        "SparseEdgeConv": lambda: g.SparseEdgeConv(width, width),
+        "SparseMRConv": lambda: g.SparseMRConv(width, width),
+        "SparseGAT": lambda: g.SparseGAT(width, width // 8, heads=8),
+        "SparseSAGE": lambda: g.SparseSAGE(width, width),
+        "SparseGIN": lambda: g.SparseGIN(width, width),
+        "SemiGCN": lambda: g.SemiGCN(width, width),
+        "ResGraphBlock": lambda: g.ResGraphBlock(g.SparseEdgeConv(width, width)),
+        "DenseGraphBlock": lambda: g.DenseGraphBlock(g.SparseEdgeConv(width, width)),
+    }
+
+
+class GCNStack(torch.nn.Module):
+    """A small segmentation net of the library's layers, for phase 83 only:
+    ``SparseMLP`` 9 → 64, ``GCN_BLOCKS`` × ``ResGraphBlock(SparseEdgeConv(64))``,
+    a linear head to 13 classes."""
+
+    def __init__(self, width: int = GCN_WIDTH, classes: int = 13):
+        from pointsecguard_tpu_torch.models import gcn_sparse as g
+
+        super().__init__()
+        self.embed = g.SparseMLP(9, (width,))
+        self.blocks = torch.nn.ModuleList(g.ResGraphBlock(g.SparseEdgeConv(width, width))
+                                          for _ in range(GCN_BLOCKS))
+        self.head = torch.nn.Linear(width, classes)
+
+    def forward(self, x, edge_index):
+        h = self.embed(x)
+        for block in self.blocks:
+            h = block(h, edge_index)
+        return self.head(h)
+
+
+def _gcn_fwd_bwd(layer, x, edge_index, cot):
+    x = x.detach().clone().requires_grad_(True)
+    out = layer(x, edge_index)
+    (out * cot).sum().backward()
+    return out.detach(), x.grad
+
+
+def phase_gcn_sparse(dev, records, train_data: str) -> dict:
+    """83. The sparse GCN library on one 4096-point block of phase 17's
+    rooms: ``knn_edge_index`` over xyz (k = 16; the D = 3 kNN kernel) and
+    over 64 features of a seeded ``SparseMLP`` (the any-D kernel): 2
+    ``psg::knn`` launches, each graph equal to ``knn_plain``'s but in
+    near-tie rows. Every layer of ``gcn_layers(64)`` on the xyz graph in
+    training mode, forward and backward, card against CPU on the same
+    state dict (float32, and float64 for the gradient; ``GCN_*_TOL``) and
+    the card's ms. Then ``GCN_STEPS`` steps each of ``radam`` and ``adamw``
+    on ``GCNStack`` with ``smooth_cross_entropy`` on the block's labels:
+    the loss falls, the first step's parameters lie within
+    ``GCN_PARAM_TOL`` of the CPU's (adamw's where the gradient is clear of
+    rounding noise), ms a step by CUDA events."""
+    from pointsecguard_tpu_torch.models import init_parameters
+    from pointsecguard_tpu_torch.models import gcn_sparse as g
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+    from pointsecguard_tpu_torch.ops.cuda import knn
+    from pointsecguard_tpu_torch.train import optimizers as topt
+
+    blocks, labels = resgcn_room_batch(train_data, 1, dev)
+    x9, lab = blocks[0], labels[0]
+    gen = torch.Generator().manual_seed(83)
+    embed = g.SparseMLP(9, (GCN_WIDTH,))
+    init_parameters(embed, gen)
+    embed.to(dev).eval()
+    with torch.no_grad():
+        feats = embed(x9)
+    xyz = x9[:, :3].contiguous()
+    kernels.reset_launch_counts()
+    graphs = {"xyz": g.knn_edge_index(xyz, GCN_K), "features": g.knn_edge_index(feats, GCN_K)}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts["knn"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"knn_edge_index x 2: launches {counts}, want 2 knn")
+    _record_path(records, "knn", "gcn_sparse knn_edge_index", counts["knn"],
+                 "gcn_sparse knn_edge_index (xyz and features)", counts["knn"])
+    out = {"graphs": {}}
+    for name, pts in (("xyz", xyz), ("features", feats)):
+        ei = graphs[name]
+        want = knn.knn_plain(pts[None], pts[None], GCN_K)[1][0]
+        if not torch.equal(ei[1].cpu(), torch.arange(pts.shape[0]).repeat_interleave(GCN_K)
+                           .to(torch.int32)):
+            raise AssertionError(f"knn_edge_index ({name}): targets out of order")
+        differ, bad = near_tie_check(pts[None], ei[0].reshape(1, -1, GCN_K), want[None])
+        if bad:
+            raise AssertionError(f"knn_edge_index ({name}): {bad} rows differ from knn_plain "
+                                 f"by more than a near-tie")
+        out["graphs"][name] = {"edges": ei.shape[1], "rows_differing_near_tie": differ}
+    print(f"knn_edge_index over xyz and over {GCN_WIDTH} features, k = {GCN_K}: "
+          f"2 psg::knn launches; " + json.dumps(out["graphs"]))
+
+    ei_card, ei_cpu = graphs["xyz"], graphs["xyz"].cpu()
+    x_cpu = feats.cpu()
+    layers = {}
+    for name, make in gcn_layers(GCN_WIDTH).items():
+        layer = make()
+        init_parameters(layer, gen)
+        sd = layer.state_dict()
+        twins = {}
+        for where in ("cpu", "card"):
+            twin = make()
+            twin.load_state_dict(sd)
+            twins[where] = twin.to("cpu" if where == "cpu" else dev).train()
+        cot = torch.randn((x_cpu.shape[0], twins["cpu"](x_cpu, ei_cpu).shape[-1]),
+                          generator=gen)
+        o_cpu, g_cpu = _gcn_fwd_bwd(twins["cpu"], x_cpu, ei_cpu, cot)
+        o_card, g_card = _gcn_fwd_bwd(twins["card"], feats, ei_card, cot.to(dev))
+        fwd = float((o_card.cpu() - o_cpu).abs().max() / o_cpu.abs().max())
+        grad = _rel_l2(g_card.cpu(), g_cpu)
+        d = {t: twins[t].double() for t in twins}
+        _, g64_cpu = _gcn_fwd_bwd(d["cpu"], x_cpu.double(), ei_cpu, cot.double())
+        _, g64_card = _gcn_fwd_bwd(d["card"], feats.double(), ei_card, cot.double().to(dev))
+        grad64 = _rel_l2(g64_card.cpu(), g64_cpu)
+        twins["card"].float()
+        ms = cuda_ms(lambda: _gcn_fwd_bwd(twins["card"], feats, ei_card, cot.to(dev)), reps=5)
+        layers[name] = {"forward_err": fwd, "grad_rel_l2": grad, "grad64_rel_l2": grad64,
+                        "ms_fwd_bwd": ms}
+        print(f"  {name} [{x_cpu.shape[0]}, {GCN_WIDTH}], {ei_cpu.shape[1]} edges, train "
+              f"mode: " + json.dumps(layers[name]))
+        if not (fwd <= GCN_FORWARD_TOL and grad <= GCN_GRAD_TOL and grad64 <= GCN_GRAD64_TOL):
+            raise AssertionError(f"{name}: card vs CPU {layers[name]}")
+    out["layers"] = layers
+
+    x9_cpu, lab_cpu = x9.cpu(), lab.cpu()
+    out["train"] = {}
+    for opt_name, make_opt in (("radam", topt.radam), ("adamw", topt.adamw)):
+        lr = GCN_LR[opt_name]
+        net = GCNStack()
+        init_parameters(net, gen)
+        sd = net.state_dict()
+        nets = {}
+        for where in ("cpu", "card"):
+            nets[where] = GCNStack()
+            nets[where].load_state_dict(sd)
+            nets[where].to("cpu" if where == "cpu" else dev).train()
+        opt_cpu = make_opt(nets["cpu"].parameters(), lr)
+        topt.smooth_cross_entropy(nets["cpu"](x9_cpu, ei_cpu), lab_cpu).backward()
+        grads = {n: p.grad.clone() for n, p in nets["cpu"].named_parameters()}
+        opt_cpu.step()
+        opt = make_opt(nets["card"].parameters(), lr)
+        losses, times = [], []
+        for step in range(GCN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            opt.zero_grad()
+            loss = topt.smooth_cross_entropy(nets["card"](x9, ei_card), lab)
+            loss.backward()
+            opt.step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(loss.item())
+            if step == 0:
+                card_p = dict(nets["card"].named_parameters())
+                worst = 0.0
+                for n, p in nets["cpu"].named_parameters():
+                    diff = (card_p[n].detach().cpu() - p.detach()).abs()
+                    if opt_name == "adamw":
+                        diff = diff[grads[n].abs() > 0.2 * grads[n].abs().max()]
+                    worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+                if worst > GCN_PARAM_TOL:
+                    raise AssertionError(f"{opt_name}: the first step's parameters sit {worst} "
+                                         f"from the CPU's (bound {GCN_PARAM_TOL})")
+        stats = {"lr": lr, "losses": losses, "first_step_param_err": worst,
+                 "ms_per_step": statistics.median(times[1:]), "ms_first_step": times[0]}
+        print(f"GCNStack {opt_name} {GCN_STEPS} steps, smooth_cross_entropy: "
+              + json.dumps(stats))
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{opt_name}: the loss did not fall: {losses}")
+        out["train"][opt_name] = stats
+    return out
+
+
 def ptxas_functions(log: str) -> dict:
     """Entry function → [registers, spill store bytes, spill load bytes]
     from the ``-Xptxas -v`` lines of a build log."""
@@ -7668,7 +8073,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels_only", action="store_true",
                         help="build the kernels and run only the kernel-vs-plain phases "
-                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 79, 35, 56, 60 and 72); the last line "
+                             "(3, 4, 5, 42, 8, 14, 20, 21, 27, 79, 35, 56, 60, 72 and 82); the last line "
                              "then carries \"ok\": false, because the slices were not driven")
     args = parser.parse_args(argv)
     import pointsecguard_tpu_torch
@@ -7709,6 +8114,10 @@ def main(argv=None) -> int:
                 "source": "pointsecguard_tpu_torch/csrc/fps.cu",
                 "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27",
                 "library_ms": None, "library_call": None},
+        "fps_stream": {"name": "fps_stream", "route": "cuda",
+                       "source": "pointsecguard_tpu_torch/csrc/fps.cu",
+                       "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27",
+                       "library_ms": None, "library_call": None},
         "bottom_k": {"name": "bottom_k", "route": "cuda",
                      "source": "pointsecguard_tpu_torch/csrc/bottomk.cu",
                      "replaces": "pointsecguard_tpu/ops/pallas/bottomk.py:66"},
@@ -7759,6 +8168,7 @@ def main(argv=None) -> int:
     cls_selection = timed(56, phase_cls_kernels, dev, records)
     partseg_selection = timed(60, phase_partseg_kernels, dev, records)
     timed(72, phase_opcheck, dev)
+    timed("82 (kernels)", phase_fps_large_kernels, dev, records)
     selections = [selection, cls_selection, partseg_selection]
     print(f"kernel phases: the run so far {time.perf_counter() - started:.1f} s")
     if args.kernels_only:
@@ -7850,6 +8260,11 @@ def main(argv=None) -> int:
     partseg_logs = run_partseg_phases(dev, records)
     print(f"phases 61-63: {time.perf_counter() - phases_61_63:.1f} s; "
           f"the run so far {time.perf_counter() - started:.1f} s")
+    phases_82_83 = time.perf_counter()
+    timed("82 (NB at 10,000 points)", phase_cls_10k, dev, records, cls_logs["pointnet2_cls"])
+    timed(83, phase_gcn_sparse, dev, records, train_data)
+    print(f"phases 82-83: {time.perf_counter() - phases_82_83:.1f} s; "
+          f"the run so far {time.perf_counter() - started:.1f} s")
     phases_64_68 = time.perf_counter()
     ds_train = run_training_extras_phases(dev, records, train_data, prep, resgcn_data)
     print(f"phases 64-68: {time.perf_counter() - phases_64_68:.1f} s; "
@@ -7904,7 +8319,9 @@ def main(argv=None) -> int:
                       *(f"{path} --precision bfloat16" for path in
                         ("pointnet2 train", "pointnet2 eval", "pointnet2 nb",
                          "pointnet2_cls nb", "pointnet2 benchmark"))}
-    for name, paths in (("fps", geometry_paths), ("bottom_k", geometry_paths),
+    for name, paths in (("fps", geometry_paths | {CLS_10K_PATH}), ("bottom_k", geometry_paths),
+                        ("fps_stream", {CLS_10K_PATH}),
+                        ("bottom_k_chunked", {"knn tiled route 40960^2", CLS_10K_PATH}),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval",
                                  "pointnet2 nb --defense resample",
@@ -7921,7 +8338,7 @@ def main(argv=None) -> int:
                                  "randla export",
                                  *(f"randla pyramid --shard_points {n}" for n in SP_RANKS),
                                  "randla nb --devices 2 --shard_points 2",
-                                 "knn_points_sharded nccl",
+                                 "knn_points_sharded nccl", "gcn_sparse knn_edge_index",
                                  *(f"{path} --precision bfloat16" for path in
                                    ("randla forward", "resgcn forward", "resgcn train",
                                     "resgcn train --remat", "resgcn eval", "randla nb",
@@ -7944,7 +8361,8 @@ def main(argv=None) -> int:
                               "cls_train_step", "sor", "partseg_attack",
                               "partseg_train_step", "partseg_ball_query",
                               "partseg_three_nn_l0", "partseg_three_nn_l1", "partseg_sor",
-                              "sharded_query", "launches_by_path")
+                              "sharded_query", "shapes", "cls_10k_ball_query",
+                              "launches_by_path")
             if k in r}}
         for r in records.values()]}))
     print(card)

@@ -39,6 +39,19 @@
 // pass is a few instructions a thread, and a cluster-wide barrier a step
 // would cost more than the shorter pass saves.
 //
+// Above 8192 points (up to 2^22) a second kernel, fps_stream_kernel, takes
+// the cloud: it no longer fits in one thread's registers nor in shared
+// memory. One CTA of 1024 threads a cloud; the kernel first packs its cloud
+// into a device-memory workspace as float4 (x, y, z, 0) beside a float
+// running min-distance per point, and each step streams both from there
+// (the L2 holds a [16, 10000, 3] batch many times over): point i on thread
+// i % 1024, visited in ascending index, so the per-thread strict > keeps
+// the first on ties, and the argmax is the same two redux.sync reductions.
+// A thread only ever reads and writes its own points' min-distances, so
+// they need no barrier; the one barrier a step is the argmax's. The next
+// centroid is one float4 load of the packed cloud (never written after
+// the packing barrier).
+//
 // The squared distance is written with explicit round-to-nearest
 // intrinsics so nvcc cannot contract it into FMAs: the result is then
 // bit-identical to the plain version's dx*dx + dy*dy + dz*dz.
@@ -52,6 +65,8 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMaxN = 8192;  // 16 slots of kMaxThreads
 constexpr int kPointsPerThread = 4;  // T = N / 4 in whole warps, at most kMaxThreads
+constexpr int kStreamThreads = 1024;  // fps_stream_kernel's CTA
+constexpr int kStreamMaxN = 1 << 22;  // its ceiling, ops/cuda/fps.py's MAX_N
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kPad = -1.0f;  // below every real distance; its bits are
                                // below every non-negative float's as an int
@@ -135,6 +150,67 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   }
 }
 
+// N > kMaxN: the cloud and its min-distances in device memory (see top)
+__global__ void __launch_bounds__(kStreamThreads)
+fps_stream_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
+                  int* __restrict__ out, float4* __restrict__ packed,
+                  float* __restrict__ min_dist, int N, int npoint) {
+  __shared__ int2 partial[2][32];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nwarps = T >> 5;
+  const float* p = xyz + (size_t)b * N * 3;
+  float4* cloud = packed + (size_t)b * N;
+  float* md = min_dist + (size_t)b * N;
+  int* o = out + (size_t)b * npoint;
+
+  int far = start[b];
+  if (far < 0 || far >= N) {  // never read outside the cloud
+    for (int j = t; j < npoint; j += T) o[j] = -1;
+    return;
+  }
+  for (int i = t; i < N; i += T) {
+    cloud[i] = make_float4(p[3 * i], p[3 * i + 1], p[3 * i + 2], 0.f);
+    md[i] = 1e10f;
+  }
+  __syncthreads();  // every thread reads centroids packed by the others
+  int2* mine = &partial[0][warp];
+  const int2* theirs = &partial[0][lane];
+  for (int j = 0; j < npoint; ++j) {
+    if (t == 0) o[j] = far;
+    if (j == npoint - 1) break;
+    const float4 c = cloud[far];
+
+    float bv = kPad;
+    int bi = INT_MAX;
+#pragma unroll 4
+    for (int i = t; i < N; i += T) {
+      const float4 q = cloud[i];
+      const float dx = __fsub_rn(q.x, c.x);
+      const float dy = __fsub_rn(q.y, c.y);
+      const float dz = __fsub_rn(q.z, c.z);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const float m = fminf(md[i], d);
+      md[i] = m;
+      if (m > bv) {  // ascending index: a strict > keeps the first
+        bv = m;
+        bi = i;
+      }
+    }
+    int2 best = warp_argmax(__float_as_int(bv), bi);
+    if (lane == 0) mine[(j & 1) * 32] = best;
+    // the one barrier of the step, as in fps_kernel
+    __syncthreads();
+    best = lane < nwarps ? theirs[(j & 1) * 32] : make_int2(__float_as_int(kPad), INT_MAX);
+    best = warp_argmax(best.x, best.y);
+    far = best.y;
+  }
+}
+
 template <int SLOTS>
 cudaError_t launch(const float* x, const int* s, int* o, int B, int N, int npoint,
                    int threads, cudaStream_t st) {
@@ -151,11 +227,30 @@ cudaError_t launch(const float* x, const int* s, int* o, int B, int N, int npoin
 
 }  // namespace
 
-extern "C" int psg_fps(const void* xyz, const void* start, void* out, int B,
-                       int N, int npoint, void* stream) {
-  if (B < 0 || N < 1 || npoint < 1 || N > kMaxN)
+// Floats of workspace a point of a cloud of N needs: 0 where fps_kernel
+// takes the cloud, else a packed float4 and a min-distance. The op sizes
+// psg_fps's workspace from this and counts a launch with a workspace as
+// fps_stream_kernel's.
+extern "C" int psg_fps_workspace_floats(int N) {
+  return N > kMaxN ? (int)((sizeof(float4) + sizeof(float)) / sizeof(float)) : 0;
+}
+
+// workspace: B * N * psg_fps_workspace_floats(N) floats (the packed cloud,
+// then the min-distances); null where that is 0
+extern "C" int psg_fps(const void* xyz, const void* start, void* out, void* workspace,
+                       int B, int N, int npoint, void* stream) {
+  if (B < 0 || N < 1 || npoint < 1 || N > kStreamMaxN)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  if (psg_fps_workspace_floats(N) > 0) {
+    if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+    float4* packed = static_cast<float4*>(workspace);
+    float* min_dist = reinterpret_cast<float*>(packed + (size_t)B * N);
+    fps_stream_kernel<<<B, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(xyz), static_cast<const int*>(start),
+        static_cast<int*>(out), packed, min_dist, N, npoint);
+    return (int)cudaGetLastError();
+  }
   int threads = ((N + kPointsPerThread - 1) / kPointsPerThread + 31) / 32 * 32;
   threads = threads > kMaxThreads ? kMaxThreads : threads;
   const int slots = (N + threads - 1) / threads;

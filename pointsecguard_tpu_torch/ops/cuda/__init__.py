@@ -16,7 +16,9 @@ from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, bottomk_chunked
 from pointsecguard_tpu_torch.ops.cuda import library  # noqa: F401  (registers psg::*)
 
 # counter name → (module, attribute holding its count)
-KERNELS = {"fps": (fps, "launches"), "bottom_k": (bottomk, "launches"),
+# (``fps_stream``: the launches of ``fps`` that took its streaming kernel)
+KERNELS = {"fps": (fps, "launches"), "fps_stream": (fps, "stream_launches"),
+           "bottom_k": (bottomk, "launches"),
            "bottom_k_chunked": (bottomk_chunked, "launches"), "knn": (knn, "launches"),
            "attentive_fwd": (attentive, "fwd_launches"),
            "attentive_bwd": (attentive, "bwd_launches")}

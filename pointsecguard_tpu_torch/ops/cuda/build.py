@@ -37,8 +37,10 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point: name → argtypes (restype is int)
 _SIGNATURES = {
-    # xyz, start, out, B, N, npoint, stream
-    "psg_fps": (_P, _P, _P, _I, _I, _I, _P),
+    # xyz, start, out, workspace, B, N, npoint, stream
+    "psg_fps": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # N → floats of psg_fps's workspace a point (0: the register kernel)
+    "psg_fps_workspace_floats": (_I,),
     # vals, out_v, out_i, rows, N, k, stream
     "psg_bottom_k": (_P, _P, _P, _I, _I, _I, _P),
     "psg_bottom_k_chunked": (_P, _P, _P, _I, _I, _I, _P),

@@ -1,8 +1,11 @@
 """Farthest point sampling: CUDA kernel A and its plain PyTorch version.
 
 Replaces ``pointsecguard_tpu/ops/pallas/fps.py:_fps_kernel`` (entry point
-``fps_pallas``). The kernel (``csrc/fps.cu``) runs one CTA per cloud with
-the cloud and its running min-distance in registers. It is bounded by
+``fps_pallas``). Up to 8192 points the kernel (``csrc/fps.cu``) runs one
+CTA per cloud with the cloud and its running min-distance in registers;
+above, a second kernel of the same file (``fps_stream_kernel``) streams
+both from a device-memory workspace that the op allocates, one CTA of 1024
+threads a cloud, with the same argmax and the same rounding. It is bounded by
 latency, not by bytes or operations: the npoint steps are a recurrence,
 so what counts is the way from one step's distances to the next
 centroid. The design keeps that way short: the argmax is two hardware
@@ -10,10 +13,11 @@ warp reductions on the distance's bits (a min-distance is ≥ 0, so they
 order as a signed int; ties go to the lowest index), one barrier a step,
 every warp reducing the per-warp partials itself, and the next centroid
 read from a copy of the cloud in shared memory. Bounds: float32
-[B, N, 3], 1 ≤ N ≤ 8192, npoint ≥ 1, start [B] on the same device.
+[B, N, 3], 1 ≤ N ≤ ``MAX_N`` = 2²² (the wide-row bottom-k's ceiling),
+npoint ≥ 1, start [B] on the same device.
 
 ``fps`` checks its arguments first, on any device, then calls the custom
-op ``psg::fps`` (``library.py``): the dispatcher launches the kernel for a
+op ``psg::fps`` (``library.py``): the dispatcher launches a kernel for a
 CUDA tensor, and only a CPU tensor goes to ``fps_plain``. The indices
 carry no gradient (JAX's ``stop_gradient``).
 """
@@ -22,8 +26,11 @@ from __future__ import annotations
 
 import torch
 
-MAX_N = 8192
-launches = 0  # kernel launches by ``psg::fps``; never the plain version or a trace
+MAX_N = 1 << 22
+launches = 0  # kernel launches by ``psg::fps`` (both kernels); never the plain version or a trace
+# of those, the streaming kernel's (``csrc/fps.cu``'s ``psg_fps_workspace_floats``
+# says which clouds it takes)
+stream_launches = 0
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:

@@ -76,10 +76,17 @@ def _fps_cuda(xyz: Tensor, npoint: int, start: Tensor) -> Tensor:
     # cloud (checking here would cost a device-to-host sync per call)
     start = start.to(torch.int32).contiguous()
     out = _int32_like(xyz, (B, npoint))
+    # where the cloud is too large for the register kernel, the streaming
+    # one packs it and keeps its min-distances in this working space
+    per_point = lib.psg_fps_workspace_floats(N)
+    work = (torch.empty(B * N * per_point, dtype=torch.float32, device=xyz.device)
+            if per_point else None)
     code = lib.psg_fps(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
-                       B, N, npoint, _stream(xyz.device))
+                       work.data_ptr() if per_point else None, B, N, npoint,
+                       _stream(xyz.device))
     build.check(code, "psg_fps")
     fps.launches += 1
+    fps.stream_launches += int(per_point > 0)
     return out
 
 

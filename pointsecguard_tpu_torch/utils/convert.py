@@ -534,3 +534,70 @@ def pointnet_from_jax_variables(flat: dict[str, np.ndarray]) -> dict[str, torch.
 def pointnet_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Inverse of ``pointnet_from_jax_variables``."""
     return _inverse_mapped(state_dict, pointnet_module_map())
+
+
+# the sparse GCN layers (``models/gcn_sparse.py``): flax module name → port
+# attribute; ``Dense_i`` / ``BatchNorm_i`` are indexed
+_GCN_MODULES = {"SparseMLP_0": "mlp", "MsgNorm_0": "msg_norm", "body": "body"}
+_GCN_INDEXED = {"Dense": "lins", "BatchNorm": "norms"}
+
+
+def _gcn_port_key(path: str) -> str:
+    _, *mods, leaf = path.split("/")
+    parts = []
+    for mod in mods:
+        name, _, idx = mod.rpartition("_")
+        if mod in _GCN_MODULES:
+            parts.append(_GCN_MODULES[mod])
+        elif name in _GCN_INDEXED and idx.isdigit():
+            parts += [_GCN_INDEXED[name], idx]
+        else:
+            raise KeyError(f"unexpected module in {path!r}")
+    return ".".join(parts + ["weight" if leaf == "kernel" else leaf])
+
+
+def gcn_sparse_from_jax_variables(flat: dict[str, np.ndarray], model: torch.nn.Module
+                                  ) -> dict[str, torch.Tensor]:
+    """Flat flax variables of a ``pointsecguard_tpu/models/gcn_sparse.py``
+    layer or block → the state dict of its port (``models/gcn_sparse.py``):
+    Dense kernels [in, out] become Linear weights [out, in]; BatchNorm's
+    scale, bias, mean and var, GAT's ``a_src`` / ``a_dst``, GIN's ``eps``,
+    GENConv's ``t`` / ``p`` and ``MsgNorm_0/scale`` keep their values.
+    The keys and shapes are checked against ``model`` (the port layer,
+    since a layer's flax tree alone does not say which port it fills): a
+    ValueError names what is missing, left over or misshapen."""
+    sd = {}
+    for path, value in flat.items():
+        arr = np.asarray(value, dtype=np.float32)
+        key = _gcn_port_key(path)
+        sd[key] = torch.from_numpy(np.array(arr.T if key.endswith(".weight") else arr,
+                                            order="C"))
+    template = model.state_dict()
+    missing, extra = sorted(set(template) - set(sd)), sorted(set(sd) - set(template))
+    bad = [k for k in template if k in sd and template[k].shape != sd[k].shape]
+    if missing or extra or bad:
+        raise ValueError(f"flax leaves do not fill the port layer: missing {missing}, "
+                         f"unconsumed {extra}, misshapen {bad}")
+    return sd
+
+
+def gcn_sparse_to_jax_variables(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``gcn_sparse_from_jax_variables``."""
+    modules = {v: k for k, v in _GCN_MODULES.items()}
+    indexed = {v: k for k, v in _GCN_INDEXED.items()}
+    flat = {}
+    for key, t in state_dict.items():
+        *parts, leaf = key.split(".")
+        mods, i = [], 0
+        while i < len(parts):
+            if parts[i] in indexed:
+                mods.append(f"{indexed[parts[i]]}_{parts[i + 1]}")
+                i += 2
+            else:
+                mods.append(modules[parts[i]])
+                i += 1
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        arr = t.detach().cpu().numpy()
+        flat["/".join([collection, *mods, "kernel" if leaf == "weight" else leaf])] = (
+            arr.T.copy() if leaf == "weight" else arr.copy())
+    return flat

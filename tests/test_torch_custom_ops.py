@@ -172,8 +172,8 @@ def test_knn_self_query_equals_a_distinct_copy():
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: fps.fps(torch.zeros(1, 8193, 3), 4, torch.zeros(1, dtype=torch.int32)),
-     "N=8193 outside"),
+    (lambda: fps.fps(torch.zeros(1, (1 << 22) + 1, 3), 4, torch.zeros(1, dtype=torch.int32)),
+     "N=4194305 outside"),
     (lambda: fps.fps(torch.zeros(2, 16, 3, dtype=torch.float64), 4,
                      torch.zeros(2, dtype=torch.int32)), "want float32"),
     (lambda: knn.knn(torch.zeros(2, 8, 3), torch.zeros(2, 16, 3), 17), "k=17 outside"),
@@ -224,7 +224,8 @@ def test_cpu_calls_count_no_launch():
 def test_only_the_ops_call_the_kernel_library():
     """No module of the port outside the ops' CUDA implementations
     (``ops/cuda/library.py``) calls ``lib.psg_*``; the library's entry
-    points are the six ops' (plus the attentive backward's dW sizing)."""
+    points are the six ops' (plus the attentive backward's dW sizing and
+    FPS's workspace sizing)."""
     pkg = Path(pointsecguard_tpu_torch.__file__).resolve().parent
     callers = {p.relative_to(pkg).as_posix()
                for p in pkg.rglob("*.py")
@@ -235,4 +236,5 @@ def test_only_the_ops_call_the_kernel_library():
     assert ops == set(OPS)
     entries = set(re.findall(r"\blib\.(psg_\w+)", src)) | set(re.findall(r'"(psg_\w+)"', src))
     assert entries == {"psg_fps", "psg_bottom_k", "psg_bottom_k_chunked", "psg_knn",
-                       "psg_attentive_fwd", "psg_attentive_bwd", "psg_attentive_dw_blocks"}
+                       "psg_attentive_fwd", "psg_attentive_bwd", "psg_attentive_dw_blocks",
+                       "psg_fps_workspace_floats"}

@@ -105,7 +105,7 @@ def test_attentive_takes_and_cpu_equals_plain(K, M, D):
 
 
 @pytest.mark.parametrize("shape,dtype,npoint,start_shape,match", [
-    ((1, 8193, 3), torch.float32, 4, (1,), "N=8193 outside"),
+    ((1, (1 << 22) + 1, 3), torch.float32, 4, (1,), "N=4194305 outside"),
     ((2, 0, 3), torch.float32, 4, (2,), "N=0 outside"),
     ((2, 16, 3), torch.float64, 4, (2,), "want float32"),
     ((2, 16, 3), torch.float16, 4, (2,), "want float32"),
@@ -124,7 +124,7 @@ def test_fps_refuses_on_the_cpu_what_the_card_refuses(shape, dtype, npoint, star
 
 
 @pytest.mark.parametrize("n,npoint,start", [
-    (8192, 8, 8191),  # N at the limit, the start at N - 1
+    (8192, 8, 8191),  # N at the register kernel's limit, the start at N - 1
     (1, 4, 0),        # N = 1: every pick is index 0
     (1000, 64, 7),    # N off 32
     (33, 40, 32),     # npoint > N: wraps onto index 0

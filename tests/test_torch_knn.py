@@ -236,7 +236,7 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     pts = _t(_cloud("uniform", 1, 300, 1))
     tops.knn(pts, pts, 16)
     tbkc.bottom_k_chunked(torch.rand(2, 9000), 16)
-    assert tcuda.launch_counts() == {"fps": 0, "bottom_k": 0, "bottom_k_chunked": 0,
+    assert tcuda.launch_counts() == {"fps": 0, "fps_stream": 0, "bottom_k": 0, "bottom_k_chunked": 0,
                                      "knn": 0, "attentive_fwd": 0, "attentive_bwd": 0}
     # neither a CPU nor a CUDA tensor: raise, never fall back
     with pytest.raises(ValueError):
