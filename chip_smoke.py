@@ -35,7 +35,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    a distinct query, quarter-grid, constant and far → near clouds, on
    grids where every product is exact); wide-row
    bottom-k on [4, 4096, 40960] k=16 pyramid distances, on tie-heavy
-   rounded values and at its edges (N = 8193, k = 48, N = 2^20); refusal
+   rounded values, at its edges (N = 8193 and 2^22 at k = 1, 32 and 48,
+   N = 2^20) and on a 10,000-point cloud's ball-query rows and the rows
+   built from them (none, 5 and k − 1 in radius, all equal, a run that
+   takes the exact branch; the rows that took it counted by the kernel
+   and equal to ``overflow_rows_plain``'s) at k = 1, 32, 48; refusal
    past the bounds (k = 49 at D = 3 and 64, D > 4096). Values and indices
    equal; median times of kernel and
    plain, per shape and per ``build_pyramid``, and of the far → near and
@@ -455,18 +459,25 @@ Phases 47-51 drive the ensemble victim and the ares benchmark layer, after
 82. FPS above 8192 points. (A kernel phase, after 72) ``psg::fps`` against
     ``fps_plain`` on the card, indices equal, at [16, 10000] → 512 (a
     ModelNet 10k classifier's first level), [8, 16384] → 1024 (a
-    16,384-point block's), N = 8192 and 8193 (the seam between the
-    register kernel and the streaming one) and [2, 131072] → 256, with
-    card, eager, bound, share and plain ms; the streaming kernel's edges
-    (identical and rounded points, npoint > N, start at N − 1, N = 2²², a
-    start outside the cloud) and N = 2²² + 1 refused. (After 63) NB
-    through ``cli.attack_object --num_point 10000`` on one batch of 16
-    shapes written at 10,000 points, with phase 58's SSG classifier: the
-    first forward's FPS indices and groups equal card vs CPU; the wide-row bottom-k
-    at its ball query [16, 512, 10000] k = 32 equal to plain and timed
-    beside ``torch.topk``; 106 FPS (53 streaming) and 53 wide-row
-    bottom-k launches a batch; adversarial accuracy at most clean and
-    every shape moved (L2 > 0); ms a batch.
+    16,384-point block's), N = 8192 / 8193 (the seam between the register
+    kernel and the cluster kernel) and 131072 / 131073 → 256 (the cluster
+    kernel's capacity and the streaming kernel's first N), each on the
+    kernel the contract gives it (read from the launch counters), with
+    card, eager, bound, share and plain ms; the edges on whichever kernel
+    takes them (identical and rounded points, npoint > N, start at N − 1,
+    N = 2²², a start outside the cloud on the cluster and the streaming
+    kernel) and N = 2²² + 1 refused. (After 63) NB through
+    ``cli.attack_object --num_point 10000`` on one batch of 16 shapes
+    written at 10,000 points, with phase 58's SSG classifier: the first
+    forward's FPS indices and groups equal card vs CPU; the wide-row
+    bottom-k at its ball query [16, 512, 10000] k = 32 equal to plain on
+    its rows and on rows built from them (none, 5 and k − 1 in radius, all
+    equal, a run of 300 that takes the kernel's exact branch, reported),
+    timed beside ``torch.topk``; 106 FPS (53 on the cluster kernel, none
+    streaming) and 53 wide-row bottom-k launches a batch; adversarial
+    accuracy at most clean and every shape moved (L2 > 0); ms a batch.
+    Then the same NB on 2 shapes of 131,104 points: 106 FPS (53 on the
+    streaming kernel) and 53 wide-row bottom-k launches.
 83. The sparse GCN library (``models/gcn_sparse.py``) on one 4096-point
     block of phase 17's rooms: ``knn_edge_index`` over xyz and over 64
     features (2 ``psg::knn`` launches, edges equal to ``knn_plain``'s but
@@ -1490,8 +1501,56 @@ def knn_any_d_edges(dev, knn, gen) -> int:
     return len(cases)
 
 
+def ball_query_edge_rows(real: torch.Tensor, k: int) -> dict:
+    """Rows that stress the wide-row bottom-k's threshold, built from real
+    ball-query rows [..., N] (index values, the sentinel N out of radius):
+    none in radius (T = N, the sentinel tied across the row), 5 and k − 1
+    of the first row's points in radius, every value equal, and a run of
+    300 columns in radius (T = N with 300 entries below it: more than the
+    short list holds, so the kernel's exact branch runs)."""
+    N = real.shape[-1]
+    cols = torch.arange(N, dtype=torch.float32, device=real.device)
+    inside = real.reshape(-1, N)[0] < N
+
+    def first(m):
+        return torch.where(inside & (torch.cumsum(inside, 0) <= m), cols, float(N))[None]
+
+    return {"none in radius": torch.full((1, N), float(N), device=real.device),
+            "5 in radius": first(5), f"{k - 1} in radius": first(k - 1),
+            "every value equal": torch.full((1, N), 0.5, device=real.device),
+            "a run of 300 in radius": torch.where((cols >= 1000) & (cols < 1300), cols,
+                                                  float(N))[None]}
+
+
+def check_chunked_rows(what: str, rows: dict, k: int) -> dict:
+    """Each set of rows through ``psg::bottom_k_chunked`` equal to
+    ``bottom_k_plain``, values and indices; the rows that took the
+    kernel's exact branch, counted by the kernel, equal to
+    ``overflow_rows_plain``'s; the built run of 300 must take it (k > 1)."""
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked
+
+    ran = {}
+    for name, vals in rows.items():
+        got, want = bottomk_chunked.bottom_k_chunked(vals, k), bottomk.bottom_k_plain(vals, k)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"bottom_k_chunked != plain: {what}, {name}")
+        ran[name] = bottomk_chunked.overflow_rows(vals, k)
+        plain = int(bottomk_chunked.overflow_rows_plain(vals, k).sum())
+        if ran[name] != plain:
+            raise AssertionError(f"bottom_k_chunked {what}, {name}: the exact branch ran on "
+                                 f"{ran[name]} rows, the rule says {plain}")
+    # (at k = 1 the list holds the row's first minimum alone: no branch)
+    if k > 1 and ran.get("a run of 300 in radius", 1) != 1:
+        raise AssertionError(f"bottom_k_chunked {what}: the built row missed the exact branch")
+    print(f"bottom_k_chunked {what}: equal to plain on " + ", ".join(
+        f"{name} ({rows[name].numel() // rows[name].shape[-1]} rows, exact branch ran on "
+        f"{ran[name]})" for name in rows))
+    return ran
+
+
 def phase_randla_kernels(dev, records, xyz):
-    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, knn
+    from pointsecguard_tpu_torch.ops import gather_points
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, fps, knn
     from pointsecguard_tpu_torch.ops.distance import square_distance
 
     calls = pyramid_knn_inputs(xyz)
@@ -1513,13 +1572,27 @@ def phase_randla_kernels(dev, records, xyz):
     dists = square_distance(xyz[:, :4096], xyz)  # a tile of the tiled route
     rounded = torch.round(dists * 4) / 4
     bk_err = 0.0
-    for vals, k in ((dists, 16), (rounded, 16),
+    odd = torch.round(torch.rand((2, 64, 8193), generator=gen, device=dev) * 64) / 64
+    widest = torch.round(torch.rand((1, 2, bottomk_chunked.MAX_N), generator=gen,
+                                    device=dev) * 4096)
+    for vals, k in ((dists, 16), (rounded, 16), (odd, 1), (odd, 32),
                     (torch.rand((2, 64, 8193), generator=gen, device=dev), 48),
-                    (torch.rand((1, 4, 1 << 20), generator=gen, device=dev), 16)):
+                    (torch.rand((1, 4, 1 << 20), generator=gen, device=dev), 16),
+                    (widest, 1), (widest, 32), (widest, 48)):
         bk_err = max(bk_err, _equal(f"bottom_k_chunked {tuple(vals.shape)} k={k}",
                                     bottomk_chunked.bottom_k_chunked(vals, k),
                                     bottomk.bottom_k_plain(vals, k)))
         print(f"bottom_k_chunked {tuple(vals.shape)} k={k}: values and indices equal")
+    # the 10,000-point ball query's rows (a random cloud's 512 FPS centres,
+    # radius 0.2) and the rows built from them, at k = 1, 32, 48
+    cloud = torch.rand((2, 10000, 3), generator=gen, device=dev)
+    centers = gather_points(cloud, fps.fps(cloud, 512, torch.zeros(2, dtype=torch.int32,
+                                                                      device=dev)))
+    ball = torch.where(square_distance(centers, cloud) > 0.04, 10000.0,
+                       torch.arange(10000, dtype=torch.float32, device=dev))
+    for k in (1, 32, 48):
+        check_chunked_rows(f"[2, 10000] cloud's ball query k={k}",
+                           {"its rows": ball, **ball_query_edge_rows(ball, k)}, k)
     refused = (
         lambda: knn.knn(xyz[:, :64], xyz[:, :64], 49),
         lambda: knn.knn(feat64, feat64, 49),
@@ -1535,7 +1608,8 @@ def phase_randla_kernels(dev, records, xyz):
         except ValueError:
             continue
         raise AssertionError("a kernel took a shape past its bounds")
-    print("contract edges: N = 8193, k = 48, N = 2^20 equal to plain; "
+    print("contract edges: N = 8193 at k = 1, 32, 48, N = 2^20, N = 2^22 at k = 1, 32, 48 "
+          "equal to plain; "
           f"k = 49 (D = 3 and 64), k > N, D > {knn.MAX_D}, N > 2^22 refused")
 
     def run_knn(f):
@@ -7655,63 +7729,82 @@ def phase_nccl(dev, records, prep: str) -> dict:
     return {"ranks": n}
 
 
-# FPS above 8192 points (phase 82): (B, N, npoint, start, streams, what).
+# FPS above 8192 points (phase 82): (B, N, npoint, start, kernel, what).
 # The first two are the first levels of a ModelNet classifier at 10,000
 # points and of a 16,384-point block; 8192 / 8193 the seam between the
-# register kernel and the streaming one (``streams``: the kernel the
-# contract gives that N)
+# register kernel and the cluster kernel, 131072 / 131073 the one between
+# the cluster kernel's capacity (16 CTAs of 8192) and the streaming kernel
+# (``kernel``: the counter of the kernel the contract gives that N,
+# ``csrc/fps.cu``'s ``psg_fps_route``)
 FPS_LARGE_SHAPES = (
-    (16, 10000, 512, "zero", True, "a ModelNet 10k classifier's first level"),
-    (8, 16384, 1024, "random", True, "a 16,384-point block's first level"),
-    (2, 8192, 256, "random", False, "the seam: the register kernel's last N"),
-    (2, 8193, 256, "random", True, "the seam: the streaming kernel's first N"),
-    (2, 131072, 256, "random", True, "a wide cloud"),
+    (16, 10000, 512, "zero", "fps_cluster", "a ModelNet 10k classifier's first level"),
+    (8, 16384, 1024, "random", "fps_cluster", "a 16,384-point block's first level"),
+    (2, 8192, 256, "random", "fps", "the seam: the register kernel's last N"),
+    (2, 8193, 256, "random", "fps_cluster", "the seam: the cluster kernel's first N"),
+    (2, 131072, 256, "random", "fps_cluster", "the seam: the cluster kernel's capacity"),
+    (2, 131073, 256, "random", "fps_stream", "the seam: the streaming kernel's first N"),
 )
 # phase 82's NB: one batch of 16 test shapes written at 10,000 points
 CLS_10K_POINTS, CLS_10K_PER_CLASS = 10_000, 4
 CLS_10K_PATH = "pointnet2_cls nb --num_point 10000"
+# and one of 2 shapes past the cluster kernel's capacity: the streaming FPS
+CLS_WIDE_POINTS, CLS_WIDE_SHAPES = 131_104, 2
+CLS_WIDE_PATH = f"pointnet2_cls nb --num_point {CLS_WIDE_POINTS}"
+
+
+def _fps_took(before: dict, after: dict) -> str:
+    """The counter of the FPS kernel that one ``psg::fps`` call took."""
+    for name in ("fps_stream", "fps_cluster"):
+        if after[name] > before[name]:
+            return name
+    return "fps"
 
 
 def phase_fps_large_kernels(dev, records) -> dict:
-    """82 (kernels). ``psg::fps`` above 8192 points (the streaming kernel)
-    against ``fps_plain`` on the card, indices equal, at
-    ``FPS_LARGE_SHAPES`` (N = 8192 takes the register kernel, 8193 and
-    above the streaming one: its launch counter says which ran), with card,
-    eager, bound, share and plain ms a call; then the streaming kernel's
-    edges: identical points (every step a tie of all N), rounded
-    coordinates (ties across warps), npoint > N (wrap onto index 0), the
-    start at N − 1, N = 2²² (the ceiling), a start outside the cloud (−1);
-    N = 2²² + 1 refused."""
+    """82 (kernels). ``psg::fps`` above 8192 points against ``fps_plain`` on
+    the card, indices equal, at ``FPS_LARGE_SHAPES`` (N = 8192 takes the
+    register kernel, 8193 up to the cluster's capacity of 131,072 the
+    cluster kernel, 131,073 and above the streaming one: the launch
+    counters say which ran), with card, eager, bound, share and plain ms a
+    call; then the edges, on whichever kernel takes them: identical points
+    (every step a tie of all N), rounded coordinates (ties across warps and
+    CTAs), npoint > N (wrap onto index 0), the start at N − 1, N = 2²² (the
+    ceiling), a start outside the cloud (−1) on both kernels; N = 2²² + 1
+    refused."""
     from pointsecguard_tpu_torch.ops import cuda as kernels
     from pointsecguard_tpu_torch.ops.cuda import bounds, fps
 
     gen = torch.Generator(device=dev).manual_seed(82)
     rows = {}
-    for b, n, npoint, kind, streams, what in FPS_LARGE_SHAPES:
+    for b, n, npoint, kind, kernel, what in FPS_LARGE_SHAPES:
         cloud = torch.rand((b, n, 3), generator=gen, device=dev)
         start = (torch.zeros(b, dtype=torch.int32, device=dev) if kind == "zero" else
                  torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32))
-        before = kernels.launch_counts()["fps_stream"]
+        before = kernels.launch_counts()
         got = fps.fps(cloud, npoint, start)
+        took = _fps_took(before, kernels.launch_counts())
         want = fps.fps_plain(cloud, npoint, start)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"fps kernel != plain at [{b}, {n}] -> {npoint}")
-        streamed = kernels.launch_counts()["fps_stream"] - before
-        if streamed != int(streams):
-            raise AssertionError(f"fps [{b}, {n}]: {streamed} streaming launches")
+        if took != kernel:
+            raise AssertionError(f"fps [{b}, {n}]: took {took}, the contract gives {kernel}")
         key = f"[{b}, {n}] -> {npoint}"
         rec = kernel_row(f"fps {key} ({what})", f"one call of [{b}, {n}] -> {npoint}",
                          lambda: fps.fps(cloud, npoint, start),
                          lambda: fps.fps_plain(cloud, npoint, start),
                          bounds.fps(b, n, npoint), calls=1)
-        rec.update(kernel="fps_stream_kernel" if streamed else "fps_kernel",
-                   ns_per_step=1e6 * rec["ms"] / (npoint - 1), max_abs_err=0)
+        rec.update(kernel=f"{took}_kernel", ns_per_step=1e6 * rec["ms"] / (npoint - 1),
+                   max_abs_err=0)
         print(f"  fps {key}: indices equal, {rec['kernel']}, "
               f"{rec['ns_per_step']:.0f} ns per step on the card")
         rows[key] = rec
+    wide = fps.CLUSTER_MAX_N
     edges = [(10000, 64, 5, "same"), (12345, 300, 0, "rounded"), (8193, 8200, 17, "rand"),
-             (9000, 128, 8999, "rand"), (1 << 22, 16, 3, "rand")]
+             (9000, 128, 8999, "rand"), (wide, 64, wide - 1, "rounded"),
+             (wide + 1, 64, 5, "same"), (wide + 1, 300, 0, "rounded"),
+             (1 << 22, 16, 3, "rand")]
+    took = []
     for n, npoint, s, kind in edges:
         cloud = torch.rand((2, n, 3), generator=gen, device=dev)
         if kind == "same":
@@ -7719,29 +7812,60 @@ def phase_fps_large_kernels(dev, records) -> dict:
         elif kind == "rounded":
             cloud = torch.round(cloud * 4) / 4
         st = torch.full((2,), s, dtype=torch.int32, device=dev)
+        before = kernels.launch_counts()
         got = fps.fps(cloud, npoint, st)
+        took.append(_fps_took(before, kernels.launch_counts()))
         if not torch.equal(got, fps.fps_plain(cloud, npoint, st)):
             raise AssertionError(f"fps kernel != plain at N={n} npoint={npoint} ({kind})")
         if npoint > n and not (got[:, n:] == 0).all():
             raise AssertionError("fps: npoint > N must wrap onto index 0")
-    outside = torch.tensor([9000, -1], dtype=torch.int32, device=dev)
-    if not (fps.fps(cloud[:, :9000].contiguous(), 8, outside) == -1).all():
-        raise AssertionError("fps: a start outside [0, N) must give -1")
+    if took != ["fps_cluster"] * 5 + ["fps_stream"] * 3:
+        raise AssertionError(f"fps edges took {took}")
+    for n in (9000, wide + 1):  # the cluster kernel, the streaming one
+        outside = torch.tensor([n, -1], dtype=torch.int32, device=dev)
+        if not (fps.fps(cloud[:, :n].contiguous(), 8, outside) == -1).all():
+            raise AssertionError(f"fps at N={n}: a start outside [0, N) must give -1")
     try:
         fps.fps(torch.zeros((1, fps.MAX_N + 1, 3), device=dev), 4, outside[:1])
     except ValueError:
         pass
     else:
         raise AssertionError("fps took N past its ceiling")
-    print(f"fps streaming kernel: {len(edges)} edge cases (identical and rounded points, "
-          f"npoint > N, start at N - 1, N = 2^22) equal to plain; a start outside the cloud "
-          f"gives -1; N = 2^22 + 1 refused")
-    main = rows[f"[{FPS_LARGE_SHAPES[0][0]}, {FPS_LARGE_SHAPES[0][1]}] -> "
-                f"{FPS_LARGE_SHAPES[0][2]}"]
-    records["fps_stream"].update(
-        {k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")},
-        max_abs_err=0, ns_per_step=main["ns_per_step"], shapes=rows)
+    print(f"fps cluster and streaming kernels: {len(edges)} edge cases (identical and rounded "
+          f"points, npoint > N, start at N - 1, N = 2^22; kernels {took}) equal to plain; a "
+          f"start outside the cloud gives -1 on both; N = 2^22 + 1 refused")
+    for name, (b, n, npoint) in (("fps_cluster", FPS_LARGE_SHAPES[0][:3]),
+                                 ("fps_stream", FPS_LARGE_SHAPES[-1][:3])):
+        main = rows[f"[{b}, {n}] -> {npoint}"]
+        records[name].update(
+            {k: main[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")},
+            max_abs_err=0, ns_per_step=main["ns_per_step"],
+            shapes={k: r for k, r in rows.items() if r["kernel"] == f"{name}_kernel"})
     return rows
+
+
+def _cls_nb(root: str, log: str, num_point: int, shapes: int, path: str) -> tuple:
+    """``cli.attack_object`` NB with phase 58's SSG classifier on one batch
+    of ``shapes`` at ``num_point``: the result and the launch counts;
+    adversarial accuracy at most clean, every shape's L2 above 0."""
+    from pointsecguard_tpu_torch.cli import attack_object as cli
+    from pointsecguard_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    out = cli.main(["--model", "pointnet2_cls", "--data_root", root, "--log_dir", log,
+                    "--num_point", str(num_point), "--batch_size", str(shapes),
+                    "--max_shapes", str(shapes), "--attack", "nb"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if not all(math.isfinite(v) for v in (out["clean_acc"], out["adv_acc"], out["l2_mean"])):
+        raise AssertionError(f"{path}: a non-finite result")
+    if not out["adv_acc"] <= out["clean_acc"]:
+        raise AssertionError(f"{path}: adversarial accuracy above clean")
+    # the attack moved every shape (the trained SSG may hold its accuracy)
+    l2 = [float(row["l2"]) for row in read_tsv(out["tsv"])]
+    if len(l2) != shapes or not all(v > 0 for v in l2):
+        raise AssertionError(f"{path}: per-shape L2 {l2}: a shape left unperturbed")
+    return out, counts
 
 
 def phase_cls_10k(dev, records, log: str) -> dict:
@@ -7749,18 +7873,21 @@ def phase_cls_10k(dev, records, log: str) -> dict:
     --num_point 10000`` NB on a synthetic ModelNet written at 10,000 points
     a shape (one batch of 16), with phase 58's trained SSG classifier: the
     first forward's FPS indices and ball-query groups (``build_geometry_cls``
-    from index 0) equal on the card and on the CPU; the wide-row bottom-k at its ball query
-    ([16, 512, 10000] k = 32) equal to plain and timed beside
-    ``torch.topk``; then the CLI run: 53 forwards of 2 FPS (one streaming)
-    and 1 wide-row bottom-k a batch (the second ball query, k = 64, takes
-    the stable sort), adversarial accuracy at most clean, every shape's L2
-    above 0, the batch's ms."""
-    from pointsecguard_tpu_torch.cli import attack_object as cli
+    from index 0) equal on the card and on the CPU; the wide-row bottom-k at
+    its ball query ([16, 512, 10000] k = 32) equal to plain on its own rows
+    (those with fewer than k points in radius counted) and on the rows
+    built from them (``ball_query_edge_rows``: none in radius, few, all
+    equal, and one that takes the exact branch, reported), timed beside
+    ``torch.topk``; then the CLI run: 53 forwards of 2 FPS (one on the
+    cluster kernel, none streaming) and 1 wide-row bottom-k a batch (the
+    second ball query, k = 64, takes the stable sort), adversarial accuracy
+    at most clean, every shape's L2 above 0, the batch's ms. Last, the same
+    NB on 2 shapes of 131,104 points, past the cluster's capacity: 53 FPS
+    on the streaming kernel."""
     from pointsecguard_tpu_torch.data.modelnet import ModelNetDataset, make_synthetic_modelnet
     from pointsecguard_tpu_torch.models import build_geometry_cls
     from pointsecguard_tpu_torch.models.pointnet2_cls import CLS_SSG_SPEC
-    from pointsecguard_tpu_torch.ops import cuda as kernels
-    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds, fps
+    from pointsecguard_tpu_torch.ops.cuda import bottomk, bottomk_chunked, bounds
 
     root = os.path.join(WORK, "modelnet_10k")
     make_synthetic_modelnet(root, points_per_shape=CLS_10K_POINTS, train_per_class=1,
@@ -7786,9 +7913,12 @@ def phase_cls_10k(dev, records, log: str) -> dict:
     starts = [torch.zeros(shapes, dtype=torch.int32, device=dev)] * 2
     _, bq_in = cls_geometry_inputs(xyz.to(dev), CLS_SSG_SPEC, starts)
     vals, k = bq_in[0]
-    got, want = bottomk_chunked.bottom_k_chunked(vals, k), bottomk.bottom_k_plain(vals, k)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError(f"bottom_k_chunked != plain at {tuple(vals.shape)} k={k}")
+    in_radius = (vals < vals.shape[-1]).sum(-1)
+    print(f"the ball query {list(vals.shape)} k={k}: {int((in_radius < k).sum())} rows with "
+          f"fewer than k points in radius, {int((in_radius == 0).sum())} with none; in radius "
+          f"{int(in_radius.min())} .. {int(in_radius.max())} a row")
+    overflow = check_chunked_rows(f"{list(vals.shape)} k={k}",
+                                  {"its rows": vals, **ball_query_edge_rows(vals, k)}, k)
     rows = vals.numel() // vals.shape[-1]
     chunked = kernel_row(f"bottom_k_chunked {tuple(vals.shape)} k={k}",
                          f"the ball query of one 10k-point classifier forward, "
@@ -7797,39 +7927,35 @@ def phase_cls_10k(dev, records, log: str) -> dict:
                          lambda: bottomk.bottom_k_plain(vals, k),
                          bounds.bottom_k_chunked(rows, vals.shape[-1], k), calls=1,
                          library=lambda: topk_library(vals, k))
-    chunked["max_abs_err"] = 0.0
+    chunked.update(max_abs_err=0.0, exact_branch_rows=overflow["its rows"])
     records["bottom_k_chunked"]["cls_10k_ball_query"] = chunked
 
-    kernels.reset_launch_counts()
-    out = cli.main(["--model", "pointnet2_cls", "--data_root", root, "--log_dir", log,
-                    "--num_point", str(CLS_10K_POINTS), "--batch_size", str(shapes),
-                    "--max_shapes", str(shapes), "--attack", "nb"])
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    streamed = counts["fps_stream"]
+    out, counts = _cls_nb(root, log, CLS_10K_POINTS, shapes, CLS_10K_PATH)
     stats = {"shapes": shapes, "ms_per_batch": out["batch_ms"], "clean_acc": out["clean_acc"],
-             "adv_acc": out["adv_acc"], "l2_mean": out["l2_mean"], "launches": counts,
-             "fps_stream_launches": streamed}
+             "adv_acc": out["adv_acc"], "l2_mean": out["l2_mean"], "launches": counts}
     print(f"{CLS_10K_PATH}: " + json.dumps(stats))
     forwards = 53
-    want = {"fps": 2 * forwards, "bottom_k": 0, "bottom_k_chunked": forwards, "knn": 0}
-    if {k: counts[k] for k in want} != want or streamed != forwards:
-        raise AssertionError(f"{CLS_10K_PATH}: launches {counts}, {streamed} streaming; "
-                             f"want {want} and {forwards}")
-    if not all(math.isfinite(v) for v in (out["clean_acc"], out["adv_acc"], out["l2_mean"])):
-        raise AssertionError(f"{CLS_10K_PATH}: a non-finite result")
-    if not out["adv_acc"] <= out["clean_acc"]:
-        raise AssertionError(f"{CLS_10K_PATH}: adversarial accuracy above clean")
-    # the attack moved every shape (the trained SSG may hold its accuracy)
-    l2 = [float(row["l2"]) for row in read_tsv(out["tsv"])]
-    if len(l2) != shapes or not all(v > 0 for v in l2):
-        raise AssertionError(f"{CLS_10K_PATH}: per-shape L2 {l2}: a shape left unperturbed")
-    _record_path(records, "fps", CLS_10K_PATH, counts["fps"], f"{CLS_10K_PATH} batch",
-                 counts["fps"])
-    _record_path(records, "fps_stream", CLS_10K_PATH, streamed, f"{CLS_10K_PATH} batch",
-                 streamed)
-    _record_path(records, "bottom_k_chunked", CLS_10K_PATH, counts["bottom_k_chunked"],
-                 f"{CLS_10K_PATH} batch", counts["bottom_k_chunked"])
+    want = {"fps": 2 * forwards, "fps_cluster": forwards, "fps_stream": 0, "bottom_k": 0,
+            "bottom_k_chunked": forwards, "knn": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{CLS_10K_PATH}: launches {counts}; want {want}")
+    for name in ("fps", "fps_cluster", "bottom_k_chunked"):
+        _record_path(records, name, CLS_10K_PATH, counts[name], f"{CLS_10K_PATH} batch",
+                     counts[name])
+
+    wide = os.path.join(WORK, "modelnet_wide")
+    make_synthetic_modelnet(wide, points_per_shape=CLS_WIDE_POINTS, train_per_class=1,
+                            test_per_class=1, seed=2)
+    out, counts = _cls_nb(wide, log, CLS_WIDE_POINTS, CLS_WIDE_SHAPES, CLS_WIDE_PATH)
+    want = {"fps": 2 * forwards, "fps_cluster": 0, "fps_stream": forwards, "bottom_k": 0,
+            "bottom_k_chunked": forwards, "knn": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{CLS_WIDE_PATH}: launches {counts}; want {want}")
+    print(f"{CLS_WIDE_PATH}: " + json.dumps(
+        {"shapes": CLS_WIDE_SHAPES, "ms_per_batch": out["batch_ms"], "launches": counts}))
+    for name in ("fps", "fps_stream", "bottom_k_chunked"):
+        _record_path(records, name, CLS_WIDE_PATH, counts[name], f"{CLS_WIDE_PATH} batch",
+                     counts[name])
     return stats
 
 
@@ -8114,6 +8240,10 @@ def main(argv=None) -> int:
                 "source": "pointsecguard_tpu_torch/csrc/fps.cu",
                 "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27",
                 "library_ms": None, "library_call": None},
+        "fps_cluster": {"name": "fps_cluster", "route": "cuda",
+                        "source": "pointsecguard_tpu_torch/csrc/fps.cu",
+                        "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27",
+                        "library_ms": None, "library_call": None},
         "fps_stream": {"name": "fps_stream", "route": "cuda",
                        "source": "pointsecguard_tpu_torch/csrc/fps.cu",
                        "replaces": "pointsecguard_tpu/ops/pallas/fps.py:27",
@@ -8319,9 +8449,11 @@ def main(argv=None) -> int:
                       *(f"{path} --precision bfloat16" for path in
                         ("pointnet2 train", "pointnet2 eval", "pointnet2 nb",
                          "pointnet2_cls nb", "pointnet2 benchmark"))}
-    for name, paths in (("fps", geometry_paths | {CLS_10K_PATH}), ("bottom_k", geometry_paths),
-                        ("fps_stream", {CLS_10K_PATH}),
-                        ("bottom_k_chunked", {"knn tiled route 40960^2", CLS_10K_PATH}),
+    for name, paths in (("fps", geometry_paths | {CLS_10K_PATH, CLS_WIDE_PATH}),
+                        ("bottom_k", geometry_paths),
+                        ("fps_cluster", {CLS_10K_PATH}), ("fps_stream", {CLS_WIDE_PATH}),
+                        ("bottom_k_chunked", {"knn tiled route 40960^2", CLS_10K_PATH,
+                                              CLS_WIDE_PATH}),
                         ("knn", {"randla nb", "randla train", "randla eval",
                                  "resgcn nb", "resgcn train", "resgcn eval",
                                  "pointnet2 nb --defense resample",

@@ -16,8 +16,10 @@ from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, bottomk_chunked
 from pointsecguard_tpu_torch.ops.cuda import library  # noqa: F401  (registers psg::*)
 
 # counter name → (module, attribute holding its count)
-# (``fps_stream``: the launches of ``fps`` that took its streaming kernel)
-KERNELS = {"fps": (fps, "launches"), "fps_stream": (fps, "stream_launches"),
+# (``fps_cluster`` / ``fps_stream``: the launches of ``fps`` that took its
+# cluster kernel / its streaming kernel)
+KERNELS = {"fps": (fps, "launches"), "fps_cluster": (fps, "cluster_launches"),
+           "fps_stream": (fps, "stream_launches"),
            "bottom_k": (bottomk, "launches"),
            "bottom_k_chunked": (bottomk_chunked, "launches"), "knn": (knn, "launches"),
            "attentive_fwd": (attentive, "fwd_launches"),

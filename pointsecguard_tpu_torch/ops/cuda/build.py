@@ -39,11 +39,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # xyz, start, out, workspace, B, N, npoint, stream
     "psg_fps": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # N → floats of psg_fps's workspace a point (0: the register kernel)
+    # N → the kernel a cloud takes (0 register, 1 cluster, 2 stream; -1 none)
+    "psg_fps_route": (_I,),
+    # N → floats of psg_fps's workspace a point (0 but on the streaming kernel)
     "psg_fps_workspace_floats": (_I,),
     # vals, out_v, out_i, rows, N, k, stream
     "psg_bottom_k": (_P, _P, _P, _I, _I, _I, _P),
-    "psg_bottom_k_chunked": (_P, _P, _P, _I, _I, _I, _P),
+    # vals, out_v, out_i, overflow_rows (null or one int), rows, N, k, stream
+    "psg_bottom_k_chunked": (_P, _P, _P, _P, _I, _I, _I, _P),
     # query, points, out_v, out_i, scratch, B, S, N, D, k, stream
     "psg_knn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # fn, fx, w, afn, afx, K, M, D, stream

@@ -1,20 +1,34 @@
 """Farthest point sampling: CUDA kernel A and its plain PyTorch version.
 
-Replaces ``pointsecguard_tpu/ops/pallas/fps.py:_fps_kernel`` (entry point
-``fps_pallas``). Up to 8192 points the kernel (``csrc/fps.cu``) runs one
-CTA per cloud with the cloud and its running min-distance in registers;
-above, a second kernel of the same file (``fps_stream_kernel``) streams
-both from a device-memory workspace that the op allocates, one CTA of 1024
-threads a cloud, with the same argmax and the same rounding. It is bounded by
-latency, not by bytes or operations: the npoint steps are a recurrence,
-so what counts is the way from one step's distances to the next
-centroid. The design keeps that way short: the argmax is two hardware
-warp reductions on the distance's bits (a min-distance is ≥ 0, so they
-order as a signed int; ties go to the lowest index), one barrier a step,
-every warp reducing the per-warp partials itself, and the next centroid
-read from a copy of the cloud in shared memory. Bounds: float32
-[B, N, 3], 1 ≤ N ≤ ``MAX_N`` = 2²² (the wide-row bottom-k's ceiling),
-npoint ≥ 1, start [B] on the same device.
+Replaces ``pointsecguard_tpu/ops/pallas/fps.py:67`` ``fps_pallas``
+(``_fps_kernel``). ``csrc/fps.cu`` holds three kernels with one argmax and
+one rounding, and ``psg_fps_route(N)`` there says which takes a cloud:
+
+- ``fps_kernel``, N ≤ ``REGISTER_MAX_N`` = 8192: one CTA a cloud, its
+  points and running min-distances in registers, the cloud also in shared
+  memory for the next centroid's coordinates;
+- ``fps_cluster_kernel``, up to ``CLUSTER_MAX_N`` = 16 · 8192 = 131,072
+  (``PORTABLE_CLUSTER_MAX_N`` = 8 · 8192 where the card cannot place a
+  cluster of 16): a cloud split over the CTAs of a thread-block cluster,
+  each slice in its CTA's registers; each step the CTAs' winners travel
+  with their coordinates through distributed shared memory, counted on
+  each CTA's mbarrier;
+- ``fps_stream_kernel``, beyond, up to ``MAX_N`` = 2²² (the wide-row
+  bottom-k's ceiling): one CTA of 1024 threads a cloud, the cloud and its
+  min-distances streamed from a device-memory workspace that the op
+  allocates (``psg_fps_workspace_floats``).
+
+Each is bounded by latency, not by bytes or operations: the npoint steps
+are a recurrence, so what counts is the way from one step's distances to
+the next centroid. The argmax is two hardware warp reductions on the
+distance's bits (a min-distance is ≥ 0, so they order as a signed int;
+ties go to the lowest index), one barrier a step (the cluster kernel: the
+CTA's, then a wait on its mbarrier), every warp reducing the partials
+itself. Up to 8192 points one CTA's pass is short and the cluster's
+exchange would cost more than it saves; above, one CTA's pass would stream from L2 and a cluster
+keeps the cloud in registers; beyond the cluster's registers only the
+stream is left. Bounds: float32 [B, N, 3], 1 ≤ N ≤ ``MAX_N``, npoint ≥ 1,
+start [B] on the same device.
 
 ``fps`` checks its arguments first, on any device, then calls the custom
 op ``psg::fps`` (``library.py``): the dispatcher launches a kernel for a
@@ -27,9 +41,13 @@ from __future__ import annotations
 import torch
 
 MAX_N = 1 << 22
-launches = 0  # kernel launches by ``psg::fps`` (both kernels); never the plain version or a trace
-# of those, the streaming kernel's (``csrc/fps.cu``'s ``psg_fps_workspace_floats``
-# says which clouds it takes)
+REGISTER_MAX_N = 8192  # fps_kernel's last N
+CLUSTER_MAX_N = 16 * REGISTER_MAX_N  # fps_cluster_kernel's, at 16 CTAs a cluster
+PORTABLE_CLUSTER_MAX_N = 8 * REGISTER_MAX_N  # its, where the card places 8 at most
+launches = 0  # kernel launches by ``psg::fps`` (all three); never the plain version or a trace
+# of those, the cluster kernel's and the streaming kernel's (``csrc/fps.cu``'s
+# ``psg_fps_route`` says which clouds each takes)
+cluster_launches = 0
 stream_launches = 0
 
 

@@ -76,8 +76,9 @@ def _fps_cuda(xyz: Tensor, npoint: int, start: Tensor) -> Tensor:
     # cloud (checking here would cost a device-to-host sync per call)
     start = start.to(torch.int32).contiguous()
     out = _int32_like(xyz, (B, npoint))
-    # where the cloud is too large for the register kernel, the streaming
-    # one packs it and keeps its min-distances in this working space
+    # csrc/fps.cu says which of its kernels takes N; the streaming one packs
+    # the cloud and keeps its min-distances in this working space
+    route = lib.psg_fps_route(N)
     per_point = lib.psg_fps_workspace_floats(N)
     work = (torch.empty(B * N * per_point, dtype=torch.float32, device=xyz.device)
             if per_point else None)
@@ -86,7 +87,8 @@ def _fps_cuda(xyz: Tensor, npoint: int, start: Tensor) -> Tensor:
                        _stream(xyz.device))
     build.check(code, "psg_fps")
     fps.launches += 1
-    fps.stream_launches += int(per_point > 0)
+    fps.cluster_launches += int(route == 1)
+    fps.stream_launches += int(route == 2)
     return out
 
 
@@ -97,7 +99,9 @@ def _fps_fake(xyz, npoint, start):
 
 # --- bottom-k ----------------------------------------------------------------
 
-def _bottom_k_launch(entry: str, vals: Tensor, k: int) -> tuple[Tensor, Tensor]:
+def _bottom_k_launch(entry: str, vals: Tensor, k: int, *extra) -> tuple[Tensor, Tensor]:
+    """``extra``: the entry's arguments between the outputs and ``rows``
+    (the wide-row kernel's counter of its exact branch)."""
     lib = _library(vals.device)
     N = vals.shape[-1]
     vals = vals.contiguous()
@@ -105,7 +109,7 @@ def _bottom_k_launch(entry: str, vals: Tensor, k: int) -> tuple[Tensor, Tensor]:
     rows = vals.numel() // N
     out_v = torch.empty((*lead, k), dtype=torch.float32, device=vals.device)
     out_i = _int32_like(vals, (*lead, k))
-    code = getattr(lib, entry)(vals.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+    code = getattr(lib, entry)(vals.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), *extra,
                                rows, N, k, _stream(vals.device))
     build.check(code, entry)
     return out_v, out_i
@@ -139,9 +143,21 @@ def bottom_k_chunked_op(vals: Tensor, k: int) -> tuple[Tensor, Tensor]:
 @bottom_k_chunked_op.register_kernel("cuda")
 def _bottom_k_chunked_cuda(vals: Tensor, k: int) -> tuple[Tensor, Tensor]:
     bottomk_chunked.check_kernel_args(vals, k)
-    out = _bottom_k_launch("psg_bottom_k_chunked", vals, k)
+    out = _bottom_k_launch("psg_bottom_k_chunked", vals, k, None)  # no counter
     bottomk_chunked.launches += 1
     return out
+
+
+def bottom_k_chunked_overflows(vals: Tensor, k: int) -> int:
+    """One launch of the wide-row kernel on a CUDA tensor that also counts
+    the rows taking its exact branch (``bottomk_chunked.overflow_rows``);
+    synchronises to read the count. Not an op: checks call it, never a
+    model."""
+    bottomk_chunked.check_kernel_args(vals, k)
+    counter = torch.zeros(1, dtype=torch.int32, device=vals.device)
+    _bottom_k_launch("psg_bottom_k_chunked", vals, k, counter.data_ptr())
+    bottomk_chunked.launches += 1
+    return int(counter.item())
 
 
 def _bottom_k_fake(vals, k):

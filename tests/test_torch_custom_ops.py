@@ -225,7 +225,7 @@ def test_only_the_ops_call_the_kernel_library():
     """No module of the port outside the ops' CUDA implementations
     (``ops/cuda/library.py``) calls ``lib.psg_*``; the library's entry
     points are the six ops' (plus the attentive backward's dW sizing and
-    FPS's workspace sizing)."""
+    FPS's route and workspace sizing)."""
     pkg = Path(pointsecguard_tpu_torch.__file__).resolve().parent
     callers = {p.relative_to(pkg).as_posix()
                for p in pkg.rglob("*.py")
@@ -237,4 +237,4 @@ def test_only_the_ops_call_the_kernel_library():
     entries = set(re.findall(r"\blib\.(psg_\w+)", src)) | set(re.findall(r'"(psg_\w+)"', src))
     assert entries == {"psg_fps", "psg_bottom_k", "psg_bottom_k_chunked", "psg_knn",
                        "psg_attentive_fwd", "psg_attentive_bwd", "psg_attentive_dw_blocks",
-                       "psg_fps_workspace_floats"}
+                       "psg_fps_route", "psg_fps_workspace_floats"}

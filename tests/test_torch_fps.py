@@ -8,7 +8,9 @@ that pair, and every warp reduces the pairs the same way. The kernel
 cannot run here. These tests hold the arithmetic it rests on — the bits'
 order, the two-level reduction with the kernel's layout (point i on
 thread i % T, slot i // T) — equal to ``torch.argmax``'s first occurrence,
-and a whole FPS run through that argmax equal to ``fps_plain``.
+and a whole FPS run through that argmax equal to ``fps_plain``; and the
+cluster kernel's third level above 8192 points (a contiguous slice a CTA,
+each CTA's winner reduced again over the cluster's slots) the same.
 """
 
 import numpy as np
@@ -56,6 +58,25 @@ def _kernel_argmax(md: np.ndarray, threads: int) -> int:
     pb[:len(partial)] = [p[0] for p in partial]
     pi[:len(partial)] = [p[1] for p in partial]
     return int(warp_argmax(pb, pi)[1])
+
+
+def _cluster_argmax(md: np.ndarray, ctas: int) -> int:
+    """``fps_cluster_kernel``'s argmax: CTA r takes the slice [r·P, (r+1)·P)
+    (P = ⌈n / ctas⌉) with the register kernel's thread count for P points
+    and reduces it as ``_kernel_argmax``; then a warp reduces the ctas
+    slots (bits, global index), the empty ones padded."""
+    n = len(md)
+    per_cta = -(-n // ctas)
+    threads = min(512, (-(-per_cta // 4) + 31) // 32 * 32)
+    bits = np.full(32, PAD.view(np.int32), np.int32)
+    idx = np.full(32, INT_MAX, np.int64)
+    for r in range(ctas):
+        part = md[r * per_cta:(r + 1) * per_cta]
+        if len(part):
+            local = _kernel_argmax(part, threads)
+            bits[r], idx[r] = part[local].view(np.int32), r * per_cta + local
+    m = bits.max()
+    return int(np.where(bits == m, idx, INT_MAX).min())
 
 
 def _row(kind: str, n: int, seed: int) -> np.ndarray:
@@ -112,4 +133,37 @@ def test_fps_through_the_kernels_argmax_equals_plain(kind, n, npoint, start):
         far = _kernel_argmax(md, threads=64)
     want = tfps.fps_plain(torch.from_numpy(xyz)[None], npoint,
                           torch.tensor([start], dtype=torch.int32))
+    np.testing.assert_array_equal(np.array(got, np.int32), want[0].numpy())
+
+
+@pytest.mark.parametrize("ctas", [2, 3, 5, 8, 16])
+@pytest.mark.parametrize("kind,n", [("uniform", 8193), ("ties", 10000), ("ties", 16384),
+                                    ("zeros", 9000), ("initial", 8193), ("tiny", 12345),
+                                    ("ties", 131072)])
+def test_cluster_argmax_equals_first_occurrence(kind, n, ctas):
+    md = _row(kind, n, seed=n + ctas)
+    assert _cluster_argmax(md, ctas) == int(torch.argmax(torch.from_numpy(md)))
+
+
+@pytest.mark.parametrize("kind,ctas", [("rounded", 2), ("rounded", 5), ("same", 3),
+                                       ("uniform", 16)])
+def test_fps_through_the_cluster_argmax_equals_plain(kind, ctas):
+    """An FPS run above 8192 points through the cluster's argmax, npoint
+    past N // 400 so that rounded clouds tie across CTAs."""
+    n, npoint = 8200, 48
+    rng = np.random.default_rng(ctas)
+    xyz = rng.random((n, 3)).astype(np.float32)
+    if kind == "rounded":
+        xyz = np.round(xyz * 2) / 2
+    elif kind == "same":
+        xyz[:] = xyz[0]
+    md = np.full(n, 1e10, np.float32)
+    far, got = 17, []
+    for _ in range(npoint):
+        got.append(far)
+        d = xyz - xyz[far]
+        md = np.minimum(md, d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+        far = _cluster_argmax(md, ctas)
+    want = tfps.fps_plain(torch.from_numpy(xyz)[None], npoint,
+                          torch.tensor([17], dtype=torch.int32))
     np.testing.assert_array_equal(np.array(got, np.int32), want[0].numpy())

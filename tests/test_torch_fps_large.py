@@ -1,9 +1,10 @@
-"""Farthest point sampling above 8192 points (the streaming kernel's range
-in ``csrc/fps.cu``), on the CPU against the JAX package.
+"""Farthest point sampling above 8192 points (the cluster and streaming
+kernels' range in ``csrc/fps.cu``), on the CPU against the JAX package.
 
 The port's ``farthest_point_sample`` (``fps_plain`` for a CPU tensor)
 equals JAX's ``lax.scan`` (``pointsecguard_tpu/ops/sampling.py``) index
-for index at N = 8193, 10000 and 16384, from index 0 and from starts drawn
+for index at N = 8193, 10000 and 16384, and at the cluster kernel's
+capacity and one point past it (npoint 64), from index 0 and from starts drawn
 with numpy (passed to both as ``start_idx``); ``build_geometry_cls`` of
 10,000-point shapes (ModelNet40's resampled size) equals JAX's, centres
 and groups; the argument check takes N up to ``MAX_N`` = 2²² and refuses
@@ -37,7 +38,8 @@ def _cloud(n: int, seed: int, b: int = 2) -> np.ndarray:
 
 
 @pytest.mark.parametrize("start", ["zero", "drawn"])
-@pytest.mark.parametrize("n,npoint", [(8193, 256), (10000, 512), (16384, 1024)])
+@pytest.mark.parametrize("n,npoint", [(8193, 256), (10000, 512), (16384, 1024),
+                                     (fps.CLUSTER_MAX_N, 64), (fps.CLUSTER_MAX_N + 1, 64)])
 def test_fps_equals_jax_above_8192(n, npoint, start):
     xyz = _cloud(n, n)
     starts = (np.zeros(2, np.int32) if start == "zero"

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from pointsecguard_tpu_torch.ops.attentive import attentive_pool_fused_plain
-from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, fps, knn
+from pointsecguard_tpu_torch.ops.cuda import attentive, bottomk, bottomk_chunked, fps, knn
 
 
 def _att(K, M, D, dtype=torch.float32, seed=0):
@@ -192,3 +192,40 @@ def test_knn_bounds_match_the_kernel_source():
     src = (Path(knn.__file__).resolve().parents[2] / "csrc" / "knn.cu").read_text()
     assert int(re.search(r"constexpr int kMaxD = (\d+);", src).group(1)) == knn.MAX_D
     assert f"k > {knn.MAX_K} ||" in src
+
+
+def _source(name: str) -> str:
+    return (Path(fps.__file__).resolve().parents[2] / "csrc" / name).read_text()
+
+
+def _constant(src: str, name: str) -> str:
+    return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+
+def test_fps_seams_match_the_kernel_source():
+    """``csrc/fps.cu``'s seams are the wrapper's: the register kernel's last
+    N (8192), the cluster kernel's capacity at 16 and at 8 CTAs, the
+    streaming kernel's ceiling 2²²."""
+    src = _source("fps.cu")
+    assert int(_constant(src, "kMaxN")) == fps.REGISTER_MAX_N == 8192
+    assert _constant(src, "kClusterMaxN") == "kClusterMaxCtas * kMaxN"
+    assert int(_constant(src, "kClusterMaxCtas")) * fps.REGISTER_MAX_N == fps.CLUSTER_MAX_N
+    assert int(_constant(src, "kPortableCtas")) * fps.REGISTER_MAX_N == \
+        fps.PORTABLE_CLUSTER_MAX_N
+    assert _constant(src, "kStreamMaxN") == "1 << 22" and fps.MAX_N == 1 << 22
+    # the route is the C function's, which the op reads for every launch
+    assert "extern \"C\" int psg_fps_route(int N)" in src
+
+
+def test_bottom_k_chunked_limits_match_the_kernel_source():
+    """``csrc/bottomk_chunked.cu``'s limits, chunk width and short-list
+    capacity are the wrapper's (``overflow_rows_plain`` reads the last two)."""
+    src = _source("bottomk_chunked.cu")
+    assert int(_constant(src, "kMaxK")) == bottomk_chunked.MAX_K
+    assert _constant(src, "kMaxN") == "1 << 22" and bottomk_chunked.MAX_N == 1 << 22
+    assert int(_constant(src, "kW")) == bottomk_chunked.CHUNK
+    a, ca, b, cb, cc = map(int, re.search(
+        r"int list_capacity\(int k\) \{\s*return k <= (\d+) \? (\d+) : "
+        r"\(k <= (\d+) \? (\d+) : (\d+)\);", src).groups())
+    for k in range(1, bottomk_chunked.MAX_K + 1):
+        assert (ca if k <= a else cb if k <= b else cc) == bottomk_chunked.list_capacity(k), k

@@ -199,6 +199,42 @@ def test_chunked_plain_coverage_adversarial():
     np.testing.assert_array_equal(gv.numpy(), wv)
 
 
+def _ball_query_rows(kind: str, S: int = 8, N: int = 10000, k: int = 32) -> np.ndarray:
+    """[1, S, N] index values as the ball query makes them: column j holds
+    j inside the radius and the sentinel N outside; row r of kind "many"
+    holds 40 + 60 r points in radius at random columns, "few" k // 2 - r,
+    "run" a run of 300 columns (the bottom k in a few chunks below T = N),
+    "none" no point; "equal" rows hold one value throughout."""
+    rng = np.random.default_rng(len(kind) + S)
+    x = np.full((1, S, N), float(N), np.float32)
+    if kind == "equal":
+        x[0] = np.arange(S, dtype=np.float32)[:, None] * 0.5
+        return x
+    for r in range(S):
+        if kind == "none":
+            continue
+        if kind == "run":
+            cols = np.arange(700 * r, 700 * r + 300)
+        else:
+            n = 40 + 60 * r if kind == "many" else max(k // 2 - r, 1)
+            cols = rng.choice(N, n, replace=False)
+        x[0, r, cols] = cols
+    return x
+
+
+@pytest.mark.parametrize("kind", ["few", "none", "many", "run", "equal"])
+def test_chunked_plain_matches_pallas_on_ball_query_rows(kind):
+    """The 10,000-point classifier's ball query (k = 32, sentinel N = 10000):
+    fewer than k in radius (T = N, the sentinel tied across the row), none,
+    many, a run of columns, and all-equal rows; bottom_k_plain equal to the
+    TPU kernel's body run by the interpreter."""
+    x = _ball_query_rows(kind)
+    wv, wi = _chunked_interpret(x, 32)
+    gv, gi = tbkc.bottom_k_chunked(_t(x), 32)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+    np.testing.assert_array_equal(gv.numpy(), wv)
+
+
 def test_wide_rows_route_to_the_chunked_kernel_and_match_jax(monkeypatch):
     x = np.round(np.random.default_rng(4).random((2, 8, 8193)) * 50).astype(np.float32)
     routes = []
@@ -236,7 +272,8 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     pts = _t(_cloud("uniform", 1, 300, 1))
     tops.knn(pts, pts, 16)
     tbkc.bottom_k_chunked(torch.rand(2, 9000), 16)
-    assert tcuda.launch_counts() == {"fps": 0, "fps_stream": 0, "bottom_k": 0, "bottom_k_chunked": 0,
+    assert tcuda.launch_counts() == {"fps": 0, "fps_cluster": 0, "fps_stream": 0, "bottom_k": 0,
+                                     "bottom_k_chunked": 0,
                                      "knn": 0, "attentive_fwd": 0, "attentive_bwd": 0}
     # neither a CPU nor a CUDA tensor: raise, never fall back
     with pytest.raises(ValueError):

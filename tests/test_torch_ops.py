@@ -258,12 +258,14 @@ def test_wrappers_take_plain_on_cpu_and_count_only_launches():
     xyz = _t(_cloud("uniform", 1, 32, 0))
     tfps.fps(xyz, 8, torch.zeros(1, dtype=torch.int32))
     tbk.bottom_k(torch.rand(1, 8, 32), 4)
-    assert tcuda.launch_counts() == {"fps": 0, "fps_stream": 0, "bottom_k": 0, "bottom_k_chunked": 0,
+    assert tcuda.launch_counts() == {"fps": 0, "fps_cluster": 0, "fps_stream": 0, "bottom_k": 0,
+                                     "bottom_k_chunked": 0,
                                      "knn": 0, "attentive_fwd": 0, "attentive_bwd": 0}
     # neither a CPU nor a CUDA tensor: raise, never fall back
     with pytest.raises(ValueError):
         tfps.fps(xyz.to("meta"), 8, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         tbk.bottom_k(torch.rand(1, 8, 32, device="meta"), 4)
-    assert tcuda.launch_counts() == {"fps": 0, "fps_stream": 0, "bottom_k": 0, "bottom_k_chunked": 0,
+    assert tcuda.launch_counts() == {"fps": 0, "fps_cluster": 0, "fps_stream": 0, "bottom_k": 0,
+                                     "bottom_k_chunked": 0,
                                      "knn": 0, "attentive_fwd": 0, "attentive_bwd": 0}
