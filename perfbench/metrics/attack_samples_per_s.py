@@ -1,0 +1,7 @@
+"""Blocks attacked to the preset's full budget per second of the window."""
+
+from perfbench.core.readers import rate
+
+
+def read(rec):
+    return rate(rec)
